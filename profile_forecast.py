@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where a forecast request's time goes, on one GPU.
+
+Run from the root of a checkout on a machine with an NVIDIA H100:
+
+    python3 profile_forecast.py [--trace PATH]
+
+It builds the MEPS GraphLAM of ``chip_smoke.py`` (the fixture's
+parameters), runs one warm-up forecast of batch 4 x 19 AR steps on
+inputs drawn from ``np.random.default_rng(0)``, and profiles one more
+with ``torch.profiler``. It prints the device time summed by kernel
+group (K1, K3, matmuls, the rest), the device busy share over the
+forecast's wall time and the kernel launch count, then times the host
+side of a ``predict.run_forecasts`` request: one batch from the loader
+and one compressed forecast file. ``--trace`` writes the Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+import chip_smoke as cs
+
+GROUPS = (
+    ("K3 fused_edge_phase", re.compile(r"fused_edge_fwd")),
+    ("K1 sender_gather", re.compile(r"gather_rows")),
+    ("matmul (cuBLAS)", re.compile(r"gemm|gemv|cutlass|sm90_xmma|ampere", re.I)),
+)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--trace", type=Path, help="write the Chrome trace here")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_forecast.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.loader import DataLoader
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = cs.card_line()
+    cs.CACHE.mkdir(exist_ok=True)
+    gate_ds, serve_ds, model, forecaster = cs.build_meps(torch)
+    n, b, t = gate_ds.num_grid_points, cs.BATCH, cs.AR_STEPS
+    rng = np.random.default_rng(0)
+    inputs = [
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        for shape in ((b, 2, n, cs.N_STATE), (b, t, n, cs.N_FORCING * 3),
+                      (b, t, n, cs.N_STATE))
+    ]
+
+    with torch.inference_mode():
+        forecaster(*inputs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pred, _ = forecaster(*inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    if args.trace:
+        args.trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.trace))
+
+    sums = {name: 0.0 for name, _ in GROUPS}
+    sums["other kernels"] = 0.0
+    launches = 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.device_time_total
+        if us <= 0 or evt.name.startswith("Memcpy") or evt.name.startswith("Memset"):
+            continue
+        launches += 1
+        group = next((g for g, pat in GROUPS if pat.search(evt.name)), "other kernels")
+        sums[group] += us / 1e3
+    busy = sum(sums.values())
+    print(card)
+    print(
+        f"forecast of {b} x {t} steps: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %), {launches} kernel "
+        f"launches ({launches / t:.1f} per AR step)"
+    )
+    for name, ms in sums.items():
+        print(
+            f"  {name}: {ms:.3f} ms ({ms / t:.4f} ms per AR step, "
+            f"{100 * ms / busy:.1f} % of device time)"
+        )
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+
+    # host side of one run_forecasts request
+    loader = DataLoader(
+        WeatherDataset(serve_ds, split="test", ar_steps=t), batch_size=b
+    )
+    t0 = time.perf_counter()
+    next(iter(loader))
+    t_batch = time.perf_counter() - t0
+    field = pred[0].cpu().numpy()
+    with tempfile.TemporaryDirectory(dir=cs.CACHE) as tmp:
+        t0 = time.perf_counter()
+        np.savez_compressed(Path(tmp) / "f.npz", prediction=field)
+        t_file = time.perf_counter() - t0
+    print(
+        f"host on {card}: one batch of {b} from the loader {t_batch:.3f} s; "
+        f"one compressed forecast file ({field.nbytes / 1e6:.1f} MB) "
+        f"{t_file:.3f} s, {b} per request"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
