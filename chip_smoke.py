@@ -6,23 +6,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``neural_lam_tpu_torch/csrc`` and
-drives the forecast path, the GraphLAM MEPS configuration of ``bench.py``
-(268x238 grid, hidden 64, 4 processor layers, batch 4, float32), in
-four phases. Each phase passes or raises; nothing is caught.
+drives the forecast path and the training step, the GraphLAM MEPS
+configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
+layers, batch 4, float32), in six phases. Each phase passes or raises;
+nothing is caught.
 
 1. Kernels against their plain PyTorch versions, at the shapes of the
-   forecast path's six GNN calls (g2m, m2m x 4, m2g) at batch 4: max
-   abs/rel error against the stated tolerance, and times from CUDA events
-   (the kernel, its plain version and, for K1, ``index_select``).
+   six GNN calls (g2m, m2m x 4, m2g) at batch 4: max abs/rel error
+   against the stated tolerance, and times from CUDA events (the kernel,
+   its plain version and, for K1 and K2, ``index_select`` and
+   ``index_add_``). K3 is timed with and without the ``pre`` output that
+   its backward, K4, starts from.
 2. Accuracy gate: a 19-step batch-1 rollout with the JAX package's
    ``PRNGKey(0)`` parameters (``tests/fixtures/accuracy/
    graph_lam_meps_params_seed0.npz``) against the committed exact-f32
    rollout ``tests/fixtures/accuracy/rollout19_f32.npz``, with the
    metrics and thresholds of ``scripts/accuracy_probe.py``.
 3. Serving: ``predict.run_forecasts`` over a MEPS-size dummy test split,
-   3 batches of 4 samples at 19 AR steps. The kernels' launch counters
-   are set to 0 just before and must read 6 x ar_steps per batch after.
-4. Report: a ``{"kernels": [...]}`` line and, last, the
+   one batch of 4 samples at 19 AR steps. The forward kernels' launch
+   counters are set to 0 just before and must read 6 x ar_steps after.
+4. Training gate: the loss and every parameter gradient of one batch of
+   4 (made as ``bench.make_bench_batch`` makes it), then the losses of
+   three further AdamW steps, against the committed exact-f32 JAX
+   fixture ``tests/fixtures/accuracy/train_step_meps_seed0.npz``.
+5. Training: ``Trainer.train_step`` on that batch, 2 warm-up and 10
+   timed steps (``bench.py``'s counts). All four kernels' counters are
+   set to 0 just before and must read 6 per step after; the losses must
+   be finite and fall.
+6. Report: a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Parity is exact float32: TF32 is off for matmuls and for cuDNN. The
@@ -45,6 +56,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 CACHE = REPO / ".smoke_cache"
 FIXTURES = REPO / "tests" / "fixtures" / "accuracy"
+TRAIN_FIXTURE = FIXTURES / "train_step_meps_seed0.npz"
 DEVICE = "cuda"
 
 # The bench.py configuration (bench.py:26-30, build_trainer)
@@ -53,8 +65,8 @@ N_STATE, N_FORCING, N_STATIC = 17, 6, 4
 HIDDEN, PROC_LAYERS, BATCH = 64, 4, 4
 GATE_TIMESTEPS = 8  # bench's DummyDatastore; its static features depend on it
 AR_STEPS = 19  # the MEPS test protocol length
-SERVE_BATCHES = 3
-# 3 batches of 4 samples: len(split) = n_timesteps - ar_steps - 2
+SERVE_BATCHES = 1
+# batches of 4 samples: len(split) = n_timesteps - ar_steps - 2
 SERVE_TIMESTEPS = AR_STEPS + 2 + SERVE_BATCHES * BATCH
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM3 bytes/s
@@ -69,6 +81,21 @@ FP32_FLOP_PER_S = 67e12
 # values are O(1) after LayerNorm and the sums add O(10) of them.
 K1_TOL = 0.0
 K3_RTOL = K3_ATOL = 1e-4
+# K2 sums up to ~40 O(1) edge rows per sender in slot order where
+# index_add_ adds with atomics in any order: rounding only, relative to the
+# largest sum. K4's weight gradients sum a term per (edge, b) row, 1e6 of
+# them at m2g: each gradient is held to 1e-4 of its own largest entry.
+K2_TOL = 1e-5
+K4_TOL = 1e-4
+# Training against the JAX package's float32 run on a CPU: the loss is a
+# mean over 4.3e6 entries and each gradient a sum over as many paths, in
+# another order on the card; Adam then amplifies rounding where a gradient
+# is near zero, so the later losses get a wider bound.
+TRAIN_LOSS_RTOL = 2e-5
+TRAIN_GRAD_TOL = 2e-4
+TRAIN_TRAJ_RTOL = 1e-4
+TRAIN_LR = 1e-3
+TRAIN_WARMUP, TRAIN_ITERS = 2, 10  # bench.py:31
 # scripts/accuracy_probe.py's thresholds (:139-140), sized for the TPU's
 # bf16-rounded matmuls; exact f32 on the card is expected near 1e-5.
 GATE_MEAN_REL, GATE_MAX_REL = 0.025, 0.25
@@ -165,15 +192,21 @@ def build_meps(torch):
 
 
 def phase_kernels(torch, model) -> list[dict]:
-    """Each kernel against its plain version at the forecast path's
-    shapes; returns the per-kernel report for one AR step."""
+    """Each kernel against its plain version at the shapes of the six
+    GNN calls; returns the per-kernel report, times summed over the calls
+    of one AR step (K1, K3) or one training step (K2, K4)."""
     from neural_lam_tpu_torch.ops.fused_kernels import (
+        _weights,
+        fused_edge_bwd,
+        fused_edge_fwd,
         fused_edge_phase,
         fused_edge_phase_plain,
     )
     from neural_lam_tpu_torch.ops.segment_kernels import (
         sender_gather,
         sender_gather_plain,
+        sender_scatter,
+        sender_scatter_plain,
     )
 
     g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
@@ -223,6 +256,39 @@ def phase_kernels(torch, model) -> list[dict]:
         k1["err"] = max(k1["err"], abs_err)
         del x, got, want
 
+    # K2, the backward of K1: the same sites, edge rows in, sender rows out
+    k2 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    for site, ge, n_send, calls in k1_sites:
+        es = ge.edges
+        grad = randn(es.num_edges, b, d)
+        idx_long = es.senders.long()
+        got = sender_scatter(grad, es, n_send)
+        want = sender_scatter_plain(grad, es.senders, n_send)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, want)
+        if rel_err > K2_TOL:
+            raise AssertionError(f"K2 {site}: max rel err {rel_err} > {K2_TOL}")
+        if not torch.equal(got, sender_scatter(grad, es, n_send)):
+            raise AssertionError(f"K2 {site}: two runs differ")
+        ms = cuda_ms(lambda: sender_scatter(grad, es, n_send))
+        plain_ms = cuda_ms(lambda: sender_scatter_plain(grad, es.senders, n_send))
+        lib_ms = cuda_ms(lambda: torch.zeros_like(got).index_add_(0, idx_long, grad))
+        b_ms, _ = bound(nbytes(grad, es.send_perm, es.send_rowptr, got), grad.numel())
+        log(
+            f"K2 sender_scatter {site}: g {tuple(grad.shape)} -> "
+            f"{tuple(got.shape)}, max abs err {abs_err:.3g}, max rel err "
+            f"{rel_err:.3g} (tol {K2_TOL} of the largest sum), repeatable; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); {calls} call(s) "
+            "per training step"
+        )
+        k2["ms"] += calls * ms
+        k2["plain_ms"] += calls * plain_ms
+        k2["library_ms"] += calls * lib_ms
+        k2["bound_ms"] += calls * b_ms
+        k2["err"] = max(k2["err"], abs_err)
+        del grad, got, want
+
     # K3: (site, net, edges, embedder, edge input, update_edges, calls)
     k3_sites = [
         ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, 1, n_mesh),
@@ -231,7 +297,8 @@ def phase_kernels(torch, model) -> list[dict]:
          PROC_LAYERS - 1, n_mesh),
         ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, 1, n_grid),
     ]
-    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0)
+    k3 = dict(ms=0.0, pre_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0,
+              bytes_ms=0.0)
     for site, net, ge, emb, mode, update, calls, n_rec in k3_sites:
         es = ge.edges
         n_e = es.num_edges
@@ -250,6 +317,13 @@ def phase_kernels(torch, model) -> list[dict]:
         for o, w in outs:
             torch.testing.assert_close(o, w, rtol=K3_RTOL, atol=K3_ATOL)
         ms = cuda_ms(lambda: fused_edge_phase(*args, es, **kw))
+        wts = _weights(net.edge_mlp, emb)
+        edge_in = feats if mode == "raw" else edge_rep
+        pre_ms = cuda_ms(lambda: fused_edge_fwd(
+            edge_in, x_send, rec, es, wts, mode == "raw", update, False,
+            save_pre=True,
+        ))
+        k3["pre_ms"] += calls * pre_ms
         plain_ms = cuda_ms(
             lambda: fused_edge_phase_plain(*args, es.receivers, emb, feats, update)
         )
@@ -273,7 +347,8 @@ def phase_kernels(torch, model) -> list[dict]:
             f"K3 fused_edge_phase {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, update_edges {update}; max abs err "
             f"{abs_err:.3g}, max rel err {rel_err:.3g} (rtol/atol "
-            f"{K3_RTOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{K3_RTOL}); kernel {ms:.4f} ms, with the pre output "
+            f"{pre_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {moved / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP); {calls} call(s) per AR step"
         )
@@ -283,6 +358,128 @@ def phase_kernels(torch, model) -> list[dict]:
         k3["ops_ms" if b_by == "operations" else "bytes_ms"] += calls * b_ms
         k3["err"] = max(k3["err"], abs_err)
         del x_send, rec, edge_rep, got, want, outs
+    log(
+        f"K3 per AR step: {k3['ms']:.4f} ms, with the pre output (as the "
+        f"training step runs it) {k3['pre_ms']:.4f} ms"
+    )
+
+    # K4, the backward of K3, at the training step's six calls: (site, net,
+    # edges, embedder, edge input, update_edges, d_new_edge given, calls,
+    # receivers). The last m2m layer's updated edges are never used, so no
+    # gradient reaches them.
+    n_mid = PROC_LAYERS - 2
+    k4_sites = [
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, False,
+         1, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, True,
+         1, n_mesh),
+        (f"m2m layers 1-{n_mid}", proc[1], m2m, None, "batched", True, True,
+         n_mid, n_mesh),
+        (f"m2m layer {PROC_LAYERS - 1}", proc[-1], m2m, None, "batched", True,
+         False, 1, n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False,
+         1, n_grid),
+    ]
+    k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0)
+    for site, net, ge, emb, mode, update, has_dne, calls, n_rec in k4_sites:
+        es = ge.edges
+        n_e = es.num_edges
+        raw = mode == "raw"
+        x_send, rec = randn(n_e, b, d), randn(n_rec, b, d)
+        edge_in = ge.features if raw else randn(n_e, b, d)
+        d_aggr = randn(n_rec, b, d)
+        d_new = randn(n_e, b, d) if has_dne else None
+        wts = _weights(net.edge_mlp, emb)
+        _, _, pre = fused_edge_fwd(
+            edge_in, x_send, rec, es, wts, raw, update, False, save_pre=True
+        )
+
+        def run_k4():
+            return fused_edge_bwd(
+                d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw, False
+            )
+
+        d_edge, d_send, d_rec, w_grads = run_k4()
+        # plain version: autograd through the plain forward, same inputs
+        leaves = [x_send, rec] + ([] if raw else [edge_in])
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        params = [w for w in wts if w is not None]
+        with torch.enable_grad():
+            aggr_p, new_p = fused_edge_phase_plain(
+                net.edge_mlp, None if raw else leaves[2], leaves[0], leaves[1],
+                es.receivers, emb, edge_in if raw else None, update,
+            )
+            outs, seeds = [aggr_p], [d_aggr]
+            if has_dne:
+                outs.append(new_p)
+                seeds.append(d_new)
+
+        def run_plain():
+            with torch.enable_grad():
+                return torch.autograd.grad(
+                    outs, leaves + params, seeds, retain_graph=True
+                )
+
+        want = run_plain()
+        torch.cuda.synchronize()
+        got = [d_send, d_rec] + ([] if raw else [d_edge])
+        got += [w for w in w_grads if w is not None]
+        names = ["d_send", "d_rec"] + ([] if raw else ["d_edge"])
+        names += [f"weight grad {i}" for i in range(len(params))]
+        abs_err = rel_err = 0.0
+        for name, o, w in zip(names, got, want):
+            a_err, r_err = errors(o, w)
+            abs_err, rel_err = max(abs_err, a_err), max(rel_err, r_err)
+            if r_err > K4_TOL:
+                raise AssertionError(
+                    f"K4 {site} {name}: max err {a_err} is {r_err} of the "
+                    f"largest value (tol {K4_TOL})"
+                )
+        again = run_k4()
+        if not all(
+            torch.equal(x, y) for x, y in
+            zip([d_send, d_rec, *[w for w in w_grads if w is not None]],
+                [again[1], again[2], *[w for w in again[3] if w is not None]])
+        ):
+            raise AssertionError(f"K4 {site}: two runs differ")
+        ms = cuda_ms(run_k4)
+        plain_ms = cuda_ms(run_plain)
+        moved = nbytes(
+            pre, x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got
+        )
+        rows = n_e * b
+        # per (edge, b) row: z, d_h1, dW2, d_send, dW1s; the receiver
+        # slice once per (receiver, b): d_rec, dW1r; the receiver sums
+        flops = 2 * rows * d * d * 5 + 2 * n_rec * b * d * d * 2 + rows * d
+        if raw:
+            f = edge_in.shape[1]
+            # per edge: d_edge_val, dW1e, the embedder again, dEW2, d_a1, dEW1
+            flops += n_e * (2 * d * d * 5 + 2 * f * d * 2)
+        else:
+            flops += 2 * rows * d * d * 2  # d_edge and dW1e per (edge, b)
+        b_ms, b_by = bound(moved, flops)
+        log(
+            f"K4 fused_edge_phase backward {site}: E {n_e}, receivers {n_rec}, "
+            f"edge input {mode}, d_new_edge {'given' if has_dne else 'none'}; "
+            f"max abs err {abs_err:.3g}, at most {rel_err:.3g} of a gradient's "
+            f"largest value (tol {K4_TOL}), repeatable; kernel {ms:.4f} ms, "
+            f"plain (autograd) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {calls} call(s) "
+            "per training step"
+        )
+        k4["ms"] += calls * ms
+        k4["plain_ms"] += calls * plain_ms
+        k4["bound_ms"] += calls * b_ms
+        k4["ops_ms" if b_by == "operations" else "bytes_ms"] += calls * b_ms
+        k4["err"] = max(k4["err"], abs_err)
+        del x_send, rec, edge_in, d_aggr, d_new, pre, outs, want, got, again, leaves
+        del d_edge, d_send, d_rec, w_grads, aggr_p, new_p
+        torch.cuda.empty_cache()
+    log(
+        f"per training step: K2 {k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, "
+        f"index_add_ {k2['library_ms']:.4f}), K4 {k4['ms']:.4f} ms (bound "
+        f"{k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f})"
+    )
 
     torch.cuda.empty_cache()
     return [
@@ -310,6 +507,32 @@ def phase_kernels(torch, model) -> list[dict]:
             plain_ms=k3["plain_ms"],
             bound_ms=k3["bound_ms"],
             bound_by="operations" if k3["ops_ms"] >= k3["bytes_ms"] else "bytes",
+            library_ms=None,
+        ),
+        dict(
+            name="K2 sender_scatter",
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/sender_scatter.cu",
+            replaces="neural_lam_tpu/ops/pallas_segment.py:766",
+            launches=0,
+            max_abs_err=k2["err"],
+            ms=k2["ms"],
+            plain_ms=k2["plain_ms"],
+            bound_ms=k2["bound_ms"],
+            bound_by="bytes",
+            library_ms=k2["library_ms"],
+        ),
+        dict(
+            name="K4 fused_edge_phase backward",
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/fused_edge_bwd.cu",
+            replaces="neural_lam_tpu/ops/pallas_fused.py:1052",
+            launches=0,
+            max_abs_err=k4["err"],
+            ms=k4["ms"],
+            plain_ms=k4["plain_ms"],
+            bound_ms=k4["bound_ms"],
+            bound_by="operations" if k4["ops_ms"] >= k4["bytes_ms"] else "bytes",
             library_ms=None,
         ),
     ]
@@ -442,6 +665,163 @@ def phase_serve(torch, ds, model, card: str) -> dict[str, int]:
     return launches
 
 
+def bench_batch(ds, batch: int = BATCH):
+    """One random batch ``(init, target, forcing)`` at ``ar_steps`` 1, as
+    ``bench.make_bench_batch`` draws it (bench.py:363-372)."""
+    n = ds.num_grid_points
+    n_state = ds.get_num_data_vars("state")
+    f_dim = ds.get_num_data_vars("forcing") * 3
+    rng = np.random.default_rng(0)
+    return (
+        rng.normal(size=(batch, 2, n, n_state)).astype(np.float32),
+        rng.normal(size=(batch, 1, n, n_state)).astype(np.float32),
+        rng.normal(size=(batch, 1, n, f_dim)).astype(np.float32),
+    )
+
+
+def make_trainer(model, ds):
+    """The ``bench.build_trainer`` trainer around ``model``, with the
+    fixture's parameters loaded afresh and a new optimizer."""
+    from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
+    from neural_lam_tpu_torch.convert_checkpoint import (
+        load_jax_params_npz,
+        params_from_jax,
+    )
+    from neural_lam_tpu_torch.models import ARForecaster
+    from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
+
+    model.load_state_dict(
+        params_from_jax(
+            load_jax_params_npz(FIXTURES / "graph_lam_meps_params_seed0.npz")
+        ),
+        strict=True,
+    )
+    config = NeuralLAMConfig(
+        datastore=DatastoreSelection(kind="dummydata", config_path="")
+    )
+    args = TrainingArgs(batch_size=BATCH, ar_steps_train=1, lr=TRAIN_LR)
+    return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device)
+
+
+def phase_train_gate(torch, trainer, fixture_path) -> dict:
+    """Loss and gradients of the bench batch, then the losses of further
+    AdamW steps, against the JAX package's fixture (made by
+    ``tests/test_torch_train.py``). The trainer's model must hold the
+    ``PRNGKey(0)`` parameters; they are updated in place."""
+    from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
+
+    ds = trainer.datastore
+    with np.load(fixture_path) as fx:
+        want_losses = fx["losses"].astype(np.float64)
+        grid, batch, lr = fx["grid"], int(fx["batch"]), float(fx["lr"])
+        want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
+    shape = ds.grid_shape_state
+    if tuple(grid) != (shape.x, shape.y) or lr != trainer.args.lr:
+        raise AssertionError(
+            f"train fixture is for grid {tuple(grid)} at lr {lr}, the trainer "
+            f"has {(shape.x, shape.y)} at {trainer.args.lr}"
+        )
+    data = [torch.from_numpy(a).to(trainer.device) for a in bench_batch(ds, batch)]
+    trainer.optimizer = trainer.init_state()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss = trainer._loss(*data)
+    loss.backward()
+    got_grads = grads_to_numpy(trainer.forecaster.predictor)
+    trainer.optimizer.step()
+    losses = [loss.item()]
+    losses += [trainer.train_step(*data).item() for _ in want_losses[1:]]
+
+    if sorted(got_grads) != sorted(want_grads):
+        raise AssertionError("train gate: gradient names differ from the fixture")
+    grad_rel, worst = 0.0, ""
+    for key, want in want_grads.items():
+        got = got_grads[key]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"train gate: gradient {key} has a wrong shape or is not finite")
+        rel = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        if rel > grad_rel:
+            grad_rel, worst = rel, key
+        if rel > TRAIN_GRAD_TOL:
+            raise AssertionError(
+                f"train gate: gradient {key} is off by {rel:.3e} of its largest "
+                f"value (tol {TRAIN_GRAD_TOL})"
+            )
+    rels = np.abs(np.array(losses) - want_losses) / np.abs(want_losses)
+    log(
+        f"train gate: loss {losses[0]:.8g} vs {want_losses[0]:.8g} (rel "
+        f"{rels[0]:.3e}, tol {TRAIN_LOSS_RTOL}); {len(want_grads)} gradients, "
+        f"worst {grad_rel:.3e} of its largest value at {worst} (tol "
+        f"{TRAIN_GRAD_TOL}); losses of {len(losses) - 1} further AdamW steps "
+        f"{', '.join(f'{x:.8g}' for x in losses[1:])} vs "
+        f"{', '.join(f'{x:.8g}' for x in want_losses[1:])} (rel up to "
+        f"{rels[1:].max():.3e}, tol {TRAIN_TRAJ_RTOL})"
+    )
+    if not np.isfinite(losses).all():
+        raise AssertionError("train gate: non-finite loss")
+    if rels[0] > TRAIN_LOSS_RTOL or rels[1:].max() > TRAIN_TRAJ_RTOL:
+        raise AssertionError("train gate: losses outside their tolerances")
+    return dict(loss_rel=float(rels[0]), grad_rel=grad_rel, losses=losses)
+
+
+def kernel_counters():
+    from neural_lam_tpu_torch.ops.fused_kernels import fused_edge_bwd, fused_edge_phase
+    from neural_lam_tpu_torch.ops.segment_kernels import sender_gather, sender_scatter
+
+    return {
+        "K1 sender_gather": sender_gather,
+        "K3 fused_edge_phase": fused_edge_phase,
+        "K2 sender_scatter": sender_scatter,
+        "K4 fused_edge_phase backward": fused_edge_bwd,
+    }
+
+
+def phase_train(torch, trainer, card: str) -> dict[str, int]:
+    """Training steps through ``Trainer.train_step`` on the bench batch;
+    returns each kernel's launches in this run, which must be 6 per
+    step."""
+    ds = trainer.datastore
+    data = [torch.from_numpy(a).to(trainer.device) for a in bench_batch(ds)]
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    # warm-up steps wait for the device; the timed steps are queued back
+    # to back and waited for once, as bench.py times them, so the host may
+    # run ahead of the device. Events mark the steps on the device's clock.
+    losses = [trainer.train_step(*data).item() for _ in range(TRAIN_WARMUP)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_ITERS + 1)]
+    timed = []
+    marks[0].record()
+    for mark in marks[1:]:
+        timed.append(trainer.train_step(*data))
+        mark.record()
+    torch.cuda.synchronize()
+    losses += [loss.item() for loss in timed]
+    times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = TRAIN_WARMUP + TRAIN_ITERS
+    for name, count in launches.items():
+        log(f"train: {name} launches {count} (want 6 x {steps} = {6 * steps})")
+        if count != 6 * steps:
+            raise AssertionError(f"{name}: {count} launches, want {6 * steps}")
+    log("train: loss per step " + ", ".join(f"{x:.6f}" for x in losses))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("train: losses are not finite and falling")
+    step_ms = marks[0].elapsed_time(marks[-1]) / TRAIN_ITERS
+    gps = BATCH * ds.num_grid_points / (step_ms / 1e3)
+    log(
+        f"train on {card}: {steps} steps of batch {BATCH}, ar_steps 1, float32 "
+        f"(TF32 off); step time {step_ms:.3f} ms (the last {TRAIN_ITERS} steps "
+        f"queued back to back: {', '.join(f'{t:.2f}' for t in times)}); "
+        f"{gps:,.0f} training grid-points/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB"
+    )
+    return launches
+
+
 def main() -> int:
     if not (REPO / "neural_lam_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -466,26 +846,35 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
-    kernels = ["sender_gather", "fused_edge"]
+    kernels = ["sender_gather", "sender_scatter", "fused_edge", "fused_edge_bwd"]
     kernel_build.build(kernels)
     log(
-        f"kernel build: {time.perf_counter() - t0:.1f} s (sender_gather.cu, "
-        "fused_edge.cu; nvcc for sm_90a, one process per source)"
+        f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(k + '.cu' for k in kernels)}; nvcc for sm_90a, one "
+        "process per source)"
     )
     for name in kernels:
         ptxas = kernel_build.build_log(name).splitlines()
         used = [line.split(":", 1)[1].strip() for line in ptxas if "registers" in line]
         spills = [line.strip() for line in ptxas if "spill" in line]
-        log(f"  {name}: {'; '.join(used)}; {'; '.join(spills)}")
+        log(f"  {name}: {'; '.join(used)}; {'; '.join(sorted(set(spills)))}")
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)
-    with torch.inference_mode():
+    with torch.no_grad():
         report = phase_kernels(torch, model)
     phase_gate(torch, gate_ds, forecaster)
-    launches = phase_serve(torch, serve_ds, model, card)
+    serve_launches = phase_serve(torch, serve_ds, model, card)
+    phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
+    train_launches = phase_train(torch, make_trainer(model, gate_ds), card)
+    # each main path was driven with the counters at 0 just before it
     for entry in report:
-        entry["launches"] = launches[entry["name"]]
+        name = entry["name"]
+        entry["launches"] = serve_launches.get(name, 0) + train_launches[name]
+        log(
+            f"{name}: {serve_launches.get(name, 0)} launches in the serve "
+            f"phase, {train_launches[name]} in the train phase"
+        )
 
     log(card)
     log(json.dumps({"kernels": report}))

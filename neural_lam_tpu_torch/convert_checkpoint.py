@@ -9,6 +9,10 @@ PyTorch's ``(out, in)`` layout, which are the port's module names
 (``g2m_gnn.edge_mlp.0.weight``, ``processor.module_0.aggr_mlp.3.bias``).
 The mapping is the inverse of ``neural_lam_tpu.convert_checkpoint``'s
 ``convert_state_dict``, written here without importing that package.
+:func:`params_to_numpy` and :func:`grads_to_numpy` are the view back: a
+module's parameters, or their gradients, under the same names and in the
+same layout as the JAX package's ``export_state_dict`` emits, so a test
+compares the two dictionaries directly.
 """
 
 from __future__ import annotations
@@ -64,6 +68,27 @@ def params_from_jax(params_np: dict) -> dict[str, torch.Tensor]:
         for name, sub in params_np.items()
         for key, arr in _items(name, sub)
     }
+
+
+def params_to_numpy(module: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The module's parameters as numpy arrays under their state-dict
+    names (``(out, in)`` weights)."""
+    return {
+        name: p.detach().cpu().numpy().copy()
+        for name, p in module.named_parameters()
+    }
+
+
+def grads_to_numpy(module: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The ``.grad`` of every parameter, named and laid out as in
+    :func:`params_to_numpy`. A parameter without a gradient raises: after
+    a backward through the whole model every parameter has one."""
+    out = {}
+    for name, p in module.named_parameters():
+        if p.grad is None:
+            raise ValueError(f"parameter {name} has no gradient")
+        out[name] = p.grad.detach().cpu().numpy().copy()
+    return out
 
 
 def load_jax_params_npz(path: str | Path) -> dict:

@@ -10,6 +10,8 @@
 //            | edge[e]                                   (EDGE_SHARED)
 //            | edge[e, b]                                (EDGE_BATCHED)
 //   pre      = edge_val . W1e + send[e, b] . W1s + (rec[r, b] . W1r) + b1
+//              (written out as pre[e, b] when the caller will differentiate:
+//              the backward kernel, fused_edge_bwd.cu, starts from it)
 //   msg      = LN(SiLU(pre) . W2 + b2)         (LN optional: layer_norm)
 //   msg     += send[e, b]                      (propagation only)
 //   new_edge[e, b] = edge_val + msg            (update_edges only)
@@ -59,20 +61,11 @@
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
-#include <cuda_runtime.h>
+#include "fused_edge_common.cuh"
 
 namespace {
 
-constexpr int D = 64;            // hidden width the kernel is compiled for
-constexpr int kThreads = 256;    // 16 row groups x 16 column groups of 4
-constexpr int kTileRows = 64;    // (edge, batch) rows per tile
-constexpr int kRecRows = 32;     // (receiver, batch) rows per block
-constexpr int kLd = 68;          // padded row stride of the row tiles
-constexpr int kMaxFeat = 8;      // raw edge feature width limit
-constexpr int kAggPerThread = kRecRows * D / kThreads;
-constexpr float kLnEps = 1e-5f;
-
-enum EdgeMode { EDGE_RAW = 0, EDGE_SHARED = 1, EDGE_BATCHED = 2 };
+using namespace fused_edge;
 
 struct Params {
   const float* edge;
@@ -93,6 +86,7 @@ struct Params {
   const float* ebt;
   float* aggr;
   float* new_edge;
+  float* pre;
   int num_rec;
   int batch;
   int feat;
@@ -125,133 +119,6 @@ __host__ __device__ constexpr Smem smem_plan(int mode) {
   s.ints = o; o += 100;  // rowptr (<= 33) + receiver of each tile edge (64)
   s.total = o;
   return s;
-}
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float sum16(float v) {
-  // the 16 lanes of one row group are one half of a warp
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v;
-}
-
-// dst[k*ldd + c] = w[c*ld + off + k] for k < D, c < D: a 64x64 slice of
-// an nn.Linear (out, in) weight, transposed into (in, out). Thread i reads
-// inputs 8*(i/D) .. +7 of output row c = i%D as two 16-byte loads (one
-// whole 32-byte sector; ld and off are multiples of 4, the weight is
-// 16-byte aligned) and writes them down column c, so the 32 threads of a
-// warp write 32 consecutive floats of each row.
-__device__ __forceinline__ void load_weight_t(float* dst, int ldd,
-                                              const float* __restrict__ w,
-                                              int ld, int off) {
-  for (int i = threadIdx.x; i < D * D / 8; i += kThreads) {
-    const int c = i % D, k0 = 8 * (i / D);
-    const float4* src = reinterpret_cast<const float4*>(w + c * ld + off + k0);
-    const float4 lo = __ldg(src), hi = __ldg(src + 1);
-    float* d = dst + k0 * ldd + c;
-    d[0] = lo.x;
-    d[ldd] = lo.y;
-    d[2 * ldd] = lo.z;
-    d[3 * ldd] = lo.w;
-    d[4 * ldd] = hi.x;
-    d[5 * ldd] = hi.y;
-    d[6 * ldd] = hi.z;
-    d[7 * ldd] = hi.w;
-  }
-}
-
-// acc[i][j] += sum_k A[(rg + 16 i) * kLd + k] * W[k * LDW + 4 cg + j] for
-// i < NI, k ascending (the same order for every NI)
-template <int NI, int LDW = D>
-__device__ __forceinline__ void mm_acc(float (&acc)[4][4], const float* A,
-                                       const float* W, int rg, int cg) {
-#pragma unroll 2
-  for (int k = 0; k < D; k += 4) {
-    float4 a[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (rg + 16 * i) * kLd + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(W + (k + kk) * LDW + 4 * cg);
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const float v = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-        acc[i][0] = fmaf(v, w.x, acc[i][0]);
-        acc[i][1] = fmaf(v, w.y, acc[i][1]);
-        acc[i][2] = fmaf(v, w.z, acc[i][2]);
-        acc[i][3] = fmaf(v, w.w, acc[i][3]);
-      }
-    }
-  }
-}
-
-// mm_acc over the first 16*ni rows (ni uniform across the block). The
-// tile's edges fill ni = ceil(TE/16) groups: 4 at batch 1, 2 at batch 2
-// and 3, 1 above; any other ni runs all 4.
-__device__ __forceinline__ void mm_rows(float (&acc)[4][4], const float* A,
-                                        const float* W, int rg, int cg, int ni) {
-  switch (ni) {
-    case 1: mm_acc<1>(acc, A, W, rg, cg); break;
-    case 2: mm_acc<2>(acc, A, W, rg, cg); break;
-    default: mm_acc<4>(acc, A, W, rg, cg); break;
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-}
-
-// LayerNorm of the thread's first ni rows over the D features held by the
-// 16 threads of its row group; biased variance, eps 1e-5. ni is uniform
-// across the block, so every lane takes part in the shuffles.
-__device__ __forceinline__ void row_layer_norm(float (&acc)[4][4], const float* g,
-                                               const float* bt, int cg, int ni = 4) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i >= ni) break;
-    const float mean =
-        sum16(acc[i][0] + acc[i][1] + acc[i][2] + acc[i][3]) * (1.0f / D);
-    float sq = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] -= mean;
-      sq = fmaf(acc[i][j], acc[i][j], sq);
-    }
-    const float rstd = rsqrtf(sum16(sq) * (1.0f / D) + kLnEps);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * cg + j;
-      acc[i][j] = acc[i][j] * rstd * g[c] + bt[c];
-    }
-  }
-}
-
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][4],
-                                           int rg, int cg, int ni = 4) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (i < ni)
-      *reinterpret_cast<float4*>(dst + (rg + 16 * i) * kLd + 4 * cg) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-
-// rows [0, kTileRows) of dst <- rows [0, n) of the contiguous (., D) block
-// at src, zero beyond n
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int n, int rows) {
-  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
-    const int m = i / (D / 4), c4 = i - m * (D / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < n) v = __ldg(reinterpret_cast<const float4*>(src + m * D) + c4);
-    *reinterpret_cast<float4*>(dst + m * kLd + 4 * c4) = v;
-  }
 }
 
 template <int MODE>
@@ -401,13 +268,18 @@ fused_edge_fwd(const Params p) {
       const int m = rg + 16 * i;
       const int el = m / B, b = m - el * B;
       const int rl = m < nrows ? sRloc[el] : 0;
+      float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = 4 * cg + j;
-        float v = acc[i][j] + sB1[c] + sRP[(rl * B + b) * D + c];
-        if (MODE != EDGE_BATCHED) v += sH[el * kLd + c];
-        acc[i][j] = silu(v);
+        v[j] = acc[i][j] + sB1[c] + sRP[(rl * B + b) * D + c];
+        if (MODE != EDGE_BATCHED) v[j] += sH[el * kLd + c];
+        acc[i][j] = silu(v[j]);
       }
+      if (p.pre != nullptr && m < nrows)  // saved for the backward (K4)
+        *reinterpret_cast<float4*>(
+            p.pre + (static_cast<long long>(t0) * B + m) * D + 4 * cg) =
+            make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
     store_rows(sH, acc, rg, cg);
@@ -486,7 +358,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 //   rec: (num_rec, B, D); rowptr: (num_rec + 1,) int32
 //   w1: (D, 3D), b1: (D,), w2: (D, D), b2, gamma, beta: (D,)
 //   ew1: (D, feat), eb1, eb2, eg, ebt: (D,), ew2: (D, D)   [edge_mode 0]
-//   aggr: (num_rec, B, D) out; new_edge: (E, B, D) out [update_edges]
+//   aggr: (num_rec, B, D) out; new_edge: (E, B, D) out [update_edges];
+//   pre: (E, B, D) out, the first layer's pre-activation, or null
 // 1 <= batch <= 32 and feat <= 8 are checked by the caller. Returns
 // cudaGetLastError() after the launch.
 extern "C" int nl_fused_edge_fwd(
@@ -495,7 +368,8 @@ extern "C" int nl_fused_edge_fwd(
     const void* rec, const void* rowptr, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* gamma, const void* beta,
     const void* ew1, const void* eb1, const void* ew2, const void* eb2,
-    const void* eg, const void* ebt, void* aggr, void* new_edge, void* stream) {
+    const void* eg, const void* ebt, void* aggr, void* new_edge, void* pre,
+    void* stream) {
   if (num_rec <= 0) return static_cast<int>(cudaSuccess);
   if (batch < 1 || batch > kRecRows || feat > kMaxFeat)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -518,6 +392,7 @@ extern "C" int nl_fused_edge_fwd(
   p.ebt = static_cast<const float*>(ebt);
   p.aggr = static_cast<float*>(aggr);
   p.new_edge = static_cast<float*>(new_edge);
+  p.pre = static_cast<float*>(pre);
   p.num_rec = num_rec;
   p.batch = batch;
   p.feat = feat;

@@ -3,7 +3,10 @@
 Counterpart of ``neural_lam_tpu/models/forecaster.py`` (reference:
 neural_lam/models/forecasters/autoregressive.py:14-146): a Python loop
 over prediction steps that overwrites the boundary nodes with the given
-boundary states after every step.
+boundary states after every step. Under grad a step can be
+rematerialised (``torch.utils.checkpoint``): its activations are dropped
+after the forward and recomputed in the backward, as the JAX forecaster
+does with ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..datastore.base import BaseDatastore
 from .base import StepPredictor
@@ -20,11 +24,23 @@ from .base import StepPredictor
 
 class ARForecaster(nn.Module):
     """Unrolls a :class:`StepPredictor`, overwriting boundary nodes with
-    the boundary states at every step."""
+    the boundary states at every step.
 
-    def __init__(self, predictor: StepPredictor, datastore: BaseDatastore) -> None:
+    ``remat_steps``: rematerialise each step in the backward. ``None``
+    (the default) turns it on only for rollouts of more than one step,
+    where the stored activations grow with the number of steps; a
+    single-step rollout has nothing to gain from the recompute.
+    """
+
+    def __init__(
+        self,
+        predictor: StepPredictor,
+        datastore: BaseDatastore,
+        remat_steps: Optional[bool] = None,
+    ) -> None:
         super().__init__()
         self.predictor = predictor
+        self.remat_steps = remat_steps
         # (N, 1, 1) masks in the node-major layout
         # (reference: forecasters/autoregressive.py:36-45)
         mask = np.asarray(datastore.boundary_mask.data, np.float32)
@@ -58,12 +74,24 @@ class ARForecaster(nn.Module):
         forcing_nm = forcing_features.permute(1, 2, 0, 3)
         boundary_nm = boundary_states.permute(1, 2, 0, 3)
         prev_prev_state, prev_state = init_nm[0], init_nm[1]
-        predictions, stds = [], []
-        for t in range(forcing_nm.shape[0]):
+
+        def step(prev_state, prev_prev_state, forcing, boundary):
             pred_state, pred_std = self.predictor.step(
-                prev_state, prev_prev_state, forcing_nm[t]
+                prev_state, prev_prev_state, forcing
             )
-            new_state = bmask * boundary_nm[t] + imask * pred_state
+            return bmask * boundary + imask * pred_state, pred_std
+
+        pred_steps = forcing_nm.shape[0]
+        use_remat = (
+            self.remat_steps if self.remat_steps is not None else pred_steps > 1
+        ) and torch.is_grad_enabled()
+        predictions, stds = [], []
+        for t in range(pred_steps):
+            args = (prev_state, prev_prev_state, forcing_nm[t], boundary_nm[t])
+            if use_remat:
+                new_state, pred_std = checkpoint(step, *args, use_reentrant=False)
+            else:
+                new_state, pred_std = step(*args)
             predictions.append(new_state)
             if pred_std is not None:
                 stds.append(pred_std)

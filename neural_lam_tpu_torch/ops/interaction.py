@@ -41,13 +41,21 @@ class EdgeSet:
 
     Edge ``e`` of the sorted order runs from ``senders[e]`` to
     ``receivers[e]``; the edges into receiver ``r`` are
-    ``rowptr[r]:rowptr[r + 1]``.
+    ``rowptr[r]:rowptr[r + 1]``. ``send_perm`` and ``send_rowptr`` are
+    the sender-sorted view of the same edges, which the sender scatter
+    (K2, the backward of the sender gather) walks: ``send_perm`` lists
+    the edge positions ordered by sender (stable, so ascending within a
+    sender) and the edges out of sender ``s`` are
+    ``send_perm[send_rowptr[s]:send_rowptr[s + 1]]``. The table covers
+    ``num_send`` senders, or ``senders.max() + 1`` when that is unknown.
     """
 
     senders: torch.Tensor  # (E,) int32
     receivers: torch.Tensor  # (E,) int64, non-decreasing
     rowptr: torch.Tensor  # (num_rec + 1,) int32
     recv_counts: torch.Tensor  # (num_rec,) int64
+    send_perm: torch.Tensor  # (E,) int32
+    send_rowptr: torch.Tensor  # (senders in the table + 1,) int32
     num_rec: int
     num_send: Optional[int] = None
 
@@ -63,6 +71,8 @@ class EdgeSet:
             receivers=move(self.receivers),
             rowptr=move(self.rowptr),
             recv_counts=move(self.recv_counts),
+            send_perm=move(self.send_perm),
+            send_rowptr=move(self.send_rowptr),
         )
 
 
@@ -97,11 +107,22 @@ def make_edge_set(
     rowptr = np.concatenate([[0], np.cumsum(counts)])
     if rowptr[-1] >= 2**31:
         raise ValueError("edge set too large for int32 offsets")
+    sorted_senders = senders[perm]
+    n_tab = num_send
+    if n_tab is None:
+        n_tab = int(senders.max()) + 1 if senders.size else 0
+    send_rowptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(sorted_senders, minlength=n_tab))]
+    )
     es = EdgeSet(
-        senders=torch.from_numpy(senders[perm].astype(np.int32)),
+        senders=torch.from_numpy(sorted_senders.astype(np.int32)),
         receivers=torch.from_numpy(receivers[perm]),
         rowptr=torch.from_numpy(rowptr.astype(np.int32)),
         recv_counts=torch.from_numpy(counts.astype(np.int64)),
+        send_perm=torch.from_numpy(
+            np.argsort(sorted_senders, kind="stable").astype(np.int32)
+        ),
+        send_rowptr=torch.from_numpy(send_rowptr.astype(np.int32)),
         num_rec=int(num_rec),
         num_send=num_send,
     )

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded through ``ctypes``.
 Libraries are built on first use into ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edit
-rebuilds and an unchanged source loads the earlier build. Nothing is
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged
+source loads the earlier build. Nothing is
 built when a module is imported: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -48,10 +49,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for source in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(source.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

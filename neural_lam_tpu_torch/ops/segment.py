@@ -4,8 +4,9 @@ Counterpart of ``neural_lam_tpu/ops/segment.py``. Node arrays are
 ``(N, ...)``, edge arrays ``(E, ...)`` in the edge set's receiver-sorted
 order.
 
-- ``gather_senders`` dispatches to K1 (``segment_kernels.sender_gather``),
-  which runs its plain ``index_select`` on CPU tensors.
+- ``gather_senders`` is ``segment_kernels.SenderGather``: K1 forward and
+  K2, the sender scatter, backward; on CPU tensors both run their plain
+  versions (``index_select`` and ``index_add_``).
 - ``gather_receivers``, ``aggregate_sum`` and ``aggregate_mean`` are the
   unfused route's operations. Their TPU kernels (K6, the receiver
   expand, and K5, the segment sum) are not ported yet, so on CUDA
@@ -20,7 +21,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from .segment_kernels import sender_gather
+from .segment_kernels import SenderGather
 
 if TYPE_CHECKING:  # pragma: no cover
     from .interaction import EdgeSet
@@ -35,8 +36,9 @@ def _require_cpu(name: str, kernel: str, x: torch.Tensor) -> None:
 
 
 def gather_senders(edge_set: "EdgeSet", send_rep: torch.Tensor) -> torch.Tensor:
-    """Per-edge sender features ``send_rep[senders]`` (K1)."""
-    return sender_gather(send_rep, edge_set.senders)
+    """Per-edge sender features ``send_rep[senders]`` (K1; its gradient
+    is K2)."""
+    return SenderGather.apply(send_rep, edge_set)
 
 
 def gather_receivers(edge_set: "EdgeSet", rec_rep: torch.Tensor) -> torch.Tensor:

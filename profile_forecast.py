@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where a forecast request's time goes, on one GPU.
+"""Where a forecast request's, or a training step's, time goes on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 profile_forecast.py [--trace PATH]
+    python3 profile_forecast.py [--train] [--trace PATH]
 
 It builds the MEPS GraphLAM of ``chip_smoke.py`` (the fixture's
 parameters), runs one warm-up forecast of batch 4 x 19 AR steps on
@@ -13,6 +13,14 @@ group (K1, K3, matmuls, the rest), the device busy share over the
 forecast's wall time and the kernel launch count, then times the host
 side of a ``predict.run_forecasts`` request: one batch from the loader
 and one compressed forecast file. ``--trace`` writes the Chrome trace.
+
+With ``--train`` it profiles one ``Trainer.train_step`` instead (batch 4,
+``ar_steps`` 1, the batch of ``chip_smoke.bench_batch``, after two
+warm-up steps) and splits the device time by K1-K4, cuBLAS, LayerNorm,
+the optimizer and the rest. It then times the host: ten steps queued back
+to back, the time until the last is enqueued against the time until the
+device has finished them. ``--host-profile`` runs ten more steps under
+``cProfile`` and prints where the host spends them.
 """
 
 from __future__ import annotations
@@ -30,14 +38,106 @@ import chip_smoke as cs
 
 GROUPS = (
     ("K3 fused_edge_phase", re.compile(r"fused_edge_fwd")),
+    ("K4 fused_edge_phase backward", re.compile(r"fused_edge_bwd|reduce_workspace")),
     ("K1 sender_gather", re.compile(r"gather_rows")),
+    ("K2 sender_scatter", re.compile(r"scatter_rows")),
     ("matmul (cuBLAS)", re.compile(r"gemm|gemv|cutlass|sm90_xmma|ampere", re.I)),
+    ("LayerNorm", re.compile(r"layer_norm|LayerNorm", re.I)),
+    ("optimizer (AdamW)", re.compile(r"multi_tensor_apply|adam", re.I)),
 )
+
+
+def report(torch, prof, card: str, what: str, wall: float, per: int, unit: str) -> None:
+    """Device time by kernel group, busy share and launch count of the
+    profiled window; ``per`` divides the sums into a per-``unit`` column."""
+    sums = {name: 0.0 for name, _ in GROUPS}
+    sums["other kernels"] = 0.0
+    launches = 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.device_time_total
+        if us <= 0 or evt.name.startswith("Memcpy") or evt.name.startswith("Memset"):
+            continue
+        if "#" in evt.name:  # an annotated range on the device, not a kernel
+            continue
+        launches += 1
+        group = next((g for g, pat in GROUPS if pat.search(evt.name)), "other kernels")
+        sums[group] += us / 1e3
+    busy = sum(sums.values())
+    print(card)
+    print(
+        f"{what}: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %), {launches} kernel "
+        f"launches ({launches / per:.1f} per {unit})"
+    )
+    for name, ms in sums.items():
+        print(
+            f"  {name}: {ms:.3f} ms ({ms / per:.4f} ms per {unit}, "
+            f"{100 * ms / busy:.1f} % of device time)"
+        )
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+
+
+def profile_train(torch, args, card: str, gate_ds, model) -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = cs.make_trainer(model, gate_ds)
+    data = [torch.from_numpy(a).cuda() for a in cs.bench_batch(gate_ds)]
+    for _ in range(cs.TRAIN_WARMUP):
+        trainer.train_step(*data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = trainer.train_step(*data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if args.trace:
+        args.trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.trace))
+    report(
+        torch, prof, card,
+        f"training step of batch {cs.BATCH}, ar_steps 1 (loss {loss.item():.6f})",
+        wall, 1, "training step",
+    )
+
+    steps = cs.TRAIN_ITERS
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(*data)
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    done = time.perf_counter() - t0
+    print(
+        f"host on {card}: {steps} training steps queued back to back, "
+        f"{1e3 * enqueued / steps:.3f} ms per step until enqueued, "
+        f"{1e3 * done / steps:.3f} ms per step until the device finished"
+    )
+    if args.host_profile:
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(steps):
+            trainer.train_step(*data)
+        prof.disable()
+        torch.cuda.synchronize()
+        print(f"cProfile of {steps} training steps (its own cost included):")
+        pstats.Stats(prof).sort_stats("cumulative").print_stats(
+            r"trainer\.py|_tensor\.py.*backward|forecaster\.py|adam\.py.*\(step\)"
+            r"|fused_kernels\.py|segment_kernels\.py|mlp\.py"
+        )
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--trace", type=Path, help="write the Chrome trace here")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one training step, not a forecast request")
+    ap.add_argument("--host-profile", action="store_true",
+                    help="with --train: cProfile ten more steps on the host")
     args = ap.parse_args()
 
     import torch
@@ -54,6 +154,8 @@ def main() -> int:
     card = cs.card_line()
     cs.CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = cs.build_meps(torch)
+    if args.train:
+        return profile_train(torch, args, card, gate_ds, model)
     n, b, t = gate_ds.num_grid_points, cs.BATCH, cs.AR_STEPS
     rng = np.random.default_rng(0)
     inputs = [
@@ -74,31 +176,7 @@ def main() -> int:
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))
 
-    sums = {name: 0.0 for name, _ in GROUPS}
-    sums["other kernels"] = 0.0
-    launches = 0
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.device_time_total
-        if us <= 0 or evt.name.startswith("Memcpy") or evt.name.startswith("Memset"):
-            continue
-        launches += 1
-        group = next((g for g, pat in GROUPS if pat.search(evt.name)), "other kernels")
-        sums[group] += us / 1e3
-    busy = sum(sums.values())
-    print(card)
-    print(
-        f"forecast of {b} x {t} steps: wall {wall * 1e3:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %), {launches} kernel "
-        f"launches ({launches / t:.1f} per AR step)"
-    )
-    for name, ms in sums.items():
-        print(
-            f"  {name}: {ms:.3f} ms ({ms / t:.4f} ms per AR step, "
-            f"{100 * ms / busy:.1f} % of device time)"
-        )
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    report(torch, prof, card, f"forecast of {b} x {t} steps", wall, t, "AR step")
 
     # host side of one run_forecasts request
     loader = DataLoader(

@@ -10,7 +10,8 @@ summation order only: the kernels sum the 64-term dot products and each
 receiver's messages in another order than PyTorch's CPU and CUDA
 matmuls and ``index_add_``; every value is O(1) after LayerNorm and the
 aggregates sum O(10) of them, so 1e-4 absolute is far above the
-rounding and far below any real error.
+rounding and far below any real error. The backward kernels' tolerances
+are stated in their tests.
 """
 
 import numpy as np
@@ -18,14 +19,20 @@ import pytest
 import torch
 
 from neural_lam_tpu_torch.ops.fused_kernels import (
+    _weights,
+    fused_edge_bwd,
+    fused_edge_fwd,
     fused_edge_phase,
     fused_edge_phase_plain,
 )
 from neural_lam_tpu_torch.ops.interaction import make_edge_set
 from neural_lam_tpu_torch.ops.mlp import make_mlp
+from neural_lam_tpu_torch.ops.segment import gather_senders
 from neural_lam_tpu_torch.ops.segment_kernels import (
     sender_gather,
     sender_gather_plain,
+    sender_scatter,
+    sender_scatter_plain,
 )
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -116,9 +123,137 @@ def test_fused_edge_phase_matches_plain(cuda, mode, update, prop, ln, batch):
 
 
 @pytest.mark.cuda
-def test_kernels_are_forward_only(cuda):
-    rng = np.random.default_rng(2)
-    es, _ = _edge_set(rng, 10, 10, 40, cuda)
-    x = torch.zeros((10, 64), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="training slice"):
+@pytest.mark.parametrize("shape", [(4, 64), (3, 5)])
+def test_sender_scatter_matches_plain(cuda, shape):
+    """K2 against ``index_add_``. Sender 7 has 400 slots, the last ten
+    senders none, and the gather's input has more rows than the table."""
+    rng = np.random.default_rng(3)
+    snd = np.concatenate([rng.integers(0, 290, 4600), np.full(400, 7)])
+    rcv = rng.integers(0, 200, 5000)
+    es, _ = make_edge_set(snd, rcv, num_rec=200, num_send=300)
+    es = es.to(cuda)
+    g = torch.tensor(rng.normal(size=(5000,) + shape), dtype=torch.float32, device=cuda)
+    before = sender_scatter.launches
+    out = sender_scatter(g, es, 310)
+    torch.cuda.synchronize()
+    assert sender_scatter.launches == before + 1
+    want = sender_scatter_plain(g, es.senders, 310)
+    # f32 sums of up to 400 O(1) terms in another order than index_add_'s
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    assert torch.all(out[290:] == 0)
+    again = sender_scatter(g, es, 310)
+    assert torch.equal(out, again)  # fixed summation order
+
+
+@pytest.mark.cuda
+def test_gather_senders_backward_is_the_scatter(cuda):
+    rng = np.random.default_rng(4)
+    es, _ = _edge_set(rng, 30, 20, 200, cuda)
+    x = torch.tensor(rng.normal(size=(30, 2, 64)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="outside autograd"):
         sender_gather(x, es.senders)
+    k1, k2 = sender_gather.launches, sender_scatter.launches
+    out = gather_senders(es, x)
+    w = torch.tensor(rng.normal(size=tuple(out.shape)), dtype=torch.float32, device=cuda)
+    (out * w).sum().backward()
+    assert (sender_gather.launches, sender_scatter.launches) == (k1 + 1, k2 + 1)
+    torch.testing.assert_close(
+        x.grad, sender_scatter_plain(w, es.senders, 30), rtol=1e-5, atol=1e-5
+    )
+
+
+BWD_FLAGS = FLAGS + [
+    ("shared", False, False, True),
+    ("batched", True, True, True),
+    ("raw", True, False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,update,prop,ln", BWD_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (3, True), (1, True)])
+def test_fused_edge_phase_backward_matches_plain(cuda, mode, update, prop, ln, batch, use_new_edge):
+    """K4 (through ``FusedEdgePhase``) against autograd of the plain
+    version: every input and weight gradient. ``use_new_edge=False``
+    leaves the updated edges out of the loss, so K4 gets no
+    ``d_new_edge``."""
+    rng = np.random.default_rng(5)
+    d, n_send, n_rec = 64, 70, 50
+    es, _ = _edge_set(rng, n_send, n_rec, 900, cuda, empty_rec=5)
+    gen = torch.Generator().manual_seed(1)
+    edge_mlp = make_mlp([3 * d, d, d], layer_norm=ln, generator=gen).to(cuda)
+    embedder = make_mlp([3, d, d], generator=gen).to(cuda)
+
+    def t(*shape, grad=False):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda, requires_grad=grad)
+
+    x_send, rec = t(es.num_edges, batch, d, grad=True), t(n_rec, batch, d, grad=True)
+    edge_rep, feats, emb = None, None, None
+    if mode == "raw":
+        feats, emb = t(es.num_edges, 3), embedder
+    elif mode == "shared":
+        edge_rep = t(es.num_edges, d, grad=True)
+    else:
+        edge_rep = t(es.num_edges, batch, d, grad=True)
+    w_aggr = t(n_rec, batch, d)
+    w_edge = t(es.num_edges, batch, d)
+    params = list(edge_mlp.parameters()) + (list(emb.parameters()) if emb else [])
+    leaves = [x_send, rec] + ([edge_rep] if edge_rep is not None else []) + params
+
+    def loss(out):
+        total = (out[0] * w_aggr).sum()
+        if update and use_new_edge:
+            total = total + (out[1] * w_edge).sum()
+        return total
+
+    kw = dict(update_edges=update, propagation=prop)
+    before = fused_edge_bwd.launches
+    got = torch.autograd.grad(
+        loss(fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es,
+                              embedder=emb, edge_feats=feats, **kw)),
+        leaves,
+    )
+    torch.cuda.synchronize()
+    assert fused_edge_bwd.launches == before + 1
+    want = torch.autograd.grad(
+        loss(fused_edge_phase_plain(edge_mlp, edge_rep, x_send, rec,
+                                    es.receivers, emb, feats, **kw)),
+        leaves,
+    )
+    # weight gradients sum 900 x batch O(1) terms: tolerance relative to
+    # the largest entry of each gradient
+    for g, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+    again = torch.autograd.grad(
+        loss(fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es,
+                              embedder=emb, edge_feats=feats, **kw)),
+        leaves,
+    )
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+
+
+@pytest.mark.cuda
+def test_fused_edge_phase_saves_pre_only_under_grad(cuda):
+    """The forecast path's K3 writes no ``pre``; under grad it does, and
+    the outputs are the same bits."""
+    rng = np.random.default_rng(6)
+    d = 64
+    es, _ = _edge_set(rng, 40, 30, 300, cuda)
+    edge_mlp = make_mlp([3 * d, d, d], generator=torch.Generator().manual_seed(2)).to(cuda)
+    x_send = torch.tensor(rng.normal(size=(300, 2, d)), dtype=torch.float32, device=cuda)
+    rec = torch.tensor(rng.normal(size=(30, 2, d)), dtype=torch.float32, device=cuda)
+    edge = torch.tensor(rng.normal(size=(300, 2, d)), dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        weights = _weights(edge_mlp, None)
+        a0, e0, pre0 = fused_edge_fwd(edge, x_send, rec, es, weights, False, True, False)
+        a1, e1, pre1 = fused_edge_fwd(edge, x_send, rec, es, weights, False, True,
+                                      False, save_pre=True)
+    assert pre0 is None and pre1.shape == x_send.shape
+    assert torch.equal(a0, a1) and torch.equal(e0, e1)
+    w1 = edge_mlp[0].weight
+    want = (edge @ w1[:, :d].T + x_send @ w1[:, d:2 * d].T
+            + (rec @ w1[:, 2 * d:].T)[es.receivers] + edge_mlp[0].bias)
+    torch.testing.assert_close(pre1, want, **TOL)

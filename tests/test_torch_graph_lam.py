@@ -56,6 +56,9 @@ from neural_lam_tpu_torch.loader import DataLoader
 from neural_lam_tpu_torch.models import ARForecaster, GraphLAM
 from neural_lam_tpu_torch.models.graph_buffers import build_graph_buffers
 from neural_lam_tpu_torch.predict import run_forecasts
+from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
+from neural_lam_tpu_torch.trainer import Trainer as TorchTrainer
+from neural_lam_tpu_torch.trainer import TrainingArgs as TorchTrainingArgs
 from neural_lam_tpu_torch.trainer import standardization_stats, standardize_batch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -271,6 +274,10 @@ def test_entry_points_need_cuda_or_cpu(root):
     fc = ARForecaster(GraphLAM(tds, **MODEL_KW, device="cpu"), tds)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_forecasts(fc, tds, ar_steps=1, n_samples=1, out_dir=root / "x")
+    config = NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path=""))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchTrainer(fc, config, tds, TorchTrainingArgs())
+    assert TorchTrainer(fc, config, tds, TorchTrainingArgs(), device="cpu").device.type == "cpu"
 
 
 def _flatten(tree, prefix=""):
@@ -310,8 +317,9 @@ def test_meps_params_fixture_is_jax_init(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_reference_package(tmp_path):
-    """Import every port module, and run a tiny forecast, in a process
-    where ``jax``, ``neural_lam_tpu`` and ``yaml`` cannot be imported."""
+    """Import every port module, and run a tiny forecast and a tiny
+    training step, in a process where ``jax``, ``neural_lam_tpu`` and
+    ``yaml`` cannot be imported."""
     code = f"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "neural_lam_tpu", "yaml"):
@@ -328,6 +336,16 @@ ds = DummyDatastore(n_grid_x=9, n_grid_y=9, n_timesteps=8, root_path={str(tmp_pa
 create_graph_from_datastore(ds, ds.root_path / "graph" / "multiscale")
 fc = ARForecaster(GraphLAM(ds, hidden_dim=4, processor_layers=1, device="cpu"), ds)
 assert run_forecasts(fc, ds, ar_steps=2, n_samples=1, out_dir={str(tmp_path / "out")!r}, device="cpu") == 1
+from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
+from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
+trainer = Trainer(fc, NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path="")), ds, TrainingArgs(batch_size=2), device="cpu")
+rng = np.random.default_rng(0)
+n = ds.num_grid_points
+batch = [rng.normal(size=(2, t, n, w)).astype(np.float32) for t, w in ((2, 3), (1, 3), (1, 6))]
+losses = [trainer.train_step(*batch).item() for _ in range(3)]
+assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+for name in ("config", "loss_weighting", "metrics", "trainer"):
+    assert "neural_lam_tpu_torch." + name in sys.modules
 assert not any(m == "jax" or m.startswith(("jax.", "neural_lam_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("isolated ok")
 """
