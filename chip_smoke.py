@@ -5,40 +5,63 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``neural_lam_tpu_torch/csrc`` and
-drives the forecast path and the training step, the GraphLAM MEPS
+It builds the port's six CUDA kernels from ``neural_lam_tpu_torch/csrc``
+and drives the forecast path and the training step at the MEPS
 configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
-layers, batch 4, float32), in six phases. Each phase passes or raises;
-nothing is caught.
+layers, batch 4, float32) for three model families and both routes of
+the edge phase. Each phase passes or raises; nothing is caught.
+
+GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4):
 
 1. Kernels against their plain PyTorch versions, at the shapes of the
    six GNN calls (g2m, m2m x 4, m2g) at batch 4: max abs/rel error
    against the stated tolerance, and times from CUDA events (the kernel,
-   its plain version and, for K1 and K2, ``index_select`` and
+   its plain version and, for K1, K2, K5 and K6, ``index_select`` and
    ``index_add_``). K3 is timed with and without the ``pre`` output that
-   its backward, K4, starts from.
+   its backward, K4, starts from. All six kernels are also held against
+   their plain versions at each of the ten mesh edge sets of the
+   hierarchical graph (from 51,520 edges into 6,561 receivers down to 40
+   edges into 9; in-degrees of exactly 9 on the up sets and 1 on the
+   down sets), K3 and K4 in each mode the hierarchical models use.
 2. Accuracy gate: a 19-step batch-1 rollout with the JAX package's
    ``PRNGKey(0)`` parameters (``tests/fixtures/accuracy/
    graph_lam_meps_params_seed0.npz``) against the committed exact-f32
    rollout ``tests/fixtures/accuracy/rollout19_f32.npz``, with the
    metrics and thresholds of ``scripts/accuracy_probe.py``.
 3. Serving: ``predict.run_forecasts`` over a MEPS-size dummy test split,
-   one batch of 4 samples at 19 AR steps. The forward kernels' launch
-   counters are set to 0 just before and must read 6 x ar_steps after.
+   one batch of 4 samples at 19 AR steps. Every kernel's launch counter
+   is set to 0 just before and must read its count per AR step after.
 4. Training gate: the loss and every parameter gradient of one batch of
    4 (made as ``bench.make_bench_batch`` makes it), then the losses of
    three further AdamW steps, against the committed exact-f32 JAX
    fixture ``tests/fixtures/accuracy/train_step_meps_seed0.npz``.
 5. Training: ``Trainer.train_step`` on that batch, 2 warm-up and 10
-   timed steps (``bench.py``'s counts). All four kernels' counters are
-   set to 0 just before and must read 6 per step after; the losses must
-   be finite and fall.
-6. Report: a ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": ...}`` line.
+   timed steps (``bench.py``'s counts). The counters are set to 0 just
+   before and must read their count per step after; the losses must be
+   finite and fall.
+
+Then, for ``GraphLAM(hidden_layers=2)`` (path U, the unfused route: K1,
+K6, the edge MLP, K5; K2, K5, K6 backward), ``HiLAM`` and
+``HiLAMParallel`` on the hierarchical graph (path H, K1-K4 on 64 and 48
+GNN applications per step):
+
+6. Model gate against the JAX package, from ``tests/fixtures/accuracy/
+   gate_<model>_meps.npz`` (made on the CPU by ``tests/test_torch_hier.py``
+   from parameters both sides draw from a numpy seed by state-dict
+   name): the state after AR steps 1 and 3 of a batch-4 rollout at every
+   257th grid node, the training loss, per gradient its largest entry
+   and 16 sampled entries, and the losses of three further AdamW steps.
+7. Serving and training as in 3 and 5, with the launch counts derived
+   from the number of mesh levels and processor layers.
+
+Last, ``HiLAMParallel(hidden_layers=2)`` at one processor layer serves
+two AR steps, so that K5 and K6 also run on the level sets in a model;
+then the report: a ``{"kernels": [...]}`` line and the
+``{"ok": true, "device": ...}`` line.
 
 Parity is exact float32: TF32 is off for matmuls and for cuDNN. The
 script needs one CUDA device and exits non-zero without one, and outside
-a checkout of the repository. Generated data, the graph and the
+a checkout of the repository. Generated data, the graphs and the
 forecasts go under ``.smoke_cache/`` in the checkout.
 """
 
@@ -49,6 +72,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -96,6 +120,27 @@ TRAIN_GRAD_TOL = 2e-4
 TRAIN_TRAJ_RTOL = 1e-4
 TRAIN_LR = 1e-3
 TRAIN_WARMUP, TRAIN_ITERS = 2, 10  # bench.py:31
+# K6 is a copy: bit-identical. K5 sums up to ~40 O(1) edge rows per
+# receiver in slot order where index_add_ adds with atomics in any order:
+# rounding only, relative to the largest sum.
+K6_TOL = 0.0
+K5_TOL = 1e-5
+
+# The model gates of the later paths: name -> (class, graph, model kwargs)
+GATE_MODELS = {
+    "graph_lam_h2": ("GraphLAM", "multiscale", dict(hidden_layers=2)),
+    "hi_lam": ("HiLAM", "hierarchical", {}),
+    "hi_lam_parallel": ("HiLAMParallel", "hierarchical", {}),
+}
+GATE_SEED = 0
+GATE_ROLLOUT_STEPS = 3  # the states after steps 1 and 3 are compared
+GATE_NODE_STRIDE = 257  # every 257th grid node
+GATE_GRAD_SAMPLES = 16  # entries kept per gradient, beside its largest
+# States of a 3-step rollout against the JAX package's float32 run on a
+# CPU, relative to the mean absolute state: summation order only, as in
+# the 19-step gate, which sits near 1e-6; a fault shows as 1e-2 or more.
+GATE_STATE_MEAN_REL, GATE_STATE_MAX_REL = 1e-4, 1e-3
+
 # scripts/accuracy_probe.py's thresholds (:139-140), sized for the TPU's
 # bf16-rounded matmuls; exact f32 on the card is expected near 1e-5.
 GATE_MEAN_REL, GATE_MAX_REL = 0.025, 0.25
@@ -149,6 +194,22 @@ def errors(got, want) -> tuple[float, float]:
     return diff, diff / max(want.abs().max().item(), 1e-30)
 
 
+def meps_datastores():
+    """The MEPS-size dummy datastores: the gates' (``bench.py``'s) and
+    the longer one that serving reads its test split from."""
+    from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
+
+    kw = dict(
+        n_grid_x=GRID_X, n_grid_y=GRID_Y, n_state_features=N_STATE,
+        n_forcing_features=N_FORCING, n_static_features=N_STATIC,
+        root_path=CACHE / "meps",
+    )
+    return (
+        DummyDatastore(n_timesteps=GATE_TIMESTEPS, **kw),
+        DummyDatastore(n_timesteps=SERVE_TIMESTEPS, **kw),
+    )
+
+
 def build_meps(torch):
     """The MEPS dummy datastores, graph and GraphLAM with the fixture's
     parameters, all built with the port's own code."""
@@ -156,19 +217,12 @@ def build_meps(torch):
         load_jax_params_npz,
         params_from_jax,
     )
-    from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
     from neural_lam_tpu_torch.graphs import create_graph_from_datastore
     from neural_lam_tpu_torch.models import ARForecaster, GraphLAM
 
-    root = CACHE / "meps"
-    kw = dict(
-        n_grid_x=GRID_X, n_grid_y=GRID_Y, n_state_features=N_STATE,
-        n_forcing_features=N_FORCING, n_static_features=N_STATIC,
-        root_path=root,
-    )
     t0 = time.perf_counter()
-    gate_ds = DummyDatastore(n_timesteps=GATE_TIMESTEPS, **kw)
-    serve_ds = DummyDatastore(n_timesteps=SERVE_TIMESTEPS, **kw)
+    gate_ds, serve_ds = meps_datastores()
+    root = gate_ds.root_path
     graph_dir = root / "graph" / "multiscale"
     if not (graph_dir / "graph.npz").exists():
         create_graph_from_datastore(gate_ds, graph_dir)
@@ -189,6 +243,104 @@ def build_meps(torch):
         f"({time.perf_counter() - t0:.1f} s)"
     )
     return gate_ds, serve_ds, model, ARForecaster(model, gate_ds)
+
+
+def gate_fixture(name: str) -> Path:
+    return FIXTURES / f"gate_{name}_meps.npz"
+
+
+def seeded_state_dict(shapes: dict, seed: int = GATE_SEED) -> dict:
+    """Parameters drawn from a numpy seed by state-dict name, so that the
+    port and the JAX package get the same values without a parameter file
+    (``tests/test_torch_hier.py`` converts this dictionary into the JAX
+    pytree). ``shapes`` maps each name to its ``(out, in)`` / ``(out,)``
+    shape. Linear weights are uniform in ``+-1/sqrt(fan_in)``, biases in
+    ``+-0.1``; a LayerNorm (the odd index that closes an MLP's
+    ``nn.Sequential``) gets a scale of ``1 +- 0.1`` and a bias of
+    ``+-0.1``."""
+    out = {}
+    for name, shape in shapes.items():
+        rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+        index, kind = name.split(".")[-2:]
+        u = rng.uniform(-1.0, 1.0, size=tuple(shape))
+        if int(index) % 2:
+            arr = 0.1 * u + (1.0 if kind == "weight" else 0.0)
+        elif kind == "weight":
+            arr = u / np.sqrt(shape[1])
+        else:
+            arr = 0.1 * u
+        out[name] = arr.astype(np.float32)
+    return out
+
+
+def load_seeded(torch, model) -> None:
+    """Load :func:`seeded_state_dict` parameters into ``model``."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    model.load_state_dict(
+        {k: torch.from_numpy(v) for k, v in seeded_state_dict(shapes).items()},
+        strict=True,
+    )
+
+
+def build_model(torch, name: str, ds, device=None, **overrides):
+    """One of ``GATE_MODELS`` on ``ds`` with the seeded parameters; the
+    graph it needs is built under the datastore's root if missing."""
+    from neural_lam_tpu_torch import models
+    from neural_lam_tpu_torch.graphs import create_graph_from_datastore
+
+    cls, graph_name, kwargs = GATE_MODELS[name]
+    graph_dir = ds.root_path / "graph" / graph_name
+    if not (graph_dir / "graph.npz").exists():
+        create_graph_from_datastore(
+            ds, graph_dir, hierarchical=graph_name == "hierarchical"
+        )
+    kwargs = dict(
+        dict(hidden_dim=HIDDEN, processor_layers=PROC_LAYERS), **kwargs, **overrides
+    )
+    model = getattr(models, cls)(
+        ds, graph_name=graph_name, device=device or DEVICE, **kwargs
+    )
+    load_seeded(torch, model)
+    model.eval()
+    return model
+
+
+def gnn_applications(model) -> int:
+    """GNN applications of one model step, from the number of mesh
+    levels ``L`` and processor layers ``P``: g2m and m2g, plus for the
+    hierarchical families the init and read-out sweeps, ``2 (L - 1)``,
+    and per layer HiLAM's down and up sweeps of ``2 L - 1`` each or
+    HiLAMParallel's ``3 L - 2`` sections."""
+    p = model.processor_layers
+    if not model.hierarchical:
+        return 2 + p
+    levels = model.num_levels
+    per_layer = (
+        2 * (2 * levels - 1) if type(model).__name__ == "HiLAM" else 3 * levels - 2
+    )
+    return 2 + 2 * (levels - 1) + p * per_layer
+
+
+def expected_launches(model, training: bool) -> dict[str, int]:
+    """Launches of each kernel per AR step (serving) or per training
+    step, derived from the model. On the fused route every application
+    launches K1 and K3 (K2 and K4 backward); on the unfused route K1, K6
+    and K5 (backward K2, and K5 and K6 once more as each other's VJP)."""
+    n = gnn_applications(model)
+    fused = model.hidden_layers == 1
+    want = dict.fromkeys(kernel_counters(), 0)
+    want["K1 sender_gather"] = n
+    if fused:
+        want["K3 fused_edge_phase"] = n
+    else:
+        want["K5 segment_sum"] = want["K6 receiver_expand"] = n
+    if training:
+        want["K2 sender_scatter"] = n
+        if fused:
+            want["K4 fused_edge_phase backward"] = n
+        else:
+            want["K5 segment_sum"] = want["K6 receiver_expand"] = 2 * n
+    return want
 
 
 def phase_kernels(torch, model) -> list[dict]:
@@ -538,6 +690,267 @@ def phase_kernels(torch, model) -> list[dict]:
     ]
 
 
+def phase_segment_kernels(torch, graph, hier_graph) -> list[dict]:
+    """K5 and K6 against their plain versions at batch 4: at the three
+    multiscale sites, whose times are summed over the calls of one
+    training step on the unfused route (each site once forward and once
+    backward, for each of the two kernels), and at the hierarchical
+    graph's mesh edge sets. Each use is checked directly and as the
+    other's VJP (through ``gather_receivers`` / ``aggregate_sum``)."""
+    from neural_lam_tpu_torch.ops import segment
+    from neural_lam_tpu_torch.ops.segment_kernels import (
+        receiver_expand,
+        receiver_expand_plain,
+        segment_sum,
+        segment_sum_plain,
+    )
+
+    dev, d, b = graph.g2m.edges.senders.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # (site, edge set, calls of each kernel per training step on path U)
+    sites = [
+        ("g2m", graph.g2m, 2),
+        ("m2m", graph.m2m[0], 2 * PROC_LAYERS),
+        ("m2g", graph.m2g, 2),
+    ]
+    for kind, sets in (("m2m", hier_graph.m2m), ("up", hier_graph.up),
+                       ("down", hier_graph.down)):
+        sites += [(f"hierarchical {kind}[{i}]", ge, 0) for i, ge in enumerate(sets)]
+    k5 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    k6 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    for site, ge, calls in sites:
+        es = ge.edges
+        n_e, n_rec = es.num_edges, es.num_rec
+        idx_long = es.receivers.long()
+        msg, x = randn(n_e, b, d), randn(n_rec, b, d)
+        degree = es.recv_counts
+        shape = (
+            f"E {n_e}, receivers {n_rec}, in-degree "
+            f"{int(degree.min())}-{int(degree.max())}"
+        )
+
+        got = segment_sum(msg, es)
+        want = segment_sum_plain(msg, es.receivers, n_rec)
+        torch.cuda.synchronize()
+        abs5, rel5 = errors(got, want)
+        if rel5 > K5_TOL:
+            raise AssertionError(f"K5 {site}: max rel err {rel5} > {K5_TOL}")
+        if not torch.equal(got, segment_sum(msg, es)):
+            raise AssertionError(f"K5 {site}: two runs differ")
+        ms5 = cuda_ms(lambda: segment_sum(msg, es))
+        plain5 = cuda_ms(lambda: segment_sum_plain(msg, es.receivers, n_rec))
+        lib5 = cuda_ms(lambda: torch.zeros_like(got).index_add_(0, idx_long, msg))
+        bound5, _ = bound(nbytes(msg, es.rowptr, got), msg.numel())
+
+        exp = receiver_expand(x, es)
+        want_exp = receiver_expand_plain(x, es.receivers)
+        torch.cuda.synchronize()
+        abs6, _ = errors(exp, want_exp)
+        if abs6 > K6_TOL:
+            raise AssertionError(f"K6 {site}: max abs err {abs6} > {K6_TOL}")
+        if not torch.equal(exp, receiver_expand(x, es)):
+            raise AssertionError(f"K6 {site}: two runs differ")
+        ms6 = cuda_ms(lambda: receiver_expand(x, es))
+        plain6 = cuda_ms(lambda: receiver_expand_plain(x, es.receivers))
+        lib6 = cuda_ms(lambda: torch.index_select(x, 0, idx_long))
+        bound6, _ = bound(nbytes(x, es.rowptr, exp), 0.0)
+
+        # each as the other's VJP, through the differentiable operations
+        with torch.enable_grad():
+            xg = x.clone().requires_grad_(True)
+            (segment.gather_receivers(es, xg) * msg).sum().backward()
+            mg = msg.clone().requires_grad_(True)
+            (segment.aggregate_sum(es, mg) * x).sum().backward()
+        torch.cuda.synchronize()
+        if not torch.equal(xg.grad, got) or not torch.equal(mg.grad, exp):
+            raise AssertionError(f"K5/K6 {site}: the VJPs differ from the kernels")
+        log(
+            f"K5 segment_sum {site}: {shape}; max abs err {abs5:.3g}, max rel "
+            f"err {rel5:.3g} (tol {K5_TOL} of the largest sum), repeatable, "
+            f"equal as the VJP of K6; kernel {ms5:.4f} ms, plain {plain5:.4f} ms, "
+            f"index_add_ {lib5:.4f} ms, bound {bound5:.4f} ms (bytes); {calls} "
+            "call(s) per training step on the unfused route"
+        )
+        log(
+            f"K6 receiver_expand {site}: {shape}; max abs err {abs6:.3g} (tol "
+            f"{K6_TOL}), repeatable, equal as the VJP of K5; kernel {ms6:.4f} ms, "
+            f"plain {plain6:.4f} ms, index_select {lib6:.4f} ms, bound "
+            f"{bound6:.4f} ms (bytes); {calls} call(s) per training step on the "
+            "unfused route"
+        )
+        for acc, ms, plain, lib, b_ms, err in (
+            (k5, ms5, plain5, lib5, bound5, abs5),
+            (k6, ms6, plain6, lib6, bound6, abs6),
+        ):
+            acc["ms"] += calls * ms
+            acc["plain_ms"] += calls * plain
+            acc["library_ms"] += calls * lib
+            acc["bound_ms"] += calls * b_ms
+            acc["err"] = max(acc["err"], err)
+        del msg, x, got, want, exp, want_exp, xg, mg
+    log(
+        f"per training step on the unfused route: K5 {k5['ms']:.4f} ms (bound "
+        f"{k5['bound_ms']:.4f}, index_add_ {k5['library_ms']:.4f}), K6 "
+        f"{k6['ms']:.4f} ms (bound {k6['bound_ms']:.4f}, index_select "
+        f"{k6['library_ms']:.4f})"
+    )
+    torch.cuda.empty_cache()
+    return [
+        dict(
+            name="K5 segment_sum",
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/segment_sum.cu",
+            replaces="neural_lam_tpu/ops/pallas_segment.py:331",
+            launches=0,
+            max_abs_err=k5["err"],
+            ms=k5["ms"],
+            plain_ms=k5["plain_ms"],
+            bound_ms=k5["bound_ms"],
+            bound_by="bytes",
+            library_ms=k5["library_ms"],
+        ),
+        dict(
+            name="K6 receiver_expand",
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/receiver_expand.cu",
+            replaces="neural_lam_tpu/ops/pallas_segment.py:407",
+            launches=0,
+            max_abs_err=k6["err"],
+            ms=k6["ms"],
+            plain_ms=k6["plain_ms"],
+            bound_ms=k6["bound_ms"],
+            bound_by="bytes",
+            library_ms=k6["library_ms"],
+        ),
+    ]
+
+
+def phase_level_sets(torch, model) -> dict[str, float]:
+    """K1 to K4 at every mesh edge set of the hierarchical graph (same
+    level, up and down; from more blocks than SMs down to fewer receivers
+    than one block's share, in-degrees of exactly 9 and exactly 1), at the
+    batch and width the hierarchical models give them. K1 and K2 directly
+    against their plain versions; K3 and K4 in the modes the models use:
+    an unbatched (shared) edge input with and without ``propagation``, a
+    batched one with and without ``update_edges``, and, through the
+    per-section entry, unbatched sender rows beside batched receiver rows
+    (K1 and K2 then run inside the comparison too). Outputs and every
+    gradient against the plain version; returns each kernel's largest
+    absolute error."""
+    from neural_lam_tpu_torch.ops import interaction
+    from neural_lam_tpu_torch.ops.fused_kernels import (
+        fused_edge_phase,
+        fused_edge_phase_plain,
+    )
+    from neural_lam_tpu_torch.ops.segment_kernels import (
+        sender_gather,
+        sender_gather_plain,
+        sender_scatter,
+        sender_scatter_plain,
+    )
+
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    sites = [
+        (f"{kind}[{i}]", ge)
+        for kind, sets in (("m2m", g.m2m), ("up", g.up), ("down", g.down))
+        for i, ge in enumerate(sets)
+    ]
+    # (edge input, update_edges, propagation, sender rows)
+    modes = [("shared", True, False, "batched"), ("shared", True, True, "batched"),
+             ("batched", True, False, "batched"), ("batched", False, False, "batched"),
+             ("shared", True, False, "unbatched")]
+    mlp = model.mesh_init_gnns[0].edge_mlp
+    params = list(mlp.parameters())
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    for site, ge in sites:
+        es = ge.edges
+        n_e, n_rec, n_send = es.num_edges, es.num_rec, es.num_send
+        shape = f"E {n_e}, senders {n_send}, receivers {n_rec}"
+
+        with torch.no_grad():
+            x, grad = randn(n_send, b, d), randn(n_e, b, d)
+            rows = sender_gather(x, es.senders)
+            sums = sender_scatter(grad, es, n_send)
+            again = sender_scatter(grad, es, n_send)
+            err1, _ = errors(rows, sender_gather_plain(x, es.senders))
+            err2, rel2 = errors(sums, sender_scatter_plain(grad, es.senders, n_send))
+        torch.cuda.synchronize()
+        if err1 > K1_TOL:
+            raise AssertionError(f"K1 {site}: max abs err {err1} > {K1_TOL}")
+        if rel2 > K2_TOL:
+            raise AssertionError(f"K2 {site}: max rel err {rel2} > {K2_TOL}")
+        if not torch.equal(sums, again):
+            raise AssertionError(f"K2 {site}: two runs differ")
+        worst["K1"], worst["K2"] = max(worst["K1"], err1), max(worst["K2"], err2)
+        log(
+            f"K1/K2 level set {site}: {shape}; K1 max abs err {err1:.3g} (tol "
+            f"{K1_TOL}); K2 max abs err {err2:.3g}, max rel err {rel2:.3g} (tol "
+            f"{K2_TOL} of the largest sum), repeatable"
+        )
+
+        for mode, update, prop, senders in modes:
+            send = randn(n_send, b, d) if senders == "batched" else randn(n_send, d)
+            send, rec = send.requires_grad_(True), randn(n_rec, b, d).requires_grad_(True)
+            edge = randn(n_e, d) if mode == "shared" else randn(n_e, b, d)
+            edge.requires_grad_(True)
+            w_aggr, w_edge = randn(n_rec, b, d), randn(n_e, b, d)
+            leaves = [send, rec, edge] + params
+
+            def loss(out):
+                total = (out[0] * w_aggr).sum()
+                return total + (out[1] * w_edge).sum() if update else total
+
+            kw = dict(update_edges=update, propagation=prop)
+            # K1 (K2 backward) then K3 (K4 backward), as the models call them
+            got = interaction.fused_edge_phase(mlp, es, send, rec, edge, **kw)
+            send_b = send if send.dim() == 3 else send.unsqueeze(1).expand(-1, b, -1)
+            want = fused_edge_phase_plain(
+                mlp, edge, sender_gather_plain(send_b, es.senders), rec,
+                es.receivers, **kw,
+            )
+            got_g = torch.autograd.grad(loss(got), leaves)
+            want_g = torch.autograd.grad(loss(want), leaves)
+            # K3 and K4 alone, on the same gathered rows
+            x_send = sender_gather_plain(send_b, es.senders).detach().requires_grad_(True)
+            alone = fused_edge_phase(mlp, edge, x_send, rec, es, **kw)
+            alone_g = torch.autograd.grad(loss(alone), [x_send, rec, edge] + params)
+            plain = fused_edge_phase_plain(mlp, edge, x_send, rec, es.receivers, **kw)
+            plain_g = torch.autograd.grad(loss(plain), [x_send, rec, edge] + params)
+            torch.cuda.synchronize()
+            n_out = 2 if update else 1
+            for o, w in [*zip(got[:n_out], want), *zip(alone[:n_out], plain)]:
+                torch.testing.assert_close(o, w, rtol=K3_RTOL, atol=K3_ATOL)
+                worst["K3"] = max(worst["K3"], errors(o.detach(), w.detach())[0])
+            worst_rel = 0.0
+            for o, w in [*zip(got_g, want_g), *zip(alone_g, plain_g)]:
+                a_err, r_err = errors(o, w)
+                worst["K4"], worst_rel = max(worst["K4"], a_err), max(worst_rel, r_err)
+                if r_err > K4_TOL:
+                    raise AssertionError(
+                        f"K4 {site} {mode}: max err {a_err} is {r_err} of the "
+                        f"largest value (tol {K4_TOL})"
+                    )
+            log(
+                f"K3/K4 level set {site}: {shape}, edge input {mode}, sender rows "
+                f"{senders}, update_edges {update}, propagation {prop}: outputs "
+                f"within rtol/atol {K3_RTOL}, gradients within {worst_rel:.3g} of "
+                f"their largest value (tol {K4_TOL})"
+            )
+    for w in params:
+        w.grad = None
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_gate(torch, ds, forecaster) -> list[dict]:
     """19-step rollout against the committed exact-f32 JAX fixture
     (scripts/accuracy_probe.py: inputs :80-88, metrics :104-117)."""
@@ -587,14 +1000,14 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     return rows
 
 
-def phase_serve(torch, ds, model, card: str) -> dict[str, int]:
-    """Forecast requests through run_forecasts; returns each kernel's
-    launches in this run, which must be 6 per AR step per batch."""
+def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int]:
+    """One forecast request through run_forecasts (``AR_STEPS`` steps
+    unless ``ar_steps`` says otherwise); returns each kernel's launches in
+    this run, which must be ``expected_launches(model)`` per AR step."""
+    ar_steps = ar_steps or AR_STEPS
     from torch import nn
 
     from neural_lam_tpu_torch.models import ARForecaster
-    from neural_lam_tpu_torch.ops.fused_kernels import fused_edge_phase
-    from neural_lam_tpu_torch.ops.segment_kernels import sender_gather
     from neural_lam_tpu_torch.predict import run_forecasts
 
     class TimedForecaster(nn.Module):
@@ -614,51 +1027,54 @@ def phase_serve(torch, ds, model, card: str) -> dict[str, int]:
             self.seconds.append(time.perf_counter() - t0)
             return out
 
+    label = f"{type(model).__name__}(hidden_layers={model.hidden_layers})"
     fc = TimedForecaster(ARForecaster(model, ds))
     out_dir = CACHE / "forecasts"
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
 
-    sender_gather.launches = 0
-    fused_edge_phase.launches = 0
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     written = run_forecasts(
-        fc, ds, split="test", ar_steps=AR_STEPS, batch_size=BATCH,
+        fc, ds, split="test", ar_steps=ar_steps, batch_size=BATCH,
         n_samples=SERVE_BATCHES * BATCH, out_dir=out_dir, device=DEVICE,
     )
     wall = time.perf_counter() - t0
-    launches = {
-        "K1 sender_gather": sender_gather.launches,
-        "K3 fused_edge_phase": fused_edge_phase.launches,
-    }
+    launches = {name: fn.launches for name, fn in counters.items()}
 
     batches = len(fc.seconds)
     if written != SERVE_BATCHES * BATCH or batches != SERVE_BATCHES:
         raise AssertionError(f"served {written} forecasts in {batches} batches")
-    want = 6 * AR_STEPS * batches
-    for name, count in launches.items():
-        log(f"serve: {name} launches {count} (want 6 x {AR_STEPS} x {batches} = {want})")
-        if count != want:
-            raise AssertionError(f"{name}: {count} launches, want {want}")
+    for name, per_step in expected_launches(model, training=False).items():
+        want = per_step * ar_steps * batches
+        log(
+            f"serve {label}: {name} launches {launches[name]} (want {per_step} x "
+            f"{ar_steps} x {batches} = {want})"
+        )
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches, want {want}")
     files = sorted(out_dir.glob("forecast_test_*.npz"))
     if len(files) != written:
         raise AssertionError(f"{len(files)} forecast files for {written} forecasts")
     for path in files:
         with np.load(path) as f:
             pred = f["prediction"]
-            if pred.shape != (AR_STEPS, ds.num_grid_points, N_STATE):
+            if pred.shape != (ar_steps, ds.num_grid_points, N_STATE):
                 raise AssertionError(f"{path.name}: shape {pred.shape}")
             if not np.isfinite(pred).all():
                 raise AssertionError(f"{path.name}: non-finite values")
     shutil.rmtree(out_dir)
 
     fc_s = np.array(fc.seconds)
-    gps = BATCH * ds.num_grid_points * AR_STEPS / fc_s.mean()
+    gps = BATCH * ds.num_grid_points * ar_steps / fc_s.mean()
     log(
-        f"serve on {card}: {written} forecasts of {AR_STEPS} steps in "
+        f"serve {label} on {card}: {written} forecasts of {ar_steps} steps in "
         f"{batches} requests of {BATCH}; wall per request {wall / batches:.3f} s "
         f"(forecast, standardize, copy back and npz writes); forecast per "
-        f"request {', '.join(f'{s:.4f}' for s in fc_s)} s; "
+        f"request {', '.join(f'{s:.4f}' for s in fc_s)} s "
+        f"({1e3 * fc_s.mean() / ar_steps:.3f} ms per AR step); "
         f"{gps:,.0f} grid-points/s over the forecast time; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
@@ -679,9 +1095,9 @@ def bench_batch(ds, batch: int = BATCH):
     )
 
 
-def make_trainer(model, ds):
-    """The ``bench.build_trainer`` trainer around ``model``, with the
-    fixture's parameters loaded afresh and a new optimizer."""
+def make_trainer(model, ds, reload: bool = True):
+    """The ``bench.build_trainer`` trainer around ``model`` with a new
+    optimizer; ``reload`` loads the GraphLAM fixture's parameters afresh."""
     from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
     from neural_lam_tpu_torch.convert_checkpoint import (
         load_jax_params_npz,
@@ -690,12 +1106,13 @@ def make_trainer(model, ds):
     from neural_lam_tpu_torch.models import ARForecaster
     from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
 
-    model.load_state_dict(
-        params_from_jax(
-            load_jax_params_npz(FIXTURES / "graph_lam_meps_params_seed0.npz")
-        ),
-        strict=True,
-    )
+    if reload:
+        model.load_state_dict(
+            params_from_jax(
+                load_jax_params_npz(FIXTURES / "graph_lam_meps_params_seed0.npz")
+            ),
+            strict=True,
+        )
     config = NeuralLAMConfig(
         datastore=DatastoreSelection(kind="dummydata", config_path="")
     )
@@ -703,33 +1120,50 @@ def make_trainer(model, ds):
     return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device)
 
 
-def phase_train_gate(torch, trainer, fixture_path) -> dict:
-    """Loss and gradients of the bench batch, then the losses of further
-    AdamW steps, against the JAX package's fixture (made by
-    ``tests/test_torch_train.py``). The trainer's model must hold the
-    ``PRNGKey(0)`` parameters; they are updated in place."""
+def train_gate_run(torch, trainer, batch: int, n_losses: int):
+    """The training gate's run: from a fresh optimizer, the loss and the
+    gradients of the bench batch, then ``n_losses - 1`` further AdamW
+    steps on it. Returns the losses and the first step's gradients by
+    state-dict name."""
     from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
 
-    ds = trainer.datastore
-    with np.load(fixture_path) as fx:
-        want_losses = fx["losses"].astype(np.float64)
-        grid, batch, lr = fx["grid"], int(fx["batch"]), float(fx["lr"])
-        want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
-    shape = ds.grid_shape_state
+    data = [
+        torch.from_numpy(a).to(trainer.device)
+        for a in bench_batch(trainer.datastore, batch)
+    ]
+    trainer.optimizer = trainer.init_state()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss = trainer._loss(*data)
+    loss.backward()
+    grads = grads_to_numpy(trainer.forecaster.predictor)
+    trainer.optimizer.step()
+    losses = [loss.item()]
+    losses += [trainer.train_step(*data).item() for _ in range(n_losses - 1)]
+    if not np.isfinite(losses).all():
+        raise AssertionError("train gate: non-finite loss")
+    return losses, grads
+
+
+def check_gate_fixture(trainer, grid, lr) -> None:
+    shape = trainer.datastore.grid_shape_state
     if tuple(grid) != (shape.x, shape.y) or lr != trainer.args.lr:
         raise AssertionError(
             f"train fixture is for grid {tuple(grid)} at lr {lr}, the trainer "
             f"has {(shape.x, shape.y)} at {trainer.args.lr}"
         )
-    data = [torch.from_numpy(a).to(trainer.device) for a in bench_batch(ds, batch)]
-    trainer.optimizer = trainer.init_state()
-    trainer.optimizer.zero_grad(set_to_none=True)
-    loss = trainer._loss(*data)
-    loss.backward()
-    got_grads = grads_to_numpy(trainer.forecaster.predictor)
-    trainer.optimizer.step()
-    losses = [loss.item()]
-    losses += [trainer.train_step(*data).item() for _ in want_losses[1:]]
+
+
+def phase_train_gate(torch, trainer, fixture_path) -> dict:
+    """Loss and gradients of the bench batch, then the losses of further
+    AdamW steps, against the JAX package's fixture (made by
+    ``tests/test_torch_train.py``). The trainer's model must hold the
+    ``PRNGKey(0)`` parameters; they are updated in place."""
+    with np.load(fixture_path) as fx:
+        want_losses = fx["losses"].astype(np.float64)
+        grid, batch, lr = fx["grid"], int(fx["batch"]), float(fx["lr"])
+        want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
+    check_gate_fixture(trainer, grid, lr)
+    losses, got_grads = train_gate_run(torch, trainer, batch, len(want_losses))
 
     if sorted(got_grads) != sorted(want_grads):
         raise AssertionError("train gate: gradient names differ from the fixture")
@@ -756,30 +1190,138 @@ def phase_train_gate(torch, trainer, fixture_path) -> dict:
         f"{', '.join(f'{x:.8g}' for x in want_losses[1:])} (rel up to "
         f"{rels[1:].max():.3e}, tol {TRAIN_TRAJ_RTOL})"
     )
-    if not np.isfinite(losses).all():
-        raise AssertionError("train gate: non-finite loss")
     if rels[0] > TRAIN_LOSS_RTOL or rels[1:].max() > TRAIN_TRAJ_RTOL:
         raise AssertionError("train gate: losses outside their tolerances")
     return dict(loss_rel=float(rels[0]), grad_rel=grad_rel, losses=losses)
 
 
+def gate_rollout_inputs(ds, batch: int, steps: int = GATE_ROLLOUT_STEPS):
+    """Inputs of the model gates' rollout, ``(init, forcing, boundary)``,
+    drawn from ``np.random.default_rng(1)``."""
+    n = ds.num_grid_points
+    n_state = ds.get_num_data_vars("state")
+    f_dim = ds.get_num_data_vars("forcing") * 3
+    rng = np.random.default_rng(1)
+    return (
+        rng.normal(size=(batch, 2, n, n_state)).astype(np.float32),
+        rng.normal(size=(batch, steps, n, f_dim)).astype(np.float32),
+        rng.normal(size=(batch, steps, n, n_state)).astype(np.float32),
+    )
+
+
+def grad_sample_index(size: int) -> np.ndarray:
+    """The flat entries of a gradient that a model gate's fixture keeps."""
+    return np.linspace(0, size - 1, GATE_GRAD_SAMPLES).astype(np.int64)
+
+
+def phase_model_gate(torch, name: str, model, ds, fixture_path) -> dict:
+    """One of ``GATE_MODELS`` against the JAX package's fixture (made by
+    ``tests/test_torch_hier.py``): the states after the first and the
+    last step of a short rollout at every ``GATE_NODE_STRIDE``-th grid
+    node, then the training loss, each gradient's largest entry and
+    sampled entries, and the losses of further AdamW steps. ``model``
+    must hold the seeded parameters; they are updated in place."""
+    from neural_lam_tpu_torch.models import ARForecaster
+
+    with np.load(fixture_path) as fx:
+        want_states = fx["states"]
+        want_losses = fx["losses"].astype(np.float64)
+        grid, batch, lr = fx["grid"], int(fx["batch"]), float(fx["lr"])
+        names = [str(n) for n in fx["grad_names"]]
+        want_max, want_samples = fx["grad_max"], fx["grad_samples"]
+        stride, steps = int(fx["node_stride"]), int(fx["rollout_steps"])
+    trainer = make_trainer(model, ds, reload=False)
+    check_gate_fixture(trainer, grid, lr)
+
+    inputs = gate_rollout_inputs(ds, batch, steps)
+    with torch.inference_mode():
+        pred, _ = ARForecaster(model, ds)(
+            *(torch.from_numpy(a).to(model.device) for a in inputs)
+        )
+    got_states = pred[:, [0, steps - 1]][:, :, ::stride].cpu().numpy()
+    if got_states.shape != want_states.shape or not np.isfinite(got_states).all():
+        raise AssertionError(
+            f"{name} gate: states {got_states.shape} for {want_states.shape}, "
+            "or non-finite"
+        )
+    scale = np.abs(want_states).mean()
+    diff = np.abs(got_states - want_states)
+    mean_rel = [float(diff[:, i].mean() / scale) for i in range(2)]
+    max_rel = [float(diff[:, i].max() / scale) for i in range(2)]
+    log(
+        f"{name} gate: states after AR steps 1 and {steps} at every {stride}th "
+        f"grid node: mean_rel {mean_rel[0]:.3e}, {mean_rel[1]:.3e} (limit "
+        f"{GATE_STATE_MEAN_REL}), max_rel {max_rel[0]:.3e}, {max_rel[1]:.3e} "
+        f"(limit {GATE_STATE_MAX_REL})"
+    )
+    if max(mean_rel) > GATE_STATE_MEAN_REL or max(max_rel) > GATE_STATE_MAX_REL:
+        raise AssertionError(f"{name} gate: states outside their tolerances")
+
+    losses, got_grads = train_gate_run(torch, trainer, batch, len(want_losses))
+    if sorted(got_grads) != sorted(names):
+        raise AssertionError(f"{name} gate: gradient names differ from the fixture")
+    grad_rel, worst = 0.0, ""
+    for key, w_max, w_samples in zip(names, want_max, want_samples):
+        got = got_grads[key]
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{name} gate: gradient {key} is not finite")
+        scale = max(float(w_max), 1e-30)
+        rel = max(
+            abs(float(np.abs(got).max()) - float(w_max)),
+            float(np.abs(got.ravel()[grad_sample_index(got.size)] - w_samples).max()),
+        ) / scale
+        if rel > grad_rel:
+            grad_rel, worst = rel, key
+        if rel > TRAIN_GRAD_TOL:
+            raise AssertionError(
+                f"{name} gate: gradient {key} is off by {rel:.3e} of its "
+                f"largest value (tol {TRAIN_GRAD_TOL})"
+            )
+    rels = np.abs(np.array(losses) - want_losses) / np.abs(want_losses)
+    log(
+        f"{name} gate: loss {losses[0]:.8g} vs {want_losses[0]:.8g} (rel "
+        f"{rels[0]:.3e}, tol {TRAIN_LOSS_RTOL}); {len(names)} gradients, "
+        f"worst {grad_rel:.3e} of its largest value at {worst} (tol "
+        f"{TRAIN_GRAD_TOL}); losses of {len(losses) - 1} further AdamW steps "
+        f"{', '.join(f'{x:.8g}' for x in losses[1:])} vs "
+        f"{', '.join(f'{x:.8g}' for x in want_losses[1:])} (rel up to "
+        f"{rels[1:].max():.3e}, tol {TRAIN_TRAJ_RTOL})"
+    )
+    if rels[0] > TRAIN_LOSS_RTOL or rels[1:].max() > TRAIN_TRAJ_RTOL:
+        raise AssertionError(f"{name} gate: losses outside their tolerances")
+    return dict(
+        state_mean_rel=max(mean_rel), state_max_rel=max(max_rel),
+        loss_rel=float(rels[0]), grad_rel=grad_rel, losses=losses,
+    )
+
+
 def kernel_counters():
+    """Each kernel's wrapper, which counts its launches in ``.launches``."""
     from neural_lam_tpu_torch.ops.fused_kernels import fused_edge_bwd, fused_edge_phase
-    from neural_lam_tpu_torch.ops.segment_kernels import sender_gather, sender_scatter
+    from neural_lam_tpu_torch.ops.segment_kernels import (
+        receiver_expand,
+        segment_sum,
+        sender_gather,
+        sender_scatter,
+    )
 
     return {
         "K1 sender_gather": sender_gather,
         "K3 fused_edge_phase": fused_edge_phase,
         "K2 sender_scatter": sender_scatter,
         "K4 fused_edge_phase backward": fused_edge_bwd,
+        "K5 segment_sum": segment_sum,
+        "K6 receiver_expand": receiver_expand,
     }
 
 
 def phase_train(torch, trainer, card: str) -> dict[str, int]:
     """Training steps through ``Trainer.train_step`` on the bench batch;
-    returns each kernel's launches in this run, which must be 6 per
-    step."""
+    returns each kernel's launches in this run, which must be
+    ``expected_launches(model, training=True)`` per step."""
     ds = trainer.datastore
+    model = trainer.forecaster.predictor
+    label = f"{type(model).__name__}(hidden_layers={model.hidden_layers})"
     data = [torch.from_numpy(a).to(trainer.device) for a in bench_batch(ds)]
     counters = kernel_counters()
     torch.cuda.synchronize()
@@ -803,23 +1345,59 @@ def phase_train(torch, trainer, card: str) -> dict[str, int]:
     peak = torch.cuda.max_memory_allocated()
 
     steps = TRAIN_WARMUP + TRAIN_ITERS
-    for name, count in launches.items():
-        log(f"train: {name} launches {count} (want 6 x {steps} = {6 * steps})")
-        if count != 6 * steps:
-            raise AssertionError(f"{name}: {count} launches, want {6 * steps}")
-    log("train: loss per step " + ", ".join(f"{x:.6f}" for x in losses))
+    for name, per_step in expected_launches(model, training=True).items():
+        want = per_step * steps
+        log(
+            f"train {label}: {name} launches {launches[name]} (want {per_step} "
+            f"x {steps} = {want})"
+        )
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches, want {want}")
+    log(f"train {label}: loss per step " + ", ".join(f"{x:.6f}" for x in losses))
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError("train: losses are not finite and falling")
     step_ms = marks[0].elapsed_time(marks[-1]) / TRAIN_ITERS
     gps = BATCH * ds.num_grid_points / (step_ms / 1e3)
     log(
-        f"train on {card}: {steps} steps of batch {BATCH}, ar_steps 1, float32 "
-        f"(TF32 off); step time {step_ms:.3f} ms (the last {TRAIN_ITERS} steps "
-        f"queued back to back: {', '.join(f'{t:.2f}' for t in times)}); "
+        f"train {label} on {card}: {steps} steps of batch {BATCH}, ar_steps 1, "
+        f"float32 (TF32 off); step time {step_ms:.3f} ms (the last {TRAIN_ITERS} "
+        f"steps queued back to back: {', '.join(f'{t:.2f}' for t in times)}); "
         f"{gps:,.0f} training grid-points/s; peak device memory "
         f"{peak / 2**30:.2f} GiB"
     )
     return launches
+
+
+def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+    log(f"launches {what}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+
+
+def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total) -> None:
+    """Gate, serve and train one of ``GATE_MODELS`` at full width, adding
+    its launches on the two main paths to ``total``."""
+    t0 = time.perf_counter()
+    model = build_model(torch, name, gate_ds)
+    g = model.graph
+    log(
+        f"{name}: {type(model).__name__}(hidden_layers={model.hidden_layers}) on "
+        f"mesh levels {list(g.level_mesh_sizes)}, m2m edges "
+        f"{[e.edges.num_edges for e in g.m2m]}, up "
+        f"{[e.edges.num_edges for e in g.up]}, down "
+        f"{[e.edges.num_edges for e in g.down]}, g2m {g.g2m.edges.num_edges}, "
+        f"m2g {g.m2g.edges.num_edges}; {gnn_applications(model)} GNN "
+        f"applications per step; "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters "
+        f"({time.perf_counter() - t0:.1f} s)"
+    )
+    phase_model_gate(torch, name, model, gate_ds, gate_fixture(name))
+    load_seeded(torch, model)  # the gate trained the model in place
+    add_launches(total, phase_serve(torch, serve_ds, model, card), f"{name} serve")
+    trainer = make_trainer(model, gate_ds, reload=False)
+    add_launches(total, phase_train(torch, trainer, card), f"{name} train")
+    del trainer, model
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -846,7 +1424,10 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
-    kernels = ["sender_gather", "sender_scatter", "fused_edge", "fused_edge_bwd"]
+    kernels = [
+        "sender_gather", "sender_scatter", "fused_edge", "fused_edge_bwd",
+        "segment_sum", "receiver_expand",
+    ]
     kernel_build.build(kernels)
     log(
         f"kernel build: {time.perf_counter() - t0:.1f} s "
@@ -861,20 +1442,41 @@ def main() -> int:
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)
+    hi_lam = build_model(torch, "hi_lam", gate_ds)
     with torch.no_grad():
         report = phase_kernels(torch, model)
-    phase_gate(torch, gate_ds, forecaster)
-    serve_launches = phase_serve(torch, serve_ds, model, card)
-    phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
-    train_launches = phase_train(torch, make_trainer(model, gate_ds), card)
-    # each main path was driven with the counters at 0 just before it
+        report += phase_segment_kernels(torch, model.graph, hi_lam.graph)
+    level_errs = phase_level_sets(torch, hi_lam)
+    del hi_lam
     for entry in report:
-        name = entry["name"]
-        entry["launches"] = serve_launches.get(name, 0) + train_launches[name]
-        log(
-            f"{name}: {serve_launches.get(name, 0)} launches in the serve "
-            f"phase, {train_launches[name]} in the train phase"
-        )
+        err = level_errs.get(entry["name"][:2], 0.0)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    # each main path is driven with the counters at 0 just before it
+    total: dict[str, int] = {}
+    phase_gate(torch, gate_ds, forecaster)
+    add_launches(total, phase_serve(torch, serve_ds, model, card), "graph_lam serve")
+    phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
+    add_launches(
+        total, phase_train(torch, make_trainer(model, gate_ds), card), "graph_lam train"
+    )
+    del model, forecaster
+    torch.cuda.empty_cache()
+    for name in GATE_MODELS:
+        drive_gate_model(torch, name, gate_ds, serve_ds, card, total)
+    # the per-chunk edge MLPs on the unfused operations, on the level sets
+    chunked = build_model(
+        torch, "hi_lam_parallel", gate_ds, hidden_layers=2, processor_layers=1
+    )
+    add_launches(
+        total, phase_serve(torch, serve_ds, chunked, card, ar_steps=2),
+        "hi_lam_parallel(hidden_layers=2) serve",
+    )
+    del chunked
+    for entry in report:
+        entry["launches"] = total[entry["name"]]
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']}: no launch on any main path")
 
     log(card)
     log(json.dumps({"kernels": report}))

@@ -2,11 +2,18 @@
 
 The JAX package keeps parameters as pytrees of MLPs,
 ``{"layers": [{"w": (in, out), "b": (out,)}, ...], "ln": {"scale", "bias"}
-| None}``, nested under the model's submodule names (a list for the
-processor, one-element lists for each GNN's MLPs). :func:`params_from_jax` maps such a
-pytree, with numpy leaves, onto the reference's state-dict names in
-PyTorch's ``(out, in)`` layout, which are the port's module names
-(``g2m_gnn.edge_mlp.0.weight``, ``processor.module_0.aggr_mlp.3.bias``).
+| None}``, nested under the model's submodule names: a list for the
+processor, lists per level for the hierarchical embedders and init and
+read-out GNNs, lists of lists (layer, then level) for HiLAM's sweep GNNs,
+and under each GNN a list of MLPs per role, one MLP or one per chunk.
+:func:`params_from_jax` maps such a pytree, with numpy leaves, onto the
+reference's state-dict names in PyTorch's ``(out, in)`` layout, which are
+the port's module names: ``g2m_gnn.edge_mlp.0.weight``,
+``processor.module_0.aggr_mlp.3.bias``, ``mesh_embedders.1.0.weight``,
+``mesh_init_gnns.0.edge_mlp.2.bias``, the nested
+``mesh_down_gnns.<layer>.<level>.aggr_mlp.0.weight`` and, for
+HiLAMParallel's per-chunk MLPs,
+``processor.module_0.edge_mlp.mlps.<k>.0.weight``.
 The mapping is the inverse of ``neural_lam_tpu.convert_checkpoint``'s
 ``convert_state_dict``, written here without importing that package.
 :func:`params_to_numpy` and :func:`grads_to_numpy` are the view back: a
@@ -38,11 +45,11 @@ def _mlp_items(prefix: str, mlp: dict) -> Iterator[tuple[str, np.ndarray]]:
 def _gnn_items(prefix: str, gnn: dict) -> Iterator[tuple[str, np.ndarray]]:
     for role, name in (("edge", "edge_mlp"), ("aggr", "aggr_mlp")):
         mlps = gnn[role]
-        if len(mlps) != 1:
-            raise ValueError(
-                f"{prefix}: per-chunk {name}s (HiLAMParallel) are not ported"
-            )
-        yield from _mlp_items(f"{prefix}.{name}", mlps[0])
+        if len(mlps) == 1:
+            yield from _mlp_items(f"{prefix}.{name}", mlps[0])
+        else:  # SplitMLPs: the chunk MLPs under ``.mlps.<k>``
+            for k, mlp in enumerate(mlps):
+                yield from _mlp_items(f"{prefix}.{name}.mlps.{k}", mlp)
 
 
 def _items(name: str, sub: Any) -> Iterator[tuple[str, np.ndarray]]:

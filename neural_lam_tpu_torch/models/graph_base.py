@@ -14,6 +14,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..datastore.base import BaseDatastore
 from ..graphs.load import load_graph
@@ -128,11 +129,18 @@ class BaseGraphModel(StepPredictor):
     def _mlp(self, blueprint, layer_norm: bool = True):
         return make_mlp(blueprint, layer_norm=layer_norm, generator=self.generator)
 
-    def _gnn(self) -> InteractionNet:
+    def _gnn(self, **chunks: int) -> InteractionNet:
+        """One InteractionNet at the model's widths; ``num_edge_chunks`` /
+        ``num_aggr_chunks`` give it per-chunk MLPs."""
         return InteractionNet(
             self.hidden_dim, hidden_layers=self.hidden_layers,
-            generator=self.generator,
+            generator=self.generator, **chunks,
         )
+
+    def _gnns(self, n: int, **chunks: int) -> nn.ModuleList:
+        """``n`` InteractionNets (the JAX package's
+        ``init_processor_nets``)."""
+        return nn.ModuleList([self._gnn(**chunks) for _ in range(n)])
 
     def _place(self) -> None:
         """Move parameters, buffers and graph to ``self.device``; the

@@ -13,21 +13,29 @@ from the reference ``InteractionNet`` / ``PropagationNet``
 
 Edge sets are receiver-sorted CSR (``rowptr``) with no padding or dead
 slots. Node arrays are node-major, ``(N, B, D)`` batched or ``(N, D)``.
+
+The edge phase (gather, edge MLP, sum into the receivers, optional edge
+residual) has two routes. The fused route is one kernel, K3 (K4
+backward), behind K1, and serves the two-layer edge MLP of
+``hidden_layers=1``. The unfused route serves every other edge MLP: K1
+and K6 gather the sender and receiver rows, the MLP runs as plain
+``torch`` matmuls (the JAX package computes it outside any Pallas kernel
+too) and K5 sums the messages.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from .fused_kernels import embedder_fusable, fusable, fused_edge_phase
-from .mlp import apply_mlp_split_first, linear_layers, make_mlp
+from . import fused_kernels
+from .fused_kernels import embedder_fusable, fusable
+from .mlp import SplitMLPs, apply_mlp_split_first, linear_layers, make_mlps
 from .segment import (
-    aggregate_mean,
     aggregate_sum,
     gather_receivers,
     gather_senders,
@@ -138,41 +146,180 @@ class InteractionNet(nn.Module):
     """Parameters of one GNN step: ``edge_mlp`` over ``3 * input_dim``
     (edge, sender, receiver) and ``aggr_mlp`` over ``2 * input_dim``
     (receiver, aggregated) (reference: neural_lam/gnn_layers.py:90-107).
-    Applied with :func:`apply_interaction_net`. The per-chunk MLPs of the
-    JAX package's ``num_edge_chunks``/``num_aggr_chunks`` serve
-    HiLAMParallel and come with the hierarchical slice."""
+    With ``num_edge_chunks`` / ``num_aggr_chunks`` above 1 the MLP is a
+    :class:`~neural_lam_tpu_torch.ops.mlp.SplitMLPs` with one MLP per
+    chunk of the edge / receiver axis under ``edge_mlp.mlps.<k>`` /
+    ``aggr_mlp.mlps.<k>`` (HiLAMParallel's per-section edge MLPs and
+    per-level node MLPs). Applied with :func:`apply_interaction_net`."""
 
     def __init__(
         self,
         input_dim: int,
         hidden_layers: int = 1,
         hidden_dim: Optional[int] = None,
+        num_edge_chunks: int = 1,
+        num_aggr_chunks: int = 1,
         generator: Optional[torch.Generator] = None,
         device: Optional[torch.device] = None,
     ) -> None:
         super().__init__()
         hidden_dim = hidden_dim or input_dim
         tail = [hidden_dim] * (hidden_layers + 1)
-        self.edge_mlp = make_mlp(
-            [3 * input_dim] + tail, generator=generator, device=device
+        self.edge_mlp = make_mlps(
+            [3 * input_dim] + tail, num_edge_chunks, generator=generator,
+            device=device,
         )
-        self.aggr_mlp = make_mlp(
-            [2 * input_dim] + tail, generator=generator, device=device
+        self.aggr_mlp = make_mlps(
+            [2 * input_dim] + tail, num_aggr_chunks, generator=generator,
+            device=device,
         )
 
 
-def _fused_route(net: InteractionNet, send_rep, rec_rep, edge_rep) -> bool:
-    """Route the edge phase through K3 when the configuration is the one
-    it implements: a two-layer edge MLP and every input at the hidden
-    width."""
-    if not fusable(net.edge_mlp):
+def chunk_mlps(mlp: "nn.Sequential | SplitMLPs") -> list[nn.Sequential]:
+    """The per-chunk MLPs of an ``edge_mlp`` / ``aggr_mlp`` (one for an
+    unchunked MLP)."""
+    return list(mlp.mlps) if isinstance(mlp, SplitMLPs) else [mlp]
+
+
+def _apply_chunked(
+    mlp: "nn.Sequential | SplitMLPs",
+    parts: Sequence[torch.Tensor],
+    chunk_sizes: Optional[Sequence[int]],
+) -> torch.Tensor:
+    """``mlp`` on the concatenation of ``parts`` along the feature axis:
+    one MLP with its first layer split by part (no concatenated
+    activation), or per-chunk MLPs along the leading axis."""
+    if not isinstance(mlp, SplitMLPs):
+        return apply_mlp_split_first(mlp, parts)
+    if chunk_sizes is None:
+        raise ValueError("per-chunk MLPs need chunk sizes")
+    shape = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+    return mlp(
+        torch.cat([p.expand(*shape, p.shape[-1]) for p in parts], dim=-1),
+        chunk_sizes,
+    )
+
+
+def fused_edge_phase_supported(
+    mlp, edge_set: EdgeSet, send_rep, rec_rep, edge_rep
+) -> bool:
+    """Can ONE edge MLP over this edge set ride the fused kernel, K3? It
+    takes a two-layer edge MLP with every input at the hidden width."""
+    if isinstance(mlp, SplitMLPs) or not fusable(mlp):
         return False
-    h = linear_layers(net.edge_mlp)[-1].out_features
+    h = linear_layers(mlp)[-1].out_features
     return (
         send_rep.shape[-1] == h
         and rec_rep.shape[-1] == h
         and (edge_rep is None or edge_rep.shape[-1] == h)
     )
+
+
+def _use_fused(net: InteractionNet, edge_set, send_rep, rec_rep, edge_rep) -> bool:
+    """Route a whole interaction step through K3 when the configuration
+    is the one it implements (single edge and node MLPs)."""
+    if isinstance(net.edge_mlp, SplitMLPs) or isinstance(net.aggr_mlp, SplitMLPs):
+        return False
+    return fused_edge_phase_supported(
+        net.edge_mlp, edge_set, send_rep, rec_rep, edge_rep
+    )
+
+
+def _batch_nodes(send_rep, rec_rep, edge_rep):
+    """The node arrays in the common batched ``(N, B, D)`` layout,
+    contiguous: an unbatched one is shared across the batch of whichever
+    input is batched. Returns ``(send_rep, rec_rep, squeeze)``;
+    ``squeeze`` says that no input was batched, so the call runs as one
+    batch member and its outputs drop the batch axis again. An unbatched
+    edge array stays ``(E, D)``."""
+    batched = [
+        a for a in (send_rep, rec_rep, edge_rep) if a is not None and a.dim() == 3
+    ]
+    if not batched:
+        return send_rep.unsqueeze(1).contiguous(), rec_rep.unsqueeze(1).contiguous(), True
+    batch = batched[0].shape[1]
+
+    def bcast(a: torch.Tensor) -> torch.Tensor:
+        if a.dim() == 2:
+            a = a.unsqueeze(1).expand(a.shape[0], batch, a.shape[1])
+        return a.contiguous()
+
+    return bcast(send_rep), bcast(rec_rep), False
+
+
+def _squeeze(out: tuple, squeeze: bool) -> tuple:
+    if not squeeze:
+        return out
+    return tuple(None if a is None else a.squeeze(1) for a in out)
+
+
+def _fused_phase(mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,
+                 propagation, embedder=None, edge_features=None):
+    """K1 then K3 on batched node arrays."""
+    x_send = gather_senders(edge_set, send_rep)  # (E, B, D)
+    return fused_kernels.fused_edge_phase(
+        mlp, edge_rep, x_send, rec_rep, edge_set,
+        embedder=embedder, edge_feats=edge_features,
+        update_edges=update_edges, propagation=propagation,
+    )
+
+
+def _unfused_phase(mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,
+                   propagation, chunk_sizes=None):
+    """K1, K6, the edge MLP and K5 on batched node arrays. An ``(E, D)``
+    edge array is shared across the batch: its first-layer product is
+    formed once per edge."""
+    if edge_rep.dim() == 2:
+        edge_rep = edge_rep.unsqueeze(1)
+    x_send = gather_senders(edge_set, send_rep)  # (E, B, D)
+    x_rec = gather_receivers(edge_set, rec_rep)
+    messages = _apply_chunked(mlp, (edge_rep, x_send, x_rec), chunk_sizes)
+    if propagation:
+        messages = x_send + messages
+    aggregated = aggregate_sum(edge_set, messages)
+    return aggregated, (edge_rep + messages) if update_edges else None
+
+
+def fused_edge_phase(
+    mlp: nn.Sequential,
+    edge_set: EdgeSet,
+    send_rep: torch.Tensor,
+    rec_rep: torch.Tensor,
+    edge_rep: torch.Tensor,
+    update_edges: bool = True,
+    propagation: bool = False,
+):
+    """The fused gather, edge MLP and sum for ONE edge MLP (K1, then K3;
+    K4 and K2 backward), for callers that compose a step from
+    per-section phases (HiLAMParallel): the per-level aggregates are
+    summed across sections before one node update, so the node MLP and
+    the residual stay with the caller, and so does the mean division.
+    Returns ``(aggregated_sum, new_edge | None)``. Node arrays broadcast
+    to the common batched layout; an unbatched ``edge_rep`` stays
+    ``(E, D)``, the kernels' shared-edge mode."""
+    send_rep, rec_rep, squeeze = _batch_nodes(send_rep, rec_rep, edge_rep)
+    out = _fused_phase(
+        mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges, propagation
+    )
+    return _squeeze(out, squeeze)
+
+
+def unfused_edge_phase(
+    mlp: nn.Sequential,
+    edge_set: EdgeSet,
+    send_rep: torch.Tensor,
+    rec_rep: torch.Tensor,
+    edge_rep: torch.Tensor,
+    update_edges: bool = True,
+    propagation: bool = False,
+):
+    """The same phase as :func:`fused_edge_phase` for an edge MLP of any
+    depth, by separate operations: K1, K6, the MLP, K5."""
+    send_rep, rec_rep, squeeze = _batch_nodes(send_rep, rec_rep, edge_rep)
+    out = _unfused_phase(
+        mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges, propagation
+    )
+    return _squeeze(out, squeeze)
 
 
 def apply_interaction_net(
@@ -184,6 +331,8 @@ def apply_interaction_net(
     aggr: str = "sum",
     update_edges: bool = True,
     propagation: bool = False,
+    edge_chunk_sizes: Optional[Sequence[int]] = None,
+    aggr_chunk_sizes: Optional[Sequence[int]] = None,
     edge_embedder: Optional[nn.Sequential] = None,
     edge_features: Optional[torch.Tensor] = None,
 ):
@@ -196,7 +345,10 @@ def apply_interaction_net(
 
     Node arrays are ``(N, B, D)`` or unbatched ``(N, D)``; an unbatched
     node or edge array in a batched call is shared across the batch.
-    Returns ``(new_rec_rep, new_edge_rep)`` if ``update_edges`` else
+    ``edge_chunk_sizes`` / ``aggr_chunk_sizes`` split the edges (in the
+    edge set's sorted order) and the receivers among the MLPs of a net
+    built with ``num_edge_chunks`` / ``num_aggr_chunks``. Returns
+    ``(new_rec_rep, new_edge_rep)`` if ``update_edges`` else
     ``new_rec_rep``.
     """
     if aggr not in ("sum", "mean"):
@@ -204,72 +356,34 @@ def apply_interaction_net(
     if propagation:
         aggr = "mean"  # reference: neural_lam/gnn_layers.py:221-230
 
-    batched = [
-        a for a in (send_rep, rec_rep, edge_rep) if a is not None and a.dim() == 3
-    ]
-    if not batched:
-        # one batch member; an (E, D) edge array is shared by it
-        out = apply_interaction_net(
-            net, edge_set, send_rep.unsqueeze(1), rec_rep.unsqueeze(1),
-            edge_rep, aggr, update_edges, propagation, edge_embedder,
-            edge_features,
-        )
-        if update_edges:
-            return out[0].squeeze(1), out[1].squeeze(1)
-        return out.squeeze(1)
-
-    batch = batched[0].shape[1]
-
-    def bcast(a: torch.Tensor) -> torch.Tensor:
-        if a.dim() == 2:
-            a = a.unsqueeze(1).expand(a.shape[0], batch, a.shape[1])
-        return a.contiguous()
-
-    send_rep, rec_rep = bcast(send_rep), bcast(rec_rep)
-
     embed_in_kernel = False
     if edge_embedder is not None:
         if edge_rep is not None or edge_features is None:
             raise ValueError(
                 "edge_embedder needs edge_features and no edge_rep"
             )
-        embed_in_kernel = _fused_route(
-            net, send_rep, rec_rep, None
+        embed_in_kernel = _use_fused(
+            net, edge_set, send_rep, rec_rep, None
         ) and embedder_fusable(edge_embedder, send_rep.shape[-1])
         if not embed_in_kernel:
             edge_rep = edge_embedder(edge_features)
 
-    x_send = gather_senders(edge_set, send_rep)  # (E, B, D)
-    if embed_in_kernel or _fused_route(net, send_rep, rec_rep, edge_rep):
-        aggregated, new_edge = fused_edge_phase(
-            net.edge_mlp,
-            None if embed_in_kernel else edge_rep,
-            x_send,
-            rec_rep,
-            edge_set,
+    send_rep, rec_rep, squeeze = _batch_nodes(send_rep, rec_rep, edge_rep)
+    if embed_in_kernel or _use_fused(net, edge_set, send_rep, rec_rep, edge_rep):
+        aggregated, new_edge = _fused_phase(
+            net.edge_mlp, edge_set, send_rep, rec_rep,
+            None if embed_in_kernel else edge_rep, update_edges, propagation,
             embedder=edge_embedder if embed_in_kernel else None,
-            edge_feats=edge_features if embed_in_kernel else None,
-            update_edges=update_edges,
-            propagation=propagation,
+            edge_features=edge_features if embed_in_kernel else None,
         )
-        if aggr == "mean":
-            aggregated = aggregated / mean_divisor(edge_set, aggregated)
-        rec_diff = apply_mlp_split_first(net.aggr_mlp, (rec_rep, aggregated))
-        new_rec = (aggregated if propagation else rec_rep) + rec_diff
-        return (new_rec, new_edge) if update_edges else new_rec
-
-    if edge_rep.dim() == 2:
-        edge_rep = bcast(edge_rep)
-    x_rec = gather_receivers(edge_set, rec_rep)
-    messages = apply_mlp_split_first(net.edge_mlp, (edge_rep, x_send, x_rec))
-    if propagation:
-        messages = x_send + messages
-    if aggr == "sum":
-        aggregated = aggregate_sum(edge_set, messages)
     else:
-        aggregated = aggregate_mean(edge_set, messages)
-    rec_diff = apply_mlp_split_first(net.aggr_mlp, (rec_rep, aggregated))
+        aggregated, new_edge = _unfused_phase(
+            net.edge_mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,
+            propagation, edge_chunk_sizes,
+        )
+    if aggr == "mean":
+        aggregated = aggregated / mean_divisor(edge_set, aggregated)
+    rec_diff = _apply_chunked(net.aggr_mlp, (rec_rep, aggregated), aggr_chunk_sizes)
     new_rec = (aggregated if propagation else rec_rep) + rec_diff
-    if update_edges:
-        return new_rec, edge_rep + messages
-    return new_rec
+    new_rec, new_edge = _squeeze((new_rec, new_edge), squeeze)
+    return (new_rec, new_edge) if update_edges else new_rec

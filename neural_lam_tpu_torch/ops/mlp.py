@@ -5,7 +5,10 @@ reference ``utils.make_mlp`` (reference: neural_lam/utils.py:538-570): a
 stack of ``Linear -> SiLU`` pairs with a final ``Linear`` and an optional
 ``LayerNorm`` on the output. The module is an ``nn.Sequential`` so its
 state-dict keys are the reference's (``0.weight``, ``2.bias``,
-``3.weight`` for the LayerNorm scale, ...).
+``3.weight`` for the LayerNorm scale, ...). :class:`SplitMLPs` holds one
+such MLP per chunk of the leading axis (reference:
+neural_lam/gnn_layers.py:275-325), the per-section edge MLPs and
+per-level node MLPs of HiLAMParallel.
 """
 
 from __future__ import annotations
@@ -46,6 +49,47 @@ def make_mlp(
     if layer_norm:
         layers.append(nn.LayerNorm(blueprint[-1], eps=LN_EPS, device=device))
     return nn.Sequential(*layers)
+
+
+class SplitMLPs(nn.Module):
+    """MLPs of one blueprint under ``mlps.<k>``, MLP ``k`` applied to
+    chunk ``k`` of the input's leading (edge or node) axis. Chunking by
+    the leading axis covers both the unbatched ``(E, D)`` and the
+    node-major batched ``(E, B, D)`` layout."""
+
+    def __init__(self, mlps: Sequence[nn.Sequential]) -> None:
+        super().__init__()
+        self.mlps = nn.ModuleList(mlps)
+
+    def forward(self, x: torch.Tensor, chunk_sizes: Sequence[int]) -> torch.Tensor:
+        sizes = [int(n) for n in chunk_sizes]
+        if len(sizes) != len(self.mlps) or sum(sizes) != x.shape[0]:
+            raise ValueError(
+                f"chunk sizes {sizes} do not split {x.shape[0]} rows among "
+                f"{len(self.mlps)} MLPs"
+            )
+        return torch.cat(
+            [mlp(chunk) for mlp, chunk in zip(self.mlps, x.split(sizes, dim=0))],
+            dim=0,
+        )
+
+
+def make_mlps(
+    blueprint: Sequence[int],
+    num_chunks: int = 1,
+    generator: Optional[torch.Generator] = None,
+    device: Optional[torch.device] = None,
+) -> "nn.Sequential | SplitMLPs":
+    """One MLP, or with ``num_chunks > 1`` a :class:`SplitMLPs` of as
+    many MLPs of the same blueprint."""
+    if num_chunks == 1:
+        return make_mlp(blueprint, generator=generator, device=device)
+    return SplitMLPs(
+        [
+            make_mlp(blueprint, generator=generator, device=device)
+            for _ in range(num_chunks)
+        ]
+    )
 
 
 def linear_layers(mlp: nn.Sequential) -> list[nn.Linear]:

@@ -5,14 +5,17 @@ Counterpart of ``neural_lam_tpu/ops/segment.py``. Node arrays are
 order.
 
 - ``gather_senders`` is ``segment_kernels.SenderGather``: K1 forward and
-  K2, the sender scatter, backward; on CPU tensors both run their plain
-  versions (``index_select`` and ``index_add_``).
-- ``gather_receivers``, ``aggregate_sum`` and ``aggregate_mean`` are the
-  unfused route's operations. Their TPU kernels (K6, the receiver
-  expand, and K5, the segment sum) are not ported yet, so on CUDA
-  tensors they raise instead of running a library operation in their
-  place; on CPU tensors they run their plain versions (``index_select``
-  and ``index_add_``).
+  K2, the sender scatter, backward.
+- ``gather_receivers`` is ``segment_kernels.ReceiverGather``: K6, the
+  receiver expand, forward and K5, the segment sum, backward.
+- ``aggregate_sum`` is ``segment_kernels.SegmentSum``: K5 forward and K6
+  backward; ``aggregate_mean`` divides its result by the receivers' edge
+  counts.
+
+These are the operations of the unfused route of
+``ops/interaction.py::apply_interaction_net``. On CUDA tensors they
+launch the kernels; on CPU tensors the kernels' plain versions
+(``index_select`` and ``index_add_``) run.
 """
 
 from __future__ import annotations
@@ -21,18 +24,10 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from .segment_kernels import SenderGather
+from .segment_kernels import ReceiverGather, SegmentSum, SenderGather
 
 if TYPE_CHECKING:  # pragma: no cover
     from .interaction import EdgeSet
-
-
-def _require_cpu(name: str, kernel: str, x: torch.Tensor) -> None:
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"{name} on {x.device}: its kernel ({kernel}) is not ported "
-            "yet; the unfused route runs on the CPU only"
-        )
 
 
 def gather_senders(edge_set: "EdgeSet", send_rep: torch.Tensor) -> torch.Tensor:
@@ -42,17 +37,15 @@ def gather_senders(edge_set: "EdgeSet", send_rep: torch.Tensor) -> torch.Tensor:
 
 
 def gather_receivers(edge_set: "EdgeSet", rec_rep: torch.Tensor) -> torch.Tensor:
-    """Per-edge receiver features ``rec_rep[receivers]``."""
-    _require_cpu("gather_receivers", "K6, the receiver expand", rec_rep)
-    return rec_rep.index_select(0, edge_set.receivers)
+    """Per-edge receiver features ``rec_rep[receivers]`` (K6; its
+    gradient is K5)."""
+    return ReceiverGather.apply(rec_rep.contiguous(), edge_set)
 
 
 def aggregate_sum(edge_set: "EdgeSet", messages: torch.Tensor) -> torch.Tensor:
     """Per-receiver sums of ``(E, ...)`` messages; receivers without
-    edges get 0."""
-    _require_cpu("aggregate_sum", "K5, the segment sum", messages)
-    out = messages.new_zeros((edge_set.num_rec,) + tuple(messages.shape[1:]))
-    return out.index_add_(0, edge_set.receivers, messages)
+    edges get 0 (K5; its gradient is K6)."""
+    return SegmentSum.apply(messages.contiguous(), edge_set)
 
 
 def mean_divisor(edge_set: "EdgeSet", like: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""K1 and K2, the sender gather and its backward, the sender scatter:
+"""K1, K2, K5 and K6, the row gathers and sums over an edge set:
 counterparts of ``neural_lam_tpu/ops/pallas_segment.py``.
 
 ``sender_gather(x, senders)`` returns ``x[senders]`` for node rows ``x``
@@ -7,6 +7,14 @@ receiver-sorted order. ``sender_scatter(g, edge_set, n)`` is its
 transpose, ``dx[s] = sum of g[slot]`` over the slots with sender ``s``,
 ``(E, ...) -> (n, ...)``. :class:`SenderGather` ties the two into one
 differentiable operation, which ``ops/segment.py::gather_senders`` calls.
+
+``receiver_expand(x, edge_set)`` returns ``x[receivers]``, ``(num_rec,
+...) -> (E, ...)``, and ``segment_sum(msg, edge_set)`` is its transpose,
+``out[r] = sum of msg[slot]`` over the slots with receiver ``r``.
+:class:`ReceiverGather` (K6 forward, K5 backward) and
+:class:`SegmentSum` (K5 forward, K6 backward) are the differentiable
+operations of the unfused route, ``ops/segment.py::gather_receivers``
+and ``aggregate_sum``.
 
 - K1 replaces ``banded_expand_nondiff`` (pallas_segment.py:821, its
   ``_banded_kernel(transpose=True)`` pallas_call at :872) and K2
@@ -19,7 +27,17 @@ differentiable operation, which ``ops/segment.py::gather_senders`` calls.
   sender-sorted tables: each output row is summed in a fixed slot order
   by the threads that own it, without float atomics, so the sum is
   deterministic as the JAX one is.
-- Bound on the H100: bytes, both. Every edge row is moved once and
+- K5 replaces ``_blocked_segment_sum_fwd_impl`` (pallas_segment.py:331,
+  its pallas_call at :380, reached through
+  ``blocked_segment_sum_nondiff`` :456 and ``make_blocked_segment_sum``
+  :485) and K6 ``_blocked_segment_sum_bwd_impl`` (:407, its pallas_call
+  at :446, reached through ``blocked_expand_nondiff`` :470). The TPU
+  kernels walk a blocked-CSR layout with one-hot matmuls; the port's
+  edge sets are receiver-sorted CSR, so each receiver's slots are a
+  contiguous run of rows: K5 (``csrc/segment_sum.cu``) is a segmented
+  reduction over contiguous rows in slot order, without atomics, and K6
+  (``csrc/receiver_expand.cu``) a row copy driven by ``rowptr``.
+- Bound on the H100: bytes, all four. Every edge row is moved once and
   every node row once; the kernels move 16-byte words with consecutive
   threads on consecutive words (see the source notes).
 - On a CPU tensor the wrappers run the plain versions (``index_select``
@@ -43,6 +61,8 @@ if TYPE_CHECKING:  # pragma: no cover
 
 KERNEL = "sender_gather"
 SCATTER_KERNEL = "sender_scatter"
+SEGMENT_SUM_KERNEL = "segment_sum"
+EXPAND_KERNEL = "receiver_expand"
 
 
 def sender_gather_plain(x: torch.Tensor, senders: torch.Tensor) -> torch.Tensor:
@@ -57,6 +77,20 @@ def sender_scatter_plain(
     ``g`` into ``num_rows`` zero rows at ``senders``."""
     out = g.new_zeros((num_rows,) + tuple(g.shape[1:]))
     return out.index_add_(0, senders.long(), g)
+
+
+def segment_sum_plain(
+    messages: torch.Tensor, receivers: torch.Tensor, num_rec: int
+) -> torch.Tensor:
+    """Plain PyTorch version of K5: ``index_add_`` of the edge rows
+    ``messages`` into ``num_rec`` zero rows at ``receivers``."""
+    out = messages.new_zeros((num_rec,) + tuple(messages.shape[1:]))
+    return out.index_add_(0, receivers.long(), messages)
+
+
+def receiver_expand_plain(x: torch.Tensor, receivers: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6: ``x[receivers]`` along the row axis."""
+    return x.index_select(0, receivers)
 
 
 @functools.cache
@@ -77,6 +111,19 @@ def _scatter_lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _rowptr_lib(kernel: str, symbol: str):
+    """K5's and K6's launchers share one signature: ``(in, rowptr, out,
+    n_rec, row_width, vec4, stream)``."""
+    fn = getattr(kernel_build.load(kernel), symbol)
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -200,3 +247,108 @@ class SenderGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         return sender_scatter(grad.contiguous(), ctx.edge_set, ctx.num_rows), None
+
+
+def _launch_rowptr(name, lib, src, edge_set, out, num_rec) -> bool:
+    """Check and launch K5 or K6 (``src`` rows in, ``out`` rows out, both
+    walked by ``edge_set.rowptr``); False if there was nothing to do."""
+    rowptr = edge_set.rowptr
+    _check_rows(name, src, rowptr)
+    if rowptr.shape[0] != num_rec + 1:
+        raise ValueError(f"{name}: rowptr does not cover {num_rec} receivers")
+    row = math.prod(src.shape[1:])
+    if num_rec == 0 or row == 0 or out.numel() == 0:
+        return False
+    vec4 = row % 4 == 0 and src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    err = lib(
+        src.data_ptr(), rowptr.data_ptr(), out.data_ptr(), num_rec, row,
+        int(vec4), torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return True
+
+
+def segment_sum(messages: torch.Tensor, edge_set: "EdgeSet") -> torch.Tensor:
+    """K5: ``out[r] = sum of messages[slot]`` over the slots of
+    ``edge_set`` with receiver ``r``, for ``messages`` of shape
+    ``(E, *row)`` float32 in the edge set's order. Returns
+    ``(num_rec, *row)``; receivers without a slot get 0. The launcher is
+    not differentiable: :class:`SegmentSum` is."""
+    num_rec = edge_set.num_rec
+    if messages.shape[0] != edge_set.num_edges:
+        raise ValueError("segment_sum: message rows != edges of the edge set")
+    if messages.device.type == "cpu":
+        return segment_sum_plain(messages, edge_set.receivers, num_rec)
+    if messages.device.type != "cuda":
+        raise RuntimeError(f"segment_sum: unsupported device {messages.device}")
+    refuse_autograd("segment_sum", "ops.segment.aggregate_sum", messages)
+    out = torch.empty(
+        (num_rec,) + tuple(messages.shape[1:]),
+        dtype=messages.dtype, device=messages.device,
+    )
+    if messages.shape[0] == 0:
+        return out.zero_()  # no slot: every sum is empty
+    lib = _rowptr_lib(SEGMENT_SUM_KERNEL, "nl_segment_sum")
+    if _launch_rowptr("segment_sum", lib, messages, edge_set, out, num_rec):
+        segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0
+
+
+def receiver_expand(x: torch.Tensor, edge_set: "EdgeSet") -> torch.Tensor:
+    """K6: ``x[receivers]`` for ``x`` of shape ``(num_rec, *row)``
+    float32: each receiver's row copied to its slots, ``(E, *row)`` in
+    the edge set's order. The launcher is not differentiable:
+    :class:`ReceiverGather` is."""
+    num_rec = edge_set.num_rec
+    if x.shape[0] != num_rec:
+        raise ValueError(
+            f"receiver_expand: {x.shape[0]} rows for an edge set with "
+            f"{num_rec} receivers"
+        )
+    if x.device.type == "cpu":
+        return receiver_expand_plain(x, edge_set.receivers)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"receiver_expand: unsupported device {x.device}")
+    refuse_autograd("receiver_expand", "ops.segment.gather_receivers", x)
+    out = torch.empty(
+        (edge_set.num_edges,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device
+    )
+    lib = _rowptr_lib(EXPAND_KERNEL, "nl_receiver_expand")
+    if _launch_rowptr("receiver_expand", lib, x, edge_set, out, num_rec):
+        receiver_expand.launches += 1
+    return out
+
+
+receiver_expand.launches = 0
+
+
+class ReceiverGather(torch.autograd.Function):
+    """``x[edge_set.receivers]`` with K6 as its forward and K5 as its
+    backward (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, edge_set: "EdgeSet") -> torch.Tensor:
+        ctx.edge_set = edge_set
+        return receiver_expand(x, edge_set)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return segment_sum(grad.contiguous(), ctx.edge_set), None
+
+
+class SegmentSum(torch.autograd.Function):
+    """Per-receiver sums of the edge rows with K5 as its forward and K6
+    as its backward (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, messages: torch.Tensor, edge_set: "EdgeSet") -> torch.Tensor:
+        ctx.edge_set = edge_set
+        return segment_sum(messages, edge_set)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return receiver_expand(grad.contiguous(), ctx.edge_set), None

@@ -3,20 +3,24 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 profile_forecast.py [--train] [--trace PATH]
+    python3 profile_forecast.py [--model NAME] [--train] [--trace PATH]
 
-It builds the MEPS GraphLAM of ``chip_smoke.py`` (the fixture's
-parameters), runs one warm-up forecast of batch 4 x 19 AR steps on
-inputs drawn from ``np.random.default_rng(0)``, and profiles one more
-with ``torch.profiler``. It prints the device time summed by kernel
-group (K1, K3, matmuls, the rest), the device busy share over the
+It builds a MEPS model of ``chip_smoke.py``: ``--model graph_lam`` (the
+default; GraphLAM with the fixture's parameters) or one of
+``graph_lam_h2`` (``GraphLAM(hidden_layers=2)``, the unfused route),
+``hi_lam`` and ``hi_lam_parallel`` (the hierarchical graph), with the
+seeded parameters of ``chip_smoke.build_model``. It runs one warm-up
+forecast of batch 4 x 19 AR steps on inputs drawn from
+``np.random.default_rng(0)``, and profiles one more with
+``torch.profiler``. It prints the device time summed by kernel group
+(the six kernels, matmuls, the rest), the device busy share over the
 forecast's wall time and the kernel launch count, then times the host
 side of a ``predict.run_forecasts`` request: one batch from the loader
 and one compressed forecast file. ``--trace`` writes the Chrome trace.
 
 With ``--train`` it profiles one ``Trainer.train_step`` instead (batch 4,
 ``ar_steps`` 1, the batch of ``chip_smoke.bench_batch``, after two
-warm-up steps) and splits the device time by K1-K4, cuBLAS, LayerNorm,
+warm-up steps) and splits the device time by K1-K6, cuBLAS, LayerNorm,
 the optimizer and the rest. It then times the host: ten steps queued back
 to back, the time until the last is enqueued against the time until the
 device has finished them. ``--host-profile`` runs ten more steps under
@@ -41,6 +45,8 @@ GROUPS = (
     ("K4 fused_edge_phase backward", re.compile(r"fused_edge_bwd|reduce_workspace")),
     ("K1 sender_gather", re.compile(r"gather_rows")),
     ("K2 sender_scatter", re.compile(r"scatter_rows")),
+    ("K5 segment_sum", re.compile(r"segment_sum_rows")),
+    ("K6 receiver_expand", re.compile(r"expand_rows")),
     ("matmul (cuBLAS)", re.compile(r"gemm|gemv|cutlass|sm90_xmma|ampere", re.I)),
     ("LayerNorm", re.compile(r"layer_norm|LayerNorm", re.I)),
     ("optimizer (AdamW)", re.compile(r"multi_tensor_apply|adam", re.I)),
@@ -82,7 +88,7 @@ def report(torch, prof, card: str, what: str, wall: float, per: int, unit: str) 
 def profile_train(torch, args, card: str, gate_ds, model) -> int:
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = cs.make_trainer(model, gate_ds)
+    trainer = cs.make_trainer(model, gate_ds, reload=args.model == "graph_lam")
     data = [torch.from_numpy(a).cuda() for a in cs.bench_batch(gate_ds)]
     for _ in range(cs.TRAIN_WARMUP):
         trainer.train_step(*data)
@@ -97,7 +103,8 @@ def profile_train(torch, args, card: str, gate_ds, model) -> int:
         prof.export_chrome_trace(str(args.trace))
     report(
         torch, prof, card,
-        f"training step of batch {cs.BATCH}, ar_steps 1 (loss {loss.item():.6f})",
+        f"{args.model} training step of batch {cs.BATCH}, ar_steps 1 "
+        f"(loss {loss.item():.6f})",
         wall, 1, "training step",
     )
 
@@ -109,7 +116,7 @@ def profile_train(torch, args, card: str, gate_ds, model) -> int:
     torch.cuda.synchronize()
     done = time.perf_counter() - t0
     print(
-        f"host on {card}: {steps} training steps queued back to back, "
+        f"host on {card}: {steps} {args.model} training steps queued back to back, "
         f"{1e3 * enqueued / steps:.3f} ms per step until enqueued, "
         f"{1e3 * done / steps:.3f} ms per step until the device finished"
     )
@@ -126,7 +133,8 @@ def profile_train(torch, args, card: str, gate_ds, model) -> int:
         print(f"cProfile of {steps} training steps (its own cost included):")
         pstats.Stats(prof).sort_stats("cumulative").print_stats(
             r"trainer\.py|_tensor\.py.*backward|forecaster\.py|adam\.py.*\(step\)"
-            r"|fused_kernels\.py|segment_kernels\.py|mlp\.py"
+            r"|fused_kernels\.py|segment_kernels\.py|mlp\.py|interaction\.py"
+            r"|hi_lam|hierarchical\.py"
         )
     return 0
 
@@ -134,6 +142,9 @@ def profile_train(torch, args, card: str, gate_ds, model) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--trace", type=Path, help="write the Chrome trace here")
+    ap.add_argument("--model", default="graph_lam",
+                    choices=["graph_lam", *cs.GATE_MODELS],
+                    help="the MEPS model to profile (default: graph_lam)")
     ap.add_argument("--train", action="store_true",
                     help="profile one training step, not a forecast request")
     ap.add_argument("--host-profile", action="store_true",
@@ -153,7 +164,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     cs.CACHE.mkdir(exist_ok=True)
-    gate_ds, serve_ds, model, forecaster = cs.build_meps(torch)
+    if args.model == "graph_lam":
+        gate_ds, serve_ds, model, forecaster = cs.build_meps(torch)
+    else:
+        from neural_lam_tpu_torch.models import ARForecaster
+
+        gate_ds, serve_ds = cs.meps_datastores()
+        model = cs.build_model(torch, args.model, gate_ds)
+        forecaster = ARForecaster(model, gate_ds)
     if args.train:
         return profile_train(torch, args, card, gate_ds, model)
     n, b, t = gate_ds.num_grid_points, cs.BATCH, cs.AR_STEPS
@@ -176,7 +194,10 @@ def main() -> int:
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))
 
-    report(torch, prof, card, f"forecast of {b} x {t} steps", wall, t, "AR step")
+    report(
+        torch, prof, card, f"{args.model} forecast of {b} x {t} steps", wall, t,
+        "AR step",
+    )
 
     # host side of one run_forecasts request
     loader = DataLoader(

@@ -27,8 +27,20 @@ from neural_lam_tpu_torch.ops.fused_kernels import (
 )
 from neural_lam_tpu_torch.ops.interaction import make_edge_set
 from neural_lam_tpu_torch.ops.mlp import make_mlp
-from neural_lam_tpu_torch.ops.segment import gather_senders
+from neural_lam_tpu_torch.ops.interaction import (
+    InteractionNet,
+    apply_interaction_net,
+)
+from neural_lam_tpu_torch.ops.segment import (
+    aggregate_sum,
+    gather_receivers,
+    gather_senders,
+)
 from neural_lam_tpu_torch.ops.segment_kernels import (
+    receiver_expand,
+    receiver_expand_plain,
+    segment_sum,
+    segment_sum_plain,
     sender_gather,
     sender_gather_plain,
     sender_scatter,
@@ -257,3 +269,177 @@ def test_fused_edge_phase_saves_pre_only_under_grad(cuda):
     want = (edge @ w1[:, :d].T + x_send @ w1[:, d:2 * d].T
             + (rec @ w1[:, 2 * d:].T)[es.receivers] + edge_mlp[0].bias)
     torch.testing.assert_close(pre1, want, **TOL)
+
+
+def _degree_edge_set(kind, device):
+    """Edge sets shaped like the MEPS and the hierarchical ones, small:
+    ``mesh`` random degrees with a receiver of 400 edges and ten without
+    any; ``down`` exactly one edge per receiver; ``up`` exactly nine;
+    ``top`` 40 edges into 9 receivers; ``empty`` no edge at all."""
+    rng = np.random.default_rng(7)
+    if kind == "mesh":
+        n_send, n_rec = 300, 200
+        rcv = np.concatenate([rng.integers(0, 190, 4600), np.full(400, 7)])
+    elif kind == "down":
+        n_send, n_rec = 9, 81
+        rcv = rng.permutation(81)
+    elif kind == "up":
+        n_send, n_rec = 81, 9
+        rcv = np.repeat(np.arange(9), 9)
+    elif kind == "top":
+        n_send, n_rec = 9, 9
+        rcv = rng.integers(0, 9, 40)
+    else:
+        n_send, n_rec = 5, 4
+        rcv = np.zeros(0, np.int64)
+    snd = rng.integers(0, n_send, rcv.size)
+    es, _ = make_edge_set(snd, rcv, num_rec=n_rec, num_send=n_send)
+    return es.to(device), n_send, n_rec
+
+
+KINDS = ["mesh", "down", "up", "top", "empty"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape", [(4, 64), (3, 5), (64,)])
+def test_segment_sum_matches_plain(cuda, kind, shape):
+    """K5 against ``index_add_``: f32 sums of up to 400 O(1) rows in slot
+    order, so 1e-5 of the largest sum; the same bits on a second run; a
+    row width that is not a multiple of 4 floats takes the scalar path."""
+    es, _, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(8)
+    msg = torch.tensor(rng.normal(size=(es.num_edges,) + shape),
+                       dtype=torch.float32, device=cuda)
+    before = segment_sum.launches
+    out = segment_sum(msg, es)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + (kind != "empty")
+    want = segment_sum_plain(msg, es.receivers, n_rec)
+    scale = max(want.abs().max().item(), 1.0)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * scale)
+    assert torch.equal(out, segment_sum(msg, es))
+    if kind == "mesh":
+        assert torch.all(out[190:] == 0)  # receivers without edges
+    if kind == "down":  # degree 1: a copy
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape", [(4, 64), (3, 5), (64,)])
+def test_receiver_expand_matches_plain(cuda, kind, shape):
+    """K6 against ``index_select``: a copy, bit-identical."""
+    es, _, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.normal(size=(n_rec,) + shape), dtype=torch.float32, device=cuda)
+    before = receiver_expand.launches
+    out = receiver_expand(x, es)
+    torch.cuda.synchronize()
+    assert receiver_expand.launches == before + (kind != "empty")
+    assert out.shape == (es.num_edges,) + shape
+    assert torch.equal(out, receiver_expand_plain(x, es.receivers))
+
+
+@pytest.mark.cuda
+def test_receiver_gather_and_segment_sum_are_each_others_backward(cuda):
+    es, _, n_rec = _degree_edge_set("mesh", cuda)
+    rng = np.random.default_rng(10)
+
+    def t(*shape, grad=False):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda, requires_grad=grad)
+
+    x, msg = t(n_rec, 2, 64, grad=True), t(es.num_edges, 2, 64, grad=True)
+    w_e, w_n = t(es.num_edges, 2, 64), t(n_rec, 2, 64)
+    with pytest.raises(RuntimeError, match="outside autograd"):
+        receiver_expand(x, es)
+    with pytest.raises(RuntimeError, match="outside autograd"):
+        segment_sum(msg, es)
+    k5, k6 = segment_sum.launches, receiver_expand.launches
+    (gather_receivers(es, x) * w_e).sum().backward()
+    assert (segment_sum.launches, receiver_expand.launches) == (k5 + 1, k6 + 1)
+    assert torch.equal(x.grad, segment_sum(w_e, es))
+    (aggregate_sum(es, msg) * w_n).sum().backward()
+    assert (segment_sum.launches, receiver_expand.launches) == (k5 + 3, k6 + 2)
+    assert torch.equal(msg.grad, receiver_expand_plain(w_n, es.receivers))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["down", "up", "top"])
+@pytest.mark.parametrize("mode,update,prop", [
+    ("shared", True, False), ("shared", True, True),
+    ("batched", True, True), ("batched", False, False),
+])
+def test_fused_edge_phase_on_tiny_sets(cuda, kind, mode, update, prop):
+    """K3 and K4 on sets smaller than one block's share of receivers and
+    than the number of SMs, in the hierarchical models' modes: outputs
+    and every gradient against the plain version."""
+    es, n_send, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(11)
+    d, batch = 64, 4
+    edge_mlp = make_mlp([3 * d, d, d], generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda, requires_grad=True)
+
+    x_send, rec = t(es.num_edges, batch, d), t(n_rec, batch, d)
+    edge = t(es.num_edges, d) if mode == "shared" else t(es.num_edges, batch, d)
+    w_aggr, w_edge = t(n_rec, batch, d).detach(), t(es.num_edges, batch, d).detach()
+    leaves = [x_send, rec, edge] + list(edge_mlp.parameters())
+    kw = dict(update_edges=update, propagation=prop)
+
+    def loss(out):
+        total = (out[0] * w_aggr).sum()
+        return total + (out[1] * w_edge).sum() if update else total
+
+    got = fused_edge_phase(edge_mlp, edge, x_send, rec, es, **kw)
+    want = fused_edge_phase_plain(edge_mlp, edge, x_send, rec, es.receivers, **kw)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    if update:
+        torch.testing.assert_close(got[1], want[1], **TOL)
+    for g, w in zip(torch.autograd.grad(loss(got), leaves),
+                    torch.autograd.grad(loss(want), leaves)):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_layers,chunks", [(2, 1), (0, 1), (2, 3)])
+def test_unfused_interaction_net_on_the_card_matches_the_cpu(cuda, hidden_layers, chunks):
+    """``apply_interaction_net`` on the unfused route (K1, K6, the MLP,
+    K5; K2, K5, K6 backward) on the card against the same call on the
+    CPU, where the plain versions run: outputs and every gradient."""
+    es, n_send, n_rec = _degree_edge_set("mesh", "cpu")
+    rng = np.random.default_rng(12)
+    d, batch = 64, 4
+    net = InteractionNet(
+        d, hidden_layers=hidden_layers, num_edge_chunks=chunks,
+        generator=torch.Generator().manual_seed(4),
+    )
+    sizes = dict(edge_chunk_sizes=[1000, 3000, 1000]) if chunks > 1 else {}
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((n_send, batch, d), (n_rec, batch, d), (es.num_edges, d))]
+    w = rng.normal(size=(n_rec, batch, d)).astype(np.float32)
+
+    def run(device):
+        net.to(device).zero_grad(set_to_none=True)
+        leaves = [torch.tensor(a, device=device, requires_grad=True) for a in arrays]
+        new_rec, new_edge = apply_interaction_net(
+            net, es.to(device), *leaves, aggr="mean", **sizes
+        )
+        ((new_rec * torch.tensor(w, device=device)).sum() + new_edge.sum()).backward()
+        grads = [leaf.grad for leaf in leaves] + [p.grad for p in net.parameters()]
+        return [a.detach().cpu() for a in (new_rec, new_edge, *grads)]
+
+    counters = (sender_gather, sender_scatter, segment_sum, receiver_expand)
+    before = [fn.launches for fn in counters]
+    got = run(cuda)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 2, 2]
+    want = run("cpu")
+    for g, w_ in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w_, **TOL)
+    for g, w_ in zip(got[2:], want[2:]):
+        scale = max(w_.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w_, rtol=0, atol=1e-4 * scale)

@@ -296,14 +296,16 @@ def test_split_first_matches_concat():
 
 
 def test_unfused_ops_raise_off_cpu():
-    """The unfused route's kernels (K5, K6) are not ported: their ops
-    refuse any device but the CPU instead of running a library op."""
+    """The unfused route's ops (K6, K5) run a kernel on CUDA tensors and
+    the plain version on CPU tensors: any other device is refused, no
+    library op runs in the kernel's place."""
     _, tes, _, _, _ = _graph()
     meta = torch.zeros((N_REC, 4), device="meta")
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(RuntimeError, match="receiver_expand: unsupported device"):
         segment.gather_receivers(tes, meta)
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(RuntimeError, match="segment_sum: unsupported device"):
         segment.aggregate_sum(tes, torch.zeros((N_EDGES, 4), device="meta"))
+    assert not hasattr(segment, "_require_cpu")
 
 
 def test_wrappers_refuse_other_devices():
