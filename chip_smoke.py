@@ -5,13 +5,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels from ``neural_lam_tpu_torch/csrc``
+It builds the port's eight CUDA kernels from ``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
 configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
-layers, batch 4, float32) for three model families and both routes of
-the edge phase. Each phase passes or raises; nothing is caught.
+layers, batch 4, float32) for three model families and the three routes
+of the edge phase: fused (K1-K4), its v2 form with the sender gather
+inside the kernel (K7, K8 and K2; ``NEURAL_LAM_TPU_FUSED_V2=on``, set
+around whole phases) and unfused (K1, K2, K5, K6). Each phase passes or
+raises; nothing is caught.
 
-GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4):
+GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
 
 1. Kernels against their plain PyTorch versions, at the shapes of the
    six GNN calls (g2m, m2m x 4, m2g) at batch 4: max abs/rel error
@@ -23,6 +26,13 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4):
    hierarchical graph (from 51,520 edges into 6,561 receivers down to 40
    edges into 9; in-degrees of exactly 9 on the up sets and 1 on the
    down sets), K3 and K4 in each mode the hierarchical models use.
+   K7 and K8 likewise: at the six calls against their plain versions
+   (K7's aggregate, updated edges and ``pre``; K8's ``d_pre``,
+   ``d_recproj``, edge and every weight gradient; the same bits on a
+   second run), with K2 on K8's ``d_pre``, each timed beside K1 + K3 and
+   K4 on the same inputs, and the whole v2 phase against the v1 route; at
+   the ten level sets through the per-section entry, against the plain
+   version and the v1 route, with LayerNorm off in one mode.
 2. Accuracy gate: a 19-step batch-1 rollout with the JAX package's
    ``PRNGKey(0)`` parameters (``tests/fixtures/accuracy/
    graph_lam_meps_params_seed0.npz``) against the committed exact-f32
@@ -40,6 +50,10 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4):
    before and must read their count per step after; the losses must be
    finite and fall.
 
+Phases 2-5 run twice: on the default route and on the v2 route, where
+every GNN application launches K7 and no K1 or K3 (and K8 and K2, no K4,
+backward), against the same fixtures at the same limits.
+
 Then, for ``GraphLAM(hidden_layers=2)`` (path U, the unfused route: K1,
 K6, the edge MLP, K5; K2, K5, K6 backward), ``HiLAM`` and
 ``HiLAMParallel`` on the hierarchical graph (path H, K1-K4 on 64 and 48
@@ -54,6 +68,9 @@ GNN applications per step):
 7. Serving and training as in 3 and 5, with the launch counts derived
    from the number of mesh levels and processor layers.
 
+``HiLAMParallel``'s gate runs once more on the v2 route (its per-section
+``fused_edge_phase`` entry).
+
 Last, ``HiLAMParallel(hidden_layers=2)`` at one processor layer serves
 two AR steps, so that K5 and K6 also run on the level sets in a model;
 then the report: a ``{"kernels": [...]}`` line and the
@@ -67,7 +84,9 @@ forecasts go under ``.smoke_cache/`` in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -125,6 +144,13 @@ TRAIN_WARMUP, TRAIN_ITERS = 2, 10  # bench.py:31
 # rounding only, relative to the largest sum.
 K6_TOL = 0.0
 K5_TOL = 1e-5
+# K7 and K8 differ from their plain versions in summation order only, as K3
+# and K4 do, and are held to the same tolerances; so is the whole v2 phase
+# against the v1 route (K1 + K3, K4 + K2), which sums sp[sender] formed once
+# per node where v1 forms x_send . W1s per edge.
+
+# The environment variable that routes every fused phase to K7/K8 when "on"
+FUSED_V2 = "NEURAL_LAM_TPU_FUSED_V2"
 
 # The model gates of the later paths: name -> (class, graph, model kwargs)
 GATE_MODELS = {
@@ -149,6 +175,33 @@ GATE_FAULT_MEAN_REL = 1e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def fused_v2(mode: str):
+    """``NEURAL_LAM_TPU_FUSED_V2=mode`` for a whole phase, restored after:
+    the route is read at every call, so a phase never changes it midway."""
+    old = os.environ.get(FUSED_V2)
+    os.environ[FUSED_V2] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(FUSED_V2)
+        else:
+            os.environ[FUSED_V2] = old
+
+
+def on_v2() -> bool:
+    """Every fused phase takes the v2 route (K7; K8 and K2 backward)."""
+    from neural_lam_tpu_torch.ops.fused_kernels import fused_v2_enabled
+
+    return os.environ.get(FUSED_V2) == "on" and fused_v2_enabled()
+
+
+def model_label(model) -> str:
+    route = ", v2 route" if on_v2() and model.hidden_layers == 1 else ""
+    return f"{type(model).__name__}(hidden_layers={model.hidden_layers}){route}"
 
 
 def card_line() -> str:
@@ -324,11 +377,18 @@ def gnn_applications(model) -> int:
 def expected_launches(model, training: bool) -> dict[str, int]:
     """Launches of each kernel per AR step (serving) or per training
     step, derived from the model. On the fused route every application
-    launches K1 and K3 (K2 and K4 backward); on the unfused route K1, K6
-    and K5 (backward K2, and K5 and K6 once more as each other's VJP)."""
+    launches K1 and K3 (K2 and K4 backward), or under
+    ``NEURAL_LAM_TPU_FUSED_V2=on`` K7 alone (K8 and K2 backward); on the
+    unfused route K1, K6 and K5 (backward K2, and K5 and K6 once more as
+    each other's VJP)."""
     n = gnn_applications(model)
     fused = model.hidden_layers == 1
     want = dict.fromkeys(kernel_counters(), 0)
+    if fused and on_v2():
+        want["K7 fused_edge_phase_v2"] = n
+        if training:
+            want["K8 fused_edge_phase_v2 backward"] = want["K2 sender_scatter"] = n
+        return want
     want["K1 sender_gather"] = n
     if fused:
         want["K3 fused_edge_phase"] = n
@@ -951,6 +1011,371 @@ def phase_level_sets(torch, model) -> dict[str, float]:
     return worst
 
 
+def phase_v2_kernels(torch, model) -> list[dict]:
+    """K7 and K8 against their plain versions at the shapes of the six
+    GraphLAM GNN calls, at batch 4, and K2 on K8's ``d_pre``; each timed
+    beside the v1 route's K1 + K3 and K4 on the same inputs. K7's
+    aggregate, updated edges and ``pre``, and K8's ``d_pre``,
+    ``d_recproj``, ``d_edge`` or the embedder's gradients and every weight
+    gradient, each repeatable to the bit; then the whole v2 phase (node
+    projections, K7; K8, K2 and the projections' backward) against the v1
+    route's outputs and gradients. Returns the report of K7 (times summed
+    over one AR step) and K8 (one training step)."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+    from neural_lam_tpu_torch.ops.segment import gather_senders
+    from neural_lam_tpu_torch.ops.segment_kernels import (
+        sender_gather,
+        sender_scatter,
+        sender_scatter_plain,
+    )
+
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n_grid, n_mesh = g.num_grid_nodes, g.num_mesh_nodes
+    m2m = g.m2m[0]
+    proc = list(model.processor.values())
+    n_mid = PROC_LAYERS - 2
+    # (site, net, edges, embedder, edge input, update_edges, d_new_edge
+    # given, calls per AR step and per training step, senders, receivers);
+    # the last m2m layer's updated edges get no gradient
+    sites = [
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, False, 1,
+         n_grid, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, True, 1,
+         n_mesh, n_mesh),
+        (f"m2m layers 1-{n_mid}", proc[1], m2m, None, "batched", True, True, n_mid,
+         n_mesh, n_mesh),
+        (f"m2m layer {PROC_LAYERS - 1}", proc[-1], m2m, None, "batched", True, False,
+         1, n_mesh, n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False, 1,
+         n_mesh, n_grid),
+    ]
+    k7 = dict(ms=0.0, pre_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0,
+              bytes_ms=0.0, proj_ms=0.0, v1_ms=0.0)
+    k8 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0,
+              k2_ms=0.0, k2_bound_ms=0.0, k4_ms=0.0)
+    for site, net, ge, emb, mode, update, has_dne, calls, n_send, n_rec in sites:
+        es = ge.edges
+        n_e, rows, raw = es.num_edges, es.num_edges * b, mode == "raw"
+        mlp = net.edge_mlp
+        wts = fk._weights(mlp, emb)
+        params = [w for w in wts if w is not None]
+        w1s, w1r = wts[0][:, d : 2 * d], wts[0][:, 2 * d :]
+        send, rec = randn(n_send, b, d), randn(n_rec, b, d)
+        edge_in = ge.features if raw else randn(n_e, b, d)
+        sp, rp = send @ w1s.T, rec @ w1r.T
+
+        # ---- K7 -------------------------------------------------------------
+        def run7(save_pre=False):
+            return fk.fused_edge_v2_fwd(edge_in, sp, rp, es, wts, raw, update, save_pre)
+
+        aggr, new_edge, pre = run7(True)
+        want = fk._plain_v2(edge_in, sp, rp, es.senders, es.receivers, wts, raw, update)
+        again = run7(True)
+        torch.cuda.synchronize()
+        outs = [(aggr, want[0]), (pre, want[2])] + ([(new_edge, want[1])] if update else [])
+        for o, w in outs:
+            torch.testing.assert_close(o, w, rtol=K3_RTOL, atol=K3_ATOL)
+        if not all(torch.equal(x, y) for x, y in zip((aggr, new_edge, pre), again)
+                   if x is not None):
+            raise AssertionError(f"K7 {site}: two runs differ")
+        abs7 = max(errors(o, w)[0] for o, w in outs)
+        ms7, pre_ms7 = cuda_ms(run7), cuda_ms(lambda: run7(True))
+        plain7 = cuda_ms(lambda: fk._plain_v2(
+            edge_in, sp, rp, es.senders, es.receivers, wts, raw, update))
+        proj_ms = cuda_ms(lambda: (send @ w1s.T, rec @ w1r.T))
+        x_send = sender_gather(send, es.senders)
+        k1_ms = cuda_ms(lambda: sender_gather(send, es.senders))
+        k3_ms = cuda_ms(lambda: fk.fused_edge_fwd(
+            edge_in, x_send, rec, es, wts, raw, update, False))
+        moved7 = nbytes(edge_in, sp, rp, es.rowptr, es.senders, *params, aggr, new_edge)
+        # multiply-adds (2 ops each) of the second layer per (edge, b) row,
+        # of edge . W1e per row (batched) or per edge, with the embedder's
+        # products per edge, and the receiver sums
+        flops7 = 2 * rows * d * d + rows * d
+        if raw:
+            flops7 += n_e * (2 * edge_in.shape[1] * d + 2 * d * d * 2)
+        else:
+            flops7 += 2 * rows * d * d
+        bound7, by7 = bound(moved7, flops7)
+        log(
+            f"K7 fused_edge_phase_v2 {site}: E {n_e}, senders {n_send}, receivers "
+            f"{n_rec}, edge input {mode}, update_edges {update}; max abs err "
+            f"{abs7:.3g} (aggregate, pre{', new_edge' if update else ''}; rtol/atol "
+            f"{K3_RTOL}), repeatable; kernel {ms7:.4f} ms, with the pre output "
+            f"{pre_ms7:.4f} ms, plain {plain7:.4f} ms, bound {bound7:.4f} ms ({by7}: "
+            f"{moved7 / 1e6:.1f} MB, {flops7 / 1e9:.2f} GFLOP); node projections "
+            f"(cuBLAS) {proj_ms:.4f} ms; v1 at this site K1 {k1_ms:.4f} + K3 "
+            f"{k3_ms:.4f} ms; {calls} call(s) per AR step"
+        )
+        k7["ms"] += calls * ms7
+        k7["pre_ms"] += calls * pre_ms7
+        k7["plain_ms"] += calls * plain7
+        k7["bound_ms"] += calls * bound7
+        k7["ops_ms" if by7 == "operations" else "bytes_ms"] += calls * bound7
+        k7["proj_ms"] += calls * proj_ms
+        k7["v1_ms"] += calls * (k1_ms + k3_ms)
+        k7["err"] = max(k7["err"], abs7)
+
+        # ---- K8, then K2 on d_pre ----------------------------------------------
+        d_aggr = randn(n_rec, b, d)
+        d_new = randn(n_e, b, d) if has_dne else None
+
+        def run8():
+            return fk.fused_edge_v2_bwd(d_aggr, d_new, pre, edge_in, es, wts, raw)
+
+        def plain8():
+            return fk._plain_v2_bwd(d_aggr, d_new, edge_in, sp, rp, es, wts, raw, update)
+
+        got, want, again = run8(), plain8(), run8()
+        torch.cuda.synchronize()
+        names = ["d_pre", "d_recproj"] + ([] if raw else ["d_edge"])
+        names += [f"weight grad {i}" for i, w in enumerate(wts) if w is not None]
+
+        def flat(out):
+            d_edge, d_pre, d_recproj, grads = out
+            return [d_pre, d_recproj] + ([] if raw else [d_edge]) + [
+                x for x in grads if x is not None]
+
+        abs8 = rel8 = 0.0
+        for name, o, w in zip(names, flat(got), flat(want)):
+            a_err, r_err = errors(o, w)
+            abs8, rel8 = max(abs8, a_err), max(rel8, r_err)
+            if r_err > K4_TOL:
+                raise AssertionError(
+                    f"K8 {site} {name}: max err {a_err} is {r_err} of the largest "
+                    f"value (tol {K4_TOL})"
+                )
+        if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))):
+            raise AssertionError(f"K8 {site}: two runs differ")
+        d_pre = got[1]
+        sums = sender_scatter(d_pre, es, n_send)
+        _, rel2 = errors(sums, sender_scatter_plain(d_pre, es.senders, n_send))
+        if rel2 > K2_TOL:
+            raise AssertionError(f"K2 {site} on d_pre: max rel err {rel2} > {K2_TOL}")
+        ms8, plain_ms8 = cuda_ms(run8), cuda_ms(plain8)
+        ms2 = cuda_ms(lambda: sender_scatter(d_pre, es, n_send))
+        bound2, _ = bound(nbytes(d_pre, es.send_perm, es.send_rowptr, sums), d_pre.numel())
+        _, _, pre1 = fk.fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, False,
+                                       save_pre=True)
+        k4_ms = cuda_ms(lambda: fk.fused_edge_bwd(
+            d_aggr, d_new, pre1, edge_in, x_send, rec, es, wts, raw, False))
+        moved8 = nbytes(pre, edge_in, d_aggr, d_new, es.rowptr, *params, *flat(got))
+        # per (edge, b) row: z, d_h1, dW2 and, batched, d_edge and dW1e; per
+        # edge otherwise: d_edge and dW1e, and for raw features the embedder
+        # again, dEW2, d_a1 and dEW1; the receiver sums
+        flops8 = 2 * rows * d * d * 3 + rows * d
+        if raw:
+            flops8 += n_e * (2 * d * d * 5 + 2 * edge_in.shape[1] * d * 2)
+        elif mode == "batched":
+            flops8 += 2 * rows * d * d * 2
+        else:
+            flops8 += 2 * n_e * d * d * 2
+        bound8, by8 = bound(moved8, flops8)
+        log(
+            f"K8 fused_edge_phase_v2 backward {site}: d_new_edge "
+            f"{'given' if has_dne else 'none'}; max abs err {abs8:.3g}, at most "
+            f"{rel8:.3g} of a gradient's largest value (tol {K4_TOL}), repeatable; "
+            f"kernel {ms8:.4f} ms, plain (autograd) {plain_ms8:.4f} ms, bound "
+            f"{bound8:.4f} ms ({by8}: {moved8 / 1e6:.1f} MB, {flops8 / 1e9:.2f} "
+            f"GFLOP); K2 on d_pre {ms2:.4f} ms (max rel err {rel2:.3g}, bound "
+            f"{bound2:.4f} ms, bytes); v1 at this site K4 {k4_ms:.4f} ms; {calls} "
+            "call(s) per training step"
+        )
+        k8["ms"] += calls * ms8
+        k8["plain_ms"] += calls * plain_ms8
+        k8["bound_ms"] += calls * bound8
+        k8["ops_ms" if by8 == "operations" else "bytes_ms"] += calls * bound8
+        k8["k2_ms"] += calls * ms2
+        k8["k2_bound_ms"] += calls * bound2
+        k8["k4_ms"] += calls * k4_ms
+        k8["err"] = max(k8["err"], abs8)
+        del got, want, again, sums, x_send, pre1
+
+        # ---- the whole v2 phase against the v1 route ---------------------------
+        with torch.enable_grad():
+            leaves = [send.clone().requires_grad_(True), rec.clone().requires_grad_(True)]
+            if not raw:
+                leaves.append(edge_in.clone().requires_grad_(True))
+
+            def phase(v2):
+                kw = dict(embedder=emb, edge_feats=edge_in if raw else None,
+                          update_edges=update)
+                edge = None if raw else leaves[2]
+                if v2:
+                    out = fk.fused_edge_phase_v2(mlp, edge, leaves[0], leaves[1], es, **kw)
+                else:
+                    x = gather_senders(es, leaves[0])
+                    out = fk.fused_edge_phase(mlp, edge, x, leaves[1], es, **kw)
+                total = (out[0] * d_aggr).sum()
+                if has_dne:
+                    total = total + (out[1] * d_new).sum()
+                outs = [o.detach() for o in out if o is not None]
+                return outs, torch.autograd.grad(total, leaves + params)
+
+            (o2, g2), (o1, g1) = phase(True), phase(False)
+        torch.cuda.synchronize()
+        for o, w in zip(o2, o1):
+            torch.testing.assert_close(o, w, rtol=K3_RTOL, atol=K3_ATOL)
+        worst = max(errors(o, w)[1] for o, w in zip(g2, g1))
+        if worst > K4_TOL:
+            raise AssertionError(
+                f"v2 phase {site}: a gradient is {worst} of its largest value off "
+                f"the v1 route's (tol {K4_TOL})"
+            )
+        log(
+            f"v2 phase {site} against the v1 route: outputs within rtol/atol "
+            f"{K3_RTOL}, max abs diff {max(errors(o, w)[0] for o, w in zip(o2, o1)):.3g}; "
+            f"gradients of the node rows, the edge input and every weight within "
+            f"{worst:.3g} of their largest value (tol {K4_TOL})"
+        )
+        del leaves, o2, g2, o1, g1, pre, d_pre, aggr, new_edge
+        torch.cuda.empty_cache()
+    log(
+        f"v2 per AR step: node projections {k7['proj_ms']:.4f} + K7 {k7['ms']:.4f} ms "
+        f"(with the pre output {k7['pre_ms']:.4f}; bound {k7['bound_ms']:.4f}) against "
+        f"K1 + K3 {k7['v1_ms']:.4f} ms on the same inputs; per training step K8 "
+        f"{k8['ms']:.4f} + K2 {k8['k2_ms']:.4f} ms (bounds {k8['bound_ms']:.4f}, "
+        f"{k8['k2_bound_ms']:.4f}) against K4 {k8['k4_ms']:.4f} + K2"
+    )
+    torch.cuda.empty_cache()
+    return [
+        dict(
+            name="K7 fused_edge_phase_v2",
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/fused_edge_v2.cu",
+            replaces="neural_lam_tpu/ops/pallas_fused.py:2143",
+            launches=0,
+            max_abs_err=k7["err"],
+            ms=k7["ms"],
+            plain_ms=k7["plain_ms"],
+            bound_ms=k7["bound_ms"],
+            bound_by="operations" if k7["ops_ms"] >= k7["bytes_ms"] else "bytes",
+            library_ms=None,
+        ),
+        dict(
+            name="K8 fused_edge_phase_v2 backward",
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/fused_edge_v2_bwd.cu",
+            replaces="neural_lam_tpu/ops/pallas_fused.py:2293",
+            launches=0,
+            max_abs_err=k8["err"],
+            ms=k8["ms"],
+            plain_ms=k8["plain_ms"],
+            bound_ms=k8["bound_ms"],
+            bound_by="operations" if k8["ops_ms"] >= k8["bytes_ms"] else "bytes",
+            library_ms=None,
+        ),
+    ]
+
+
+def phase_v2_level_sets(torch, model) -> dict[str, float]:
+    """The v2 phase (K7; K8 and K2 backward) at every mesh edge set of the
+    hierarchical graph, through ``interaction.fused_edge_phase`` as
+    HiLAMParallel calls it, in five modes: a shared edge input with the
+    edge update, a batched one with and without it, unbatched sender rows
+    beside batched receiver rows, and an edge MLP without LayerNorm.
+    Outputs and every gradient against the plain version and against the
+    v1 route, and a second run to the bit; returns the largest absolute
+    errors of K7 (outputs) and K8 (gradients)."""
+    from neural_lam_tpu_torch.ops import interaction
+    from neural_lam_tpu_torch.ops.fused_kernels import (
+        fused_edge_phase_v2,
+        fused_edge_phase_v2_plain,
+    )
+    from neural_lam_tpu_torch.ops.mlp import make_mlp
+    from neural_lam_tpu_torch.ops.segment_kernels import sender_gather
+
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    sites = [
+        (f"{kind}[{i}]", ge)
+        for kind, sets in (("m2m", g.m2m), ("up", g.up), ("down", g.down))
+        for i, ge in enumerate(sets)
+    ]
+    # (edge input, update_edges, sender rows, LayerNorm)
+    modes = [("shared", True, "batched", True), ("batched", True, "batched", True),
+             ("batched", False, "batched", True), ("shared", True, "unbatched", True),
+             ("batched", True, "batched", False)]
+    mlps = {
+        True: model.mesh_init_gnns[0].edge_mlp,
+        False: make_mlp([3 * d, d, d], layer_norm=False,
+                        generator=torch.Generator().manual_seed(GATE_SEED)).to(dev),
+    }
+    worst = {"K7": 0.0, "K8": 0.0}
+    for site, ge in sites:
+        es = ge.edges
+        n_e, n_rec, n_send = es.num_edges, es.num_rec, es.num_send
+        for mode, update, senders, ln in modes:
+            mlp = mlps[ln]
+            params = list(mlp.parameters())
+            send = randn(n_send, b, d) if senders == "batched" else randn(n_send, d)
+            rec = randn(n_rec, b, d)
+            edge = randn(n_e, d) if mode == "shared" else randn(n_e, b, d)
+            w_aggr, w_edge = randn(n_rec, b, d), randn(n_e, b, d)
+            leaves = [t.requires_grad_(True) for t in (send, rec, edge)] + params
+
+            def loss(out):
+                total = (out[0] * w_aggr).sum()
+                return total + (out[1] * w_edge).sum() if update else total
+
+            def run(route):
+                with fused_v2(route):
+                    out = interaction.fused_edge_phase(mlp, es, send, rec, edge,
+                                                       update_edges=update)
+                    return out, torch.autograd.grad(loss(out), leaves)
+
+            before = (fused_edge_phase_v2.launches, sender_gather.launches)
+            got, got_g = run("on")
+            _, again_g = run("on")
+            after = (fused_edge_phase_v2.launches, sender_gather.launches)
+            if (after[0] - before[0], after[1] - before[1]) != (2, 0):
+                raise AssertionError(f"v2 level set {site}: the phase did not run K7")
+            v1, v1_g = run("off")
+            send_b = send if send.dim() == 3 else send.unsqueeze(1).expand(-1, b, -1)
+            w1 = mlp[0].weight
+            want = fused_edge_phase_v2_plain(
+                mlp, edge, send_b @ w1[:, d : 2 * d].T, rec @ w1[:, 2 * d :].T,
+                es.senders, es.receivers, update_edges=update,
+            )
+            want_g = torch.autograd.grad(loss(want), leaves)
+            torch.cuda.synchronize()
+            n_out = 2 if update else 1
+            for o, w in [*zip(got[:n_out], want), *zip(got[:n_out], v1)]:
+                torch.testing.assert_close(o, w, rtol=K3_RTOL, atol=K3_ATOL)
+                worst["K7"] = max(worst["K7"], errors(o.detach(), w.detach())[0])
+            worst_rel = 0.0
+            for o, w in [*zip(got_g, want_g), *zip(got_g, v1_g)]:
+                a_err, r_err = errors(o, w)
+                worst["K8"], worst_rel = max(worst["K8"], a_err), max(worst_rel, r_err)
+                if r_err > K4_TOL:
+                    raise AssertionError(
+                        f"K8 {site} {mode}: max err {a_err} is {r_err} of the "
+                        f"largest value (tol {K4_TOL})"
+                    )
+            if not all(torch.equal(x, y) for x, y in zip(got_g, again_g)):
+                raise AssertionError(f"K8 {site} {mode}: two runs differ")
+            log(
+                f"K7/K8 level set {site}: E {n_e}, senders {n_send}, receivers "
+                f"{n_rec}, edge input {mode}, sender rows {senders}, update_edges "
+                f"{update}, LayerNorm {ln}: outputs within rtol/atol {K3_RTOL} of "
+                f"the plain version and of the v1 route, gradients within "
+                f"{worst_rel:.3g} of their largest value (tol {K4_TOL}), repeatable"
+            )
+    for w in params:
+        w.grad = None
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_gate(torch, ds, forecaster) -> list[dict]:
     """19-step rollout against the committed exact-f32 JAX fixture
     (scripts/accuracy_probe.py: inputs :80-88, metrics :104-117)."""
@@ -1027,7 +1452,7 @@ def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int
             self.seconds.append(time.perf_counter() - t0)
             return out
 
-    label = f"{type(model).__name__}(hidden_layers={model.hidden_layers})"
+    label = model_label(model)
     fc = TimedForecaster(ARForecaster(model, ds))
     out_dir = CACHE / "forecasts"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1297,7 +1722,12 @@ def phase_model_gate(torch, name: str, model, ds, fixture_path) -> dict:
 
 def kernel_counters():
     """Each kernel's wrapper, which counts its launches in ``.launches``."""
-    from neural_lam_tpu_torch.ops.fused_kernels import fused_edge_bwd, fused_edge_phase
+    from neural_lam_tpu_torch.ops.fused_kernels import (
+        fused_edge_bwd,
+        fused_edge_phase,
+        fused_edge_phase_v2,
+        fused_edge_v2_bwd,
+    )
     from neural_lam_tpu_torch.ops.segment_kernels import (
         receiver_expand,
         segment_sum,
@@ -1312,6 +1742,8 @@ def kernel_counters():
         "K4 fused_edge_phase backward": fused_edge_bwd,
         "K5 segment_sum": segment_sum,
         "K6 receiver_expand": receiver_expand,
+        "K7 fused_edge_phase_v2": fused_edge_phase_v2,
+        "K8 fused_edge_phase_v2 backward": fused_edge_v2_bwd,
     }
 
 
@@ -1321,7 +1753,7 @@ def phase_train(torch, trainer, card: str) -> dict[str, int]:
     ``expected_launches(model, training=True)`` per step."""
     ds = trainer.datastore
     model = trainer.forecaster.predictor
-    label = f"{type(model).__name__}(hidden_layers={model.hidden_layers})"
+    label = model_label(model)
     data = [torch.from_numpy(a).to(trainer.device) for a in bench_batch(ds)]
     counters = kernel_counters()
     torch.cuda.synchronize()
@@ -1374,9 +1806,11 @@ def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> 
     log(f"launches {what}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
 
 
-def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total) -> None:
+def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total,
+                     v2_gate: bool = False) -> None:
     """Gate, serve and train one of ``GATE_MODELS`` at full width, adding
-    its launches on the two main paths to ``total``."""
+    its launches on the two main paths to ``total``; ``v2_gate`` runs the
+    gate once more on the v2 route."""
     t0 = time.perf_counter()
     model = build_model(torch, name, gate_ds)
     g = model.graph
@@ -1392,7 +1826,12 @@ def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total) -> N
         f"({time.perf_counter() - t0:.1f} s)"
     )
     phase_model_gate(torch, name, model, gate_ds, gate_fixture(name))
-    load_seeded(torch, model)  # the gate trained the model in place
+    if v2_gate:
+        load_seeded(torch, model)  # the gate trained the model in place
+        with fused_v2("on"):
+            log(f"{name} gate on the v2 route ({FUSED_V2}=on):")
+            phase_model_gate(torch, name, model, gate_ds, gate_fixture(name))
+    load_seeded(torch, model)
     add_launches(total, phase_serve(torch, serve_ds, model, card), f"{name} serve")
     trainer = make_trainer(model, gate_ds, reload=False)
     add_launches(total, phase_train(torch, trainer, card), f"{name} train")
@@ -1424,17 +1863,13 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
-    kernels = [
-        "sender_gather", "sender_scatter", "fused_edge", "fused_edge_bwd",
-        "segment_sum", "receiver_expand",
-    ]
-    kernel_build.build(kernels)
+    kernel_build.build()
     log(
         f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(k + '.cu' for k in kernels)}; nvcc for sm_90a, one "
-        "process per source)"
+        f"({', '.join(k + '.cu' for k in kernel_build.KERNELS)}; nvcc for sm_90a, "
+        "one process per source)"
     )
-    for name in kernels:
+    for name in kernel_build.KERNELS:
         ptxas = kernel_build.build_log(name).splitlines()
         used = [line.split(":", 1)[1].strip() for line in ptxas if "registers" in line]
         spills = [line.strip() for line in ptxas if "spill" in line]
@@ -1445,25 +1880,48 @@ def main() -> int:
     hi_lam = build_model(torch, "hi_lam", gate_ds)
     with torch.no_grad():
         report = phase_kernels(torch, model)
+        report += phase_v2_kernels(torch, model)
         report += phase_segment_kernels(torch, model.graph, hi_lam.graph)
     level_errs = phase_level_sets(torch, hi_lam)
+    for key, err in phase_v2_level_sets(torch, hi_lam).items():
+        level_errs[key] = max(level_errs.get(key, 0.0), err)
     del hi_lam
     for entry in report:
         err = level_errs.get(entry["name"][:2], 0.0)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
-    # each main path is driven with the counters at 0 just before it
+    # each main path is driven with the counters at 0 just before it; the
+    # v2 route (K7; K8 and K2 backward) with NEURAL_LAM_TPU_FUSED_V2=on set
+    # around the whole phase
     total: dict[str, int] = {}
     phase_gate(torch, gate_ds, forecaster)
+    with fused_v2("on"):
+        log(f"accuracy gate on the v2 route ({FUSED_V2}=on):")
+        phase_gate(torch, gate_ds, forecaster)
     add_launches(total, phase_serve(torch, serve_ds, model, card), "graph_lam serve")
+    with fused_v2("on"):
+        add_launches(
+            total, phase_serve(torch, serve_ds, model, card), "graph_lam v2 serve"
+        )
     phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
+    with fused_v2("on"):
+        log(f"training gate on the v2 route ({FUSED_V2}=on):")
+        phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
     add_launches(
         total, phase_train(torch, make_trainer(model, gate_ds), card), "graph_lam train"
     )
+    with fused_v2("on"):
+        add_launches(
+            total, phase_train(torch, make_trainer(model, gate_ds), card),
+            "graph_lam v2 train",
+        )
     del model, forecaster
     torch.cuda.empty_cache()
     for name in GATE_MODELS:
-        drive_gate_model(torch, name, gate_ds, serve_ds, card, total)
+        drive_gate_model(
+            torch, name, gate_ds, serve_ds, card, total,
+            v2_gate=name == "hi_lam_parallel",
+        )
     # the per-chunk edge MLPs on the unfused operations, on the level sets
     chunked = build_model(
         torch, "hi_lam_parallel", gate_ds, hidden_layers=2, processor_layers=1

@@ -1,5 +1,6 @@
-// Shared pieces of the fused edge-phase kernels: K3, the forward
-// (fused_edge.cu), and K4, its backward (fused_edge_bwd.cu).
+// Shared pieces of the fused edge-phase kernels: K3 and K7, the forwards
+// (fused_edge.cu, fused_edge_v2.cu), and K4 and K8, their backwards
+// (fused_edge_bwd.cu, fused_edge_v2_bwd.cu).
 //
 // Both kernels work on tiles of 64 rows by D = 64 features held in shared
 // memory with a padded row stride, with 256 threads laid out as 16 row
@@ -211,6 +212,76 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][4],
     if (i < ni)
       *reinterpret_cast<float4*>(dst + (rg + 16 * i) * kLd + 4 * cg) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// The in-kernel edge embedder on a tile's raw features sF (F per edge):
+// dst = LN(SiLU(f . We1 + be1) . We2 + be2) for the first 16*ni edge rows,
+// with scratch for the hidden layer. sEW1 is (F, D); sEW2 (in, out).
+// Ends with a barrier, so dst is ready for every thread.
+__device__ __forceinline__ void embed_tile(float* dst, float* scratch, const float* sF,
+                                           int F, const float* sEW1, const float* sEB1,
+                                           const float* sEW2, const float* sEB2,
+                                           const float* sEG, const float* sEBt, int rg,
+                                           int cg, int ni) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= ni) break;
+    const int el = rg + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * cg + j;
+      float v = sEB1[c];
+      for (int f = 0; f < F; ++f) v = fmaf(sF[el * F + f], sEW1[f * D + c], v);
+      acc[i][j] = silu(v);
+    }
+  }
+  store_rows(scratch, acc, rg, cg, ni);
+  __syncthreads();
+  zero(acc);
+  mm_rows(acc, scratch, sEW2, rg, cg, ni);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += sEB2[4 * cg + j];
+  row_layer_norm(acc, sEG, sEBt, cg, ni);
+  store_rows(dst, acc, rg, cg, ni);
+  __syncthreads();
+}
+
+// A block owns nr consecutive receivers and keeps the sums of their B*D
+// (receiver, b, feature) entries in registers: entry idx = threadIdx.x +
+// j*kThreads in agg[j]. Adds a tile's rows of src (edge-major (edge, b)
+// rows of stride kLd, edges t0 .. t0+ne-1) to them in edge order, without
+// atomics; rowptr holds the block's nr + 1 offsets.
+__device__ __forceinline__ void sum_into_receivers(float (&agg)[kAggPerThread],
+                                                   const float* src, const int* rowptr,
+                                                   int nr, int t0, int ne, int B) {
+  const int BD = B * D;
+#pragma unroll
+  for (int j = 0; j < kAggPerThread; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    if (idx < nr * BD) {
+      const int rl = idx / BD, rem = idx - rl * BD;
+      const int b = rem / D, d = rem - b * D;
+      const int a = max(rowptr[rl], t0), z = min(rowptr[rl + 1], t0 + ne);
+      float s = agg[j];
+      for (int e = a; e < z; ++e) s += src[((e - t0) * B + b) * kLd + d];
+      agg[j] = s;
+    }
+  }
+}
+
+// out[r0 .. r0 + nr) <- the sums of sum_into_receivers, each entry once
+__device__ __forceinline__ void store_receiver_sums(float* out,
+                                                    const float (&agg)[kAggPerThread],
+                                                    int r0, int nr, int B) {
+  const int BD = B * D;
+#pragma unroll
+  for (int j = 0; j < kAggPerThread; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    if (idx < nr * BD) out[static_cast<long long>(r0) * BD + idx] = agg[j];
+  }
 }
 
 // rows [0, rows) of dst <- rows [0, n) of the contiguous (., D) block

@@ -17,10 +17,14 @@ slots. Node arrays are node-major, ``(N, B, D)`` batched or ``(N, D)``.
 The edge phase (gather, edge MLP, sum into the receivers, optional edge
 residual) has two routes. The fused route is one kernel, K3 (K4
 backward), behind K1, and serves the two-layer edge MLP of
-``hidden_layers=1``. The unfused route serves every other edge MLP: K1
-and K6 gather the sender and receiver rows, the MLP runs as plain
-``torch`` matmuls (the JAX package computes it outside any Pallas kernel
-too) and K5 sums the messages.
+``hidden_layers=1``. Where ``fused_kernels.fused_v2_routed`` says so
+(``NEURAL_LAM_TPU_FUSED_V2``; at MEPS only with ``on``), an
+interaction-wired fused phase takes its v2 form instead: the first
+layer's sender and receiver products once per node, then K7 with the
+sender gather inside (K8 and K2 backward), and no K1. The unfused route
+serves every other edge MLP: K1 and K6 gather the sender and receiver
+rows, the MLP runs as plain ``torch`` matmuls (the JAX package computes
+it outside any Pallas kernel too) and K5 sums the messages.
 """
 
 from __future__ import annotations
@@ -255,7 +259,18 @@ def _squeeze(out: tuple, squeeze: bool) -> tuple:
 
 def _fused_phase(mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,
                  propagation, embedder=None, edge_features=None):
-    """K1 then K3 on batched node arrays."""
+    """K1 then K3 on batched node arrays, or K7 where the phase routes to
+    v2 (interaction wiring only: a PropagationNet's sender residual needs
+    the per-edge sender rows, as in the JAX package, interaction.py:486
+    and :603). The route is read at every call."""
+    if not propagation and fused_kernels.fused_v2_routed(
+        edge_set.num_edges, send_rep.shape[0] + edge_set.num_rec
+    ):
+        return fused_kernels.fused_edge_phase_v2(
+            mlp, edge_rep, send_rep, rec_rep, edge_set,
+            embedder=embedder, edge_feats=edge_features,
+            update_edges=update_edges,
+        )
     x_send = gather_senders(edge_set, send_rep)  # (E, B, D)
     return fused_kernels.fused_edge_phase(
         mlp, edge_rep, x_send, rec_rep, edge_set,
@@ -290,7 +305,8 @@ def fused_edge_phase(
     propagation: bool = False,
 ):
     """The fused gather, edge MLP and sum for ONE edge MLP (K1, then K3;
-    K4 and K2 backward), for callers that compose a step from
+    K4 and K2 backward; or K7, with K8 and K2 backward, on the v2 route
+    of :func:`_fused_phase`), for callers that compose a step from
     per-section phases (HiLAMParallel): the per-level aggregates are
     summed across sections before one node update, so the node MLP and
     the residual stay with the caller, and so does the mean division.

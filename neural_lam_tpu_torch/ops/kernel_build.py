@@ -22,6 +22,12 @@ from pathlib import Path
 from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# Every kernel source of the port, csrc/<name>.cu: K1, K2, K3, K4, K5, K6,
+# K7, K8 (ops/segment_kernels.py, ops/fused_kernels.py)
+KERNELS = (
+    "sender_gather", "sender_scatter", "fused_edge", "fused_edge_bwd",
+    "segment_sum", "receiver_expand", "fused_edge_v2", "fused_edge_v2_bwd",
+)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -83,8 +89,9 @@ def _finish_build(name: str, tmp: Path, proc: subprocess.Popen) -> None:
     os.replace(tmp, lib)
 
 
-def build(names: Iterable[str]) -> None:
-    """Build the named kernels, one ``nvcc`` per source, all at once."""
+def build(names: Iterable[str] = KERNELS) -> None:
+    """Build the named kernels (all of them by default), one ``nvcc`` per
+    source, all at once."""
     with _lock:
         started = [b for b in (_start_build(n) for n in names) if b]
         errors = []

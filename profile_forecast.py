@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 profile_forecast.py [--model NAME] [--train] [--trace PATH]
+    python3 profile_forecast.py [--model NAME] [--train] [--fused-v2 MODE]
+                                [--trace PATH]
 
 It builds a MEPS model of ``chip_smoke.py``: ``--model graph_lam`` (the
 default; GraphLAM with the fixture's parameters) or one of
@@ -13,23 +14,30 @@ seeded parameters of ``chip_smoke.build_model``. It runs one warm-up
 forecast of batch 4 x 19 AR steps on inputs drawn from
 ``np.random.default_rng(0)``, and profiles one more with
 ``torch.profiler``. It prints the device time summed by kernel group
-(the six kernels, matmuls, the rest), the device busy share over the
+(the eight kernels, matmuls, the rest), the device busy share over the
 forecast's wall time and the kernel launch count, then times the host
 side of a ``predict.run_forecasts`` request: one batch from the loader
 and one compressed forecast file. ``--trace`` writes the Chrome trace.
 
 With ``--train`` it profiles one ``Trainer.train_step`` instead (batch 4,
 ``ar_steps`` 1, the batch of ``chip_smoke.bench_batch``, after two
-warm-up steps) and splits the device time by K1-K6, cuBLAS, LayerNorm,
+warm-up steps) and splits the device time by K1-K8, cuBLAS, LayerNorm,
 the optimizer and the rest. It then times the host: ten steps queued back
 to back, the time until the last is enqueued against the time until the
 device has finished them. ``--host-profile`` runs ten more steps under
 ``cProfile`` and prints where the host spends them.
+
+``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
+(unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
+K3). With ``on`` every fused phase takes the v2 route: K7 forward, K8
+and K2 backward, grouped as such (K8 shares its edge and reduce kernels'
+names with K4, which does not run on that route).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import re
 import sys
 import tempfile
@@ -41,6 +49,8 @@ import numpy as np
 import chip_smoke as cs
 
 GROUPS = (
+    ("K7 fused_edge_phase_v2", re.compile(r"fused_edge_v2_fwd")),
+    ("K8 fused_edge_phase_v2 backward", re.compile(r"fused_edge_v2_bwd")),
     ("K3 fused_edge_phase", re.compile(r"fused_edge_fwd")),
     ("K4 fused_edge_phase backward", re.compile(r"fused_edge_bwd|reduce_workspace")),
     ("K1 sender_gather", re.compile(r"gather_rows")),
@@ -53,10 +63,21 @@ GROUPS = (
 )
 
 
+def groups() -> tuple:
+    """The kernel groups; on the v2 route K8's edge and reduce kernels,
+    whose names K4 shares, count as K8."""
+    if os.environ.get("NEURAL_LAM_TPU_FUSED_V2") != "on":
+        return GROUPS
+    k8 = ("K8 fused_edge_phase_v2 backward",
+          re.compile(r"fused_edge_v2_bwd|fused_edge_bwd_edge|reduce_workspace"))
+    return tuple(k8 if name == k8[0] else (name, pat) for name, pat in GROUPS)
+
+
 def report(torch, prof, card: str, what: str, wall: float, per: int, unit: str) -> None:
     """Device time by kernel group, busy share and launch count of the
     profiled window; ``per`` divides the sums into a per-``unit`` column."""
-    sums = {name: 0.0 for name, _ in GROUPS}
+    groups_ = groups()
+    sums = {name: 0.0 for name, _ in groups_}
     sums["other kernels"] = 0.0
     launches = 0
     for evt in prof.events():
@@ -68,7 +89,7 @@ def report(torch, prof, card: str, what: str, wall: float, per: int, unit: str) 
         if "#" in evt.name:  # an annotated range on the device, not a kernel
             continue
         launches += 1
-        group = next((g for g, pat in GROUPS if pat.search(evt.name)), "other kernels")
+        group = next((g for g, pat in groups_ if pat.search(evt.name)), "other kernels")
         sums[group] += us / 1e3
     busy = sum(sums.values())
     print(card)
@@ -149,7 +170,11 @@ def main() -> int:
                     help="profile one training step, not a forecast request")
     ap.add_argument("--host-profile", action="store_true",
                     help="with --train: cProfile ten more steps on the host")
+    ap.add_argument("--fused-v2", choices=["on", "off", "auto"],
+                    help="set NEURAL_LAM_TPU_FUSED_V2 for the run (on: K7, K8)")
     args = ap.parse_args()
+    if args.fused_v2:
+        os.environ["NEURAL_LAM_TPU_FUSED_V2"] = args.fused_v2
 
     import torch
     from torch.profiler import ProfilerActivity, profile

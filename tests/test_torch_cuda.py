@@ -24,6 +24,10 @@ from neural_lam_tpu_torch.ops.fused_kernels import (
     fused_edge_fwd,
     fused_edge_phase,
     fused_edge_phase_plain,
+    fused_edge_phase_v2,
+    fused_edge_phase_v2_plain,
+    fused_edge_v2_bwd,
+    fused_edge_v2_fwd,
 )
 from neural_lam_tpu_torch.ops.interaction import make_edge_set
 from neural_lam_tpu_torch.ops.mlp import make_mlp
@@ -443,3 +447,212 @@ def test_unfused_interaction_net_on_the_card_matches_the_cpu(cuda, hidden_layers
     for g, w_ in zip(got[2:], want[2:]):
         scale = max(w_.abs().max().item(), 1.0)
         torch.testing.assert_close(g, w_, rtol=0, atol=1e-4 * scale)
+
+
+# -- K7 and K8, the v2 route -------------------------------------------------------
+
+V2_FLAGS = [
+    # (edge mode, update_edges, layer_norm)
+    ("raw", False, True),  # g2m / m2g
+    ("raw", True, True),  # m2m layer 0
+    ("batched", True, True),  # m2m layers 1-3
+    ("shared", True, True),  # HiLAMParallel's sections
+    ("batched", False, False),  # no LayerNorm
+    ("raw", False, False),
+]
+
+
+def _v2_case(rng, cuda, es, n_send, n_rec, mode, batch, ln=True, d=64, seed=0):
+    """Node rows, edge input and MLPs of one v2 call, as leaves."""
+    gen = torch.Generator().manual_seed(seed)
+    edge_mlp = make_mlp([3 * d, d, d], layer_norm=ln, generator=gen).to(cuda)
+    embedder = make_mlp([3, d, d], generator=gen).to(cuda)
+
+    def t(*shape, grad=True):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda, requires_grad=grad)
+
+    send, rec = t(n_send, batch, d), t(n_rec, batch, d)
+    edge_rep, feats, emb = None, None, None
+    if mode == "raw":
+        feats, emb = t(es.num_edges, 3, grad=False), embedder
+    elif mode == "shared":
+        edge_rep = t(es.num_edges, d)
+    else:
+        edge_rep = t(es.num_edges, batch, d)
+    leaves = [send, rec] + ([edge_rep] if edge_rep is not None else [])
+    leaves += list(edge_mlp.parameters()) + (list(emb.parameters()) if emb else [])
+    w_aggr, w_edge = t(n_rec, batch, d, grad=False), t(es.num_edges, batch, d, grad=False)
+    return edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, w_edge
+
+
+def _v2_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, update):
+    """The plain reference: the same node projections, then K7's plain
+    version (autograd through both is K8's and K2's)."""
+    w1 = edge_mlp[0].weight
+    d = w1.shape[0]
+    return fused_edge_phase_v2_plain(
+        edge_mlp, edge_rep, send @ w1[:, d : 2 * d].T, rec @ w1[:, 2 * d :].T,
+        es.senders, es.receivers, emb, feats, update,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,update,ln", V2_FLAGS)
+@pytest.mark.parametrize("batch", [4, 3, 1])  # 16, 21, 64 edges a tile
+def test_fused_edge_phase_v2_matches_plain(cuda, mode, update, ln, batch):
+    """K7 against its plain version: the aggregate (zero for receivers
+    without edges), the updated edges and the saved ``pre``."""
+    rng = np.random.default_rng(21)
+    n_send, n_rec = 70, 50
+    es, _ = _edge_set(rng, n_send, n_rec, 900, cuda, empty_rec=5)
+    edge_mlp, emb, send, rec, edge_rep, feats, _, _, _ = _v2_case(
+        rng, cuda, es, n_send, n_rec, mode, batch, ln
+    )
+    with torch.no_grad():
+        before = fused_edge_phase_v2.launches
+        got = fused_edge_phase_v2(edge_mlp, edge_rep, send, rec, es, embedder=emb,
+                                  edge_feats=feats, update_edges=update)
+        torch.cuda.synchronize()
+        assert fused_edge_phase_v2.launches == before + 1
+        want = _v2_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, update)
+        w1, d = edge_mlp[0].weight, 64
+        sp, rp = send @ w1[:, d : 2 * d].T, rec @ w1[:, 2 * d :].T
+        edge_in = feats if mode == "raw" else edge_rep
+        wts = _weights(edge_mlp, emb)
+        _, _, pre = fused_edge_v2_fwd(edge_in, sp, rp, es, wts, mode == "raw", update,
+                                      save_pre=True)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    assert torch.all(got[0][-5:] == 0)  # receivers without edges
+    if update:
+        torch.testing.assert_close(got[1], want[1], **TOL)
+    else:
+        assert got[1] is None
+    emb_rep = edge_rep if mode != "raw" else emb(feats)
+    proj = emb_rep @ w1[:, :d].T
+    proj = proj.unsqueeze(1) if proj.dim() == 2 else proj
+    want_pre = proj + sp[es.senders.long()] + rp[es.receivers] + edge_mlp[0].bias
+    torch.testing.assert_close(pre, want_pre.detach(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,update,ln", V2_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (3, True), (1, True)])
+def test_fused_edge_phase_v2_backward_matches_plain(cuda, mode, update, ln, batch, use_new_edge):
+    """K8 and K2 (through ``FusedEdgePhaseV2`` and the node projections)
+    against autograd of the plain version: the node rows', the edge
+    input's and every weight's gradient. ``use_new_edge=False`` is the
+    last m2m layer: K8 gets no ``d_new_edge``. A sender without edges
+    gets a zero gradient row; a second run gives the same bits."""
+    rng = np.random.default_rng(22)
+    n_send, n_rec = 70, 50
+    snd = rng.integers(0, n_send - 1, 900)  # sender n_send - 1 sends nothing
+    rcv = rng.integers(0, n_rec - 5, 900)
+    es, _ = make_edge_set(snd, rcv, num_rec=n_rec, num_send=n_send)
+    es = es.to(cuda)
+    edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, w_edge = _v2_case(
+        rng, cuda, es, n_send, n_rec, mode, batch, ln, seed=1
+    )
+
+    def loss(out):
+        total = (out[0] * w_aggr).sum()
+        if update and use_new_edge:
+            total = total + (out[1] * w_edge).sum()
+        return total
+
+    def run():
+        out = fused_edge_phase_v2(edge_mlp, edge_rep, send, rec, es, embedder=emb,
+                                  edge_feats=feats, update_edges=update)
+        return torch.autograd.grad(loss(out), leaves)
+
+    before = (fused_edge_v2_bwd.launches, sender_scatter.launches, sender_gather.launches)
+    got = run()
+    torch.cuda.synchronize()
+    after = (fused_edge_v2_bwd.launches, sender_scatter.launches, sender_gather.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0]
+    want = torch.autograd.grad(
+        loss(_v2_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, update)), leaves
+    )
+    for g, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+    assert torch.all(got[0][n_send - 1] == 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["down", "up", "top", "empty"])
+@pytest.mark.parametrize("mode,update", [("shared", True), ("batched", True), ("batched", False)])
+def test_fused_edge_phase_v2_on_tiny_sets(cuda, kind, mode, update):
+    """K7 and K8 on sets smaller than one block's share of receivers and
+    than the number of SMs, of degree exactly 1 and 9, and without edges:
+    outputs and every gradient against the plain version."""
+    es, n_send, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(23)
+    edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, w_edge = _v2_case(
+        rng, cuda, es, n_send, n_rec, mode, 4, seed=3
+    )
+
+    def loss(out):
+        total = (out[0] * w_aggr).sum()
+        return total + (out[1] * w_edge).sum() if update else total
+
+    got = fused_edge_phase_v2(edge_mlp, edge_rep, send, rec, es, update_edges=update)
+    want = _v2_plain(edge_mlp, edge_rep, send, rec, es, None, None, update)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    if update:
+        torch.testing.assert_close(got[1], want[1], **TOL)
+    for g, w in zip(torch.autograd.grad(loss(got), leaves, allow_unused=True),
+                    torch.autograd.grad(loss(want), leaves, allow_unused=True)):
+        if w is None:  # no edge: the edge MLP's first layers get no gradient
+            assert g is None or not torch.any(g)
+            continue
+        scale = max(w.abs().max().item(), 1.0) if w.numel() else 1.0
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embed,update", [(True, False), (True, True), (False, True)])
+def test_v2_route_matches_v1_route(cuda, monkeypatch, embed, update):
+    """``apply_interaction_net`` on the card with ``NEURAL_LAM_TPU_FUSED_V2``
+    on (K7; K8 and K2 backward) and off (K1 and K3; K4 and K2 backward):
+    the same outputs and gradients to rounding, and each route's
+    launches."""
+    es, n_send, n_rec = _degree_edge_set("mesh", cuda)
+    rng = np.random.default_rng(24)
+    d, batch = 64, 4
+    net = InteractionNet(d, generator=torch.Generator().manual_seed(5)).to(cuda)
+    emb = make_mlp([3, d, d], generator=torch.Generator().manual_seed(6)).to(cuda)
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((n_send, batch, d), (n_rec, batch, d), (es.num_edges, batch, d))]
+    feats = torch.tensor(rng.normal(size=(es.num_edges, 3)), dtype=torch.float32, device=cuda)
+    counters = (fused_edge_phase_v2, fused_edge_v2_bwd, sender_gather, fused_edge_phase,
+                fused_edge_bwd, sender_scatter)
+
+    def run(route):
+        monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", route)
+        net.zero_grad(set_to_none=True)
+        emb.zero_grad(set_to_none=True)
+        leaves = [torch.tensor(a, device=cuda, requires_grad=True) for a in arrays]
+        kw = dict(update_edges=update)
+        if embed:
+            kw.update(edge_embedder=emb, edge_features=feats)
+            leaves[2] = None
+        before = [fn.launches for fn in counters]
+        out = apply_interaction_net(net, es, leaves[0], leaves[1], leaves[2], **kw)
+        outs = out if update else (out,)
+        sum((o * o).sum() for o in outs).backward()
+        launches = [fn.launches - b for fn, b in zip(counters, before)]
+        params = list(net.parameters()) + (list(emb.parameters()) if embed else [])
+        grads = [x.grad for x in leaves if x is not None] + [p.grad for p in params]
+        return [o.detach() for o in outs], grads, launches
+
+    out2, grads2, launches2 = run("on")
+    out1, grads1, launches1 = run("off")
+    assert launches2 == [1, 1, 0, 0, 0, 1]
+    assert launches1 == [0, 0, 1, 1, 1, 1]
+    for a, b in zip(out2, out1):
+        torch.testing.assert_close(a, b, **TOL)
+    for g, w in zip(grads2, grads1):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
