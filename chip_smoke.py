@@ -3,7 +3,12 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` names a checkout of the commit before the tensor-core K3
+and K4 (their SIMT design and C interface): its ``fused_edge.cu`` and
+``fused_edge_bwd.cu`` are built too and timed on the same inputs in the
+same call, beside the current K3 and K4.
 
 It builds the port's eight CUDA kernels from ``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
@@ -21,7 +26,9 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
    against the stated tolerance, and times from CUDA events (the kernel,
    its plain version and, for K1, K2, K5 and K6, ``index_select`` and
    ``index_add_``). K3 is timed with and without the ``pre`` output that
-   its backward, K4, starts from. All six kernels are also held against
+   its backward, K4, starts from; K3 and K4 beside their bound on the
+   tensor cores (3xTF32) and on the SIMT units, and then in the probe of
+   ``phase_probe`` (uniform in-degree, LayerNorm off, occupancy). All six kernels are also held against
    their plain versions at each of the ten mesh edge sets of the
    hierarchical graph (from 51,520 edges into 6,561 receivers down to 40
    edges into 9; in-degrees of exactly 9 on the up sets and 1 on the
@@ -76,7 +83,9 @@ two AR steps, so that K5 and K6 also run on the level sets in a model;
 then the report: a ``{"kernels": [...]}`` line and the
 ``{"ok": true, "device": ...}`` line.
 
-Parity is exact float32: TF32 is off for matmuls and for cuDNN. The
+Parity is float32: TF32 is off for PyTorch's matmuls and for cuDNN, and
+K3 and K4 run their products on the tensor cores with the 3xTF32 split,
+at float32 accuracy. The
 script needs one CUDA device and exits non-zero without one, and outside
 a checkout of the repository. Generated data, the graphs and the
 forecasts go under ``.smoke_cache/`` in the checkout.
@@ -112,14 +121,20 @@ SERVE_BATCHES = 1
 # batches of 4 samples: len(split) = n_timesteps - ar_steps - 2
 SERVE_TIMESTEPS = AR_STEPS + 2 + SERVE_BATCHES * BATCH
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM3 bytes/s
-# and float32 outside the tensor cores (the kernels compute in exact f32).
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM3 bytes/s,
+# float32 outside the tensor cores, and dense TF32 on the tensor cores. K3
+# and K4 (and, as a bound, K7 and K8) run their float32 products on the
+# tensor cores at float32 accuracy as three TF32 products each (3xTF32), so
+# their operations bound is 3 x FLOP / TF32_FLOP_PER_S; the SIMT bound,
+# FLOP / FP32_FLOP_PER_S, is printed beside it.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
-# Tolerances against the plain versions on the same card, exact f32 on
-# both sides. K1 is a copy: bit-identical. K3 differs from the plain
-# version only in summation order (64-term dot products, LayerNorm moments
+# Tolerances against the plain versions on the same card, float32 on both
+# sides (3xTF32 in K3 and K4 rounds like another summation order). K1 is a
+# copy: bit-identical. K3 differs from the plain version only in rounding
+# and summation order (64-term dot products, LayerNorm moments
 # and each receiver's message sum, taken in edge order without atomics):
 # values are O(1) after LayerNorm and the sums add O(10) of them.
 K1_TOL = 0.0
@@ -230,11 +245,95 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, tensor: bool = False) -> tuple[float, str]:
     """Least time in ms for ``nbytes`` moved and ``flops`` done, and
-    which of the two sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    which of the two sets it. With ``tensor`` the operations are float32
+    products that the tensor cores do at float32 accuracy as three TF32
+    products; else they run on the float32 SIMT units."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (3 * flops / TF32_FLOP_PER_S) if tensor else flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def parent_kernels(torch, parent: Path):
+    """K3 and K4 of their earlier SIMT design, from a checkout of the
+    commit before the tensor-core redesign at ``parent``, for a same-call
+    comparison: ``(fwd, bwd)``, each called like
+    ``fused_kernels.fused_edge_fwd`` / ``fused_edge_bwd`` with the same
+    inputs (``fwd`` returns what that returns; ``bwd`` does the same work
+    and returns None). Uses that design's C interface of
+    ``nl_fused_edge_fwd`` (no work counter) and ``nl_fused_edge_bwd`` (one
+    block count, a 3-matrix main workspace)."""
+    import ctypes
+
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+    from neural_lam_tpu_torch.ops import kernel_build
+
+    csrc = parent / "neural_lam_tpu_torch" / "csrc"
+    libs = {}
+    procs = []
+    for name in ("fused_edge", "fused_edge_bwd"):
+        out = kernel_build.BUILD_DIR / f"parent-{name}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(out),
+               str(csrc / f"{name}.cu")]
+        procs.append((name, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for name, out, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
+        libs[name] = ctypes.CDLL(str(out))
+    fwd_c = libs["fused_edge"].nl_fused_edge_fwd
+    fwd_c.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 20
+    bwd_c = libs["fused_edge_bwd"].nl_fused_edge_bwd
+    bwd_c.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 25
+    ptr = fk._ptr
+
+    def fwd(edge_in, x_send, rec, es, weights, raw, update, prop, save_pre=False):
+        mode, feat = fk._check_inputs(edge_in, x_send, rec, es, weights, raw)
+        dev, shape = x_send.device, tuple(x_send.shape)
+        aggr = torch.empty(tuple(rec.shape), device=dev)
+        new_edge = torch.empty(shape, device=dev) if update else None
+        pre = torch.empty(shape, device=dev) if save_pre else None
+        err = fwd_c(mode, es.num_rec, shape[1], feat, int(update), int(prop),
+                    int(weights[4] is not None), ptr(edge_in), ptr(x_send), ptr(rec),
+                    ptr(es.rowptr), *(ptr(w) for w in weights), ptr(aggr),
+                    ptr(new_edge), ptr(pre), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K3: CUDA error {err}")
+        return aggr, new_edge, pre
+
+    def bwd(d_aggr, d_new, pre, edge_in, x_send, rec, es, weights, raw, prop):
+        mode, feat = fk._check_inputs(edge_in, x_send, rec, es, weights, raw)
+        dev, d = x_send.device, HIDDEN
+        n_e, b = x_send.shape[0], x_send.shape[1]
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        batched = mode == 2
+        d_edge = torch.empty((n_e, b, d) if batched else (n_e, d), device=dev)
+        ws_main, out_main = torch.empty(blocks, 12544, device=dev), torch.empty(12544, device=dev)
+        presum = out_edge = ws_edge = None
+        if not batched:
+            presum, out_edge = torch.empty(n_e, d, device=dev), torch.empty(8960, device=dev)
+            ws_edge = torch.empty(blocks, 8960, device=dev)
+        d_send, d_rec = torch.empty(n_e, b, d, device=dev), torch.empty(es.num_rec, b, d, device=dev)
+        err = bwd_c(mode, es.num_rec, n_e, b, feat, int(prop), int(weights[4] is not None),
+                    blocks, ptr(edge_in), ptr(x_send), ptr(pre), ptr(d_aggr), ptr(d_new),
+                    ptr(es.rowptr), ptr(weights[0]), ptr(weights[2]), ptr(weights[3]),
+                    ptr(weights[4]), *(ptr(w) for w in weights[6:]), ptr(d_send),
+                    ptr(d_edge), ptr(d_rec), ptr(presum), ptr(ws_main), ptr(out_main),
+                    ptr(ws_edge), ptr(out_edge), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K4: CUDA error {err}")
+        # the rest of that design's wrapper: the receiver slice's
+        # node-sized products and the assembled first-layer gradient
+        mats = out_main[: 3 * d * d].view(3, d, d)
+        dw1e = mats[2] if batched else out_edge[: d * d].view(d, d)
+        d_rec @ weights[0][:, 2 * d :]
+        dw1r = torch.einsum("nbc,nbk->ck", d_rec, rec)
+        torch.cat([dw1e, mats[1], dw1r], dim=1)
+
+    return fwd, bwd
 
 
 def nbytes(*tensors) -> int:
@@ -403,10 +502,12 @@ def expected_launches(model, training: bool) -> dict[str, int]:
     return want
 
 
-def phase_kernels(torch, model) -> list[dict]:
+def phase_kernels(torch, model, parent=None) -> list[dict]:
     """Each kernel against its plain version at the shapes of the six
     GNN calls; returns the per-kernel report, times summed over the calls
-    of one AR step (K1, K3) or one training step (K2, K4)."""
+    of one AR step (K1, K3) or one training step (K2, K4). With
+    ``parent`` (:func:`parent_kernels`), K3 and K4 of the parent commit
+    are timed on the same inputs in the same call."""
     from neural_lam_tpu_torch.ops.fused_kernels import (
         _weights,
         fused_edge_bwd,
@@ -510,7 +611,7 @@ def phase_kernels(torch, model) -> list[dict]:
         ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, 1, n_grid),
     ]
     k3 = dict(ms=0.0, pre_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0,
-              bytes_ms=0.0)
+              bytes_ms=0.0, simt_ms=0.0, old_ms=0.0, old_pre_ms=0.0)
     for site, net, ge, emb, mode, update, calls, n_rec in k3_sites:
         es = ge.edges
         n_e = es.num_edges
@@ -554,16 +655,29 @@ def phase_kernels(torch, model) -> list[dict]:
         else:
             flops += 2 * rows * d * d  # edge . W1e per (edge, b)
         flops += rows * d
-        b_ms, b_by = bound(moved, flops)
+        b_ms, b_by = bound(moved, flops, tensor=True)
+        simt_ms, _ = bound(moved, flops)
+        old = "old design not measured"
+        if parent is not None:
+            old_ms = cuda_ms(lambda: parent[0](
+                edge_in, x_send, rec, es, wts, mode == "raw", update, False))
+            old_pre_ms = cuda_ms(lambda: parent[0](
+                edge_in, x_send, rec, es, wts, mode == "raw", update, False,
+                save_pre=True))
+            k3["old_ms"] += calls * old_ms
+            k3["old_pre_ms"] += calls * old_pre_ms
+            old = f"old design {old_ms:.4f} ms, with pre {old_pre_ms:.4f} ms"
         log(
             f"K3 fused_edge_phase {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, update_edges {update}; max abs err "
             f"{abs_err:.3g}, max rel err {rel_err:.3g} (rtol/atol "
             f"{K3_RTOL}); kernel {ms:.4f} ms, with the pre output "
-            f"{pre_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}: {moved / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP); {calls} call(s) per AR step"
+            f"{pre_ms:.4f} ms, {old}; plain {plain_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, 3xTF32 tensor cores: {moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP; {100 * b_ms / ms:.1f} % of it), SIMT bound "
+            f"{simt_ms:.4f} ms; {calls} call(s) per AR step"
         )
+        k3["simt_ms"] += calls * simt_ms
         k3["ms"] += calls * ms
         k3["plain_ms"] += calls * plain_ms
         k3["bound_ms"] += calls * b_ms
@@ -572,7 +686,10 @@ def phase_kernels(torch, model) -> list[dict]:
         del x_send, rec, edge_rep, got, want, outs
     log(
         f"K3 per AR step: {k3['ms']:.4f} ms, with the pre output (as the "
-        f"training step runs it) {k3['pre_ms']:.4f} ms"
+        f"training step runs it) {k3['pre_ms']:.4f} ms; old design (same "
+        f"call) {k3['old_ms']:.4f} / {k3['old_pre_ms']:.4f} ms (0 = not measured); "
+        f"bound {k3['bound_ms']:.4f} ms (3xTF32), {100 * k3['bound_ms'] / k3['ms']:.1f} "
+        f"% of it; SIMT bound {k3['simt_ms']:.4f} ms"
     )
 
     # K4, the backward of K3, at the training step's six calls: (site, net,
@@ -592,7 +709,8 @@ def phase_kernels(torch, model) -> list[dict]:
         ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False,
          1, n_grid),
     ]
-    k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0)
+    k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0,
+              simt_ms=0.0, old_ms=0.0)
     for site, net, ge, emb, mode, update, has_dne, calls, n_rec in k4_sites:
         es = ge.edges
         n_e = es.num_edges
@@ -669,16 +787,25 @@ def phase_kernels(torch, model) -> list[dict]:
             flops += n_e * (2 * d * d * 5 + 2 * f * d * 2)
         else:
             flops += 2 * rows * d * d * 2  # d_edge and dW1e per (edge, b)
-        b_ms, b_by = bound(moved, flops)
+        b_ms, b_by = bound(moved, flops, tensor=True)
+        simt_ms, _ = bound(moved, flops)
+        old = "old design not measured"
+        if parent is not None:
+            old_ms = cuda_ms(lambda: parent[1](
+                d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw, False))
+            k4["old_ms"] += calls * old_ms
+            old = f"old design {old_ms:.4f} ms"
         log(
             f"K4 fused_edge_phase backward {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, d_new_edge {'given' if has_dne else 'none'}; "
             f"max abs err {abs_err:.3g}, at most {rel_err:.3g} of a gradient's "
-            f"largest value (tol {K4_TOL}), repeatable; kernel {ms:.4f} ms, "
-            f"plain (autograd) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {calls} call(s) "
-            "per training step"
+            f"largest value (tol {K4_TOL}), repeatable; kernel {ms:.4f} ms, {old}; "
+            f"plain (autograd) {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+            f"3xTF32 tensor cores: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+            f"{100 * b_ms / ms:.1f} % of it), SIMT bound {simt_ms:.4f} ms; {calls} "
+            "call(s) per training step"
         )
+        k4["simt_ms"] += calls * simt_ms
         k4["ms"] += calls * ms
         k4["plain_ms"] += calls * plain_ms
         k4["bound_ms"] += calls * b_ms
@@ -689,8 +816,10 @@ def phase_kernels(torch, model) -> list[dict]:
         torch.cuda.empty_cache()
     log(
         f"per training step: K2 {k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, "
-        f"index_add_ {k2['library_ms']:.4f}), K4 {k4['ms']:.4f} ms (bound "
-        f"{k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f})"
+        f"index_add_ {k2['library_ms']:.4f}), K4 {k4['ms']:.4f} ms (old design "
+        f"(same call) {k4['old_ms']:.4f} ms, 0 = not measured; bound "
+        f"{k4['bound_ms']:.4f} ms (3xTF32), {100 * k4['bound_ms'] / k4['ms']:.1f} % "
+        f"of it; SIMT bound {k4['simt_ms']:.4f} ms; plain {k4['plain_ms']:.4f})"
     )
 
     torch.cuda.empty_cache()
@@ -748,6 +877,161 @@ def phase_kernels(torch, model) -> list[dict]:
             library_ms=None,
         ),
     ]
+
+
+def uniform_edge_set(torch, es):
+    """An edge set with the edges and receivers of ``es`` (and its
+    senders) whose in-degrees differ by at most one: what ``es`` would
+    cost without load imbalance."""
+    from neural_lam_tpu_torch.ops.interaction import make_edge_set
+
+    n_e, n_rec = es.num_edges, es.num_rec
+    counts = np.full(n_rec, n_e // n_rec)
+    counts[: n_e % n_rec] += 1
+    receivers = np.repeat(np.arange(n_rec), counts)
+    senders = es.senders.cpu().numpy()
+    uni, _ = make_edge_set(senders, receivers, num_rec=n_rec, num_send=es.num_send)
+    return uni.to(es.senders.device)
+
+
+def phase_probe(torch, model) -> dict:
+    """What holds K3 and K4 back at the six GraphLAM sites, batch 4, from
+    their existing inputs and flags only: each timed as the main path
+    calls it, on an edge set of the same size with uniform in-degree
+    (the cost of load imbalance), with LayerNorm off, and K3 with and
+    without the ``pre`` output; then each kernel's blocks and warps per
+    SM, registers and shared memory in every edge mode. Returns the
+    per-step sums."""
+    from neural_lam_tpu_torch.ops.fused_kernels import (
+        _weights,
+        fused_edge_bwd,
+        fused_edge_fwd,
+        kernel_occupancy,
+    )
+
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n_grid, n_mesh = g.num_grid_nodes, g.num_mesh_nodes
+    m2m, proc = g.m2m[0], list(model.processor.values())
+    # (site, net, edges, embedder, edge input, update_edges, d_new_edge
+    # given, calls per AR step, calls per training step, receivers)
+    sites = [
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, False, 1, 1,
+         n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, True, 1, 1,
+         n_mesh),
+        ("m2m layers 1-3", proc[1], m2m, None, "batched", True, True,
+         PROC_LAYERS - 1, PROC_LAYERS - 2, n_mesh),
+        (f"m2m layer {PROC_LAYERS - 1} (training)", proc[-1], m2m, None, "batched",
+         True, False, 0, 1, n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False, 1, 1,
+         n_grid),
+    ]
+    keys = ("k3", "k3_pre", "k3_uniform", "k3_no_ln", "k4", "k4_uniform", "k4_no_ln")
+    total = dict.fromkeys(keys, 0.0)
+    for site, net, ge, emb, mode, update, has_dne, fwd_calls, bwd_calls, n_rec in sites:
+        es = ge.edges
+        uni = uniform_edge_set(torch, es)
+        n_e, raw = es.num_edges, mode == "raw"
+        x_send, rec = randn(n_e, b, d), randn(n_rec, b, d)
+        edge_in = ge.features if raw else randn(n_e, b, d)
+        d_aggr = randn(n_rec, b, d)
+        d_new = randn(n_e, b, d) if has_dne else None
+        wts = _weights(net.edge_mlp, emb)
+        no_ln = list(wts)
+        no_ln[4] = no_ln[5] = None
+
+        def k3(edge_set, weights=wts, save_pre=False):
+            return fused_edge_fwd(edge_in, x_send, rec, edge_set, weights, raw, update,
+                                  False, save_pre=save_pre)
+
+        _, _, pre = k3(es, save_pre=True)
+        _, _, pre_u = k3(uni, save_pre=True)
+
+        def k4(edge_set, p, weights=wts):
+            return fused_edge_bwd(d_aggr, d_new, p, edge_in, x_send, rec, edge_set,
+                                  weights, raw, False)
+
+        got = dict(
+            k3=cuda_ms(lambda: k3(es)),
+            k3_pre=cuda_ms(lambda: k3(es, save_pre=True)),
+            k3_uniform=cuda_ms(lambda: k3(uni)),
+            k3_no_ln=cuda_ms(lambda: k3(es, no_ln)),
+            k4=cuda_ms(lambda: k4(es, pre)),
+            k4_uniform=cuda_ms(lambda: k4(uni, pre_u)),
+            k4_no_ln=cuda_ms(lambda: k4(es, pre, no_ln)),
+        )
+        deg = es.recv_counts.float()
+        log(
+            f"probe {site}: E {n_e}, receivers {n_rec}, in-degree "
+            f"{int(deg.min())}-{int(deg.max())} (mean {deg.mean().item():.2f}); "
+            f"K3 {got['k3']:.4f} ms, with pre {got['k3_pre']:.4f}, uniform "
+            f"in-degree {got['k3_uniform']:.4f}, LayerNorm off {got['k3_no_ln']:.4f}; "
+            f"K4 {got['k4']:.4f} ms, uniform in-degree {got['k4_uniform']:.4f}, "
+            f"LayerNorm off {got['k4_no_ln']:.4f}; {fwd_calls} forward and "
+            f"{bwd_calls} backward call(s) per step"
+        )
+        for key in keys:
+            total[key] += (bwd_calls if key.startswith("k4") else fwd_calls) * got[key]
+        del x_send, rec, edge_in, d_aggr, d_new, pre, pre_u, uni
+        torch.cuda.empty_cache()
+    log(
+        "probe per step: K3 {k3:.4f} ms (with pre {k3_pre:.4f}, uniform in-degree "
+        "{k3_uniform:.4f}, LayerNorm off {k3_no_ln:.4f}); K4 {k4:.4f} ms (uniform "
+        "in-degree {k4_uniform:.4f}, LayerNorm off {k4_no_ln:.4f})".format(**total)
+    )
+    for kernel, backward in (("K3", False), ("K4 main", True)):
+        for mode, occ in kernel_occupancy(backward).items():
+            log(
+                f"probe {kernel} {mode}: {occ['blocks']} block(s) of {occ['threads']} "
+                f"threads per SM = {occ['warps']} warps; {occ['regs']} registers per "
+                f"thread, {occ['smem']} bytes of shared memory per block"
+            )
+    return total
+
+
+def phase_host_cost(torch, model, parent=None) -> None:
+    """Host time per call of K4's wrapper on the small hierarchical edge
+    sets, where the host, not the card, sets a call's time: calls queued
+    back to back without a synchronise, timed on the host's clock, and the
+    parent commit's K4 beside it when ``parent`` is given."""
+    from neural_lam_tpu_torch.ops.fused_kernels import (
+        _weights,
+        fused_edge_bwd,
+        fused_edge_fwd,
+    )
+
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(6)
+    wts = _weights(model.mesh_init_gnns[0].edge_mlp, None)
+    sites = [(f"m2m[{len(g.m2m) - 1}]", g.m2m[-1]), (f"up[{len(g.up) - 1}]", g.up[-1]),
+             ("down[1]", g.down[1]), ("m2m[1]", g.m2m[1])]
+    for site, ge in sites:
+        es = ge.edges
+        n_e, n_rec = es.num_edges, es.num_rec
+        x = torch.randn((n_e, b, d), generator=gen, device=dev)
+        rec = torch.randn((n_rec, b, d), generator=gen, device=dev)
+        edge = torch.randn((n_e, d), generator=gen, device=dev)
+        d_aggr = torch.randn((n_rec, b, d), generator=gen, device=dev)
+        _, _, pre = fused_edge_fwd(edge, x, rec, es, wts, False, True, False, save_pre=True)
+        runs = [("K4", fused_edge_bwd)] + ([("old design", parent[1])] if parent else [])
+        out = []
+        for name, fn in runs:
+            for _ in range(3):
+                fn(d_aggr, None, pre, edge, x, rec, es, wts, False, False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn(d_aggr, None, pre, edge, x, rec, es, wts, False, False)
+            host = (time.perf_counter() - t0) / 50
+            torch.cuda.synchronize()
+            out.append(f"{name} {1e6 * host:.1f} us")
+        log(f"host K4 wrapper {site}: E {n_e}, receivers {n_rec}, shared edge input, "
+            f"batch {b}; per call until enqueued: {', '.join(out)}")
 
 
 def phase_segment_kernels(torch, graph, hier_graph) -> list[dict]:
@@ -1101,14 +1385,16 @@ def phase_v2_kernels(torch, model) -> list[dict]:
             flops7 += n_e * (2 * edge_in.shape[1] * d + 2 * d * d * 2)
         else:
             flops7 += 2 * rows * d * d
-        bound7, by7 = bound(moved7, flops7)
+        bound7, by7 = bound(moved7, flops7, tensor=True)
+        simt7, _ = bound(moved7, flops7)
         log(
             f"K7 fused_edge_phase_v2 {site}: E {n_e}, senders {n_send}, receivers "
             f"{n_rec}, edge input {mode}, update_edges {update}; max abs err "
             f"{abs7:.3g} (aggregate, pre{', new_edge' if update else ''}; rtol/atol "
             f"{K3_RTOL}), repeatable; kernel {ms7:.4f} ms, with the pre output "
-            f"{pre_ms7:.4f} ms, plain {plain7:.4f} ms, bound {bound7:.4f} ms ({by7}: "
-            f"{moved7 / 1e6:.1f} MB, {flops7 / 1e9:.2f} GFLOP); node projections "
+            f"{pre_ms7:.4f} ms, plain {plain7:.4f} ms, bound {bound7:.4f} ms ({by7}, "
+            f"3xTF32: {moved7 / 1e6:.1f} MB, {flops7 / 1e9:.2f} GFLOP), SIMT bound "
+            f"{simt7:.4f} ms; node projections "
             f"(cuBLAS) {proj_ms:.4f} ms; v1 at this site K1 {k1_ms:.4f} + K3 "
             f"{k3_ms:.4f} ms; {calls} call(s) per AR step"
         )
@@ -1175,14 +1461,15 @@ def phase_v2_kernels(torch, model) -> list[dict]:
             flops8 += 2 * rows * d * d * 2
         else:
             flops8 += 2 * n_e * d * d * 2
-        bound8, by8 = bound(moved8, flops8)
+        bound8, by8 = bound(moved8, flops8, tensor=True)
+        simt8, _ = bound(moved8, flops8)
         log(
             f"K8 fused_edge_phase_v2 backward {site}: d_new_edge "
             f"{'given' if has_dne else 'none'}; max abs err {abs8:.3g}, at most "
             f"{rel8:.3g} of a gradient's largest value (tol {K4_TOL}), repeatable; "
             f"kernel {ms8:.4f} ms, plain (autograd) {plain_ms8:.4f} ms, bound "
-            f"{bound8:.4f} ms ({by8}: {moved8 / 1e6:.1f} MB, {flops8 / 1e9:.2f} "
-            f"GFLOP); K2 on d_pre {ms2:.4f} ms (max rel err {rel2:.3g}, bound "
+            f"{bound8:.4f} ms ({by8}, 3xTF32: {moved8 / 1e6:.1f} MB, {flops8 / 1e9:.2f} "
+            f"GFLOP), SIMT bound {simt8:.4f} ms; K2 on d_pre {ms2:.4f} ms (max rel err {rel2:.3g}, bound "
             f"{bound2:.4f} ms, bytes); v1 at this site K4 {k4_ms:.4f} ms; {calls} "
             "call(s) per training step"
         )
@@ -1839,6 +2126,28 @@ def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total,
     torch.cuda.empty_cache()
 
 
+def build_kernels() -> None:
+    """Build every kernel from the checkout's sources and print the
+    compiler's register, shared-memory and spill report of each."""
+    from neural_lam_tpu_torch.ops import kernel_build
+
+    t0 = time.perf_counter()
+    kernel_build.build()
+    log(
+        f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(k + '.cu' for k in kernel_build.KERNELS)}; nvcc for sm_90a, "
+        "one process per source)"
+    )
+    for name in kernel_build.KERNELS:
+        ptxas = kernel_build.build_log(name).splitlines()
+        kernels = [line.split("'")[1] for line in ptxas if "Compiling entry" in line]
+        used = [line.split(":", 1)[1].strip() for line in ptxas if "registers" in line]
+        spills = [line.strip() for line in ptxas if "spill" in line]
+        for i, k in enumerate(kernels):
+            log(f"  {name} {k}: {used[i] if i < len(used) else ''}; "
+                f"{spills[i] if i < len(spills) else ''}")
+
+
 def main() -> int:
     if not (REPO / "neural_lam_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1850,8 +2159,6 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from neural_lam_tpu_torch.ops import kernel_build
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1862,26 +2169,23 @@ def main() -> int:
         "TF32 off (matmul and cuDNN)"
     )
 
-    t0 = time.perf_counter()
-    kernel_build.build()
-    log(
-        f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(k + '.cu' for k in kernel_build.KERNELS)}; nvcc for sm_90a, "
-        "one process per source)"
-    )
-    for name in kernel_build.KERNELS:
-        ptxas = kernel_build.build_log(name).splitlines()
-        used = [line.split(":", 1)[1].strip() for line in ptxas if "registers" in line]
-        spills = [line.strip() for line in ptxas if "spill" in line]
-        log(f"  {name}: {'; '.join(used)}; {'; '.join(sorted(set(spills)))}")
+    build_kernels()
+
+    parent = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--parent":
+        parent = parent_kernels(torch, Path(sys.argv[2]).resolve())
+        log(f"parent kernels (K3, K4) built from {sys.argv[2]}")
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)
     hi_lam = build_model(torch, "hi_lam", gate_ds)
     with torch.no_grad():
-        report = phase_kernels(torch, model)
+        report = phase_kernels(torch, model, parent)
+        phase_probe(torch, model)
         report += phase_v2_kernels(torch, model)
         report += phase_segment_kernels(torch, model.graph, hi_lam.graph)
+    with torch.no_grad():
+        phase_host_cost(torch, hi_lam, parent)
     level_errs = phase_level_sets(torch, hi_lam)
     for key, err in phase_v2_level_sets(torch, hi_lam).items():
         level_errs[key] = max(level_errs.get(key, 0.0), err)

@@ -1,10 +1,11 @@
-// Shared pieces of the fused edge-phase backward kernels: K4
-// (fused_edge_bwd.cu) and K8 (fused_edge_v2_bwd.cu).
+// Shared pieces of the fused edge-phase backward kernels: K8
+// (fused_edge_v2_bwd.cu), and the edge pass and the reduce that K4
+// (fused_edge_bwd.cu) shares with it.
 //
-// Both run a main kernel over receiver chunks whose tile walk starts with
-// the three steps below, and that leaves, for the
-// per-edge edge inputs (EDGE_RAW, EDGE_SHARED), s[e] = sum_b d_pre[e, b]
-// in an (E, D) scratch. The edge kernel here then forms, from s,
+// K8 runs a main kernel over receiver chunks whose tile walk starts with
+// the three steps below; K8 and K4 leave, for the per-edge edge inputs
+// (EDGE_RAW, EDGE_SHARED), s[e] = sum_b d_pre[e, b] in an (E, D) scratch.
+// The edge kernel here then forms, from s,
 //
 //   dW1e += edge_val^T . s
 //   EDGE_SHARED  d_edge[e] = s[e] . W1e^T (+ sum_b d_new_edge[e, b])

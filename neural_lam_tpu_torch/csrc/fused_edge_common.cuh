@@ -1,10 +1,12 @@
-// Shared pieces of the fused edge-phase kernels: K3 and K7, the forwards
-// (fused_edge.cu, fused_edge_v2.cu), and K4 and K8, their backwards
-// (fused_edge_bwd.cu, fused_edge_v2_bwd.cu).
+// Shared pieces of the fused edge-phase kernels: the sizes, edge modes and
+// SiLU of K3 and K4 (fused_edge.cu, fused_edge_bwd.cu), and the SIMT tile
+// helpers of K7 and K8 (fused_edge_v2.cu, fused_edge_v2_bwd.cu) and of the
+// edge pass they share with K4 (fused_edge_bwd_common.cuh). K3 and K4's own
+// tensor-core helpers are in tc_tf32.cuh.
 //
-// Both kernels work on tiles of 64 rows by D = 64 features held in shared
-// memory with a padded row stride, with 256 threads laid out as 16 row
-// groups x 16 column groups: thread (rg, cg) owns rows rg + 16 i and
+// The SIMT helpers work on tiles of 64 rows by D = 64 features held in
+// shared memory with a padded row stride, with 256 threads laid out as 16
+// row groups x 16 column groups: thread (rg, cg) owns rows rg + 16 i and
 // columns 4 cg + j of a tile, i, j < 4. Every product of a tile with a
 // 64x64 weight is register-tiled 4x4 per thread in exact float32.
 

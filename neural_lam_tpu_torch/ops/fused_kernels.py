@@ -17,15 +17,20 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   :class:`FusedEdgePhase` is that ``custom_vjp``'s counterpart. The
   TPU's one-hot gathers, ``kron(I, W)`` weights, lane stripes and
   blocked-CSR tiles are Mosaic workarounds and are not carried over.
-- Bound on the H100: operations, in exact float32 on the SIMT units.
-  K3 keeps all weights in shared memory, computes the receiver
-  projection once per receiver and the embedder once per edge, and sums
-  each receiver's messages in one block without atomics. When the call
-  will be differentiated K3 also writes the first layer's
-  pre-activation, and K4 starts from it: persistent blocks that own
-  whole receivers keep their share of every weight gradient in
-  registers, write it once to a workspace, and a last small kernel sums
-  the workspace in block order, so the gradients are deterministic.
+- Bound on the H100: operations. K3 and K4 run their products on the
+  tensor cores at float32 accuracy (``wgmma`` and ``mma.sync`` TF32 with
+  the 3xTF32 split, ``csrc/tc_tf32.cuh``); a warp owns 16 rows by 64
+  features, so a row's layers, SiLU and LayerNorm chain in registers.
+  K3 keeps the
+  weights in shared memory once per block of three groups of warps,
+  computes the receiver projection once per receiver and the embedder
+  once per edge, and sums each receiver's messages in one group without
+  atomics. When the call will be differentiated K3 also writes the first
+  layer's pre-activation, and K4 starts from it: groups that own whole
+  receivers keep their share of every weight gradient in registers,
+  write it once to a workspace sized by the grid, and a last small
+  kernel sums the workspace in group order, so the gradients are
+  deterministic. K7 and K8 compute on the SIMT units.
 - The gradient of the receiver rows and of the receiver slice of the
   first layer are node-sized products of K4's ``d_recproj`` output,
   formed here with ``torch`` as the JAX package forms them outside its
@@ -76,13 +81,16 @@ KERNEL_HIDDEN = 64
 KERNEL_MAX_BATCH = 32
 MAX_RAW_FEATURES = 8
 _EDGE_RAW, _EDGE_SHARED, _EDGE_BATCHED = 0, 1, 2
-# floats per block of K4's two workspaces (csrc/fused_edge_bwd.cu:
-# kMainStride, kEdgeStride)
+# floats per group (K4's main kernel) or block of the backward kernels'
+# workspaces (csrc/fused_edge_bwd.cu: kMainStride, kGroups;
+# fused_edge_bwd_common.cuh: kEdgeStride; fused_edge_v2_bwd.cu: kMainStride)
 _MAT = KERNEL_HIDDEN * KERNEL_HIDDEN
-_WS_MAIN = 3 * _MAT + 4 * KERNEL_HIDDEN
+_WS_MAIN = 2 * _MAT + 4 * KERNEL_HIDDEN
 _WS_EDGE = 2 * _MAT + MAX_RAW_FEATURES * KERNEL_HIDDEN + 4 * KERNEL_HIDDEN
-# and of K8's main workspace (csrc/fused_edge_v2_bwd.cu: kMainStride)
 _WS_MAIN_V2 = 2 * _MAT + 4 * KERNEL_HIDDEN
+_K4_GROUPS = 3  # groups of warps per block of K4's main kernel (kGroups)
+_K4_ROW_GROUPS = 4  # and of its batched edge pass (kRowGroups)
+_TILE_ROWS, _REC_ROWS = 64, 32  # rows of a tile and of a receiver chunk
 
 
 def _ln_ok(mlp: nn.Sequential) -> bool:
@@ -286,7 +294,7 @@ def fused_v2_routed(num_edge_slots: int, num_hoisted_rows: int) -> bool:
 @functools.cache
 def _fwd_lib():
     fn = kernel_build.load(KERNEL).nl_fused_edge_fwd
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 20
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 21
     fn.restype = ctypes.c_int
     return fn
 
@@ -294,7 +302,7 @@ def _fwd_lib():
 @functools.cache
 def _bwd_lib():
     fn = kernel_build.load(BWD_KERNEL).nl_fused_edge_bwd
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 25
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 25
     fn.restype = ctypes.c_int
     return fn
 
@@ -313,6 +321,33 @@ def _v2_bwd_lib():
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 24
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_occupancy(backward: bool = False) -> dict[str, dict[str, int]]:
+    """K3's (``backward``: K4's main kernel's) launch resources in each
+    edge mode, from the CUDA runtime on the current device: blocks and
+    warps per SM, threads per block, registers per thread and dynamic
+    shared memory per block in bytes."""
+    lib = kernel_build.load(BWD_KERNEL if backward else KERNEL)
+    fn = lib.nl_fused_edge_bwd_occupancy if backward else lib.nl_fused_edge_fwd_occupancy
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    out = {}
+    for name, mode in (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED),
+                       ("batched", _EDGE_BATCHED)):
+        vals = [ctypes.c_int() for _ in range(4)]
+        err = fn(mode, *(ctypes.addressof(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+        blocks, threads, regs, smem = (v.value for v in vals)
+        out[name] = dict(blocks=blocks, warps=blocks * threads // 32,
+                         threads=threads, regs=regs, smem=smem)
+    return out
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -418,12 +453,13 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel's work counter
     err = _fwd_lib()(
         mode, edge_set.num_rec, shape[1], feat, int(update_edges),
         int(propagation), int(weights[4] is not None),
         _ptr(edge_in), _ptr(x_send), _ptr(rec_rep), _ptr(edge_set.rowptr),
         *(_ptr(w) for w in weights),
-        _ptr(aggr), _ptr(new_edge), _ptr(pre),
+        _ptr(aggr), _ptr(new_edge), _ptr(pre), _ptr(counter),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -483,22 +519,39 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
             None if d_edge is None else d_edge.zero_(),
             d_send, torch.zeros_like(rec_rep), zeros,
         )
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    out_main = empty(_WS_MAIN)
-    ws_main = empty(blocks, _WS_MAIN)
-    presum = out_edge = ws_edge = None
-    if not batched:
-        presum, out_edge, ws_edge = (
-            empty(n_edges, d), empty(_WS_EDGE), empty(blocks, _WS_EDGE)
-        )
+    # grids sized to the work: K4's main kernel runs 3 groups of warps a
+    # block, each over chunks of 32 / B receivers; the edge pass 4 groups a
+    # block over tiles of 64 (edge, b) rows of d_pre (batched), or one block
+    # per tile of 64 rows of s (per edge)
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    chunks = -(-num_rec // (_REC_ROWS // batch))
+    main_blocks = min(sms, -(-chunks // _K4_GROUPS))
+    if batched:
+        tiles = -(-n_edges * batch // _TILE_ROWS)
+        edge_blocks = min(sms, -(-tiles // _K4_ROW_GROUPS))
+        ws_edge_size = edge_blocks * _K4_ROW_GROUPS * _MAT
+    else:
+        edge_blocks = min(sms, -(-n_edges // _TILE_ROWS))
+        ws_edge_size = edge_blocks * _WS_EDGE
+    # the summed weight gradients (the returned gradients are views of
+    # them), and one allocation for the kernels' scratch, freed on return:
+    # ws_main | ws_edge | d_pre or s (multiples of 4 floats: each pointer
+    # stays 16-byte aligned)
+    out_main, out_edge = empty(_WS_MAIN), empty(_WS_EDGE)
+    sizes = (main_blocks * _K4_GROUPS * _WS_MAIN, ws_edge_size,
+             n_edges * (batch if batched else 1) * d)
+    scratch = empty(sum(sizes))
+    ws_main, ws_edge, d_pre = (
+        scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)
+    )
     err = _bwd_lib()(
         mode, num_rec, n_edges, batch, feat, int(propagation),
-        int(gamma is not None), blocks,
+        int(gamma is not None), main_blocks, edge_blocks,
         _ptr(edge_in), _ptr(x_send), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
         _ptr(edge_set.rowptr), _ptr(w1), _ptr(weights[2]), _ptr(weights[3]),
         _ptr(gamma), *(_ptr(w) for w in weights[6:]),
-        _ptr(d_send), _ptr(d_edge), _ptr(d_recproj), _ptr(presum),
-        _ptr(ws_main), _ptr(out_main), _ptr(ws_edge), _ptr(out_edge),
+        _ptr(d_send), _ptr(d_edge), _ptr(d_recproj), d_pre,
+        ws_main, _ptr(out_main), ws_edge, _ptr(out_edge),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -507,11 +560,9 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
         )
     fused_edge_bwd.launches += 1
 
-    mats = out_main[: 3 * _MAT].view(3, d, d)  # dW2, dW1s, dW1e as (out, in)
-    db2, dgamma, dbeta, db1 = out_main[3 * _MAT :].view(4, d)
-    dw1e, emb_grads = mats[2], [None] * 6
-    if not batched:
-        dw1e, emb_grads = _edge_grads(out_edge, raw, feat)
+    mats = out_main[: 2 * _MAT].view(2, d, d)  # dW2, dW1s as (out, in)
+    db2, dgamma, dbeta, db1 = out_main[2 * _MAT :].view(4, d)
+    dw1e, emb_grads = _edge_grads(out_edge, raw, feat)
     # the receiver slice: node-sized products, as the JAX package forms them
     w1r = w1[:, 2 * d :]
     d_rec = d_recproj @ w1r
@@ -530,16 +581,18 @@ class FusedEdgePhase(torch.autograd.Function):
     backward is autograd through the plain version.
 
     ``apply(edge_in, x_send, rec_rep, *weights, edge_set, raw,
-    update_edges, propagation)`` with the twelve tensors of
-    :func:`_weights`; returns ``(aggr, new_edge | None)``.
+    update_edges, propagation, grad_enabled)`` with the twelve tensors of
+    :func:`_weights`, ``grad_enabled`` the caller's grad mode; returns
+    ``(aggr, new_edge | None)``.
     """
 
     @staticmethod
     def forward(ctx, edge_in, x_send, rec_rep, *args):
-        weights, (edge_set, raw, update_edges, propagation) = args[:12], args[12:]
+        weights = args[:12]
+        edge_set, raw, update_edges, propagation, grad_enabled = args[12:]
         ctx.meta = (edge_set, raw, update_edges, propagation)
         ctx.set_materialize_grads(False)
-        need_grad = any(ctx.needs_input_grad)
+        need_grad = grad_enabled and any(ctx.needs_input_grad)
         if x_send.device.type == "cpu":
             aggr, new_edge = _plain(
                 edge_in, x_send, rec_rep, edge_set.receivers, weights, raw,
@@ -561,7 +614,7 @@ class FusedEdgePhase(torch.autograd.Function):
         # absent weights were saved as None and come back as None
         edge_in, x_send, rec_rep, *weights, pre = ctx.saved_tensors
         if d_aggr is None and d_new_edge is None:
-            return (None,) * 19
+            return (None,) * 20
         if d_aggr is None:
             d_aggr = torch.zeros_like(rec_rep)
         if x_send.device.type == "cpu":
@@ -576,7 +629,7 @@ class FusedEdgePhase(torch.autograd.Function):
                 pre, edge_in, x_send, rec_rep, edge_set, weights, raw,
                 propagation,
             )
-        return (d_edge, d_send, d_rec, *grads, None, None, None, None)
+        return (d_edge, d_send, d_rec, *grads, None, None, None, None, None)
 
 
 def _plain_bwd(d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
@@ -639,10 +692,13 @@ def fused_edge_phase(
             "Linear-SiLU-Linear-LayerNorm embedder"
         )
     raw = embedder is not None
+    # grad mode decides whether K3 writes pre for the backward: inside the
+    # Function, needs_input_grad follows the parameters' requires_grad even
+    # under no_grad and inference_mode, where no backward will run
     return FusedEdgePhase.apply(
         edge_feats if raw else edge_rep, x_send, rec_rep,
         *_weights(edge_mlp, embedder),
-        edge_set, raw, update_edges, propagation,
+        edge_set, raw, update_edges, propagation, torch.is_grad_enabled(),
     )
 
 
@@ -742,7 +798,7 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
             None if d_edge is None else d_edge.zero_(),
             d_pre, d_recproj.zero_(), zeros,
         )
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
     out_main = empty(_WS_MAIN_V2)
     ws_main = empty(blocks, _WS_MAIN_V2)
     presum = out_edge = ws_edge = None
@@ -808,18 +864,19 @@ class FusedEdgePhaseV2(torch.autograd.Function):
     ``d_pre``, as its backward. On CPU tensors the forward is the plain
     version and the backward autograd through it, then K2's plain version.
 
-    ``apply(edge_in, sp, rp, *weights, edge_set, raw, update_edges)`` with
-    the twelve tensors of :func:`_weights`; returns ``(aggr, new_edge |
+    ``apply(edge_in, sp, rp, *weights, edge_set, raw, update_edges,
+    grad_enabled)`` with the twelve tensors of :func:`_weights`,
+    ``grad_enabled`` the caller's grad mode; returns ``(aggr, new_edge |
     None)``. The gradient of ``W1`` carries zeros in its sender and
     receiver blocks: the node projections that formed ``sp`` and ``rp``
     add theirs."""
 
     @staticmethod
     def forward(ctx, edge_in, sp, rp, *args):
-        weights, (edge_set, raw, update_edges) = args[:12], args[12:]
+        weights, (edge_set, raw, update_edges, grad_enabled) = args[:12], args[12:]
         ctx.meta = (edge_set, raw, update_edges, sp.shape[0], tuple(rp.shape))
         ctx.set_materialize_grads(False)
-        need_grad = any(ctx.needs_input_grad)
+        need_grad = grad_enabled and any(ctx.needs_input_grad)
         on_cpu = rp.device.type == "cpu"
         if on_cpu:
             aggr, new_edge, pre = _plain_v2(
@@ -844,7 +901,7 @@ class FusedEdgePhaseV2(torch.autograd.Function):
         edge_in, *saved = ctx.saved_tensors
         weights, extra = saved[:12], saved[12:]
         if d_aggr is None and d_new_edge is None:
-            return (None,) * 18
+            return (None,) * 19
         if d_aggr is None:
             d_aggr = edge_in.new_zeros(rec_shape)
         if len(extra) == 2:
@@ -859,7 +916,7 @@ class FusedEdgePhaseV2(torch.autograd.Function):
                 extra[0], edge_in, edge_set, weights, raw,
             )
         d_sp = sender_scatter(d_pre, edge_set, num_send)  # K2
-        return (d_edge, d_sp, d_recproj, *grads, None, None, None)
+        return (d_edge, d_sp, d_recproj, *grads, None, None, None, None)
 
 
 def fused_edge_phase_v2(
@@ -896,10 +953,10 @@ def fused_edge_phase_v2(
     d = w1.shape[0]
     sp = send_rep @ w1[:, d : 2 * d].T  # once per sender row
     rp = rec_rep @ w1[:, 2 * d :].T  # once per receiver row
-    return FusedEdgePhaseV2.apply(
+    return FusedEdgePhaseV2.apply(  # pre only under grad, as in fused_edge_phase
         edge_feats if raw else edge_rep, sp, rp,
         *_weights(edge_mlp, embedder),
-        edge_set, raw, update_edges,
+        edge_set, raw, update_edges, torch.is_grad_enabled(),
     )
 
 

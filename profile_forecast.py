@@ -27,6 +27,12 @@ to back, the time until the last is enqueued against the time until the
 device has finished them. ``--host-profile`` runs ten more steps under
 ``cProfile`` and prints where the host spends them.
 
+``--probe`` builds the kernels, prints the compiler's register report,
+and runs ``chip_smoke.phase_probe``: K3 and K4 at the six GraphLAM sites
+as the main path calls them, on a uniform-in-degree edge set of the same
+size, with LayerNorm off and K3 with and without ``pre``, and each
+kernel's occupancy.
+
 ``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
 (unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
 K3). With ``on`` every fused phase takes the v2 route: K7 forward, K8
@@ -170,6 +176,8 @@ def main() -> int:
                     help="profile one training step, not a forecast request")
     ap.add_argument("--host-profile", action="store_true",
                     help="with --train: cProfile ten more steps on the host")
+    ap.add_argument("--probe", action="store_true",
+                    help="build the kernels and run chip_smoke's K3/K4 probe only")
     ap.add_argument("--fused-v2", choices=["on", "off", "auto"],
                     help="set NEURAL_LAM_TPU_FUSED_V2 for the run (on: K7, K8)")
     args = ap.parse_args()
@@ -189,6 +197,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     cs.CACHE.mkdir(exist_ok=True)
+    if args.probe:
+        print(card)
+        cs.build_kernels()
+        with torch.no_grad():
+            cs.phase_probe(torch, cs.build_meps(torch)[2])
+        return 0
     if args.model == "graph_lam":
         gate_ds, serve_ds, model, forecaster = cs.build_meps(torch)
     else:

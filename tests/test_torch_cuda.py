@@ -4,9 +4,11 @@ Marked ``cuda``: each test skips where no GPU is present (decided in a
 fixture, at run time). Run them on a machine with an H100 with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-Parity is in exact float32 (TF32 off for matmuls and convolutions, so
-the plain versions' products are exact too). The tolerances cover
-summation order only: the kernels sum the 64-term dot products and each
+Parity is in float32 (TF32 off for matmuls and convolutions, so the plain
+versions' products are exact float32; K3 and K4 compute theirs on the
+tensor cores with the 3xTF32 split, at float32 accuracy, which
+``test_fused_edge_phase_float32_accuracy`` holds). The tolerances cover
+rounding and summation order only: the kernels sum the 64-term dot products and each
 receiver's messages in another order than PyTorch's CPU and CUDA
 matmuls and ``index_add_``; every value is O(1) after LayerNorm and the
 aggregates sum O(10) of them, so 1e-4 absolute is far above the
@@ -98,7 +100,7 @@ FLAGS = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,update,prop,ln", FLAGS)
-@pytest.mark.parametrize("batch", [4, 3, 1])  # 16, 21, 64 edges a tile
+@pytest.mark.parametrize("batch", [4, 3, 1, 32])  # 16, 21, 64, 2 edges a tile
 def test_fused_edge_phase_matches_plain(cuda, mode, update, prop, ln, batch):
     rng = np.random.default_rng(1)
     d, n_send, n_rec = 64, 70, 50
@@ -188,7 +190,8 @@ BWD_FLAGS = FLAGS + [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,update,prop,ln", BWD_FLAGS)
-@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (3, True), (1, True)])
+@pytest.mark.parametrize("batch,use_new_edge",
+                         [(4, True), (4, False), (3, True), (1, True), (32, True)])
 def test_fused_edge_phase_backward_matches_plain(cuda, mode, update, prop, ln, batch, use_new_edge):
     """K4 (through ``FusedEdgePhase``) against autograd of the plain
     version: every input and weight gradient. ``use_new_edge=False``
@@ -273,6 +276,41 @@ def test_fused_edge_phase_saves_pre_only_under_grad(cuda):
     want = (edge @ w1[:, :d].T + x_send @ w1[:, d:2 * d].T
             + (rec @ w1[:, 2 * d:].T)[es.receivers] + edge_mlp[0].bias)
     torch.testing.assert_close(pre1, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v2", [False, True])
+def test_fused_edge_phase_writes_pre_only_when_differentiated(cuda, monkeypatch, v2):
+    """Under ``no_grad`` and ``inference_mode`` (the forecast) K3 and K7
+    write no ``pre``, though the edge MLP's parameters require grad; with
+    grad on they do, and the outputs are the same bits."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+    rng = np.random.default_rng(14)
+    d = 64
+    es, _ = _edge_set(rng, 40, 30, 300, cuda)
+    edge_mlp = make_mlp([3 * d, d, d], generator=torch.Generator().manual_seed(8)).to(cuda)
+    send = torch.tensor(rng.normal(size=(300 if not v2 else 40, 2, d)),
+                        dtype=torch.float32, device=cuda)
+    rec = torch.tensor(rng.normal(size=(30, 2, d)), dtype=torch.float32, device=cuda)
+    edge = torch.tensor(rng.normal(size=(300, 2, d)), dtype=torch.float32, device=cuda)
+    name = "fused_edge_v2_fwd" if v2 else "fused_edge_fwd"
+    launcher, saved = getattr(fk, name), []
+
+    def spy(*args, save_pre=False):
+        saved.append(save_pre)
+        return launcher(*args, save_pre=save_pre)
+
+    monkeypatch.setattr(fk, name, spy)
+    phase = fk.fused_edge_phase_v2 if v2 else fk.fused_edge_phase
+    outs = []
+    for mode in (torch.no_grad, torch.inference_mode, torch.enable_grad):
+        with mode():
+            outs.append([o.detach().clone() for o in phase(edge_mlp, edge, send, rec, es,
+                                                           update_edges=True)])
+    assert saved == [False, False, True]
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
 
 
 def _degree_edge_set(kind, device):
@@ -407,6 +445,131 @@ def test_fused_edge_phase_on_tiny_sets(cuda, kind, mode, update, prop):
                     torch.autograd.grad(loss(want), leaves)):
         scale = max(w.abs().max().item(), 1.0)
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mesh", "down"])
+@pytest.mark.parametrize("mode", ["raw", "shared", "batched"])
+@pytest.mark.parametrize("batch", [4, 32])
+def test_fused_edge_phase_long_receivers_and_degree_one(cuda, kind, mode, batch):
+    """K3 and K4 where a receiver's edges span many tiles (400 edges into
+    one receiver, ten receivers without edges) and where every receiver
+    has exactly one edge, in each edge mode: outputs and every gradient
+    against the plain version, and the same bits on a second run."""
+    es, n_send, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(13)
+    d = 64
+    gen = torch.Generator().manual_seed(7)
+    edge_mlp = make_mlp([3 * d, d, d], generator=gen).to(cuda)
+    emb = make_mlp([3, d, d], generator=gen).to(cuda) if mode == "raw" else None
+
+    def t(*shape, grad=True):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda, requires_grad=grad)
+
+    x_send, rec = t(es.num_edges, batch, d), t(n_rec, batch, d)
+    edge_rep = feats = None
+    if mode == "raw":
+        feats = t(es.num_edges, 3, grad=False)
+    else:
+        edge_rep = t(es.num_edges, d) if mode == "shared" else t(es.num_edges, batch, d)
+    leaves = [x_send, rec] + ([edge_rep] if edge_rep is not None else [])
+    leaves += list(edge_mlp.parameters()) + (list(emb.parameters()) if emb else [])
+    w_aggr, w_edge = t(n_rec, batch, d, grad=False), t(es.num_edges, batch, d, grad=False)
+    kw = dict(embedder=emb, edge_feats=feats, update_edges=True)
+
+    def run(fn, *index):
+        out = fn(edge_mlp, edge_rep, x_send, rec, *index, **kw)
+        loss = (out[0] * w_aggr).sum() + (out[1] * w_edge).sum()
+        return [o.detach() for o in out], torch.autograd.grad(loss, leaves)
+
+    got, got_g = run(fused_edge_phase, es)
+    want, want_g = run(fused_edge_phase_plain, es.receivers)
+    # a receiver's sum of 400 O(1) messages is off float64 by about 3e-4 in
+    # any float32 order (the plain version's own, too): 1e-4 of the largest
+    # aggregate; the updated edges as in the other tests
+    scale = max(want[0].abs().max().item(), 1.0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(got[1], want[1], **TOL)
+    if kind == "mesh":
+        assert torch.all(got[0][190:] == 0)  # receivers without edges
+    for g, w in zip(got_g, want_g):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+    again, again_g = run(fused_edge_phase, es)
+    assert all(torch.equal(a, b) for a, b in zip(got + list(got_g), again + list(again_g)))
+
+
+def _near_one(rng, shape, scale=1.0):
+    """``scale * (1 + k 2^-18)`` with integer ``k < 128``: exact in
+    float32, but TF32's 10-bit mantissa rounds every value down to
+    ``scale``, so a product on TF32 operands alone misses by about 2^-11
+    relative, always in the same direction."""
+    return scale * (1.0 + rng.integers(0, 128, size=shape) * 2.0**-18)
+
+
+def _tf32(t):
+    """Round float32 values to TF32 (10 mantissa bits, to nearest)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_fused_edge_phase_float32_accuracy(cuda):
+    """K3 and K4 run their products on the tensor cores with the 3xTF32
+    split, at float32 accuracy: on operands that need 18 mantissa bits
+    (where plain TF32, checked here on the same inputs, misses the first
+    layer by more than 1e-4 relative), ``pre``, the aggregate and every
+    gradient agree with the plain version in float64 to 1e-5 of their
+    largest entry."""
+    rng = np.random.default_rng(31)
+    d, batch = 64, 4
+    es, _ = _edge_set(rng, 40, 30, 600, cuda, empty_rec=3)
+    n_e, n_rec = es.num_edges, es.num_rec
+    mlp64 = make_mlp([3 * d, d, d], layer_norm=False).double()
+    with torch.no_grad():
+        mlp64[0].weight.copy_(torch.tensor(_near_one(rng, (d, 3 * d), 2.0**-6)))
+        mlp64[2].weight.copy_(torch.tensor(_near_one(rng, (d, d), 2.0**-8)))
+        mlp64[0].bias.zero_()
+        mlp64[2].bias.zero_()
+    edge_mlp = make_mlp([3 * d, d, d], layer_norm=False)
+    edge_mlp.load_state_dict(mlp64.state_dict())
+    edge_mlp = edge_mlp.float().to(cuda)  # exact: every value fits in float32
+    arrays = [_near_one(rng, s) for s in ((n_e, batch, d), (n_e, batch, d), (n_rec, batch, d))]
+    d_aggr64 = torch.tensor(_near_one(rng, (n_rec, batch, d)))
+
+    def rel(got, want):
+        got, want = got.detach().double().cpu(), want.detach()
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    # the float64 reference (edge, sender and receiver rows in that order)
+    ref = [torch.tensor(a, requires_grad=True) for a in arrays]
+    receivers = es.receivers.cpu()
+    w1 = mlp64[0].weight
+    pre64 = (ref[0] @ w1[:, :d].T + ref[1] @ w1[:, d:2 * d].T
+             + (ref[2] @ w1[:, 2 * d:].T)[receivers])
+    aggr64, _ = fused_edge_phase_plain(mlp64, ref[0], ref[1], ref[2], receivers)
+    want = torch.autograd.grad((aggr64 * d_aggr64).sum(), ref + list(mlp64.parameters()))
+    # what TF32 operands alone give for the first layer
+    t32 = [_tf32(torch.tensor(a, dtype=torch.float32)).double() for a in arrays]
+    w32 = _tf32(w1.detach().float()).double()
+    pre_tf32 = (t32[0] @ w32[:, :d].T + t32[1] @ w32[:, d:2 * d].T
+                + (t32[2] @ w32[:, 2 * d:].T)[receivers])
+    assert rel(pre_tf32, pre64) > 1e-4
+
+    leaves = [torch.tensor(a, dtype=torch.float32, device=cuda, requires_grad=True)
+              for a in arrays]
+    with torch.no_grad():
+        aggr, _, pre = fused_edge_fwd(leaves[0], leaves[1], leaves[2], es,
+                                      _weights(edge_mlp, None), False, False, False,
+                                      save_pre=True)
+    assert rel(pre, pre64) < 1e-5
+    assert rel(aggr, aggr64) < 1e-5
+    out = fused_edge_phase(edge_mlp, leaves[0], leaves[1], leaves[2], es)[0]
+    got = torch.autograd.grad((out * d_aggr64.float().to(cuda)).sum(),
+                              leaves + list(edge_mlp.parameters()))
+    for g, w in zip(got, want):
+        assert rel(g, w) < 1e-5
 
 
 @pytest.mark.cuda
