@@ -5,10 +5,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--parent DIR]
 
-``--parent DIR`` names a checkout of the commit before the tensor-core K3
-and K4 (their SIMT design and C interface): its ``fused_edge.cu`` and
-``fused_edge_bwd.cu`` are built too and timed on the same inputs in the
-same call, beside the current K3 and K4.
+``--parent DIR`` names a checkout of the commit before the tensor-core K7
+and K8 (their SIMT design and C interface): its ``fused_edge.cu``,
+``fused_edge_bwd.cu``, ``fused_edge_v2.cu`` and ``fused_edge_v2_bwd.cu``
+are built too and timed on the same inputs in the same call, beside the
+current K3, K4, K7 and K8.
 
 It builds the port's eight CUDA kernels from ``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
@@ -36,9 +37,12 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
    K7 and K8 likewise: at the six calls against their plain versions
    (K7's aggregate, updated edges and ``pre``; K8's ``d_pre``,
    ``d_recproj``, edge and every weight gradient; the same bits on a
-   second run), with K2 on K8's ``d_pre``, each timed beside K1 + K3 and
-   K4 on the same inputs, and the whole v2 phase against the v1 route; at
-   the ten level sets through the per-section entry, against the plain
+   second run), with K2 on K8's ``d_pre``, each beside its bounds; per
+   site the two routes on the same inputs (edges per hoisted row; v1 =
+   K1 + K3 forward, K4 + K2 backward; v2 = the node projections + K7
+   forward, K8 + K2 + the projections' backward), and the whole v2 phase
+   against the v1 route; at the ten level sets in every edge mode (the
+   per-section entry, and the in-kernel embedder), against the plain
    version and the v1 route, with LayerNorm off in one mode.
 2. Accuracy gate: a 19-step batch-1 rollout with the JAX package's
    ``PRNGKey(0)`` parameters (``tests/fixtures/accuracy/
@@ -59,7 +63,12 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
 
 Phases 2-5 run twice: on the default route and on the v2 route, where
 every GNN application launches K7 and no K1 or K3 (and K8 and K2, no K4,
-backward), against the same fixtures at the same limits.
+backward), against the same fixtures at the same limits. Then GraphLAM's
+served AR step and training step on both routes, each as its kernels'
+device time beside the host's time to enqueue it; and the shapes the
+fused kernels do not take (``GraphLAM(hidden_dim=32)`` serving and
+training, ``apply_interaction_net`` at batch 33), which route to the
+unfused operations and agree with the same calls on the CPU.
 
 Then, for ``GraphLAM(hidden_layers=2)`` (path U, the unfused route: K1,
 K6, the edge MLP, K5; K2, K5, K6 backward), ``HiLAM`` and
@@ -84,8 +93,8 @@ then the report: a ``{"kernels": [...]}`` line and the
 ``{"ok": true, "device": ...}`` line.
 
 Parity is float32: TF32 is off for PyTorch's matmuls and for cuDNN, and
-K3 and K4 run their products on the tensor cores with the 3xTF32 split,
-at float32 accuracy. The
+K3, K4, K7 and K8 run their products on the tensor cores with the 3xTF32
+split, at float32 accuracy. The
 script needs one CUDA device and exits non-zero without one, and outside
 a checkout of the repository. Generated data, the graphs and the
 forecasts go under ``.smoke_cache/`` in the checkout.
@@ -94,6 +103,7 @@ forecasts go under ``.smoke_cache/`` in the checkout.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -122,18 +132,18 @@ SERVE_BATCHES = 1
 SERVE_TIMESTEPS = AR_STEPS + 2 + SERVE_BATCHES * BATCH
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM3 bytes/s,
-# float32 outside the tensor cores, and dense TF32 on the tensor cores. K3
-# and K4 (and, as a bound, K7 and K8) run their float32 products on the
-# tensor cores at float32 accuracy as three TF32 products each (3xTF32), so
-# their operations bound is 3 x FLOP / TF32_FLOP_PER_S; the SIMT bound,
-# FLOP / FP32_FLOP_PER_S, is printed beside it.
+# float32 outside the tensor cores, and dense TF32 on the tensor cores. K3,
+# K4, K7 and K8 run their float32 products on the tensor cores at float32
+# accuracy as three TF32 products each (3xTF32), so their operations bound
+# is 3 x FLOP / TF32_FLOP_PER_S; the SIMT bound, FLOP / FP32_FLOP_PER_S, is
+# printed beside it.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
 # Tolerances against the plain versions on the same card, float32 on both
-# sides (3xTF32 in K3 and K4 rounds like another summation order). K1 is a
-# copy: bit-identical. K3 differs from the plain version only in rounding
+# sides (3xTF32 in K3, K4, K7 and K8 rounds like another summation order).
+# K1 is a copy: bit-identical. K3 differs from the plain version only in rounding
 # and summation order (64-term dot products, LayerNorm moments
 # and each receiver's message sum, taken in edge order without atomics):
 # values are O(1) after LayerNorm and the sums add O(10) of them.
@@ -255,85 +265,105 @@ def bound(nbytes: float, flops: float, tensor: bool = False) -> tuple[float, str
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def parent_kernels(torch, parent: Path):
-    """K3 and K4 of their earlier SIMT design, from a checkout of the
-    commit before the tensor-core redesign at ``parent``, for a same-call
-    comparison: ``(fwd, bwd)``, each called like
-    ``fused_kernels.fused_edge_fwd`` / ``fused_edge_bwd`` with the same
-    inputs (``fwd`` returns what that returns; ``bwd`` does the same work
-    and returns None). Uses that design's C interface of
-    ``nl_fused_edge_fwd`` (no work counter) and ``nl_fused_edge_bwd`` (one
-    block count, a 3-matrix main workspace)."""
+def parent_kernels(torch, parent: Path) -> dict:
+    """K3, K4, K7 and K8 of the commit before the tensor-core K7 and K8,
+    from a checkout of it at ``parent``, for a same-call comparison: a
+    dict of four callables, each called like the current wrapper with the
+    same inputs (``fused_kernels.fused_edge_fwd``, ``fused_edge_bwd``,
+    ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and doing the same work.
+    K3 and K4 keep the current C interface there and run through the
+    current wrappers on the parent's libraries; K7 (no work counter) and
+    K8 (one block count, a 2-matrix main workspace per SM) use that
+    commit's interface, with its wrappers' allocations."""
     import ctypes
 
     from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops import kernel_build
 
     csrc = parent / "neural_lam_tpu_torch" / "csrc"
-    libs = {}
+    names = ("fused_edge", "fused_edge_bwd", "fused_edge_v2", "fused_edge_v2_bwd")
     procs = []
-    for name in ("fused_edge", "fused_edge_bwd"):
+    for name in names:
         out = kernel_build.BUILD_DIR / f"parent-{name}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(out),
                str(csrc / f"{name}.cu")]
         procs.append((name, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
     for name, out, proc in procs:
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
         libs[name] = ctypes.CDLL(str(out))
-    fwd_c = libs["fused_edge"].nl_fused_edge_fwd
-    fwd_c.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 20
-    bwd_c = libs["fused_edge_bwd"].nl_fused_edge_bwd
-    bwd_c.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 25
-    ptr = fk._ptr
+    k3_c = libs["fused_edge"].nl_fused_edge_fwd
+    k3_c.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 21
+    k4_c = libs["fused_edge_bwd"].nl_fused_edge_bwd
+    k4_c.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 25
+    k7_c = libs["fused_edge_v2"].nl_fused_edge_v2_fwd
+    k7_c.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
+    k8_c = libs["fused_edge_v2_bwd"].nl_fused_edge_v2_bwd
+    k8_c.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 24
+    ptr, d = fk._ptr, HIDDEN
 
-    def fwd(edge_in, x_send, rec, es, weights, raw, update, prop, save_pre=False):
-        mode, feat = fk._check_inputs(edge_in, x_send, rec, es, weights, raw)
-        dev, shape = x_send.device, tuple(x_send.shape)
-        aggr = torch.empty(tuple(rec.shape), device=dev)
+    def through(lib_name, c_fn, wrapper):
+        def run(*args, **kw):
+            old = getattr(fk, lib_name)
+            setattr(fk, lib_name, lambda: c_fn)
+            try:
+                return wrapper(*args, **kw)
+            finally:
+                setattr(fk, lib_name, old)
+
+        return run
+
+    def k7(edge_in, sp, rp, es, weights, raw, update, save_pre=False):
+        mode, feat = fk._check_v2_inputs(edge_in, sp, rp, es, weights, raw)
+        dev, shape = rp.device, (es.num_edges, rp.shape[1], d)
+        aggr = torch.empty(tuple(rp.shape), device=dev)
         new_edge = torch.empty(shape, device=dev) if update else None
         pre = torch.empty(shape, device=dev) if save_pre else None
-        err = fwd_c(mode, es.num_rec, shape[1], feat, int(update), int(prop),
-                    int(weights[4] is not None), ptr(edge_in), ptr(x_send), ptr(rec),
-                    ptr(es.rowptr), *(ptr(w) for w in weights), ptr(aggr),
-                    ptr(new_edge), ptr(pre), torch.cuda.current_stream().cuda_stream)
+        err = k7_c(mode, es.num_rec, shape[1], feat, int(update), int(weights[4] is not None),
+                   ptr(edge_in), ptr(sp), ptr(rp), ptr(es.rowptr), ptr(es.senders),
+                   *(ptr(w) for w in weights), ptr(aggr), ptr(new_edge), ptr(pre),
+                   torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"parent K3: CUDA error {err}")
+            raise RuntimeError(f"parent K7: CUDA error {err}")
         return aggr, new_edge, pre
 
-    def bwd(d_aggr, d_new, pre, edge_in, x_send, rec, es, weights, raw, prop):
-        mode, feat = fk._check_inputs(edge_in, x_send, rec, es, weights, raw)
-        dev, d = x_send.device, HIDDEN
-        n_e, b = x_send.shape[0], x_send.shape[1]
+    def k8(d_aggr, d_new, pre, edge_in, es, weights, raw):
+        dev, n_e, b = pre.device, es.num_edges, pre.shape[1]
+        mode, feat = fk._check_edge_and_weights("parent K8", edge_in, es, b, dev, weights, raw)
         blocks = torch.cuda.get_device_properties(dev).multi_processor_count
         batched = mode == 2
+        d_pre, d_rec = torch.empty(n_e, b, d, device=dev), torch.empty(es.num_rec, b, d, device=dev)
         d_edge = torch.empty((n_e, b, d) if batched else (n_e, d), device=dev)
-        ws_main, out_main = torch.empty(blocks, 12544, device=dev), torch.empty(12544, device=dev)
+        out_main, ws_main = torch.empty(8448, device=dev), torch.empty(blocks, 8448, device=dev)
         presum = out_edge = ws_edge = None
         if not batched:
             presum, out_edge = torch.empty(n_e, d, device=dev), torch.empty(8960, device=dev)
             ws_edge = torch.empty(blocks, 8960, device=dev)
-        d_send, d_rec = torch.empty(n_e, b, d, device=dev), torch.empty(es.num_rec, b, d, device=dev)
-        err = bwd_c(mode, es.num_rec, n_e, b, feat, int(prop), int(weights[4] is not None),
-                    blocks, ptr(edge_in), ptr(x_send), ptr(pre), ptr(d_aggr), ptr(d_new),
-                    ptr(es.rowptr), ptr(weights[0]), ptr(weights[2]), ptr(weights[3]),
-                    ptr(weights[4]), *(ptr(w) for w in weights[6:]), ptr(d_send),
-                    ptr(d_edge), ptr(d_rec), ptr(presum), ptr(ws_main), ptr(out_main),
-                    ptr(ws_edge), ptr(out_edge), torch.cuda.current_stream().cuda_stream)
+        err = k8_c(mode, es.num_rec, n_e, b, feat, int(weights[4] is not None), blocks,
+                   ptr(edge_in), ptr(pre), ptr(d_aggr), ptr(d_new), ptr(es.rowptr),
+                   ptr(weights[0]), ptr(weights[2]), ptr(weights[3]), ptr(weights[4]),
+                   *(ptr(w) for w in weights[6:]), ptr(d_pre), ptr(d_edge), ptr(d_rec),
+                   ptr(presum), ptr(ws_main), ptr(out_main), ptr(ws_edge), ptr(out_edge),
+                   torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"parent K4: CUDA error {err}")
-        # the rest of that design's wrapper: the receiver slice's
-        # node-sized products and the assembled first-layer gradient
-        mats = out_main[: 3 * d * d].view(3, d, d)
-        dw1e = mats[2] if batched else out_edge[: d * d].view(d, d)
-        d_rec @ weights[0][:, 2 * d :]
-        dw1r = torch.einsum("nbc,nbk->ck", d_rec, rec)
-        torch.cat([dw1e, mats[1], dw1r], dim=1)
+            raise RuntimeError(f"parent K8: CUDA error {err}")
+        # the rest of that wrapper: the first layer's assembled gradient
+        mats = out_main[: 2 * d * d].view(2, d, d)
+        dw1e = mats[1] if batched else out_edge[: d * d].view(d, d)
+        zero = torch.zeros((d, d), device=dev)
+        torch.cat([dw1e, zero, zero], dim=1)
+        return d_edge, d_pre, d_rec
 
-    return fwd, bwd
+    return {
+        "K3": through("_fwd_lib", k3_c, fk.fused_edge_fwd),
+        "K4": through("_bwd_lib", k4_c, fk.fused_edge_bwd),
+        "K7": k7,
+        "K8": k8,
+    }
 
 
 def nbytes(*tensors) -> int:
@@ -657,16 +687,16 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         flops += rows * d
         b_ms, b_by = bound(moved, flops, tensor=True)
         simt_ms, _ = bound(moved, flops)
-        old = "old design not measured"
+        old = "parent not measured"
         if parent is not None:
-            old_ms = cuda_ms(lambda: parent[0](
+            old_ms = cuda_ms(lambda: parent["K3"](
                 edge_in, x_send, rec, es, wts, mode == "raw", update, False))
-            old_pre_ms = cuda_ms(lambda: parent[0](
+            old_pre_ms = cuda_ms(lambda: parent["K3"](
                 edge_in, x_send, rec, es, wts, mode == "raw", update, False,
                 save_pre=True))
             k3["old_ms"] += calls * old_ms
             k3["old_pre_ms"] += calls * old_pre_ms
-            old = f"old design {old_ms:.4f} ms, with pre {old_pre_ms:.4f} ms"
+            old = f"parent {old_ms:.4f} ms, with pre {old_pre_ms:.4f} ms"
         log(
             f"K3 fused_edge_phase {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, update_edges {update}; max abs err "
@@ -686,7 +716,7 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         del x_send, rec, edge_rep, got, want, outs
     log(
         f"K3 per AR step: {k3['ms']:.4f} ms, with the pre output (as the "
-        f"training step runs it) {k3['pre_ms']:.4f} ms; old design (same "
+        f"training step runs it) {k3['pre_ms']:.4f} ms; parent (same "
         f"call) {k3['old_ms']:.4f} / {k3['old_pre_ms']:.4f} ms (0 = not measured); "
         f"bound {k3['bound_ms']:.4f} ms (3xTF32), {100 * k3['bound_ms'] / k3['ms']:.1f} "
         f"% of it; SIMT bound {k3['simt_ms']:.4f} ms"
@@ -789,12 +819,12 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
             flops += 2 * rows * d * d * 2  # d_edge and dW1e per (edge, b)
         b_ms, b_by = bound(moved, flops, tensor=True)
         simt_ms, _ = bound(moved, flops)
-        old = "old design not measured"
+        old = "parent not measured"
         if parent is not None:
-            old_ms = cuda_ms(lambda: parent[1](
+            old_ms = cuda_ms(lambda: parent["K4"](
                 d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw, False))
             k4["old_ms"] += calls * old_ms
-            old = f"old design {old_ms:.4f} ms"
+            old = f"parent {old_ms:.4f} ms"
         log(
             f"K4 fused_edge_phase backward {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, d_new_edge {'given' if has_dne else 'none'}; "
@@ -816,7 +846,7 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         torch.cuda.empty_cache()
     log(
         f"per training step: K2 {k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, "
-        f"index_add_ {k2['library_ms']:.4f}), K4 {k4['ms']:.4f} ms (old design "
+        f"index_add_ {k2['library_ms']:.4f}), K4 {k4['ms']:.4f} ms (parent "
         f"(same call) {k4['old_ms']:.4f} ms, 0 = not measured; bound "
         f"{k4['bound_ms']:.4f} ms (3xTF32), {100 * k4['bound_ms'] / k4['ms']:.1f} % "
         f"of it; SIMT bound {k4['simt_ms']:.4f} ms; plain {k4['plain_ms']:.4f})"
@@ -984,10 +1014,11 @@ def phase_probe(torch, model) -> dict:
         "{k3_uniform:.4f}, LayerNorm off {k3_no_ln:.4f}); K4 {k4:.4f} ms (uniform "
         "in-degree {k4_uniform:.4f}, LayerNorm off {k4_no_ln:.4f})".format(**total)
     )
-    for kernel, backward in (("K3", False), ("K4 main", True)):
-        for mode, occ in kernel_occupancy(backward).items():
+    for kernel in ("K3", "K4", "K7", "K8"):
+        for mode, occ in kernel_occupancy(kernel).items():
+            main = " main" if kernel in ("K4", "K8") else ""
             log(
-                f"probe {kernel} {mode}: {occ['blocks']} block(s) of {occ['threads']} "
+                f"probe {kernel}{main} {mode}: {occ['blocks']} block(s) of {occ['threads']} "
                 f"threads per SM = {occ['warps']} warps; {occ['regs']} registers per "
                 f"thread, {occ['smem']} bytes of shared memory per block"
             )
@@ -1018,7 +1049,7 @@ def phase_host_cost(torch, model, parent=None) -> None:
         edge = torch.randn((n_e, d), generator=gen, device=dev)
         d_aggr = torch.randn((n_rec, b, d), generator=gen, device=dev)
         _, _, pre = fused_edge_fwd(edge, x, rec, es, wts, False, True, False, save_pre=True)
-        runs = [("K4", fused_edge_bwd)] + ([("old design", parent[1])] if parent else [])
+        runs = [("K4", fused_edge_bwd)] + ([("parent", parent["K4"])] if parent else [])
         out = []
         for name, fn in runs:
             for _ in range(3):
@@ -1295,16 +1326,20 @@ def phase_level_sets(torch, model) -> dict[str, float]:
     return worst
 
 
-def phase_v2_kernels(torch, model) -> list[dict]:
+def phase_v2_kernels(torch, model, parent=None) -> list[dict]:
     """K7 and K8 against their plain versions at the shapes of the six
-    GraphLAM GNN calls, at batch 4, and K2 on K8's ``d_pre``; each timed
-    beside the v1 route's K1 + K3 and K4 on the same inputs. K7's
+    GraphLAM GNN calls, at batch 4, and K2 on K8's ``d_pre``. K7's
     aggregate, updated edges and ``pre``, and K8's ``d_pre``,
     ``d_recproj``, ``d_edge`` or the embedder's gradients and every weight
-    gradient, each repeatable to the bit; then the whole v2 phase (node
-    projections, K7; K8, K2 and the projections' backward) against the v1
-    route's outputs and gradients. Returns the report of K7 (times summed
-    over one AR step) and K8 (one training step)."""
+    gradient, each repeatable to the bit; each kernel timed beside its
+    bound on the tensor cores (3xTF32) and on the SIMT units and, with
+    ``parent`` (:func:`parent_kernels`), beside the parent commit's kernel
+    on the same inputs. Then, per site, the two routes of the phase on the
+    same inputs: v1 (K1 + K3 forward; K4 + K2 backward) against v2 (the
+    node projections + K7 forward; K8 + K2 + the projections' backward),
+    and the whole v2 phase against the v1 route's outputs and gradients.
+    Returns the report of K7 (times summed over one AR step) and K8 (one
+    training step)."""
     from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops.segment import gather_senders
     from neural_lam_tpu_torch.ops.segment_kernels import (
@@ -1338,10 +1373,16 @@ def phase_v2_kernels(torch, model) -> list[dict]:
         ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False, 1,
          n_mesh, n_grid),
     ]
-    k7 = dict(ms=0.0, pre_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0,
-              bytes_ms=0.0, proj_ms=0.0, v1_ms=0.0)
-    k8 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0,
-              k2_ms=0.0, k2_bound_ms=0.0, k4_ms=0.0)
+    both = ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "simt_ms", "parent_ms",
+            "err")
+    k7 = dict.fromkeys(both + ("pre_ms", "parent_pre_ms", "proj_ms", "v1_ms", "v1_pre_ms"),
+                       0.0)
+    k8 = dict.fromkeys(both + ("k2_ms", "k2_bound_ms", "proj_bwd_ms", "v1_bwd_ms"), 0.0)
+
+    def shares(ms, bound_ms, simt_ms):
+        return (f"{100 * bound_ms / ms:.1f} % of the 3xTF32 bound, "
+                f"{100 * simt_ms / ms:.1f} % of the SIMT bound")
+
     for site, net, ge, emb, mode, update, has_dne, calls, n_send, n_rec in sites:
         es = ge.edges
         n_e, rows, raw = es.num_edges, es.num_edges * b, mode == "raw"
@@ -1368,14 +1409,27 @@ def phase_v2_kernels(torch, model) -> list[dict]:
                    if x is not None):
             raise AssertionError(f"K7 {site}: two runs differ")
         abs7 = max(errors(o, w)[0] for o, w in outs)
-        ms7, pre_ms7 = cuda_ms(run7), cuda_ms(lambda: run7(True))
-        plain7 = cuda_ms(lambda: fk._plain_v2(
+        got7 = dict(ms=cuda_ms(run7), pre_ms=cuda_ms(lambda: run7(True)))
+        got7["plain_ms"] = cuda_ms(lambda: fk._plain_v2(
             edge_in, sp, rp, es.senders, es.receivers, wts, raw, update))
-        proj_ms = cuda_ms(lambda: (send @ w1s.T, rec @ w1r.T))
+        if parent is not None:
+            got7["parent_ms"] = cuda_ms(lambda: parent["K7"](
+                edge_in, sp, rp, es, wts, raw, update))
+            got7["parent_pre_ms"] = cuda_ms(lambda: parent["K7"](
+                edge_in, sp, rp, es, wts, raw, update, True))
+        # what the indexed sp loads cost: the same call with every sender 0,
+        # so that sp is read from one row in cache
+        one_row = dataclasses.replace(es, senders=torch.zeros_like(es.senders))
+        one_row_ms = cuda_ms(lambda: fk.fused_edge_v2_fwd(
+            edge_in, sp, rp, one_row, wts, raw, update))
+        got7["proj_ms"] = cuda_ms(lambda: (send @ w1s.T, rec @ w1r.T))
         x_send = sender_gather(send, es.senders)
         k1_ms = cuda_ms(lambda: sender_gather(send, es.senders))
         k3_ms = cuda_ms(lambda: fk.fused_edge_fwd(
             edge_in, x_send, rec, es, wts, raw, update, False))
+        k3_pre_ms = cuda_ms(lambda: fk.fused_edge_fwd(
+            edge_in, x_send, rec, es, wts, raw, update, False, save_pre=True))
+        got7["v1_ms"], got7["v1_pre_ms"] = k1_ms + k3_ms, k1_ms + k3_pre_ms
         moved7 = nbytes(edge_in, sp, rp, es.rowptr, es.senders, *params, aggr, new_edge)
         # multiply-adds (2 ops each) of the second layer per (edge, b) row,
         # of edge . W1e per row (batched) or per edge, with the embedder's
@@ -1385,26 +1439,25 @@ def phase_v2_kernels(torch, model) -> list[dict]:
             flops7 += n_e * (2 * edge_in.shape[1] * d + 2 * d * d * 2)
         else:
             flops7 += 2 * rows * d * d
-        bound7, by7 = bound(moved7, flops7, tensor=True)
-        simt7, _ = bound(moved7, flops7)
+        got7["bound_ms"], by7 = bound(moved7, flops7, tensor=True)
+        got7["simt_ms"], _ = bound(moved7, flops7)
+        got7["ops_ms" if by7 == "operations" else "bytes_ms"] = got7["bound_ms"]
+        parent7 = (f"parent {got7['parent_ms']:.4f} ms (with pre "
+                   f"{got7['parent_pre_ms']:.4f})" if parent else "parent not measured")
         log(
             f"K7 fused_edge_phase_v2 {site}: E {n_e}, senders {n_send}, receivers "
             f"{n_rec}, edge input {mode}, update_edges {update}; max abs err "
             f"{abs7:.3g} (aggregate, pre{', new_edge' if update else ''}; rtol/atol "
-            f"{K3_RTOL}), repeatable; kernel {ms7:.4f} ms, with the pre output "
-            f"{pre_ms7:.4f} ms, plain {plain7:.4f} ms, bound {bound7:.4f} ms ({by7}, "
-            f"3xTF32: {moved7 / 1e6:.1f} MB, {flops7 / 1e9:.2f} GFLOP), SIMT bound "
-            f"{simt7:.4f} ms; node projections "
-            f"(cuBLAS) {proj_ms:.4f} ms; v1 at this site K1 {k1_ms:.4f} + K3 "
-            f"{k3_ms:.4f} ms; {calls} call(s) per AR step"
+            f"{K3_RTOL}), repeatable; kernel {got7['ms']:.4f} ms, with the pre output "
+            f"{got7['pre_ms']:.4f} ms, {parent7}, every sp row from one cached row "
+            f"{one_row_ms:.4f} ms; plain {got7['plain_ms']:.4f} ms; "
+            f"bound {got7['bound_ms']:.4f} ms ({by7}, 3xTF32: {moved7 / 1e6:.1f} MB, "
+            f"{flops7 / 1e9:.2f} GFLOP), SIMT bound {got7['simt_ms']:.4f} ms; "
+            f"{shares(got7['ms'], got7['bound_ms'], got7['simt_ms'])}; {calls} call(s) "
+            "per AR step"
         )
-        k7["ms"] += calls * ms7
-        k7["pre_ms"] += calls * pre_ms7
-        k7["plain_ms"] += calls * plain7
-        k7["bound_ms"] += calls * bound7
-        k7["ops_ms" if by7 == "operations" else "bytes_ms"] += calls * bound7
-        k7["proj_ms"] += calls * proj_ms
-        k7["v1_ms"] += calls * (k1_ms + k3_ms)
+        for key, val in got7.items():
+            k7[key] += calls * val
         k7["err"] = max(k7["err"], abs7)
 
         # ---- K8, then K2 on d_pre ----------------------------------------------
@@ -1438,18 +1491,29 @@ def phase_v2_kernels(torch, model) -> list[dict]:
                 )
         if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))):
             raise AssertionError(f"K8 {site}: two runs differ")
-        d_pre = got[1]
+        d_pre, d_rp = got[1], got[2]
         sums = sender_scatter(d_pre, es, n_send)
         _, rel2 = errors(sums, sender_scatter_plain(d_pre, es.senders, n_send))
         if rel2 > K2_TOL:
             raise AssertionError(f"K2 {site} on d_pre: max rel err {rel2} > {K2_TOL}")
-        ms8, plain_ms8 = cuda_ms(run8), cuda_ms(plain8)
-        ms2 = cuda_ms(lambda: sender_scatter(d_pre, es, n_send))
-        bound2, _ = bound(nbytes(d_pre, es.send_perm, es.send_rowptr, sums), d_pre.numel())
+
+        def proj_bwd():  # the node projections' backward: node rows and W1s, W1r
+            return (sums @ w1s, torch.einsum("nbc,nbk->ck", sums, send),
+                    d_rp @ w1r, torch.einsum("nbc,nbk->ck", d_rp, rec))
+
+        got8 = dict(ms=cuda_ms(run8), plain_ms=cuda_ms(plain8))
+        if parent is not None:
+            got8["parent_ms"] = cuda_ms(lambda: parent["K8"](
+                d_aggr, d_new, pre, edge_in, es, wts, raw))
+        got8["k2_ms"] = cuda_ms(lambda: sender_scatter(d_pre, es, n_send))
+        got8["k2_bound_ms"], _ = bound(
+            nbytes(d_pre, es.send_perm, es.send_rowptr, sums), d_pre.numel())
+        got8["proj_bwd_ms"] = cuda_ms(proj_bwd)
         _, _, pre1 = fk.fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, False,
                                        save_pre=True)
         k4_ms = cuda_ms(lambda: fk.fused_edge_bwd(
             d_aggr, d_new, pre1, edge_in, x_send, rec, es, wts, raw, False))
+        got8["v1_bwd_ms"] = k4_ms + got8["k2_ms"]  # K2 on d_send: the same edges and rows
         moved8 = nbytes(pre, edge_in, d_aggr, d_new, es.rowptr, *params, *flat(got))
         # per (edge, b) row: z, d_h1, dW2 and, batched, d_edge and dW1e; per
         # edge otherwise: d_edge and dW1e, and for raw features the embedder
@@ -1461,26 +1525,41 @@ def phase_v2_kernels(torch, model) -> list[dict]:
             flops8 += 2 * rows * d * d * 2
         else:
             flops8 += 2 * n_e * d * d * 2
-        bound8, by8 = bound(moved8, flops8, tensor=True)
-        simt8, _ = bound(moved8, flops8)
+        got8["bound_ms"], by8 = bound(moved8, flops8, tensor=True)
+        got8["simt_ms"], _ = bound(moved8, flops8)
+        got8["ops_ms" if by8 == "operations" else "bytes_ms"] = got8["bound_ms"]
+        parent8 = (f"parent {got8['parent_ms']:.4f} ms" if parent
+                   else "parent not measured")
         log(
             f"K8 fused_edge_phase_v2 backward {site}: d_new_edge "
             f"{'given' if has_dne else 'none'}; max abs err {abs8:.3g}, at most "
             f"{rel8:.3g} of a gradient's largest value (tol {K4_TOL}), repeatable; "
-            f"kernel {ms8:.4f} ms, plain (autograd) {plain_ms8:.4f} ms, bound "
-            f"{bound8:.4f} ms ({by8}, 3xTF32: {moved8 / 1e6:.1f} MB, {flops8 / 1e9:.2f} "
-            f"GFLOP), SIMT bound {simt8:.4f} ms; K2 on d_pre {ms2:.4f} ms (max rel err {rel2:.3g}, bound "
-            f"{bound2:.4f} ms, bytes); v1 at this site K4 {k4_ms:.4f} ms; {calls} "
-            "call(s) per training step"
+            f"kernel {got8['ms']:.4f} ms, {parent8}; plain (autograd) "
+            f"{got8['plain_ms']:.4f} ms; bound {got8['bound_ms']:.4f} ms ({by8}, "
+            f"3xTF32: {moved8 / 1e6:.1f} MB, {flops8 / 1e9:.2f} GFLOP), SIMT bound "
+            f"{got8['simt_ms']:.4f} ms; {shares(got8['ms'], got8['bound_ms'], got8['simt_ms'])}; "
+            f"K2 on d_pre {got8['k2_ms']:.4f} ms (max rel err {rel2:.3g}, bound "
+            f"{got8['k2_bound_ms']:.4f} ms, bytes); {calls} call(s) per training step"
         )
-        k8["ms"] += calls * ms8
-        k8["plain_ms"] += calls * plain_ms8
-        k8["bound_ms"] += calls * bound8
-        k8["ops_ms" if by8 == "operations" else "bytes_ms"] += calls * bound8
-        k8["k2_ms"] += calls * ms2
-        k8["k2_bound_ms"] += calls * bound2
-        k8["k4_ms"] += calls * k4_ms
+        for key, val in got8.items():
+            k8[key] += calls * val
         k8["err"] = max(k8["err"], abs8)
+        v1_fwd, v2_fwd = got7["v1_ms"], got7["proj_ms"] + got7["ms"]
+        v1_train = got7["v1_pre_ms"] + got8["v1_bwd_ms"]
+        v2_train = got7["proj_ms"] + got7["pre_ms"] + got8["ms"] + got8["k2_ms"] + got8[
+            "proj_bwd_ms"]
+        log(
+            f"route {site}: {n_e / (n_send + n_rec):.2f} edges per hoisted row "
+            f"(E {n_e} / ({n_send} senders + {n_rec} receivers)); forward v1 (K1 "
+            f"{k1_ms:.4f} + K3 {k3_ms:.4f}) {v1_fwd:.4f} ms, v2 (projections "
+            f"{got7['proj_ms']:.4f} + K7 {got7['ms']:.4f}) {v2_fwd:.4f} ms, v2/v1 "
+            f"{v2_fwd / v1_fwd:.3f}; forward and backward v1 (K1 + K3 with pre "
+            f"{got7['v1_pre_ms']:.4f}, K4 {k4_ms:.4f} + K2 {got8['k2_ms']:.4f}) "
+            f"{v1_train:.4f} ms, v2 (projections + K7 with pre "
+            f"{got7['proj_ms'] + got7['pre_ms']:.4f}, K8 {got8['ms']:.4f} + K2 "
+            f"{got8['k2_ms']:.4f} + the projections' backward {got8['proj_bwd_ms']:.4f}) "
+            f"{v2_train:.4f} ms, v2/v1 {v2_train / v1_train:.3f}"
+        )
         del got, want, again, sums, x_send, pre1
 
         # ---- the whole v2 phase against the v1 route ---------------------------
@@ -1522,12 +1601,24 @@ def phase_v2_kernels(torch, model) -> list[dict]:
         )
         del leaves, o2, g2, o1, g1, pre, d_pre, aggr, new_edge
         torch.cuda.empty_cache()
+    v2_train = k7["proj_ms"] + k7["pre_ms"] + k8["ms"] + k8["k2_ms"] + k8["proj_bwd_ms"]
+    v1_train = k7["v1_pre_ms"] + k8["v1_bwd_ms"]
     log(
-        f"v2 per AR step: node projections {k7['proj_ms']:.4f} + K7 {k7['ms']:.4f} ms "
-        f"(with the pre output {k7['pre_ms']:.4f}; bound {k7['bound_ms']:.4f}) against "
-        f"K1 + K3 {k7['v1_ms']:.4f} ms on the same inputs; per training step K8 "
-        f"{k8['ms']:.4f} + K2 {k8['k2_ms']:.4f} ms (bounds {k8['bound_ms']:.4f}, "
-        f"{k8['k2_bound_ms']:.4f}) against K4 {k8['k4_ms']:.4f} + K2"
+        f"K7 per AR step: {k7['ms']:.4f} ms (with the pre output {k7['pre_ms']:.4f}); "
+        f"parent (same call) {k7['parent_ms']:.4f} / {k7['parent_pre_ms']:.4f} ms (0 = "
+        f"not measured); bound {k7['bound_ms']:.4f} ms (3xTF32), SIMT bound "
+        f"{k7['simt_ms']:.4f} ms: {shares(k7['ms'], k7['bound_ms'], k7['simt_ms'])}; "
+        f"plain {k7['plain_ms']:.4f} ms. K8 per training step: {k8['ms']:.4f} ms; parent "
+        f"(same call) {k8['parent_ms']:.4f} ms; bound {k8['bound_ms']:.4f} ms (3xTF32), "
+        f"SIMT bound {k8['simt_ms']:.4f} ms: {shares(k8['ms'], k8['bound_ms'], k8['simt_ms'])}; "
+        f"plain {k8['plain_ms']:.4f} ms"
+    )
+    log(
+        f"route per AR step: v1 (K1 + K3) {k7['v1_ms']:.4f} ms, v2 (projections "
+        f"{k7['proj_ms']:.4f} + K7 {k7['ms']:.4f}) {k7['proj_ms'] + k7['ms']:.4f} ms; per "
+        f"training step (forward with pre and backward): v1 (K1 + K3, K4 + K2) "
+        f"{v1_train:.4f} ms, v2 (projections + K7, K8 + K2 + the projections' "
+        f"backward {k8['proj_bwd_ms']:.4f}) {v2_train:.4f} ms"
     )
     torch.cuda.empty_cache()
     return [
@@ -1562,19 +1653,25 @@ def phase_v2_kernels(torch, model) -> list[dict]:
 
 def phase_v2_level_sets(torch, model) -> dict[str, float]:
     """The v2 phase (K7; K8 and K2 backward) at every mesh edge set of the
-    hierarchical graph, through ``interaction.fused_edge_phase`` as
-    HiLAMParallel calls it, in five modes: a shared edge input with the
-    edge update, a batched one with and without it, unbatched sender rows
-    beside batched receiver rows, and an edge MLP without LayerNorm.
-    Outputs and every gradient against the plain version and against the
-    v1 route, and a second run to the bit; returns the largest absolute
-    errors of K7 (outputs) and K8 (gradients)."""
+    hierarchical graph (from 51,520 edges into 6,561 receivers down to 40
+    edges into 9; in-degree 9 on the up sets and 1 on the down sets), in
+    every edge mode: through ``interaction.fused_edge_phase`` as
+    HiLAMParallel calls it, with a shared edge input and the edge update,
+    a batched one with and without it, unbatched sender rows beside
+    batched receiver rows, and an edge MLP without LayerNorm; and through
+    ``fused_kernels.fused_edge_phase_v2`` with the in-kernel embedder on
+    the set's raw features. Outputs and every gradient against the plain
+    version and against the v1 route, and a second run to the bit;
+    returns the largest absolute errors of K7 (outputs) and K8
+    (gradients)."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops import interaction
     from neural_lam_tpu_torch.ops.fused_kernels import (
         fused_edge_phase_v2,
         fused_edge_phase_v2_plain,
     )
     from neural_lam_tpu_torch.ops.mlp import make_mlp
+    from neural_lam_tpu_torch.ops.segment import gather_senders
     from neural_lam_tpu_torch.ops.segment_kernels import sender_gather
 
     g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
@@ -1591,7 +1688,7 @@ def phase_v2_level_sets(torch, model) -> dict[str, float]:
     # (edge input, update_edges, sender rows, LayerNorm)
     modes = [("shared", True, "batched", True), ("batched", True, "batched", True),
              ("batched", False, "batched", True), ("shared", True, "unbatched", True),
-             ("batched", True, "batched", False)]
+             ("batched", True, "batched", False), ("raw", True, "batched", True)]
     mlps = {
         True: model.mesh_init_gnns[0].edge_mlp,
         False: make_mlp([3 * d, d, d], layer_norm=False,
@@ -1607,8 +1704,14 @@ def phase_v2_level_sets(torch, model) -> dict[str, float]:
             send = randn(n_send, b, d) if senders == "batched" else randn(n_send, d)
             rec = randn(n_rec, b, d)
             edge = randn(n_e, d) if mode == "shared" else randn(n_e, b, d)
+            emb = feats = None
+            if mode == "raw":  # the in-kernel embedder on the set's features
+                edge, feats = None, ge.features
+                emb = make_mlp([feats.shape[1], d, d],
+                               generator=torch.Generator().manual_seed(GATE_SEED)).to(dev)
             w_aggr, w_edge = randn(n_rec, b, d), randn(n_e, b, d)
-            leaves = [t.requires_grad_(True) for t in (send, rec, edge)] + params
+            leaves = [t.requires_grad_(True) for t in (send, rec, edge) if t is not None]
+            leaves += params + (list(emb.parameters()) if emb else [])
 
             def loss(out):
                 total = (out[0] * w_aggr).sum()
@@ -1616,8 +1719,16 @@ def phase_v2_level_sets(torch, model) -> dict[str, float]:
 
             def run(route):
                 with fused_v2(route):
-                    out = interaction.fused_edge_phase(mlp, es, send, rec, edge,
-                                                       update_edges=update)
+                    if mode != "raw":
+                        out = interaction.fused_edge_phase(mlp, es, send, rec, edge,
+                                                           update_edges=update)
+                    elif route == "on":
+                        out = fused_edge_phase_v2(mlp, None, send, rec, es, embedder=emb,
+                                                  edge_feats=feats, update_edges=update)
+                    else:
+                        out = fk.fused_edge_phase(mlp, None, gather_senders(es, send), rec,
+                                                  es, embedder=emb, edge_feats=feats,
+                                                  update_edges=update)
                     return out, torch.autograd.grad(loss(out), leaves)
 
             before = (fused_edge_phase_v2.launches, sender_gather.launches)
@@ -1631,7 +1742,7 @@ def phase_v2_level_sets(torch, model) -> dict[str, float]:
             w1 = mlp[0].weight
             want = fused_edge_phase_v2_plain(
                 mlp, edge, send_b @ w1[:, d : 2 * d].T, rec @ w1[:, 2 * d :].T,
-                es.senders, es.receivers, update_edges=update,
+                es.senders, es.receivers, emb, feats, update_edges=update,
             )
             want_g = torch.autograd.grad(loss(want), leaves)
             torch.cuda.synchronize()
@@ -2087,6 +2198,172 @@ def phase_train(torch, trainer, card: str) -> dict[str, int]:
     return launches
 
 
+def device_busy_ms(torch, fn) -> float:
+    """The device time of the kernels one call of ``fn()`` launches, from
+    ``torch.profiler`` (copies and fills left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = 0.0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or "#" in evt.name:
+            continue
+        if evt.name.startswith(("Memcpy", "Memset")):
+            continue
+        busy += evt.device_time_total / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler saw no kernel on the device")
+    return busy
+
+
+def host_ms(torch, fn, calls: int = TRAIN_ITERS) -> float:
+    """Host time per call of ``fn()`` until enqueued: ``calls`` calls
+    back to back, waited for once after the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return 1e3 * host
+
+
+def phase_route_steps(torch, model, ds, card: str) -> None:
+    """GraphLAM's served AR step (one ``step`` of batch 4 under inference
+    mode, as each step of a forecast runs it) and its training step
+    (``Trainer.train_step`` on the bench batch) on the v1 route (K1 + K3;
+    K4 + K2) and on the v2 route (projections + K7; K8 + K2), each as the
+    device time of its kernels beside the host's time to enqueue it."""
+    n, d = ds.num_grid_points, ds.get_num_data_vars("state")
+    f = 3 * ds.get_num_data_vars("forcing")
+    rng = np.random.default_rng(2)
+    inputs = [torch.from_numpy(rng.normal(size=(n, BATCH, w)).astype(np.float32)).to(DEVICE)
+              for w in (d, d, f)]
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    for route, label in (("off", "v1"), ("on", "v2")):
+        with fused_v2(route):
+            def serve():
+                with torch.inference_mode():
+                    model.step(*inputs)
+
+            trainer = make_trainer(model, ds)
+
+            def train():
+                trainer.train_step(*data)
+
+            got = [device_busy_ms(torch, serve), host_ms(torch, serve),
+                   device_busy_ms(torch, train), host_ms(torch, train)]
+        log(
+            f"route {label} per step on {card}: served AR step: device {got[0]:.3f} ms, "
+            f"host until enqueued {got[1]:.3f} ms; training step: device {got[2]:.3f} "
+            f"ms, host until enqueued {got[3]:.3f} ms"
+        )
+        del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_unfused_shapes(torch, ds) -> None:
+    """Shapes the fused kernels do not take go the unfused route before
+    any launch (``fused_kernels.kernels_take``), on the card as the JAX
+    package routes them: ``GraphLAM(hidden_dim=32)`` on the MEPS datastore
+    serves two AR steps (``ARForecaster``, batch 2) and takes a training
+    step (the loss and gradients of the bench batch, then one
+    ``Trainer.train_step``), and ``apply_interaction_net`` runs forward and
+    backward at batch 33 on the m2m set. Each against the same call on the
+    CPU, with the launches of the route taken: K1, K5 and K6 (K2 backward),
+    no K3 or K7."""
+    from neural_lam_tpu_torch.models import ARForecaster, GraphLAM
+    from neural_lam_tpu_torch.ops.interaction import InteractionNet, apply_interaction_net
+
+    counters = kernel_counters()
+    fused = ("K3 fused_edge_phase", "K7 fused_edge_phase_v2")
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        if any(got[k] for k in fused) or not all(
+                got[k] for k in ("K1 sender_gather", "K5 segment_sum", "K6 receiver_expand")):
+            raise AssertionError(f"unfused route not taken: {got}")
+        return out, got
+
+    torch.manual_seed(GATE_SEED)
+    models = {"cpu": GraphLAM(ds, hidden_dim=32, processor_layers=PROC_LAYERS, device="cpu")}
+    models[DEVICE] = GraphLAM(ds, hidden_dim=32, processor_layers=PROC_LAYERS, device=DEVICE)
+    models[DEVICE].load_state_dict(models["cpu"].state_dict())
+    inputs = gate_rollout_inputs(ds, 2, 2)
+
+    def forecast(device):
+        with torch.inference_mode():
+            pred, _ = ARForecaster(models[device], ds)(
+                *(torch.from_numpy(a).to(device) for a in inputs))
+        return pred.cpu().numpy()
+
+    def train(device):
+        return train_gate_run(torch, make_trainer(models[device], ds, reload=False), 2, 2)
+
+    got_pred, launches = counted(lambda: forecast(DEVICE))
+    want_pred = forecast("cpu")
+    scale = np.abs(want_pred).mean()
+    mean_rel = float(np.abs(got_pred - want_pred).mean() / scale)
+    max_rel = float(np.abs(got_pred - want_pred).max() / scale)
+    if not np.isfinite(got_pred).all() or mean_rel > GATE_STATE_MEAN_REL or (
+            max_rel > GATE_STATE_MAX_REL):
+        raise AssertionError(f"GraphLAM(hidden_dim=32) forecast: mean_rel {mean_rel}, "
+                             f"max_rel {max_rel}")
+    log(f"unfused shapes: GraphLAM(hidden_dim=32) serves 2 AR steps of batch 2 on the "
+        f"card: against the CPU mean_rel {mean_rel:.3e}, max_rel {max_rel:.3e} (limits "
+        f"{GATE_STATE_MEAN_REL}, {GATE_STATE_MAX_REL}); launches {launches}")
+    (got_losses, got_grads), launches = counted(lambda: train(DEVICE))
+    want_losses, want_grads = train("cpu")
+    rels = np.abs(np.array(got_losses) - want_losses) / np.abs(want_losses)
+    grad_rel = max(float(np.abs(got_grads[k] - w).max() / max(np.abs(w).max(), 1e-30))
+                   for k, w in want_grads.items())
+    if rels[0] > TRAIN_LOSS_RTOL or rels[1] > TRAIN_TRAJ_RTOL or grad_rel > TRAIN_GRAD_TOL:
+        raise AssertionError(f"GraphLAM(hidden_dim=32) training: loss rel {rels}, "
+                             f"gradients {grad_rel}")
+    log(f"unfused shapes: GraphLAM(hidden_dim=32) training step of batch 2 on the card: "
+        f"loss rel {rels[0]:.3e} (tol {TRAIN_LOSS_RTOL}), worst gradient {grad_rel:.3e} of "
+        f"its largest value (tol {TRAIN_GRAD_TOL}), loss after one AdamW step rel "
+        f"{rels[1]:.3e} (tol {TRAIN_TRAJ_RTOL}); launches {launches}")
+
+    es = models[DEVICE].graph.m2m[0].edges
+    n_mesh, b, h = es.num_rec, 33, HIDDEN
+    rng = np.random.default_rng(33)
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((n_mesh, b, h), (n_mesh, b, h), (es.num_edges, h), (n_mesh, b, h))]
+    net = InteractionNet(h, generator=torch.Generator().manual_seed(GATE_SEED))
+
+    def step(device):
+        net.to(device).zero_grad(set_to_none=True)
+        t = [torch.from_numpy(a).to(device) for a in arrays]
+        leaves = [x.requires_grad_(True) for x in t[:3]]
+        new_rec, new_edge = apply_interaction_net(net, es.to(device), *leaves)
+        ((new_rec * t[3]).sum() + new_edge.sum()).backward()
+        grads = [x.grad for x in leaves] + [p.grad for p in net.parameters()]
+        return [x.detach().cpu() for x in (new_rec, new_edge, *grads)]
+
+    got, launches = counted(lambda: step(DEVICE))
+    want = step("cpu")
+    out_err = max(errors(g, w)[0] for g, w in zip(got[:2], want[:2]))
+    grad_rel = max(errors(g, w)[1] for g, w in zip(got[2:], want[2:]))
+    if out_err > K3_ATOL or grad_rel > K4_TOL:
+        raise AssertionError(f"batch 33: outputs off by {out_err}, gradients by {grad_rel}")
+    log(f"unfused shapes: apply_interaction_net at batch 33 on the m2m set (E "
+        f"{es.num_edges}): outputs within {out_err:.3g} of the CPU's (tol {K3_ATOL}), "
+        f"gradients within {grad_rel:.3g} of their largest value (tol {K4_TOL}); "
+        f"launches {launches}")
+    del models, net
+    torch.cuda.empty_cache()
+
+
 def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
@@ -2141,8 +2418,8 @@ def build_kernels() -> None:
     for name in kernel_build.KERNELS:
         ptxas = kernel_build.build_log(name).splitlines()
         kernels = [line.split("'")[1] for line in ptxas if "Compiling entry" in line]
-        used = [line.split(":", 1)[1].strip() for line in ptxas if "registers" in line]
-        spills = [line.strip() for line in ptxas if "spill" in line]
+        used = [line.split(":", 1)[1].strip() for line in ptxas if "Used" in line]
+        spills = [line.strip() for line in ptxas if "spill stores" in line]
         for i, k in enumerate(kernels):
             log(f"  {name} {k}: {used[i] if i < len(used) else ''}; "
                 f"{spills[i] if i < len(spills) else ''}")
@@ -2174,7 +2451,7 @@ def main() -> int:
     parent = None
     if len(sys.argv) > 2 and sys.argv[1] == "--parent":
         parent = parent_kernels(torch, Path(sys.argv[2]).resolve())
-        log(f"parent kernels (K3, K4) built from {sys.argv[2]}")
+        log(f"parent kernels (K3, K4, K7, K8) built from {sys.argv[2]}")
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)
@@ -2182,7 +2459,7 @@ def main() -> int:
     with torch.no_grad():
         report = phase_kernels(torch, model, parent)
         phase_probe(torch, model)
-        report += phase_v2_kernels(torch, model)
+        report += phase_v2_kernels(torch, model, parent)
         report += phase_segment_kernels(torch, model.graph, hi_lam.graph)
     with torch.no_grad():
         phase_host_cost(torch, hi_lam, parent)
@@ -2219,8 +2496,10 @@ def main() -> int:
             total, phase_train(torch, make_trainer(model, gate_ds), card),
             "graph_lam v2 train",
         )
+    phase_route_steps(torch, model, gate_ds, card)
     del model, forecaster
     torch.cuda.empty_cache()
+    phase_unfused_shapes(torch, gate_ds)
     for name in GATE_MODELS:
         drive_gate_model(
             torch, name, gate_ds, serve_ds, card, total,

@@ -166,70 +166,14 @@ constexpr int smem_bytes() {
   return smem_plan(MODE).total * static_cast<int>(sizeof(float));
 }
 
-// 64 rows of 64 floats (row stride ld_src, from column off) -> dst with row
-// stride kWld, 16-byte loads, by `threads` threads
-__device__ __forceinline__ void load_weight(float* dst, const float* __restrict__ w,
-                                            int ld_src, int off, int threads) {
-  for (int i = threadIdx.x; i < D * (D / 4); i += threads) {
-    const int r = i / (D / 4), c4 = i - r * (D / 4);
-    *reinterpret_cast<float4*>(dst + r * kWld + 4 * c4) =
-        __ldg(reinterpret_cast<const float4*>(w + r * ld_src + off) + c4);
-  }
-}
-
-// The embedder's hidden layer SiLU(f . We1 + be1) of the tile's edges
-// el0 + g, el0 + g + 8 (zero features at el >= ne) as a row fragment: F <= 8
-// multiply-adds per value on the SIMT units.
-template <int MODE>
-__device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const Params& p,
-                                             const float* sm, int t0, int el0, int ne) {
-  constexpr Smem L = smem_plan(MODE);
-  const tc::Lane l;
-  const int F = p.feat;
-  const float* sEW1 = sm + L.ew1;
-  const float* sEB1 = sm + L.vec + 4 * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int el = el0 + l.g + 8 * h;
-    float f[kMaxFeat];
-#pragma unroll
-    for (int k = 0; k < kMaxFeat; ++k)
-      f[k] = (k < F && el < ne) ? __ldg(p.edge + static_cast<long long>(t0 + el) * F + k)
-                                : 0.0f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = 8 * n + 2 * l.t + j;
-        float v = sEB1[c];
-#pragma unroll
-        for (int k = 0; k < kMaxFeat; ++k)
-          if (k < F) v = fmaf(f[k], sEW1[k * D + c], v);
-        a1[n][2 * h + j] = silu(v);
-      }
-  }
-}
-
 // edge_val of the tile's edges el0 + g, el0 + g + 8 (zero at el >= ne) as
 // a row fragment: the embedder on the raw features, or the shared edge rows
 template <int MODE>
 __device__ __forceinline__ void edge_value(float (&ev)[8][4], const Params& p,
                                            const float* sm, int t0, int el0, int ne) {
   constexpr Smem L = smem_plan(MODE);
-  if (MODE == EDGE_SHARED) {
-    tc::load_rows<true>(ev, p.edge + static_cast<long long>(t0) * D, D, el0, ne);
-    return;
-  }
-  embed_hidden<MODE>(ev, p, sm, t0, el0, ne);
-  float z[8][4];
-  tc::zero(z);
-  tc::gemm(z, ev, sm + L.ew2);
-  tc::add_cols(z, sm + L.vec + 5 * D);
-  tc::layer_norm(z, sm + L.vec + 6 * D, sm + L.vec + 7 * D, kLnEps);
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ev[n][j] = z[n][j];
+  fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
+                               sm + L.vec + 4 * D, el0, ne);
 }
 
 template <int MODE>
@@ -252,9 +196,9 @@ fused_edge_fwd(const Params p) {
   if (MODE == EDGE_BATCHED)
     tc::load_weight_wg(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   else
-    load_weight(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+    tc::load_weight_rows(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   if (MODE == EDGE_RAW) {
-    load_weight(sm + L.ew2, p.ew2, D, 0, kBlockThreads);
+    tc::load_weight_rows(sm + L.ew2, p.ew2, D, 0, kBlockThreads);
     for (int i = threadIdx.x; i < p.feat * D; i += kBlockThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
       sm[L.ew1 + i] = __ldg(p.ew1 + c * p.feat + k);
@@ -361,7 +305,8 @@ fused_edge_fwd(const Params p) {
         float ev[8][4], part[2][4];
         if (MODE == EDGE_RAW) {
           float* sZ = sStage + 32 * kWld;  // free: edge values use rows < 16
-          embed_hidden<MODE>(ev, p, sm, t0, 0, ne);
+          fused_edge::embed_hidden(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.vec + 4 * D, 0,
+                                   ne);
           tc::zero(part);
           tc::gemm_cols2(part, ev, sm + L.ew2, 2 * warp);
           tc::store_cols2(sZ, kWld, part, 2 * warp);

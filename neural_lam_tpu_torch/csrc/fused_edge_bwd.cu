@@ -60,10 +60,10 @@
 //      db1) are shuffle trees into per-warp slots. It writes d_pre
 //      (EDGE_BATCHED) or s[e] = sum_b d_pre[e, b] (the per-edge modes) for
 //      the edge pass.
-//   2. The edge input's share. EDGE_BATCHED: fused_edge_bwd_rows, d_edge
-//      (wgmma) and dW1e (mma.sync) per (edge, b) row over d_pre. The
-//      per-edge modes: fused_edge_bwd_edge (fused_edge_bwd_common.cuh,
-//      shared with K8), dW1e and d_edge, and for EDGE_RAW the embedder's
+//   2. The edge input's share (fused_edge_bwd_common.cuh, shared with K8).
+//      EDGE_BATCHED: fused_edge_bwd_rows, d_edge (wgmma) and dW1e
+//      (mma.sync) per (edge, b) row over d_pre. The per-edge modes:
+//      fused_edge_bwd_edge, dW1e and d_edge, and for EDGE_RAW the embedder's
 //      backward, over tiles of 64 rows of s (B times fewer rows than the
 //      edge stream) on the SIMT units.
 //   3. reduce_workspace after each: sums the partials in group (block) order.
@@ -354,82 +354,6 @@ fused_edge_bwd_main(const MainParams p) {
   }
 }
 
-// The batched edge input's share, over 64-row tiles of (edge, b) rows:
-// d_edge = d_pre . W1e (+ d_new_edge) and dW1e += edge^T . d_pre, on the
-// tensor cores as the main kernel's products. A block of 16 warps holds
-// W1e^T once and runs four groups of 4 warps; group i takes the tiles i,
-// i + groups, ... (a fixed assignment: deterministic partial sums) and
-// keeps a 16 x 64 share of dW1e per warp in registers.
-constexpr int kRowGroups = 4;
-constexpr int kRowThreads = kRowGroups * kGroupThreads;
-
-struct RowsPlan {
-  int w1et, groups, group_floats, total;
-};
-
-__host__ __device__ constexpr RowsPlan rows_plan() {
-  RowsPlan s{};
-  s.w1et = 0;
-  s.groups = kWgMat;
-  s.group_floats = 2 * kTileRows * kWld;  // edge rows, d_pre rows
-  s.total = s.groups + kRowGroups * s.group_floats;
-  return s;
-}
-
-constexpr int rows_smem_bytes() { return rows_plan().total * static_cast<int>(sizeof(float)); }
-
-struct RowsParams {
-  const float* edge;        // (rows, D)
-  const float* d_pre;       // (rows, D)
-  const float* d_new_edge;  // (rows, D) or null
-  const float* w1;
-  float* d_edge;  // (rows, D)
-  float* ws;      // (gridDim.x * kRowGroups, kMat)
-  int rows;
-};
-
-__global__ void __launch_bounds__(kRowThreads, 1)
-fused_edge_bwd_rows(const RowsParams p) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  constexpr RowsPlan L = rows_plan();
-  tc::load_weight_wg<true>(sm + L.w1et, p.w1, 3 * D, 0, kRowThreads);  // W1e^T
-  __syncthreads();
-  const int group = threadIdx.x / kGroupThreads;
-  const int tg = threadIdx.x - group * kGroupThreads;
-  const int warp = tg >> 5;
-  const int bar = 1 + group;
-  float* sE = sm + L.groups + group * L.group_floats;
-  float* sG = sE + kTileRows * kWld;
-  const int r_base = 16 * warp;
-  const int gi = blockIdx.x * kRowGroups + group;
-  const int n_tiles = (p.rows + kTileRows - 1) / kTileRows;
-
-  float dW1e[8][4];
-  tc::zero(dW1e);
-  for (int tile = gi; tile < n_tiles; tile += gridDim.x * kRowGroups) {
-    const long long row0 = static_cast<long long>(tile) * kTileRows;
-    const int nrows = min(kTileRows, static_cast<int>(p.rows - row0));
-    float g[8][4], x[8][4];
-    tc::load_rows<true>(g, p.d_pre + row0 * D, D, r_base, nrows);
-    tc::load_rows<true>(x, p.edge + row0 * D, D, r_base, nrows);
-    tc::store_rows(sG, kWld, g, r_base, kTileRows);
-    tc::store_rows(sE, kWld, x, r_base, kTileRows);
-    tc::group_sync(bar, kGroupThreads);  // the tile's rows are staged
-    tc::gemm_tn(dW1e, sG, r_base, sE);
-    tc::group_sync(bar, kGroupThreads);  // done with them
-    tc::load_rows<false>(g, sG, kWld, r_base, kTileRows);  // the warp's own d_pre rows
-    if (p.d_new_edge != nullptr)
-      tc::load_rows<true>(x, p.d_new_edge + row0 * D, D, r_base, nrows);
-    else
-      tc::zero(x);
-    tc::gemm_wg<4>(x, g, sm + L.w1et);  // d_edge
-    tc::store_rows(sE, kWld, x, r_base, kTileRows);
-    tc::copy_out_rows(p.d_edge + row0 * D, sE, r_base, nrows);
-  }
-  tc::store_rows(p.ws + static_cast<long long>(gi) * kMat, D, dW1e, r_base, D);
-}
-
 template <bool BATCHED>
 cudaError_t launch_main(const MainParams& p, int blocks, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
@@ -523,16 +447,7 @@ extern "C" int nl_fused_edge_bwd(
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (batched) {  // the edge input's share per (edge, b) row
-    static unsigned allowed = 0;  // devices whose attribute is set
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (!(allowed & (1u << (dev & 31)))) {
-      err = fused_edge::allow_smem(fused_edge_bwd_rows, rows_smem_bytes());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      allowed |= 1u << (dev & 31);
-    }
-    RowsParams r;
+    fused_edge::RowsParams r;
     r.edge = static_cast<const float*>(edge);
     r.d_pre = m.d_pre;
     r.d_new_edge = m.d_new_edge;
@@ -540,11 +455,8 @@ extern "C" int nl_fused_edge_bwd(
     r.d_edge = static_cast<float*>(d_edge);
     r.ws = static_cast<float*>(ws_edge);
     r.rows = n_edges * batch;
-    fused_edge_bwd_rows<<<edge_blocks, kRowThreads, rows_smem_bytes(), s>>>(r);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(fused_edge::launch_reduce(
-        r.ws, edge_blocks * kRowGroups, kMat, 0, static_cast<float*>(out_edge), s));
+    return static_cast<int>(
+        fused_edge::launch_rows(r, edge_blocks, static_cast<float*>(out_edge), s));
   }
 
   // the per-edge modes: the edge pass over s

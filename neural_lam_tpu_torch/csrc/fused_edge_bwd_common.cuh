@@ -1,11 +1,12 @@
-// Shared pieces of the fused edge-phase backward kernels: K8
-// (fused_edge_v2_bwd.cu), and the edge pass and the reduce that K4
-// (fused_edge_bwd.cu) shares with it.
+// Shared pieces of the fused edge-phase backward kernels K4
+// (fused_edge_bwd.cu) and K8 (fused_edge_v2_bwd.cu): the edge input's
+// share after their main kernels, and the reduce of their workspaces.
 //
-// K8 runs a main kernel over receiver chunks whose tile walk starts with
-// the three steps below; K8 and K4 leave, for the per-edge edge inputs
-// (EDGE_RAW, EDGE_SHARED), s[e] = sum_b d_pre[e, b] in an (E, D) scratch.
-// The edge kernel here then forms, from s,
+// The main kernels write d_pre[e, b] (a batched edge input) or s[e] =
+// sum_b d_pre[e, b] (the per-edge edge inputs, EDGE_RAW and EDGE_SHARED).
+// From d_pre, fused_edge_bwd_rows forms d_edge[e, b] = d_pre . W1e^T (+
+// d_new_edge[e, b]) and dW1e += edge^T . d_pre per (edge, b) row on the
+// tensor cores (tc_tf32.cuh). From s, the edge kernel forms
 //
 //   dW1e += edge_val^T . s
 //   EDGE_SHARED  d_edge[e] = s[e] . W1e^T (+ sum_b d_new_edge[e, b])
@@ -13,15 +14,16 @@
 //                through its LayerNorm, second and first layer into its six
 //                weight gradients (the raw features are constants)
 //
-// in tiles of 64 edges, B times smaller than the main kernel's streams.
-// Every block keeps its share of each weight gradient in registers and
-// writes it once to a (blocks, stride) workspace; reduce_workspace sums the
-// workspace over the blocks in block order, so the gradients are
-// deterministic without float atomics.
+// in tiles of 64 edges, B times smaller than the main kernel's streams, on
+// the SIMT units. Every block (or group of warps) keeps its share of each
+// weight gradient in registers and writes it once to a (blocks, stride)
+// workspace; reduce_workspace sums the workspace over the blocks in block
+// order, so the gradients are deterministic without float atomics.
 
 #pragma once
 
 #include "fused_edge_common.cuh"
+#include "tc_tf32.cuh"
 
 namespace fused_edge {
 
@@ -74,127 +76,6 @@ __device__ __forceinline__ void store_vec_sums(float* dst, float* scratch,
     float s = 0.0f;
     for (int g = 0; g < 16; ++g) s += scratch[(n * 16 + g) * D + c];
     dst[i] = s;
-  }
-}
-
-// The main kernels' walk over a tile of 64 (edge, b) rows, the first
-// nrows of them live, starting at row row0 of the (E, B, D) arrays, in
-// three steps that K4 and K8 share:
-//
-// 1. the forward again from the saved pre: pr = pre, h1 = SiLU(pre) into
-//    sH, z = h1 . W2 + b2 and, with layer_norm, its x_hat in xh and
-//    1/sqrt(var + eps) in rstd. Ends with h1 visible to every thread.
-__device__ __forceinline__ void forward_from_pre(float (&pr)[4][4], float (&xh)[4][4],
-                                                 float (&rstd)[4], const float* pre,
-                                                 long long row0, int nrows, float* sH,
-                                                 const float* sW2t, const float* sB2,
-                                                 int layer_norm, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = rg + 16 * i;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < nrows) v = __ldg(reinterpret_cast<const float4*>(pre + (row0 + m) * D) + cg);
-    pr[i][0] = v.x; pr[i][1] = v.y; pr[i][2] = v.z; pr[i][3] = v.w;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) xh[i][j] = silu(pr[i][j]);
-  }
-  store_rows(sH, xh, rg, cg);
-  __syncthreads();
-  zero(xh);
-  mm_acc<4>(xh, sH, sW2t, rg, cg);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) xh[i][j] += sB2[4 * cg + j];
-  if (layer_norm) row_layer_norm(xh, nullptr, nullptr, cg, 4, rstd);
-}
-
-// 2. d_msg of each row: d_aggr of its receiver (sDA holds the chunk's
-//    receiver rows, sRloc the chunk-local receiver of each tile edge) plus
-//    d_new_edge where it is given; zero on the rows past nrows.
-__device__ __forceinline__ void message_grad(float (&dm)[4][4], const float* sDA,
-                                             const int* sRloc, const float* d_new_edge,
-                                             long long row0, int nrows, int B, int rg,
-                                             int cg) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = rg + 16 * i;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < nrows) {
-      const int el = m / B, b = m - el * B;
-      v = *reinterpret_cast<const float4*>(sDA + (sRloc[el] * B + b) * D + 4 * cg);
-      if (d_new_edge != nullptr) {
-        const float4 n =
-            __ldg(reinterpret_cast<const float4*>(d_new_edge + (row0 + m) * D) + cg);
-        v.x += n.x; v.y += n.y; v.z += n.z; v.w += n.w;
-      }
-    }
-    dm[i][0] = v.x; dm[i][1] = v.y; dm[i][2] = v.z; dm[i][3] = v.w;
-  }
-}
-
-// 3. from d_msg to d_pre: dz through the LayerNorm at z (dgamma, dbeta into
-//    vec[1], vec[2]), db2 += dz into vec[0], dW2 += h1^T . dz, d_h1 = dz .
-//    W2^T and d_pre = d_h1 * SiLU'(pre) into dpre, db1 into vec[3]. Leaves
-//    dz in sG, which the caller may overwrite after a barrier.
-__device__ __forceinline__ void d_pre_from_message(
-    float (&dpre)[4][4], float (&dm)[4][4], const float (&xh)[4][4],
-    const float (&rstd)[4], const float (&pr)[4][4], int layer_norm, const float* sGam,
-    const float* sH, float* sG, const float* sW2r, float (&dW2)[4][4],
-    float (&vec)[4][4], int rg, int cg) {
-  if (layer_norm) row_layer_norm_bwd(dm, xh, rstd, sGam, cg, vec[1], vec[2]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) vec[0][j] += dm[i][j];
-  store_rows(sG, dm, rg, cg);
-  __syncthreads();
-  wgrad_acc(dW2, sH, sG, rg, cg);
-  zero(dpre);
-  mm_acc<4>(dpre, sG, sW2r, rg, cg);  // d_h1
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dpre[i][j] *= silu_grad(pr[i][j]);
-      vec[3][j] += dpre[i][j];
-    }
-}
-
-// 4. the edge input's share, with d_pre in sG: for a batched edge input
-//    (its tile rows in sXe) dW1e += edge^T . d_pre and d_edge[e, b] =
-//    d_pre . W1e^T (+ d_new_edge[e, b]); for the per-edge inputs s[e] =
-//    sum_b d_pre[e, b] into presum, in b order, for the edge kernel below.
-template <bool BATCHED>
-__device__ __forceinline__ void edge_input_grad(float (&dW1e)[4][4], const float* sXe,
-                                                const float* sG, const float* sW1e,
-                                                const float* d_new_edge, float* d_edge,
-                                                float* presum, long long row0, int t0,
-                                                int ne, int nrows, int B, int rg, int cg) {
-  if (!BATCHED) {
-    for (int i = threadIdx.x; i < ne * D; i += kThreads) {
-      const int el = i / D, c = i - el * D;
-      float s = 0.0f;
-      for (int b = 0; b < B; ++b) s += sG[(el * B + b) * kLd + c];
-      presum[static_cast<long long>(t0) * D + i] = s;
-    }
-    return;
-  }
-  wgrad_acc(dW1e, sXe, sG, rg, cg);
-  float acc[4][4];
-  zero(acc);
-  mm_acc<4>(acc, sG, sW1e, rg, cg);  // d_edge
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = rg + 16 * i;
-    if (m >= nrows) continue;
-    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    if (d_new_edge != nullptr) {
-      const float4 n =
-          __ldg(reinterpret_cast<const float4*>(d_new_edge + (row0 + m) * D) + cg);
-      v.x += n.x; v.y += n.y; v.z += n.z; v.w += n.w;
-    }
-    *reinterpret_cast<float4*>(d_edge + (row0 + m) * D + 4 * cg) = v;
   }
 }
 
@@ -421,6 +302,106 @@ inline cudaError_t launch_edge_phase(int edge_mode, const EdgeParams& e, int max
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(e.ws, blocks, kEdgeStride, 2, out, stream);
+}
+
+// The batched edge input's share, over 64-row tiles of (edge, b) rows:
+// d_edge = d_pre . W1e (+ d_new_edge) and dW1e += edge^T . d_pre, on the
+// tensor cores (the main kernels' d_pre rows). A block of 16 warps holds
+// W1e^T once and runs four groups of 4 warps; group i takes the tiles i,
+// i + groups, ... (a fixed assignment: deterministic partial sums) and
+// keeps a 16 x 64 share of dW1e per warp in registers.
+constexpr int kRowGroupThreads = 128;  // a group is one warpgroup
+constexpr int kRowGroups = 4;
+constexpr int kRowThreads = kRowGroups * kRowGroupThreads;
+
+struct RowsPlan {
+  int w1et, groups, group_floats, total;
+};
+
+__host__ __device__ constexpr RowsPlan rows_plan() {
+  RowsPlan s{};
+  s.w1et = 0;
+  s.groups = 2 * tc::kWgHalf;  // W1e^T, split for wgmma
+  s.group_floats = 2 * kTileRows * tc::kWld;  // edge rows, d_pre rows
+  s.total = s.groups + kRowGroups * s.group_floats;
+  return s;
+}
+
+constexpr int rows_smem_bytes() { return rows_plan().total * static_cast<int>(sizeof(float)); }
+
+struct RowsParams {
+  const float* edge;        // (rows, D)
+  const float* d_pre;       // (rows, D)
+  const float* d_new_edge;  // (rows, D) or null
+  const float* w1;
+  float* d_edge;  // (rows, D)
+  float* ws;      // (gridDim.x * kRowGroups, kMat)
+  int rows;
+};
+
+__global__ void __launch_bounds__(kRowThreads, 1)
+fused_edge_bwd_rows(const RowsParams p) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  constexpr RowsPlan L = rows_plan();
+  tc::load_weight_wg<true>(sm + L.w1et, p.w1, 3 * D, 0, kRowThreads);  // W1e^T
+  __syncthreads();
+  const int group = threadIdx.x / kRowGroupThreads;
+  const int tg = threadIdx.x - group * kRowGroupThreads;
+  const int warp = tg >> 5;
+  const int bar = 1 + group;
+  float* sE = sm + L.groups + group * L.group_floats;
+  float* sG = sE + kTileRows * tc::kWld;
+  const int r_base = 16 * warp;
+  const int gi = blockIdx.x * kRowGroups + group;
+  const int n_tiles = (p.rows + kTileRows - 1) / kTileRows;
+
+  float dW1e[8][4];
+  tc::zero(dW1e);
+  for (int tile = gi; tile < n_tiles; tile += gridDim.x * kRowGroups) {
+    const long long row0 = static_cast<long long>(tile) * kTileRows;
+    const int nrows = min(kTileRows, static_cast<int>(p.rows - row0));
+    float g[8][4], x[8][4];
+    tc::load_rows<true>(g, p.d_pre + row0 * D, D, r_base, nrows);
+    tc::load_rows<true>(x, p.edge + row0 * D, D, r_base, nrows);
+    tc::store_rows(sG, tc::kWld, g, r_base, kTileRows);
+    tc::store_rows(sE, tc::kWld, x, r_base, kTileRows);
+    tc::group_sync(bar, kRowGroupThreads);  // the tile's rows are staged
+    tc::gemm_tn(dW1e, sG, r_base, sE);
+    tc::group_sync(bar, kRowGroupThreads);  // done with them
+    tc::load_rows<false>(g, sG, tc::kWld, r_base, kTileRows);  // the warp's own d_pre rows
+    if (p.d_new_edge != nullptr)
+      tc::load_rows<true>(x, p.d_new_edge + row0 * D, D, r_base, nrows);
+    else
+      tc::zero(x);
+    tc::gemm_wg<4>(x, g, sm + L.w1et);  // d_edge
+    tc::store_rows(sE, tc::kWld, x, r_base, kTileRows);
+    tc::copy_out_rows(p.d_edge + row0 * D, sE, r_base, nrows);
+  }
+  tc::store_rows(p.ws + static_cast<long long>(gi) * kMat, D, dW1e, r_base, D);
+}
+
+
+// The rows kernel on `blocks` blocks and its reduce (ws is (blocks *
+// kRowGroups, kMat)); out (kMat,) = dW1e as (out, in). Static: the flag
+// below must belong to this library's own kernel (the function-local
+// static of an inline function is one object across every library
+// loaded into the process).
+static inline cudaError_t launch_rows(const RowsParams& r, int blocks, float* out,
+                               cudaStream_t stream) {
+  static unsigned allowed = 0;  // devices whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (!(allowed & (1u << (dev & 31)))) {
+    err = allow_smem(fused_edge_bwd_rows, rows_smem_bytes());
+    if (err != cudaSuccess) return err;
+    allowed |= 1u << (dev & 31);
+  }
+  fused_edge_bwd_rows<<<blocks, kRowThreads, rows_smem_bytes(), stream>>>(r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(r.ws, blocks * kRowGroups, kMat, 0, out, stream);
 }
 
 }  // namespace fused_edge

@@ -1,8 +1,9 @@
 // Shared pieces of the fused edge-phase kernels: the sizes, edge modes and
-// SiLU of K3 and K4 (fused_edge.cu, fused_edge_bwd.cu), and the SIMT tile
-// helpers of K7 and K8 (fused_edge_v2.cu, fused_edge_v2_bwd.cu) and of the
-// edge pass they share with K4 (fused_edge_bwd_common.cuh). K3 and K4's own
-// tensor-core helpers are in tc_tf32.cuh.
+// SiLU of K3, K4, K7 and K8 (fused_edge.cu, fused_edge_bwd.cu,
+// fused_edge_v2.cu, fused_edge_v2_bwd.cu), the in-kernel edge embedder on
+// tensor-core row fragments (tc_tf32.cuh) that K3 and K7 run, and the SIMT
+// tile helpers of the edge pass that K4 and K8 share
+// (fused_edge_bwd_common.cuh).
 //
 // The SIMT helpers work on tiles of 64 rows by D = 64 features held in
 // shared memory with a padded row stride, with 256 threads laid out as 16
@@ -14,6 +15,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tc_tf32.cuh"
+
 namespace fused_edge {
 
 constexpr int D = 64;            // hidden width the kernels are compiled for
@@ -22,7 +25,6 @@ constexpr int kTileRows = 64;    // (edge, batch) rows per tile
 constexpr int kRecRows = 32;     // (receiver, batch) rows per receiver chunk
 constexpr int kLd = 68;          // padded row stride of the row tiles
 constexpr int kMaxFeat = 8;      // raw edge feature width limit
-constexpr int kAggPerThread = kRecRows * D / kThreads;
 constexpr float kLnEps = 1e-5f;
 
 enum EdgeMode { EDGE_RAW = 0, EDGE_SHARED = 1, EDGE_BATCHED = 2 };
@@ -33,6 +35,61 @@ __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 __device__ __forceinline__ float silu_grad(float x) {
   const float s = 1.0f / (1.0f + expf(-x));
   return s * (1.0f + x * (1.0f - s));
+}
+
+// The edge embedder's hidden layer SiLU(f . We1 + be1) of edges t0 + el0 + g
+// and t0 + el0 + g + 8 (zero features at el >= ne) as a row fragment
+// (tc_tf32.cuh): F <= kMaxFeat multiply-adds a value on the SIMT units.
+// feats is the (E, F) raw feature array; sEW1 (F, D) and sEB1 (D,) are in
+// shared memory.
+__device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const float* feats, int F,
+                                             int t0, const float* sEW1, const float* sEB1,
+                                             int el0, int ne) {
+  const tc::Lane l;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int el = el0 + l.g + 8 * h;
+    float f[kMaxFeat];
+#pragma unroll
+    for (int k = 0; k < kMaxFeat; ++k)
+      f[k] = (k < F && el < ne) ? __ldg(feats + static_cast<long long>(t0 + el) * F + k)
+                                : 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = 8 * n + 2 * l.t + j;
+        float v = sEB1[c];
+#pragma unroll
+        for (int k = 0; k < kMaxFeat; ++k)
+          if (k < F) v = fmaf(f[k], sEW1[k * D + c], v);
+        a1[n][2 * h + j] = silu(v);
+      }
+  }
+}
+
+// edge_val of edges t0 + el0 + g, t0 + el0 + g + 8 (zero at el >= ne) as a
+// row fragment: the shared (E, D) edge rows (EDGE_SHARED), or the embedder
+// on the raw (E, F) features, with its second layer We2 in shared memory
+// as tc::load_weight_rows leaves it and sEV = eb1 | eb2 | eg | ebt.
+template <int MODE>
+__device__ __forceinline__ void edge_value(float (&ev)[8][4], const float* edge, int F,
+                                           int t0, const float* sEW1, const float* sEW2,
+                                           const float* sEV, int el0, int ne) {
+  if (MODE == EDGE_SHARED) {
+    tc::load_rows<true>(ev, edge + static_cast<long long>(t0) * D, D, el0, ne);
+    return;
+  }
+  embed_hidden(ev, edge, F, t0, sEW1, sEV, el0, ne);
+  float z[8][4];
+  tc::zero(z);
+  tc::gemm(z, ev, sEW2);
+  tc::add_cols(z, sEV + D);
+  tc::layer_norm(z, sEV + 2 * D, sEV + 3 * D, kLnEps);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ev[n][j] = z[n][j];
 }
 
 __device__ __forceinline__ float sum16(float v) {
@@ -105,18 +162,6 @@ __device__ __forceinline__ void mm_acc(float (&acc)[4][4], const float* A,
         acc[i][3] = fmaf(v, w.w, acc[i][3]);
       }
     }
-  }
-}
-
-// mm_acc over the first 16*ni rows (ni uniform across the block). The
-// tile's edges fill ni = ceil(TE/16) groups: 4 at batch 1, 2 at batch 2
-// and 3, 1 above; any other ni runs all 4.
-__device__ __forceinline__ void mm_rows(float (&acc)[4][4], const float* A,
-                                        const float* W, int rg, int cg, int ni) {
-  switch (ni) {
-    case 1: mm_acc<1>(acc, A, W, rg, cg); break;
-    case 2: mm_acc<2>(acc, A, W, rg, cg); break;
-    default: mm_acc<4>(acc, A, W, rg, cg); break;
   }
 }
 
@@ -214,76 +259,6 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][4],
     if (i < ni)
       *reinterpret_cast<float4*>(dst + (rg + 16 * i) * kLd + 4 * cg) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-
-// The in-kernel edge embedder on a tile's raw features sF (F per edge):
-// dst = LN(SiLU(f . We1 + be1) . We2 + be2) for the first 16*ni edge rows,
-// with scratch for the hidden layer. sEW1 is (F, D); sEW2 (in, out).
-// Ends with a barrier, so dst is ready for every thread.
-__device__ __forceinline__ void embed_tile(float* dst, float* scratch, const float* sF,
-                                           int F, const float* sEW1, const float* sEB1,
-                                           const float* sEW2, const float* sEB2,
-                                           const float* sEG, const float* sEBt, int rg,
-                                           int cg, int ni) {
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i >= ni) break;
-    const int el = rg + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * cg + j;
-      float v = sEB1[c];
-      for (int f = 0; f < F; ++f) v = fmaf(sF[el * F + f], sEW1[f * D + c], v);
-      acc[i][j] = silu(v);
-    }
-  }
-  store_rows(scratch, acc, rg, cg, ni);
-  __syncthreads();
-  zero(acc);
-  mm_rows(acc, scratch, sEW2, rg, cg, ni);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] += sEB2[4 * cg + j];
-  row_layer_norm(acc, sEG, sEBt, cg, ni);
-  store_rows(dst, acc, rg, cg, ni);
-  __syncthreads();
-}
-
-// A block owns nr consecutive receivers and keeps the sums of their B*D
-// (receiver, b, feature) entries in registers: entry idx = threadIdx.x +
-// j*kThreads in agg[j]. Adds a tile's rows of src (edge-major (edge, b)
-// rows of stride kLd, edges t0 .. t0+ne-1) to them in edge order, without
-// atomics; rowptr holds the block's nr + 1 offsets.
-__device__ __forceinline__ void sum_into_receivers(float (&agg)[kAggPerThread],
-                                                   const float* src, const int* rowptr,
-                                                   int nr, int t0, int ne, int B) {
-  const int BD = B * D;
-#pragma unroll
-  for (int j = 0; j < kAggPerThread; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    if (idx < nr * BD) {
-      const int rl = idx / BD, rem = idx - rl * BD;
-      const int b = rem / D, d = rem - b * D;
-      const int a = max(rowptr[rl], t0), z = min(rowptr[rl + 1], t0 + ne);
-      float s = agg[j];
-      for (int e = a; e < z; ++e) s += src[((e - t0) * B + b) * kLd + d];
-      agg[j] = s;
-    }
-  }
-}
-
-// out[r0 .. r0 + nr) <- the sums of sum_into_receivers, each entry once
-__device__ __forceinline__ void store_receiver_sums(float* out,
-                                                    const float (&agg)[kAggPerThread],
-                                                    int r0, int nr, int B) {
-  const int BD = B * D;
-#pragma unroll
-  for (int j = 0; j < kAggPerThread; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    if (idx < nr * BD) out[static_cast<long long>(r0) * BD + idx] = agg[j];
-  }
 }
 
 // rows [0, rows) of dst <- rows [0, n) of the contiguous (., D) block

@@ -26,174 +26,329 @@
 // the caller scatters d_pre into d_sp with K2 (the sender scatter), and the
 // gradients of W1s, W1r and the node rows come from autograd of the two
 // node-sized projections (d_rp = d_recproj), as the JAX package forms them
-// outside its kernel (pallas_fused.py:2655-2674).
+// outside its kernel (pallas_fused.py:2655-2674). Weight gradients come out
+// in nn.Linear's (out, in) layout.
 //
-// Design: K4's. A fixed number of persistent blocks (one per SM) own chunks
-// of R consecutive receivers (R*B <= 32) and their contiguous CSR edge range,
-// keep their partial weight gradients in registers (a 4x4 share of each
-// 64x64 matrix per thread), write them once to a (blocks, stride) workspace,
-// and a last small kernel sums the workspace in block order: deterministic,
-// no float atomics. Without W1s, the sender tile and the dW1s share, the main
-// kernel's workspace is one 64x64 matrix smaller than K4's and its shared
-// memory two tiles smaller.
+// Design: K4's (fused_edge_bwd.cu), without its sender half. Three or four
+// launches, with no float atomics anywhere:
+//   1. fused_edge_v2_bwd_main, on the tensor cores with the 3xTF32 split
+//      (tc_tf32.cuh), at float32 accuracy. A block of 12 warps holds W2 in
+//      both orientations, split for wgmma, in shared memory and runs three
+//      independent groups of 4 warps (one warpgroup each); group i of the
+//      grid takes the chunks i, i + groups, ... of R = 16/B consecutive
+//      receivers (one at B > 16; K4 takes 32/B) (a static assignment, so
+//      each group's partial sums are
+//      the same on every run; the grid is sized to the chunks). A warp owns
+//      16 (edge, b) rows of a 64-row tile: z again from pre, the LayerNorm
+//      backward (quad shuffles), d_h1 and d_pre chain in registers, the row
+//      products (z, d_h1) as wgmma with the rows in registers. dW2 is an
+//      A^T . B product over the tile's rows: h1 and dz go through two
+//      shared tiles into mma.sync, each tile's share starts from zero and
+//      is added on the float32 units to the warp's 16 x 64 share, which the
+//      warp keeps in registers across the group's tiles (kept in the tensor
+//      core, a running sum over a million rows drifts, tc::mma3x4). The
+//      column sums (db2, dgamma, dbeta, db1) are shuffle trees into
+//      per-warp slots. d_pre goes out through a shared tile as whole rows;
+//      from the same tile the group sums each chunk's d_recproj rows in
+//      place in device memory, in edge order, and, for the per-edge
+//      inputs, s[e] = sum_b d_pre[e, b].
+//   2. The edge input's share (fused_edge_bwd_common.cuh, shared with K4):
+//      fused_edge_bwd_rows over d_pre for a batched input (d_edge by wgmma,
+//      dW1e by mma.sync), fused_edge_bwd_edge over s for the others.
+//   3. reduce_workspace after each: sums the partials in group (block)
+//      order.
+//   Without K4's d_send and dW1s the main kernel has three products a row
+//   where K4 has five, one 16 x 64 gradient share a warp where K4 has two,
+//   and one weight fewer in shared memory.
 //
-// Bound on the H100: operations. Per (edge, b) row the main kernel does three
-// 64x64 products (z, d_h1, dW2) and two more for a batched edge input
-// (d_edge, dW1e), in exact float32 on the SIMT units.
+// Bound on the H100: operations at the tensor cores' rate, or the bytes
+// of the larger sets. Per (edge, b) row the main kernel does three 64x64
+// products (z, d_h1, dW2) and the batched edge pass two more (d_edge,
+// dW1e), at 3xTF32 (495 TFLOP/s of TF32 over three); it reads pre, d_aggr
+// and d_new_edge and writes d_pre, 768-1,024 bytes a row.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
 #include "fused_edge_bwd_common.cuh"
+#include "tc_tf32.cuh"
 
 namespace {
 
-using namespace fused_edge;
+using fused_edge::D;
+using fused_edge::EDGE_BATCHED;
+using fused_edge::EdgeParams;
+using fused_edge::kLnEps;
+using fused_edge::kMat;
+using fused_edge::kMaxFeat;
+using fused_edge::kRecRows;
+using fused_edge::kTileRows;
+using fused_edge::silu;
+using fused_edge::silu_grad;
+using tc::kWld;
 
-// floats per block in the main kernel's workspace (the wrapper sizes it the
-// same): dW2 dW1e | db2 dgamma dbeta db1
-constexpr int kMainStride = 2 * kMat + 4 * D;
+constexpr int kGroupWarps = 4;
+constexpr int kGroups = 3;  // per block; the wrapper sizes the workspace by it
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kBlockThreads = kGroups * kGroupThreads;
+constexpr int kAgg = kRecRows * D / kGroupThreads;  // d_recproj entries per thread
+constexpr int kWgMat = 2 * tc::kWgHalf;  // a weight for wgmma: its hi and lo halves
+// (receiver, b) rows a chunk takes at B <= 16 (a larger B takes one
+// receiver), as in K7: more, smaller chunks than K4's 32 rows balance the
+// static assignment better (4-13 % faster at the MEPS sites on an H100);
+// the wrapper sizes the grid by the same rule
+constexpr int kChunkRows = 16;
+
+// floats per group in the main kernel's workspace (the wrapper sizes it the
+// same): dW2 as (out, in) | db2 dgamma dbeta db1
+constexpr int kMainStride = kMat + 4 * D;
 
 struct MainParams {
-  const float* edge;        // (E, B, D), EDGE_BATCHED only
   const float* pre;         // (E, B, D)
   const float* d_aggr;      // (num_rec, B, D)
   const float* d_new_edge;  // (E, B, D) or null
   const int* rowptr;
-  const float* w1;
   const float* w2;
   const float* b2;
   const float* gamma;
   float* d_pre;      // (E, B, D)
-  float* d_edge;     // (E, B, D), EDGE_BATCHED only
-  float* presum;     // (E, D), the per-edge modes only
+  float* presum;     // (E, D) s, the per-edge modes only
   float* d_recproj;  // (num_rec, B, D)
-  float* ws;         // (gridDim.x, kMainStride)
+  float* ws;         // (gridDim.x * kGroups, kMainStride)
   int num_rec;
   int num_chunks;
   int batch;
-  int recv_per_block;
+  int recv_per_chunk;
   int edges_per_tile;
   int layer_norm;
 };
 
-constexpr int main_smem_floats(bool batched) {
-  return (batched ? 3 : 2) * kMat + 2 * D + (batched ? 3 : 2) * kTileRows * kLd +
-         kRecRows * D + 33 + kTileRows;
+// Shared-memory plan, in floats: W2 in both orientations (split for wgmma)
+// and two vectors, then per group two 64-row tiles, the warps' column-sum
+// slots and the integers.
+struct MainSmem {
+  int w2, w2t, vec, groups, group_floats, total;
+  int t1, t2, slots, ints;  // offsets inside a group
+};
+
+__host__ __device__ constexpr MainSmem main_plan() {
+  MainSmem s{};
+  int o = 0;
+  s.w2 = o; o += kWgMat;   // W2 as it is: z = h1 . W2^T
+  s.w2t = o; o += kWgMat;  // W2^T: d_h1 = dz . W2
+  s.vec = o; o += 2 * D;   // b2, gamma
+  s.groups = o;
+  int g = 0;
+  s.t1 = g; g += kTileRows * kWld;
+  s.t2 = g; g += kTileRows * kWld;
+  s.slots = g; g += kGroupWarps * 4 * D;  // per warp: db2 dgamma dbeta db1
+  s.ints = g; g += 100;                   // rowptr (<= 33), receiver of each tile edge (64)
+  s.group_floats = g;
+  s.total = o + kGroups * g;
+  return s;
 }
 
+constexpr int main_smem_bytes() { return main_plan().total * static_cast<int>(sizeof(float)); }
+
 template <bool BATCHED>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 fused_edge_v2_bwd_main(const MainParams p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sW2t = smem;            // (in, out): z = h1 . W2
-  float* sW2r = sW2t + kMat;     // (out, in): d_h1 = dz . W2^T
-  float* sW1e = sW2r + kMat;     // (out, in) slice, BATCHED only
-  float* sB2 = sW1e + (BATCHED ? kMat : 0);
-  float* sGam = sB2 + D;
-  float* sH = sGam + D;                 // h1 tile
-  float* sG = sH + kTileRows * kLd;     // dz, then d_pre
-  float* sXe = sG + kTileRows * kLd;    // edge rows, BATCHED only
-  float* sDA = sXe + (BATCHED ? kTileRows * kLd : 0);  // the chunk's d_aggr rows
-  int* sRowptr = reinterpret_cast<int*>(sDA + kRecRows * D);
-  int* sRloc = sRowptr + 33;
+  float* sm = reinterpret_cast<float*>(smem4);
+  constexpr MainSmem L = main_plan();
+  const float* sW2 = sm + L.w2;
+  const float* sW2t = sm + L.w2t;
+  const float* sB2 = sm + L.vec;
+  const float* sGam = sB2 + D;
 
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
-  const int B = p.batch, R = p.recv_per_block, TE = p.edges_per_tile;
-  const int BD = B * D;
-
-  load_weight_t(sW2t, D, p.w2, D, 0);
-  load_weight_raw(sW2r, p.w2, D, 0);
-  if (BATCHED) load_weight_raw(sW1e, p.w1, 3 * D, 0);
-  if (tid < D) {
-    sB2[tid] = p.b2[tid];
-    sGam[tid] = p.layer_norm ? p.gamma[tid] : 1.0f;
+  tc::load_weight_wg<false>(sm + L.w2, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<true>(sm + L.w2t, p.w2, D, 0, kBlockThreads);
+  if (threadIdx.x < D) {
+    sm[L.vec + threadIdx.x] = p.b2[threadIdx.x];
+    sm[L.vec + D + threadIdx.x] = p.layer_norm ? p.gamma[threadIdx.x] : 1.0f;
   }
 
-  float dW2[4][4], dW1e[4][4];
-  zero(dW2);
-  zero(dW1e);
-  float vec[4][4];  // db2, dgamma, dbeta, db1 for the thread's 4 columns
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) vec[n][j] = 0.0f;
+  const int group = threadIdx.x / kGroupThreads;
+  const int tg = threadIdx.x - group * kGroupThreads;
+  const int warp = tg >> 5;
+  const int bar = 1 + group;  // named barrier of the group (0 is __syncthreads)
+  float* gs = sm + L.groups + group * L.group_floats;
+  float* sT1 = gs + L.t1;
+  float* sT2 = gs + L.t2;
+  float* sSlots = gs + L.slots;
+  int* sRowptr = reinterpret_cast<int*>(gs + L.ints);
+  int* sRloc = sRowptr + 36;
+  for (int i = tg; i < kGroupWarps * 4 * D; i += kGroupThreads) sSlots[i] = 0.0f;
+  __syncthreads();
 
-  for (int chunk = blockIdx.x; chunk < p.num_chunks; chunk += gridDim.x) {
+  float* slot = sSlots + warp * 4 * D;  // this warp's db2 | dgamma | dbeta | db1
+  const int B = p.batch, R = p.recv_per_chunk, TE = p.edges_per_tile;
+  const int BD = B * D;
+  const int r_base = 16 * warp;  // the warp's first row of a tile, and of dW2
+  const int gi = blockIdx.x * kGroups + group;
+  const int inv_b = (65536 + B - 1) / B;  // q / B = (q * inv_b) >> 16 for q < 64
+
+  float dW2[8][4];
+  tc::zero(dW2);
+
+  for (int chunk = gi; chunk < p.num_chunks; chunk += gridDim.x * kGroups) {
     const int r0 = chunk * R;
     const int nr = min(R, p.num_rec - r0);
-    __syncthreads();  // the previous chunk is done with sRowptr and sDA
-    if (tid <= nr) sRowptr[tid] = p.rowptr[r0 + tid];
-    for (int i = tid; i < kRecRows * (D / 4); i += kThreads) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < nr * B * (D / 4))
-        v = __ldg(reinterpret_cast<const float4*>(
-                      p.d_aggr + static_cast<long long>(r0) * BD) + i);
-      reinterpret_cast<float4*>(sDA)[i] = v;
-    }
-    float agg[kAggPerThread];
+    tc::group_sync(bar, kGroupThreads);  // the last chunk is done with gs
+    if (tg <= nr) sRowptr[tg] = p.rowptr[r0 + tg];
+    // the chunk's d_recproj rows are summed in place, each entry by one
+    // thread in edge order
+    float* recproj = p.d_recproj + static_cast<long long>(r0) * BD;
 #pragma unroll
-    for (int j = 0; j < kAggPerThread; ++j) agg[j] = 0.0f;
-    __syncthreads();
+    for (int j = 0; j < kAgg; ++j)
+      if ((tg >> 6) + 2 * j < nr * B) recproj[tg + j * kGroupThreads] = 0.0f;
+    tc::group_sync(bar, kGroupThreads);
 
     const int e_begin = sRowptr[0], e_end = sRowptr[nr];
     for (int t0 = e_begin; t0 < e_end; t0 += TE) {
       const int ne = min(TE, e_end - t0);
       const int nrows = ne * B;
       const long long row0 = static_cast<long long>(t0) * B;
-
-      // ---- tile loads ----------------------------------------------------
-      if (BATCHED) load_rows(sXe, p.edge + row0 * D, nrows, kTileRows);
-      if (tid < nr) {
-        const int a = max(sRowptr[tid], t0), z = min(sRowptr[tid + 1], t0 + ne);
-        for (int e = a; e < z; ++e) sRloc[e - t0] = tid;
+      if (tg < nr) {
+        const int a = max(sRowptr[tg], t0), z = min(sRowptr[tg + 1], t0 + ne);
+        for (int e = a; e < z; ++e) sRloc[e - t0] = tg;
       }
-      // ---- z again, d_msg, then d_pre (written out) -----------------------
-      float pr[4][4], xh[4][4], rstd[4], dm[4][4], acc[4][4];
-      forward_from_pre(pr, xh, rstd, p.pre, row0, nrows, sH, sW2t, sB2, p.layer_norm,
-                       rg, cg);
-      message_grad(dm, sDA, sRloc, p.d_new_edge, row0, nrows, B, rg, cg);
-      d_pre_from_message(acc, dm, xh, rstd, pr, p.layer_norm, sGam, sH, sG, sW2r, dW2,
-                         vec, rg, cg);
+
+      // ---- the forward again from pre: h1 into T1, z and its x_hat -------
+      float x[8][4], z[8][4], rstd[2];
+      tc::load_rows<true>(x, p.pre + row0 * D, D, r_base, nrows);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = rg + 16 * i;
-        if (m < nrows)
-          *reinterpret_cast<float4*>(p.d_pre + (row0 + m) * D + 4 * cg) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[n][j] = silu(x[n][j]);
+      tc::zero(z);
+      tc::gemm_wg<4>(z, x, sW2);
+      tc::add_cols(z, sB2);
+      if (p.layer_norm) tc::layer_norm(z, nullptr, nullptr, kLnEps, rstd);
+      tc::store_rows(sT1, kWld, x, r_base, kTileRows);
+      tc::group_sync(bar, kGroupThreads);  // sRloc is written
+
+      // ---- d_msg, then dz through the LayerNorm into T2 ------------------
+      {
+        const tc::Lane l;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = r_base + l.g + 8 * h;
+          const bool live = m < nrows;
+          const int el = (m * inv_b) >> 16, b = m - el * B;
+          const float* da =
+              p.d_aggr + ((static_cast<long long>(r0) + (live ? sRloc[el] : 0)) * B + b) * D +
+              2 * l.t;
+          const float* dn = p.d_new_edge + (row0 + m) * D + 2 * l.t;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            float2 v = make_float2(0.0f, 0.0f);
+            if (live) {
+              v = __ldg(reinterpret_cast<const float2*>(da + 8 * n));
+              if (p.d_new_edge != nullptr) {
+                const float2 w = __ldg(reinterpret_cast<const float2*>(dn + 8 * n));
+                v.x += w.x;
+                v.y += w.y;
+              }
+            }
+            x[n][2 * h] = v.x;
+            x[n][2 * h + 1] = v.y;
+          }
+        }
       }
-      __syncthreads();  // every thread is done with dz in sG
-      store_rows(sG, acc, rg, cg);
-      __syncthreads();
+      if (p.layer_norm) {
+        tc::add_col_sums(slot + D, x, z);   // dgamma
+        tc::add_col_sums(slot + 2 * D, x);  // dbeta
+        tc::layer_norm_bwd(x, z, rstd, sGam);
+      }
+      tc::add_col_sums(slot, x);  // db2
+      tc::store_rows(sT2, kWld, x, r_base, kTileRows);
+      tc::group_sync(bar, kGroupThreads);  // T1 = h1, T2 = dz
+      tc::gemm_tn(dW2, sT2, r_base, sT1);
 
-      // ---- the edge input ------------------------------------------------
-      edge_input_grad<BATCHED>(dW1e, sXe, sG, sW1e, p.d_new_edge, p.d_edge, p.presum,
-                               row0, t0, ne, nrows, B, rg, cg);
+      // ---- d_h1 = dz . W2, d_pre = d_h1 * SiLU'(pre) ----------------------
+      // (dz again from the warp's own rows of T2: kept live across the
+      // weight-gradient product, it spills)
+      tc::load_rows<false>(x, sT2, kWld, r_base, kTileRows);
+      tc::zero(z);
+      tc::gemm_wg<4>(z, x, sW2t);
+      tc::load_rows<true>(x, p.pre + row0 * D, D, r_base, nrows);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) z[n][j] *= silu_grad(x[n][j]);
+      tc::add_col_sums(slot + 3 * D, z);  // db1
+      tc::group_sync(bar, kGroupThreads);  // every warp is done with h1 and dz
 
-      sum_into_receivers(agg, sG, sRowptr, nr, t0, ne, B);  // d_recproj
-      __syncthreads();
+      // ---- d_pre out through T2; d_recproj in edge order; s[e] -------------
+      tc::store_rows(sT2, kWld, z, r_base, kTileRows);
+      tc::copy_out_rows(p.d_pre + row0 * D, sT2, r_base, nrows);
+      tc::group_sync(bar, kGroupThreads);  // T2 = d_pre
+#pragma unroll 4
+      for (int j = 0; j < kAgg; ++j) {
+        // (receiver, b) row q of the chunk and feature d of this thread
+        const int q = (tg >> 6) + 2 * j, d = tg & (D - 1);
+        if (q < nr * B) {
+          const int rl = (q * inv_b) >> 16, b = q - rl * B;
+          const int a = max(sRowptr[rl], t0), zz = min(sRowptr[rl + 1], t0 + ne);
+          if (a < zz) {
+            float s = recproj[tg + j * kGroupThreads];  // this thread's own entry
+            for (int e = a; e < zz; ++e) s += sT2[((e - t0) * B + b) * kWld + d];
+            recproj[tg + j * kGroupThreads] = s;
+          }
+        }
+      }
+      if (!BATCHED) {
+        for (int i = tg; i < ne * D; i += kGroupThreads) {
+          const int el = i / D, c = i - el * D;
+          float s = 0.0f;
+          for (int b = 0; b < B; ++b) s += sT2[(el * B + b) * kWld + c];
+          p.presum[static_cast<long long>(t0) * D + i] = s;
+        }
+      }
     }
-    store_receiver_sums(p.d_recproj, agg, r0, nr, B);
   }
 
-  float* ws = p.ws + static_cast<long long>(blockIdx.x) * kMainStride;
-  store_wgrad(ws, dW2, rg, cg);
-  store_wgrad(ws + kMat, dW1e, rg, cg);
-  store_vec_sums<4>(ws + 2 * kMat, sH, vec, rg, cg);
+  // ---- the group's partials, once -----------------------------------------
+  float* ws = p.ws + static_cast<long long>(gi) * kMainStride;
+  tc::store_rows(ws, D, dW2, r_base, D);
+  tc::group_sync(bar, kGroupThreads);  // every warp's slots are final
+  for (int i = tg; i < 4 * D; i += kGroupThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kGroupWarps; ++w) s += sSlots[w * 4 * D + i];
+    ws[kMat + i] = s;
+  }
 }
 
 template <bool BATCHED>
 cudaError_t launch_main(const MainParams& p, int blocks, cudaStream_t stream) {
-  constexpr int bytes = main_smem_floats(BATCHED) * static_cast<int>(sizeof(float));
-  cudaError_t err = allow_smem(fused_edge_v2_bwd_main<BATCHED>, bytes);
+  static unsigned allowed = 0;  // devices whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  fused_edge_v2_bwd_main<BATCHED><<<blocks, kThreads, bytes, stream>>>(p);
+  if (!(allowed & (1u << (dev & 31)))) {
+    err = fused_edge::allow_smem(fused_edge_v2_bwd_main<BATCHED>, main_smem_bytes());
+    if (err != cudaSuccess) return err;
+    allowed |= 1u << (dev & 31);
+  }
+  fused_edge_v2_bwd_main<BATCHED><<<blocks, kBlockThreads, main_smem_bytes(), stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// Blocks of the main kernel for edge_mode that fit on one SM, its threads
+// per block, registers per thread and dynamic shared memory per block.
+extern "C" int nl_fused_edge_v2_bwd_occupancy(int edge_mode, int* blocks, int* threads,
+                                              int* regs, int* smem) {
+  *threads = kBlockThreads;
+  return static_cast<int>(
+      edge_mode == EDGE_BATCHED
+          ? tc::occupancy(fused_edge_v2_bwd_main<true>, kBlockThreads, main_smem_bytes(),
+                          blocks, regs, smem)
+          : tc::occupancy(fused_edge_v2_bwd_main<false>, kBlockThreads, main_smem_bytes(),
+                          blocks, regs, smem));
+}
 
 // Shapes (all f32 contiguous and 16-byte aligned on the device; D = 64):
 //   edge: (E, feat) raw features [edge_mode 0], (E, D) [1], (E, B, D) [2]
@@ -202,61 +357,76 @@ cudaError_t launch_main(const MainParams& p, int blocks, cudaStream_t stream) {
 //   d_pre: (E, B, D) out; d_recproj: (num_rec, B, D) out
 //   d_edge: (E, B, D) out [edge_mode 2], (E, D) out [1], unused [0]
 //   presum: (E, D) scratch [edge_mode 0, 1]
-//   ws_main: (max_blocks, 8448) scratch; out_main: (8448,) out =
-//     dW2, dW1e [edge_mode 2, else 0] as (out, in) | db2 dgamma dbeta db1
-//   ws_edge: (max_blocks, 8960) scratch; out_edge: (8960,) out [edge_mode 0, 1]
-//     = dW1e, dEW2 as (out, in) | dEW1 as (D, 8) | deb1 deb2 deg debt
-// num_rec > 0, n_edges > 0, 1 <= batch <= 32, feat <= 8 and max_blocks > 0
-// are checked by the caller. Returns the first CUDA error of the launches.
+//   ws_main: (main_blocks * 3, 4352) scratch; out_main: (4352,) out =
+//     dW2 as (out, in) | db2 dgamma dbeta db1
+//   ws_edge: (edge_blocks, 8960) scratch [edge_mode 0, 1], (edge_blocks * 4,
+//     4096) [2]; out_edge: (8960,) out = dW1e, dEW2 as (out, in) | dEW1 as
+//     (D, 8) | deb1 deb2 deg debt (dW1e alone [2])
+//   main_blocks = min(SMs, ceil(chunks / 3)) with chunks = ceil(num_rec /
+//   max(1, 16 / batch)); edge_blocks = min(SMs, ceil(tiles / 4)) with tiles =
+//   ceil(E * B / 64) [edge_mode 2], else min(SMs, ceil(E / 64))
+// num_rec > 0, n_edges > 0, 1 <= batch <= 32, feat <= 8 and both block
+// counts > 0 are checked by the caller. Returns the first CUDA error of the
+// launches.
 extern "C" int nl_fused_edge_v2_bwd(
-    int edge_mode, int num_rec, int n_edges, int batch, int feat,
-    int layer_norm, int max_blocks, const void* edge, const void* pre,
-    const void* d_aggr, const void* d_new_edge, const void* rowptr,
-    const void* w1, const void* w2, const void* b2, const void* gamma,
-    const void* ew1, const void* eb1, const void* ew2, const void* eb2,
-    const void* eg, const void* ebt, void* d_pre, void* d_edge,
-    void* d_recproj, void* presum, void* ws_main, void* out_main,
-    void* ws_edge, void* out_edge, void* stream) {
+    int edge_mode, int num_rec, int n_edges, int batch, int feat, int layer_norm,
+    int main_blocks, int edge_blocks, const void* edge, const void* pre,
+    const void* d_aggr, const void* d_new_edge, const void* rowptr, const void* w1,
+    const void* w2, const void* b2, const void* gamma, const void* ew1,
+    const void* eb1, const void* ew2, const void* eb2, const void* eg,
+    const void* ebt, void* d_pre, void* d_edge, void* d_recproj, void* presum,
+    void* ws_main, void* out_main, void* ws_edge, void* out_edge, void* stream) {
   if (num_rec <= 0 || n_edges <= 0 || batch < 1 || batch > kRecRows ||
-      feat > kMaxFeat || max_blocks <= 0 || edge_mode < 0 || edge_mode > 2)
+      feat > kMaxFeat || main_blocks <= 0 || edge_blocks <= 0 || edge_mode < 0 ||
+      edge_mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool batched = edge_mode == EDGE_BATCHED;
 
   MainParams m;
-  m.edge = static_cast<const float*>(edge);
   m.pre = static_cast<const float*>(pre);
   m.d_aggr = static_cast<const float*>(d_aggr);
   m.d_new_edge = static_cast<const float*>(d_new_edge);
   m.rowptr = static_cast<const int*>(rowptr);
-  m.w1 = static_cast<const float*>(w1);
   m.w2 = static_cast<const float*>(w2);
   m.b2 = static_cast<const float*>(b2);
   m.gamma = static_cast<const float*>(gamma);
   m.d_pre = static_cast<float*>(d_pre);
-  m.d_edge = static_cast<float*>(d_edge);
   m.presum = static_cast<float*>(presum);
   m.d_recproj = static_cast<float*>(d_recproj);
   m.ws = static_cast<float*>(ws_main);
   m.num_rec = num_rec;
   m.batch = batch;
-  m.recv_per_block = kRecRows / batch;
+  m.recv_per_chunk = batch <= kChunkRows ? kChunkRows / batch : 1;
   m.edges_per_tile = kTileRows / batch;
-  m.num_chunks = (num_rec + m.recv_per_block - 1) / m.recv_per_block;
+  m.num_chunks = (num_rec + m.recv_per_chunk - 1) / m.recv_per_chunk;
   m.layer_norm = layer_norm;
-  const int main_blocks = m.num_chunks < max_blocks ? m.num_chunks : max_blocks;
   cudaError_t err = batched ? launch_main<true>(m, main_blocks, s)
                             : launch_main<false>(m, main_blocks, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_reduce(m.ws, main_blocks, kMainStride, 2,
-                      static_cast<float*>(out_main), s);
-  if (err != cudaSuccess || batched) return static_cast<int>(err);
+  err = fused_edge::launch_reduce(m.ws, main_blocks * kGroups, kMainStride, 0,
+                                  static_cast<float*>(out_main), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
+  if (batched) {  // the edge input's share per (edge, b) row, over d_pre
+    fused_edge::RowsParams r;
+    r.edge = static_cast<const float*>(edge);
+    r.d_pre = m.d_pre;
+    r.d_new_edge = m.d_new_edge;
+    r.w1 = static_cast<const float*>(w1);
+    r.d_edge = static_cast<float*>(d_edge);
+    r.ws = static_cast<float*>(ws_edge);
+    r.rows = n_edges * batch;
+    return static_cast<int>(
+        fused_edge::launch_rows(r, edge_blocks, static_cast<float*>(out_edge), s));
+  }
+
+  // the per-edge modes: the edge pass over s
   EdgeParams e;
-  e.edge = m.edge;
+  e.edge = static_cast<const float*>(edge);
   e.presum = m.presum;
   e.d_new_edge = m.d_new_edge;
-  e.w1 = m.w1;
+  e.w1 = static_cast<const float*>(w1);
   e.ew1 = static_cast<const float*>(ew1);
   e.eb1 = static_cast<const float*>(eb1);
   e.ew2 = static_cast<const float*>(ew2);
@@ -268,6 +438,6 @@ extern "C" int nl_fused_edge_v2_bwd(
   e.n_edges = n_edges;
   e.batch = batch;
   e.feat = feat;
-  return static_cast<int>(launch_edge_phase(edge_mode, e, max_blocks,
-                                            static_cast<float*>(out_edge), s));
+  return static_cast<int>(fused_edge::launch_edge_phase(
+      edge_mode, e, edge_blocks, static_cast<float*>(out_edge), s));
 }

@@ -1,6 +1,7 @@
-// Tensor-core helpers of the fused edge-phase kernels K3 (fused_edge.cu)
-// and K4 (fused_edge_bwd.cu): 64-wide row products on Hopper's tensor
-// cores at float32 accuracy, and the row epilogues on their fragments.
+// Tensor-core helpers of the fused edge-phase kernels K3 (fused_edge.cu),
+// K4 (fused_edge_bwd.cu), K7 (fused_edge_v2.cu) and K8
+// (fused_edge_v2_bwd.cu): 64-wide row products on Hopper's tensor cores at
+// float32 accuracy, and the row epilogues on their fragments.
 //
 // Products run as mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (a
 // warp's rows) or as wgmma.mma_async m64n64k8 TF32 (a warpgroup's 64 rows
@@ -171,6 +172,64 @@ __device__ __forceinline__ void store_cols2(float* dst, int ld, const float (&x)
     for (int q = 0; q < 2; ++q)
       *reinterpret_cast<float2*>(dst + (l.g + 8 * h) * ld + 8 * (n0 + q) + 2 * l.t) =
           make_float2(x[q][2 * h], x[q][2 * h + 1]);
+}
+
+// ---- layout Q: four consecutive columns a lane ------------------------------
+//
+// A fragment may also hold its columns in layout Q: v[n][2h + j] is row
+// g + 8h, column q_col(n, t) + j, q_col(n, t) = 16 (n / 2) + 4 t + 2 (n % 2),
+// so that lane t holds columns 16 k + 4 t .. 16 k + 4 t + 3 of each k < 4 and
+// a row moves between the fragment and memory as four 16-byte accesses a
+// lane (load_row_q, store_row_q) where the plain layout needs eight 8-byte
+// ones. Fragment slot 8 n + 2 t + j then holds column c with q_slot(c) =
+// 8 n + 2 t + j. A product whose output is in layout Q takes its weight
+// with the output rows placed at q_slot (load_weight_wg's PERM_O,
+// load_weight_rows' PERM); a product whose A operand is in layout Q takes
+// it with the inputs placed at q_slot (PERM_P). Sums over a row's columns
+// (the LayerNorm's moments) and elementwise functions do not depend on
+// the order.
+__device__ __forceinline__ int q_col(int n, int t) { return 16 * (n >> 1) + 4 * t + 2 * (n & 1); }
+
+__host__ __device__ constexpr int q_slot(int c) {
+  return (c & ~15) | ((c & 2) << 2) | ((c >> 1) & 6) | (c & 1);
+}
+
+// half h (row g + 8h) of a layout-Q fragment from a row of 64 floats in
+// device memory (16-byte aligned), through the read-only path
+__device__ __forceinline__ void load_row_q(float (&x)[8][4], int h, const float* row) {
+  const Lane l;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row + 16 * k + 4 * l.t));
+    x[2 * k][2 * h] = v.x;
+    x[2 * k][2 * h + 1] = v.y;
+    x[2 * k + 1][2 * h] = v.z;
+    x[2 * k + 1][2 * h + 1] = v.w;
+  }
+}
+
+// half h of a layout-Q fragment into a row of 64 floats
+__device__ __forceinline__ void store_row_q(float* row, const float (&x)[8][4], int h) {
+  const Lane l;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    *reinterpret_cast<float4*>(row + 16 * k + 4 * l.t) =
+        make_float4(x[2 * k][2 * h], x[2 * k][2 * h + 1], x[2 * k + 1][2 * h],
+                    x[2 * k + 1][2 * h + 1]);
+}
+
+// A (64 out, 64 in) slice of a weight (row stride ld_src, from column off)
+// into dst with row stride kWld, for gemm and gemm_cols2, by `threads`
+// threads with 16-byte loads; with PERM, row o goes to row q_slot(o), so
+// that the product's output is in layout Q.
+template <bool PERM = false>
+__device__ __forceinline__ void load_weight_rows(float* dst, const float* __restrict__ w,
+                                                 int ld_src, int off, int threads) {
+  for (int i = threadIdx.x; i < 64 * 16; i += threads) {
+    const int r = i >> 4, c4 = i & 15;
+    *reinterpret_cast<float4*>(dst + (PERM ? q_slot(r) : r) * kWld + 4 * c4) =
+        __ldg(reinterpret_cast<const float4*>(w + r * ld_src + off) + c4);
+  }
 }
 
 // Rows of a row fragment from a (rows, 64) array with row stride ld
@@ -396,13 +455,17 @@ constexpr int kWgHalf = 64 * 64;
 
 // W[o][k] (64 x 64 of a weight with row stride ld, from column off) into
 // dst as the two halves, by `threads` threads; with TRANSPOSE, W^T (for
-// x . W, where W[k][o] is at w[k * ld + off + o])
-template <bool TRANSPOSE = false>
+// x . W, where W[k][o] is at w[k * ld + off + o]). PERM_O puts output o at
+// q_slot(o) (the product's output in layout Q), PERM_P input p at
+// q_slot(p) (its A operand in layout Q).
+template <bool TRANSPOSE = false, bool PERM_O = false, bool PERM_P = false>
 __device__ __forceinline__ void load_weight_wg(float* dst, const float* __restrict__ w,
                                                int ld, int off, int threads) {
   for (int i = threadIdx.x; i < 64 * 64; i += threads) {
     const int a = i >> 6, b = i & 63;  // reads along b, the contiguous index
-    const int o = TRANSPOSE ? b : a, p = TRANSPOSE ? a : b;
+    int o = TRANSPOSE ? b : a, p = TRANSPOSE ? a : b;
+    if (PERM_O) o = q_slot(o);
+    if (PERM_P) p = q_slot(p);
     const float x = __ldg(w + a * ld + off + b);
     const int kk = p >> 3, t = (p & 7) >> 1, j = p & 1;
     const int idx = ((kk * 2 + j) * 8 + (o >> 3)) * 32 + (o & 7) * 4 + t;

@@ -17,20 +17,20 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   :class:`FusedEdgePhase` is that ``custom_vjp``'s counterpart. The
   TPU's one-hot gathers, ``kron(I, W)`` weights, lane stripes and
   blocked-CSR tiles are Mosaic workarounds and are not carried over.
-- Bound on the H100: operations. K3 and K4 run their products on the
-  tensor cores at float32 accuracy (``wgmma`` and ``mma.sync`` TF32 with
-  the 3xTF32 split, ``csrc/tc_tf32.cuh``); a warp owns 16 rows by 64
-  features, so a row's layers, SiLU and LayerNorm chain in registers.
-  K3 keeps the
+- Bound on the H100: operations, or the bytes of the larger sets. All
+  four run their products on the tensor cores at float32 accuracy
+  (``wgmma`` and ``mma.sync`` TF32 with the 3xTF32 split,
+  ``csrc/tc_tf32.cuh``); a warp owns 16 rows by 64 features, so a row's
+  layers, SiLU and LayerNorm chain in registers. K3 and K7 keep the
   weights in shared memory once per block of three groups of warps,
-  computes the receiver projection once per receiver and the embedder
-  once per edge, and sums each receiver's messages in one group without
-  atomics. When the call will be differentiated K3 also writes the first
-  layer's pre-activation, and K4 starts from it: groups that own whole
-  receivers keep their share of every weight gradient in registers,
-  write it once to a workspace sized by the grid, and a last small
-  kernel sums the workspace in group order, so the gradients are
-  deterministic. K7 and K8 compute on the SIMT units.
+  compute (K3) or read (K7) the receiver projection once per receiver
+  and the embedder once per edge, and sum each receiver's messages in
+  one group without atomics. When the call will be differentiated they
+  also write the first layer's pre-activation, and K4 and K8 start from
+  it: groups that own whole receivers keep their share of every weight
+  gradient in registers, write it once to a workspace sized by the grid,
+  and a last small kernel sums the workspace in group order, so the
+  gradients are deterministic.
 - The gradient of the receiver rows and of the receiver slice of the
   first layer are node-sized products of K4's ``d_recproj`` output,
   formed here with ``torch`` as the JAX package forms them outside its
@@ -52,7 +52,9 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   edge set, from the same environment variables as the JAX package.
 - Supported on CUDA: hidden width 64, batch 1 to 32, raw edge features
   up to 8 wide, ``propagation`` (K3, K4) and ``layer_norm=False`` in the
-  kernels themselves. Other shapes raise on CUDA. On a CPU tensor the
+  kernels themselves. Other shapes raise on CUDA here; the routing in
+  ``ops/interaction.py`` sends them to the unfused route before any
+  launch (:func:`kernels_take`). On a CPU tensor the
   forward runs :func:`fused_edge_phase_plain` (or
   :func:`fused_edge_phase_v2_plain`) and the backward differentiates it
   with autograd.
@@ -81,16 +83,33 @@ KERNEL_HIDDEN = 64
 KERNEL_MAX_BATCH = 32
 MAX_RAW_FEATURES = 8
 _EDGE_RAW, _EDGE_SHARED, _EDGE_BATCHED = 0, 1, 2
-# floats per group (K4's main kernel) or block of the backward kernels'
-# workspaces (csrc/fused_edge_bwd.cu: kMainStride, kGroups;
-# fused_edge_bwd_common.cuh: kEdgeStride; fused_edge_v2_bwd.cu: kMainStride)
+# floats per group (the main kernels) or block (the edge pass) of the
+# backward kernels' workspaces (csrc/fused_edge_bwd.cu and
+# fused_edge_v2_bwd.cu: kMainStride, kGroups; fused_edge_bwd_common.cuh:
+# kEdgeStride, kRowGroups)
 _MAT = KERNEL_HIDDEN * KERNEL_HIDDEN
 _WS_MAIN = 2 * _MAT + 4 * KERNEL_HIDDEN
 _WS_EDGE = 2 * _MAT + MAX_RAW_FEATURES * KERNEL_HIDDEN + 4 * KERNEL_HIDDEN
-_WS_MAIN_V2 = 2 * _MAT + 4 * KERNEL_HIDDEN
-_K4_GROUPS = 3  # groups of warps per block of K4's main kernel (kGroups)
-_K4_ROW_GROUPS = 4  # and of its batched edge pass (kRowGroups)
-_TILE_ROWS, _REC_ROWS = 64, 32  # rows of a tile and of a receiver chunk
+_WS_MAIN_V2 = _MAT + 4 * KERNEL_HIDDEN
+_GROUPS = 3  # groups of warps per block of K4's and K8's main kernels
+_ROW_GROUPS = 4  # and of their batched edge pass
+# rows of a tile, and (receiver, b) rows of a receiver chunk of K4's and
+# K8's main kernels (kRecRows, kChunkRows)
+_TILE_ROWS, _CHUNK_ROWS_K4, _CHUNK_ROWS_K8 = 64, 32, 16
+
+
+def kernels_take(hidden: int, batch: int, device) -> bool:
+    """Do the CUDA kernels of the fused edge phase (K3/K4 and K7/K8) take
+    a call of this hidden width and batch on ``device``? They are built
+    for hidden ``KERNEL_HIDDEN`` and batch 1 to ``KERNEL_MAX_BATCH``; on
+    any other device the plain versions run, and they take every shape.
+    The routing predicates ask this before any launch, as the JAX
+    package's ``fused_edge_phase_supported`` asks ``stripe_fits``
+    (neural_lam_tpu/ops/interaction.py:426), so a shape the kernels
+    refuse takes the unfused route instead of raising."""
+    if torch.device(device).type != "cuda":
+        return True
+    return hidden == KERNEL_HIDDEN and 1 <= batch <= KERNEL_MAX_BATCH
 
 
 def _ln_ok(mlp: nn.Sequential) -> bool:
@@ -282,7 +301,20 @@ def fused_v2_routed(num_edge_slots: int, num_hoisted_rows: int) -> bool:
     set's ``num_edges`` and ``send_rows + num_rec``, where the JAX package
     counts the blocked layout's padded slots and block-padded receiver
     rows. An edge set within a few percent of the ratio may therefore
-    route differently in the two packages; away from it they agree."""
+    route differently in the two packages; away from it they agree.
+
+    The ratio of 8 is the JAX package's, measured on a TPU. On an H100
+    (NVIDIA H100 80GB HBM3, 700.00 W; ``chip_smoke.py``'s ``route``
+    lines, with the tensor-core K7 and K8, batch 4) the routes
+    cross far below it. v2 against v1 device time is 0.82 forward and
+    0.79 forward and backward at m2g (3.6 edges per hoisted row), 0.87-1.00
+    and 0.84-0.92 at m2m (4.4), and 0.87 forward but 1.07 forward and
+    backward at g2m (1.4), where the projections' backward over 63,784
+    grid sender rows costs 0.50 ms: the crossover lies below 1.4 for
+    serving and between 1.4 and 3.6 for training. Per AR step v2 takes
+    0.88 of v1's edge-phase device time, per training step 0.87. The
+    default stays 8, so both packages route alike; a ratio for this card
+    is for a benchmark cell to decide."""
     if not fused_v2_enabled():
         return False
     if os.environ.get("NEURAL_LAM_TPU_FUSED_V2", "auto") == "on":
@@ -310,7 +342,7 @@ def _bwd_lib():
 @functools.cache
 def _v2_fwd_lib():
     fn = kernel_build.load(V2_KERNEL).nl_fused_edge_v2_fwd
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 22
     fn.restype = ctypes.c_int
     return fn
 
@@ -318,18 +350,27 @@ def _v2_fwd_lib():
 @functools.cache
 def _v2_bwd_lib():
     fn = kernel_build.load(V2_BWD_KERNEL).nl_fused_edge_v2_bwd
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 24
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 24
     fn.restype = ctypes.c_int
     return fn
 
 
-def kernel_occupancy(backward: bool = False) -> dict[str, dict[str, int]]:
-    """K3's (``backward``: K4's main kernel's) launch resources in each
-    edge mode, from the CUDA runtime on the current device: blocks and
-    warps per SM, threads per block, registers per thread and dynamic
-    shared memory per block in bytes."""
-    lib = kernel_build.load(BWD_KERNEL if backward else KERNEL)
-    fn = lib.nl_fused_edge_bwd_occupancy if backward else lib.nl_fused_edge_fwd_occupancy
+# kernel -> (source, its occupancy entry point)
+_OCCUPANCY = {
+    "K3": (KERNEL, "nl_fused_edge_fwd_occupancy"),
+    "K4": (BWD_KERNEL, "nl_fused_edge_bwd_occupancy"),
+    "K7": (V2_KERNEL, "nl_fused_edge_v2_fwd_occupancy"),
+    "K8": (V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_occupancy"),
+}
+
+
+def kernel_occupancy(kernel: str) -> dict[str, dict[str, int]]:
+    """The launch resources of ``kernel`` (K3, K7, or K4's or K8's main
+    kernel) in each edge mode, from the CUDA runtime on the current
+    device: blocks and warps per SM, threads per block, registers per
+    thread and dynamic shared memory per block in bytes."""
+    source, entry = _OCCUPANCY[kernel]
+    fn = getattr(kernel_build.load(source), entry)
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     out = {}
@@ -348,6 +389,24 @@ def kernel_occupancy(backward: bool = False) -> dict[str, dict[str, int]]:
 @functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _bwd_grid(dev, num_rec, n_edges, batch, batched, chunk_rows) -> tuple[int, int, int]:
+    """The grids of K4's and K8's launches, sized to the work, and the
+    floats of their edge pass's workspace: the main kernel runs 3 groups
+    of warps a block, each over chunks of ``chunk_rows / B`` receivers (at
+    least one); the edge pass 4 groups a block over tiles of 64 (edge, b)
+    rows of d_pre (batched), or one block per tile of 64 rows of s (per
+    edge)."""
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    chunks = -(-num_rec // max(1, chunk_rows // batch))
+    main_blocks = min(sms, -(-chunks // _GROUPS))
+    if batched:
+        tiles = -(-n_edges * batch // _TILE_ROWS)
+        edge_blocks = min(sms, -(-tiles // _ROW_GROUPS))
+        return main_blocks, edge_blocks, edge_blocks * _ROW_GROUPS * _MAT
+    edge_blocks = min(sms, -(-n_edges // _TILE_ROWS))
+    return main_blocks, edge_blocks, edge_blocks * _WS_EDGE
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -519,26 +578,15 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
             None if d_edge is None else d_edge.zero_(),
             d_send, torch.zeros_like(rec_rep), zeros,
         )
-    # grids sized to the work: K4's main kernel runs 3 groups of warps a
-    # block, each over chunks of 32 / B receivers; the edge pass 4 groups a
-    # block over tiles of 64 (edge, b) rows of d_pre (batched), or one block
-    # per tile of 64 rows of s (per edge)
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    chunks = -(-num_rec // (_REC_ROWS // batch))
-    main_blocks = min(sms, -(-chunks // _K4_GROUPS))
-    if batched:
-        tiles = -(-n_edges * batch // _TILE_ROWS)
-        edge_blocks = min(sms, -(-tiles // _K4_ROW_GROUPS))
-        ws_edge_size = edge_blocks * _K4_ROW_GROUPS * _MAT
-    else:
-        edge_blocks = min(sms, -(-n_edges // _TILE_ROWS))
-        ws_edge_size = edge_blocks * _WS_EDGE
+    main_blocks, edge_blocks, ws_edge_size = _bwd_grid(
+        dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K4
+    )
     # the summed weight gradients (the returned gradients are views of
     # them), and one allocation for the kernels' scratch, freed on return:
     # ws_main | ws_edge | d_pre or s (multiples of 4 floats: each pointer
     # stays 16-byte aligned)
     out_main, out_edge = empty(_WS_MAIN), empty(_WS_EDGE)
-    sizes = (main_blocks * _K4_GROUPS * _WS_MAIN, ws_edge_size,
+    sizes = (main_blocks * _GROUPS * _WS_MAIN, ws_edge_size,
              n_edges * (batch if batched else 1) * d)
     scratch = empty(sum(sizes))
     ws_main, ws_edge, d_pre = (
@@ -748,12 +796,13 @@ def fused_edge_v2_fwd(edge_in, sp, rp, edge_set, weights, raw, update_edges,
     pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel's work counter
     err = _v2_fwd_lib()(
         mode, edge_set.num_rec, batch, feat, int(update_edges),
         int(weights[4] is not None),
         _ptr(edge_in), _ptr(sp), _ptr(rp), _ptr(edge_set.rowptr),
         _ptr(edge_set.senders), *(_ptr(w) for w in weights),
-        _ptr(aggr), _ptr(new_edge), _ptr(pre),
+        _ptr(aggr), _ptr(new_edge), _ptr(pre), _ptr(counter),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -798,34 +847,38 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
             None if d_edge is None else d_edge.zero_(),
             d_pre, d_recproj.zero_(), zeros,
         )
-    blocks = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    out_main = empty(_WS_MAIN_V2)
-    ws_main = empty(blocks, _WS_MAIN_V2)
-    presum = out_edge = ws_edge = None
-    if not batched:
-        presum, out_edge, ws_edge = (
-            empty(n_edges, d), empty(_WS_EDGE), empty(blocks, _WS_EDGE)
-        )
+    main_blocks, edge_blocks, ws_edge_size = _bwd_grid(
+        dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K8
+    )
+    # the summed weight gradients (the returned gradients are views of
+    # them), and one allocation for the kernels' scratch, freed on return:
+    # ws_main | ws_edge | s (multiples of 4 floats: each pointer stays
+    # 16-byte aligned)
+    out_main, out_edge = empty(_WS_MAIN_V2), empty(_WS_EDGE)
+    sizes = (main_blocks * _GROUPS * _WS_MAIN_V2, ws_edge_size,
+             0 if batched else n_edges * d)
+    scratch = empty(sum(sizes))
+    ws_main, ws_edge, presum = (
+        scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)
+    )
     err = _v2_bwd_lib()(
-        mode, num_rec, n_edges, batch, feat, int(gamma is not None), blocks,
-        _ptr(edge_in), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
+        mode, num_rec, n_edges, batch, feat, int(gamma is not None), main_blocks,
+        edge_blocks, _ptr(edge_in), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
         _ptr(edge_set.rowptr), _ptr(weights[0]), _ptr(weights[2]),
         _ptr(weights[3]), _ptr(gamma), *(_ptr(w) for w in weights[6:]),
-        _ptr(d_pre), _ptr(d_edge), _ptr(d_recproj), _ptr(presum),
-        _ptr(ws_main), _ptr(out_main), _ptr(ws_edge), _ptr(out_edge),
+        _ptr(d_pre), _ptr(d_edge), _ptr(d_recproj), presum,
+        ws_main, _ptr(out_main), ws_edge, _ptr(out_edge),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{_V2} backward kernel launch failed: CUDA error {err}")
     fused_edge_v2_bwd.launches += 1
 
-    mats = out_main[: 2 * _MAT].view(2, d, d)  # dW2, dW1e as (out, in)
-    db2, dgamma, dbeta, db1 = out_main[2 * _MAT :].view(4, d)
-    dw1e, emb_grads = mats[1], [None] * 6
-    if not batched:
-        dw1e, emb_grads = _edge_grads(out_edge, raw, feat)
+    dw2 = out_main[:_MAT].view(d, d)  # (out, in)
+    db2, dgamma, dbeta, db1 = out_main[_MAT:].view(4, d)
+    dw1e, emb_grads = _edge_grads(out_edge, raw, feat)
     zero = torch.zeros((d, d), dtype=torch.float32, device=dev)
-    grads = [torch.cat([dw1e, zero, zero], dim=1), db1, mats[0], db2]
+    grads = [torch.cat([dw1e, zero, zero], dim=1), db1, dw2, db2]
     grads += [dgamma, dbeta] if gamma is not None else [None, None]
     return d_edge, d_pre, d_recproj, grads + emb_grads
 

@@ -207,8 +207,12 @@ def _apply_chunked(
 def fused_edge_phase_supported(
     mlp, edge_set: EdgeSet, send_rep, rec_rep, edge_rep
 ) -> bool:
-    """Can ONE edge MLP over this edge set ride the fused kernel, K3? It
-    takes a two-layer edge MLP with every input at the hidden width."""
+    """Can ONE edge MLP over this edge set ride the fused kernel, K3 (or
+    K7)? It takes a two-layer edge MLP with every input at the hidden
+    width, and on CUDA tensors only the widths and batches the kernels
+    are built for (``fused_kernels.kernels_take``, asked with the batch
+    that :func:`_batch_nodes` gives the call); anything else takes the
+    unfused route."""
     if isinstance(mlp, SplitMLPs) or not fusable(mlp):
         return False
     h = linear_layers(mlp)[-1].out_features
@@ -216,6 +220,9 @@ def fused_edge_phase_supported(
         send_rep.shape[-1] == h
         and rec_rep.shape[-1] == h
         and (edge_rep is None or edge_rep.shape[-1] == h)
+        and fused_kernels.kernels_take(
+            h, _batch_size(send_rep, rec_rep, edge_rep) or 1, rec_rep.device
+        )
     )
 
 
@@ -229,6 +236,15 @@ def _use_fused(net: InteractionNet, edge_set, send_rep, rec_rep, edge_rep) -> bo
     )
 
 
+def _batch_size(send_rep, rec_rep, edge_rep) -> Optional[int]:
+    """The batch of the first batched ``(N, B, D)`` input, None if no
+    input is batched."""
+    for a in (send_rep, rec_rep, edge_rep):
+        if a is not None and a.dim() == 3:
+            return a.shape[1]
+    return None
+
+
 def _batch_nodes(send_rep, rec_rep, edge_rep):
     """The node arrays in the common batched ``(N, B, D)`` layout,
     contiguous: an unbatched one is shared across the batch of whichever
@@ -236,12 +252,9 @@ def _batch_nodes(send_rep, rec_rep, edge_rep):
     ``squeeze`` says that no input was batched, so the call runs as one
     batch member and its outputs drop the batch axis again. An unbatched
     edge array stays ``(E, D)``."""
-    batched = [
-        a for a in (send_rep, rec_rep, edge_rep) if a is not None and a.dim() == 3
-    ]
-    if not batched:
+    batch = _batch_size(send_rep, rec_rep, edge_rep)
+    if batch is None:
         return send_rep.unsqueeze(1).contiguous(), rec_rep.unsqueeze(1).contiguous(), True
-    batch = batched[0].shape[1]
 
     def bcast(a: torch.Tensor) -> torch.Tensor:
         if a.dim() == 2:

@@ -30,14 +30,14 @@ device has finished them. ``--host-profile`` runs ten more steps under
 ``--probe`` builds the kernels, prints the compiler's register report,
 and runs ``chip_smoke.phase_probe``: K3 and K4 at the six GraphLAM sites
 as the main path calls them, on a uniform-in-degree edge set of the same
-size, with LayerNorm off and K3 with and without ``pre``, and each
-kernel's occupancy.
+size, with LayerNorm off and K3 with and without ``pre``, and the
+occupancy of K3, K4, K7 and K8.
 
 ``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
 (unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
 K3). With ``on`` every fused phase takes the v2 route: K7 forward, K8
-and K2 backward, grouped as such (K8 shares its edge and reduce kernels'
-names with K4, which does not run on that route).
+and K2 backward, grouped as such (K8 shares its edge, rows and reduce
+kernels' names with K4, which does not run on that route).
 """
 
 from __future__ import annotations
@@ -70,12 +70,12 @@ GROUPS = (
 
 
 def groups() -> tuple:
-    """The kernel groups; on the v2 route K8's edge and reduce kernels,
-    whose names K4 shares, count as K8."""
+    """The kernel groups; on the v2 route K8's edge, rows and reduce
+    kernels, whose names K4 shares, count as K8."""
     if os.environ.get("NEURAL_LAM_TPU_FUSED_V2") != "on":
         return GROUPS
     k8 = ("K8 fused_edge_phase_v2 backward",
-          re.compile(r"fused_edge_v2_bwd|fused_edge_bwd_edge|reduce_workspace"))
+          re.compile(r"fused_edge_v2_bwd|fused_edge_bwd_(edge|rows)|reduce_workspace"))
     return tuple(k8 if name == k8[0] else (name, pat) for name, pat in GROUPS)
 
 

@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
+from neural_lam_tpu_torch.graphs import create_graph_from_datastore
+from neural_lam_tpu_torch.models import GraphLAM
 from neural_lam_tpu_torch.ops.fused_kernels import (
     _weights,
     fused_edge_bwd,
@@ -516,12 +519,12 @@ def _tf32(t):
 
 @pytest.mark.cuda
 def test_fused_edge_phase_float32_accuracy(cuda):
-    """K3 and K4 run their products on the tensor cores with the 3xTF32
-    split, at float32 accuracy: on operands that need 18 mantissa bits
-    (where plain TF32, checked here on the same inputs, misses the first
-    layer by more than 1e-4 relative), ``pre``, the aggregate and every
-    gradient agree with the plain version in float64 to 1e-5 of their
-    largest entry."""
+    """K3 and K4, and K7 and K8, run their products on the tensor cores
+    with the 3xTF32 split, at float32 accuracy: on operands that need 18
+    mantissa bits (where plain TF32, checked here on the same inputs,
+    misses the first layer by more than 1e-4 relative), ``pre``, the
+    aggregate and every gradient agree with the plain version in float64
+    to 1e-5 of their largest entry."""
     rng = np.random.default_rng(31)
     d, batch = 64, 4
     es, _ = _edge_set(rng, 40, 30, 600, cuda, empty_rec=3)
@@ -566,6 +569,34 @@ def test_fused_edge_phase_float32_accuracy(cuda):
     assert rel(pre, pre64) < 1e-5
     assert rel(aggr, aggr64) < 1e-5
     out = fused_edge_phase(edge_mlp, leaves[0], leaves[1], leaves[2], es)[0]
+    got = torch.autograd.grad((out * d_aggr64.float().to(cuda)).sum(),
+                              leaves + list(edge_mlp.parameters()))
+    for g, w in zip(got, want):
+        assert rel(g, w) < 1e-5
+
+    # K7 and K8 (the v2 route) on the same kind of operands, with sender
+    # node rows: K7's tensor-core product is the first layer's edge term,
+    # which TF32 operands alone miss by more than 1e-4; the node
+    # projections are float32 matmuls (TF32 off)
+    assert rel(t32[0] @ w32[:, :d].T, ref[0] @ w1[:, :d].T) > 1e-4
+    arrays2 = [arrays[0], _near_one(rng, (40, batch, d)), arrays[2]]
+    ref2 = [torch.tensor(a, requires_grad=True) for a in arrays2]
+    senders = es.senders.cpu().long()
+    sp64, rp64 = ref2[1] @ w1[:, d:2 * d].T, ref2[2] @ w1[:, 2 * d:].T
+    pre64 = ref2[0] @ w1[:, :d].T + sp64[senders] + rp64[receivers]
+    aggr64, _ = fused_edge_phase_v2_plain(mlp64, ref2[0], sp64, rp64, senders, receivers)
+    want = torch.autograd.grad((aggr64 * d_aggr64).sum(), ref2 + list(mlp64.parameters()))
+    leaves = [torch.tensor(a, dtype=torch.float32, device=cuda, requires_grad=True)
+              for a in arrays2]
+    with torch.no_grad():
+        w1f = edge_mlp[0].weight
+        aggr, _, pre = fused_edge_v2_fwd(
+            leaves[0], leaves[1] @ w1f[:, d:2 * d].T, leaves[2] @ w1f[:, 2 * d:].T, es,
+            _weights(edge_mlp, None), False, False, save_pre=True,
+        )
+    assert rel(pre, pre64) < 1e-5
+    assert rel(aggr, aggr64) < 1e-5
+    out = fused_edge_phase_v2(edge_mlp, leaves[0], leaves[1], leaves[2], es)[0]
     got = torch.autograd.grad((out * d_aggr64.float().to(cuda)).sum(),
                               leaves + list(edge_mlp.parameters()))
     for g, w in zip(got, want):
@@ -662,7 +693,7 @@ def _v2_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, update):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,update,ln", V2_FLAGS)
-@pytest.mark.parametrize("batch", [4, 3, 1])  # 16, 21, 64 edges a tile
+@pytest.mark.parametrize("batch", [4, 3, 1, 32])  # 16, 21, 64, 2 edges a tile
 def test_fused_edge_phase_v2_matches_plain(cuda, mode, update, ln, batch):
     """K7 against its plain version: the aggregate (zero for receivers
     without edges), the updated edges and the saved ``pre``."""
@@ -700,7 +731,8 @@ def test_fused_edge_phase_v2_matches_plain(cuda, mode, update, ln, batch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,update,ln", V2_FLAGS)
-@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (3, True), (1, True)])
+@pytest.mark.parametrize("batch,use_new_edge",
+                         [(4, True), (4, False), (3, True), (1, True), (32, True)])
 def test_fused_edge_phase_v2_backward_matches_plain(cuda, mode, update, ln, batch, use_new_edge):
     """K8 and K2 (through ``FusedEdgePhaseV2`` and the node projections)
     against autograd of the plain version: the node rows', the edge
@@ -817,5 +849,143 @@ def test_v2_route_matches_v1_route(cuda, monkeypatch, embed, update):
     for a, b in zip(out2, out1):
         torch.testing.assert_close(a, b, **TOL)
     for g, w in zip(grads2, grads1):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mesh", "down"])
+@pytest.mark.parametrize("mode", ["raw", "shared", "batched"])
+@pytest.mark.parametrize("batch", [4, 32])
+def test_fused_edge_phase_v2_long_receivers_and_degree_one(cuda, kind, mode, batch):
+    """K7 and K8 (with K2) where a receiver's edges span many tiles (400
+    edges into one receiver, ten receivers without edges) and where every
+    receiver has exactly one edge, in each edge mode: outputs and every
+    gradient against the plain version, and the same bits on a second
+    run. The aggregate is held to 1e-4 of the largest aggregate, as K3's
+    is: a receiver's sum of 400 O(1) messages is off float64 by about
+    3e-4 in any float32 order, the plain version's own too."""
+    es, n_send, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(14)
+    edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, w_edge = _v2_case(
+        rng, cuda, es, n_send, n_rec, mode, batch, seed=8
+    )
+
+    def run(v2):
+        if v2:
+            out = fused_edge_phase_v2(edge_mlp, edge_rep, send, rec, es, embedder=emb,
+                                      edge_feats=feats, update_edges=True)
+        else:
+            out = _v2_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, True)
+        loss = (out[0] * w_aggr).sum() + (out[1] * w_edge).sum()
+        return [o.detach() for o in out], torch.autograd.grad(loss, leaves)
+
+    got, got_g = run(True)
+    want, want_g = run(False)
+    scale = max(want[0].abs().max().item(), 1.0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(got[1], want[1], **TOL)
+    if kind == "mesh":
+        assert torch.all(got[0][190:] == 0)  # receivers without edges
+    for g, w in zip(got_g, want_g):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+    again, again_g = run(True)
+    assert all(torch.equal(a, b) for a, b in zip(got + list(got_g), again + list(again_g)))
+
+
+# -- shapes the fused kernels do not take: the unfused route on the card ----------
+
+_UNFUSED = (sender_gather, receiver_expand, segment_sum)
+_FUSED = (fused_edge_phase, fused_edge_phase_v2)
+
+
+def _launches(counters, before):
+    return [fn.launches - b for fn, b in zip(counters, before)]
+
+
+@pytest.mark.cuda
+def test_graph_lam_hidden_32_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``GraphLAM(hidden_dim=32)``: the fused kernels are built for hidden
+    64, so every GNN application of the step routes to the unfused
+    operations before any launch (K1, K6, the MLP, K5; K2, K5, K6
+    backward) and computes what the CPU computes: the new state and the
+    gradient of the previous state and of every parameter, at the
+    unfused card tests' tolerances."""
+    ds = DummyDatastore(root_path=tmp_path, n_grid_x=9, n_grid_y=9, n_timesteps=12)
+    create_graph_from_datastore(ds, tmp_path / "graph" / "multiscale")
+    torch.manual_seed(0)
+    models = {"cpu": GraphLAM(ds, hidden_dim=32, processor_layers=2, device="cpu")}
+    models["cuda"] = GraphLAM(ds, hidden_dim=32, processor_layers=2, device=cuda)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    rng = np.random.default_rng(41)
+    n, batch = ds.num_grid_points, 4
+    d, f = ds.get_num_data_vars("state"), 3 * ds.get_num_data_vars("forcing")
+    arrays = [rng.normal(size=(n, batch, w)).astype(np.float32) for w in (d, d, f, d)]
+
+    def run(device):
+        model = models[device]
+        model.zero_grad(set_to_none=True)
+        prev = torch.tensor(arrays[0], device=device, requires_grad=True)
+        out, _ = model.step(prev, *(torch.tensor(a, device=device) for a in arrays[1:3]))
+        (out * torch.tensor(arrays[3], device=device)).sum().backward()
+        grads = [prev.grad] + [p.grad for p in model.parameters()]
+        return out.detach().cpu(), [g.cpu() for g in grads]
+
+    before = [fn.launches for fn in _UNFUSED + _FUSED]
+    got = run("cuda")
+    torch.cuda.synchronize()
+    launches = _launches(_UNFUSED + _FUSED, before)
+    assert all(x > 0 for x in launches[:3]) and launches[3:] == [0, 0]
+    want = run("cpu")
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w in zip(got[1], want[1]):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embed", [False, True])
+def test_interaction_net_batch_33_on_the_card_matches_the_cpu(cuda, embed):
+    """``apply_interaction_net`` at batch 33, beyond the fused kernels'
+    32: on the card it takes the unfused route (with the edge embedder
+    run up front) where the CPU takes the fused one (its plain version),
+    and both compute the same outputs and gradients."""
+    es, n_send, n_rec = _degree_edge_set("mesh", "cpu")
+    rng = np.random.default_rng(42)
+    d, batch = 64, 33
+    net = InteractionNet(d, generator=torch.Generator().manual_seed(9))
+    emb = make_mlp([3, d, d], generator=torch.Generator().manual_seed(10))
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((n_send, batch, d), (n_rec, batch, d), (es.num_edges, d),
+                        (es.num_edges, 3), (n_rec, batch, d))]
+
+    def run(device):
+        net.to(device).zero_grad(set_to_none=True)
+        emb.to(device).zero_grad(set_to_none=True)
+        t = [torch.tensor(a, device=device) for a in arrays]
+        leaves = [t[0].requires_grad_(True), t[1].requires_grad_(True)]
+        if embed:
+            kw = dict(edge_embedder=emb, edge_features=t[3])
+            edge = None
+        else:
+            edge = t[2].requires_grad_(True)
+            leaves.append(edge)
+            kw = {}
+        new_rec, new_edge = apply_interaction_net(net, es.to(device), leaves[0], leaves[1],
+                                                  edge, **kw)
+        ((new_rec * t[4]).sum() + new_edge.sum()).backward()
+        params = list(net.parameters()) + (list(emb.parameters()) if embed else [])
+        grads = [x.grad for x in leaves] + [p.grad for p in params]
+        return [a.detach().cpu() for a in (new_rec, new_edge, *grads)]
+
+    before = [fn.launches for fn in _UNFUSED + _FUSED]
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert _launches(_UNFUSED + _FUSED, before) == [1, 2, 2, 0, 0]
+    want = run("cpu")
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, **TOL)
+    for g, w in zip(got[2:], want[2:]):
         scale = max(w.abs().max().item(), 1.0)
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
