@@ -63,12 +63,29 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
 
 Phases 2-5 run twice: on the default route and on the v2 route, where
 every GNN application launches K7 and no K1 or K3 (and K8 and K2, no K4,
-backward), against the same fixtures at the same limits. Then GraphLAM's
+backward), against the same fixtures at the same limits.
+
+5b. Training through the captured step (``train graph`` lines):
+   ``Trainer.make_train_step()``, one CUDA graph per step, from the
+   weights and on the batch of phase 5, 2 warm-up and 10 timed calls.
+   The 12 losses against the eager step's (1e-6 relative, and how many
+   are the same bits), the step time against the eager step's and
+   against the device time of a replay's kernels, the host's time to
+   enqueue a replay, and the launches: the wrappers count the first
+   call's eager warm-up steps and the capture, and nothing after it; the
+   profiler counts each kernel by its name in one replay. Then the
+   training gate once more through the captured step, on both routes.
+
+Then GraphLAM's
 served AR step and training step on both routes, each as its kernels'
 device time beside the host's time to enqueue it; and the shapes the
 fused kernels do not take (``GraphLAM(hidden_dim=32)`` serving and
 training, ``apply_interaction_net`` at batch 33), which route to the
-unfused operations and agree with the same calls on the CPU.
+unfused operations and agree with the same calls on the CPU; and one
+epoch of ``Trainer.fit`` on a MEPS-size dummy store (8 training batches
+of 4 through the captured step, fed by ``device_prefetch``; validation
+on 2 batches at 3 AR steps with a watched metric), whose history record
+is printed.
 
 Then, for ``GraphLAM(hidden_layers=2)`` (path U, the unfused route: K1,
 K6, the edge MLP, K5; K2, K5, K6 backward), ``HiLAM`` and
@@ -81,8 +98,9 @@ GNN applications per step):
    name): the state after AR steps 1 and 3 of a batch-4 rollout at every
    257th grid node, the training loss, per gradient its largest entry
    and 16 sampled entries, and the losses of three further AdamW steps.
-7. Serving and training as in 3 and 5, with the launch counts derived
-   from the number of mesh levels and processor layers.
+7. Serving and training as in 3, 5 and 5b, with the launch counts
+   derived from the number of mesh levels and processor layers, then the
+   model gate's training part once more through the captured step.
 
 ``HiLAMParallel``'s gate runs once more on the v2 route (its per-section
 ``fused_edge_phase`` entry).
@@ -106,6 +124,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -164,6 +183,24 @@ TRAIN_GRAD_TOL = 2e-4
 TRAIN_TRAJ_RTOL = 1e-4
 TRAIN_LR = 1e-3
 TRAIN_WARMUP, TRAIN_ITERS = 2, 10  # bench.py:31
+# The captured step replays the kernels of the eager step on the same
+# values: its losses agree with the eager step's to float32 rounding
+GRAPH_LOSS_RTOL = 1e-6
+# Each kernel's entry point in its CUDA source, as the profiler names it:
+# one launch of it per launch of its wrapper. A graph's replays do not
+# call the wrappers, so the profiler counts their launches by these names.
+KERNEL_SYMBOLS = {
+    "K1 sender_gather": re.compile(r"\bgather_rows_(vec4|scalar)\b"),
+    "K3 fused_edge_phase": re.compile(r"\bfused_edge_fwd\b"),
+    "K2 sender_scatter": re.compile(r"\bscatter_rows\b"),
+    "K4 fused_edge_phase backward": re.compile(r"\bfused_edge_bwd_main\b"),
+    "K5 segment_sum": re.compile(r"\bsegment_sum_rows\b"),
+    "K6 receiver_expand": re.compile(r"\bexpand_rows\b"),
+    "K7 fused_edge_phase_v2": re.compile(r"\bfused_edge_v2_fwd\b"),
+    "K8 fused_edge_phase_v2 backward": re.compile(r"\bfused_edge_v2_bwd_main\b"),
+}
+# fit's store: 32 training samples at ar_steps 1 (len = n_timesteps - 3)
+FIT_TIMESTEPS = 8 * BATCH + 3
 # K6 is a copy: bit-identical. K5 sums up to ~40 O(1) edge rows per
 # receiver in slot order where index_add_ adds with atomics in any order:
 # rounding only, relative to the largest sum.
@@ -1943,11 +1980,13 @@ def make_trainer(model, ds, reload: bool = True):
     return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device)
 
 
-def train_gate_run(torch, trainer, batch: int, n_losses: int):
+def train_gate_run(torch, trainer, batch: int, n_losses: int, captured: bool = False):
     """The training gate's run: from a fresh optimizer, the loss and the
     gradients of the bench batch, then ``n_losses - 1`` further AdamW
     steps on it. Returns the losses and the first step's gradients by
-    state-dict name."""
+    state-dict name. With ``captured`` every step is a replay of the
+    captured step (``Trainer.make_train_step``), and the gradients are
+    those its first replay left in the parameters' ``.grad``."""
     from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
 
     data = [
@@ -1955,13 +1994,19 @@ def train_gate_run(torch, trainer, batch: int, n_losses: int):
         for a in bench_batch(trainer.datastore, batch)
     ]
     trainer.optimizer = trainer.init_state()
-    trainer.optimizer.zero_grad(set_to_none=True)
-    loss = trainer._loss(*data)
-    loss.backward()
-    grads = grads_to_numpy(trainer.forecaster.predictor)
-    trainer.optimizer.step()
-    losses = [loss.item()]
-    losses += [trainer.train_step(*data).item() for _ in range(n_losses - 1)]
+    if captured:
+        step = trainer.make_train_step()
+        losses = [step(*data).item()]
+        grads = grads_to_numpy(trainer.forecaster.predictor)
+        losses += [step(*data).item() for _ in range(n_losses - 1)]
+    else:
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss = trainer._loss(*data)
+        loss.backward()
+        grads = grads_to_numpy(trainer.forecaster.predictor)
+        trainer.optimizer.step()
+        losses = [loss.item()]
+        losses += [trainer.train_step(*data).item() for _ in range(n_losses - 1)]
     if not np.isfinite(losses).all():
         raise AssertionError("train gate: non-finite loss")
     return losses, grads
@@ -1976,17 +2021,20 @@ def check_gate_fixture(trainer, grid, lr) -> None:
         )
 
 
-def phase_train_gate(torch, trainer, fixture_path) -> dict:
+def phase_train_gate(torch, trainer, fixture_path, captured: bool = False) -> dict:
     """Loss and gradients of the bench batch, then the losses of further
     AdamW steps, against the JAX package's fixture (made by
-    ``tests/test_torch_train.py``). The trainer's model must hold the
+    ``tests/test_torch_train.py``), through the eager step or, with
+    ``captured``, the captured one. The trainer's model must hold the
     ``PRNGKey(0)`` parameters; they are updated in place."""
     with np.load(fixture_path) as fx:
         want_losses = fx["losses"].astype(np.float64)
         grid, batch, lr = fx["grid"], int(fx["batch"]), float(fx["lr"])
         want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
     check_gate_fixture(trainer, grid, lr)
-    losses, got_grads = train_gate_run(torch, trainer, batch, len(want_losses))
+    losses, got_grads = train_gate_run(
+        torch, trainer, batch, len(want_losses), captured
+    )
 
     if sorted(got_grads) != sorted(want_grads):
         raise AssertionError("train gate: gradient names differ from the fixture")
@@ -2005,7 +2053,7 @@ def phase_train_gate(torch, trainer, fixture_path) -> dict:
             )
     rels = np.abs(np.array(losses) - want_losses) / np.abs(want_losses)
     log(
-        f"train gate: loss {losses[0]:.8g} vs {want_losses[0]:.8g} (rel "
+        f"train gate{' (captured step)' if captured else ''}: loss {losses[0]:.8g} vs {want_losses[0]:.8g} (rel "
         f"{rels[0]:.3e}, tol {TRAIN_LOSS_RTOL}); {len(want_grads)} gradients, "
         f"worst {grad_rel:.3e} of its largest value at {worst} (tol "
         f"{TRAIN_GRAD_TOL}); losses of {len(losses) - 1} further AdamW steps "
@@ -2037,13 +2085,15 @@ def grad_sample_index(size: int) -> np.ndarray:
     return np.linspace(0, size - 1, GATE_GRAD_SAMPLES).astype(np.int64)
 
 
-def phase_model_gate(torch, name: str, model, ds, fixture_path) -> dict:
+def phase_model_gate(torch, name: str, model, ds, fixture_path,
+                     captured: bool = False) -> dict:
     """One of ``GATE_MODELS`` against the JAX package's fixture (made by
     ``tests/test_torch_hier.py``): the states after the first and the
     last step of a short rollout at every ``GATE_NODE_STRIDE``-th grid
     node, then the training loss, each gradient's largest entry and
     sampled entries, and the losses of further AdamW steps. ``model``
-    must hold the seeded parameters; they are updated in place."""
+    must hold the seeded parameters; they are updated in place. With
+    ``captured`` the training steps are replays of the captured step."""
     from neural_lam_tpu_torch.models import ARForecaster
 
     with np.load(fixture_path) as fx:
@@ -2080,7 +2130,9 @@ def phase_model_gate(torch, name: str, model, ds, fixture_path) -> dict:
     if max(mean_rel) > GATE_STATE_MEAN_REL or max(max_rel) > GATE_STATE_MAX_REL:
         raise AssertionError(f"{name} gate: states outside their tolerances")
 
-    losses, got_grads = train_gate_run(torch, trainer, batch, len(want_losses))
+    losses, got_grads = train_gate_run(
+        torch, trainer, batch, len(want_losses), captured
+    )
     if sorted(got_grads) != sorted(names):
         raise AssertionError(f"{name} gate: gradient names differ from the fixture")
     grad_rel, worst = 0.0, ""
@@ -2102,7 +2154,7 @@ def phase_model_gate(torch, name: str, model, ds, fixture_path) -> dict:
             )
     rels = np.abs(np.array(losses) - want_losses) / np.abs(want_losses)
     log(
-        f"{name} gate: loss {losses[0]:.8g} vs {want_losses[0]:.8g} (rel "
+        f"{name} gate{' (captured step)' if captured else ''}: loss {losses[0]:.8g} vs {want_losses[0]:.8g} (rel "
         f"{rels[0]:.3e}, tol {TRAIN_LOSS_RTOL}); {len(names)} gradients, "
         f"worst {grad_rel:.3e} of its largest value at {worst} (tol "
         f"{TRAIN_GRAD_TOL}); losses of {len(losses) - 1} further AdamW steps "
@@ -2120,35 +2172,17 @@ def phase_model_gate(torch, name: str, model, ds, fixture_path) -> dict:
 
 def kernel_counters():
     """Each kernel's wrapper, which counts its launches in ``.launches``."""
-    from neural_lam_tpu_torch.ops.fused_kernels import (
-        fused_edge_bwd,
-        fused_edge_phase,
-        fused_edge_phase_v2,
-        fused_edge_v2_bwd,
-    )
-    from neural_lam_tpu_torch.ops.segment_kernels import (
-        receiver_expand,
-        segment_sum,
-        sender_gather,
-        sender_scatter,
-    )
+    from neural_lam_tpu_torch.ops import launch_counters
 
-    return {
-        "K1 sender_gather": sender_gather,
-        "K3 fused_edge_phase": fused_edge_phase,
-        "K2 sender_scatter": sender_scatter,
-        "K4 fused_edge_phase backward": fused_edge_bwd,
-        "K5 segment_sum": segment_sum,
-        "K6 receiver_expand": receiver_expand,
-        "K7 fused_edge_phase_v2": fused_edge_phase_v2,
-        "K8 fused_edge_phase_v2 backward": fused_edge_v2_bwd,
-    }
+    return launch_counters()
 
 
-def phase_train(torch, trainer, card: str) -> dict[str, int]:
+def phase_train(torch, trainer, card: str) -> tuple[dict[str, int], dict]:
     """Training steps through ``Trainer.train_step`` on the bench batch;
     returns each kernel's launches in this run, which must be
-    ``expected_launches(model, training=True)`` per step."""
+    ``expected_launches(model, training=True)`` per step, and the losses
+    and the step time (``phase_train_graph`` holds the captured step to
+    them)."""
     ds = trainer.datastore
     model = trainer.forecaster.predictor
     label = model_label(model)
@@ -2195,12 +2229,173 @@ def phase_train(torch, trainer, card: str) -> dict[str, int]:
         f"{gps:,.0f} training grid-points/s; peak device memory "
         f"{peak / 2**30:.2f} GiB"
     )
+    return launches, dict(losses=losses, step_ms=step_ms)
+
+
+def phase_train_graph(torch, trainer, card: str, eager: dict) -> dict[str, int]:
+    """The captured step, ``Trainer.make_train_step()``, on the bench batch
+    from the weights ``phase_train`` started from: 2 warm-up and 10 timed
+    calls as there (the first call warms up, captures and replays), each
+    a replay of one CUDA graph. The 12 losses against the eager step's
+    (``eager``, from ``phase_train``), the step time against the eager
+    step's and against the device time of the replay's kernels, and the
+    launches: the wrappers count the first call's ``GRAPH_WARMUP_STEPS``
+    eager steps and the capture of one, ``expected_launches`` each, and
+    nothing in the calls after it; the profiler counts
+    ``expected_launches`` in one replay. Returns each kernel's launches
+    on the device in this run: the warm-up steps' and 12 replays'."""
+    from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
+
+    ds = trainer.datastore
+    model = trainer.forecaster.predictor
+    label = model_label(model)
+    data = [torch.from_numpy(a).to(trainer.device) for a in bench_batch(ds)]
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    step = trainer.make_train_step()
+    t0 = time.perf_counter()
+    losses = [step(*data).item()]
+    capture_s = time.perf_counter() - t0
+    first = {name: fn.launches for name, fn in counters.items()}
+    losses += [step(*data).item() for _ in range(TRAIN_WARMUP - 1)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_ITERS + 1)]
+    timed = []
+    marks[0].record()
+    for mark in marks[1:]:
+        timed.append(step(*data))
+        mark.record()
+    torch.cuda.synchronize()
+    losses += [loss.item() for loss in timed]
+    times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    later = {name: fn.launches - first[name] for name, fn in counters.items()}
+    if len(trainer.graphs) != 1:
+        raise AssertionError(f"train graph {label}: {len(trainer.graphs)} graphs, want 1")
+    step_ms = marks[0].elapsed_time(marks[-1]) / TRAIN_ITERS
+    busy, kernels, replay = device_kernels(torch, lambda: step(*data))
+    launches = {}
+    steps = TRAIN_WARMUP + TRAIN_ITERS
+    for name, per_step in expected_launches(model, training=True).items():
+        # the capture records one replay's launches
+        warm = first[name] - replay[name]
+        launches[name] = warm + replay[name] * steps
+        log(
+            f"train graph {label}: {name} launches: {first[name]} counted in the "
+            f"first call ({GRAPH_WARMUP_STEPS} eager warm-up steps and the capture, "
+            f"want {per_step} x {GRAPH_WARMUP_STEPS + 1}), {later[name]} in the "
+            f"{steps - 1} calls after it (want 0), {replay[name]} in one profiled "
+            f"replay (want {per_step}): {warm} + {replay[name]} x {steps} replays "
+            f"= {launches[name]}"
+        )
+        if (first[name] != per_step * (GRAPH_WARMUP_STEPS + 1) or later[name]
+                or replay[name] != per_step):
+            raise AssertionError(f"train graph {label}: {name} launches off")
+    rel = np.abs(np.array(losses) - eager["losses"]) / np.abs(eager["losses"])
+    same = int(np.sum(np.array(losses) == np.array(eager["losses"])))
+    log(
+        f"train graph {label}: loss per step " + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; against the eager step's max rel {rel.max():.3e} (tol {GRAPH_LOSS_RTOL}), "
+        f"{same} of {steps} the same bits"
+    )
+    if not np.isfinite(losses).all() or rel.max() > GRAPH_LOSS_RTOL:
+        raise AssertionError(f"train graph {label}: losses differ from the eager step's")
+    # one call on an idle device: queued replays can fill the device's
+    # launch queue and then wait for it
+    host = host_ms(torch, lambda: step(*data), calls=1)
+    gps = BATCH * ds.num_grid_points / (step_ms / 1e3)
+    log(
+        f"train graph {label} on {card}: first call (2 eager warm-up steps, capture, "
+        f"replay) {capture_s:.2f} s; step time {step_ms:.3f} ms (the last {TRAIN_ITERS} "
+        f"replays queued back to back: {', '.join(f'{t:.2f}' for t in times)}) against "
+        f"the eager step's {eager['step_ms']:.3f} ms; device busy {busy:.3f} ms per "
+        f"replay in {kernels} kernels ({1e3 * (step_ms - busy) / kernels:.2f} us of idle "
+        f"time a kernel); host until one replay is enqueued {host:.3f} ms; {gps:,.0f} "
+        f"training grid-points/s; peak device memory {peak / 2**30:.2f} GiB"
+    )
+    return launches
+
+
+def phase_fit(torch, card: str) -> dict[str, int]:
+    """One epoch of ``Trainer.fit`` on a MEPS-size dummy store: GraphLAM
+    with the fixture's parameters, 8 training batches of 4 at ``ar_steps``
+    1 through the captured step (prefetched on a side stream), then
+    validation on 2 batches at ``ar_steps_eval`` 3, with a watched metric.
+    Prints the history record; returns each kernel's launches on the
+    device: the wrappers count the eager ones (the capture's warm-up steps,
+    validation) and the capture, the profiler those of one replay, of
+    which the epoch made one per training batch."""
+    from torch.utils.data import Subset
+
+    from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
+    from neural_lam_tpu_torch.convert_checkpoint import load_jax_params_npz, params_from_jax
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
+    from neural_lam_tpu_torch.loader import DataLoader
+    from neural_lam_tpu_torch.models import ARForecaster, GraphLAM
+    from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
+
+    t0 = time.perf_counter()
+    ds = DummyDatastore(
+        n_grid_x=GRID_X, n_grid_y=GRID_Y, n_state_features=N_STATE,
+        n_forcing_features=N_FORCING, n_static_features=N_STATIC,
+        n_timesteps=FIT_TIMESTEPS, root_path=CACHE / "meps",
+    )
+    model = GraphLAM(ds, hidden_dim=HIDDEN, processor_layers=PROC_LAYERS, device=DEVICE)
+    model.load_state_dict(params_from_jax(
+        load_jax_params_npz(FIXTURES / "graph_lam_meps_params_seed0.npz")))
+    args = TrainingArgs(
+        batch_size=BATCH, ar_steps_train=1, ar_steps_eval=3, lr=TRAIN_LR,
+        val_steps_to_log=(1, 2, 3), metrics_watch=("val_rmse",),
+        var_leads_metrics_watch={ds.get_vars_names("state")[0]: [1, 3]},
+    )
+    config = NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path=""))
+    trainer = Trainer(ARForecaster(model, ds), config, ds, args)
+    train = DataLoader(WeatherDataset(ds, "train", ar_steps=1), BATCH, shuffle=True)
+    val = WeatherDataset(ds, "val", ar_steps=args.ar_steps_eval)
+    val = DataLoader(Subset(val, range(2 * BATCH)), BATCH)
+    log(f"fit set-up: {len(train)} training batches, {len(val)} validation batches "
+        f"({time.perf_counter() - t0:.1f} s)")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    (record,) = trainer.fit(train, val, epochs=1)
+    torch.cuda.synchronize()
+    ticks = {name: fn.launches for name, fn in counters.items()}
+    # two more replays of the epoch's graph after it, one of them profiled
+    data, _ = trainer.device_put_batch(next(iter(train)))
+    step = trainer.make_train_step()
+    _, _, replay = device_kernels(torch, lambda: step(*data))
+    if len(trainer.graphs) != 1 or any(
+            fn.launches != ticks[name] for name, fn in counters.items()):
+        raise AssertionError("fit: the epoch's graph was not replayed after it")
+    launches = {}
+    for name, per_step in expected_launches(model, training=True).items():
+        if replay[name] != per_step:
+            raise AssertionError(f"fit: {name}: {replay[name]} launches a replay, "
+                                 f"want {per_step}")
+    for name, count in ticks.items():
+        # the capture recorded one replay's launches, not run
+        launches[name] = count - replay[name] + replay[name] * len(train)
+    log(f"fit GraphLAM on {card}: one epoch: {json.dumps(record)}")
+    if not all(np.isfinite(record[k]) for k in ("train_loss", "val_loss", "val_loss_unroll3")):
+        raise AssertionError("fit: non-finite losses")
+    del trainer, model
+    torch.cuda.empty_cache()
     return launches
 
 
 def device_busy_ms(torch, fn) -> float:
     """The device time of the kernels one call of ``fn()`` launches, from
     ``torch.profiler`` (copies and fills left out)."""
+    return device_kernels(torch, fn)[0]
+
+
+def device_kernels(torch, fn) -> tuple[float, int, dict[str, int]]:
+    """:func:`device_busy_ms`, the number of kernels it sums, and the
+    launches of each of K1-K8 among them, by ``KERNEL_SYMBOLS``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2208,16 +2403,21 @@ def device_busy_ms(torch, fn) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = 0.0
+    busy, kernels = 0.0, 0
+    ours = dict.fromkeys(KERNEL_SYMBOLS, 0)
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA or "#" in evt.name:
             continue
         if evt.name.startswith(("Memcpy", "Memset")):
             continue
         busy += evt.device_time_total / 1e3
+        kernels += 1
+        for name, symbol in KERNEL_SYMBOLS.items():
+            if symbol.search(evt.name):
+                ours[name] += 1
     if busy <= 0:
         raise AssertionError("the profiler saw no kernel on the device")
-    return busy
+    return busy, kernels, ours
 
 
 def host_ms(torch, fn, calls: int = TRAIN_ITERS) -> float:
@@ -2397,9 +2597,17 @@ def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total,
             phase_model_gate(torch, name, model, gate_ds, gate_fixture(name))
     load_seeded(torch, model)
     add_launches(total, phase_serve(torch, serve_ds, model, card), f"{name} serve")
-    trainer = make_trainer(model, gate_ds, reload=False)
-    add_launches(total, phase_train(torch, trainer, card), f"{name} train")
-    del trainer, model
+    launches, eager = phase_train(torch, make_trainer(model, gate_ds, reload=False), card)
+    add_launches(total, launches, f"{name} train")
+    load_seeded(torch, model)
+    add_launches(
+        total,
+        phase_train_graph(torch, make_trainer(model, gate_ds, reload=False), card, eager),
+        f"{name} train graph",
+    )
+    load_seeded(torch, model)
+    phase_model_gate(torch, name, model, gate_ds, gate_fixture(name), captured=True)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -2488,18 +2696,31 @@ def main() -> int:
     with fused_v2("on"):
         log(f"training gate on the v2 route ({FUSED_V2}=on):")
         phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
+    launches, eager = phase_train(torch, make_trainer(model, gate_ds), card)
+    add_launches(total, launches, "graph_lam train")
+    with fused_v2("on"):
+        launches, eager_v2 = phase_train(torch, make_trainer(model, gate_ds), card)
+        add_launches(total, launches, "graph_lam v2 train")
+    # the captured step: the same 12 steps from the same weights, then the
+    # training gate through it
     add_launches(
-        total, phase_train(torch, make_trainer(model, gate_ds), card), "graph_lam train"
+        total, phase_train_graph(torch, make_trainer(model, gate_ds), card, eager),
+        "graph_lam train graph",
     )
     with fused_v2("on"):
         add_launches(
-            total, phase_train(torch, make_trainer(model, gate_ds), card),
-            "graph_lam v2 train",
+            total, phase_train_graph(torch, make_trainer(model, gate_ds), card, eager_v2),
+            "graph_lam v2 train graph",
         )
+    phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE, captured=True)
+    with fused_v2("on"):
+        log(f"training gate through the captured step on the v2 route ({FUSED_V2}=on):")
+        phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE, captured=True)
     phase_route_steps(torch, model, gate_ds, card)
     del model, forecaster
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)
+    add_launches(total, phase_fit(torch, card), "graph_lam fit")
     for name in GATE_MODELS:
         drive_gate_model(
             torch, name, gate_ds, serve_ds, card, total,

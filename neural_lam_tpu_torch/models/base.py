@@ -37,6 +37,12 @@ class ClampParams:
     softplus_lower: torch.Tensor
     softplus_upper_idx: tuple[int, ...]
     softplus_upper: torch.Tensor
+    # the three index tuples as int64 tensors on the model's device: a
+    # Python list as an index would be copied to the device at every
+    # step, which a CUDA graph capture does not allow
+    sigmoid_index: torch.Tensor
+    softplus_lower_index: torch.Tensor
+    softplus_upper_index: torch.Tensor
 
     @property
     def any_clamping(self) -> bool:
@@ -51,6 +57,9 @@ class ClampParams:
             sigmoid_upper=self.sigmoid_upper.to(device),
             softplus_lower=self.softplus_lower.to(device),
             softplus_upper=self.softplus_upper.to(device),
+            sigmoid_index=self.sigmoid_index.to(device),
+            softplus_lower_index=self.softplus_lower_index.to(device),
+            softplus_upper_index=self.softplus_upper_index.to(device),
         )
 
 
@@ -107,6 +116,9 @@ def prepare_clamping_params(
         softplus_lower=f32(sp_lo),
         softplus_upper_idx=tuple(sp_hi_idx),
         softplus_upper=f32(sp_hi),
+        sigmoid_index=torch.tensor(sig_idx, dtype=torch.int64),
+        softplus_lower_index=torch.tensor(sp_lo_idx, dtype=torch.int64),
+        softplus_upper_index=torch.tensor(sp_hi_idx, dtype=torch.int64),
     )
 
 
@@ -122,20 +134,20 @@ def get_clamped_new_state(
     new_state = prev_state + state_delta
 
     if clamp.sigmoid_idx:
-        idx = list(clamp.sigmoid_idx)
+        idx = clamp.sigmoid_index
         lo, hi = clamp.sigmoid_lower, clamp.sigmoid_upper
         span = hi - lo
         inv = inverse_sigmoid((prev_state[..., idx] - lo) / span)
         new_state[..., idx] = lo + span * torch.sigmoid(inv + state_delta[..., idx])
 
     if clamp.softplus_lower_idx:
-        idx = list(clamp.softplus_lower_idx)
+        idx = clamp.softplus_lower_index
         lo = clamp.softplus_lower
         inv = inverse_softplus(prev_state[..., idx] - lo)
         new_state[..., idx] = lo + F.softplus(inv + state_delta[..., idx])
 
     if clamp.softplus_upper_idx:
-        idx = list(clamp.softplus_upper_idx)
+        idx = clamp.softplus_upper_index
         hi = clamp.softplus_upper
         inv = -inverse_softplus(hi - prev_state[..., idx])
         new_state[..., idx] = hi - F.softplus(-(inv + state_delta[..., idx]))

@@ -89,7 +89,12 @@ class ARForecaster(nn.Module):
         for t in range(pred_steps):
             args = (prev_state, prev_prev_state, forcing_nm[t], boundary_nm[t])
             if use_remat:
-                new_state, pred_std = checkpoint(step, *args, use_reentrant=False)
+                # the model draws no random numbers, so no RNG state is
+                # saved for the recompute: saving it reads the generator,
+                # which a CUDA graph capture does not allow
+                new_state, pred_std = checkpoint(
+                    step, *args, use_reentrant=False, preserve_rng_state=False
+                )
             else:
                 new_state, pred_std = step(*args)
             predictions.append(new_state)

@@ -277,14 +277,29 @@ def fused_edge_phase_v2_plain(
     return aggr, new_edge
 
 
+# The environment variables that choose the route, read only through
+# these names, so that ``route_env`` covers all of them
+FUSED_V2_ENV = "NEURAL_LAM_TPU_FUSED_V2"
+FUSED_V2_RATIO_ENV = "NEURAL_LAM_TPU_FUSED_V2_RATIO"
+CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
+_ROUTE_ENV = (FUSED_V2_ENV, FUSED_V2_RATIO_ENV, CACHE_PRE_ENV)
+
+
+def route_env() -> tuple[Optional[str], ...]:
+    """The environment variables that :func:`fused_v2_routed` reads, as
+    they stand now. A captured CUDA graph fixes the route it was captured
+    on, so a cache of graphs keys on these."""
+    return tuple(os.environ.get(name) for name in _ROUTE_ENV)
+
+
 def fused_v2_enabled() -> bool:
     """The coarse gate of the v2 route, read at call time:
     ``NEURAL_LAM_TPU_FUSED_V2=off`` turns it off everywhere, and so does
     ``NEURAL_LAM_TPU_CACHE_PRE=off`` (K8 starts from the saved ``pre``).
     The JAX package's ``fused_v2_enabled`` (pallas_fused.py:1755)."""
-    if os.environ.get("NEURAL_LAM_TPU_FUSED_V2", "auto") == "off":
+    if os.environ.get(FUSED_V2_ENV, "auto") == "off":
         return False
-    return os.environ.get("NEURAL_LAM_TPU_CACHE_PRE", "on") != "off"
+    return os.environ.get(CACHE_PRE_ENV, "on") != "off"
 
 
 def fused_v2_routed(num_edge_slots: int, num_hoisted_rows: int) -> bool:
@@ -317,9 +332,9 @@ def fused_v2_routed(num_edge_slots: int, num_hoisted_rows: int) -> bool:
     is for a benchmark cell to decide."""
     if not fused_v2_enabled():
         return False
-    if os.environ.get("NEURAL_LAM_TPU_FUSED_V2", "auto") == "on":
+    if os.environ.get(FUSED_V2_ENV, "auto") == "on":
         return True
-    ratio = float(os.environ.get("NEURAL_LAM_TPU_FUSED_V2_RATIO", "8"))
+    ratio = float(os.environ.get(FUSED_V2_RATIO_ENV, "8"))
     return num_edge_slots >= ratio * max(num_hoisted_rows, 1)
 
 
@@ -512,7 +527,9 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel's work counter
+    # the kernel's work counter; inside a CUDA graph capture its zero-fill
+    # is a node of the graph, so every replay starts it at 0 again
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     err = _fwd_lib()(
         mode, edge_set.num_rec, shape[1], feat, int(update_edges),
         int(propagation), int(weights[4] is not None),
@@ -582,7 +599,8 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
         dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K4
     )
     # the summed weight gradients (the returned gradients are views of
-    # them), and one allocation for the kernels' scratch, freed on return:
+    # them), and one allocation for the kernels' scratch, freed on return
+    # (inside a CUDA graph capture both come from the graph's pool):
     # ws_main | ws_edge | d_pre or s (multiples of 4 floats: each pointer
     # stays 16-byte aligned)
     out_main, out_edge = empty(_WS_MAIN), empty(_WS_EDGE)
@@ -796,7 +814,9 @@ def fused_edge_v2_fwd(edge_in, sp, rp, edge_set, weights, raw, update_edges,
     pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel's work counter
+    # the kernel's work counter; inside a CUDA graph capture its zero-fill
+    # is a node of the graph, so every replay starts it at 0 again
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     err = _v2_fwd_lib()(
         mode, edge_set.num_rec, batch, feat, int(update_edges),
         int(weights[4] is not None),
@@ -851,7 +871,8 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
         dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K8
     )
     # the summed weight gradients (the returned gradients are views of
-    # them), and one allocation for the kernels' scratch, freed on return:
+    # them), and one allocation for the kernels' scratch, freed on return
+    # (inside a CUDA graph capture both come from the graph's pool):
     # ws_main | ws_edge | s (multiples of 4 floats: each pointer stays
     # 16-byte aligned)
     out_main, out_edge = empty(_WS_MAIN_V2), empty(_WS_EDGE)

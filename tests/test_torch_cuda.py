@@ -16,13 +16,19 @@ rounding and far below any real error. The backward kernels' tolerances
 are stated in their tests.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
 from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
 from neural_lam_tpu_torch.graphs import create_graph_from_datastore
-from neural_lam_tpu_torch.models import GraphLAM
+from neural_lam_tpu_torch.models import ARForecaster, GraphLAM, HiLAM
 from neural_lam_tpu_torch.ops.fused_kernels import (
     _weights,
     fused_edge_bwd,
@@ -45,6 +51,8 @@ from neural_lam_tpu_torch.ops.segment import (
     gather_receivers,
     gather_senders,
 )
+from neural_lam_tpu_torch.ops import launch_counters
+from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS, Trainer, TrainingArgs
 from neural_lam_tpu_torch.ops.segment_kernels import (
     receiver_expand,
     receiver_expand_plain,
@@ -989,3 +997,258 @@ def test_interaction_net_batch_33_on_the_card_matches_the_cpu(cuda, embed):
     for g, w in zip(got[2:], want[2:]):
         scale = max(w.abs().max().item(), 1.0)
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+# -- the training step as one CUDA graph ------------------------------------------
+
+TRAIN_MODELS = {
+    # name -> (class, graph, model kwargs, NEURAL_LAM_TPU_FUSED_V2)
+    "graph_lam": (GraphLAM, "multiscale", {}, "off"),
+    "graph_lam_v2": (GraphLAM, "multiscale", {}, "on"),
+    "graph_lam_h2": (GraphLAM, "multiscale", dict(hidden_layers=2), "off"),
+    "hi_lam": (HiLAM, "hierarchical", {}, "off"),
+}
+
+
+def _train_setup(tmp_path, cuda, name, monkeypatch):
+    """A factory of trainers on the card, each around a new model that
+    holds the same seeded weights, and batches of 2 drawn from a numpy
+    seed. HiLAM needs a 27x27 grid for two mesh levels."""
+    cls, graph, kw, v2 = TRAIN_MODELS[name]
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", v2)
+    side = 27 if graph == "hierarchical" else 9
+    ds = DummyDatastore(root_path=tmp_path, n_grid_x=side, n_grid_y=side, n_timesteps=12)
+    create_graph_from_datastore(
+        ds, tmp_path / "graph" / graph, hierarchical=graph == "hierarchical"
+    )
+    torch.manual_seed(0)
+    model_kw = dict(hidden_dim=64, processor_layers=2, graph_name=graph, **kw)
+    weights = cls(ds, device="cpu", **model_kw).state_dict()
+    config = NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path=""))
+
+    def make_trainer():
+        model = cls(ds, device=cuda, **model_kw)
+        model.load_state_dict(weights)
+        return Trainer(ARForecaster(model, ds), config, ds, TrainingArgs(batch_size=2),
+                       device=cuda)
+
+    def batches(count, batch=2, steps=1, seed=7):
+        rng = np.random.default_rng(seed)
+        n, d = ds.num_grid_points, ds.get_num_data_vars("state")
+        f = 3 * ds.get_num_data_vars("forcing")
+        return [
+            tuple(rng.normal(size=s).astype(np.float32)
+                  for s in ((batch, 2, n, d), (batch, steps, n, d), (batch, steps, n, f)))
+            for _ in range(count)
+        ]
+
+    return make_trainer, batches
+
+
+def _assert_same_training(got, want, losses_got, losses_want):
+    """Losses within 1e-6 relative, each parameter within 1e-5 of its
+    largest entry; returns whether every bit matched."""
+    np.testing.assert_allclose(losses_got, losses_want, rtol=1e-6)
+    same = list(losses_got) == list(losses_want)
+    for (name, p), q in zip(got.forecaster.named_parameters(), want.forecaster.parameters()):
+        scale = max(q.abs().max().item(), 1e-30)
+        assert (p - q).abs().max().item() <= 1e-5 * scale, name
+        same = same and torch.equal(p, q)
+    return same
+
+
+def _ticks(calls) -> dict[str, int]:
+    """Each wrapper's launch count across ``calls()``."""
+    counters = launch_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    calls()
+    return {name: fn.launches - before[name] for name, fn in counters.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TRAIN_MODELS))
+def test_captured_step_matches_the_eager_step(cuda, tmp_path, monkeypatch, name):
+    """Five steps through the captured graph against five eager
+    ``train_step`` calls from the same weights on the same batches; the
+    graph is captured once, by the first call, whose warm-up steps and
+    capture launch the route's kernels, and replayed five times, which
+    calls no wrapper."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, name, monkeypatch)
+    data = batches(5)
+    eager, captured = make_trainer(), make_trainer()
+    want = [eager.train_step(*b).item() for b in data]
+    step = captured.make_train_step()
+    got = []
+    first = _ticks(lambda: got.append(step(*data[0]).item()))
+    later = _ticks(lambda: got.extend(step(*b).item() for b in data[1:]))
+    bits = _assert_same_training(captured, eager, got, want)
+    print(f"{name}: captured step against eager over 5 steps, bits "
+          f"{'matched' if bits else 'differ'}")
+    assert len(captured.graphs) == 1 and not any(later.values())
+    assert all(v % (GRAPH_WARMUP_STEPS + 1) == 0 for v in first.values())
+    fused = TRAIN_MODELS[name][2].get("hidden_layers", 1) == 1
+    v2 = fused and TRAIN_MODELS[name][3] == "on"
+    ran = {k.split()[0] for k, v in first.items() if v}
+    want_ran = {"K7", "K8", "K2"} if v2 else {"K1", "K3", "K2", "K4"} if fused else {
+        "K1", "K2", "K5", "K6"}
+    assert ran == want_ran
+
+
+@pytest.mark.cuda
+def test_grad_follows_the_replayed_graph(cuda, tmp_path, monkeypatch):
+    """With two graphs (two batch sizes), ``.grad`` after each call holds
+    that call's gradients: the eager step's on the same batch from the
+    same weights."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = [batches(1, batch=2)[0], batches(1, batch=3)[0], batches(1, batch=2, seed=8)[0]]
+    eager, captured = make_trainer(), make_trainer()
+    step = captured.make_train_step()
+    for b in data:
+        eager.train_step(*b)
+        step(*b)
+        for p, q in zip(captured.forecaster.parameters(), eager.forecaster.parameters()):
+            scale = max(q.grad.abs().max().item(), 1e-30)
+            assert (p.grad - q.grad).abs().max().item() <= 1e-5 * scale
+    assert len(captured.graphs) == 2
+
+
+@pytest.mark.cuda
+def test_scan_steps_equals_three_captured_steps(cuda, tmp_path, monkeypatch):
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(3)
+    single, scanned = make_trainer(), make_trainer()
+    step = single.make_train_step()
+    want = [step(*b).item() for b in data]
+    stacked = [np.stack([b[i] for b in data]) for i in range(3)]
+    got = []
+    ticks = _ticks(lambda: got.append(scanned.make_train_step(scan_steps=3)(*stacked)))
+    assert tuple(got[0].shape) == (3,)
+    _assert_same_training(scanned, single, got[0].tolist(), want)
+    assert len(scanned.graphs) == 1
+    # single warm-up steps, then the capture of 3 steps; g2m, 2 m2m, m2g each
+    assert ticks["K3 fused_edge_phase"] == (GRAPH_WARMUP_STEPS + 3) * 4
+
+
+@pytest.mark.cuda
+def test_graph_cache_keys_on_shape_and_route(cuda, tmp_path, monkeypatch):
+    """A second batch size captures a second graph, a change of route a
+    third, on that route; going back replays the earlier ones. The
+    launch counters count the warm-up steps and the capture of a new
+    graph, and nothing for a replay."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    step = trainer.make_train_step()
+    step(*batches(1, batch=2)[0])
+    step(*batches(1, batch=3)[0])
+    assert len(trainer.graphs) == 2
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "on")
+    ticks = _ticks(lambda: step(*batches(1, batch=2)[0]))
+    assert len(trainer.graphs) == 3
+    # g2m, 2 m2m, m2g in each warm-up step and the capture
+    assert ticks["K7 fused_edge_phase_v2"] == (GRAPH_WARMUP_STEPS + 1) * 4
+    assert ticks["K3 fused_edge_phase"] == 0
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "off")
+    ticks = _ticks(lambda: step(*batches(1, batch=2)[0]))
+    assert len(trainer.graphs) == 3 and not any(ticks.values())
+
+
+@pytest.mark.cuda
+def test_a_new_optimizer_is_captured_again(cuda, tmp_path, monkeypatch):
+    """Replacing ``trainer.optimizer`` (as a restored optimizer state
+    will) drops the graph; the next step captures a new one over the new
+    state and goes on as the eager step does from the same point."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(4)
+    eager, captured = make_trainer(), make_trainer()
+    step = captured.make_train_step()
+    want, got, ticks = [], [], []
+    for i, b in enumerate(data):
+        if i == 2:
+            first = captured.graphs[next(iter(captured.graphs))].graph
+            eager.optimizer = eager.init_state()
+            captured.optimizer = captured.init_state()
+        want.append(eager.train_step(*b).item())
+        ticks.append(_ticks(lambda: got.append(step(*b).item()))["K3 fused_edge_phase"])
+    (entry,) = captured.graphs.values()
+    assert entry.graph is not first
+    # captured by the first and the third call, replayed by the others
+    assert ticks == [(GRAPH_WARMUP_STEPS + 1) * 4, 0, (GRAPH_WARMUP_STEPS + 1) * 4, 0]
+    _assert_same_training(captured, eager, got, want)
+
+
+@pytest.mark.cuda
+def test_capture_with_remat_at_three_ar_steps(cuda, tmp_path, monkeypatch):
+    """At ``ar_steps`` 3 each AR step is rematerialised in the backward
+    (``torch.utils.checkpoint``), inside the capture too."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(3, steps=3)
+    eager, captured = make_trainer(), make_trainer()
+    assert captured.forecaster.remat_steps is None  # on for more than one step
+    want = [eager.train_step(*b).item() for b in data]
+    step = captured.make_train_step()
+    got = []
+    ticks = _ticks(lambda: got.extend(step(*b).item() for b in data))
+    _assert_same_training(captured, eager, got, want)
+    assert len(captured.graphs) == 1
+    # the warm-up steps and the capture: three AR steps each, each forward
+    # twice (the recompute), of 4 applications
+    assert ticks["K3 fused_edge_phase"] == (GRAPH_WARMUP_STEPS + 1) * 3 * 2 * 4
+
+
+CAPTURE_FAILS = """
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
+from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
+from neural_lam_tpu_torch.graphs import create_graph_from_datastore
+from neural_lam_tpu_torch.models import ARForecaster, GraphLAM
+from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
+
+root = Path(sys.argv[1])
+ds = DummyDatastore(root_path=root, n_grid_x=9, n_grid_y=9, n_timesteps=12)
+create_graph_from_datastore(ds, root / "graph" / "multiscale")
+model = GraphLAM(ds, hidden_dim=64, processor_layers=1, device="cuda")
+config = NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path=""))
+trainer = Trainer(ARForecaster(model, ds), config, ds, TrainingArgs(batch_size=2))
+loss_fn = trainer._loss
+
+
+def host_read(*batch):
+    loss = loss_fn(*batch)
+    loss.item()  # waits for the device: not allowed inside a capture
+    return loss
+
+
+trainer._loss = host_read
+rng = np.random.default_rng(0)
+n, d = ds.num_grid_points, ds.get_num_data_vars("state")
+f = 3 * ds.get_num_data_vars("forcing")
+batch = [rng.normal(size=s).astype(np.float32) for s in ((2, 2, n, d), (2, 1, n, d), (2, 1, n, f))]
+try:
+    trainer.make_train_step()(*batch)
+except RuntimeError as err:
+    assert not trainer.graphs, "a failed capture left a graph"
+    print("capture raised:", str(err).splitlines()[0])
+    sys.exit(0)
+print("the step ran without its graph")
+sys.exit(1)
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda, tmp_path):
+    """A step that cannot be captured (a host read inside it) raises on
+    CUDA: the trainer does not fall back to the eager step. In a process
+    of its own, so that the failed capture leaves nothing behind."""
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, "-c", CAPTURE_FAILS, str(tmp_path)], cwd=repo,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(repo)},
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "capture raised" in out.stdout

@@ -338,6 +338,17 @@ def test_routing_rule_at_meps_counts(monkeypatch):
     assert not fused_kernels.fused_v2_enabled()
 
 
+@pytest.mark.parametrize("name", ENV)
+def test_route_env_reads_every_routing_variable(monkeypatch, name):
+    """``route_env``, the key by which captured training steps are cached
+    per route, changes with each variable the routing rule reads."""
+    for n in ENV:
+        monkeypatch.delenv(n, raising=False)
+    before = fused_kernels.route_env()
+    monkeypatch.setenv(name, "off")
+    assert fused_kernels.route_env() != before
+
+
 def test_propagation_stays_on_v1(graph, spies, monkeypatch):
     """A PropagationNet keeps K1 + K3 under ``on``, as in the JAX package,
     and computes what it computes under ``off``."""
