@@ -85,7 +85,13 @@ unfused operations and agree with the same calls on the CPU; and one
 epoch of ``Trainer.fit`` on a MEPS-size dummy store (8 training batches
 of 4 through the captured step, fed by ``device_prefetch``; validation
 on 2 batches at 3 AR steps with a watched metric), whose history record
-is printed.
+is printed; and the user's workflow through the entry points (the
+``cli`` lines, ``phase_cli``): on a MEPS-size ``mdp`` zarr store written
+here, ``create_graph``, ``train_model`` for 2 epochs at full width, a
+resume with ``--load --restore_opt`` for a third, ``--eval test`` at 19
+AR steps and ``predict`` of 4 forecasts, each stage timed; a forecast is
+held to the checkpoint's rollout on the CPU, and the phase's K1-K4
+launches join the ``kernels`` line.
 
 Then, for ``GraphLAM(hidden_layers=2)`` (path U, the unfused route: K1,
 K6, the edge MLP, K5; K2, K5, K6 backward), ``HiLAM`` and
@@ -122,6 +128,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -427,6 +434,125 @@ def meps_datastores():
         DummyDatastore(n_timesteps=GATE_TIMESTEPS, **kw),
         DummyDatastore(n_timesteps=SERVE_TIMESTEPS, **kw),
     )
+
+
+def write_zarr_array(root: Path, name: str, values, dims, attrs=None, chunks=None) -> None:
+    """One zarr v2 array under ``root/name`` as xarray writes it: JSON
+    ``.zarray`` and ``.zattrs`` (``_ARRAY_DIMENSIONS``), C-order chunks,
+    each zlib-compressed; partial edge chunks are padded to the chunk
+    shape."""
+    values = np.ascontiguousarray(values)
+    adir = root / name
+    adir.mkdir(parents=True)
+    chunks = list(chunks or values.shape) if values.shape else [1]
+    meta = {
+        "zarr_format": 2, "shape": list(values.shape), "chunks": chunks,
+        "dtype": values.dtype.str,
+        "compressor": {"id": "zlib", "level": 1},
+        "fill_value": None, "filters": None, "order": "C",
+    }
+    (adir / ".zarray").write_text(json.dumps(meta), encoding="utf-8")
+    (adir / ".zattrs").write_text(
+        json.dumps({"_ARRAY_DIMENSIONS": list(dims), **(attrs or {})}), encoding="utf-8"
+    )
+    n_chunks = [-(-s // c) for s, c in zip(values.shape, chunks)] or [1]
+    for idx in np.ndindex(*n_chunks):
+        if values.shape:
+            chunk = values[tuple(slice(i * c, (i + 1) * c) for i, c in zip(idx, chunks))]
+            chunk = np.pad(chunk, [(0, c - s) for c, s in zip(chunks, chunk.shape)])
+            key = ".".join(str(i) for i in idx)
+        else:
+            chunk, key = values, "0"
+        (adir / key).write_bytes(zlib.compress(chunk.tobytes(), 1))
+
+
+def write_mdp_store(root: Path, nx: int, ny: int, splits=(35, 13, 25),
+                    n_state: int = N_STATE, n_forcing: int = N_FORCING,
+                    n_static: int = N_STATIC, seed: int = 0,
+                    x_major: bool = False) -> Path:
+    """An mllam-data-prep zarr store at ``root/mdp.datastore.zarr``, its
+    datastore config ``mdp.datastore.yaml`` and a main ``config.yaml``
+    selecting it (kind ``mdp``); returns the main config's path.
+
+    ``nx`` x ``ny`` grid points 2.5 km apart, stacked y-major
+    (``grid_index = y * nx + x``, mllam-data-prep's order) or x-major;
+    ``n_state``, ``n_forcing`` and ``n_static`` features drawn from
+    ``seed`` as smooth fields with noise; 3-hourly time steps in
+    consecutive train/val/test splits of ``splits`` steps; state and
+    forcing chunked by time step, so that a reader decompresses one step
+    at a time; the statistics over the train split. The configs are
+    JSON, which is YAML too. The datastore frames the grid with its
+    default boundary of 30 points, so a grid needs more than 60 on a side
+    to have an interior."""
+    store = root / "mdp.datastore.zarr"
+    store.mkdir(parents=True)
+    (store / ".zgroup").write_text('{"zarr_format": 2}')
+    rng = np.random.default_rng(seed)
+    n_grid, n_time = nx * ny, sum(splits)
+    if x_major:
+        xs, ys = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
+    else:
+        xs, ys = np.tile(np.arange(nx), ny), np.repeat(np.arange(ny), nx)
+    hours = 3 * np.arange(n_time, dtype=np.int64)
+
+    def fields(n_feat, n_steps):
+        # per feature a plane wave drifting in time, plus noise
+        t = np.arange(n_steps, dtype=np.float32)[:, None, None]
+        k = rng.uniform(0.5, 2.0, size=(2, n_feat)).astype(np.float32)
+        phase = (k[0] * xs[:, None] / nx + k[1] * ys[:, None] / ny).astype(np.float32)
+        out = np.sin(2 * np.pi * phase[None] + 0.3 * t)
+        out += 0.1 * rng.standard_normal(out.shape, dtype=np.float32)
+        return (out * rng.uniform(1, 10, n_feat) + rng.uniform(-5, 5, n_feat)).astype(
+            np.float32)
+
+    state, forcing = fields(n_state, n_time), fields(n_forcing, n_time)
+    static = fields(n_static, 1)[0]
+    tu = {"units": "hours since 1990-09-01 00:00:00"}
+    write_zarr_array(store, "time", hours, ["time"], attrs=tu)
+    write_zarr_array(store, "x", 2500.0 * xs, ["grid_index"])
+    write_zarr_array(store, "y", 2500.0 * ys, ["grid_index"])
+    write_zarr_array(store, "state", state, ["time", "grid_index", "state_feature"],
+                     chunks=[1, n_grid, n_state])
+    write_zarr_array(store, "forcing", forcing, ["time", "grid_index", "forcing_feature"],
+                     chunks=[1, n_grid, n_forcing])
+    write_zarr_array(store, "static", static, ["grid_index", "static_feature"])
+    for cat, n in (("state", n_state), ("forcing", n_forcing), ("static", n_static)):
+        write_zarr_array(store, f"{cat}_feature",
+                         np.array([f"{cat}{i}" for i in range(n)], dtype="<U16"),
+                         [f"{cat}_feature"])
+        write_zarr_array(store, f"{cat}_feature_units", np.array(["unit"] * n, dtype="<U8"),
+                         [f"{cat}_feature"])
+        write_zarr_array(store, f"{cat}_feature_long_name",
+                         np.array([f"{cat} variable {i}" for i in range(n)], dtype="<U24"),
+                         [f"{cat}_feature"])
+    ends = np.cumsum(splits)
+    write_zarr_array(store, "splits", np.stack([hours[ends - splits], hours[ends - 1]], 1),
+                     ["split_name", "split_part"], attrs=tu)
+    write_zarr_array(store, "splits_split_name", np.array(["train", "val", "test"],
+                     dtype="<U5"), ["split_name"])
+    write_zarr_array(store, "splits_split_part", np.array(["start", "end"], dtype="<U5"),
+                     ["split_part"])
+    train = splits[0]
+    for cat, vals in (("state", state[:train]), ("forcing", forcing[:train]),
+                      ("static", static[None])):
+        flat = vals.reshape(-1, vals.shape[-1]).astype(np.float64)
+        write_zarr_array(store, f"{cat}__train__mean", flat.mean(0).astype(np.float32),
+                         [f"{cat}_feature"])
+        write_zarr_array(store, f"{cat}__train__std", flat.std(0).astype(np.float32),
+                         [f"{cat}_feature"])
+    diffs = np.diff(state[:train], axis=0).reshape(-1, n_state).astype(np.float64)
+    write_zarr_array(store, "state__train__diff_mean", diffs.mean(0).astype(np.float32),
+                     ["state_feature"])
+    write_zarr_array(store, "state__train__diff_std", diffs.std(0).astype(np.float32),
+                     ["state_feature"])
+    (root / "mdp.datastore.yaml").write_text(
+        json.dumps({"schema_version": "v0.5.0"}),
+        encoding="utf-8")
+    config = root / "config.yaml"
+    config.write_text(json.dumps(
+        {"datastore": {"kind": "mdp", "config_path": "mdp.datastore.yaml"}}),
+        encoding="utf-8")
+    return config
 
 
 def build_meps(torch):
@@ -2383,7 +2509,209 @@ def phase_fit(torch, card: str) -> dict[str, int]:
     if not all(np.isfinite(record[k]) for k in ("train_loss", "val_loss", "val_loss_unroll3")):
         raise AssertionError("fit: non-finite losses")
     del trainer, model
+    release(torch)
+    return launches
+
+
+def release(torch) -> None:
+    """Free what a finished phase left on the card: a trainer sits in
+    reference cycles (its captured step's closure), which only the
+    collector frees, so later phases' peak memory would count it."""
+    gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_cli(torch, card: str) -> dict[str, int]:
+    """The user's workflow through the port's entry points, at full width
+    (GraphLAM, hidden 64, 4 processor layers, batch 4) on a MEPS-size
+    ``mdp`` store written by :func:`write_mdp_store` (268 x 238, 17 state,
+    6 forcing and 4 static features; splits of 35, 13 and 25 steps):
+    ``create_graph``; ``train_model`` for 2 epochs (8 batches each,
+    validation on 2 batches at 3 AR steps); a resume with ``--load
+    --restore_opt --epochs 3``, which must log epoch 2 only and keep the
+    best validation loss of the three in ``best.json``; ``--eval test`` at
+    19 AR steps; ``predict`` of 4 samples at 19 AR steps from the
+    ``min_val_loss`` checkpoint. The forecast of test sample 0 is held,
+    first 3 steps, to a rollout of the same checkpoint on the CPU (the
+    kernels' plain versions) within ``GATE_STATE_MEAN_REL`` and
+    ``GATE_STATE_MAX_REL`` of the mean absolute state.
+
+    Returns each kernel's launches on the device in the phase: the
+    wrappers count the eager ones (the capture's warm-up steps, validation,
+    evaluation, the forecasts) and each capture, which records one step's
+    launches; the profiler counts those of one replay of each training
+    run's graph, which its epochs replayed once per batch."""
+    from neural_lam_tpu_torch import create_graph, predict, train_model
+    from neural_lam_tpu_torch.checkpoint import CheckpointManager, load_forecaster_from_checkpoint
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.trainer import Trainer, standardization_stats, standardize_batch
+
+    root = CACHE / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    config = write_mdp_store(root / "store", GRID_X, GRID_Y, splits=(35, 13, 25))
+    stages = {"store build s": time.perf_counter() - t0}
+    log(f"cli: mdp store {GRID_X}x{GRID_Y}, {N_STATE} state, {N_FORCING} forcing, "
+        f"{N_STATIC} static features, 35/13/25 steps, zlib by time step: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    create_graph.main(["--config_path", str(config), "--name", "multiscale"])
+    stages["create_graph s"] = time.perf_counter() - t0
+    log(f"cli: create_graph multiscale {stages['create_graph s']:.1f} s")
+
+    runs, run = root / "runs", root / "runs" / "run"
+    common = [
+        "--config_path", str(config), "--batch_size", str(BATCH), "--ar_steps_eval", "3",
+        "--val_steps_to_log", "1", "3", "--hidden_dim", str(HIDDEN),
+        "--processor_layers", str(PROC_LAYERS), "--runs_root", str(runs), "--seed", "0",
+    ]
+    counters = kernel_counters()
+    made: list = []
+
+    class Recorded(Trainer):
+        """The CLI's trainer, kept so that its graph can be profiled."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    def cli(entry, argv):
+        """One CLI call with the counters at 0 just before it; its stdout
+        goes to ``cli.log``. Returns the wrappers' ticks and seconds."""
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with open(root / "cli.log", "a", encoding="utf-8") as out, \
+                contextlib.redirect_stdout(out):
+            entry(argv)
+        torch.cuda.synchronize()
+        return {n: fn.launches for n, fn in counters.items()}, time.perf_counter() - t0
+
+    _, ds = load_config_and_datastore(config)
+    train_set = WeatherDataset(ds, "train", ar_steps=1)
+    train_batch = tuple(np.stack(a) for a in zip(*(train_set[i] for i in range(BATCH))))
+    launches: dict[str, int] = dict.fromkeys(counters, 0)
+
+    def train(argv):
+        train_model.main(argv, device=DEVICE)
+
+    def add_training_run(ticks, epochs: int, label: str) -> None:
+        trainer = made[-1]
+        if next(trainer.forecaster.parameters()).device.type != DEVICE:
+            raise AssertionError(f"cli {label}: the model is not on the card")
+        if len(trainer.graphs) != 1:
+            raise AssertionError(f"cli {label}: {len(trainer.graphs)} graphs, want 1")
+        data, _ = trainer.device_put_batch(train_batch)
+        step = trainer.make_train_step()
+        _, _, replay = device_kernels(torch, lambda: step(*data))
+        replays = epochs * (len(train_set) // BATCH)
+        for name, count in ticks.items():
+            # the capture recorded one replay's launches, not run
+            launches[name] += count - replay[name] + replay[name] * replays
+        log(f"cli {label}: wrappers' ticks {ticks}; one replay {replay}; {replays} replays")
+
+    # -- train 2 epochs, then resume for a third
+    train_model.Trainer = Recorded
+    try:
+        ticks, seconds = cli(train, common + [
+            "--epochs", "2", "--logger_run_name", "run"])
+        add_training_run(ticks, 2, "train")
+        trainer = made[-1]
+        stages["train_model 2 epochs s"] = seconds
+        log(f"cli: train_model 2 epochs {seconds:.1f} s")
+        # checkpoint save and load of the trained run, on the card
+        scratch = CheckpointManager(root / "ckpt_timing")
+        model, opt = trainer.forecaster.predictor, trainer.optimizer
+        save_ms = host_ms(torch, lambda: scratch.save("latest", model, opt, 0), calls=3)
+        load_ms = host_ms(torch, lambda: scratch.restore("latest", model, opt), calls=3)
+        restore_only_ms = host_ms(
+            torch, lambda: scratch.restore_params_only("latest", model), calls=3)
+        stages.update({"checkpoint save ms": save_ms, "checkpoint restore ms": load_ms,
+                       "parameters-only restore ms": restore_only_ms})
+        size = (root / "ckpt_timing" / "checkpoints" / "latest" / "state.pt").stat().st_size
+        log(f"cli: checkpoint of {size / 2**20:.1f} MiB (parameters and AdamW state): save "
+            f"{save_ms:.1f} ms, restore {load_ms:.1f} ms, parameters only "
+            f"{restore_only_ms:.1f} ms")
+        del trainer, model, opt, made[:]
+        ticks, seconds = cli(train, common + [
+            "--epochs", "3", "--logger_run_name", "run", "--load", str(run),
+            "--restore_opt"])
+        add_training_run(ticks, 1, "resume")
+        del made[:]
+    finally:
+        train_model.Trainer = Trainer
+    history = [json.loads(x) for x in (run / "history.jsonl").read_text().splitlines()]
+    stages["resume 1 epoch s"] = seconds
+    log(f"cli: resume --restore_opt to 3 epochs {seconds:.1f} s")
+    for rec in history:
+        log(f"cli epoch {rec['epoch']} on {card}: epoch_seconds {rec['epoch_seconds']:.3f}, "
+            f"grid_points_per_s {rec['grid_points_per_s']:,.0f}, input_wait_seconds "
+            f"{rec['input_wait_seconds']}, train_loss {rec['train_loss']:.6f}, val_loss "
+            f"{rec['val_loss']:.6f}")
+    if [r["epoch"] for r in history] != [0, 1, 2]:
+        raise AssertionError(f"cli: epochs {[r['epoch'] for r in history]}, want 0, 1, 2")
+    best = json.loads((run / "checkpoints" / "best.json").read_text())
+    if best["val_loss"] != min(r["val_loss"] for r in history):
+        raise AssertionError(f"cli: best.json {best}, not the least val_loss")
+    if not all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in history):
+        raise AssertionError("cli: non-finite losses")
+
+    # -- evaluate the test split at 19 steps, then export 4 forecasts
+    ticks, seconds = cli(train, common + [
+        "--eval", "test", "--load", str(run), "--ar_steps_eval", str(AR_STEPS),
+        "--logger_run_name", "eval"])
+    for name, count in ticks.items():
+        launches[name] += count
+    stages["eval test s"] = seconds
+    metrics = json.loads((runs / "eval" / "test_metrics.json").read_text())
+    log(f"cli: --eval test at {AR_STEPS} steps {seconds:.1f} s: test_loss "
+        f"{metrics['test_loss']:.6f}, test_loss_unroll1 {metrics['test_loss_unroll1']:.6f}; "
+        f"files {sorted(p.name for p in (runs / 'eval').iterdir())}")
+    if not np.isfinite(list(metrics.values())).all():
+        raise AssertionError("cli: non-finite test metrics")
+    out = root / "forecasts"
+    ticks, seconds = cli(lambda a: predict.main(a, device=DEVICE), [
+        "--config_path", str(config), "--load", str(run / "checkpoints" / "min_val_loss"),
+        "--ar_steps", str(AR_STEPS), "--n_samples", str(BATCH), "--out", str(out)])
+    for name, count in ticks.items():
+        launches[name] += count
+    stages["predict s"] = seconds
+    files = sorted(out.glob("forecast_test_*.npz"))
+    log(f"cli: predict {len(files)} forecasts at {AR_STEPS} steps {seconds:.1f} s")
+    if len(files) != BATCH:
+        raise AssertionError(f"cli: {len(files)} forecast files, want {BATCH}")
+
+    # -- the forecast of sample 0 against the checkpoint on the CPU
+    t0 = time.perf_counter()
+    fc, _ = load_forecaster_from_checkpoint(run, ds, name="min_val_loss", device="cpu")
+    init, target, forcing, _ = WeatherDataset(ds, "test", ar_steps=GATE_ROLLOUT_STEPS)[0]
+    stats = standardization_stats(ds)
+    with torch.inference_mode():
+        init_s, target_s, forcing_s = standardize_batch(
+            *(torch.from_numpy(a[None]) for a in (init, target, forcing)), stats)
+        want = fc(init_s, forcing_s, target_s)[0][0].numpy()
+    want = want * stats["state_std"] + stats["state_mean"]
+    got = np.load(files[0])["prediction"][:GATE_ROLLOUT_STEPS]
+    scale = np.abs(want).mean()
+    mean_rel = float(np.abs(got - want).mean() / scale)
+    max_rel = float(np.abs(got - want).max() / scale)
+    log(f"cli: forecast of test sample 0, steps 1-{GATE_ROLLOUT_STEPS}, against the "
+        f"min_val_loss checkpoint on the CPU: mean rel {mean_rel:.3e} (tol "
+        f"{GATE_STATE_MEAN_REL}), max rel {max_rel:.3e} (tol {GATE_STATE_MAX_REL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (np.isfinite(got).all() and mean_rel <= GATE_STATE_MEAN_REL
+            and max_rel <= GATE_STATE_MAX_REL):
+        raise AssertionError("cli: the forecast differs from the CPU rollout")
+    stages.update({f"epoch {r['epoch']} {k}": r[k] for r in history
+                   for k in ("epoch_seconds", "grid_points_per_s")})
+    log(f"cli stages on {card}: {json.dumps(stages)}")
+    for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
+                 "K4 fused_edge_phase backward"):
+        if launches[name] <= 0:
+            raise AssertionError(f"cli: {name} was not launched")
+    log(f"cli on {card}: launches {launches}")
+    release(torch)
     return launches
 
 
@@ -2721,6 +3049,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)
     add_launches(total, phase_fit(torch, card), "graph_lam fit")
+    add_launches(total, phase_cli(torch, card), "graph_lam cli")
     for name in GATE_MODELS:
         drive_gate_model(
             torch, name, gate_ds, serve_ds, card, total,

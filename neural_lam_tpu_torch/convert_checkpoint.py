@@ -1,4 +1,19 @@
-"""Weights from the JAX package's parameter pytrees.
+"""Checkpoint conversion: reference checkpoints, and weights and optimizer
+state from the JAX package's pytrees.
+
+The port's module names are the reference's state-dict names, so a
+reference (Lightning) checkpoint converts nearly as it is:
+:func:`convert_state_dict` strips the Lightning prefixes and applies the
+legacy ``g2m_gnn.grid_mlp`` rename (reference: module.py:974-1010), and
+:func:`main` turns a ``.ckpt`` file into a port checkpoint directory::
+
+    python -m neural_lam_tpu_torch.convert_checkpoint \
+        --ckpt path/to/min_val_loss.ckpt --config_path config.yaml \
+        --model graph_lam --graph multiscale --out runs/converted
+
+:func:`export_state_dict` is the way back, the reference's names with
+numpy values. :func:`opt_state_from_jax` carries the JAX package's AdamW
+moments and step count into the port's optimizer.
 
 The JAX package keeps parameters as pytrees of MLPs,
 ``{"layers": [{"w": (in, out), "b": (out,)}, ...], "ln": {"scale", "bias"}
@@ -24,11 +39,13 @@ compares the two dictionaries directly.
 
 from __future__ import annotations
 
+import argparse
 from pathlib import Path
 from typing import Any, Iterator
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _mlp_items(prefix: str, mlp: dict) -> Iterator[tuple[str, np.ndarray]]:
@@ -98,6 +115,129 @@ def grads_to_numpy(module: torch.nn.Module) -> dict[str, np.ndarray]:
     return out
 
 
+def opt_state_from_jax(
+    mu: dict, nu: dict, count, optimizer: torch.optim.Optimizer, model: nn.Module
+) -> None:
+    """Load the JAX package's AdamW state into ``optimizer``, in place:
+    optax's first and second moments ``mu`` and ``nu`` (numpy pytrees
+    shaped like the parameters) become each parameter's ``exp_avg`` and
+    ``exp_avg_sq``, and its step ``count`` the ``step``. ``model`` names
+    the optimizer's parameters (its ``named_parameters``). optax's
+    ``adamw`` and torch's ``AdamW`` keep the same moments and bias
+    corrections, so the next steps go on as the JAX package's would."""
+    from .checkpoint import load_optimizer_state
+
+    names = {id(p): name for name, p in model.named_parameters()}
+    exp_avg, exp_avg_sq = params_from_jax(mu), params_from_jax(nu)
+    state, index = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            state[index] = {
+                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+                "exp_avg": exp_avg[name].to(p.device),
+                "exp_avg_sq": exp_avg_sq[name].to(p.device),
+            }
+            index += 1
+    groups = optimizer.state_dict()["param_groups"]
+    load_optimizer_state(optimizer, {"state": state, "param_groups": groups})
+
+
+def convert_state_dict(
+    state_dict: dict, template: dict, strict: bool = True
+) -> dict[str, torch.Tensor]:
+    """A reference ``state_dict`` as the port's: Lightning prefixes
+    stripped, the legacy ``g2m_gnn.grid_mlp`` keys renamed to
+    ``encoding_grid_mlp``, ``processor.<i>`` to ``processor.module_<i>``,
+    float32 tensors. ``template`` (a model's ``state_dict()``) gives the
+    keys and shapes: a shape that differs raises ``ValueError``, a missing
+    key ``KeyError`` (with ``strict=False`` the template's value stays)."""
+    cleaned = {}
+    for key, tensor in state_dict.items():
+        for prefix in ("forecaster.predictor.", "predictor.", "model."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        if key.startswith("g2m_gnn.grid_mlp."):
+            key = "encoding_grid_mlp." + key[len("g2m_gnn.grid_mlp."):]
+        parts = key.split(".")
+        if parts[0] == "processor" and parts[1].isdigit():
+            key = ".".join(["processor", f"module_{parts[1]}", *parts[2:]])
+        cleaned[key] = torch.as_tensor(
+            tensor.detach().cpu() if hasattr(tensor, "detach") else np.asarray(tensor),
+            dtype=torch.float32,
+        )
+    out, missing = {}, []
+    for key, want in template.items():
+        if key not in cleaned:
+            missing.append(key)
+            out[key] = want
+            continue
+        if tuple(cleaned[key].shape) != tuple(want.shape):
+            raise ValueError(
+                f"Shape mismatch for {key}: checkpoint "
+                f"{tuple(cleaned[key].shape)} vs model {tuple(want.shape)}"
+            )
+        out[key] = cleaned[key]
+    if missing and strict:
+        raise KeyError(f"Missing {len(missing)} keys in checkpoint, e.g. {missing[:5]}")
+    return out
+
+
+def export_state_dict(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's parameters as a reference-style ``state_dict`` of numpy
+    arrays (``(out, in)`` weights), as the JAX package's
+    ``export_state_dict`` gives them: for round trips and for moving
+    weights back to the reference."""
+    return params_to_numpy(model)
+
+
+def main(argv=None, device: str | torch.device = "cuda") -> None:
+    """Convert a reference Lightning checkpoint into a port checkpoint
+    directory (``<out>/checkpoints/latest``), building the model on
+    ``device``."""
+    from .checkpoint import CheckpointManager, build_forecaster_from_hparams
+    from .config import load_config_and_datastore
+    from .trainer import make_optimizer
+    from .utils.device import resolve_device
+
+    parser = argparse.ArgumentParser(
+        description="Convert a reference Lightning checkpoint"
+    )
+    parser.add_argument("--ckpt", type=str, required=True)
+    parser.add_argument("--config_path", type=str, required=True)
+    parser.add_argument("--model", type=str, default="graph_lam")
+    parser.add_argument("--graph", type=str, default="multiscale")
+    parser.add_argument("--hidden_dim", type=int, default=64)
+    parser.add_argument("--hidden_layers", type=int, default=1)
+    parser.add_argument("--processor_layers", type=int, default=4)
+    # The optimizer the checkpoint is saved with: fresh, with the
+    # trainer's settings (reference optimizer: models/module.py:284-287)
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--weight_decay", type=float, default=0.01)
+    parser.add_argument("--flat_opt", action="store_true")
+    parser.add_argument("--out", type=str, required=True)
+    args = parser.parse_args(argv)
+    if args.flat_opt:
+        raise SystemExit(
+            "--flat_opt: not ported to neural_lam_tpu_torch yet (ROADMAP.md §1 item 6)"
+        )
+    device = resolve_device(device)
+
+    # a Lightning file pickles more than tensors (its hyper_parameters)
+    ckpt = torch.load(args.ckpt, map_location="cpu", weights_only=False)
+    state_dict = ckpt.get("state_dict", ckpt)
+
+    _, datastore = load_config_and_datastore(args.config_path)
+    hparams = vars(args) | {"mesh_aggr": "sum", "output_std": False}
+    forecaster = build_forecaster_from_hparams(hparams, datastore, device)
+    model = forecaster.predictor
+    model.load_state_dict(convert_state_dict(state_dict, model.state_dict()), strict=True)
+    optimizer = make_optimizer(model.parameters(), args.lr, args.weight_decay)
+    CheckpointManager(args.out).save_latest(model, optimizer, step=0, hparams=hparams)
+    print(f"Converted checkpoint written to {args.out}/checkpoints/latest")
+
+
 def load_jax_params_npz(path: str | Path) -> dict:
     """Parameter pytree from an ``.npz`` whose keys are the pytree paths
     joined by ``/`` (``g2m_gnn/edge/0/layers/1/w``); integer path
@@ -123,3 +263,7 @@ def _restore_lists(node: Any) -> Any:
     if "layers" in node:
         node.setdefault("ln", None)
     return node
+
+
+if __name__ == "__main__":
+    main()

@@ -177,7 +177,9 @@ class WeatherDataset:
             end_idx = idx + max(init_steps, past) + n_steps
             sliced = da_state.isel(time=slice(start_idx, end_idx))
             times = sliced.get_coord("time")
-            values = np.asarray(sliced.data, dtype=np.float32)
+            # a copy: the datastore may hand out read-only views of its
+            # cache (the MDP reader does)
+            values = np.array(sliced.data, dtype=np.float32)
         return values, times
 
     def _slice_forcing_time(

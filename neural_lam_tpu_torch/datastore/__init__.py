@@ -10,9 +10,11 @@ from .base import (  # noqa: F401
     CartesianGridShape,
 )
 from .dummy import DummyDatastore
+from .mdp import MDPDatastore
 
 DATASTORES: dict[str, type] = {
     "dummydata": DummyDatastore,
+    "mdp": MDPDatastore,
 }
 
 

@@ -1,8 +1,15 @@
-"""Forecast export: roll a forecaster out over a split and write the fields.
+"""Forecast export CLI: load a trained checkpoint, write forecasts.
 
-Counterpart of the body of ``neural_lam_tpu/predict.py``. For each sample
-of the split, :func:`run_forecasts` writes ``forecast_<split>_<i>.npz``
-with
+Counterpart of ``neural_lam_tpu/predict.py``::
+
+    python -m neural_lam_tpu_torch.predict --config_path cfg.yaml \
+        --load runs/myrun --split test --ar_steps 19 --out forecasts/
+
+:func:`main` loads the forecaster from the checkpoint
+(``checkpoint.load_forecaster_from_checkpoint``, with the ``--load``
+forms of the training CLI) on ``cuda``, or on the device it is given,
+and calls :func:`run_forecasts`, which rolls it out over the split. For
+each sample it writes ``forecast_<split>_<i>.npz`` with
 
 - ``prediction``: ``(ar_steps, num_grid_points, d_state)`` float32 in
   PHYSICAL units (destandardized),
@@ -12,14 +19,17 @@ with
 
 plus one ``forecast_meta.json``. Boundary forcing uses the split's own
 analysis states (reference: models/forecasters/autoregressive.py:116-136).
-The command line, which loads a trained checkpoint, comes with the
-checkpoint slice.
+The JAX CLI pads a one-sample batch to two, a TPU lane workaround; here
+every batch runs at its own size.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,10 +53,13 @@ def run_forecasts(
     device: str | torch.device = "cuda",
     num_past_forcing_steps: int = 1,
     num_future_forcing_steps: int = 1,
+    model_name: Optional[str] = None,
 ) -> int:
     """Forecast ``n_samples`` samples of ``split`` (all with -1) in
     batches of ``batch_size`` and write them to ``out_dir``; returns the
-    number of forecasts written.
+    number of forecasts written. ``model_name`` is the ``model`` entry of
+    ``forecast_meta.json`` (the CLI's ``--model`` name from the
+    checkpoint); by default the predictor's class name.
 
     Inputs are standardized and outputs destandardized with the same
     (eps-clamped) stats, so the pair is an exact inverse even for
@@ -69,7 +82,7 @@ def run_forecasts(
     meta = {
         "split": split,
         "ar_steps": ar_steps,
-        "model": type(forecaster.predictor).__name__,
+        "model": model_name or type(forecaster.predictor).__name__,
         "var_names": list(datastore.get_vars_names("state")),
         "var_units": list(datastore.get_vars_units("state")),
         "num_grid_points": int(datastore.num_grid_points),
@@ -119,3 +132,60 @@ def run_forecasts(
             )
             written += 1
     return written
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config_path", type=str, required=True)
+    parser.add_argument(
+        "--load",
+        type=str,
+        required=True,
+        help="Run dir, its checkpoints/ dir, or a specific checkpoint "
+        "(.../checkpoints/{latest,min_val_loss})",
+    )
+    parser.add_argument("--split", type=str, default="test")
+    parser.add_argument(
+        "--ar_steps", type=int, default=19,
+        help="Rollout length (the 19-step MEPS protocol by default)",
+    )
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument(
+        "--n_samples", type=int, default=-1,
+        help="Number of samples to export (-1 = the whole split)",
+    )
+    parser.add_argument("--out", type=str, required=True)
+    return parser
+
+
+def main(argv=None, device: str | torch.device = "cuda") -> None:
+    """Export forecasts from a checkpoint, on ``device``."""
+    from .checkpoint import load_forecaster_from_checkpoint, resolve_load
+    from .config import load_config_and_datastore
+
+    args = build_parser().parse_args(argv)
+    dev = resolve_device(device)
+    _, datastore = load_config_and_datastore(args.config_path)
+    root, name = resolve_load(args.load)
+    forecaster, hparams = load_forecaster_from_checkpoint(
+        root, datastore, name=name, device=dev
+    )
+    print(f"loaded checkpoint {name!r} from {root}", file=sys.stderr)
+    written = run_forecasts(
+        forecaster,
+        datastore,
+        split=args.split,
+        ar_steps=args.ar_steps,
+        batch_size=args.batch_size,
+        n_samples=args.n_samples,
+        out_dir=args.out,
+        device=dev,
+        num_past_forcing_steps=hparams.get("num_past_forcing_steps", 1),
+        num_future_forcing_steps=hparams.get("num_future_forcing_steps", 1),
+        model_name=hparams.get("model"),
+    )
+    print(f"wrote {written} forecasts to {args.out}", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,9 +16,10 @@
   preemption handler and :meth:`Trainer.fit`.
 
 The trainer holds the ``nn.Module`` and the optimizer and updates both
-in place. It runs in one process: the JAX package's multi-host merges are
-the identity here. Checkpoints, bf16 compute, data parallelism, the
-sharded optimizer state and spatial sharding are not ported yet.
+in place; ``checkpoint.CheckpointManager`` saves and restores them. It
+runs in one process: the JAX package's multi-host merges are the identity
+here. bf16 compute, data parallelism, the sharded optimizer state and
+spatial sharding are not ported yet.
 """
 
 from __future__ import annotations
@@ -178,7 +179,10 @@ class Trainer:
     The trainer runs on ``device``: ``"cuda"`` unless the caller asks
     for ``"cpu"``, and the forecaster's parameters must live there.
     ``train_step`` is one eager optimizer step; ``make_train_step`` the
-    captured one that ``fit`` drives.
+    captured one that ``fit`` drives. With ``debug_nans`` ``fit`` reads
+    every step's loss on the host and raises ``FloatingPointError`` at the
+    first that is not finite (the CLI's ``--debug_nans``; it waits for the
+    device every step).
     """
 
     def __init__(
@@ -188,6 +192,7 @@ class Trainer:
         datastore: BaseDatastore,
         args: TrainingArgs,
         device: str | torch.device = "cuda",
+        debug_nans: bool = False,
     ) -> None:
         if args.precision != "32":
             raise NotImplementedError(
@@ -206,6 +211,7 @@ class Trainer:
         self.forecaster = forecaster
         self.args = args
         self.datastore = datastore
+        self.debug_nans = debug_nans
 
         # Interior mask (reference: module.py:129-140): the host bool array,
         # and a copy on the device so that a step moves nothing across.
@@ -721,6 +727,11 @@ class Trainer:
                         profiler = self._start_profile()
                     losses.append(self._train_step(*device_batch))
                     n_samples += real
+                    if self.debug_nans and not torch.isfinite(losses[-1]).all():
+                        raise FloatingPointError(
+                            f"non-finite training loss {losses[-1].tolist()} at step "
+                            f"{step_idx} of epoch {epoch}"
+                        )
                     if profiler is not None and step_idx == 1 + self.args.profile_steps:
                         self._stop_profile(profiler)
                         profiler = None

@@ -1252,3 +1252,57 @@ def test_a_failed_capture_raises(cuda, tmp_path):
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "capture raised" in out.stdout
+
+
+# -- a restored optimizer state under the captured step -------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saved_by", ["card", "cpu"])
+def test_restore_opt_recaptures_and_matches_the_eager_step(cuda, tmp_path, monkeypatch,
+                                                           saved_by):
+    """What ``--load <run> --restore_opt`` does on the card
+    (``CheckpointManager.restore``): AdamW's step count is a float32 CUDA
+    tensor afterwards, also from a checkpoint saved by a CPU optimizer
+    (``capturable`` False); the captured step, whose graph was captured
+    before the restore, captures again over the restored state; and its
+    next 5 losses equal, bit for bit, those of the eager step from the same
+    restored state."""
+    from neural_lam_tpu_torch.checkpoint import CheckpointManager
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(8)
+    source = make_trainer()
+    for b in data[:2]:
+        source.train_step(*b)
+    ckpt = CheckpointManager(tmp_path / "run")
+    ckpt.save("latest", source.forecaster.predictor, source.optimizer, step=1)
+    if saved_by == "cpu":
+        path = tmp_path / "run" / "checkpoints" / "latest" / "state.pt"
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        for group in state["optimizer"]["param_groups"]:
+            group["capturable"] = False
+        torch.save(state, path)
+
+    eager, captured = make_trainer(), make_trainer()
+    step = captured.make_train_step()
+    step(*data[2])  # a graph over the state before the restore
+    eager.train_step(*data[2])
+    first = captured.graphs[next(iter(captured.graphs))].graph
+    for trainer in (eager, captured):
+        assert ckpt.restore("latest", trainer.forecaster.predictor, trainer.optimizer) == 1
+        assert all(g["capturable"] for g in trainer.optimizer.param_groups)
+        for st in trainer.optimizer.state.values():
+            assert st["step"].is_cuda and st["step"].dtype == torch.float32
+            assert float(st["step"]) == 2.0
+    want = [eager.train_step(*b).item() for b in data[3:]]
+    got = []
+    ticks = _ticks(lambda: got.append(step(*data[3]).item()))
+    later = _ticks(lambda: got.extend(step(*b).item() for b in data[4:]))
+    (entry,) = captured.graphs.values()
+    assert entry.graph is not first
+    # captured again: the warm-up steps and the capture, g2m, 2 m2m, m2g each
+    assert ticks["K3 fused_edge_phase"] == (GRAPH_WARMUP_STEPS + 1) * 4
+    assert not any(later.values())
+    assert got == want
+    assert _assert_same_training(captured, eager, got, want)
