@@ -48,10 +48,17 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
    ``PRNGKey(0)`` parameters (``tests/fixtures/accuracy/
    graph_lam_meps_params_seed0.npz``) against the committed exact-f32
    rollout ``tests/fixtures/accuracy/rollout19_f32.npz``, with the
-   metrics and thresholds of ``scripts/accuracy_probe.py``.
+   metrics and thresholds of ``scripts/accuracy_probe.py``, through the
+   captured forecast (``utils.cuda_graph.CapturedFunction``).
 3. Serving: ``predict.run_forecasts`` over a MEPS-size dummy test split,
-   one batch of 4 samples at 19 AR steps. Every kernel's launch counter
-   is set to 0 just before and must read its count per AR step after.
+   one batch of 4 samples at 19 AR steps, its forecast a CUDA graph
+   (captured by the request's first call after one eager warm-up call).
+   Every kernel's launch counter is set to 0 just before and must read
+   twice its count per AR step after (the warm-up and the capture); the
+   graph's kernel nodes hold once that count, by kernel name. Then the
+   eager forecast against the captured one on the same batch and weights
+   (1e-6 of the largest entry; the count of entries with the same bits),
+   each one's time per AR step beside the device's busy time.
 4. Training gate: the loss and every parameter gradient of one batch of
    4 (made as ``bench.make_bench_batch`` makes it), then the losses of
    three further AdamW steps, against the committed exact-f32 JAX
@@ -73,7 +80,7 @@ backward), against the same fixtures at the same limits.
    against the device time of a replay's kernels, the host's time to
    enqueue a replay, and the launches: the wrappers count the first
    call's eager warm-up steps and the capture, and nothing after it; the
-   profiler counts each kernel by its name in one replay. Then the
+   graph's kernel nodes give one replay's, by kernel name. Then the
    training gate once more through the captured step, on both routes.
 
 Then GraphLAM's
@@ -91,7 +98,14 @@ here, ``create_graph``, ``train_model`` for 2 epochs at full width, a
 resume with ``--load --restore_opt`` for a third, ``--eval test`` at 19
 AR steps and ``predict`` of 4 forecasts, each stage timed; a forecast is
 held to the checkpoint's rollout on the CPU, and the phase's K1-K4
-launches join the ``kernels`` line.
+launches join the ``kernels`` line; and a user's MEPS workflow on a
+MEPS-size npy-files store written here (the ``npy`` lines,
+``phase_npy_workflow``): ``compute_standardization_stats`` against a
+float64 recomputation, ``create_graph`` and ``validate_graph``, 2 epochs
+with validation, ``--eval test`` at 19 AR steps, ``predict``, and the
+captured validation step and test-evaluation batch against eager.
+Validation, ``--eval`` and every forecast replay CUDA graphs; their
+replays' launches are counted from the graphs' kernel nodes.
 
 Then, for ``GraphLAM(hidden_layers=2)`` (path U, the unfused route: K1,
 K6, the edge MLP, K5; K2, K5, K6 backward), ``HiLAM`` and
@@ -128,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import os
@@ -141,6 +156,7 @@ from pathlib import Path
 
 import numpy as np
 
+STARTED = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 CACHE = REPO / ".smoke_cache"
 FIXTURES = REPO / "tests" / "fixtures" / "accuracy"
@@ -193,18 +209,22 @@ TRAIN_WARMUP, TRAIN_ITERS = 2, 10  # bench.py:31
 # The captured step replays the kernels of the eager step on the same
 # values: its losses agree with the eager step's to float32 rounding
 GRAPH_LOSS_RTOL = 1e-6
-# Each kernel's entry point in its CUDA source, as the profiler names it:
-# one launch of it per launch of its wrapper. A graph's replays do not
-# call the wrappers, so the profiler counts their launches by these names.
+# Each kernel's entry point in its CUDA source: one launch of it per
+# launch of its wrapper. A graph's replays do not call the wrappers, so a
+# graph's kernel nodes, whose names are mangled
+# ("...16gather_rows_vec4EPK6float4..."), count their launches by these.
 KERNEL_SYMBOLS = {
-    "K1 sender_gather": re.compile(r"\bgather_rows_(vec4|scalar)\b"),
-    "K3 fused_edge_phase": re.compile(r"\bfused_edge_fwd\b"),
-    "K2 sender_scatter": re.compile(r"\bscatter_rows\b"),
-    "K4 fused_edge_phase backward": re.compile(r"\bfused_edge_bwd_main\b"),
-    "K5 segment_sum": re.compile(r"\bsegment_sum_rows\b"),
-    "K6 receiver_expand": re.compile(r"\bexpand_rows\b"),
-    "K7 fused_edge_phase_v2": re.compile(r"\bfused_edge_v2_fwd\b"),
-    "K8 fused_edge_phase_v2 backward": re.compile(r"\bfused_edge_v2_bwd_main\b"),
+    name: re.compile(rf"(?<![A-Za-z_])(?:{ids})(?![a-z0-9_])")
+    for name, ids in (
+        ("K1 sender_gather", "gather_rows_vec4|gather_rows_scalar"),
+        ("K3 fused_edge_phase", "fused_edge_fwd"),
+        ("K2 sender_scatter", "scatter_rows"),
+        ("K4 fused_edge_phase backward", "fused_edge_bwd_main"),
+        ("K5 segment_sum", "segment_sum_rows"),
+        ("K6 receiver_expand", "expand_rows"),
+        ("K7 fused_edge_phase_v2", "fused_edge_v2_fwd"),
+        ("K8 fused_edge_phase_v2 backward", "fused_edge_v2_bwd_main"),
+    )
 }
 # fit's store: 32 training samples at ar_steps 1 (len = n_timesteps - 3)
 FIT_TIMESTEPS = 8 * BATCH + 3
@@ -217,6 +237,20 @@ K5_TOL = 1e-5
 # and K4 do, and are held to the same tolerances; so is the whole v2 phase
 # against the v1 route (K1 + K3, K4 + K2), which sums sp[sender] formed once
 # per node where v1 forms x_send . W1s per edge.
+
+# The npy phase's MEPS npy-files store: 18 stored state features, one of
+# them removed by the datastore; 2 ensemble members; analysis times for
+# train, val and test; forecasts of 2 initial states, 19 AR steps and the
+# one step of future forcing the last needs (WeatherDataset.__len__); the
+# border frame of the boundary mask
+NPY_STATE_STORED, NPY_REMOVED, NPY_MEMBERS = 18, (15,), 2
+NPY_SPLITS = (2, 1, 1)
+NPY_TIMESTEPS = 2 + AR_STEPS + 1
+NPY_BORDER = 10
+# compute_standardization_stats against the float64 recomputation: each
+# array within this share of its largest entry (the sums are float64, the
+# standardized differences float32, and diff_mean sits near 0)
+NPY_STATS_TOL = 1e-5
 
 # The environment variable that routes every fused phase to K7/K8 when "on"
 FUSED_V2 = "NEURAL_LAM_TPU_FUSED_V2"
@@ -553,6 +587,115 @@ def write_mdp_store(root: Path, nx: int, ny: int, splits=(35, 13, 25),
         {"datastore": {"kind": "mdp", "config_path": "mdp.datastore.yaml"}}),
         encoding="utf-8")
     return config
+
+
+def write_npy_store(root: Path, nx: int, ny: int, splits=NPY_SPLITS,
+                    members: int = NPY_MEMBERS, n_stored: int = NPY_STATE_STORED,
+                    removed=NPY_REMOVED, timesteps: int = NPY_TIMESTEPS,
+                    border: int = NPY_BORDER, seed: int = 0) -> Path:
+    """A MEPS npy-files store (the layout ``neural_lam_tpu_torch.datastore.
+    npyfilesmeps`` reads, the reference's: reference:
+    neural_lam/datastore/npyfilesmeps/store.py:63-844) under ``root``, its
+    ``data_config.yaml`` and a main ``config.yaml`` selecting it (kind
+    ``npyfilesmeps``); returns the main config's path.
+
+    ``grid_shape_state`` is ``[ny, nx]``, points 2.5 km apart. Per split,
+    ``splits`` analysis times 12 hours apart, each with ``members``
+    forecasts ``samples/<split>/nwp_<YYYYMMDDHH>_mbr<000>.npy`` of shape
+    ``(timesteps, ny, nx, n_stored)`` float32, and its forcing files: the
+    top-of-atmosphere flux ``(timesteps, ny, nx)`` and the open-water
+    fraction ``(ny, nx)``. The state features ``removed`` are dropped by
+    the datastore (``remove_state_features_with_index``). Each stored
+    feature has its own magnitude (from 1 to 1e5, as MEPS's pressures,
+    temperatures, winds and fluxes differ), mean and scale on a plane wave that
+    drifts in time, a trend over the forecast and noise, a member offset
+    and noise of its own per member. ``static/`` holds ``nwp_xy.npy``,
+    ``surface_geopotential.npy`` and a ``border_mask.npy`` frame
+    ``border`` points wide, and no statistics:
+    ``compute_standardization_stats`` writes them."""
+    rng = np.random.default_rng(seed)
+    n_kept = n_stored - len(removed)
+    yy, xx = np.meshgrid(np.arange(ny, dtype=np.float32), np.arange(nx, dtype=np.float32),
+                         indexing="ij")
+    k = rng.uniform(0.5, 2.0, size=(2, n_stored)).astype(np.float32)
+    phase = 2 * np.pi * (k[0] * xx[..., None] / nx + k[1] * yy[..., None] / ny)
+    sin_a, cos_a = np.sin(phase), np.cos(phase)  # (ny, nx, n_stored)
+    magnitude = 10.0 ** rng.integers(0, 6, n_stored)
+    mean = (rng.uniform(-1, 1, n_stored) * magnitude).astype(np.float32)
+    scale = (rng.uniform(0.01, 0.3, n_stored) * magnitude).astype(np.float32)
+    trend = rng.uniform(-0.2, 0.2, n_stored).astype(np.float32)
+    t = np.arange(timesteps, dtype=np.float32)
+    c, s_ = np.cos(0.3 * t), np.sin(0.3 * t)
+    base = datetime.datetime(2022, 4, 1)
+    for split, n_times in zip(("train", "val", "test"), splits):
+        samples = root / "samples" / split
+        samples.mkdir(parents=True)
+        for i in range(n_times):
+            atime = base + datetime.timedelta(hours=12 * i + 240 * ("train", "val",
+                                                                    "test").index(split))
+            tstr = atime.strftime("%Y%m%d%H")
+            for member in range(members):
+                out = rng.standard_normal((timesteps, ny, nx, n_stored), dtype=np.float32)
+                out *= 0.3
+                out += sin_a[None] * c[:, None, None, None]
+                out += cos_a[None] * s_[:, None, None, None]
+                out += (trend[None] * t[:, None] + 0.1 * member)[:, None, None, :]
+                out *= scale
+                out += mean
+                np.save(samples / f"nwp_{tstr}_mbr{member:03d}.npy", out)
+            flux = 400 * (1 + np.sin(0.26 * t[:, None, None] + 2 * np.pi * xx / nx))
+            np.save(samples / f"nwp_toa_downwelling_shortwave_flux_{tstr}.npy",
+                    flux.astype(np.float32))
+            np.save(samples / f"wtr_{tstr}.npy",
+                    rng.uniform(0, 1, size=(ny, nx)).astype(np.float32))
+    static = root / "static"
+    static.mkdir()
+    np.save(static / "nwp_xy.npy", 2500.0 * np.stack([xx, yy]).astype(np.float32))
+    np.save(static / "surface_geopotential.npy",
+            (1e4 * (1 + np.sin(2 * np.pi * yy / ny))).astype(np.float32))
+    frame = np.ones((ny, nx), np.float32)
+    frame[border:-border, border:-border] = 0
+    np.save(static / "border_mask.npy", frame)
+    data_config = {
+        "dataset": {
+            "name": "meps_smoke",
+            "var_names": [f"var{i}" for i in range(n_kept)],
+            "var_units": ["unit"] * n_kept,
+            "var_longnames": [f"variable {i}" for i in range(n_kept)],
+            "num_forcing_features": 1,
+            "num_timesteps": timesteps,
+            "step_length": 3,
+            "num_ensemble_members": members,
+            "remove_state_features_with_index": list(removed),
+        },
+        "grid_shape_state": [ny, nx],
+        "projection": {"class_name": "LambertConformal",
+                       "kwargs": {"central_longitude": 15.0}},
+    }
+    (root / "data_config.yaml").write_text(json.dumps(data_config), encoding="utf-8")
+    config = root / "config.yaml"
+    config.write_text(json.dumps(
+        {"datastore": {"kind": "npyfilesmeps", "config_path": "data_config.yaml"}}),
+        encoding="utf-8")
+    return config
+
+
+def npy_stats_float64(root: Path, removed=NPY_REMOVED) -> dict[str, np.ndarray]:
+    """The train split's statistics of a store written by
+    :func:`write_npy_store`, recomputed from the files in float64 without
+    the datastore: what ``compute_standardization_stats`` must write."""
+    files = sorted((root / "samples" / "train").glob("nwp_??????????_mbr???.npy"))
+    state = [np.load(f).astype(np.float64) for f in files]
+    keep = [i for i in range(state[0].shape[-1]) if i not in removed]
+    state = [a[..., keep] for a in state]
+    flat = np.concatenate([a.reshape(-1, len(keep)) for a in state])
+    mean, std = flat.mean(0), flat.std(0)
+    diffs = np.concatenate([np.diff((a - mean) / std, axis=0).reshape(-1, len(keep))
+                            for a in state])
+    flux = np.concatenate([np.load(f).astype(np.float64).ravel() for f in sorted(
+        (root / "samples" / "train").glob("nwp_toa_downwelling_shortwave_flux_*.npy"))])
+    return {"parameter_mean": mean, "parameter_std": std, "diff_mean": diffs.mean(0),
+            "diff_std": diffs.std(0), "flux_stats": np.array([flux.mean(), flux.std()])}
 
 
 def build_meps(torch):
@@ -1939,7 +2082,11 @@ def phase_v2_level_sets(torch, model) -> dict[str, float]:
 
 def phase_gate(torch, ds, forecaster) -> list[dict]:
     """19-step rollout against the committed exact-f32 JAX fixture
-    (scripts/accuracy_probe.py: inputs :80-88, metrics :104-117)."""
+    (scripts/accuracy_probe.py: inputs :80-88, metrics :104-117), through
+    the captured forecast: ``ARForecaster.forward`` as a CUDA graph
+    (``utils.cuda_graph.CapturedFunction``), captured and replayed once."""
+    from neural_lam_tpu_torch.utils.cuda_graph import CapturedFunction
+
     fx = np.load(FIXTURES / "rollout19_f32.npz")
     steps, sub = int(fx["steps"]), int(fx["subsample"])
     n = ds.num_grid_points
@@ -1947,11 +2094,15 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     init = rng.normal(size=(1, 2, n, N_STATE)).astype(np.float32)
     forcing = rng.normal(size=(1, steps, n, N_FORCING * 3)).astype(np.float32)
     boundary = rng.normal(size=(1, steps, n, N_STATE)).astype(np.float32)
-    with torch.inference_mode():
-        pred, _ = forecaster(
-            *(torch.from_numpy(a).to(DEVICE) for a in (init, forcing, boundary))
-        )
+    captured = CapturedFunction(forecaster, forecaster, DEVICE)
+    pred, _ = captured(
+        *(torch.from_numpy(a).to(DEVICE) for a in (init, forcing, boundary))
+    )
+    (entry,) = captured.graphs.values()
+    if entry.replays != 1:
+        raise AssertionError(f"gate: {entry.replays} replays of the forecast's graph")
     pred = pred.cpu().numpy()
+    del captured, entry
     if pred.shape != (1, steps, n, N_STATE) or not np.isfinite(pred).all():
         raise AssertionError(f"gate rollout: shape {pred.shape} or non-finite")
     want = fx["prediction_sub"]
@@ -1975,7 +2126,7 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     worst_mean = max(r["mean_rel"] for r in rows)
     worst_max = max(r["max_rel"] for r in rows)
     log(
-        f"gate: worst mean_rel {worst_mean:.3e} (limit {GATE_MEAN_REL}), "
+        f"gate (captured forecast): worst mean_rel {worst_mean:.3e} (limit {GATE_MEAN_REL}), "
         f"worst max_rel {worst_max:.3e} (limit {GATE_MAX_REL}), abs_mean "
         f"drift {drift:.3e} (limit {GATE_MEAN_REL})"
     )
@@ -1986,35 +2137,155 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     return rows
 
 
+@contextlib.contextmanager
+def recorded_captures():
+    """Every ``CapturedFunction`` (the port's captured inference: the
+    forecast, the eval step, the test evaluation's batch) made inside the
+    block, in a list, so that its graphs can be profiled after."""
+    from neural_lam_tpu_torch.utils.cuda_graph import CapturedFunction
+
+    made: list = []
+    init = CapturedFunction.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    CapturedFunction.__init__ = record
+    try:
+        yield made
+    finally:
+        CapturedFunction.__init__ = init
+
+
+def keep_cuda_graphs(torch) -> None:
+    """Every CUDA graph the run captures keeps its ``cudaGraph_t``
+    (``keep_graph=True``; a replay instantiates it), so that
+    :func:`graph_kernels` can read its nodes. The graphs run as before."""
+    plain = torch.cuda.CUDAGraph
+
+    class Kept(plain):
+        def __init__(self, keep_graph: bool = True) -> None:
+            super().__init__(keep_graph=True)
+
+    torch.cuda.CUDAGraph = Kept
+
+
+def graph_kernels(torch, graph) -> dict[str, int]:
+    """The launches of each of K1-K8 that one replay of ``graph`` makes:
+    its kernel nodes, named through libcuda (``cuGraphGetNodes``,
+    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``) and counted by
+    ``KERNEL_SYMBOLS``; the graph must be kept (:func:`keep_cuda_graphs`).
+    A profile of the replay is not used for this: in a long run the
+    profiler lost a record now and then (911 of the 912 K1 launches of
+    HiLAMParallel's request graph), which a count must not."""
+    import ctypes
+
+    ptr, out = ctypes.c_void_p, ctypes.POINTER
+    cuda = ctypes.CDLL("libcuda.so.1")
+    for fn, args in (
+        ("cuGraphGetNodes", [ptr, ptr, out(ctypes.c_size_t)]),
+        ("cuGraphNodeGetType", [ptr, out(ctypes.c_int)]),
+        ("cuGraphKernelNodeGetParams_v2", [ptr, ptr]),
+        ("cuFuncGetName", [out(ctypes.c_char_p), ptr]),
+        ("cuKernelGetName", [out(ctypes.c_char_p), ptr]),
+    ):
+        getattr(cuda, fn).argtypes = args
+        getattr(cuda, fn).restype = ctypes.c_int  # CUresult
+
+    def check(err: int, what: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"{what}: CUresult {err}")
+
+    handle = ptr(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    check(cuda.cuGraphGetNodes(handle, ctypes.cast(nodes, ptr), ctypes.byref(n)),
+          "cuGraphGetNodes")
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cuda.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2, with room: func at [0], kern (CUkernel) at [7]
+        params = (ptr * 16)()
+        check(cuda.cuGraphKernelNodeGetParams_v2(ptr(node), ctypes.cast(params, ptr)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            check(cuda.cuFuncGetName(ctypes.byref(name), ptr(params[0])), "cuFuncGetName")
+        else:
+            check(cuda.cuKernelGetName(ctypes.byref(name), ptr(params[7])), "cuKernelGetName")
+        for kernel, symbol in KERNEL_SYMBOLS.items():
+            if symbol.search(name.value.decode()):
+                counts[kernel] += 1
+    return counts
+
+
+def replayed_launches(torch, made, label: str) -> dict[str, int]:
+    """The launches of K1-K8 that the replays of the captured inference
+    ``made`` ran, beyond what the wrappers counted: each graph's capture
+    counted one replay's launches, which :func:`graph_kernels` reads from
+    the graph, so each graph adds (its replays - 1) of those. Every graph
+    must hold a kernel of K1-K8."""
+    extra = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for fn in made:
+        for entry in fn.graphs.values():
+            replay = graph_kernels(torch, entry.graph)
+            if not any(replay.values()):
+                raise AssertionError(f"{label}: a graph ran none of K1-K8")
+            for name, count in replay.items():
+                extra[name] += (entry.replays - 1) * count
+            log(f"{label}: graph of {entry.inputs[0].shape[0]} x "
+                f"{tuple(entry.inputs[1].shape[1:])} replayed {entry.replays} times; "
+                f"one replay: {', '.join(f'{k} {v}' for k, v in replay.items() if v)}")
+    return extra
+
+
+def same_outputs(torch, got, want, label: str, rtol: float = GRAPH_LOSS_RTOL) -> str:
+    """``got`` against ``want`` (tensors, or tuples and dicts of them):
+    each within ``rtol`` of its largest entry; returns how many entries
+    are the same bits."""
+    from neural_lam_tpu_torch.utils.cuda_graph import map_tensors
+
+    pairs: list = []
+    map_tensors(lambda t: pairs.append(t), (got, want))
+    half = len(pairs) // 2
+    same = total = 0
+    worst = 0.0
+    for g, w in zip(pairs[:half], pairs[half:]):
+        if g.shape != w.shape:
+            raise AssertionError(f"{label}: shape {tuple(g.shape)} against {tuple(w.shape)}")
+        scale = max(w.abs().max().item(), 1e-30)
+        worst = max(worst, (g - w).abs().max().item() / scale)
+        same += int((g == w).sum().item())
+        total += w.numel()
+    if not worst <= rtol:
+        raise AssertionError(f"{label}: captured against eager {worst:.3e} (tol {rtol})")
+    return f"max rel {worst:.3e} (tol {rtol}), {same} of {total} entries the same bits"
+
+
 def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int]:
     """One forecast request through run_forecasts (``AR_STEPS`` steps
-    unless ``ar_steps`` says otherwise); returns each kernel's launches in
-    this run, which must be ``expected_launches(model)`` per AR step."""
+    unless ``ar_steps`` says otherwise), whose forecast is a CUDA graph
+    (``predict.make_forecast``): its first call runs one eager warm-up
+    forecast, captures one and replays it. The wrappers count the warm-up
+    and the capture, ``expected_launches(model)`` per AR step each, and
+    nothing in a replay; the graph holds ``expected_launches`` per AR step
+    (:func:`graph_kernels`). Then, on the request's batch and the same weights,
+    the eager forecast against the captured one (the same bits are
+    expected) and both timed, beside the device time of a replay's
+    kernels. Returns each kernel's launches on the device in the request:
+    the warm-up's and the replay's."""
     ar_steps = ar_steps or AR_STEPS
-    from torch import nn
-
+    from neural_lam_tpu_torch.dataset import WeatherDataset
     from neural_lam_tpu_torch.models import ARForecaster
     from neural_lam_tpu_torch.predict import run_forecasts
 
-    class TimedForecaster(nn.Module):
-        """The forecaster, with the device time of each call recorded."""
-
-        def __init__(self, inner: ARForecaster) -> None:
-            super().__init__()
-            self.inner = inner
-            self.predictor = inner.predictor
-            self.seconds: list[float] = []
-
-        def forward(self, *args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = self.inner(*args)
-            torch.cuda.synchronize()
-            self.seconds.append(time.perf_counter() - t0)
-            return out
-
     label = model_label(model)
-    fc = TimedForecaster(ARForecaster(model, ds))
+    fc = ARForecaster(model, ds)
     out_dir = CACHE / "forecasts"
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2022,25 +2293,33 @@ def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    written = run_forecasts(
-        fc, ds, split="test", ar_steps=ar_steps, batch_size=BATCH,
-        n_samples=SERVE_BATCHES * BATCH, out_dir=out_dir, device=DEVICE,
-    )
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-
-    batches = len(fc.seconds)
-    if written != SERVE_BATCHES * BATCH or batches != SERVE_BATCHES:
-        raise AssertionError(f"served {written} forecasts in {batches} batches")
-    for name, per_step in expected_launches(model, training=False).items():
-        want = per_step * ar_steps * batches
-        log(
-            f"serve {label}: {name} launches {launches[name]} (want {per_step} x "
-            f"{ar_steps} x {batches} = {want})"
+    with recorded_captures() as made:
+        t0 = time.perf_counter()
+        written = run_forecasts(
+            fc, ds, split="test", ar_steps=ar_steps, batch_size=BATCH,
+            n_samples=SERVE_BATCHES * BATCH, out_dir=out_dir, device=DEVICE,
         )
-        if launches[name] != want:
-            raise AssertionError(f"{name}: {launches[name]} launches, want {want}")
+        wall = time.perf_counter() - t0
+    ticks = {name: fn.launches for name, fn in counters.items()}
+    (forecast,) = made
+    (entry,) = forecast.graphs.values()
+    batches = entry.replays
+    if written != SERVE_BATCHES * BATCH or batches != SERVE_BATCHES:
+        raise AssertionError(f"served {written} forecasts in {batches} replays")
+    expected = expected_launches(model, training=False)
+    replay = graph_kernels(torch, entry.graph)
+    launches = {}
+    for name, per_step in expected.items():
+        want = per_step * ar_steps
+        launches[name] = ticks[name] + (batches - 1) * replay[name]
+        log(
+            f"serve {label}: {name} launches {ticks[name]} counted by the wrapper "
+            f"(warm-up and capture, want 2 x {per_step} x {ar_steps} = {2 * want}), "
+            f"{replay[name]} in the graph, one replay's (want {want}): {launches[name]} "
+            f"in the request"
+        )
+        if ticks[name] != 2 * want or replay[name] != want:
+            raise AssertionError(f"serve {label}: {name} launches off")
     files = sorted(out_dir.glob("forecast_test_*.npz"))
     if len(files) != written:
         raise AssertionError(f"{len(files)} forecast files for {written} forecasts")
@@ -2053,17 +2332,35 @@ def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int
                 raise AssertionError(f"{path.name}: non-finite values")
     shutil.rmtree(out_dir)
 
-    fc_s = np.array(fc.seconds)
-    gps = BATCH * ds.num_grid_points * ar_steps / fc_s.mean()
+    # the request's batch, eager against captured, on the same weights
+    dataset = WeatherDataset(ds, split="test", ar_steps=ar_steps)
+    batch = [
+        torch.from_numpy(np.stack(a)).to(DEVICE)
+        for a in list(zip(*(dataset[i] for i in range(BATCH))))[:3]
+    ]
+
+    def eager():
+        with torch.no_grad():
+            return forecast.fn(*batch)
+
+    bits = same_outputs(torch, forecast(*batch), eager(), f"serve {label}")
+    eager_ms = cuda_ms(eager, reps=3, warmup=1) / ar_steps
+    graph_ms = cuda_ms(lambda: forecast(*batch), reps=3, warmup=1) / ar_steps
+    # the same kernels on the same values: one busy time for both
+    busy = device_busy_ms(torch, lambda: forecast(*batch)) / ar_steps
+    gps = BATCH * ds.num_grid_points / (graph_ms / 1e3)
     log(
         f"serve {label} on {card}: {written} forecasts of {ar_steps} steps in "
-        f"{batches} requests of {BATCH}; wall per request {wall / batches:.3f} s "
-        f"(forecast, standardize, copy back and npz writes); forecast per "
-        f"request {', '.join(f'{s:.4f}' for s in fc_s)} s "
-        f"({1e3 * fc_s.mean() / ar_steps:.3f} ms per AR step); "
-        f"{gps:,.0f} grid-points/s over the forecast time; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        f"{batches} request of {BATCH}; wall per request {wall / batches:.3f} s "
+        f"(warm-up, capture, replay, copy back and npz writes); per AR step: device "
+        f"busy {busy:.3f} ms; eager {eager_ms:.3f} ms (idle {1 - busy / eager_ms:.1%}), "
+        f"captured {graph_ms:.3f} ms (idle {1 - busy / graph_ms:.1%}), "
+        f"{eager_ms / graph_ms:.2f}x; captured against eager: {bits}; "
+        f"{gps:,.0f} grid-points/s captured; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
+    del forecast, entry, made
+    release(torch)
     return launches
 
 
@@ -2367,8 +2664,8 @@ def phase_train_graph(torch, trainer, card: str, eager: dict) -> dict[str, int]:
     step's and against the device time of the replay's kernels, and the
     launches: the wrappers count the first call's ``GRAPH_WARMUP_STEPS``
     eager steps and the capture of one, ``expected_launches`` each, and
-    nothing in the calls after it; the profiler counts
-    ``expected_launches`` in one replay. Returns each kernel's launches
+    nothing in the calls after it; the graph's kernel nodes hold
+    ``expected_launches`` (:func:`graph_kernels`). Returns each kernel's launches
     on the device in this run: the warm-up steps' and 12 replays'."""
     from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
 
@@ -2401,7 +2698,8 @@ def phase_train_graph(torch, trainer, card: str, eager: dict) -> dict[str, int]:
     if len(trainer.graphs) != 1:
         raise AssertionError(f"train graph {label}: {len(trainer.graphs)} graphs, want 1")
     step_ms = marks[0].elapsed_time(marks[-1]) / TRAIN_ITERS
-    busy, kernels, replay = device_kernels(torch, lambda: step(*data))
+    busy, kernels = device_kernels(torch, lambda: step(*data))
+    replay = graph_kernels(torch, next(iter(trainer.graphs.values())).graph)
     launches = {}
     steps = TRAIN_WARMUP + TRAIN_ITERS
     for name, per_step in expected_launches(model, training=True).items():
@@ -2412,7 +2710,7 @@ def phase_train_graph(torch, trainer, card: str, eager: dict) -> dict[str, int]:
             f"train graph {label}: {name} launches: {first[name]} counted in the "
             f"first call ({GRAPH_WARMUP_STEPS} eager warm-up steps and the capture, "
             f"want {per_step} x {GRAPH_WARMUP_STEPS + 1}), {later[name]} in the "
-            f"{steps - 1} calls after it (want 0), {replay[name]} in one profiled "
+            f"{steps - 1} calls after it (want 0), {replay[name]} in the graph, one "
             f"replay (want {per_step}): {warm} + {replay[name]} x {steps} replays "
             f"= {launches[name]}"
         )
@@ -2450,9 +2748,10 @@ def phase_fit(torch, card: str) -> dict[str, int]:
     1 through the captured step (prefetched on a side stream), then
     validation on 2 batches at ``ar_steps_eval`` 3, with a watched metric.
     Prints the history record; returns each kernel's launches on the
-    device: the wrappers count the eager ones (the capture's warm-up steps,
-    validation) and the capture, the profiler those of one replay, of
-    which the epoch made one per training batch."""
+    device: the wrappers count the eager ones (the captures' warm-up calls)
+    and the captures, the graphs' kernel nodes those of one replay
+    (:func:`graph_kernels`): the training graph's, replayed once per
+    training batch, and validation's, once per validation batch."""
     from torch.utils.data import Subset
 
     from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
@@ -2487,13 +2786,18 @@ def phase_fit(torch, card: str) -> dict[str, int]:
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    (record,) = trainer.fit(train, val, epochs=1)
+    with recorded_captures() as captured:
+        (record,) = trainer.fit(train, val, epochs=1)
     torch.cuda.synchronize()
     ticks = {name: fn.launches for name, fn in counters.items()}
-    # two more replays of the epoch's graph after it, one of them profiled
+    # validation replays its eval step's graph once per batch
+    val_replays = replayed_launches(torch, captured, "fit validation")
+    del captured[:]
+    # one more replay of the epoch's graph after it, which the wrappers
+    # must not count; the graph's kernel nodes give a replay's launches
     data, _ = trainer.device_put_batch(next(iter(train)))
-    step = trainer.make_train_step()
-    _, _, replay = device_kernels(torch, lambda: step(*data))
+    trainer.make_train_step()(*data)
+    replay = graph_kernels(torch, next(iter(trainer.graphs.values())).graph)
     if len(trainer.graphs) != 1 or any(
             fn.launches != ticks[name] for name, fn in counters.items()):
         raise AssertionError("fit: the epoch's graph was not replayed after it")
@@ -2504,7 +2808,7 @@ def phase_fit(torch, card: str) -> dict[str, int]:
                                  f"want {per_step}")
     for name, count in ticks.items():
         # the capture recorded one replay's launches, not run
-        launches[name] = count - replay[name] + replay[name] * len(train)
+        launches[name] = count - replay[name] + replay[name] * len(train) + val_replays[name]
     log(f"fit GraphLAM on {card}: one epoch: {json.dumps(record)}")
     if not all(np.isfinite(record[k]) for k in ("train_loss", "val_loss", "val_loss_unroll3")):
         raise AssertionError("fit: non-finite losses")
@@ -2521,6 +2825,125 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
+class CliCalls:
+    """The port's entry points called in-process, as a user's workflow
+    calls them: each call with the counters at 0 just before it and its
+    stdout in ``<root>/cli.log``, and its launches on the device added to
+    ``launches``. The CLIs' trainers are kept in ``trainers`` (inside
+    :meth:`recording_trainers`) so that their graphs can be profiled."""
+
+    def __init__(self, torch, root: Path, label: str) -> None:
+        from neural_lam_tpu_torch.trainer import Trainer
+
+        self.torch, self.root, self.label = torch, root, label
+        self.counters = kernel_counters()
+        self.launches: dict[str, int] = dict.fromkeys(self.counters, 0)
+        self.trainers: list = []
+        made = self.trainers
+
+        class Recorded(Trainer):
+            """The CLI's trainer, kept so that its graph can be profiled."""
+
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        self._recorded = Recorded
+
+    @contextlib.contextmanager
+    def recording_trainers(self):
+        from neural_lam_tpu_torch import train_model
+
+        plain = train_model.Trainer
+        train_model.Trainer = self._recorded
+        try:
+            yield
+        finally:
+            train_model.Trainer = plain
+
+    def __call__(self, entry, argv) -> tuple[dict[str, int], float]:
+        """One CLI call; returns the wrappers' ticks, with the launches of
+        the captured inference's replays added (:func:`replayed_launches`),
+        and the call's seconds. The ticks join ``launches``; a training
+        run's graph replays join them by :meth:`training_run`."""
+        torch = self.torch
+        for fn in self.counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with open(self.root / "cli.log", "a", encoding="utf-8") as out, \
+                contextlib.redirect_stdout(out), recorded_captures() as captured:
+            entry(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ticks = {n: fn.launches for n, fn in self.counters.items()}
+        for name, count in replayed_launches(torch, captured, self.label).items():
+            ticks[name] += count
+        del captured[:]
+        for name, count in ticks.items():
+            self.launches[name] += count
+        return ticks, seconds
+
+    def training_run(self, ticks, replays: int, batch, label: str) -> None:
+        """The launches of the last training run's graph, which its epochs
+        replayed ``replays`` times: the capture, counted in ``ticks``,
+        recorded one replay's launches and did not run them."""
+        torch = self.torch
+        trainer = self.trainers[-1]
+        if next(trainer.forecaster.parameters()).device.type != DEVICE:
+            raise AssertionError(f"{self.label} {label}: the model is not on the card")
+        if len(trainer.graphs) != 1:
+            raise AssertionError(f"{self.label} {label}: {len(trainer.graphs)} graphs, want 1")
+        data, _ = trainer.device_put_batch(batch)
+        trainer.make_train_step()(*data)  # replays: the graph is the epochs'
+        if len(trainer.graphs) != 1:
+            raise AssertionError(f"{self.label} {label}: a second graph was captured")
+        replay = graph_kernels(torch, next(iter(trainer.graphs.values())).graph)
+        for name in ticks:
+            self.launches[name] += replay[name] * (replays - 1)
+        log(f"{self.label} {label}: wrappers' ticks {ticks}; one replay {replay}; "
+            f"{replays} replays")
+
+    def check_launches(self, card: str) -> dict[str, int]:
+        for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
+                     "K4 fused_edge_phase backward"):
+            if self.launches[name] <= 0:
+                raise AssertionError(f"{self.label}: {name} was not launched")
+        log(f"{self.label} on {card}: launches {self.launches}")
+        return self.launches
+
+
+def hold_to_cpu_rollout(torch, run: Path, ds, path: Path, label: str) -> None:
+    """The forecast of test sample 0 in ``path``, first
+    ``GATE_ROLLOUT_STEPS`` steps, against a rollout of the same
+    ``min_val_loss`` checkpoint on the CPU (the kernels' plain versions),
+    within ``GATE_STATE_MEAN_REL`` and ``GATE_STATE_MAX_REL`` of the mean
+    absolute state."""
+    from neural_lam_tpu_torch.checkpoint import load_forecaster_from_checkpoint
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.trainer import standardization_stats, standardize_batch
+
+    t0 = time.perf_counter()
+    fc, _ = load_forecaster_from_checkpoint(run, ds, name="min_val_loss", device="cpu")
+    init, target, forcing, _ = WeatherDataset(ds, "test", ar_steps=GATE_ROLLOUT_STEPS)[0]
+    stats = standardization_stats(ds)
+    with torch.inference_mode():
+        init_s, target_s, forcing_s = standardize_batch(
+            *(torch.from_numpy(a[None]) for a in (init, target, forcing)), stats)
+        want = fc(init_s, forcing_s, target_s)[0][0].numpy()
+    want = want * stats["state_std"] + stats["state_mean"]
+    got = np.load(path)["prediction"][:GATE_ROLLOUT_STEPS]
+    scale = np.abs(want).mean()
+    mean_rel = float(np.abs(got - want).mean() / scale)
+    max_rel = float(np.abs(got - want).max() / scale)
+    log(f"{label}: forecast of test sample 0, steps 1-{GATE_ROLLOUT_STEPS}, against the "
+        f"min_val_loss checkpoint on the CPU: mean rel {mean_rel:.3e} (tol "
+        f"{GATE_STATE_MEAN_REL}), max rel {max_rel:.3e} (tol {GATE_STATE_MAX_REL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (np.isfinite(got).all() and mean_rel <= GATE_STATE_MEAN_REL
+            and max_rel <= GATE_STATE_MAX_REL):
+        raise AssertionError(f"{label}: the forecast differs from the CPU rollout")
+
+
 def phase_cli(torch, card: str) -> dict[str, int]:
     """The user's workflow through the port's entry points, at full width
     (GraphLAM, hidden 64, 4 processor layers, batch 4) on a MEPS-size
@@ -2531,21 +2954,20 @@ def phase_cli(torch, card: str) -> dict[str, int]:
     --restore_opt --epochs 3``, which must log epoch 2 only and keep the
     best validation loss of the three in ``best.json``; ``--eval test`` at
     19 AR steps; ``predict`` of 4 samples at 19 AR steps from the
-    ``min_val_loss`` checkpoint. The forecast of test sample 0 is held,
-    first 3 steps, to a rollout of the same checkpoint on the CPU (the
-    kernels' plain versions) within ``GATE_STATE_MEAN_REL`` and
-    ``GATE_STATE_MAX_REL`` of the mean absolute state.
+    ``min_val_loss`` checkpoint, whose first forecast
+    :func:`hold_to_cpu_rollout` holds to the CPU.
 
-    Returns each kernel's launches on the device in the phase: the
-    wrappers count the eager ones (the capture's warm-up steps, validation,
-    evaluation, the forecasts) and each capture, which records one step's
-    launches; the profiler counts those of one replay of each training
-    run's graph, which its epochs replayed once per batch."""
+    Returns each kernel's launches on the device in the phase
+    (:class:`CliCalls`): the wrappers count the eager ones (the captures'
+    warm-up calls) and each capture, which records one call's launches;
+    each graph's kernel nodes (:func:`graph_kernels`) give one replay's,
+    by which the replays are counted: each training run's graph, which its
+    epochs replayed once per batch, and the captured inference's graphs
+    (validation, evaluation, the forecasts)."""
     from neural_lam_tpu_torch import create_graph, predict, train_model
-    from neural_lam_tpu_torch.checkpoint import CheckpointManager, load_forecaster_from_checkpoint
+    from neural_lam_tpu_torch.checkpoint import CheckpointManager
     from neural_lam_tpu_torch.config import load_config_and_datastore
     from neural_lam_tpu_torch.dataset import WeatherDataset
-    from neural_lam_tpu_torch.trainer import Trainer, standardization_stats, standardize_batch
 
     root = CACHE / "cli"
     shutil.rmtree(root, ignore_errors=True)
@@ -2566,58 +2988,20 @@ def phase_cli(torch, card: str) -> dict[str, int]:
         "--val_steps_to_log", "1", "3", "--hidden_dim", str(HIDDEN),
         "--processor_layers", str(PROC_LAYERS), "--runs_root", str(runs), "--seed", "0",
     ]
-    counters = kernel_counters()
-    made: list = []
-
-    class Recorded(Trainer):
-        """The CLI's trainer, kept so that its graph can be profiled."""
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            made.append(self)
-
-    def cli(entry, argv):
-        """One CLI call with the counters at 0 just before it; its stdout
-        goes to ``cli.log``. Returns the wrappers' ticks and seconds."""
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        with open(root / "cli.log", "a", encoding="utf-8") as out, \
-                contextlib.redirect_stdout(out):
-            entry(argv)
-        torch.cuda.synchronize()
-        return {n: fn.launches for n, fn in counters.items()}, time.perf_counter() - t0
-
+    cli = CliCalls(torch, root, "cli")
     _, ds = load_config_and_datastore(config)
     train_set = WeatherDataset(ds, "train", ar_steps=1)
     train_batch = tuple(np.stack(a) for a in zip(*(train_set[i] for i in range(BATCH))))
-    launches: dict[str, int] = dict.fromkeys(counters, 0)
 
     def train(argv):
         train_model.main(argv, device=DEVICE)
 
-    def add_training_run(ticks, epochs: int, label: str) -> None:
-        trainer = made[-1]
-        if next(trainer.forecaster.parameters()).device.type != DEVICE:
-            raise AssertionError(f"cli {label}: the model is not on the card")
-        if len(trainer.graphs) != 1:
-            raise AssertionError(f"cli {label}: {len(trainer.graphs)} graphs, want 1")
-        data, _ = trainer.device_put_batch(train_batch)
-        step = trainer.make_train_step()
-        _, _, replay = device_kernels(torch, lambda: step(*data))
-        replays = epochs * (len(train_set) // BATCH)
-        for name, count in ticks.items():
-            # the capture recorded one replay's launches, not run
-            launches[name] += count - replay[name] + replay[name] * replays
-        log(f"cli {label}: wrappers' ticks {ticks}; one replay {replay}; {replays} replays")
-
     # -- train 2 epochs, then resume for a third
-    train_model.Trainer = Recorded
-    try:
+    with cli.recording_trainers():
         ticks, seconds = cli(train, common + [
             "--epochs", "2", "--logger_run_name", "run"])
-        add_training_run(ticks, 2, "train")
-        trainer = made[-1]
+        cli.training_run(ticks, 2 * (len(train_set) // BATCH), train_batch, "train")
+        trainer = cli.trainers[-1]
         stages["train_model 2 epochs s"] = seconds
         log(f"cli: train_model 2 epochs {seconds:.1f} s")
         # checkpoint save and load of the trained run, on the card
@@ -2633,14 +3017,12 @@ def phase_cli(torch, card: str) -> dict[str, int]:
         log(f"cli: checkpoint of {size / 2**20:.1f} MiB (parameters and AdamW state): save "
             f"{save_ms:.1f} ms, restore {load_ms:.1f} ms, parameters only "
             f"{restore_only_ms:.1f} ms")
-        del trainer, model, opt, made[:]
+        del trainer, model, opt, cli.trainers[:]
         ticks, seconds = cli(train, common + [
             "--epochs", "3", "--logger_run_name", "run", "--load", str(run),
             "--restore_opt"])
-        add_training_run(ticks, 1, "resume")
-        del made[:]
-    finally:
-        train_model.Trainer = Trainer
+        cli.training_run(ticks, len(train_set) // BATCH, train_batch, "resume")
+        del cli.trainers[:]
     history = [json.loads(x) for x in (run / "history.jsonl").read_text().splitlines()]
     stages["resume 1 epoch s"] = seconds
     log(f"cli: resume --restore_opt to 3 epochs {seconds:.1f} s")
@@ -2658,11 +3040,9 @@ def phase_cli(torch, card: str) -> dict[str, int]:
         raise AssertionError("cli: non-finite losses")
 
     # -- evaluate the test split at 19 steps, then export 4 forecasts
-    ticks, seconds = cli(train, common + [
+    _, seconds = cli(train, common + [
         "--eval", "test", "--load", str(run), "--ar_steps_eval", str(AR_STEPS),
         "--logger_run_name", "eval"])
-    for name, count in ticks.items():
-        launches[name] += count
     stages["eval test s"] = seconds
     metrics = json.loads((runs / "eval" / "test_metrics.json").read_text())
     log(f"cli: --eval test at {AR_STEPS} steps {seconds:.1f} s: test_loss "
@@ -2671,46 +3051,171 @@ def phase_cli(torch, card: str) -> dict[str, int]:
     if not np.isfinite(list(metrics.values())).all():
         raise AssertionError("cli: non-finite test metrics")
     out = root / "forecasts"
-    ticks, seconds = cli(lambda a: predict.main(a, device=DEVICE), [
+    _, seconds = cli(lambda a: predict.main(a, device=DEVICE), [
         "--config_path", str(config), "--load", str(run / "checkpoints" / "min_val_loss"),
         "--ar_steps", str(AR_STEPS), "--n_samples", str(BATCH), "--out", str(out)])
-    for name, count in ticks.items():
-        launches[name] += count
     stages["predict s"] = seconds
     files = sorted(out.glob("forecast_test_*.npz"))
     log(f"cli: predict {len(files)} forecasts at {AR_STEPS} steps {seconds:.1f} s")
     if len(files) != BATCH:
         raise AssertionError(f"cli: {len(files)} forecast files, want {BATCH}")
-
-    # -- the forecast of sample 0 against the checkpoint on the CPU
-    t0 = time.perf_counter()
-    fc, _ = load_forecaster_from_checkpoint(run, ds, name="min_val_loss", device="cpu")
-    init, target, forcing, _ = WeatherDataset(ds, "test", ar_steps=GATE_ROLLOUT_STEPS)[0]
-    stats = standardization_stats(ds)
-    with torch.inference_mode():
-        init_s, target_s, forcing_s = standardize_batch(
-            *(torch.from_numpy(a[None]) for a in (init, target, forcing)), stats)
-        want = fc(init_s, forcing_s, target_s)[0][0].numpy()
-    want = want * stats["state_std"] + stats["state_mean"]
-    got = np.load(files[0])["prediction"][:GATE_ROLLOUT_STEPS]
-    scale = np.abs(want).mean()
-    mean_rel = float(np.abs(got - want).mean() / scale)
-    max_rel = float(np.abs(got - want).max() / scale)
-    log(f"cli: forecast of test sample 0, steps 1-{GATE_ROLLOUT_STEPS}, against the "
-        f"min_val_loss checkpoint on the CPU: mean rel {mean_rel:.3e} (tol "
-        f"{GATE_STATE_MEAN_REL}), max rel {max_rel:.3e} (tol {GATE_STATE_MAX_REL}) "
-        f"({time.perf_counter() - t0:.1f} s)")
-    if not (np.isfinite(got).all() and mean_rel <= GATE_STATE_MEAN_REL
-            and max_rel <= GATE_STATE_MAX_REL):
-        raise AssertionError("cli: the forecast differs from the CPU rollout")
+    hold_to_cpu_rollout(torch, run, ds, files[0], "cli")
     stages.update({f"epoch {r['epoch']} {k}": r[k] for r in history
                    for k in ("epoch_seconds", "grid_points_per_s")})
     log(f"cli stages on {card}: {json.dumps(stages)}")
-    for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
-                 "K4 fused_edge_phase backward"):
-        if launches[name] <= 0:
-            raise AssertionError(f"cli: {name} was not launched")
-    log(f"cli on {card}: launches {launches}")
+    launches = cli.check_launches(card)
+    release(torch)
+    return launches
+
+
+def phase_npy_workflow(torch, card: str) -> dict[str, int]:
+    """A user's MEPS workflow through the port's entry points, on one card,
+    over a MEPS npy-files store written by :func:`write_npy_store` at full
+    width (``grid_shape_state`` [268, 238]; 18 stored state features, 17
+    kept; the npy-files forcing set; 2 members; 2, 1 and 1 analysis times
+    for train, val and test; ``NPY_TIMESTEPS`` steps a forecast):
+
+    1. ``compute_standardization_stats`` over the train split, held to
+       :func:`npy_stats_float64` within ``NPY_STATS_TOL`` of each array's
+       largest entry;
+    2. ``create_graph``, then ``validate_graph`` (exit 0);
+    3. ``train_model`` for 2 epochs (GraphLAM, hidden 64, 4 processor
+       layers, batch 4; validation at 3 AR steps through the captured eval
+       step);
+    4. ``--eval test`` at 19 AR steps through the captured ``eval_batch``;
+    5. ``predict`` of the test split (2 forecasts, one padded batch of 4)
+       through the captured forecast; forecast 0 against the checkpoint on
+       the CPU (:func:`hold_to_cpu_rollout`);
+    6. one validation pass and one test-evaluation batch, eager against
+       captured, within ``GRAPH_LOSS_RTOL`` of each output's largest entry.
+
+    Returns each kernel's launches on the device in steps 1-5, counted as
+    :class:`CliCalls` counts them."""
+    from neural_lam_tpu_torch import create_graph, predict, train_model, validate_graph
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.datastore.npyfilesmeps import compute_standardization_stats
+    from neural_lam_tpu_torch.evaluation import make_eval_batch
+    from neural_lam_tpu_torch.loader import DataLoader
+
+    root = CACHE / "npy"
+    shutil.rmtree(root, ignore_errors=True)
+    store = root / "store"
+    t0 = time.perf_counter()
+    config = write_npy_store(store, GRID_Y, GRID_X)
+    stages = {"store build s": time.perf_counter() - t0}
+    size = sum(f.stat().st_size for f in store.rglob("*.npy"))
+    log(f"npy: MEPS npy-files store, grid_shape_state [{GRID_X}, {GRID_Y}], "
+        f"{NPY_STATE_STORED} stored state features ({NPY_STATE_STORED - len(NPY_REMOVED)} "
+        f"kept), {NPY_MEMBERS} members, analysis times {NPY_SPLITS} (train, val, test), "
+        f"{NPY_TIMESTEPS} steps a forecast: {size / 2**30:.2f} GiB of .npy files in "
+        f"{stages['store build s']:.1f} s")
+
+    # -- 1. the standardization statistics
+    t0 = time.perf_counter()
+    with open(root / "cli.log", "a", encoding="utf-8") as out, \
+            contextlib.redirect_stdout(out):
+        compute_standardization_stats.main(
+            ["--datastore_config_path", str(store / "data_config.yaml")])
+    stages["compute_standardization_stats s"] = time.perf_counter() - t0
+    want = npy_stats_float64(store)
+    worst = {}
+    for name, ref in want.items():
+        got = np.load(store / "static" / f"{name}.npy")
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        worst[name] = err
+        if got.shape != ref.shape or not err <= NPY_STATS_TOL:
+            raise AssertionError(f"npy stats: {name} off by {err:.3e} of its largest entry")
+    log(f"npy: compute_standardization_stats {stages['compute_standardization_stats s']:.1f} "
+        f"s; against float64 (share of each array's largest entry, tol {NPY_STATS_TOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+
+    # -- 2. the graph
+    t0 = time.perf_counter()
+    create_graph.main(["--config_path", str(config), "--name", "multiscale"])
+    stages["create_graph s"] = time.perf_counter() - t0
+    _, ds = load_config_and_datastore(config)
+    t0 = time.perf_counter()
+    with open(root / "cli.log", "a", encoding="utf-8") as out, \
+            contextlib.redirect_stdout(out):
+        code = validate_graph.main([str(store / "graph" / "multiscale"),
+                                    "--num_grid_nodes", str(ds.num_grid_points)])
+    stages["validate_graph s"] = time.perf_counter() - t0
+    log(f"npy: create_graph multiscale {stages['create_graph s']:.1f} s, validate_graph "
+        f"exit {code} ({stages['validate_graph s']:.1f} s)")
+    if code != 0:
+        raise AssertionError(f"npy: validate_graph exit {code}")
+
+    # -- 3. train with validation, 4. evaluate the test split, 5. predict
+    runs, run = root / "runs", root / "runs" / "run"
+    common = [
+        "--config_path", str(config), "--batch_size", str(BATCH), "--ar_steps_eval", "3",
+        "--val_steps_to_log", "1", "3", "--hidden_dim", str(HIDDEN),
+        "--processor_layers", str(PROC_LAYERS), "--runs_root", str(runs), "--seed", "0",
+    ]
+    cli = CliCalls(torch, root, "npy")
+    train_set = WeatherDataset(ds, "train", ar_steps=1)
+    train_batch = tuple(np.stack(a) for a in zip(*(train_set[i] for i in range(BATCH))))
+
+    def train(argv):
+        train_model.main(argv, device=DEVICE)
+
+    with cli.recording_trainers():
+        ticks, seconds = cli(train, common + ["--epochs", "2", "--logger_run_name", "run"])
+        cli.training_run(ticks, 2 * -(-len(train_set) // BATCH), train_batch, "train")
+        trainer = cli.trainers[-1]
+    del cli.trainers[:]
+    stages["train_model 2 epochs s"] = seconds
+    history = [json.loads(x) for x in (run / "history.jsonl").read_text().splitlines()]
+    for rec in history:
+        log(f"npy epoch {rec['epoch']} on {card}: epoch_seconds {rec['epoch_seconds']:.3f}, "
+            f"train_loss {rec['train_loss']:.6f}, val_loss {rec['val_loss']:.6f}")
+    if [r["epoch"] for r in history] != [0, 1] or not all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in history):
+        raise AssertionError(f"npy: history {history}")
+    _, seconds = cli(train, common + [
+        "--eval", "test", "--load", str(run), "--ar_steps_eval", str(AR_STEPS),
+        "--logger_run_name", "eval"])
+    stages["eval test s"] = seconds
+    metrics = json.loads((runs / "eval" / "test_metrics.json").read_text())
+    log(f"npy: --eval test at {AR_STEPS} steps {seconds:.1f} s: test_loss "
+        f"{metrics['test_loss']:.6f}, test_loss_unroll1 {metrics['test_loss_unroll1']:.6f}")
+    if not np.isfinite(list(metrics.values())).all():
+        raise AssertionError("npy: non-finite test metrics")
+    out = root / "forecasts"
+    n_test = len(WeatherDataset(ds, "test", ar_steps=AR_STEPS))
+    _, seconds = cli(lambda a: predict.main(a, device=DEVICE), [
+        "--config_path", str(config), "--load", str(run / "checkpoints" / "min_val_loss"),
+        "--ar_steps", str(AR_STEPS), "--batch_size", str(BATCH), "--out", str(out)])
+    stages["predict s"] = seconds
+    files = sorted(out.glob("forecast_test_*.npz"))
+    log(f"npy: predict {len(files)} forecasts (the test split, one batch padded from "
+        f"{n_test} to {BATCH}) at {AR_STEPS} steps {seconds:.1f} s")
+    if len(files) != n_test:
+        raise AssertionError(f"npy: {len(files)} forecast files, want {n_test}")
+    hold_to_cpu_rollout(torch, run, ds, files[0], "npy")
+    launches = cli.check_launches(card)
+
+    # -- 6. eager against captured: a validation pass, a test-evaluation batch
+    val = DataLoader(WeatherDataset(ds, "val", ar_steps=3), BATCH)
+    step = trainer.eval_steps[3]
+    for i, batch in enumerate(val):
+        data, _ = trainer.device_put_batch(batch)
+        with torch.no_grad():
+            want = step.fn(*data)
+        bits = same_outputs(torch, step(*data), want, "npy validation")
+        log(f"npy: validation batch {i}, captured eval step against eager: {bits}")
+    test = DataLoader(WeatherDataset(ds, "test", ar_steps=AR_STEPS), BATCH)
+    data, _ = trainer.device_put_batch(next(iter(test)))
+    eval_batch = make_eval_batch(trainer)
+    got = eval_batch(*data)
+    with torch.no_grad():
+        want = eval_batch.fn(*data)
+    log(f"npy: test-evaluation batch at {AR_STEPS} steps, captured against eager: "
+        f"{same_outputs(torch, got, want, 'npy test evaluation')}")
+    log(f"npy stages on {card}: {json.dumps(stages)}")
+    del trainer, step, eval_batch, got, want
+    shutil.rmtree(store / "samples")
     release(torch)
     return launches
 
@@ -2721,9 +3226,10 @@ def device_busy_ms(torch, fn) -> float:
     return device_kernels(torch, fn)[0]
 
 
-def device_kernels(torch, fn) -> tuple[float, int, dict[str, int]]:
-    """:func:`device_busy_ms`, the number of kernels it sums, and the
-    launches of each of K1-K8 among them, by ``KERNEL_SYMBOLS``."""
+def device_kernels(torch, fn) -> tuple[float, int]:
+    """:func:`device_busy_ms` and the number of kernels it sums. (Launches
+    are counted from a graph's nodes, :func:`graph_kernels`: the profiler
+    can drop a record.)"""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2732,7 +3238,6 @@ def device_kernels(torch, fn) -> tuple[float, int, dict[str, int]]:
         fn()
         torch.cuda.synchronize()
     busy, kernels = 0.0, 0
-    ours = dict.fromkeys(KERNEL_SYMBOLS, 0)
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA or "#" in evt.name:
             continue
@@ -2740,12 +3245,9 @@ def device_kernels(torch, fn) -> tuple[float, int, dict[str, int]]:
             continue
         busy += evt.device_time_total / 1e3
         kernels += 1
-        for name, symbol in KERNEL_SYMBOLS.items():
-            if symbol.search(evt.name):
-                ours[name] += 1
     if busy <= 0:
         raise AssertionError("the profiler saw no kernel on the device")
-    return busy, kernels, ours
+    return busy, kernels
 
 
 def host_ms(torch, fn, calls: int = TRAIN_ITERS) -> float:
@@ -2895,7 +3397,8 @@ def phase_unfused_shapes(torch, ds) -> None:
 def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
-    log(f"launches {what}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log(f"launches {what}: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" ({time.perf_counter() - STARTED:.0f} s into the script)")
 
 
 def drive_gate_model(torch, name: str, gate_ds, serve_ds, card: str, total,
@@ -2972,6 +3475,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    keep_cuda_graphs(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3050,6 +3554,7 @@ def main() -> int:
     phase_unfused_shapes(torch, gate_ds)
     add_launches(total, phase_fit(torch, card), "graph_lam fit")
     add_launches(total, phase_cli(torch, card), "graph_lam cli")
+    add_launches(total, phase_npy_workflow(torch, card), "graph_lam npy")
     for name in GATE_MODELS:
         drive_gate_model(
             torch, name, gate_ds, serve_ds, card, total,

@@ -12,3 +12,5 @@ PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+from .loader import DataLoader, WeatherDataModule  # noqa: F401,E402

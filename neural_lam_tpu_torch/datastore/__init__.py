@@ -11,9 +11,11 @@ from .base import (  # noqa: F401
 )
 from .dummy import DummyDatastore
 from .mdp import MDPDatastore
+from .npyfilesmeps import NpyFilesDatastoreMEPS
 
 DATASTORES: dict[str, type] = {
     "dummydata": DummyDatastore,
+    "npyfilesmeps": NpyFilesDatastoreMEPS,
     "mdp": MDPDatastore,
 }
 

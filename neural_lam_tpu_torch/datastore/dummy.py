@@ -260,3 +260,59 @@ class DummyDatastore(BaseRegularGridDatastore):
             return self._xy.reshape(-1, 2)
         return self._xy
 
+
+class EnsembleDummyDatastore(DummyDatastore):
+    """Deterministic-value ensemble analysis datastore.
+
+    Counterpart of the reference's ensemble test fixture
+    (reference: tests/dummy_datastore.py:483-768): state values encode
+    ``time_idx * 100 + member`` so ensemble slicing tests can assert
+    exact numbers. Forcing is shared across members
+    (``has_ensemble_forcing = False``).
+    """
+
+    is_ensemble = True
+
+    def __init__(
+        self,
+        config_path=None,
+        n_members: int = 2,
+        **kwargs,
+    ) -> None:
+        super().__init__(config_path=config_path, **kwargs)
+        self._n_members = n_members
+        n_grid = self.num_grid_points
+        for split_i, split in enumerate(SPLITS):
+            T = self._values[split]["state"].shape[0]
+            t_idx = np.arange(T) + split_i * 1000
+            vals = (
+                t_idx[:, None, None, None] * 100
+                + np.arange(n_members)[None, :, None, None]
+            ).astype(np.float32)
+            self._values[split]["state"] = np.broadcast_to(
+                vals,
+                (T, n_members, n_grid, self._num_features["state"]),
+            ).copy()
+
+    def get_dataarray(self, category, split, standardize=False):
+        if category != "state":
+            return super().get_dataarray(category, split, standardize)
+        assert split in SPLITS, f"Unknown split {split!r} (not in {SPLITS})"
+        da = FieldArray(
+            data=self._values[split]["state"],
+            dims=(
+                "time",
+                "ensemble_member",
+                "grid_index",
+                "state_feature",
+            ),
+            coords={
+                "time": self._times[split],
+                "ensemble_member": np.arange(self._n_members),
+                "grid_index": np.arange(self.num_grid_points),
+                "state_feature": np.array(self.get_vars_names("state")),
+            },
+        )
+        if standardize:
+            da = self._standardize_dataarray(da, category)
+        return da

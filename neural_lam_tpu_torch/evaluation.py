@@ -10,8 +10,10 @@ neural_lam/models/module.py:511-962):
 - CSV tables + heatmap/spatial figures via ``vis``,
 - example prediction/target map plots for the first samples.
 
-Each batch runs under ``torch.inference_mode()`` on the trainer's
-device; its per-sample rows leave the device after the batch, so nothing
+Each batch runs on the trainer's device, on CUDA as a CUDA graph per
+batch shape and route (``utils.cuda_graph.CapturedFunction``, the
+counterpart of the JAX package's jitted ``eval_batch``), on the CPU
+eagerly; its per-sample rows leave the device after the batch, so nothing
 of size ``(samples, steps, grid)`` stays there. The figures need
 matplotlib: where it is not installed, the metrics and the CSV tables are
 written, and one line on stderr names the figures that were not drawn.
@@ -25,12 +27,12 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .loggers import BaseLogger, NullLogger
 from .metrics import mae as mae_metric
 from .metrics import mse as mse_metric
 from .metrics import wmae as wmae_metric
+from .utils.cuda_graph import CapturedFunction
 
 
 def save_metrics_csv(errors: np.ndarray, datastore, path, step_length_hours=None) -> None:
@@ -78,6 +80,37 @@ def _import_vis():
     return vis, None
 
 
+def make_eval_batch(trainer) -> CapturedFunction:
+    """The test evaluation's batch ``(init, target, forcing) -> ((loss
+    (B, T), mse, mae and wmae tables (B, T, d), spatial loss (B, T, N)),
+    prediction (B, T, N, d))`` on ``trainer``'s device, in standardized
+    units: the counterpart of the JAX package's jitted ``eval_batch``
+    (``neural_lam_tpu/evaluation.py:84-121``). A CUDA graph per batch
+    shape and route on the card, whose replays return clones, eager on the
+    CPU."""
+    mask = trainer._interior_mask
+
+    def eval_batch(init, target, forcing):
+        init_s, target_s, forcing_s = trainer._standardize(init, target, forcing)
+        prediction, pred_std = trainer.forecaster(init_s, forcing_s, target_s)
+        if pred_std is None:
+            pred_std = trainer.per_var_std
+        loss = trainer.loss_fn(prediction, target_s, pred_std, mask=mask)  # (B, T)
+        tables = tuple(
+            fn(prediction, target_s, pred_std, mask=mask, sum_vars=False)
+            for fn in (mse_metric, mae_metric, wmae_metric)
+        )  # (B, T, d) each
+        # per grid node, summed over vars, per sample so that padded
+        # tail rows can be dropped (reference: module.py:571-582)
+        spatial = trainer.loss_fn(
+            prediction, target_s, pred_std, mask=None,
+            average_grid=False, sum_vars=True,
+        )  # (B, T, N)
+        return (loss, *tables, spatial), prediction
+
+    return CapturedFunction(eval_batch, trainer.forecaster, trainer.device)
+
+
 def run_test_evaluation(
     trainer,
     loader,
@@ -102,29 +135,11 @@ def run_test_evaluation(
         skipped.append(f"{split} example predictions")
         n_example_pred = 0
 
-    mask = trainer._interior_mask
     stats = datastore.get_standardization_dataarray(category="state")
     state_mean = np.asarray(stats["state_mean"], np.float32)
     state_std = np.asarray(stats["state_std"], np.float32)
 
-    def eval_batch(init, target, forcing):
-        with torch.inference_mode():
-            init_s, target_s, forcing_s = trainer._standardize(init, target, forcing)
-            prediction, pred_std = trainer.forecaster(init_s, forcing_s, target_s)
-            if pred_std is None:
-                pred_std = trainer.per_var_std
-            loss = trainer.loss_fn(prediction, target_s, pred_std, mask=mask)  # (B, T)
-            tables = tuple(
-                fn(prediction, target_s, pred_std, mask=mask, sum_vars=False)
-                for fn in (mse_metric, mae_metric, wmae_metric)
-            )  # (B, T, d) each
-            # per grid node, summed over vars, per sample so that padded
-            # tail rows can be dropped (reference: module.py:571-582)
-            spatial = trainer.loss_fn(
-                prediction, target_s, pred_std, mask=None,
-                average_grid=False, sum_vars=True,
-            )  # (B, T, N)
-        return (loss, *tables, spatial), prediction
+    eval_batch = make_eval_batch(trainer)
 
     sums: dict[str, np.ndarray] = {}
     count = 0

@@ -147,3 +147,62 @@ class DataLoader:
         if err:
             raise err[0]
 
+
+class WeatherDataModule:
+    """Train/val/test loader bundle, mirroring the reference DataModule
+    API (reference: neural_lam/weather_dataset.py:641-772) without
+    Lightning. Splits follow the reference: train unrolls
+    ``ar_steps_train``; val/test unroll ``ar_steps_eval``."""
+
+    def __init__(
+        self,
+        datastore,
+        ar_steps_train: int = 1,
+        ar_steps_eval: int = 10,
+        batch_size: int = 4,
+        num_past_forcing_steps: int = 1,
+        num_future_forcing_steps: int = 1,
+        load_single_member: bool = False,
+        eval_split: str = "test",
+        seed: int = 0,
+        shard_index: int = 0,
+        num_shards: int = 1,
+    ) -> None:
+        from .dataset import WeatherDataset
+
+        self.batch_size = batch_size
+        self._loader_kwargs = dict(
+            batch_size=batch_size,
+            seed=seed,
+            shard_index=shard_index,
+            num_shards=num_shards,
+        )
+
+        def make(split, ar_steps):
+            return WeatherDataset(
+                datastore,
+                split=split,
+                ar_steps=ar_steps,
+                num_past_forcing_steps=num_past_forcing_steps,
+                num_future_forcing_steps=num_future_forcing_steps,
+                load_single_member=load_single_member,
+            )
+
+        self.train_dataset = make("train", ar_steps_train)
+        self.val_dataset = make("val", ar_steps_eval)
+        self.test_dataset = make(eval_split, ar_steps_eval)
+
+    def train_dataloader(self) -> "DataLoader":
+        return DataLoader(
+            self.train_dataset, shuffle=True, **self._loader_kwargs
+        )
+
+    def val_dataloader(self) -> "DataLoader":
+        return DataLoader(
+            self.val_dataset, shuffle=False, **self._loader_kwargs
+        )
+
+    def test_dataloader(self) -> "DataLoader":
+        return DataLoader(
+            self.test_dataset, shuffle=False, **self._loader_kwargs
+        )

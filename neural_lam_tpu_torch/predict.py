@@ -19,8 +19,14 @@ each sample it writes ``forecast_<split>_<i>.npz`` with
 
 plus one ``forecast_meta.json``. Boundary forcing uses the split's own
 analysis states (reference: models/forecasters/autoregressive.py:116-136).
-The JAX CLI pads a one-sample batch to two, a TPU lane workaround; here
-every batch runs at its own size.
+
+On CUDA the forecast (standardize, then ``ARForecaster.forward``) is a
+CUDA graph per request shape (``utils.cuda_graph.CapturedFunction``), the
+counterpart of the JAX CLI's jitted ``forecast``; on the CPU it runs
+eagerly. A short tail batch is padded to ``batch_size`` by repeating its
+last sample, as the JAX CLI pads it, so that it replays the full batch's
+graph; the padded rows are dropped. The JAX CLI's floor of batch 2, a
+TPU lane workaround, is not carried over.
 """
 
 from __future__ import annotations
@@ -38,8 +44,37 @@ from .dataset import WeatherDataset
 from .datastore.base import BaseDatastore
 from .loader import DataLoader
 from .models.forecaster import ARForecaster
-from .trainer import standardization_stats, standardize_batch
+from .trainer import device_stats, standardization_stats, standardize_batch
+from .utils.cuda_graph import CapturedFunction
 from .utils.device import resolve_device
+
+
+def make_forecast(
+    forecaster: ARForecaster,
+    datastore: BaseDatastore,
+    device: str | torch.device = "cuda",
+    num_past_forcing_steps: int = 1,
+    num_future_forcing_steps: int = 1,
+) -> CapturedFunction:
+    """The forecast ``(init, target, forcing) -> (prediction, pred_std)``
+    in standardized units, from physical inputs on ``device``: the
+    counterpart of the JAX CLI's jitted ``forecast``. A CUDA graph per
+    request shape and route on the card, eager on the CPU."""
+    dev = resolve_device(device)
+    # the stats on the device once, not four copies per batch (nor inside
+    # a capture, where a copy from the host is not allowed)
+    window = num_past_forcing_steps + num_future_forcing_steps + 1
+    stats = device_stats(
+        standardization_stats(datastore),
+        window * datastore.get_num_data_vars("forcing"),
+        dev,
+    )
+
+    def forecast(init, target, forcing):
+        init_s, target_s, forcing_s = standardize_batch(init, target, forcing, stats)
+        return forecaster(init_s, forcing_s, target_s)
+
+    return CapturedFunction(forecast, forecaster, dev)
 
 
 def run_forecasts(
@@ -63,7 +98,8 @@ def run_forecasts(
 
     Inputs are standardized and outputs destandardized with the same
     (eps-clamped) stats, so the pair is an exact inverse even for
-    zero-std variables. The tail batch runs at its own size.
+    zero-std variables. The tail batch is padded to ``batch_size`` by
+    repeating its last sample and its padded rows dropped.
     """
     dev = resolve_device(device)
     dataset = WeatherDataset(
@@ -76,6 +112,9 @@ def run_forecasts(
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=False)
     stats = standardization_stats(datastore)
     state_mean, state_std = stats["state_mean"], stats["state_std"]
+    forecast = make_forecast(
+        forecaster, datastore, dev, num_past_forcing_steps, num_future_forcing_steps
+    )
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -106,16 +145,18 @@ def run_forecasts(
     for init, target, forcing, times in loader:
         if written >= limit:
             break
-        init, target, forcing = (
-            torch.from_numpy(a).to(dev) for a in (init, target, forcing)
-        )
-        with torch.inference_mode():
-            init_s, target_s, forcing_s = standardize_batch(
-                init, target, forcing, stats
+        real = init.shape[0]
+        pad = batch_size - real
+        if pad > 0:
+            init, target, forcing = (
+                np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                for a in (init, target, forcing)
             )
-            prediction, pred_std = forecaster(init_s, forcing_s, target_s)
-        prediction = prediction.cpu().numpy()
-        pred_std = None if pred_std is None else pred_std.cpu().numpy()
+        prediction, pred_std = forecast(
+            *(torch.from_numpy(a).to(dev) for a in (init, target, forcing))
+        )
+        prediction = prediction[:real].cpu().numpy()
+        pred_std = None if pred_std is None else pred_std[:real].cpu().numpy()
         for i in range(prediction.shape[0]):
             if written >= limit:
                 break

@@ -42,6 +42,7 @@ from .loss_weighting import get_state_feature_weighting
 from .metrics import get_metric
 from .models.forecaster import ARForecaster
 from .ops.fused_kernels import route_env
+from .utils.cuda_graph import CapturedFunction
 from .utils.device import resolve_device
 
 # Eager steps run before a capture, and undone after it (see
@@ -243,7 +244,8 @@ class Trainer:
         self._graph_pool = None
         self._graph_stream: Optional[torch.cuda.Stream] = None
         self._train_step: Optional[Callable] = None
-        self._eval_steps: dict[int, Callable] = {}
+        # the eval steps by pred_steps (CUDA graphs on the card)
+        self.eval_steps: dict[int, CapturedFunction] = {}
         self.input_wait_seconds = 0.0
         self._warned_padded_train = False
         self._warned_watch = False
@@ -558,36 +560,42 @@ class Trainer:
 
     # -- evaluation ----------------------------------------------------------
     def make_eval_step(self, pred_steps: int) -> Callable:
-        """The eval step, eager under ``torch.inference_mode()``: per sample
-        the loss over the rollout and at each logged step, and the
-        ``(B, T, d)`` tables of the watched metrics (reference:
-        module.py:465-477; ``neural_lam_tpu/trainer.py:532-583``)."""
+        """The eval step: per sample the loss over the rollout and at each
+        logged step, and the ``(B, T, d)`` tables of the watched metrics
+        (reference: module.py:465-477; ``neural_lam_tpu/trainer.py:532-583``).
+
+        On CUDA it is a :class:`~.utils.cuda_graph.CapturedFunction`: one
+        CUDA graph per input shape and route, captured by the first call
+        of that shape (after one eager call) and replayed after, and
+        captured again when a parameter of the forecaster is replaced
+        rather than updated in place; its outputs are clones that later
+        replays leave alone. On CPU tensors it runs eagerly. Both run
+        under ``torch.no_grad()``."""
         steps_to_log = [s for s in self.args.val_steps_to_log if s <= pred_steps]
         tables = self._watched_tables()
 
         def eval_step(init, target, forcing) -> dict[str, torch.Tensor]:
-            with torch.inference_mode():
-                init_s, target_s, forcing_s = self._standardize(init, target, forcing)
-                prediction, pred_std = self.forecaster(init_s, forcing_s, target_s)
-                if pred_std is None:
-                    pred_std = self.per_var_std
-                time_step_loss = self.loss_fn(
+            init_s, target_s, forcing_s = self._standardize(init, target, forcing)
+            prediction, pred_std = self.forecaster(init_s, forcing_s, target_s)
+            if pred_std is None:
+                pred_std = self.per_var_std
+            time_step_loss = self.loss_fn(
+                prediction, target_s, pred_std, mask=self._interior_mask,
+                average_grid=True, sum_vars=True,
+            )  # (B, pred_steps), per sample so padded rows can be dropped
+            out = {"loss": time_step_loss.mean(dim=-1)}
+            for s in steps_to_log:
+                out[f"loss_unroll{s}"] = time_step_loss[:, s - 1]
+            # standardized per-(step, var) tables for the watch promotion;
+            # mse and mae replace the std by ones themselves
+            for key in tables:
+                out[f"{key}_table"] = get_metric(key)(
                     prediction, target_s, pred_std, mask=self._interior_mask,
-                    average_grid=True, sum_vars=True,
-                )  # (B, pred_steps), per sample so padded rows can be dropped
-                out = {"loss": time_step_loss.mean(dim=-1)}
-                for s in steps_to_log:
-                    out[f"loss_unroll{s}"] = time_step_loss[:, s - 1]
-                # standardized per-(step, var) tables for the watch promotion;
-                # mse and mae replace the std by ones themselves
-                for key in tables:
-                    out[f"{key}_table"] = get_metric(key)(
-                        prediction, target_s, pred_std, mask=self._interior_mask,
-                        average_grid=True, sum_vars=False,
-                    )  # (B, T, d)
-                return out
+                    average_grid=True, sum_vars=False,
+                )  # (B, T, d)
+            return out
 
-        return eval_step
+        return CapturedFunction(eval_step, self.forecaster, self.device)
 
     def _watched_tables(self) -> tuple[str, ...]:
         """The per-(step, var) metric tables the eval step computes for
@@ -614,10 +622,10 @@ class Trainer:
         count = 0
         for batch in loader:
             pred_steps = int(np.asarray(batch[1]).shape[1])
-            if pred_steps not in self._eval_steps:
-                self._eval_steps[pred_steps] = self.make_eval_step(pred_steps)
+            if pred_steps not in self.eval_steps:
+                self.eval_steps[pred_steps] = self.make_eval_step(pred_steps)
             device_batch, real = self.device_put_batch(batch)
-            out = self._eval_steps[pred_steps](*device_batch)
+            out = self.eval_steps[pred_steps](*device_batch)
             for k, v in out.items():
                 rows = v[:real].cpu().numpy()
                 sums[k] = sums.get(k, 0.0) + rows.sum(axis=0)

@@ -1306,3 +1306,277 @@ def test_restore_opt_recaptures_and_matches_the_eager_step(cuda, tmp_path, monke
     assert not any(later.values())
     assert got == want
     assert _assert_same_training(captured, eager, got, want)
+
+
+# -- inference as CUDA graphs ------------------------------------------------------
+#
+# The forecast (``predict.make_forecast``), the eval step
+# (``Trainer.make_eval_step``) and the test evaluation's batch
+# (``evaluation.make_eval_batch``) are ``CapturedFunction``s: one CUDA
+# graph per input shape and route. Each is held to the same code run
+# eagerly on the card (``CapturedFunction.__call__`` patched to call the
+# function), on the same weights and inputs: every output within 1e-6 of
+# its largest entry; the same kernels run on the same values, so the same
+# bits are expected, and their count is printed.
+
+INFERENCE_RTOL = 1e-6
+
+
+def _eager_inference(m) -> None:
+    """``CapturedFunction`` calls its function eagerly under ``m`` (a
+    ``monkeypatch`` context), as it does on the CPU."""
+    from neural_lam_tpu_torch.utils.cuda_graph import CapturedFunction
+
+    def call(self, *inputs):
+        with torch.no_grad():
+            return self.fn(*inputs)
+
+    m.setattr(CapturedFunction, "__call__", call)
+
+
+def _same(pairs, label) -> tuple[int, int]:
+    """Each ``(got, want)`` array pair within ``INFERENCE_RTOL`` of the
+    largest entry of ``want``; returns (equal entries, entries)."""
+    same = total = 0
+    for got, want in pairs:
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.shape == want.shape, label
+        scale = max(np.abs(want).max(), 1e-30)
+        assert np.abs(got - want).max() <= INFERENCE_RTOL * scale, label
+        same += int((got == want).sum())
+        total += want.size
+    print(f"{label}: captured against eager, {same} of {total} entries the same bits")
+    return same, total
+
+
+def _recording(monkeypatch, module, name) -> list:
+    """Patch ``module.name``, a maker of ``CapturedFunction``s, to keep
+    what it makes in the returned list."""
+    made = []
+    maker = getattr(module, name)
+
+    def record(*args, **kwargs):
+        made.append(maker(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(module, name, record)
+    return made
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TRAIN_MODELS))
+def test_captured_forecast_matches_the_eager_forecast(cuda, tmp_path, monkeypatch, name):
+    """``run_forecasts`` over the test split (7 samples at 3 AR steps in
+    batches of 2: the tail batch of 1 is padded to 2 and replays the same
+    graph), captured against eager: the same files. The first batch's
+    call warms up and captures, the others only replay."""
+    from neural_lam_tpu_torch import predict
+
+    make_trainer, _ = _train_setup(tmp_path, cuda, name, monkeypatch)
+    trainer = make_trainer()
+    fc, ds = trainer.forecaster, trainer.datastore
+    made = _recording(monkeypatch, predict, "make_forecast")
+    kw = dict(split="test", ar_steps=3, batch_size=2, device=cuda)
+    ticks = _ticks(lambda: predict.run_forecasts(fc, ds, out_dir=tmp_path / "captured", **kw))
+    with monkeypatch.context() as m:
+        _eager_inference(m)
+        eager = _ticks(lambda: predict.run_forecasts(fc, ds, out_dir=tmp_path / "eager", **kw))
+    files = sorted(p.name for p in (tmp_path / "eager").glob("forecast_test_*.npz"))
+    assert len(files) == 7
+    assert sorted(p.name for p in (tmp_path / "captured").glob("*.npz")) == files
+    _same([(np.load(tmp_path / "captured" / f)["prediction"],
+            np.load(tmp_path / "eager" / f)["prediction"]) for f in files], f"{name} forecast")
+    (entry,) = made[0].graphs.values()
+    assert entry.replays == 4 and entry.inputs[0].shape[0] == 2
+    # the warm-up call and the capture launch what 2 of the 4 eager batches do
+    assert all(2 * ticks[k] == v for k, v in eager.items()) and any(ticks.values())
+
+
+@pytest.mark.cuda
+def test_captured_evaluate_matches_the_eager_evaluate(cuda, tmp_path, monkeypatch):
+    """``Trainer.evaluate`` over the validation split at 3 AR steps (7
+    samples in batches of 2, the tail padded), with a watched metric,
+    captured against eager: the same records, from one graph."""
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.loader import DataLoader
+
+    make_trainer, _ = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    ds = trainer.datastore
+    trainer.args.metrics_watch = ("val_rmse", "val_mae")
+    trainer.args.var_leads_metrics_watch = {ds.get_vars_names("state")[0]: [1, 3]}
+    loader = DataLoader(WeatherDataset(ds, "val", ar_steps=3), 2)
+    got = trainer.evaluate(loader)
+    with monkeypatch.context() as m:
+        _eager_inference(m)
+        want = trainer.evaluate(loader)
+    assert sorted(got) == sorted(want) and len(got) > 4
+    _same([(got[k], want[k]) for k in want], "evaluate")
+    (entry,) = trainer.eval_steps[3].graphs.values()
+    assert entry.replays == len(loader) == 4
+
+
+@pytest.mark.cuda
+def test_captured_test_evaluation_matches_the_eager_one(cuda, tmp_path, monkeypatch):
+    """``run_test_evaluation`` at 3 AR steps, captured against eager: the
+    same metrics and spatial loss map; and one batch's every output (loss,
+    the three tables, the spatial loss, the prediction) from
+    ``make_eval_batch``, whose clones a later replay leaves alone."""
+    from neural_lam_tpu_torch import evaluation
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.loader import DataLoader
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    ds = trainer.datastore
+    loader = DataLoader(WeatherDataset(ds, "test", ar_steps=3), 2)
+    made = _recording(monkeypatch, evaluation, "make_eval_batch")
+    kw = dict(n_example_pred=0, metrics_watch=["test_rmse"],
+              var_leads_metrics_watch={ds.get_vars_names("state")[0]: [1, 3]})
+    got = evaluation.run_test_evaluation(trainer, loader, ds, tmp_path / "captured", **kw)
+    with monkeypatch.context() as m:
+        _eager_inference(m)
+        want = evaluation.run_test_evaluation(trainer, loader, ds, tmp_path / "eager", **kw)
+    assert sorted(got) == sorted(want)
+    _same([(got[k], want[k]) for k in want]
+          + [tuple(np.load(tmp_path / d / "mean_spatial_loss.npy") for d in ("captured", "eager"))],
+          "run_test_evaluation")
+    (entry,) = made[0].graphs.values()
+    assert entry.replays == len(loader)
+
+    eval_batch = evaluation.make_eval_batch(trainer)
+    data = [torch.from_numpy(a).to(cuda) for a in batches(2, steps=3)[0]]
+    other = [torch.from_numpy(a).to(cuda) for a in batches(1, steps=3, seed=9)[0]]
+    first = eval_batch(*data)
+    kept = [t.clone() for t in (*first[0], first[1])]
+    eval_batch(*other)  # a later replay
+    with torch.no_grad():
+        want = eval_batch.fn(*data)
+    _same([(a.cpu(), b.cpu()) for a, b in zip((*first[0], first[1]), (*want[0], want[1]))],
+          "eval_batch")
+    assert all(torch.equal(a, b) for a, b in zip(kept, (*first[0], first[1])))
+
+
+@pytest.mark.cuda
+def test_inference_graphs_key_on_shape_and_route(cuda, tmp_path, monkeypatch):
+    """The forecast captures a graph per batch size and a third on the v2
+    route; going back replays the earlier ones and calls no wrapper."""
+    from neural_lam_tpu_torch.predict import make_forecast
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    forecast = make_forecast(trainer.forecaster, trainer.datastore, cuda)
+    b2, b3 = ([torch.from_numpy(a).to(cuda) for a in batches(1, batch=b, steps=2)[0]]
+              for b in (2, 3))
+    forecast(*b2)
+    forecast(*b3)
+    assert len(forecast.graphs) == 2
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "on")
+    ticks = _ticks(lambda: forecast(*b2))
+    assert len(forecast.graphs) == 3
+    # the warm-up call and the capture: 2 AR steps of g2m, 2 m2m, m2g
+    assert ticks["K7 fused_edge_phase_v2"] == 2 * 2 * 4 and ticks["K3 fused_edge_phase"] == 0
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "off")
+    ticks = _ticks(lambda: (forecast(*b2), forecast(*b3)))
+    assert len(forecast.graphs) == 3 and not any(ticks.values())
+    assert sorted(e.replays for e in forecast.graphs.values()) == [1, 2, 2]
+
+
+@pytest.mark.cuda
+def test_inference_recaptures_after_a_replaced_parameter(cuda, tmp_path, monkeypatch):
+    """What ``--load <run> --restore_opt`` does to a trainer whose eval
+    step was captured: the restore copies the parameters in place, so the
+    graph stays and replays the restored weights; a parameter replaced by
+    a new tensor drops the graph, and the next call captures again. Each
+    result equals the eager eval step's on the same weights."""
+    from neural_lam_tpu_torch.checkpoint import CheckpointManager
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    source, trainer = make_trainer(), make_trainer()
+    for b in batches(2):
+        source.train_step(*b)
+    ckpt = CheckpointManager(tmp_path / "run")
+    ckpt.save("latest", source.forecaster.predictor, source.optimizer, step=1)
+    data = [torch.from_numpy(a).to(cuda) for a in batches(1, steps=3, seed=11)[0]]
+    step = trainer.make_eval_step(3)
+
+    def check(label):
+        """The captured call against the eager one; returns the
+        captured call's outputs and its wrappers' ticks."""
+        got = []
+        ticks = _ticks(lambda: got.append(step(*data)))
+        with torch.no_grad():
+            want = step.fn(*data)
+        _same([(got[0][k].cpu(), want[k].cpu()) for k in want], label)
+        return got[0], ticks
+
+    before, _ = check("eval step")
+    first = next(iter(step.graphs.values())).graph
+    ckpt.restore("latest", trainer.forecaster.predictor, trainer.optimizer)
+    after, ticks = check("eval step after the restore")
+    assert next(iter(step.graphs.values())).graph is first and not any(ticks.values())
+    assert not torch.equal(after["loss"], before["loss"])
+    param = next(trainer.forecaster.parameters())
+    with torch.no_grad():
+        param.data = param.data.clone()  # a new tensor: a new address
+    _, ticks = check("eval step after a replaced parameter")
+    (entry,) = step.graphs.values()
+    assert entry.graph is not first and ticks["K3 fused_edge_phase"] == 2 * 3 * 4
+
+
+INFERENCE_CAPTURE_FAILS = """
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from neural_lam_tpu_torch.datastore.dummy import DummyDatastore
+from neural_lam_tpu_torch.graphs import create_graph_from_datastore
+from neural_lam_tpu_torch.models import ARForecaster, GraphLAM
+from neural_lam_tpu_torch.predict import make_forecast
+
+root = Path(sys.argv[1])
+ds = DummyDatastore(root_path=root, n_grid_x=9, n_grid_y=9, n_timesteps=12)
+create_graph_from_datastore(ds, root / "graph" / "multiscale")
+fc = ARForecaster(GraphLAM(ds, hidden_dim=64, processor_layers=1, device="cuda"), ds)
+forward = fc.forward
+
+
+def host_read(*args):
+    out = forward(*args)
+    out[0].sum().item()  # waits for the device: not allowed inside a capture
+    return out
+
+
+fc.forward = host_read
+forecast = make_forecast(fc, ds, "cuda")
+rng = np.random.default_rng(0)
+n, d = ds.num_grid_points, ds.get_num_data_vars("state")
+f = 3 * ds.get_num_data_vars("forcing")
+batch = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+         for s in ((2, 2, n, d), (2, 1, n, d), (2, 1, n, f))]
+try:
+    forecast(*batch)
+except RuntimeError as err:
+    assert not forecast.graphs, "a failed capture left a graph"
+    print("capture raised:", str(err).splitlines()[0])
+    sys.exit(0)
+print("the forecast ran without its graph")
+sys.exit(1)
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_inference_capture_raises(cuda, tmp_path):
+    """A forecast that cannot be captured (a host read inside it) raises
+    on CUDA: there is no eager fallback. In a process of its own, so that
+    the failed capture leaves nothing behind."""
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, "-c", INFERENCE_CAPTURE_FAILS, str(tmp_path)], cwd=repo,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(repo)},
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "capture raised" in out.stdout
