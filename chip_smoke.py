@@ -11,7 +11,8 @@ and K8 (their SIMT design and C interface): its ``fused_edge.cu``,
 are built too and timed on the same inputs in the same call, beside the
 current K3, K4, K7 and K8.
 
-It builds the port's eight CUDA kernels from ``neural_lam_tpu_torch/csrc``
+It builds the port's eight CUDA kernel sources (with the bf16 variants of
+K1-K4) from ``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
 configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
 layers, batch 4, float32) for three model families and the three routes
@@ -83,7 +84,24 @@ backward), against the same fixtures at the same limits.
    graph's kernel nodes give one replay's, by kernel name. Then the
    training gate once more through the captured step, on both routes.
 
-Then GraphLAM's
+After GraphLAM's route lines (below), the reduced-precision path (the
+``bf16`` lines): the bf16 variants
+of K1-K4 at the six GraphLAM sites in each instantiation (bf16 rows; bf16
+operands on bf16 streams, with bf16 and ``high``'s float32 outputs, and
+on float32 streams) against their plain versions, within ``BF16_TOL`` of
+each output's largest entry, K1 bit for bit, each beside the float32
+kernel's time in the same call, its bound at the dense bf16 rate and, for
+K1 and K2, ``index_select`` and ``index_add_``; GraphLAM trained under
+``TrainingArgs(precision="bf16")`` from the training gate's weights on its
+batch (the first loss and every gradient against the exact-f32 fixture,
+12 eager and 12 captured steps with the same bits, float32 master
+parameters and AdamW state, grid-points/s, device busy and peak memory
+beside the float32 captured step's); 2 steps each of
+``GraphLAM(hidden_layers=2)``, HiLAM and ``NEURAL_LAM_TPU_BF16_KERNELS=off``
+and 1 each under ``NEURAL_LAM_TPU_MATMUL_PRECISION=high`` and
+``high-kernels``; and ``scripts/accuracy_probe.py``'s bf16 check, the
+19-step rollout with bf16 compute copies of the gate's weights against
+``rollout19_f32.npz``. Then GraphLAM's
 served AR step and training step on both routes, each as its kernels'
 device time beside the host's time to enqueue it; and the shapes the
 fused kernels do not take (``GraphLAM(hidden_dim=32)`` serving and
@@ -130,9 +148,9 @@ two AR steps, so that K5 and K6 also run on the level sets in a model;
 then the report: a ``{"kernels": [...]}`` line and the
 ``{"ok": true, "device": ...}`` line.
 
-Parity is float32: TF32 is off for PyTorch's matmuls and for cuDNN, and
-K3, K4, K7 and K8 run their products on the tensor cores with the 3xTF32
-split, at float32 accuracy. The
+Parity is float32 outside the ``bf16`` lines: TF32 is off for PyTorch's
+matmuls and for cuDNN, and K3, K4, K7 and K8 run their products on the
+tensor cores with the 3xTF32 split, at float32 accuracy. The
 script needs one CUDA device and exits non-zero without one, and outside
 a checkout of the repository. Generated data, the graphs and the
 forecasts go under ``.smoke_cache/`` in the checkout.
@@ -153,6 +171,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -182,6 +201,9 @@ SERVE_TIMESTEPS = AR_STEPS + 2 + SERVE_BATCHES * BATCH
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+# dense bf16 on the tensor cores: the operations bound of the bf16
+# variants of K3 and K4 (whose products take bf16 operands)
+BF16_FLOP_PER_S = 989e12
 
 # Tolerances against the plain versions on the same card, float32 on both
 # sides (3xTF32 in K3, K4, K7 and K8 rounds like another summation order).
@@ -213,17 +235,29 @@ GRAPH_LOSS_RTOL = 1e-6
 # launch of its wrapper. A graph's replays do not call the wrappers, so a
 # graph's kernel nodes, whose names are mangled
 # ("...16gather_rows_vec4EPK6float4..."), count their launches by these.
+# The variants of K1-K4 are template instantiations of one entry point,
+# told apart by their mangled template arguments: the element type of K1
+# (f, 13__nv_bfloat16), K2's input word (Bf16x4, __nv_bfloat16 for bf16
+# rows) and K3's and K4's bf16-operand flag (Lb0E, Lb1E) and stream type.
+BF16_T = "13__nv_bfloat16"
+END = "(?![a-z0-9_])"  # the name ends here
 KERNEL_SYMBOLS = {
-    name: re.compile(rf"(?<![A-Za-z_])(?:{ids})(?![a-z0-9_])")
-    for name, ids in (
-        ("K1 sender_gather", "gather_rows_vec4|gather_rows_scalar"),
-        ("K3 fused_edge_phase", "fused_edge_fwd"),
-        ("K2 sender_scatter", "scatter_rows"),
-        ("K4 fused_edge_phase backward", "fused_edge_bwd_main"),
-        ("K5 segment_sum", "segment_sum_rows"),
-        ("K6 receiver_expand", "expand_rows"),
-        ("K7 fused_edge_phase_v2", "fused_edge_v2_fwd"),
-        ("K8 fused_edge_phase_v2 backward", "fused_edge_v2_bwd_main"),
+    name: re.compile(rf"(?<![A-Za-z_]){pattern}")
+    for name, pattern in (
+        ("K1 sender_gather", "gather_rows_(?:vec4|scalar)IfE"),
+        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0E"),
+        ("K2 sender_scatter", r"scatter_rowsI(?!\w*(?:Bf16x4|__nv_bfloat16))"),
+        ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILb\dELb0E"),
+        ("K5 segment_sum", f"segment_sum_rows{END}"),
+        ("K6 receiver_expand", f"expand_rows{END}"),
+        ("K7 fused_edge_phase_v2", f"fused_edge_v2_fwd{END}"),
+        ("K8 fused_edge_phase_v2 backward", f"fused_edge_v2_bwd_main{END}"),
+        ("K1 sender_gather bf16", f"gather_rows_(?:vec4|scalar)I{BF16_T}E"),
+        ("K2 sender_scatter bf16", r"scatter_rowsI\w*(?:Bf16x4|__nv_bfloat16)"),
+        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1E{BF16_T}E"),
+        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1EfE"),
+        ("K4 fused_edge_phase backward bf16", rf"fused_edge_bwd_mainILb\dELb1E{BF16_T}E"),
+        ("K4 fused_edge_phase backward bf16 operands", r"fused_edge_bwd_mainILb\dELb1EfE"),
     )
 }
 # fit's store: 32 training samples at ar_steps 1 (len = n_timesteps - 3)
@@ -275,24 +309,50 @@ GATE_STATE_MEAN_REL, GATE_STATE_MAX_REL = 1e-4, 1e-3
 GATE_MEAN_REL, GATE_MAX_REL = 0.025, 0.25
 GATE_FAULT_MEAN_REL = 1e-3
 
+# The bf16 variants of K1-K4 against their plain versions at the same
+# dtypes: both multiply the same bf16 operands exactly and sum in float32
+# in other orders, and a bf16 output rounds two nearly equal values, which
+# can land one bf16 ulp (2^-8) apart. Every output and gradient within
+# BF16_TOL of its largest entry (about two bf16 ulps), its mean error
+# within BF16_MEAN_TOL of it; K1 is a copy, bit for bit.
+BF16_TOL, BF16_MEAN_TOL = 8e-3, 1e-3
+# Mixed-precision training against the exact-f32 JAX fixture: the first
+# loss within 2e-2 relative, every gradient within 5e-2 of its largest
+# entry (the JAX package's bf16 bound, tests/test_pallas_fused.py:287)
+BF16_LOSS_RTOL, BF16_GRAD_TOL = 2e-2, 5e-2
+# scripts/accuracy_probe.py's thresholds for the bf16 rollout (:38-40)
+BF16_ROLLOUT_MEAN_REL, BF16_ROLLOUT_MAX_REL = 0.02, 0.8
+# the variables of the reduced precisions, set around whole phases
+MATMUL_PRECISION = "NEURAL_LAM_TPU_MATMUL_PRECISION"
+BF16_KERNELS = "NEURAL_LAM_TPU_BF16_KERNELS"
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 @contextlib.contextmanager
-def fused_v2(mode: str):
-    """``NEURAL_LAM_TPU_FUSED_V2=mode`` for a whole phase, restored after:
-    the route is read at every call, so a phase never changes it midway."""
-    old = os.environ.get(FUSED_V2)
-    os.environ[FUSED_V2] = mode
+def env_set(name: str, value: Optional[str]):
+    """``name=value`` (unset for None) for a whole phase, restored after:
+    the route and the precision are read at every call, so a phase never
+    changes them midway."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop(FUSED_V2)
+            os.environ.pop(name, None)
         else:
-            os.environ[FUSED_V2] = old
+            os.environ[name] = old
+
+
+def fused_v2(mode: str):
+    """``NEURAL_LAM_TPU_FUSED_V2=mode`` for a whole phase."""
+    return env_set(FUSED_V2, mode)
 
 
 def on_v2() -> bool:
@@ -2378,9 +2438,10 @@ def bench_batch(ds, batch: int = BATCH):
     )
 
 
-def make_trainer(model, ds, reload: bool = True):
+def make_trainer(model, ds, reload: bool = True, precision: str = "32"):
     """The ``bench.build_trainer`` trainer around ``model`` with a new
-    optimizer; ``reload`` loads the GraphLAM fixture's parameters afresh."""
+    optimizer; ``reload`` loads the GraphLAM fixture's parameters afresh;
+    ``precision="bf16"`` trains on bf16 copies of them."""
     from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
     from neural_lam_tpu_torch.convert_checkpoint import (
         load_jax_params_npz,
@@ -2399,7 +2460,8 @@ def make_trainer(model, ds, reload: bool = True):
     config = NeuralLAMConfig(
         datastore=DatastoreSelection(kind="dummydata", config_path="")
     )
-    args = TrainingArgs(batch_size=BATCH, ar_steps_train=1, lr=TRAIN_LR)
+    args = TrainingArgs(batch_size=BATCH, ar_steps_train=1, lr=TRAIN_LR,
+                        precision=precision)
     return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device)
 
 
@@ -3394,6 +3456,549 @@ def phase_unfused_shapes(torch, ds) -> None:
     torch.cuda.empty_cache()
 
 
+# -- the reduced-precision path: bf16 variants of K1-K4, bf16 training ----------
+
+
+def bf16_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time in ms for ``nbytes`` moved and ``flops`` done as bf16
+    products on the tensor cores (the dense bf16 rate), and which of the
+    two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_check(got, want, what: str) -> float:
+    """``got`` against ``want`` (same dtype): the max error within
+    ``BF16_TOL`` of the largest entry and the mean within
+    ``BF16_MEAN_TOL`` of it; returns the max abs error."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    err = (got.float() - want.float()).abs()
+    scale = max(want.float().abs().max().item(), 1e-30)
+    worst, mean = err.max().item(), err.mean().item()
+    if not (worst <= BF16_TOL * scale and mean <= BF16_MEAN_TOL * scale):
+        raise AssertionError(
+            f"{what}: max err {worst / scale:.3e} (tol {BF16_TOL}), mean "
+            f"{mean / scale:.3e} (tol {BF16_MEAN_TOL}) of the largest entry"
+        )
+    return worst
+
+
+def bf16_entry(name: str, source: str, replaces: str, acc: dict, library) -> dict:
+    return dict(
+        name=name, route="cuda", source=f"neural_lam_tpu_torch/csrc/{source}",
+        replaces=replaces, launches=0, max_abs_err=acc["err"], ms=acc["ms"],
+        plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+        bound_by="operations" if acc["ops_ms"] > acc["bytes_ms"] else "bytes",
+        library_ms=library,
+    )
+
+
+def phase_bf16_kernels(torch, model) -> list[dict]:
+    """The bf16 variants of K1-K4 against their plain versions at the
+    shapes of the six GraphLAM calls at batch 4, in each instantiation:
+    K1 and K2 on bf16 rows; K3 and K4 with bf16 operands on bf16 streams
+    (mixed precision, bf16 out; also ``high``'s float32 out, checked) and
+    on float32 streams (``high-kernels``). Each beside the float32
+    kernel's time on the same shapes in the same call, its plain version's
+    and, for K1 and K2, ``index_select`` and ``index_add_``; times summed
+    over the calls of one AR step (K1, K3) or one training step (K2, K4)."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+    from neural_lam_tpu_torch.ops.segment_kernels import (
+        sender_gather,
+        sender_gather_plain,
+        sender_scatter,
+        sender_scatter_plain,
+    )
+
+    bf16 = torch.bfloat16
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def acc():
+        return dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    ops_ms=0.0, bytes_ms=0.0, err=0.0)
+
+    def add(a, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, lib_ms=0.0):
+        a["ms"] += calls * ms
+        a["f32_ms"] += calls * f32_ms
+        a["plain_ms"] += calls * plain_ms
+        a["library_ms"] += calls * lib_ms
+        a["bound_ms"] += calls * b_ms
+        a["ops_ms" if b_by == "operations" else "bytes_ms"] += calls * b_ms
+        a["err"] = max(a["err"], err)
+
+    n_grid, n_mesh = g.num_grid_nodes, g.num_mesh_nodes
+    m2m = g.m2m[0]
+    proc = list(model.processor.values())
+    sites = [("g2m", g.g2m, n_grid, 1), ("m2m", m2m, n_mesh, PROC_LAYERS),
+             ("m2g", g.m2g, n_mesh, 1)]
+
+    k1 = acc()
+    for site, ge, n_send, calls in sites:
+        x32 = randn(n_send, b, d)
+        x = x32.to(bf16)
+        idx = ge.edges.senders
+        got = sender_gather(x, idx)
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or not torch.equal(got, sender_gather_plain(x, idx)):
+            raise AssertionError(f"K1 bf16 {site}: not the plain version's bits")
+        ms = cuda_ms(lambda: sender_gather(x, idx))
+        f32_ms = cuda_ms(lambda: sender_gather(x32, idx))
+        plain_ms = cuda_ms(lambda: sender_gather_plain(x, idx))
+        lib_ms = cuda_ms(lambda: torch.index_select(x, 0, idx.long()))
+        b_ms, b_by = bf16_bound(nbytes(x, idx, got), 0.0)
+        log(f"K1 sender_gather bf16 {site}: x {tuple(x.shape)} bf16, the plain version's "
+            f"bits; kernel {ms:.4f} ms (float32 kernel {f32_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); {calls} call(s) per AR step")
+        add(k1, calls, ms, f32_ms, plain_ms, b_ms, b_by, 0.0, lib_ms)
+        del x, x32, got
+
+    k2 = acc()
+    for site, ge, n_send, calls in sites:
+        es = ge.edges
+        g32 = randn(es.num_edges, b, d)
+        grad = g32.to(bf16)
+        got = sender_scatter(grad, es, n_send)
+        want = sender_scatter_plain(grad, es.senders, n_send)
+        torch.cuda.synchronize()
+        err = bf16_check(got, want, f"K2 bf16 {site}")
+        if not torch.equal(got, sender_scatter(grad, es, n_send)):
+            raise AssertionError(f"K2 bf16 {site}: two runs differ")
+        idx_long = es.senders.long()
+        ms = cuda_ms(lambda: sender_scatter(grad, es, n_send))
+        f32_ms = cuda_ms(lambda: sender_scatter(g32, es, n_send))
+        plain_ms = cuda_ms(lambda: sender_scatter_plain(grad, es.senders, n_send))
+        # index_add_ takes one dtype: the widening copy is part of the call
+        lib_ms = cuda_ms(lambda: torch.zeros_like(got).index_add_(0, idx_long, grad.float()))
+        b_ms, b_by = bf16_bound(nbytes(grad, es.send_perm, es.send_rowptr, got), grad.numel())
+        log(f"K2 sender_scatter bf16 {site}: g {tuple(grad.shape)} bf16 -> float32 sums, "
+            f"max abs err {err:.3g} (tol {BF16_TOL} of the largest sum), repeatable; "
+            f"kernel {ms:.4f} ms (float32 kernel {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"index_add_ into float32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"{calls} call(s) per training step")
+        add(k2, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, lib_ms)
+        del grad, g32, got, want
+
+    k3_sites = [
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, 1, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, 1, n_mesh),
+        ("m2m layers 1-3", proc[1], m2m, None, "batched", True, PROC_LAYERS - 1, n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, 1, n_grid),
+    ]
+    n_mid = PROC_LAYERS - 2
+    k4_sites = [
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, False, 1, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, True, 1, n_mesh),
+        (f"m2m layers 1-{n_mid}", proc[1], m2m, None, "batched", True, True, n_mid, n_mesh),
+        (f"m2m layer {PROC_LAYERS - 1}", proc[-1], m2m, None, "batched", True, False, 1,
+         n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False, 1, n_grid),
+    ]
+
+    def k3_flops(mode, n_e, n_rec, feat):
+        rows = n_e * b
+        flops = 2 * n_rec * b * d * d + 2 * rows * d * d * 2 + rows * d
+        if mode == "raw":
+            return flops + n_e * (2 * feat * d + 4 * d * d)
+        return flops + 2 * rows * d * d
+
+    def k4_flops(mode, n_e, n_rec, feat):
+        rows = n_e * b
+        flops = 2 * rows * d * d * 5 + 2 * n_rec * b * d * d * 2 + rows * d
+        if mode == "raw":
+            return flops + n_e * (2 * d * d * 5 + 2 * feat * d * 2)
+        return flops + 2 * rows * d * d * 2
+
+    report = []
+    # (instantiation, stream dtype, weights as bf16 copies)
+    for label, io, copies in (("bf16", bf16, True), ("bf16 operands", torch.float32, False)):
+        k3, k4 = acc(), acc()
+        for site, net, ge, emb, mode, update, calls, n_rec in k3_sites:
+            es, raw = ge.edges, mode == "raw"
+            n_e = es.num_edges
+            wts = [None if w is None else (w.to(bf16).float() if copies else w.float())
+                   for w in fk._weights(net.edge_mlp, emb)]
+            x_send, rec = randn(n_e, b, d, dtype=io), randn(n_rec, b, d, dtype=io)
+            edge_in = ge.features.to(io) if raw else randn(n_e, b, d, dtype=io)
+
+            def run(out=io, pre=False):
+                return fk.fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, False,
+                                         save_pre=pre, bf16_ops=True, out_dtype=out)
+
+            def plain():
+                return fk._plain(edge_in.float(), x_send.float(), rec.float(), es.receivers,
+                                 wts, raw, update, False, bf16_ops=True)
+
+            outs = [io] if io == torch.float32 else [bf16, torch.float32]  # mixed, high
+            err = 0.0
+            for out in outs:
+                got, want = run(out)[:2], plain()
+                torch.cuda.synchronize()
+                err = max(err, bf16_check(got[0], want[0].to(out), f"K3 {label} {site} aggr"))
+                if update:
+                    err = max(err, bf16_check(got[1], want[1].to(out),
+                                              f"K3 {label} {site} new_edge"))
+            x32, r32 = x_send.float(), rec.float()
+            e32 = edge_in.float()
+            ms = cuda_ms(run)
+            pre_ms = cuda_ms(lambda: run(pre=True))
+            f32_ms = cuda_ms(lambda: fk.fused_edge_fwd(e32, x32, r32, es, wts, raw, update,
+                                                       False))
+            plain_ms = cuda_ms(plain)
+            got = run()
+            moved = nbytes(x_send, rec, edge_in, es.rowptr, *[w for w in wts if w is not None],
+                           got[0], got[1])
+            b_ms, b_by = bf16_bound(moved, k3_flops(mode, n_e, n_rec, edge_in.shape[-1]))
+            log(f"K3 fused_edge_phase {label} {site}: E {n_e}, receivers {n_rec}, edge input "
+                f"{mode}, streams {str(io)[6:]}, update_edges {update}; max abs err "
+                f"{err:.3g} (tol {BF16_TOL} of the largest entry{', bf16 and float32 out' if len(outs) == 2 else ''}); "
+                f"kernel {ms:.4f} ms, with the pre output {pre_ms:.4f} ms (float32 kernel "
+                f"{f32_ms:.4f} ms); plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                f"{moved / 1e6:.1f} MB, bf16 tensor cores; {100 * b_ms / ms:.1f} % of it); "
+                f"{calls} call(s) per AR step")
+            add(k3, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+            del x_send, rec, edge_in, got, want, x32, r32, e32
+
+        for site, net, ge, emb, mode, update, has_dne, calls, n_rec in k4_sites:
+            es, raw = ge.edges, mode == "raw"
+            n_e = es.num_edges
+            wts = [None if w is None else (w.to(bf16).float() if copies else w.float())
+                   for w in fk._weights(net.edge_mlp, emb)]
+            x_send, rec = randn(n_e, b, d, dtype=io), randn(n_rec, b, d, dtype=io)
+            edge_in = ge.features.to(io) if raw else randn(n_e, b, d, dtype=io)
+            d_aggr = randn(n_rec, b, d, dtype=io)
+            d_new = randn(n_e, b, d, dtype=io) if has_dne else None
+            _, _, pre = fk.fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, False,
+                                          save_pre=True, bf16_ops=True)
+
+            def run_k4():
+                return fk.fused_edge_bwd(d_aggr, d_new, pre, edge_in, x_send, rec, es, wts,
+                                         raw, False, bf16_ops=True)
+
+            d_edge, d_send, d_rec, w_grads = run_k4()
+            leaves = [t.float().requires_grad_(True) for t in
+                      ([x_send, rec] + ([] if raw else [edge_in]))]
+            params = [w.detach().requires_grad_(True) for w in wts if w is not None]
+            p_iter = iter(params)
+            p_wts = [None if w is None else next(p_iter) for w in wts]
+            with torch.enable_grad():
+                aggr_p, new_p = fk._plain(
+                    edge_in.float() if raw else leaves[2], leaves[0], leaves[1],
+                    es.receivers, p_wts, raw, update, False, bf16_ops=True,
+                )
+                outs, seeds = [aggr_p], [d_aggr.float()]
+                if has_dne:
+                    outs.append(new_p)
+                    seeds.append(d_new.float())
+
+            def run_plain():
+                with torch.enable_grad():
+                    return torch.autograd.grad(outs, leaves + params, seeds, retain_graph=True)
+
+            want = run_plain()
+            torch.cuda.synchronize()
+            # the streams' gradients in their dtype, the rest float32
+            got = [d_send, d_rec] + ([] if raw else [d_edge])
+            got += [w for w in w_grads if w is not None]
+            want = [w.to(o.dtype) for o, w in zip(got, want)]
+            err = max(bf16_check(o, w, f"K4 {label} {site} gradient {i}")
+                      for i, (o, w) in enumerate(zip(got, want)))
+            again = run_k4()
+            if not all(torch.equal(x, y) for x, y in zip(
+                    [d_send, d_rec, *[w for w in w_grads if w is not None]],
+                    [again[1], again[2], *[w for w in again[3] if w is not None]])):
+                raise AssertionError(f"K4 {label} {site}: two runs differ")
+            x32, r32, e32 = x_send.float(), rec.float(), edge_in.float()
+            da32 = d_aggr.float()
+            dn32 = None if d_new is None else d_new.float()
+            ms = cuda_ms(run_k4)
+            f32_ms = cuda_ms(lambda: fk.fused_edge_bwd(da32, dn32, pre, e32, x32, r32, es, wts,
+                                                       raw, False))
+            plain_ms = cuda_ms(run_plain)
+            moved = nbytes(pre, x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
+            b_ms, b_by = bf16_bound(moved, k4_flops(mode, n_e, n_rec, edge_in.shape[-1]))
+            log(f"K4 fused_edge_phase backward {label} {site}: E {n_e}, receivers {n_rec}, "
+                f"edge input {mode}, streams {str(io)[6:]}, d_new_edge "
+                f"{'given' if has_dne else 'none'}; max abs err {err:.3g} (tol {BF16_TOL} of "
+                f"each gradient's largest entry), repeatable; kernel {ms:.4f} ms (float32 "
+                f"kernel {f32_ms:.4f} ms); plain (autograd) {plain_ms:.4f} ms; bound "
+                f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
+                f"it); {calls} call(s) per training step")
+            add(k4, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+            del x_send, rec, edge_in, d_aggr, d_new, pre, outs, want, got, again, leaves
+            del d_edge, d_send, d_rec, w_grads, aggr_p, new_p, params, p_wts
+            torch.cuda.empty_cache()
+        log(f"K3 {label} per AR step {k3['ms']:.4f} ms against the float32 kernel's "
+            f"{k3['f32_ms']:.4f} ms (bound {k3['bound_ms']:.4f}); K4 {label} per training "
+            f"step {k4['ms']:.4f} ms against {k4['f32_ms']:.4f} ms (bound "
+            f"{k4['bound_ms']:.4f})")
+        report.append(bf16_entry(f"K3 fused_edge_phase {label}", "fused_edge.cu",
+                                 "neural_lam_tpu/ops/pallas_fused.py:879", k3, None))
+        report.append(bf16_entry(f"K4 fused_edge_phase backward {label}", "fused_edge_bwd.cu",
+                                 "neural_lam_tpu/ops/pallas_fused.py:1052", k4, None))
+    log(f"K1 bf16 per AR step {k1['ms']:.4f} ms against the float32 kernel's "
+        f"{k1['f32_ms']:.4f} ms; K2 bf16 per training step {k2['ms']:.4f} ms against "
+        f"{k2['f32_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return [
+        bf16_entry("K1 sender_gather bf16", "sender_gather.cu",
+                   "neural_lam_tpu/ops/pallas_segment.py:821", k1, k1["library_ms"]),
+        bf16_entry("K2 sender_scatter bf16", "sender_scatter.cu",
+                   "neural_lam_tpu/ops/pallas_segment.py:766", k2, k2["library_ms"]),
+    ] + report
+
+
+def bf16_graph_lam(torch, ds):
+    """GraphLAM at MEPS width with ``compute_dtype`` bf16 and the gate's
+    parameters (``make_trainer`` loads them)."""
+    from neural_lam_tpu_torch.models import GraphLAM
+
+    return GraphLAM(ds, hidden_dim=HIDDEN, processor_layers=PROC_LAYERS, device=DEVICE,
+                    compute_dtype=torch.bfloat16)
+
+
+def bf16_expected(model) -> dict[str, int]:
+    """Launches per mixed-precision training step: the bf16 variants in
+    place of K1-K4; on the unfused route K5 and K6 in float32 (the JAX
+    package casts around them)."""
+    f32 = expected_launches(model, training=True)
+    out = dict.fromkeys(f32, 0)
+    for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
+                 "K4 fused_edge_phase backward"):
+        out[f"{name} bf16"] = f32[name]
+    for name in ("K5 segment_sum", "K6 receiver_expand"):
+        out[name] = f32[name]
+    return out
+
+
+def timed_steps(torch, step, data) -> dict:
+    """``TRAIN_WARMUP`` then ``TRAIN_ITERS`` calls of ``step`` queued back
+    to back, timed with CUDA events: losses, ms per step, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(*data).item() for _ in range(TRAIN_WARMUP)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_ITERS + 1)]
+    timed = []
+    marks[0].record()
+    for mark in marks[1:]:
+        timed.append(step(*data))
+        mark.record()
+    torch.cuda.synchronize()
+    losses += [loss.item() for loss in timed]
+    return dict(losses=losses, step_ms=marks[0].elapsed_time(marks[-1]) / TRAIN_ITERS,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
+    """Mixed-precision training of GraphLAM at MEPS width, batch 4,
+    ``ar_steps`` 1 (``TrainingArgs(precision="bf16")``, a model built with
+    ``compute_dtype`` bf16), from the float32 training gate's weights on
+    its bench batch: the first loss and every gradient against the exact
+    float32 fixture; 12 eager steps and 12 through the captured step, the
+    same bits; the master parameters and AdamW's state float32; the step's
+    training grid-points/s, device busy time and peak memory beside the
+    float32 captured step's (``model``, in the same call). Then 2 steps of
+    ``GraphLAM(hidden_layers=2)`` (the unfused route), of HiLAM and under
+    ``NEURAL_LAM_TPU_BF16_KERNELS=off``, and 1 step each of the float32
+    model under ``high`` and ``high-kernels``, at full width. Returns each
+    kernel's launches on the device in this phase."""
+    from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
+
+    total: dict[str, int] = {}
+    counters = kernel_counters()
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+
+    def zero():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def ticks():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    bf_model = bf16_graph_lam(torch, ds)
+    with np.load(TRAIN_FIXTURE) as fx:
+        want_loss, grid = float(fx["losses"][0]), fx["grid"]
+        want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
+    trainer = make_trainer(bf_model, ds, precision="bf16")
+    check_gate_fixture(trainer, grid, TRAIN_LR)
+    losses, grads = train_gate_run(torch, trainer, BATCH, 1)
+    rel = abs(losses[0] - want_loss) / abs(want_loss)
+    worst, worst_key = 0.0, ""
+    for key, want in want_grads.items():
+        got = grads[key]
+        if not np.isfinite(got).all():
+            raise AssertionError(f"bf16 train: gradient {key} is not finite")
+        r = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        if r > worst:
+            worst, worst_key = r, key
+    log(f"bf16 train gate: loss {losses[0]:.8g} against the float32 fixture's "
+        f"{want_loss:.8g} (rel {rel:.3e}, tol {BF16_LOSS_RTOL}); {len(want_grads)} "
+        f"gradients, worst {worst:.3e} of its largest entry at {worst_key} (tol "
+        f"{BF16_GRAD_TOL})")
+    if rel > BF16_LOSS_RTOL or worst > BF16_GRAD_TOL:
+        raise AssertionError("bf16 train gate: outside its tolerances")
+    expected = bf16_expected(bf_model)
+
+    # eager, then captured, from the same weights on the same batch
+    trainer = make_trainer(bf_model, ds, precision="bf16")
+    zero()
+    eager = timed_steps(torch, trainer.train_step, data)
+    got = ticks()
+    steps = TRAIN_WARMUP + TRAIN_ITERS
+    for name, per_step in expected.items():
+        if got[name] != per_step * steps:
+            raise AssertionError(f"bf16 train eager: {name} {got[name]} launches, want "
+                                 f"{per_step} x {steps}")
+    add_launches(total, got, "bf16 train eager")
+    trainer = make_trainer(bf_model, ds, precision="bf16")
+    zero()
+    step = trainer.make_train_step()
+    captured = timed_steps(torch, step, data)
+    first = ticks()
+    if len(trainer.graphs) != 1:
+        raise AssertionError(f"bf16 train graph: {len(trainer.graphs)} graphs, want 1")
+    replay = graph_kernels(torch, next(iter(trainer.graphs.values())).graph)
+    launches = {}
+    for name, per_step in expected.items():
+        if first[name] != per_step * (GRAPH_WARMUP_STEPS + 1) or replay[name] != per_step:
+            raise AssertionError(f"bf16 train graph: {name}: {first[name]} counted, "
+                                 f"{replay[name]} in the graph, want {per_step} a step")
+        launches[name] = first[name] - replay[name] + replay[name] * steps
+    add_launches(total, launches, "bf16 train graph")
+    same = captured["losses"] == eager["losses"]
+    log("bf16 train: losses per step (eager) "
+        + ", ".join(f"{x:.6f}" for x in eager["losses"])
+        + f"; captured the same bits: {same}")
+    if not same or not np.isfinite(eager["losses"]).all():
+        raise AssertionError("bf16 train: captured losses differ from eager, or not finite")
+    master = [p.dtype for p in bf_model.parameters()]
+    moments = [t.dtype for s in trainer.optimizer.state.values() for t in s.values()
+               if torch.is_tensor(t)]
+    if set(master) != {torch.float32} or set(moments) != {torch.float32}:
+        raise AssertionError(f"bf16 train: parameters {set(master)}, AdamW state {set(moments)}")
+    busy, kernels = device_kernels(torch, lambda: step(*data))
+    del trainer, step
+    release(torch)
+
+    f32 = make_trainer(model, ds)
+    f32_step = f32.make_train_step()
+    f32_run = timed_steps(torch, f32_step, data)
+    f32_busy, f32_kernels = device_kernels(torch, lambda: f32_step(*data))
+    del f32, f32_step
+    release(torch)
+    gps = {k: BATCH * ds.num_grid_points / (r["step_ms"] / 1e3)
+           for k, r in (("bf16", captured), ("f32", f32_run))}
+    log(f"bf16 train on {card}: captured step {captured['step_ms']:.3f} ms (eager "
+        f"{eager['step_ms']:.3f} ms), device busy {busy:.3f} ms in {kernels} kernels, "
+        f"{gps['bf16']:,.0f} training grid-points/s, peak device memory "
+        f"{captured['peak'] / 2**30:.2f} GiB; float32 captured step (same call) "
+        f"{f32_run['step_ms']:.3f} ms, device busy {f32_busy:.3f} ms in {f32_kernels} "
+        f"kernels, {gps['f32']:,.0f} training grid-points/s, peak "
+        f"{f32_run['peak'] / 2**30:.2f} GiB; bf16 / float32 grid-points/s "
+        f"{gps['bf16'] / gps['f32']:.3f}")
+
+    # the other paths: 2 steps (1 under high, high-kernels), finite losses
+    runs = [
+        ("GraphLAM(hidden_layers=2) bf16",
+         lambda: build_model(torch, "graph_lam_h2", ds, compute_dtype=torch.bfloat16),
+         "bf16", {}, 2),
+        ("HiLAM bf16", lambda: build_model(torch, "hi_lam", ds, compute_dtype=torch.bfloat16),
+         "bf16", {}, 2),
+        (f"GraphLAM bf16, {BF16_KERNELS}=off", lambda: bf_model, "bf16",
+         {BF16_KERNELS: "off"}, 2),
+        (f"GraphLAM, {MATMUL_PRECISION}=high", lambda: model, "32",
+         {MATMUL_PRECISION: "high"}, 1),
+        (f"GraphLAM, {MATMUL_PRECISION}=high-kernels", lambda: model, "32",
+         {MATMUL_PRECISION: "high-kernels"}, 1),
+    ]
+    for label, make, precision, env, n_steps in runs:
+        run_model = make()
+        with contextlib.ExitStack() as stack:
+            for name, value in env.items():
+                stack.enter_context(env_set(name, value))
+            # GraphLAM takes the gate's weights; the others keep their seeded ones
+            fixture = not run_model.hierarchical and run_model.hidden_layers == 1
+            trainer = make_trainer(run_model, ds, reload=fixture, precision=precision)
+            zero()
+            t0 = time.perf_counter()
+            step_losses = [trainer.train_step(*data).item() for _ in range(n_steps)]
+            seconds = time.perf_counter() - t0
+        got = {k: v for k, v in ticks().items() if v}
+        log(f"bf16 train {label}: losses {', '.join(f'{x:.6f}' for x in step_losses)} "
+            f"({seconds:.2f} s); launches {got}")
+        if not np.isfinite(step_losses).all() or not got:
+            raise AssertionError(f"bf16 train {label}: non-finite loss or no launch")
+        add_launches(total, ticks(), f"bf16 train {label}")
+        del trainer, run_model
+        release(torch)
+    del bf_model
+    release(torch)
+    return total
+
+
+def phase_bf16_rollout(torch, ds) -> dict[str, int]:
+    """``scripts/accuracy_probe.py --precision bf16 --check``: the 19-step
+    MEPS rollout of the gate (its inputs, :80-88) with bf16 compute copies
+    of the gate's weights (:90-97), through the captured forecast, against
+    the exact-f32 fixture, per step ``mean_rel`` and ``max_rel`` (:104-117)
+    within the probe's bf16 thresholds, and the full field's mean
+    magnitude within the ``mean_rel`` one. Returns the launches."""
+    from neural_lam_tpu_torch.models import ARForecaster
+    from neural_lam_tpu_torch.utils.cuda_graph import CapturedFunction
+
+    model = bf16_graph_lam(torch, ds)
+    make_trainer(model, ds)  # loads the gate's weights
+    forecaster = ARForecaster(model, ds)
+    copies = {k: p.detach().to(torch.bfloat16) for k, p in model.named_parameters()}
+    fx = np.load(FIXTURES / "rollout19_f32.npz")
+    steps, sub = int(fx["steps"]), int(fx["subsample"])
+    n = ds.num_grid_points
+    rng = np.random.default_rng(0)
+    init = rng.normal(size=(1, 2, n, N_STATE)).astype(np.float32)
+    forcing = rng.normal(size=(1, steps, n, N_FORCING * 3)).astype(np.float32)
+    boundary = rng.normal(size=(1, steps, n, N_STATE)).astype(np.float32)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    captured = CapturedFunction(
+        lambda i, f, b: forecaster(i, f, b, params=copies)[0], forecaster, DEVICE
+    )
+    pred = captured(*(torch.from_numpy(a).to(DEVICE) for a in (init, forcing, boundary)))
+    (entry,) = captured.graphs.values()
+    launches = {k: fn.launches + graph_kernels(torch, entry.graph)[k]
+                for k, fn in counters.items()}
+    pred = pred.cpu().numpy()
+    if pred.shape != (1, steps, n, N_STATE) or not np.isfinite(pred).all():
+        raise AssertionError(f"bf16 rollout: shape {pred.shape} or non-finite")
+    want, got = fx["prediction_sub"], pred[:, :, ::sub, :]
+    scale = np.abs(want).mean()
+    worst_mean = worst_max = 0.0
+    for t in range(steps):
+        diff = np.abs(got[:, t] - want[:, t])
+        mean_rel, max_rel = float(diff.mean() / scale), float(diff.max() / scale)
+        worst_mean, worst_max = max(worst_mean, mean_rel), max(worst_max, max_rel)
+        log(f"bf16 rollout step {t + 1:2d}: mean_rel {mean_rel:.3e} max_rel {max_rel:.3e}")
+    drift = abs(np.abs(pred).mean() - float(fx["abs_mean"])) / float(fx["abs_mean"])
+    log(f"bf16 rollout (captured forecast, bf16 compute copies): worst mean_rel "
+        f"{worst_mean:.3e} (limit {BF16_ROLLOUT_MEAN_REL}), worst max_rel {worst_max:.3e} "
+        f"(limit {BF16_ROLLOUT_MAX_REL}), abs_mean drift {drift:.3e} (limit "
+        f"{BF16_ROLLOUT_MEAN_REL})")
+    if (worst_mean > BF16_ROLLOUT_MEAN_REL or worst_max > BF16_ROLLOUT_MAX_REL
+            or drift > BF16_ROLLOUT_MEAN_REL):
+        raise AssertionError("bf16 rollout: thresholds exceeded")
+    del captured, entry, forecaster, model, copies
+    release(torch)
+    return launches
+
+
 def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
@@ -3549,6 +4154,13 @@ def main() -> int:
         log(f"training gate through the captured step on the v2 route ({FUSED_V2}=on):")
         phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE, captured=True)
     phase_route_steps(torch, model, gate_ds, card)
+    # the reduced-precision path: the bf16 variants of K1-K4 at the MEPS
+    # sites, mixed-precision training, and the bf16 rollout check
+    with torch.no_grad():
+        bf16_report = phase_bf16_kernels(torch, model)
+    add_launches(total, phase_bf16_train(torch, model, gate_ds, card), "bf16 train")
+    add_launches(total, phase_bf16_rollout(torch, gate_ds), "bf16 rollout")
+    report += bf16_report
     del model, forecaster
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)

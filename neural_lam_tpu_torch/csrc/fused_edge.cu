@@ -66,6 +66,20 @@
 // moved), against the tensor cores' 495 TFLOP/s of TF32, which 3xTF32
 // divides by three; the bytes moved bound the smaller sets.
 //
+// Reduced precision (the JAX kernel's cdt = bf16 and io_dt, pallas_fused.py
+// :1414-1453): the instantiations with BF multiply bf16 operands (every
+// product's two operands rounded to bf16, one TF32 pass, float32
+// accumulation; tc_tf32.cuh), with SiLU, LayerNorm, the residuals and the
+// receiver sums in float32. Their streams edge, send and rec are of type TI:
+// bf16 under mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high,
+// float32 under high-kernels. aggr and new_edge are written in float32 or,
+// with out_bf16, rounded to bf16 on the way out; pre stays float32. The TPU
+// kernel's one-hot selection matmuls also round the receiver projection and
+// each message to bf16 before they are gathered and summed; those are
+// Mosaic's way to gather, and here the gather and the sums are exact.
+// Bound: bytes at the stream dtype, or the products at the dense bf16 rate
+// (989 TFLOP/s; one TF32 pass runs at half of it).
+//
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
@@ -98,10 +112,11 @@ constexpr int kWgMat = 2 * tc::kWgHalf;  // a weight for wgmma: its hi and lo ha
 constexpr int kGroups = 3;
 constexpr int kBlockThreads = kGroups * kGroupThreads;
 
+template <typename TI>
 struct Params {
-  const float* edge;
-  const float* send;
-  const float* rec;
+  const TI* edge;
+  const TI* send;
+  const TI* rec;
   const int* rowptr;
   const float* w1;
   const float* b1;
@@ -115,10 +130,11 @@ struct Params {
   const float* eb2;
   const float* eg;
   const float* ebt;
-  float* aggr;
-  float* new_edge;
+  void* aggr;      // float, or bf16 with out_bf16
+  void* new_edge;  // as aggr
   float* pre;
   int* counter;  // zero on entry: the next chunk to take
+  int out_bf16;
   int num_rec;
   int num_chunks;
   int batch;
@@ -168,17 +184,27 @@ constexpr int smem_bytes() {
 
 // edge_val of the tile's edges el0 + g, el0 + g + 8 (zero at el >= ne) as
 // a row fragment: the embedder on the raw features, or the shared edge rows
-template <int MODE>
-__device__ __forceinline__ void edge_value(float (&ev)[8][4], const Params& p,
+template <int MODE, bool BF, typename TI>
+__device__ __forceinline__ void edge_value(float (&ev)[8][4], const Params<TI>& p,
                                            const float* sm, int t0, int el0, int ne) {
   constexpr Smem L = smem_plan(MODE);
-  fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
-                               sm + L.vec + 4 * D, el0, ne);
+  fused_edge::edge_value<MODE, BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
+                                   sm + L.vec + 4 * D, el0, ne);
 }
 
-template <int MODE>
+// rows r0 .. of the staged tile out to dst (float or bf16 by out_bf16)
+__device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offset,
+                                         const float* stage, int r0, int valid) {
+  if (out_bf16)
+    tc::copy_out_rows(static_cast<__nv_bfloat16*>(dst) + offset, stage, r0, valid);
+  else
+    tc::copy_out_rows(static_cast<float*>(dst) + offset, stage, r0, valid);
+}
+
+// BF: bf16 operands (one TF32 pass); TI: the stream type (float or bf16)
+template <int MODE, bool BF, typename TI>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-fused_edge_fwd(const Params p) {
+fused_edge_fwd(const Params<TI> p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr Smem L = smem_plan(MODE);
@@ -191,17 +217,18 @@ fused_edge_fwd(const Params p) {
   const float* sBt = sG + D;
 
   // ---- the block's weights and vectors ------------------------------------
-  tc::load_weight_wg(sm + L.w1s, p.w1, 3 * D, D, kBlockThreads);
-  tc::load_weight_wg(sm + L.w2, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<false, false, false, BF>(sm + L.w1s, p.w1, 3 * D, D, kBlockThreads);
+  tc::load_weight_wg<false, false, false, BF>(sm + L.w2, p.w2, D, 0, kBlockThreads);
   if (MODE == EDGE_BATCHED)
-    tc::load_weight_wg(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+    tc::load_weight_wg<false, false, false, BF>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   else
     tc::load_weight_rows(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   if (MODE == EDGE_RAW) {
     tc::load_weight_rows(sm + L.ew2, p.ew2, D, 0, kBlockThreads);
     for (int i = threadIdx.x; i < p.feat * D; i += kBlockThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
-      sm[L.ew1 + i] = __ldg(p.ew1 + c * p.feat + k);
+      const float w = __ldg(p.ew1 + c * p.feat + k);
+      sm[L.ew1 + i] = BF ? tc::bf16r(w) : w;  // the SIMT layer's operand
     }
   }
   if (threadIdx.x < D) {
@@ -253,7 +280,7 @@ fused_edge_fwd(const Params p) {
       float x[8][4], acc[8][4];
       tc::load_rows<true>(x, p.rec + static_cast<long long>(r0) * BD, D, r_base, nr * B);
       tc::zero(acc);
-      tc::gemm<true>(acc, x, p.w1 + 2 * D, 3 * D);
+      tc::gemm<true, BF>(acc, x, p.w1 + 2 * D, 3 * D);
       tc::store_rows(sRP, kWld, acc, r_base, kRecRows);
     }
     float agg[kAgg];
@@ -278,24 +305,24 @@ fused_edge_fwd(const Params p) {
         float x[8][4];
         if (MODE == EDGE_BATCHED) {
           tc::load_rows<true>(x, p.edge + row0 * D, D, r_base, nrows);
-          tc::gemm_wg(acc, x, sW1e);
+          tc::gemm_wg<8, BF>(acc, x, sW1e);
         } else if (B == 1) {
           // edge and row coincide: edge_val . W1e for the warp's own rows
-          edge_value<MODE>(x, p, sm, t0, r_base, ne);
+          edge_value<MODE, BF>(x, p, sm, t0, r_base, ne);
           if (p.update_edges) tc::store_rows(sStage, kWld, x, r_base, kTileRows);
-          tc::gemm(acc, x, sW1e);
+          tc::gemm<false, BF>(acc, x, sW1e);
         }
         tc::load_rows<true>(x, p.send + row0 * D, D, r_base, nrows);
-        tc::gemm_wg(acc, x, sW1s);
+        tc::gemm_wg<8, BF>(acc, x, sW1s);
       }
       // ---- per-edge products, shared by the batch (B > 1) ----------------
       if (MODE != EDGE_BATCHED && B > 1 && ni_e > 1 && warp < ni_e) {
         // B = 2, 3: 32 edge rows, warps 0 and 1 take 16 each
         float ev[8][4], proj[8][4];
-        edge_value<MODE>(ev, p, sm, t0, r_base, ne);
+        edge_value<MODE, BF>(ev, p, sm, t0, r_base, ne);
         if (p.update_edges) tc::store_rows(sStage, kWld, ev, r_base, kTileRows);
         tc::zero(proj);
-        tc::gemm(proj, ev, sW1e);
+        tc::gemm<false, BF>(proj, ev, sW1e);
         tc::store_rows(sProj, kWld, proj, r_base, 32);
       } else if (MODE != EDGE_BATCHED && B > 1 && ni_e == 1) {
         // B >= 4: the tile's 16 or fewer edges fill one fragment; each warp
@@ -305,21 +332,21 @@ fused_edge_fwd(const Params p) {
         float ev[8][4], part[2][4];
         if (MODE == EDGE_RAW) {
           float* sZ = sStage + 32 * kWld;  // free: edge values use rows < 16
-          fused_edge::embed_hidden(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.vec + 4 * D, 0,
-                                   ne);
+          fused_edge::embed_hidden<BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.vec + 4 * D,
+                                       0, ne);
           tc::zero(part);
-          tc::gemm_cols2(part, ev, sm + L.ew2, 2 * warp);
+          tc::gemm_cols2<BF>(part, ev, sm + L.ew2, 2 * warp);
           tc::store_cols2(sZ, kWld, part, 2 * warp);
           tc::group_sync(bar, kGroupThreads);
           tc::load_rows<false>(ev, sZ, kWld, 0, 16);
           tc::add_cols(ev, sm + L.vec + 5 * D);
           tc::layer_norm(ev, sm + L.vec + 6 * D, sm + L.vec + 7 * D, kLnEps);
         } else {
-          edge_value<MODE>(ev, p, sm, t0, 0, ne);
+          edge_value<MODE, BF>(ev, p, sm, t0, 0, ne);
         }
         if (p.update_edges && warp == 0) tc::store_rows(sStage, kWld, ev, 0, kTileRows);
         tc::zero(part);
-        tc::gemm_cols2(part, ev, sW1e, 2 * warp);
+        tc::gemm_cols2<BF>(part, ev, sW1e, 2 * warp);
         tc::store_cols2(sProj, kWld, part, 2 * warp);
       }
       tc::group_sync(bar, kGroupThreads);
@@ -366,7 +393,7 @@ fused_edge_fwd(const Params p) {
       // ---- second layer, LayerNorm, residuals ------------------------------
       float msg[8][4];
       tc::zero(msg);
-      tc::gemm_wg(msg, acc, sW2);
+      tc::gemm_wg<8, BF>(msg, acc, sW2);
       tc::add_cols(msg, sB2);
       if (p.layer_norm) tc::layer_norm(msg, sG, sBt, kLnEps);
       if (p.propagation) {
@@ -402,7 +429,7 @@ fused_edge_fwd(const Params p) {
         // every warp has read the edge values before the tile is reused
         if (MODE != EDGE_BATCHED && B > 1) tc::group_sync(bar, kGroupThreads);
         tc::store_rows(sStage, kWld, base, r_base, kTileRows);
-        tc::copy_out_rows(p.new_edge + row0 * D, sStage, r_base, nrows);
+        copy_out(p.new_edge, p.out_bf16, row0 * D, sStage, r_base, nrows);
       }
 
       // ---- the tile's messages into the chunk's sums, in edge order --------
@@ -425,19 +452,24 @@ fused_edge_fwd(const Params p) {
 #pragma unroll
     for (int j = 0; j < kAgg; ++j) {
       const int idx = tg + j * kGroupThreads;
-      if (idx < nr * BD) p.aggr[static_cast<long long>(r0) * BD + idx] = agg[j];
+      if (idx >= nr * BD) continue;
+      const long long o = static_cast<long long>(r0) * BD + idx;
+      if (p.out_bf16)
+        tc::store_val(static_cast<__nv_bfloat16*>(p.aggr) + o, agg[j]);
+      else
+        tc::store_val(static_cast<float*>(p.aggr) + o, agg[j]);
     }
   }
 }
 
-template <int MODE>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int MODE, bool BF, typename TI>
+cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = cudaFuncSetAttribute(fused_edge_fwd<MODE>,
+    err = cudaFuncSetAttribute(fused_edge_fwd<MODE, BF, TI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes<MODE>());
     if (err != cudaSuccess) return err;
@@ -445,14 +477,65 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   const int groups_needed = (p.num_chunks + kGroups - 1) / kGroups;
   const int blocks = min(groups_needed, tc::sm_count());
-  fused_edge_fwd<MODE><<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
+  fused_edge_fwd<MODE, BF, TI><<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t occupancy(int* blocks, int* regs, int* smem) {
-  return tc::occupancy(fused_edge_fwd<MODE>, kBlockThreads, smem_bytes<MODE>(), blocks,
-                       regs, smem);
+  return tc::occupancy(fused_edge_fwd<MODE, false, float>, kBlockThreads, smem_bytes<MODE>(),
+                       blocks, regs, smem);
+}
+
+// Fill the parameters and launch the instantiation for edge_mode
+template <bool BF, typename TI>
+cudaError_t run(int edge_mode, int num_rec, int batch, int feat, int update_edges,
+                int propagation, int layer_norm, int out_bf16, const void* edge,
+                const void* send, const void* rec, const void* rowptr, const void* w1,
+                const void* b1, const void* w2, const void* b2, const void* gamma,
+                const void* beta, const void* ew1, const void* eb1, const void* ew2,
+                const void* eb2, const void* eg, const void* ebt, void* aggr, void* new_edge,
+                void* pre, void* counter, void* stream) {
+  if (num_rec <= 0) return cudaSuccess;
+  if (batch < 1 || batch > kRecRows || feat > kMaxFeat) return cudaErrorInvalidValue;
+  Params<TI> p;
+  p.edge = static_cast<const TI*>(edge);
+  p.send = static_cast<const TI*>(send);
+  p.rec = static_cast<const TI*>(rec);
+  p.rowptr = static_cast<const int*>(rowptr);
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = static_cast<const float*>(w2);
+  p.b2 = static_cast<const float*>(b2);
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.ew1 = static_cast<const float*>(ew1);
+  p.eb1 = static_cast<const float*>(eb1);
+  p.ew2 = static_cast<const float*>(ew2);
+  p.eb2 = static_cast<const float*>(eb2);
+  p.eg = static_cast<const float*>(eg);
+  p.ebt = static_cast<const float*>(ebt);
+  p.aggr = aggr;
+  p.new_edge = new_edge;
+  p.pre = static_cast<float*>(pre);
+  p.counter = static_cast<int*>(counter);
+  p.out_bf16 = out_bf16;
+  p.num_rec = num_rec;
+  p.batch = batch;
+  p.feat = feat;
+  p.recv_per_chunk = kRecRows / batch;
+  p.num_chunks = (num_rec + p.recv_per_chunk - 1) / p.recv_per_chunk;
+  p.edges_per_tile = kTileRows / batch;
+  p.update_edges = update_edges;
+  p.propagation = propagation;
+  p.layer_norm = layer_norm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (edge_mode) {
+    case EDGE_RAW: return launch<EDGE_RAW, BF, TI>(p, s);
+    case EDGE_SHARED: return launch<EDGE_SHARED, BF, TI>(p, s);
+    case EDGE_BATCHED: return launch<EDGE_BATCHED, BF, TI>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -490,46 +573,31 @@ extern "C" int nl_fused_edge_fwd(
     const void* ew1, const void* eb1, const void* ew2, const void* eb2,
     const void* eg, const void* ebt, void* aggr, void* new_edge, void* pre,
     void* counter, void* stream) {
-  if (num_rec <= 0) return static_cast<int>(cudaSuccess);
-  if (batch < 1 || batch > kRecRows || feat > kMaxFeat)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.edge = static_cast<const float*>(edge);
-  p.send = static_cast<const float*>(send);
-  p.rec = static_cast<const float*>(rec);
-  p.rowptr = static_cast<const int*>(rowptr);
-  p.w1 = static_cast<const float*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const float*>(w2);
-  p.b2 = static_cast<const float*>(b2);
-  p.gamma = static_cast<const float*>(gamma);
-  p.beta = static_cast<const float*>(beta);
-  p.ew1 = static_cast<const float*>(ew1);
-  p.eb1 = static_cast<const float*>(eb1);
-  p.ew2 = static_cast<const float*>(ew2);
-  p.eb2 = static_cast<const float*>(eb2);
-  p.eg = static_cast<const float*>(eg);
-  p.ebt = static_cast<const float*>(ebt);
-  p.aggr = static_cast<float*>(aggr);
-  p.new_edge = static_cast<float*>(new_edge);
-  p.pre = static_cast<float*>(pre);
-  p.counter = static_cast<int*>(counter);
-  p.num_rec = num_rec;
-  p.batch = batch;
-  p.feat = feat;
-  p.recv_per_chunk = kRecRows / batch;
-  p.num_chunks = (num_rec + p.recv_per_chunk - 1) / p.recv_per_chunk;
-  p.edges_per_tile = kTileRows / batch;
-  p.update_edges = update_edges;
-  p.propagation = propagation;
-  p.layer_norm = layer_norm;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (edge_mode) {
-    case EDGE_RAW: err = launch<EDGE_RAW>(p, s); break;
-    case EDGE_SHARED: err = launch<EDGE_SHARED>(p, s); break;
-    case EDGE_BATCHED: err = launch<EDGE_BATCHED>(p, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(run<false, float>(
+      edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, 0, edge, send,
+      rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr, new_edge,
+      pre, counter, stream));
+}
+
+// The bf16-operand instantiations: the arguments of nl_fused_edge_fwd, the
+// streams edge, send and rec in bf16 (io_bf16) or float32, and aggr and
+// new_edge written in bf16 (out_bf16) or float32. The weights stay float32
+// arrays; the kernel rounds the matrices to bf16 as it stages them.
+extern "C" int nl_fused_edge_fwd_bf16ops(
+    int io_bf16, int out_bf16, int edge_mode, int num_rec, int batch, int feat,
+    int update_edges, int propagation, int layer_norm, const void* edge, const void* send,
+    const void* rec, const void* rowptr, const void* w1, const void* b1,
+    const void* w2, const void* b2, const void* gamma, const void* beta,
+    const void* ew1, const void* eb1, const void* ew2, const void* eb2,
+    const void* eg, const void* ebt, void* aggr, void* new_edge, void* pre,
+    void* counter, void* stream) {
+  if (io_bf16)
+    return static_cast<int>(run<true, __nv_bfloat16>(
+        edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, out_bf16,
+        edge, send, rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt,
+        aggr, new_edge, pre, counter, stream));
+  return static_cast<int>(run<true, float>(
+      edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, out_bf16, edge,
+      send, rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr,
+      new_edge, pre, counter, stream));
 }

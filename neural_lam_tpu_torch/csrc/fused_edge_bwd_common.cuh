@@ -19,6 +19,15 @@
 // weight gradient in registers and writes it once to a (blocks, stride)
 // workspace; reduce_workspace sums the workspace over the blocks in block
 // order, so the gradients are deterministic without float atomics.
+//
+// The reduced-precision instantiations (BF, K4's bf16 variants): the edge
+// stream, d_new_edge and d_edge are of type TI (bf16 or float32), and every
+// product takes bf16 operands with float32 sums: the tensor-core products
+// round in tc_tf32.cuh, the SIMT products round their operands as they are
+// staged in shared memory (weights, edge values, the embedder's a1, dz and
+// d_p1). s[e] is then the sum over the batch of d_pre rounded to bf16 (the
+// main kernel's), and enters the products as it is: the JAX kernel's
+// d_pre . W1e over a column-tiled weight sums the same bf16 products.
 
 #pragma once
 
@@ -32,10 +41,11 @@ constexpr int kMat = D * D;
 // same): dW1e dEW2 | dEW1 as (D, kMaxFeat) | deb1 deb2 deg debt
 constexpr int kEdgeStride = 2 * kMat + kMaxFeat * D + 4 * D;
 
-struct EdgeParams {
-  const float* edge;        // (E, feat) raw features or (E, D)
-  const float* presum;      // (E, D)
-  const float* d_new_edge;  // (E, B, D) or null
+template <typename TI>
+struct EdgeParamsT {
+  const TI* edge;        // (E, feat) raw features or (E, D)
+  const float* presum;   // (E, D)
+  const TI* d_new_edge;  // (E, B, D) or null
   const float* w1;
   const float* ew1;
   const float* eb1;
@@ -43,12 +53,13 @@ struct EdgeParams {
   const float* eb2;
   const float* eg;
   const float* ebt;
-  float* d_edge;  // (E, D), EDGE_SHARED only
-  float* ws;      // (gridDim.x, kEdgeStride)
+  TI* d_edge;  // (E, D), EDGE_SHARED only
+  float* ws;   // (gridDim.x, kEdgeStride)
   int n_edges;
   int batch;
   int feat;
 };
+using EdgeParams = EdgeParamsT<float>;
 
 // the thread's 4x4 share of a weight gradient, row = input feature
 __device__ __forceinline__ void store_wgrad(float* dst, const float (&w)[4][4],
@@ -84,9 +95,9 @@ constexpr int edge_smem_floats(bool raw) {
          (raw ? 3 : 2) * kTileRows * kLd + (raw ? kTileRows * kMaxFeat : 0);
 }
 
-template <bool RAW>
+template <bool RAW, bool BF = false, typename TI = float>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_edge_bwd_edge(const EdgeParams p) {
+fused_edge_bwd_edge(const EdgeParamsT<TI> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* sW1e = smem;  // (out, in) slice: d_edge = s . W1e^T
@@ -106,13 +117,14 @@ fused_edge_bwd_edge(const EdgeParams p) {
   const int rg = tid >> 4, cg = tid & 15;
   const int B = p.batch, F = p.feat;
 
-  load_weight_raw(sW1e, p.w1, 3 * D, 0);
+  load_weight_raw<BF>(sW1e, p.w1, 3 * D, 0);
   if (RAW) {
-    load_weight_t(sEW2t, D, p.ew2, D, 0);
-    load_weight_raw(sEW2r, p.ew2, D, 0);
+    load_weight_t<BF>(sEW2t, D, p.ew2, D, 0);
+    load_weight_raw<BF>(sEW2r, p.ew2, D, 0);
     for (int i = tid; i < F * D; i += kThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
-      sEW1[i] = __ldg(p.ew1 + c * F + k);
+      const float w = __ldg(p.ew1 + c * F + k);
+      sEW1[i] = BF ? tc::bf16r(w) : w;
     }
     if (tid < D) {
       sEB1[tid] = p.eb1[tid];
@@ -140,10 +152,13 @@ fused_edge_bwd_edge(const EdgeParams p) {
     __syncthreads();  // the previous tile is done with the row tiles
     load_rows(sS, p.presum + static_cast<long long>(t0) * D, ne, kTileRows);
     if (RAW) {
-      for (int i = tid; i < kTileRows * F; i += kThreads)
-        sF[i] = i < ne * F ? p.edge[static_cast<long long>(t0) * F + i] : 0.0f;
+      for (int i = tid; i < kTileRows * F; i += kThreads) {
+        const float f = i < ne * F ? tc::ldg_val(p.edge + static_cast<long long>(t0) * F + i)
+                                   : 0.0f;
+        sF[i] = BF ? tc::bf16r(f) : f;
+      }
     } else {
-      load_rows(sXe, p.edge + static_cast<long long>(t0) * D, ne, kTileRows);
+      load_rows<BF>(sXe, p.edge + static_cast<long long>(t0) * D, ne, kTileRows);
     }
     __syncthreads();
 
@@ -162,7 +177,7 @@ fused_edge_bwd_edge(const EdgeParams p) {
           acc[i][j] = silu(v);
         }
       }
-      store_rows(sA1, acc, rg, cg);
+      store_rows<BF>(sA1, acc, rg, cg);
       __syncthreads();
       zero(xh);
       mm_acc<4>(xh, sA1, sEW2t, rg, cg);
@@ -176,7 +191,7 @@ fused_edge_bwd_edge(const EdgeParams p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           acc[i][j] = xh[i][j] * sEG[4 * cg + j] + sEBt[4 * cg + j];
-      store_rows(sXe, acc, rg, cg);
+      store_rows<BF>(sXe, acc, rg, cg);
       __syncthreads();
     }
 
@@ -188,10 +203,9 @@ fused_edge_bwd_edge(const EdgeParams p) {
       for (int i = 0; i < 4; ++i) {
         const int el = rg + 16 * i;
         if (el < ne) {
-          const float4* src = reinterpret_cast<const float4*>(
-              p.d_new_edge + static_cast<long long>(t0 + el) * B * D) + cg;
+          const TI* src = p.d_new_edge + static_cast<long long>(t0 + el) * B * D + 4 * cg;
           for (int b = 0; b < B; ++b) {
-            const float4 n = __ldg(src + b * (D / 4));
+            const float4 n = ldg4(src + b * D);
             acc[i][0] += n.x; acc[i][1] += n.y; acc[i][2] += n.z; acc[i][3] += n.w;
           }
         }
@@ -202,9 +216,8 @@ fused_edge_bwd_edge(const EdgeParams p) {
       for (int i = 0; i < 4; ++i) {
         const int el = rg + 16 * i;
         if (el < ne)
-          *reinterpret_cast<float4*>(
-              p.d_edge + static_cast<long long>(t0 + el) * D + 4 * cg) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          tc::store4(p.d_edge + static_cast<long long>(t0 + el) * D + 4 * cg,
+                     make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
       }
       continue;
     }
@@ -216,7 +229,7 @@ fused_edge_bwd_edge(const EdgeParams p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) vec[1][j] += acc[i][j];
     __syncthreads();  // every thread is done with s in sS
-    store_rows(sS, acc, rg, cg);
+    store_rows<BF>(sS, acc, rg, cg);
     __syncthreads();
     wgrad_acc(dEW2, sA1, sS, rg, cg);
     zero(acc);
@@ -229,7 +242,7 @@ fused_edge_bwd_edge(const EdgeParams p) {
         vec[0][j] += acc[i][j];
       }
     __syncthreads();
-    store_rows(sS, acc, rg, cg);
+    store_rows<BF>(sS, acc, rg, cg);
     __syncthreads();
     {
       const int c = tid % D, f0 = tid / D;
@@ -285,20 +298,21 @@ inline cudaError_t launch_reduce(const float* ws, int n_blocks, int stride, int 
 // The edge kernel and its reduce for EDGE_RAW or EDGE_SHARED, on at most
 // max_blocks persistent blocks; out (kEdgeStride,) = dW1e, dEW2 as (out, in)
 // | dEW1 as (D, 8) | deb1 deb2 deg debt.
-inline cudaError_t launch_edge_phase(int edge_mode, const EdgeParams& e, int max_blocks,
-                              float* out, cudaStream_t stream) {
+template <bool BF = false, typename TI = float>
+inline cudaError_t launch_edge_phase(int edge_mode, const EdgeParamsT<TI>& e,
+                                     int max_blocks, float* out, cudaStream_t stream) {
   const int n_tiles = (e.n_edges + kTileRows - 1) / kTileRows;
   const int blocks = n_tiles < max_blocks ? n_tiles : max_blocks;
   const bool raw = edge_mode == EDGE_RAW;
   const int bytes =
       edge_smem_floats(raw) * static_cast<int>(sizeof(float));
-  cudaError_t err = raw ? allow_smem(fused_edge_bwd_edge<true>, bytes)
-                        : allow_smem(fused_edge_bwd_edge<false>, bytes);
+  cudaError_t err = raw ? allow_smem(fused_edge_bwd_edge<true, BF, TI>, bytes)
+                        : allow_smem(fused_edge_bwd_edge<false, BF, TI>, bytes);
   if (err != cudaSuccess) return err;
   if (raw)
-    fused_edge_bwd_edge<true><<<blocks, kThreads, bytes, stream>>>(e);
+    fused_edge_bwd_edge<true, BF, TI><<<blocks, kThreads, bytes, stream>>>(e);
   else
-    fused_edge_bwd_edge<false><<<blocks, kThreads, bytes, stream>>>(e);
+    fused_edge_bwd_edge<false, BF, TI><<<blocks, kThreads, bytes, stream>>>(e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(e.ws, blocks, kEdgeStride, 2, out, stream);
@@ -329,22 +343,26 @@ __host__ __device__ constexpr RowsPlan rows_plan() {
 
 constexpr int rows_smem_bytes() { return rows_plan().total * static_cast<int>(sizeof(float)); }
 
-struct RowsParams {
-  const float* edge;        // (rows, D)
-  const float* d_pre;       // (rows, D)
-  const float* d_new_edge;  // (rows, D) or null
+template <typename TI>
+struct RowsParamsT {
+  const TI* edge;        // (rows, D)
+  const float* d_pre;    // (rows, D)
+  const TI* d_new_edge;  // (rows, D) or null
   const float* w1;
-  float* d_edge;  // (rows, D)
-  float* ws;      // (gridDim.x * kRowGroups, kMat)
+  TI* d_edge;  // (rows, D)
+  float* ws;   // (gridDim.x * kRowGroups, kMat)
   int rows;
 };
+using RowsParams = RowsParamsT<float>;
 
+template <bool BF = false, typename TI = float>
 __global__ void __launch_bounds__(kRowThreads, 1)
-fused_edge_bwd_rows(const RowsParams p) {
+fused_edge_bwd_rows(const RowsParamsT<TI> p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr RowsPlan L = rows_plan();
-  tc::load_weight_wg<true>(sm + L.w1et, p.w1, 3 * D, 0, kRowThreads);  // W1e^T
+  tc::load_weight_wg<true, false, false, BF>(sm + L.w1et, p.w1, 3 * D, 0,
+                                             kRowThreads);  // W1e^T
   __syncthreads();
   const int group = threadIdx.x / kRowGroupThreads;
   const int tg = threadIdx.x - group * kRowGroupThreads;
@@ -367,14 +385,14 @@ fused_edge_bwd_rows(const RowsParams p) {
     tc::store_rows(sG, tc::kWld, g, r_base, kTileRows);
     tc::store_rows(sE, tc::kWld, x, r_base, kTileRows);
     tc::group_sync(bar, kRowGroupThreads);  // the tile's rows are staged
-    tc::gemm_tn(dW1e, sG, r_base, sE);
+    tc::gemm_tn<BF>(dW1e, sG, r_base, sE);
     tc::group_sync(bar, kRowGroupThreads);  // done with them
     tc::load_rows<false>(g, sG, tc::kWld, r_base, kTileRows);  // the warp's own d_pre rows
     if (p.d_new_edge != nullptr)
       tc::load_rows<true>(x, p.d_new_edge + row0 * D, D, r_base, nrows);
     else
       tc::zero(x);
-    tc::gemm_wg<4>(x, g, sm + L.w1et);  // d_edge
+    tc::gemm_wg<4, BF>(x, g, sm + L.w1et);  // d_edge
     tc::store_rows(sE, tc::kWld, x, r_base, kTileRows);
     tc::copy_out_rows(p.d_edge + row0 * D, sE, r_base, nrows);
   }
@@ -387,18 +405,19 @@ fused_edge_bwd_rows(const RowsParams p) {
 // below must belong to this library's own kernel (the function-local
 // static of an inline function is one object across every library
 // loaded into the process).
-static inline cudaError_t launch_rows(const RowsParams& r, int blocks, float* out,
-                               cudaStream_t stream) {
+template <bool BF = false, typename TI = float>
+static inline cudaError_t launch_rows(const RowsParamsT<TI>& r, int blocks, float* out,
+                                      cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = allow_smem(fused_edge_bwd_rows, rows_smem_bytes());
+    err = allow_smem(fused_edge_bwd_rows<BF, TI>, rows_smem_bytes());
     if (err != cudaSuccess) return err;
     allowed |= 1u << (dev & 31);
   }
-  fused_edge_bwd_rows<<<blocks, kRowThreads, rows_smem_bytes(), stream>>>(r);
+  fused_edge_bwd_rows<BF, TI><<<blocks, kRowThreads, rows_smem_bytes(), stream>>>(r);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(r.ws, blocks * kRowGroups, kMat, 0, out, stream);

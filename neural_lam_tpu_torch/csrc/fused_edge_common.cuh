@@ -40,9 +40,11 @@ __device__ __forceinline__ float silu_grad(float x) {
 // The edge embedder's hidden layer SiLU(f . We1 + be1) of edges t0 + el0 + g
 // and t0 + el0 + g + 8 (zero features at el >= ne) as a row fragment
 // (tc_tf32.cuh): F <= kMaxFeat multiply-adds a value on the SIMT units.
-// feats is the (E, F) raw feature array; sEW1 (F, D) and sEB1 (D,) are in
-// shared memory.
-__device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const float* feats, int F,
+// feats is the (E, F) raw feature array (float or bf16); sEW1 (F, D) and
+// sEB1 (D,) are in shared memory. With BF the features are rounded to bf16
+// and sEW1 must hold bf16 values: each product is exact, the sum float32.
+template <bool BF = false, typename T = float>
+__device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const T* feats, int F,
                                              int t0, const float* sEW1, const float* sEB1,
                                              int el0, int ne) {
   const tc::Lane l;
@@ -51,9 +53,12 @@ __device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const float* fea
     const int el = el0 + l.g + 8 * h;
     float f[kMaxFeat];
 #pragma unroll
-    for (int k = 0; k < kMaxFeat; ++k)
-      f[k] = (k < F && el < ne) ? __ldg(feats + static_cast<long long>(t0 + el) * F + k)
-                                : 0.0f;
+    for (int k = 0; k < kMaxFeat; ++k) {
+      f[k] = (k < F && el < ne)
+                 ? tc::ldg_val(feats + static_cast<long long>(t0 + el) * F + k)
+                 : 0.0f;
+      if (BF) f[k] = tc::bf16r(f[k]);
+    }
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -72,18 +77,18 @@ __device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const float* fea
 // row fragment: the shared (E, D) edge rows (EDGE_SHARED), or the embedder
 // on the raw (E, F) features, with its second layer We2 in shared memory
 // as tc::load_weight_rows leaves it and sEV = eb1 | eb2 | eg | ebt.
-template <int MODE>
-__device__ __forceinline__ void edge_value(float (&ev)[8][4], const float* edge, int F,
+template <int MODE, bool BF = false, typename T = float>
+__device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int F,
                                            int t0, const float* sEW1, const float* sEW2,
                                            const float* sEV, int el0, int ne) {
   if (MODE == EDGE_SHARED) {
     tc::load_rows<true>(ev, edge + static_cast<long long>(t0) * D, D, el0, ne);
     return;
   }
-  embed_hidden(ev, edge, F, t0, sEW1, sEV, el0, ne);
+  embed_hidden<BF>(ev, edge, F, t0, sEW1, sEV, el0, ne);
   float z[8][4];
   tc::zero(z);
-  tc::gemm(z, ev, sEW2);
+  tc::gemm<false, BF>(z, ev, sEW2);
   tc::add_cols(z, sEV + D);
   tc::layer_norm(z, sEV + 2 * D, sEV + 3 * D, kLnEps);
 #pragma unroll
@@ -107,13 +112,19 @@ __device__ __forceinline__ float sum16(float v) {
 // whole 32-byte sector; ld and off are multiples of 4, the weight is
 // 16-byte aligned) and writes them down column c, so the 32 threads of a
 // warp write 32 consecutive floats of each row.
+// With BF the values are rounded to bf16 (a SIMT product's operand).
+template <bool BF = false>
 __device__ __forceinline__ void load_weight_t(float* dst, int ldd,
                                               const float* __restrict__ w,
                                               int ld, int off) {
   for (int i = threadIdx.x; i < D * D / 8; i += kThreads) {
     const int c = i % D, k0 = 8 * (i / D);
     const float4* src = reinterpret_cast<const float4*>(w + c * ld + off + k0);
-    const float4 lo = __ldg(src), hi = __ldg(src + 1);
+    float4 lo = __ldg(src), hi = __ldg(src + 1);
+    if (BF) {
+      lo = make_float4(tc::bf16r(lo.x), tc::bf16r(lo.y), tc::bf16r(lo.z), tc::bf16r(lo.w));
+      hi = make_float4(tc::bf16r(hi.x), tc::bf16r(hi.y), tc::bf16r(hi.z), tc::bf16r(hi.w));
+    }
     float* d = dst + k0 * ldd + c;
     d[0] = lo.x;
     d[ldd] = lo.y;
@@ -128,14 +139,16 @@ __device__ __forceinline__ void load_weight_t(float* dst, int ldd,
 
 // dst[c*D + k] = w[c*ld + off + k]: the same 64x64 slice kept in its
 // (out, in) layout, which is the (in, out) layout of the transposed
-// product x . W^T that the backward needs.
+// product x . W^T that the backward needs. BF as for load_weight_t.
+template <bool BF = false>
 __device__ __forceinline__ void load_weight_raw(float* dst,
                                                 const float* __restrict__ w,
                                                 int ld, int off) {
   for (int i = threadIdx.x; i < D * D / 4; i += kThreads) {
     const int c = i / (D / 4), k4 = i - c * (D / 4);
-    *reinterpret_cast<float4*>(dst + c * D + 4 * k4) =
-        __ldg(reinterpret_cast<const float4*>(w + c * ld + off) + k4);
+    float4 v = __ldg(reinterpret_cast<const float4*>(w + c * ld + off) + k4);
+    if (BF) v = make_float4(tc::bf16r(v.x), tc::bf16r(v.y), tc::bf16r(v.z), tc::bf16r(v.w));
+    *reinterpret_cast<float4*>(dst + c * D + 4 * k4) = v;
   }
 }
 
@@ -252,23 +265,39 @@ __device__ __forceinline__ void row_layer_norm_bwd(
   }
 }
 
+// With BF the staged values are rounded to bf16 (a SIMT product's operand).
+template <bool BF = false>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][4],
                                            int rg, int cg, int ni = 4) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (i < ni)
-      *reinterpret_cast<float4*>(dst + (rg + 16 * i) * kLd + 4 * cg) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (i < ni) {
+      float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (BF) v = make_float4(tc::bf16r(v.x), tc::bf16r(v.y), tc::bf16r(v.z), tc::bf16r(v.w));
+      *reinterpret_cast<float4*>(dst + (rg + 16 * i) * kLd + 4 * cg) = v;
+    }
+}
+
+// four consecutive values of a row in device memory (float or bf16), as floats
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // rows [0, rows) of dst <- rows [0, n) of the contiguous (., D) block
-// at src, zero beyond n
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
+// at src (float or bf16), zero beyond n; BF as for store_rows
+template <bool BF = false, typename T = float>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
                                           int n, int rows) {
   for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
     const int m = i / (D / 4), c4 = i - m * (D / 4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < n) v = __ldg(reinterpret_cast<const float4*>(src + m * D) + c4);
+    if (m < n) v = ldg4(src + m * D + 4 * c4);
+    if (BF) v = make_float4(tc::bf16r(v.x), tc::bf16r(v.y), tc::bf16r(v.z), tc::bf16r(v.w));
     *reinterpret_cast<float4*>(dst + m * kLd + 4 * c4) = v;
   }
 }

@@ -28,9 +28,20 @@
 // 8n + 2t + 1) of output column 8j + g: one 8-byte load from a weight held
 // output-major with row stride kWld = 72 floats, which puts the 32 lanes
 // of each half-warp phase on 32 distinct banks.
+//
+// bf16 operands (the template flag BF of the products below): the
+// reduced-precision kernels of K3 and K4 multiply bf16 operands with
+// float32 accumulation, as the JAX package's kernels do under mixed
+// precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high / high-kernels. A
+// bf16 value (8 significant bits) is exact in TF32 (11), so each operand
+// is rounded to bf16 (to nearest even, as astype(bfloat16)) and the
+// product runs as ONE TF32 pass: hi = bf16(x), lo = 0. The product of two
+// bf16 values is exact in float32, so the result is the JAX kernel's up to
+// summation order.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,6 +67,54 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// x rounded to bf16 (to nearest even), as a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the operand split of a product: 3xTF32 (hi, lo), or with BF the bf16
+// operand alone (lo is not used)
+template <bool BF>
+__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
+  if (BF) {
+    hi = __float_as_uint(bf16r(x));
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
+// Rows of 64 values in device memory as float or bf16: a pair of
+// consecutive values, and a value, as floats
+__device__ __forceinline__ float2 ldg_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg_pair(const __nv_bfloat16* p) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float ldg_val(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_val(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// four consecutive values (16-byte aligned floats, 8-byte aligned bf16)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned int*>(&a);
+  u.y = *reinterpret_cast<const unsigned int*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 // c += a . b (not volatile: the compiler may interleave independent
 // products)
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
@@ -75,30 +134,33 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 // over many tiles must leave the tensor core between tiles (gemm_tn).
 // (Adding every k-step's terms to acc on the float32 units cost 45 % more
 // time on an H100, profile_forecast.py --probe, for no gain in a row.)
-template <int N0, int NQ = 4, int NA>
+template <int N0, int NQ = 4, int NA, bool BF = false>
 __device__ __forceinline__ void mma3x4(float (&acc)[NA][4], const uint32_t (&ah)[4],
                                        const uint32_t (&al)[4], const float (&b)[4][2]) {
   uint32_t bh[4][2], bl[4][2];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    split(b[q][0], bh[q][0], bl[q][0]);
-    split(b[q][1], bh[q][1], bl[q][1]);
+    split_op<BF>(b[q][0], bh[q][0], bl[q][0]);
+    split_op<BF>(b[q][1], bh[q][1], bl[q][1]);
   }
+  if (!BF) {
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) mma(acc[N0 + q], al, bh[q][0], bh[q][1]);
+    for (int q = 0; q < NQ; ++q) mma(acc[N0 + q], al, bh[q][0], bh[q][1]);
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) mma(acc[N0 + q], ah, bl[q][0], bl[q][1]);
+    for (int q = 0; q < NQ; ++q) mma(acc[N0 + q], ah, bl[q][0], bl[q][1]);
+  }
 #pragma unroll
   for (int q = 0; q < NQ; ++q) mma(acc[N0 + q], ah, bh[q][0], bh[q][1]);
 }
 
 // the A operand of k-step n, split, from a row fragment
+template <bool BF = false>
 __device__ __forceinline__ void a_operand(const float (&x)[8][4], int n, uint32_t (&ah)[4],
                                           uint32_t (&al)[4]) {
-  split(x[n][0], ah[0], al[0]);  // (g, slot t)
-  split(x[n][2], ah[1], al[1]);  // (g + 8, slot t)
-  split(x[n][1], ah[2], al[2]);  // (g, slot t + 4)
-  split(x[n][3], ah[3], al[3]);  // (g + 8, slot t + 4)
+  split_op<BF>(x[n][0], ah[0], al[0]);  // (g, slot t)
+  split_op<BF>(x[n][2], ah[1], al[1]);  // (g + 8, slot t)
+  split_op<BF>(x[n][1], ah[2], al[2]);  // (g, slot t + 4)
+  split_op<BF>(x[n][3], ah[3], al[3]);  // (g + 8, slot t + 4)
 }
 
 template <int N>
@@ -113,7 +175,7 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 // at w[o * ld + k] (nn.Linear's own layout), in shared memory or, with
 // GLOBAL, in device memory (through L1), for a product that runs once per
 // chunk
-template <bool GLOBAL = false>
+template <bool GLOBAL = false, bool BF = false>
 __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
                                      const float* w, int ld = kWld) {
   const Lane l;
@@ -121,7 +183,7 @@ __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     uint32_t ah[4], al[4];
-    a_operand(x, kk, ah, al);
+    a_operand<BF>(x, kk, ah, al);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float b[4][2];
@@ -134,15 +196,16 @@ __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
         b[q][1] = v.y;
       }
       if (h == 0)
-        mma3x4<0>(acc, ah, al, b);
+        mma3x4<0, 4, 8, BF>(acc, ah, al, b);
       else
-        mma3x4<4>(acc, ah, al, b);
+        mma3x4<4, 4, 8, BF>(acc, ah, al, b);
     }
   }
 }
 
 // acc[q] += (x . W^T)[., n-tiles n0 + q], q < 2: two of gemm's eight output
 // n-tiles (16 of the 64 columns), W in shared memory
+template <bool BF = false>
 __device__ __forceinline__ void gemm_cols2(float (&acc)[2][4], const float (&x)[8][4],
                                            const float* w, int n0, int ld = kWld) {
   const Lane l;
@@ -150,7 +213,7 @@ __device__ __forceinline__ void gemm_cols2(float (&acc)[2][4], const float (&x)[
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     uint32_t ah[4], al[4];
-    a_operand(x, kk, ah, al);
+    a_operand<BF>(x, kk, ah, al);
     float b[4][2];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -158,7 +221,7 @@ __device__ __forceinline__ void gemm_cols2(float (&acc)[2][4], const float (&x)[
       b[q][0] = v.x;
       b[q][1] = v.y;
     }
-    mma3x4<0, 2>(acc, ah, al, b);
+    mma3x4<0, 2, 2, BF>(acc, ah, al, b);
   }
 }
 
@@ -255,6 +318,26 @@ __device__ __forceinline__ void load_rows(float (&x)[8][4], const float* src, in
   }
 }
 
+// the same from bf16 rows in device memory (4-byte loads of a pair)
+template <bool GLOBAL>
+__device__ __forceinline__ void load_rows(float (&x)[8][4], const __nv_bfloat16* src,
+                                          int ld, int r0, int valid) {
+  static_assert(GLOBAL, "bf16 rows are read from device memory");
+  const Lane l;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + l.g + 8 * h;
+    const __nv_bfloat16* row = src + static_cast<long long>(r) * ld + 2 * l.t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (r < valid) v = ldg_pair(row + 8 * n);
+      x[n][2 * h] = v.x;
+      x[n][2 * h + 1] = v.y;
+    }
+  }
+}
+
 // the rows r0 + g, r0 + g + 8 of a row fragment into dst (row stride ld),
 // those below `valid` only
 __device__ __forceinline__ void store_rows(float* dst, int ld, const float (&x)[8][4],
@@ -275,7 +358,10 @@ __device__ __forceinline__ void store_rows(float* dst, int ld, const float (&x)[
 // to dst (row stride 64), those below `valid`, as 16-byte stores that
 // write whole rows: the row fragment's own 8-byte stores touch 8 rows
 // each. The caller stages the rows with store_rows first.
-__device__ __forceinline__ void copy_out_rows(float* dst, const float* stage, int r0,
+// bf16 rows (dst of type __nv_bfloat16) go out as 8-byte stores of 4
+// values rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ void copy_out_rows(T* dst, const float* stage, int r0,
                                               int valid) {
   __syncwarp();
   const int lane = threadIdx.x & 31;
@@ -283,8 +369,8 @@ __device__ __forceinline__ void copy_out_rows(float* dst, const float* stage, in
   for (int i = 0; i < 8; ++i) {
     const int r = r0 + 2 * i + (lane >> 4), c4 = lane & 15;
     if (r < valid)
-      *reinterpret_cast<float4*>(dst + static_cast<long long>(r) * 64 + 4 * c4) =
-          *reinterpret_cast<const float4*>(stage + r * kWld + 4 * c4);
+      store4(dst + static_cast<long long>(r) * 64 + 4 * c4,
+             *reinterpret_cast<const float4*>(stage + r * kWld + 4 * c4));
   }
   __syncwarp();
 }
@@ -400,6 +486,7 @@ __device__ __forceinline__ void add_col_sums(float* slot, const float (&x)[8][4]
 // k slots t, t + 4 of step kk stand for tile rows 8 kk + t, 8 kk + t + 4.
 // This is a weight gradient's share over a tile: dW[o][i] += sum_m
 // A[m][o] G[m][i], with rows past the live ones zero in either tile.
+template <bool BF = false>
 __device__ __forceinline__ void gemm_tn(float (&acc)[8][4], const float* a, int o0,
                                         const float* gm, int ld = kWld, int rows = 64) {
   const Lane l;
@@ -412,10 +499,10 @@ __device__ __forceinline__ void gemm_tn(float (&acc)[8][4], const float* a, int 
   for (int kk = 0; kk < rows / 8; ++kk) {
     const float* ra = a + (8 * kk + l.t) * ld + o0 + l.g;
     uint32_t ah[4], al[4];
-    split(ra[0], ah[0], al[0]);
-    split(ra[8], ah[1], al[1]);
-    split(ra[4 * ld], ah[2], al[2]);
-    split(ra[4 * ld + 8], ah[3], al[3]);
+    split_op<BF>(ra[0], ah[0], al[0]);
+    split_op<BF>(ra[8], ah[1], al[1]);
+    split_op<BF>(ra[4 * ld], ah[2], al[2]);
+    split_op<BF>(ra[4 * ld + 8], ah[3], al[3]);
     const float* rg = gm + (8 * kk + l.t) * ld + l.g;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -426,9 +513,9 @@ __device__ __forceinline__ void gemm_tn(float (&acc)[8][4], const float* a, int 
         b[q][1] = rg[4 * ld + 8 * (4 * h + q)];
       }
       if (h == 0)
-        mma3x4<0>(t, ah, al, b);
+        mma3x4<0, 4, 8, BF>(t, ah, al, b);
       else
-        mma3x4<4>(t, ah, al, b);
+        mma3x4<4, 4, 8, BF>(t, ah, al, b);
     }
   }
 #pragma unroll
@@ -458,7 +545,9 @@ constexpr int kWgHalf = 64 * 64;
 // x . W, where W[k][o] is at w[k * ld + off + o]). PERM_O puts output o at
 // q_slot(o) (the product's output in layout Q), PERM_P input p at
 // q_slot(p) (its A operand in layout Q).
-template <bool TRANSPOSE = false, bool PERM_O = false, bool PERM_P = false>
+// With BF the hi half holds W rounded to bf16 and the lo half is not
+// written (gemm_wg<KB, true> reads the hi half alone).
+template <bool TRANSPOSE = false, bool PERM_O = false, bool PERM_P = false, bool BF = false>
 __device__ __forceinline__ void load_weight_wg(float* dst, const float* __restrict__ w,
                                                int ld, int off, int threads) {
   for (int i = threadIdx.x; i < 64 * 64; i += threads) {
@@ -469,6 +558,10 @@ __device__ __forceinline__ void load_weight_wg(float* dst, const float* __restri
     const float x = __ldg(w + a * ld + off + b);
     const int kk = p >> 3, t = (p & 7) >> 1, j = p & 1;
     const int idx = ((kk * 2 + j) * 8 + (o >> 3)) * 32 + (o & 7) * 4 + t;
+    if (BF) {
+      dst[idx] = bf16r(x);
+      continue;
+    }
     const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     dst[idx] = __uint_as_float(hi);
     dst[kWgHalf + idx] = x - __uint_as_float(hi);
@@ -516,7 +609,9 @@ __device__ __forceinline__ void fence_operands(float (&x)[8][4]) {
 // Every warp of the group calls it together (wgmma is warpgroup-wide). The
 // k-steps go in batches of KB, each waited for before the next one's A
 // operand is split: KB = 8 holds 64 registers of A at once, KB = 4 half.
-template <int KB = 8>
+// With BF (W held by load_weight_wg<..., true>) one bf16-operand product a
+// k-step.
+template <int KB = 8, bool BF = false>
 __device__ __forceinline__ void gemm_wg(float (&acc)[8][4], const float (&x)[8][4],
                                         const float* w) {
   const uint64_t dh = wg_desc(w), dl = wg_desc(w + kWgHalf);
@@ -524,14 +619,16 @@ __device__ __forceinline__ void gemm_wg(float (&acc)[8][4], const float (&x)[8][
   for (int k0 = 0; k0 < 8; k0 += KB) {
     uint32_t ah[KB][4], al[KB][4];
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk) a_operand(x, k0 + kk, ah[kk], al[kk]);
+    for (int kk = 0; kk < KB; ++kk) a_operand<BF>(x, k0 + kk, ah[kk], al[kk]);
     fence_operands(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < KB; ++kk) {  // 2048 bytes a k-step: 128 in the address field
       const uint64_t step = 128 * (k0 + kk);
-      wgmma_k8(acc, al[kk], dh + step);
-      wgmma_k8(acc, ah[kk], dl + step);
+      if (!BF) {
+        wgmma_k8(acc, al[kk], dh + step);
+        wgmma_k8(acc, ah[kk], dl + step);
+      }
       wgmma_k8(acc, ah[kk], dh + step);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");

@@ -200,6 +200,12 @@ class StepPredictor(nn.Module):
     def predicts_std(self) -> bool:
         return self.output_std
 
+    def forward(self, prev_state, prev_prev_state, forcing):
+        """The one-step prediction, :meth:`step` (which the subclasses
+        define), so that ``torch.func.functional_call`` can run it on
+        other parameter tensors."""
+        return self.step(prev_state, prev_prev_state, forcing)
+
     def get_clamped_new_state(
         self, state_delta: torch.Tensor, prev_state: torch.Tensor
     ) -> torch.Tensor:

@@ -11,11 +11,12 @@ does with ``jax.checkpoint``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..datastore.base import BaseDatastore
@@ -60,12 +61,20 @@ class ARForecaster(nn.Module):
         init_states: torch.Tensor,  # (B, 2, N, d_state)
         forcing_features: torch.Tensor,  # (B, T, N, d_forcing)
         boundary_states: torch.Tensor,  # (B, T, N, d_state)
+        params: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Batched rollout; returns ``(prediction (B, T, N, d), std|None)``.
 
         Runs in the node-major layout ``(N, B, d)``: per step, predict,
         then blend ``boundary_mask * boundary + interior_mask * pred``
-        (reference: autoregressive.py:116-136).
+        (reference: autoregressive.py:116-136). The states are float32.
+
+        ``params`` (the predictor's parameters by name) runs every step on
+        those tensors instead of the predictor's own: the bf16 copies of
+        mixed-precision training, made under autograd so that the
+        gradients land on the float32 parameters. They are swapped in
+        inside each step, so that a rematerialised step recomputes with
+        them too.
         """
         bmask = self.boundary_mask
         imask = 1.0 - bmask
@@ -76,9 +85,13 @@ class ARForecaster(nn.Module):
         prev_prev_state, prev_state = init_nm[0], init_nm[1]
 
         def step(prev_state, prev_prev_state, forcing, boundary):
-            pred_state, pred_std = self.predictor.step(
-                prev_state, prev_prev_state, forcing
-            )
+            inputs = (prev_state, prev_prev_state, forcing)
+            if params is None:
+                pred_state, pred_std = self.predictor.step(*inputs)
+            else:
+                pred_state, pred_std = functional_call(
+                    self.predictor, params, inputs, strict=False
+                )
             return bmask * boundary + imask * pred_state, pred_std
 
         pred_steps = forcing_nm.shape[0]

@@ -43,6 +43,14 @@ class BaseGraphModel(StepPredictor):
     Parameters are drawn from ``torch.Generator().manual_seed(seed)``;
     the model is built on ``device`` (``"cuda"`` unless the caller asks
     for ``"cpu"``) and its graph lives there too.
+
+    Mixed precision (``compute_dtype``, a ``torch.dtype`` or its name, as
+    the JAX package's, ``neural_lam_tpu/models/graph_base.py:66-83``): the
+    static grid, mesh and edge features and the hidden activations are in
+    this dtype; the parameters stay float32 and the caller passes bf16
+    copies of them (``Trainer``'s ``precision="bf16"``). The output map's
+    result is cast to float32, and the state update and its clamping run
+    in float32.
     """
 
     def __init__(
@@ -62,6 +70,7 @@ class BaseGraphModel(StepPredictor):
         m2g_gnn_type: str = "InteractionNet",
         seed: int = 0,
         device: str | torch.device = "cuda",
+        compute_dtype: str | torch.dtype = torch.float32,
     ) -> None:
         super().__init__(
             datastore=datastore,
@@ -70,6 +79,12 @@ class BaseGraphModel(StepPredictor):
             output_clamping_upper=output_clamping_upper,
         )
         self.device = resolve_device(device)
+        if isinstance(compute_dtype, str):
+            compute_dtype = getattr(torch, compute_dtype)
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
+        self.grid_static_features = self.grid_static_features.to(compute_dtype)
         self.hidden_dim = hidden_dim
         self.hidden_layers = hidden_layers
         self.processor_layers = processor_layers
@@ -99,7 +114,7 @@ class BaseGraphModel(StepPredictor):
         )
         self.hierarchical = hierarchical
         self.graph: GraphBuffers = build_graph_buffers(
-            hierarchical, graph_dict, self.num_grid_nodes
+            hierarchical, graph_dict, self.num_grid_nodes, dtype=compute_dtype
         )
         self.num_mesh_nodes = self.graph.num_mesh_nodes
 
@@ -191,12 +206,15 @@ class BaseGraphModel(StepPredictor):
         """One-step prediction on node-major ``(N, B, d)`` (or unbatched
         ``(N, d)``) arrays: embed, g2m, process, m2g, output map,
         diff-stat rescale, clamped residual add (reference:
-        graph/base.py:228-344)."""
+        graph/base.py:228-344). The hidden compute runs in
+        ``compute_dtype``; the state update in float32."""
+        dtype = self.compute_dtype
         static = self.grid_static_features
         if prev_state.dim() == 3:
             static = static.unsqueeze(1).expand(-1, prev_state.shape[1], -1)
         grid_features = torch.cat(
-            (prev_state, prev_prev_state, forcing, static), dim=-1
+            (prev_state.to(dtype), prev_prev_state.to(dtype), forcing.to(dtype), static),
+            dim=-1,
         )
         grid_emb = self.grid_embedder(grid_features)
         mesh_emb = self.embed_mesh_nodes()
@@ -223,7 +241,7 @@ class BaseGraphModel(StepPredictor):
             update_edges=False,
             propagation=self.m2g_propagation,
         )
-        net_output = self.output_map(grid_rep)
+        net_output = self.output_map(grid_rep).float()
         if self.output_std:
             pred_delta_mean, pred_std_raw = net_output.chunk(2, dim=-1)
             pred_std = F.softplus(pred_std_raw)
@@ -231,5 +249,5 @@ class BaseGraphModel(StepPredictor):
             pred_delta_mean, pred_std = net_output, None
 
         rescaled_delta_mean = pred_delta_mean * self.diff_std + self.diff_mean
-        new_state = self.get_clamped_new_state(rescaled_delta_mean, prev_state)
+        new_state = self.get_clamped_new_state(rescaled_delta_mean, prev_state.float())
         return new_state, pred_std

@@ -30,7 +30,7 @@ class GraphEdges:
     (the counterpart of the JAX package's ``PaddedEdges``)."""
 
     edges: EdgeSet
-    features: torch.Tensor  # (E, d_feat) float32
+    features: torch.Tensor  # (E, d_feat), in the model's compute dtype
 
     @property
     def feature_dim(self) -> int:
@@ -41,13 +41,14 @@ class GraphEdges:
 
 
 def _make_edges(
-    edge_index: np.ndarray, features: np.ndarray, num_rec: int, num_send: int
+    edge_index: np.ndarray, features: np.ndarray, num_rec: int, num_send: int,
+    dtype: torch.dtype = torch.float32,
 ) -> GraphEdges:
     edges, perm = make_edge_set(
         edge_index[0], edge_index[1], num_rec=num_rec, num_send=num_send
     )
     feats = place_edge_features(np.asarray(features, np.float32), perm)
-    return GraphEdges(edges=edges, features=torch.from_numpy(feats.copy()))
+    return GraphEdges(edges=edges, features=torch.from_numpy(feats.copy()).to(dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,9 +101,12 @@ class GraphBuffers:
 
 
 def build_graph_buffers(
-    hierarchical: bool, graph: dict[str, Any], num_grid_nodes: int
+    hierarchical: bool, graph: dict[str, Any], num_grid_nodes: int,
+    dtype: torch.dtype = torch.float32,
 ) -> GraphBuffers:
-    """Convert a loaded (numpy) graph dict into CPU graph buffers."""
+    """Convert a loaded (numpy) graph dict into CPU graph buffers, the
+    static edge and mesh features in ``dtype`` (the model's compute dtype,
+    as the JAX package's ``build_graph_buffers(dtype=...)``)."""
     if hierarchical:
         mesh_static = [np.asarray(m, np.float32) for m in graph["mesh_static_features"]]
         m2m_indices = graph["m2m_edge_index"]
@@ -114,28 +118,30 @@ def build_graph_buffers(
     sizes = [m.shape[0] for m in mesh_static]
 
     m2m = tuple(
-        _make_edges(idx, feat, num_rec=sizes[lev], num_send=sizes[lev])
+        _make_edges(idx, feat, num_rec=sizes[lev], num_send=sizes[lev], dtype=dtype)
         for lev, (idx, feat) in enumerate(zip(m2m_indices, m2m_features))
     )
     g2m = _make_edges(
         graph["g2m_edge_index"], graph["g2m_features"],
-        num_rec=sizes[0], num_send=num_grid_nodes,
+        num_rec=sizes[0], num_send=num_grid_nodes, dtype=dtype,
     )
     m2g = _make_edges(
         graph["m2g_edge_index"], graph["m2g_features"],
-        num_rec=num_grid_nodes, num_send=sizes[0],
+        num_rec=num_grid_nodes, num_send=sizes[0], dtype=dtype,
     )
     up: tuple[GraphEdges, ...] = ()
     down: tuple[GraphEdges, ...] = ()
     if hierarchical:
         up = tuple(
-            _make_edges(idx, feat, num_rec=sizes[lev + 1], num_send=sizes[lev])
+            _make_edges(idx, feat, num_rec=sizes[lev + 1], num_send=sizes[lev],
+                        dtype=dtype)
             for lev, (idx, feat) in enumerate(
                 zip(graph["mesh_up_edge_index"], graph["mesh_up_features"])
             )
         )
         down = tuple(
-            _make_edges(idx, feat, num_rec=sizes[lev], num_send=sizes[lev + 1])
+            _make_edges(idx, feat, num_rec=sizes[lev], num_send=sizes[lev + 1],
+                        dtype=dtype)
             for lev, (idx, feat) in enumerate(
                 zip(graph["mesh_down_edge_index"], graph["mesh_down_features"])
             )
@@ -146,7 +152,9 @@ def build_graph_buffers(
         g2m=g2m,
         m2g=m2g,
         m2m=m2m,
-        mesh_static_features=tuple(torch.from_numpy(m.copy()) for m in mesh_static),
+        mesh_static_features=tuple(
+            torch.from_numpy(m.copy()).to(dtype) for m in mesh_static
+        ),
         up=up,
         down=down,
     )

@@ -2,25 +2,32 @@
 
 
 def launch_counters() -> dict:
-    """Each CUDA kernel's wrapper by the kernel's name, K1-K8. A wrapper
-    adds one to its ``launches`` where it launches its kernel, and
-    nowhere else. Under CUDA graph capture that launch goes into the
-    graph, and is counted once: the graph's replays do not call the
-    wrapper."""
+    """Each CUDA kernel's launch count by the kernel's name: K1-K8, each
+    a wrapper, and the bf16 variants of K1-K4, whose counts the same
+    wrappers keep in objects of their own. A wrapper adds one to a
+    ``launches`` where it launches that kernel, and nowhere else. Under
+    CUDA graph capture that launch goes into the graph, and is counted
+    once: the graph's replays do not call the wrapper."""
     from .fused_kernels import (
+        FUSED_EDGE_BF16,
+        FUSED_EDGE_BF16_OPS,
+        FUSED_EDGE_BWD_BF16,
+        FUSED_EDGE_BWD_BF16_OPS,
         fused_edge_bwd,
         fused_edge_phase,
         fused_edge_phase_v2,
         fused_edge_v2_bwd,
     )
     from .segment_kernels import (
+        SENDER_GATHER_BF16,
+        SENDER_SCATTER_BF16,
         receiver_expand,
         segment_sum,
         sender_gather,
         sender_scatter,
     )
 
-    return {
+    counters = {
         "K1 sender_gather": sender_gather,
         "K3 fused_edge_phase": fused_edge_phase,
         "K2 sender_scatter": sender_scatter,
@@ -30,3 +37,7 @@ def launch_counters() -> dict:
         "K7 fused_edge_phase_v2": fused_edge_phase_v2,
         "K8 fused_edge_phase_v2 backward": fused_edge_v2_bwd,
     }
+    for count in (SENDER_GATHER_BF16, SENDER_SCATTER_BF16, FUSED_EDGE_BF16,
+                  FUSED_EDGE_BF16_OPS, FUSED_EDGE_BWD_BF16, FUSED_EDGE_BWD_BF16_OPS):
+        counters[count.name] = count
+    return counters

@@ -50,6 +50,20 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   (the Function's ``W1`` gradient carries zeros in those blocks, as the
   JAX one does at :2673). :func:`fused_v2_routed` picks the route per
   edge set, from the same environment variables as the JAX package.
+- Reduced precision (K3 and K4 only): :func:`fused_precision` chooses,
+  as ``make_fused_interaction`` does (pallas_fused.py:1414-1453), whether
+  the kernels' matmul operands are bf16 (bf16 inputs, ``high``,
+  ``high-kernels``) and in which dtype the edge, sender and receiver
+  streams move (bf16 for bf16 inputs and under ``high``). The bf16
+  instantiations of K3 and K4 (``nl_fused_edge_fwd_bf16ops``,
+  ``nl_fused_edge_bwd_bf16ops``) multiply bf16 operands with float32
+  accumulation and keep SiLU, LayerNorm, the residuals and the sums in
+  float32; the outputs follow the receiver rows' dtype, the gradients the
+  inputs'. Their plain version, :func:`_plain` with ``bf16_ops``, rounds
+  each product's operands to bf16 (:class:`_BF16Product`).
+  ``NEURAL_LAM_TPU_BF16_KERNELS=off`` keeps the float32 kernels and casts
+  at their boundary. The v2 route (K7, K8) has no reduced-precision
+  variant yet and raises ``NotImplementedError`` for one.
 - Supported on CUDA: hidden width 64, batch 1 to 32, raw edge features
   up to 8 wide, ``propagation`` (K3, K4) and ``layer_norm=False`` in the
   kernels themselves. Other shapes raise on CUDA here; the routing in
@@ -73,7 +87,14 @@ from torch import nn
 
 from . import kernel_build
 from .mlp import LN_EPS, linear_layers, output_layer_norm
-from .segment_kernels import refuse_autograd, sender_scatter
+from .segment import (
+    BF16_KERNELS_ENV,
+    MATMUL_PRECISION_ENV,
+    bf16_kernels,
+    kernel_matmul_high,
+    matmul_high,
+)
+from .segment_kernels import LaunchCount, refuse_autograd, sender_scatter
 
 KERNEL = "fused_edge"
 BWD_KERNEL = "fused_edge_bwd"
@@ -96,6 +117,28 @@ _ROW_GROUPS = 4  # and of their batched edge pass
 # rows of a tile, and (receiver, b) rows of a receiver chunk of K4's and
 # K8's main kernels (kRecRows, kChunkRows)
 _TILE_ROWS, _CHUNK_ROWS_K4, _CHUNK_ROWS_K8 = 64, 32, 16
+
+# The launch counts of K3's and K4's bf16-operand instantiations: bf16
+# streams (mixed precision, ``high``) and float32 streams (``high-kernels``)
+FUSED_EDGE_BF16 = LaunchCount("K3 fused_edge_phase bf16")
+FUSED_EDGE_BF16_OPS = LaunchCount("K3 fused_edge_phase bf16 operands")
+FUSED_EDGE_BWD_BF16 = LaunchCount("K4 fused_edge_phase backward bf16")
+FUSED_EDGE_BWD_BF16_OPS = LaunchCount("K4 fused_edge_phase backward bf16 operands")
+
+
+def fused_precision(in_dtype: torch.dtype) -> tuple[bool, torch.dtype]:
+    """``(bf16_ops, io_dtype)`` of a fused phase whose receiver rows are
+    ``in_dtype``: are the kernels' matmul operands bf16, and in which dtype
+    do the edge, sender and receiver streams move? The JAX package's
+    ``cdt`` and ``io_dt`` (pallas_fused.py:1430-1453), from the same
+    environment variables, read at every call: bf16 inputs take bf16
+    streams and operands unless ``NEURAL_LAM_TPU_BF16_KERNELS=off``;
+    ``high`` takes both for float32 inputs too, ``high-kernels`` the
+    operands only."""
+    bf16_streams = in_dtype == torch.bfloat16 and bf16_kernels()
+    ops = bf16_streams or kernel_matmul_high()
+    io = torch.bfloat16 if (bf16_streams or matmul_high()) else torch.float32
+    return ops, io
 
 
 def kernels_take(hidden: int, batch: int, device) -> bool:
@@ -162,31 +205,75 @@ def _weights(edge_mlp: nn.Sequential, embedder: Optional[nn.Sequential]):
     return out + [e1.weight, e1.bias, e2.weight, e2.bias, eln.weight, eln.bias]
 
 
-def _embed(edge_in, weights, raw):
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+class _BF16Product(torch.autograd.Function):
+    """``x . w^T`` (``w`` in nn.Linear's (out, in) layout) as the bf16
+    kernels form it: both operands rounded to bf16, the products exact and
+    summed in float32. Its backward is the JAX backward kernel's,
+    ``d_x = bf16(g) . bf16(w)`` and ``d_w = bf16(g)^T . bf16(x)``, or with
+    ``round_grad`` False (the receiver slice, which the JAX package
+    differentiates outside its kernel, in float32) ``g . w`` and
+    ``g^T . x``."""
+
+    @staticmethod
+    def forward(ctx, x, w, round_grad):
+        ctx.save_for_backward(x, w)
+        ctx.round_grad = round_grad
+        return _bf16(x) @ _bf16(w).T
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if ctx.round_grad:
+            g, x, w = _bf16(g), _bf16(x), _bf16(w)
+        d_w = g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])
+        return g @ w, d_w, None
+
+
+def _linear(x, w, b, bf16_ops: bool, round_grad: bool = True):
+    """``x . w^T (+ b)`` in float32, or with ``bf16_ops`` as the bf16
+    kernels form it (:class:`_BF16Product`; ``b`` added in float32)."""
+    if not bf16_ops:
+        return x @ w.T if b is None else F.linear(x, w, b)
+    y = _BF16Product.apply(x, w, round_grad)
+    return y if b is None else y + b
+
+
+def _embed(edge_in, weights, raw, bf16_ops=False):
     """The edge input as the first layer sees it: the embedder on the raw
     features, or the edge array itself."""
     if not raw:
         return edge_in
     ew1, eb1, ew2, eb2, eg, ebt = weights[6:]
     d = ew2.shape[0]
+    hidden = F.silu(_linear(edge_in, ew1, eb1, bf16_ops))
     return F.layer_norm(
-        F.linear(F.silu(F.linear(edge_in, ew1, eb1)), ew2, eb2),
-        (d,), eg, ebt, LN_EPS,
+        _linear(hidden, ew2, eb2, bf16_ops), (d,), eg, ebt, LN_EPS,
     )
 
 
-def _edge_proj(edge_rep, w1):
-    """``edge_rep . W1e``, once per edge for a shared ``(E, D)`` input."""
-    proj = edge_rep @ w1[:, : w1.shape[0]].T
-    return proj.unsqueeze(1) if edge_rep.dim() == 2 else proj
+def _edge_proj(edge_rep, w1, batch=None, bf16_ops=False):
+    """``edge_rep . W1e``, once per edge for a shared ``(E, D)`` input;
+    with ``bf16_ops`` per (edge, b) row of the shared input broadcast to
+    ``batch``, so that its gradient rounds each row's share to bf16 before
+    the batch is summed, as the JAX kernel's column-tiled weight does."""
+    w1e = w1[:, : w1.shape[0]]
+    if bf16_ops and edge_rep.dim() == 2:
+        edge_rep = edge_rep.unsqueeze(1).expand(-1, batch, -1)
+    proj = _linear(edge_rep, w1e, None, bf16_ops)
+    return proj.unsqueeze(1) if proj.dim() == 2 else proj
 
 
 def _messages(pre, edge_rep, rec_like, receivers, weights, update_edges,
-              residual=None):
+              residual=None, bf16_ops=False):
     """Second layer, LayerNorm, the optional residuals and the receiver
     sums: ``(aggr, new_edge | None)``."""
     w2, b2, gamma, beta = weights[2:6]
-    msg = F.linear(F.silu(pre), w2, b2)
+    msg = _linear(F.silu(pre), w2, b2, bf16_ops)
     if gamma is not None:
         msg = F.layer_norm(msg, (w2.shape[0],), gamma, beta, LN_EPS)
     if residual is not None:
@@ -200,21 +287,28 @@ def _messages(pre, edge_rep, rec_like, receivers, weights, update_edges,
 
 
 def _plain(edge_in, x_send, rec_rep, receivers, weights, raw, update_edges,
-           propagation):
-    """The phase in plain PyTorch on the weight tensors of :func:`_weights`."""
+           propagation, bf16_ops=False):
+    """The phase in plain PyTorch on the weight tensors of :func:`_weights`,
+    all float32. With ``bf16_ops`` each product takes bf16 operands, as
+    K3's and K4's bf16 instantiations do (the JAX kernels' ``cdt``); SiLU,
+    LayerNorm, the residuals and the sums stay float32. The TPU kernel's
+    one-hot selection and broadcast matmuls also round the receiver
+    projection, each message before its sum and a shared edge before its
+    residual to bf16; the port selects, sums and broadcasts exactly."""
     w1, b1 = weights[:2]
     d = w1.shape[0]
-    edge_rep = _embed(edge_in, weights, raw)
-    rec_proj = rec_rep @ w1[:, 2 * d :].T  # once per receiver
+    edge_rep = _embed(edge_in, weights, raw, bf16_ops)
+    # once per receiver
+    rec_proj = _linear(rec_rep, w1[:, 2 * d :], None, bf16_ops, round_grad=False)
     pre = (
-        _edge_proj(edge_rep, w1)
-        + x_send @ w1[:, d : 2 * d].T
+        _edge_proj(edge_rep, w1, x_send.shape[1], bf16_ops)
+        + _linear(x_send, w1[:, d : 2 * d], None, bf16_ops)
         + rec_proj.index_select(0, receivers)
         + b1
     )
     return _messages(
         pre, edge_rep, rec_rep, receivers, weights, update_edges,
-        residual=x_send if propagation else None,
+        residual=x_send if propagation else None, bf16_ops=bf16_ops,
     )
 
 
@@ -245,12 +339,37 @@ def fused_edge_phase_plain(
 ):
     """Plain PyTorch version of K3 (same arguments as
     :func:`fused_edge_phase` plus the per-edge ``receivers``). Autograd
-    through it is the plain version of K4."""
+    through it is the plain version of K4. Under a reduced precision
+    (:func:`fused_precision` of ``rec_rep``'s dtype) it is the plain
+    version of K3's bf16 instantiation, with the casts of
+    :func:`fused_edge_phase` around it: the same dtypes in and out."""
     raw = embedder is not None
-    return _plain(
-        edge_feats if raw else edge_rep, x_send, rec_rep, receivers,
-        _weights(edge_mlp, embedder), raw, update_edges, propagation,
+    bf16_ops, io = fused_precision(rec_rep.dtype)
+    edge_in, x_io, rec_io, weights = _kernel_inputs(
+        edge_mlp, embedder, edge_rep, edge_feats, x_send, rec_rep, io
     )
+    outs = _plain(
+        edge_in.float(), x_io.float(), rec_io.float(), receivers, weights, raw,
+        update_edges, propagation, bf16_ops,
+    )
+    outs = [None if t is None else t.to(rec_rep.dtype) for t in outs]
+    if io != rec_rep.dtype:  # K4 reads the incoming gradients in the streams' dtype
+        outs = [None if t is None else _GradIn.apply(t, io) for t in outs]
+    return tuple(outs)
+
+
+class _GradIn(torch.autograd.Function):
+    """The identity, whose backward rounds the gradient to ``io`` (and
+    back): the cast of the incoming gradients that K4's launcher makes."""
+
+    @staticmethod
+    def forward(ctx, x, io):
+        ctx.io = io
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.io).to(g.dtype), None
 
 
 def fused_edge_phase_v2_plain(
@@ -277,18 +396,22 @@ def fused_edge_phase_v2_plain(
     return aggr, new_edge
 
 
-# The environment variables that choose the route, read only through
-# these names, so that ``route_env`` covers all of them
+# The environment variables that choose the route and the precision, read
+# only through these names, so that ``route_env`` covers all of them
 FUSED_V2_ENV = "NEURAL_LAM_TPU_FUSED_V2"
 FUSED_V2_RATIO_ENV = "NEURAL_LAM_TPU_FUSED_V2_RATIO"
 CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
-_ROUTE_ENV = (FUSED_V2_ENV, FUSED_V2_RATIO_ENV, CACHE_PRE_ENV)
+_ROUTE_ENV = (
+    FUSED_V2_ENV, FUSED_V2_RATIO_ENV, CACHE_PRE_ENV, BF16_KERNELS_ENV,
+    MATMUL_PRECISION_ENV,
+)
 
 
 def route_env() -> tuple[Optional[str], ...]:
-    """The environment variables that :func:`fused_v2_routed` reads, as
-    they stand now. A captured CUDA graph fixes the route it was captured
-    on, so a cache of graphs keys on these."""
+    """The environment variables that :func:`fused_v2_routed` and
+    :func:`fused_precision` read, as they stand now. A captured CUDA graph
+    fixes the route and the kernels' precision it was captured with, so a
+    cache of graphs keys on these."""
     return tuple(os.environ.get(name) for name in _ROUTE_ENV)
 
 
@@ -347,9 +470,29 @@ def _fwd_lib():
 
 
 @functools.cache
+def _fwd_bf16_lib():
+    """K3's bf16-operand instantiations: ``(io_bf16, out_bf16)`` and then
+    the arguments of ``nl_fused_edge_fwd``."""
+    fn = kernel_build.load(KERNEL).nl_fused_edge_fwd_bf16ops
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 21
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_lib():
     fn = kernel_build.load(BWD_KERNEL).nl_fused_edge_bwd
     fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 25
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_bf16_lib():
+    """K4's bf16-operand instantiations: ``io_bf16`` and then the
+    arguments of ``nl_fused_edge_bwd``."""
+    fn = kernel_build.load(BWD_KERNEL).nl_fused_edge_bwd_bf16ops
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 25
     fn.restype = ctypes.c_int
     return fn
 
@@ -429,11 +572,11 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, shape,
-           who: str = "fused_edge_phase") -> None:
+           who: str = "fused_edge_phase", dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{who}: {name} on {t.device}, not {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{who}: {name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
@@ -442,9 +585,11 @@ def _check(name: str, t: torch.Tensor, device: torch.device, shape,
         raise ValueError(f"{who}: {name} must be contiguous and aligned")
 
 
-def _check_edge_and_weights(who, edge_in, edge_set, batch, dev, weights, raw):
-    """Refuse an edge input, weights or an edge set that the CUDA kernels
-    do not take; returns the edge mode and the raw feature width."""
+def _check_edge_and_weights(who, edge_in, edge_set, batch, dev, weights, raw,
+                            io=torch.float32):
+    """Refuse an edge input (of dtype ``io``), weights (float32) or an
+    edge set that the CUDA kernels do not take; returns the edge mode and
+    the raw feature width."""
     d, n_edges = KERNEL_HIDDEN, edge_set.num_edges
     w1, _, w2 = weights[:3]
     if tuple(w1.shape) != (d, 3 * d) or tuple(w2.shape) != (d, d):
@@ -467,13 +612,13 @@ def _check_edge_and_weights(who, edge_in, edge_set, batch, dev, weights, raw):
                 f"embedder of width {d} on at most {MAX_RAW_FEATURES} raw "
                 "features"
             )
-        _check("edge_feats", edge_in, dev, (n_edges, feat), who)
+        _check("edge_feats", edge_in, dev, (n_edges, feat), who, io)
         mode = _EDGE_RAW
     elif edge_in.dim() == 2:
-        _check("edge_rep", edge_in, dev, (n_edges, d), who)
+        _check("edge_rep", edge_in, dev, (n_edges, d), who, io)
         mode = _EDGE_SHARED
     else:
-        _check("edge_rep", edge_in, dev, (n_edges, batch, d), who)
+        _check("edge_rep", edge_in, dev, (n_edges, batch, d), who, io)
         mode = _EDGE_BATCHED
     for w in weights:
         if w is not None and (
@@ -494,43 +639,58 @@ def _check_edge_and_weights(who, edge_in, edge_set, batch, dev, weights, raw):
 
 def _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw) -> tuple[int, int]:
     """Refuse what K3 and K4 do not take; returns the edge mode and the
-    raw feature width."""
-    dev, d = x_send.device, KERNEL_HIDDEN
+    raw feature width. The streams are float32, or all bf16 (the bf16
+    instantiations); the weights float32."""
+    dev, d, io = x_send.device, KERNEL_HIDDEN, x_send.dtype
     if x_send.dim() != 3:
         raise ValueError("fused_edge_phase: x_send must be (E, B, D)")
+    if io not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_edge_phase: x_send must be float32 or bf16, got {io}")
     n_edges, batch = x_send.shape[0], x_send.shape[1]
     if n_edges != edge_set.num_edges:
         raise ValueError("fused_edge_phase: x_send rows != edges of the edge set")
     mode, feat = _check_edge_and_weights(
-        "fused_edge_phase", edge_in, edge_set, batch, dev, weights, raw
+        "fused_edge_phase", edge_in, edge_set, batch, dev, weights, raw, io
     )
-    _check("x_send", x_send, dev, (n_edges, batch, d))
-    _check("rec_rep", rec_rep, dev, (edge_set.num_rec, batch, d))
+    _check("x_send", x_send, dev, (n_edges, batch, d), dtype=io)
+    _check("rec_rep", rec_rep, dev, (edge_set.num_rec, batch, d), dtype=io)
     return mode, feat
 
 
 def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
-                   update_edges, propagation, save_pre=False):
+                   update_edges, propagation, save_pre=False, bf16_ops=False,
+                   out_dtype=None):
     """Launch K3 on CUDA tensors: ``(aggr, new_edge | None, pre | None)``.
-    The launcher records no autograd graph; :class:`FusedEdgePhase` does."""
+    The launcher records no autograd graph; :class:`FusedEdgePhase` does.
+
+    The streams ``edge_in``, ``x_send`` and ``rec_rep`` are all float32 or
+    all bf16 and the weights float32. With ``bf16_ops`` the bf16-operand
+    instantiation runs (bf16 streams: ``FUSED_EDGE_BF16``; float32:
+    ``FUSED_EDGE_BF16_OPS``), and ``aggr`` and ``new_edge`` are written in
+    ``out_dtype`` (float32 or bf16; the streams' dtype by default). Without
+    it the streams must be float32 and so are the outputs; ``pre`` is
+    float32 always."""
     refuse_autograd(
         "fused_edge_fwd", "ops.fused_kernels.fused_edge_phase",
         edge_in, x_send, rec_rep, *weights,
     )
     mode, feat = _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw)
-    dev = x_send.device
+    dev, io = x_send.device, x_send.dtype
+    if not bf16_ops and io != torch.float32:
+        raise TypeError("fused_edge_fwd: bf16 streams need bf16_ops")
+    out = io if out_dtype is None else out_dtype
+    if not bf16_ops and out != torch.float32:
+        raise TypeError("fused_edge_fwd: the float32 kernel writes float32")
     shape = tuple(x_send.shape)
-    aggr = torch.empty(tuple(rec_rep.shape), dtype=torch.float32, device=dev)
-    new_edge = (
-        torch.empty(shape, dtype=torch.float32, device=dev) if update_edges else None
-    )
+    aggr = torch.empty(tuple(rec_rep.shape), dtype=out, device=dev)
+    new_edge = torch.empty(shape, dtype=out, device=dev) if update_edges else None
     pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
     # the kernel's work counter; inside a CUDA graph capture its zero-fill
     # is a node of the graph, so every replay starts it at 0 again
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = _fwd_lib()(
+    args = (
         mode, edge_set.num_rec, shape[1], feat, int(update_edges),
         int(propagation), int(weights[4] is not None),
         _ptr(edge_in), _ptr(x_send), _ptr(rec_rep), _ptr(edge_set.rowptr),
@@ -538,9 +698,17 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
         _ptr(aggr), _ptr(new_edge), _ptr(pre), _ptr(counter),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    if bf16_ops:
+        io_bf16 = io == torch.bfloat16
+        err = _fwd_bf16_lib()(int(io_bf16), int(out == torch.bfloat16), *args)
+    else:
+        err = _fwd_lib()(*args)
     if err != 0:
         raise RuntimeError(f"fused_edge_phase kernel launch failed: CUDA error {err}")
-    fused_edge_phase.launches += 1
+    if not bf16_ops:
+        fused_edge_phase.launches += 1
+    else:
+        (FUSED_EDGE_BF16 if io_bf16 else FUSED_EDGE_BF16_OPS).launches += 1
     return aggr, new_edge, pre
 
 
@@ -561,33 +729,41 @@ def _edge_grads(out_edge, raw, feat):
 
 
 def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
-                   weights, raw, propagation):
+                   weights, raw, propagation, bf16_ops=False):
     """Launch K4 on CUDA tensors. ``d_new_edge`` may be None (no gradient
     reaches the updated edges). Returns ``(d_edge | None, d_send, d_rec,
     weight grads)``: ``d_edge`` in the edge input's shape, None for raw
     features; the weight grads in the order of :func:`_weights`, None
-    where the weight is."""
+    where the weight is.
+
+    ``d_aggr``, ``d_new_edge``, the edge input, ``x_send`` and ``rec_rep``
+    are in the streams' dtype, float32 or (with ``bf16_ops``) bf16, and so
+    are ``d_edge`` and ``d_send``; ``pre``, ``d_rec`` and the weight
+    gradients are float32. With ``bf16_ops`` the bf16-operand instantiation
+    runs (``FUSED_EDGE_BWD_BF16`` or ``FUSED_EDGE_BWD_BF16_OPS``)."""
     mode, feat = _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw)
-    dev, d = x_send.device, KERNEL_HIDDEN
+    dev, d, io = x_send.device, KERNEL_HIDDEN, x_send.dtype
+    if not bf16_ops and io != torch.float32:
+        raise TypeError("fused_edge_bwd: bf16 streams need bf16_ops")
     n_edges, batch = x_send.shape[0], x_send.shape[1]
     num_rec = edge_set.num_rec
-    _check("d_aggr", d_aggr, dev, (num_rec, batch, d))
+    _check("d_aggr", d_aggr, dev, (num_rec, batch, d), dtype=io)
     _check("pre", pre, dev, (n_edges, batch, d))
     if d_new_edge is not None:
-        _check("d_new_edge", d_new_edge, dev, (n_edges, batch, d))
+        _check("d_new_edge", d_new_edge, dev, (n_edges, batch, d), dtype=io)
     w1, _, _, _, gamma = weights[:5]
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
     batched = mode == _EDGE_BATCHED
-    d_send = empty(n_edges, batch, d)
+    d_send = empty(n_edges, batch, d, dtype=io)
     d_recproj = empty(num_rec, batch, d)
     d_edge = None
     if batched:
-        d_edge = empty(n_edges, batch, d)
+        d_edge = empty(n_edges, batch, d, dtype=io)
     elif mode == _EDGE_SHARED:
-        d_edge = empty(n_edges, d)
+        d_edge = empty(n_edges, d, dtype=io)
     if num_rec == 0 or n_edges == 0:
         # no edge reaches a weight or a node: every gradient is zero
         zeros = [None if w is None else torch.zeros_like(w) for w in weights]
@@ -610,7 +786,7 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
     ws_main, ws_edge, d_pre = (
         scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)
     )
-    err = _bwd_lib()(
+    args = (
         mode, num_rec, n_edges, batch, feat, int(propagation),
         int(gamma is not None), main_blocks, edge_blocks,
         _ptr(edge_in), _ptr(x_send), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
@@ -620,19 +796,25 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
         ws_main, _ptr(out_main), ws_edge, _ptr(out_edge),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    io_bf16 = io == torch.bfloat16
+    err = _bwd_bf16_lib()(int(io_bf16), *args) if bf16_ops else _bwd_lib()(*args)
     if err != 0:
         raise RuntimeError(
             f"fused_edge_phase backward kernel launch failed: CUDA error {err}"
         )
-    fused_edge_bwd.launches += 1
+    if not bf16_ops:
+        fused_edge_bwd.launches += 1
+    else:
+        (FUSED_EDGE_BWD_BF16 if io_bf16 else FUSED_EDGE_BWD_BF16_OPS).launches += 1
 
     mats = out_main[: 2 * _MAT].view(2, d, d)  # dW2, dW1s as (out, in)
     db2, dgamma, dbeta, db1 = out_main[2 * _MAT :].view(4, d)
     dw1e, emb_grads = _edge_grads(out_edge, raw, feat)
-    # the receiver slice: node-sized products, as the JAX package forms them
+    # the receiver slice: node-sized products in float32, as the JAX
+    # package forms them (its einsums promote bf16 rows to float32)
     w1r = w1[:, 2 * d :]
     d_rec = d_recproj @ w1r
-    dw1r = torch.einsum("nbc,nbk->ck", d_recproj, rec_rep)
+    dw1r = torch.einsum("nbc,nbk->ck", d_recproj, rec_rep.float())
     grads = [torch.cat([dw1e, mats[1], dw1r], dim=1), db1, mats[0], db2]
     grads += [dgamma, dbeta] if gamma is not None else [None, None]
     return d_edge, d_send, d_rec, grads + emb_grads
@@ -647,59 +829,79 @@ class FusedEdgePhase(torch.autograd.Function):
     backward is autograd through the plain version.
 
     ``apply(edge_in, x_send, rec_rep, *weights, edge_set, raw,
-    update_edges, propagation, grad_enabled)`` with the twelve tensors of
-    :func:`_weights`, ``grad_enabled`` the caller's grad mode; returns
-    ``(aggr, new_edge | None)``.
+    update_edges, propagation, grad_enabled, bf16_ops, out_dtype)`` with
+    the streams in one dtype (float32, or bf16 with ``bf16_ops``), the
+    twelve float32 tensors of :func:`_weights`, ``grad_enabled`` the
+    caller's grad mode, ``bf16_ops`` the kernels' bf16 operands and
+    ``out_dtype`` that of the outputs; returns ``(aggr, new_edge |
+    None)``. The backward takes the incoming gradients in the streams'
+    dtype, as the JAX package casts them to ``io_dt``, and returns the
+    streams' gradients in their dtype and the weights' in float32.
     """
 
     @staticmethod
     def forward(ctx, edge_in, x_send, rec_rep, *args):
         weights = args[:12]
-        edge_set, raw, update_edges, propagation, grad_enabled = args[12:]
-        ctx.meta = (edge_set, raw, update_edges, propagation)
+        (edge_set, raw, update_edges, propagation, grad_enabled, bf16_ops,
+         out_dtype) = args[12:]
+        ctx.meta = (edge_set, raw, update_edges, propagation, bf16_ops)
         ctx.set_materialize_grads(False)
         need_grad = grad_enabled and any(ctx.needs_input_grad)
         if x_send.device.type == "cpu":
             aggr, new_edge = _plain(
-                edge_in, x_send, rec_rep, edge_set.receivers, weights, raw,
-                update_edges, propagation,
+                edge_in.float(), x_send.float(), rec_rep.float(),
+                edge_set.receivers, weights, raw, update_edges, propagation,
+                bf16_ops,
             )
             pre = None
-        else:
+            aggr = aggr.to(out_dtype)
+            new_edge = None if new_edge is None else new_edge.to(out_dtype)
+        elif bf16_ops:
+            aggr, new_edge, pre = fused_edge_fwd(
+                edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
+                propagation, save_pre=need_grad, bf16_ops=True, out_dtype=out_dtype,
+            )
+        else:  # the float32 kernel, cast on the way out
             aggr, new_edge, pre = fused_edge_fwd(
                 edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
                 propagation, save_pre=need_grad,
             )
+            aggr = aggr.to(out_dtype)
+            new_edge = None if new_edge is None else new_edge.to(out_dtype)
         if need_grad:
             ctx.save_for_backward(edge_in, x_send, rec_rep, *weights, pre)
         return aggr, new_edge
 
     @staticmethod
     def backward(ctx, d_aggr, d_new_edge):
-        edge_set, raw, update_edges, propagation = ctx.meta
+        edge_set, raw, update_edges, propagation, bf16_ops = ctx.meta
         # absent weights were saved as None and come back as None
         edge_in, x_send, rec_rep, *weights, pre = ctx.saved_tensors
         if d_aggr is None and d_new_edge is None:
-            return (None,) * 20
-        if d_aggr is None:
-            d_aggr = torch.zeros_like(rec_rep)
+            return (None,) * 22
+        io = x_send.dtype
+        d_aggr = torch.zeros_like(rec_rep) if d_aggr is None else d_aggr.to(io)
+        if d_new_edge is not None:
+            d_new_edge = d_new_edge.to(io)
         if x_send.device.type == "cpu":
             d_edge, d_send, d_rec, grads = _plain_bwd(
-                d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
-                raw, update_edges, propagation,
+                d_aggr.float(), None if d_new_edge is None else d_new_edge.float(),
+                edge_in.float(), x_send.float(), rec_rep.float(), edge_set,
+                weights, raw, update_edges, propagation, bf16_ops,
             )
         else:
             d_edge, d_send, d_rec, grads = fused_edge_bwd(
                 d_aggr.contiguous(),
                 None if d_new_edge is None else d_new_edge.contiguous(),
                 pre, edge_in, x_send, rec_rep, edge_set, weights, raw,
-                propagation,
+                propagation, bf16_ops,
             )
-        return (d_edge, d_send, d_rec, *grads, None, None, None, None, None)
+        d_edge = None if d_edge is None else d_edge.to(io)
+        return (d_edge, d_send.to(io), d_rec.to(io), *grads, *(None,) * 7)
 
 
 def _plain_bwd(d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
-               raw, update_edges, propagation):
+               raw, update_edges, propagation, bf16_ops=False):
     """K4's plain version: autograd through :func:`_plain` on the same
     inputs. Same returns as :func:`fused_edge_bwd`."""
     with torch.enable_grad():
@@ -711,7 +913,7 @@ def _plain_bwd(d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
             leaves[0] = edge_in.detach()  # the raw features are constants
         aggr, new_edge = _plain(
             leaves[0], leaves[1], leaves[2], edge_set.receivers, leaves[3:],
-            raw, update_edges, propagation,
+            raw, update_edges, propagation, bf16_ops,
         )
         outs, seeds = [aggr], [d_aggr]
         if d_new_edge is not None:
@@ -758,14 +960,32 @@ def fused_edge_phase(
             "Linear-SiLU-Linear-LayerNorm embedder"
         )
     raw = embedder is not None
+    bf16_ops, io = fused_precision(rec_rep.dtype)
+    edge_in, x_io, rec_io, weights = _kernel_inputs(
+        edge_mlp, embedder, edge_rep, edge_feats, x_send, rec_rep, io
+    )
     # grad mode decides whether K3 writes pre for the backward: inside the
     # Function, needs_input_grad follows the parameters' requires_grad even
     # under no_grad and inference_mode, where no backward will run
     return FusedEdgePhase.apply(
-        edge_feats if raw else edge_rep, x_send, rec_rep,
-        *_weights(edge_mlp, embedder),
+        edge_in, x_io, rec_io, *weights,
         edge_set, raw, update_edges, propagation, torch.is_grad_enabled(),
+        bf16_ops, rec_rep.dtype,
     )
+
+
+def _kernel_inputs(edge_mlp, embedder, edge_rep, edge_feats, x_send, rec_rep, io):
+    """The streams in ``io`` and the twelve weights of :func:`_weights`
+    in float32, by casts that autograd follows back to the callers'
+    dtypes (none where the dtype is already right): the JAX package's
+    casts around its kernels (pallas_fused.py:1463-1472, :1720-1735), the
+    raw features through float32 as there."""
+    if embedder is not None:
+        edge_in = edge_feats.float().to(io)
+    else:
+        edge_in = edge_rep.to(io)
+    weights = [None if w is None else w.float() for w in _weights(edge_mlp, embedder)]
+    return edge_in, x_send.to(io), rec_rep.to(io), weights
 
 
 fused_edge_phase.launches = 0
@@ -1014,6 +1234,18 @@ def fused_edge_phase_v2(
     """
     if rec_rep.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"{_V2}: unsupported device {rec_rep.device}")
+    if any(t is not None and t.dtype != torch.float32 for t in (edge_rep, send_rep, rec_rep)):
+        reason = "bf16 inputs"
+    elif kernel_matmul_high():
+        reason = f"{MATMUL_PRECISION_ENV}={os.environ[MATMUL_PRECISION_ENV]}"
+    else:
+        reason = None
+    if reason is not None:
+        raise NotImplementedError(
+            f"{_V2}: the v2 route (K7, K8) has no reduced-precision variant yet "
+            f"({reason}; ROADMAP.md §2b item 1): take the v1 route "
+            f"({FUSED_V2_ENV}=off) or float32"
+        )
     if not fusable(edge_mlp) or (
         embedder is not None
         and not embedder_fusable(embedder, linear_layers(edge_mlp)[1].out_features)

@@ -9,6 +9,13 @@ state-dict keys are the reference's (``0.weight``, ``2.bias``,
 such MLP per chunk of the leading axis (reference:
 neural_lam/gnn_layers.py:275-325), the per-section edge MLPs and
 per-level node MLPs of HiLAMParallel.
+
+Dtypes follow ``jnp.dot`` and JAX's promotion (``neural_lam_tpu/ops/
+mlp.py:60-80``): an MLP runs in its input's dtype when its parameters
+have that dtype (bf16 products return bf16 under mixed precision), and
+in the promoted dtype when they differ (bf16 activations against the
+float32 parameters of the eval step give float32, as ``bf16 @ f32`` does
+in JAX; ``torch.matmul`` and ``F.linear`` would raise).
 """
 
 from __future__ import annotations
@@ -16,9 +23,40 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default, as in the JAX package
+
+
+def promote(x: torch.Tensor, *params: Optional[torch.Tensor]):
+    """``x`` and ``params`` in their promoted dtype (JAX's rule for
+    ``x @ w + b``); tensors already of that dtype are returned as they
+    are."""
+    dtype = x.dtype
+    for p in params:
+        if p is not None:
+            dtype = torch.promote_types(dtype, p.dtype)
+    return [None if t is None else t.to(dtype) for t in (x, *params)]
+
+
+class MLP(nn.Sequential):
+    """An ``nn.Sequential`` of ``Linear``, ``SiLU`` and ``LayerNorm``
+    whose forward promotes an activation and a layer's parameters of
+    different dtypes, as JAX does (see the module's docstring); with one
+    dtype throughout it is ``nn.Sequential``'s forward."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            if isinstance(layer, nn.Linear) and layer.weight.dtype != x.dtype:
+                x, w, b = promote(x, layer.weight, layer.bias)
+                x = F.linear(x, w, b)
+            elif isinstance(layer, nn.LayerNorm) and layer.weight.dtype != x.dtype:
+                x, g, b = promote(x, layer.weight, layer.bias)
+                x = F.layer_norm(x, layer.normalized_shape, g, b, layer.eps)
+            else:
+                x = layer(x)
+        return x
 
 
 def make_mlp(
@@ -48,7 +86,7 @@ def make_mlp(
             layers.append(nn.SiLU())
     if layer_norm:
         layers.append(nn.LayerNorm(blueprint[-1], eps=LN_EPS, device=device))
-    return nn.Sequential(*layers)
+    return MLP(*layers)
 
 
 class SplitMLPs(nn.Module):
@@ -116,12 +154,11 @@ def apply_mlp_split_first(
     start = 0
     for part in parts:
         width = part.shape[-1]
-        x = x + part @ first.weight[:, start : start + width].T
+        part, w = promote(part, first.weight[:, start : start + width])
+        x = x + part @ w.T
         start += width
     if start != first.in_features:
         raise ValueError(
             f"parts widths {start} != first-layer input {first.in_features}"
         )
-    for layer in mlp[1:]:
-        x = layer(x)
-    return x
+    return MLP.forward(mlp[1:], x)

@@ -40,6 +40,14 @@ and ``aggregate_sum``.
 - Bound on the H100: bytes, all four. Every edge row is moved once and
   every node row once; the kernels move 16-byte words with consecutive
   threads on consecutive words (see the source notes).
+- K1 and K2 also take bf16 rows, as the JAX package's gather does under
+  mixed precision and ``NEURAL_LAM_TPU_MATMUL_PRECISION=high``
+  (ops/segment.py:205-320): K1 copies them (``nl_sender_gather_bf16``),
+  K2 widens each to float32 and returns float32 sums
+  (``nl_sender_scatter_bf16``, the JAX kernel's ``out_dtype=float32``).
+  Each bf16 variant counts its launches apart from the float32 kernel's,
+  in :data:`SENDER_GATHER_BF16` and :data:`SENDER_SCATTER_BF16`. K5 and
+  K6 take float32 only (the JAX package casts around them).
 - On a CPU tensor the wrappers run the plain versions (``index_select``
   and ``index_add_``); on a CUDA tensor they launch the kernels or
   raise.
@@ -65,6 +73,19 @@ SEGMENT_SUM_KERNEL = "segment_sum"
 EXPAND_KERNEL = "receiver_expand"
 
 
+class LaunchCount:
+    """The launch count of a kernel variant that has no wrapper of its
+    own: the wrapper that launches it adds one to ``launches``."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.launches = 0
+
+
+SENDER_GATHER_BF16 = LaunchCount("K1 sender_gather bf16")
+SENDER_SCATTER_BF16 = LaunchCount("K2 sender_scatter bf16")
+
+
 def sender_gather_plain(x: torch.Tensor, senders: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1: ``x[senders]`` along the row axis."""
     return x.index_select(0, senders)
@@ -74,7 +95,9 @@ def sender_scatter_plain(
     g: torch.Tensor, senders: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: ``index_add_`` of the edge rows
-    ``g`` into ``num_rows`` zero rows at ``senders``."""
+    ``g`` into ``num_rows`` zero rows at ``senders``, float32 sums (bf16
+    rows are widened first, as K2 widens them)."""
+    g = g.float()
     out = g.new_zeros((num_rows,) + tuple(g.shape[1:]))
     return out.index_add_(0, senders.long(), g)
 
@@ -94,8 +117,8 @@ def receiver_expand_plain(x: torch.Tensor, receivers: torch.Tensor) -> torch.Ten
 
 
 @functools.cache
-def _gather_lib():
-    fn = kernel_build.load(KERNEL).nl_sender_gather
+def _gather_lib(symbol: str = "nl_sender_gather"):
+    fn = getattr(kernel_build.load(KERNEL), symbol)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -105,8 +128,8 @@ def _gather_lib():
 
 
 @functools.cache
-def _scatter_lib():
-    fn = kernel_build.load(SCATTER_KERNEL).nl_sender_scatter
+def _scatter_lib(symbol: str = "nl_sender_scatter"):
+    fn = getattr(kernel_build.load(SCATTER_KERNEL), symbol)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -143,11 +166,16 @@ def refuse_autograd(name: str, use: str, *tensors) -> None:
         )
 
 
-def _check_rows(name: str, x: torch.Tensor, index: torch.Tensor) -> None:
+def _check_rows(name: str, x: torch.Tensor, index: torch.Tensor,
+                bf16: bool = False) -> None:
+    """Refuse rows the kernel does not take: float32 rows, or with
+    ``bf16`` also bf16 rows."""
     if index.device != x.device:
         raise ValueError(f"{name}: rows and indices on different devices")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: rows must be float32, got {x.dtype}")
+    allowed = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if x.dtype not in allowed:
+        names = " or ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"{name}: rows must be {names}, got {x.dtype}")
     if index.dtype != torch.int32 or index.dim() != 1:
         raise TypeError(f"{name}: indices must be a 1-d int32 tensor")
     if not (x.is_contiguous() and index.is_contiguous()):
@@ -155,7 +183,8 @@ def _check_rows(name: str, x: torch.Tensor, index: torch.Tensor) -> None:
 
 
 def sender_gather(x: torch.Tensor, senders: torch.Tensor) -> torch.Tensor:
-    """K1: ``x[senders]`` for ``x`` of shape ``(N, *row)`` float32.
+    """K1: ``x[senders]`` for ``x`` of shape ``(N, *row)`` float32 or
+    bf16 (the bf16 variant; the result has the rows' dtype).
 
     ``senders`` is an int32 index vector on the same device with entries
     in ``[0, N)`` (validated when the edge set is built). Returns
@@ -167,22 +196,24 @@ def sender_gather(x: torch.Tensor, senders: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise RuntimeError(f"sender_gather: unsupported device {x.device}")
     refuse_autograd("sender_gather", "ops.segment.gather_senders", x)
-    _check_rows("sender_gather", x, senders)
+    _check_rows("sender_gather", x, senders, bf16=True)
+    bf16 = x.dtype == torch.bfloat16
     row = math.prod(x.shape[1:])
     out = torch.empty(
         (senders.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device
     )
     if senders.shape[0] == 0 or row == 0:
         return out
-    vec4 = row % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    err = _gather_lib()(
+    per_word = 8 if bf16 else 4  # elements of a 16-byte word
+    vec4 = row % per_word == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    err = _gather_lib("nl_sender_gather_bf16" if bf16 else "nl_sender_gather")(
         x.data_ptr(), senders.data_ptr(), out.data_ptr(),
         senders.shape[0], row, int(vec4),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"sender_gather kernel launch failed: CUDA error {err}")
-    sender_gather.launches += 1
+    (SENDER_GATHER_BF16 if bf16 else sender_gather).launches += 1
     return out
 
 
@@ -193,9 +224,10 @@ def sender_scatter(
     g: torch.Tensor, edge_set: "EdgeSet", num_rows: int
 ) -> torch.Tensor:
     """K2: ``dx[s] = sum of g[slot]`` over the slots of ``edge_set`` with
-    sender ``s``, for ``g`` of shape ``(E, *row)`` float32. Returns
-    ``(num_rows, *row)``; rows without a slot are 0. ``num_rows`` is the
-    row count of the gather's input, which the edge set need not know."""
+    sender ``s``, for ``g`` of shape ``(E, *row)`` float32 or bf16 (the
+    bf16 variant). Returns float32 sums ``(num_rows, *row)``; rows without
+    a slot are 0. ``num_rows`` is the row count of the gather's input,
+    which the edge set need not know."""
     n_tab = edge_set.send_rowptr.shape[0] - 1
     if g.shape[0] != edge_set.num_edges:
         raise ValueError("sender_scatter: g rows != edges of the edge set")
@@ -210,24 +242,28 @@ def sender_scatter(
         raise RuntimeError(f"sender_scatter: unsupported device {g.device}")
     refuse_autograd("sender_scatter", "ops.segment.gather_senders", g)
     perm, rowptr = edge_set.send_perm, edge_set.send_rowptr
-    _check_rows("sender_scatter", g, perm)
+    _check_rows("sender_scatter", g, perm, bf16=True)
     if rowptr.device != g.device or rowptr.dtype != torch.int32:
         raise ValueError("sender_scatter: edge set not on the kernel's device")
+    bf16 = g.dtype == torch.bfloat16
     row = math.prod(g.shape[1:])
     out = torch.empty(
-        (num_rows,) + tuple(g.shape[1:]), dtype=g.dtype, device=g.device
+        (num_rows,) + tuple(g.shape[1:]), dtype=torch.float32, device=g.device
     )
     if num_rows == 0 or row == 0:
         return out
-    vec4 = row % 4 == 0 and g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    err = _scatter_lib()(
+    vec4 = (
+        row % 4 == 0 and g.data_ptr() % (8 if bf16 else 16) == 0
+        and out.data_ptr() % 16 == 0
+    )
+    err = _scatter_lib("nl_sender_scatter_bf16" if bf16 else "nl_sender_scatter")(
         g.data_ptr(), perm.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
         num_rows, n_tab, row, int(vec4),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"sender_scatter kernel launch failed: CUDA error {err}")
-    sender_scatter.launches += 1
+    (SENDER_SCATTER_BF16 if bf16 else sender_scatter).launches += 1
     return out
 
 
@@ -236,7 +272,9 @@ sender_scatter.launches = 0
 
 class SenderGather(torch.autograd.Function):
     """``x[edge_set.senders]`` with K1 as its forward and K2 as its
-    backward (their plain versions on CPU tensors)."""
+    backward (their plain versions on CPU tensors). K2's float32 sums are
+    cast to the gradient's dtype, as the JAX package's VJP casts them
+    (ops/segment.py:265, :314)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, edge_set: "EdgeSet") -> torch.Tensor:
@@ -246,7 +284,8 @@ class SenderGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return sender_scatter(grad.contiguous(), ctx.edge_set, ctx.num_rows), None
+        d_x = sender_scatter(grad.contiguous(), ctx.edge_set, ctx.num_rows)
+        return d_x.to(grad.dtype), None
 
 
 def _launch_rowptr(name, lib, src, edge_set, out, num_rec) -> bool:

@@ -27,6 +27,11 @@ eagerly. A short tail batch is padded to ``batch_size`` by repeating its
 last sample, as the JAX CLI pads it, so that it replays the full batch's
 graph; the padded rows are dropped. The JAX CLI's floor of batch 2, a
 TPU lane workaround, is not carried over.
+
+The forecast is float32, whatever precision the checkpoint was trained
+in, as the JAX CLI's is; ``NEURAL_LAM_TPU_MATMUL_PRECISION`` (``high``,
+``high-kernels``) reaches its kernels as it does in training (the JAX
+CLI's ``apply_matmul_precision``, ``neural_lam_tpu/predict.py:70-73``).
 """
 
 from __future__ import annotations
@@ -203,8 +208,10 @@ def main(argv=None, device: str | torch.device = "cuda") -> None:
     """Export forecasts from a checkpoint, on ``device``."""
     from .checkpoint import load_forecaster_from_checkpoint, resolve_load
     from .config import load_config_and_datastore
+    from .ops.segment import apply_matmul_precision
 
     args = build_parser().parse_args(argv)
+    apply_matmul_precision()
     dev = resolve_device(device)
     _, datastore = load_config_and_datastore(args.config_path)
     root, name = resolve_load(args.load)

@@ -8,9 +8,10 @@ for the JAX CLI parses unchanged, on top of the port's
 fall into four groups:
 
 - flags with a counterpart, which do what they do in the JAX CLI;
-- ``--fused_v2`` and ``--cache_pre``, which set the port's routing
-  variables (``ops/fused_kernels.py``), an explicitly set variable
-  winning over the flag;
+- ``--fused_v2``, ``--cache_pre``, ``--bf16_kernels`` and
+  ``--matmul_precision``, which set the port's routing and precision
+  variables (``ops/fused_kernels.py``, ``ops/segment.py``), an explicitly
+  set variable winning over the flag;
 - flags of TPU layouts the port does not have (``--pallas``,
   ``--fused_embed``, ``--kernel_tiling``, ``--banded_gather``,
   ``--aligned_layout``): accepted, with no effect, named on stderr;
@@ -36,9 +37,9 @@ from .loader import DataLoader
 from .metrics import DEFINED_METRICS
 from .models import MODELS, ARForecaster
 from .ops.fused_kernels import CACHE_PRE_ENV, FUSED_V2_ENV
+from .ops.segment import BF16_KERNELS_ENV, MATMUL_PRECISION_ENV, apply_matmul_precision
 from .trainer import Trainer, TrainingArgs
 from .utils.device import resolve_device
-
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,13 +137,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     kernels = parser.add_argument_group(
         "TPU Kernel Tuning",
-        "The JAX package's kernel flags, accepted unchanged. --fused_v2 "
-        "and --cache_pre map to the port's NEURAL_LAM_TPU_FUSED_V2 and "
-        "NEURAL_LAM_TPU_CACHE_PRE (an env var already set wins); the "
-        "flags of TPU layouts the port does not have (--pallas, "
-        "--fused_embed, --kernel_tiling, --banded_gather, "
-        "--aligned_layout) have no effect; --bf16_kernels and a "
-        "--matmul_precision other than highest are not ported yet.",
+        "The JAX package's kernel flags, accepted unchanged. --fused_v2, "
+        "--cache_pre, --bf16_kernels and --matmul_precision map to the "
+        "port's NEURAL_LAM_TPU_FUSED_V2, NEURAL_LAM_TPU_CACHE_PRE, "
+        "NEURAL_LAM_TPU_BF16_KERNELS and NEURAL_LAM_TPU_MATMUL_PRECISION "
+        "(an env var already set wins); the flags of TPU layouts the port "
+        "does not have (--pallas, --fused_embed, --kernel_tiling, "
+        "--banded_gather, --aligned_layout) have no effect.",
     )
     kernels.add_argument(
         "--pallas",
@@ -334,10 +335,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# Kernel flags with a counterpart in the port: flag -> routing variable
+# Kernel flags with a counterpart in the port: flag -> routing or
+# precision variable
 _KERNEL_FLAG_ENV = {
     "fused_v2": FUSED_V2_ENV,
     "cache_pre": CACHE_PRE_ENV,
+    "bf16_kernels": BF16_KERNELS_ENV,
+    "matmul_precision": MATMUL_PRECISION_ENV,
 }
 # Flags of TPU layouts the port does not have: accepted, no effect
 NO_EFFECT_FLAGS = (
@@ -345,10 +349,6 @@ NO_EFFECT_FLAGS = (
 )
 # Flags of work not ported yet: (flag, is it asked for, ROADMAP item)
 UNPORTED = (
-    ("--precision bf16", lambda a: a.precision != "32", "§1 item 7"),
-    ("--bf16_kernels", lambda a: a.bf16_kernels is not None, "§1 item 7"),
-    ("--matmul_precision other than highest",
-     lambda a: a.matmul_precision not in (None, "highest"), "§1 item 7"),
     ("--multihost", lambda a: a.multihost, "§1 item 8"),
     ("--num_nodes other than 1", lambda a: a.num_nodes not in (None, 1), "§1 item 8"),
     ("--devices other than 1", lambda a: a.devices not in (None, 1), "§1 item 8"),
@@ -368,14 +368,17 @@ def check_unported(args) -> None:
 
 
 def apply_kernel_flags(args) -> None:
-    """Propagate ``--fused_v2`` and ``--cache_pre`` to the port's routing
-    variables, which the kernels read at every call; a variable already
-    set in the environment wins over the flag (the JAX CLI's rule). The
-    flags of TPU layouts are named on stderr, and have no effect."""
+    """Propagate ``--fused_v2``, ``--cache_pre``, ``--bf16_kernels`` and
+    ``--matmul_precision`` to the port's routing and precision variables,
+    which the kernels read at every call; a variable already set in the
+    environment wins over the flag (the JAX CLI's rule). Then
+    ``apply_matmul_precision``, as the JAX CLI calls it. The flags of TPU
+    layouts are named on stderr, and have no effect."""
     for flag, env in _KERNEL_FLAG_ENV.items():
         value = getattr(args, flag, None)
         if value is not None and env not in os.environ:
             os.environ[env] = value
+    apply_matmul_precision()
     given = [f"--{f}" for f in NO_EFFECT_FLAGS if getattr(args, f, None) is not None]
     if given:
         print(
@@ -423,6 +426,7 @@ def main(argv=None, device: str = "cuda") -> None:
         m2g_gnn_type=args.m2g_gnn_type,
         seed=args.seed,
         device=dev,
+        compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
     )
     if args.model != "graph_lam":
         predictor_kwargs.update(

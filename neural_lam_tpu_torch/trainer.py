@@ -18,8 +18,18 @@
 The trainer holds the ``nn.Module`` and the optimizer and updates both
 in place; ``checkpoint.CheckpointManager`` saves and restores them. It
 runs in one process: the JAX package's multi-host merges are the identity
-here. bf16 compute, data parallelism, the sharded optimizer state and
-spatial sharding are not ported yet.
+here. Data parallelism, the sharded optimizer state and spatial sharding
+are not ported yet.
+
+Mixed precision (``TrainingArgs.precision="bf16"``, with a model built
+with ``compute_dtype=torch.bfloat16``) is the JAX package's
+(``neural_lam_tpu/trainer.py:427-448``): the parameters and AdamW's state
+stay float32, and the loss runs the model on bf16 copies of the
+parameters made inside the step, under autograd, so that the gradients
+land on the float32 parameters. The eval step passes the float32
+parameters themselves, as the JAX eval step does (``:532-560``): the
+model's bf16 inputs and static features promote to float32 at their first
+product.
 """
 
 from __future__ import annotations
@@ -74,7 +84,7 @@ class TrainingArgs:
     # models/module.py:806-817)
     metrics_watch: tuple[str, ...] = ()
     var_leads_metrics_watch: Optional[dict] = None
-    # "32" (reference default); "bf16" is not ported yet
+    # "32" (reference default) or "bf16": float32 parameters, bf16 compute
     precision: str = "32"
     # torch.profiler trace of steps [2, 2 + profile_steps) of the first
     # epoch, written to <profile_dir>/trace.json
@@ -195,11 +205,8 @@ class Trainer:
         device: str | torch.device = "cuda",
         debug_nans: bool = False,
     ) -> None:
-        if args.precision != "32":
-            raise NotImplementedError(
-                f"precision {args.precision!r}: only float32 training is "
-                "ported; bf16 compute is not yet"
-            )
+        if args.precision not in ("32", "bf16"):
+            raise ValueError(f"precision {args.precision!r}: '32' or 'bf16'")
         self.device = resolve_device(device)
         param_device = next(forecaster.parameters()).device
         if param_device.type != self.device.type or (
@@ -396,7 +403,17 @@ class Trainer:
         init_states, target_states, forcing = self._standardize(
             init_states, target_states, forcing
         )
-        prediction, pred_std = self.forecaster(init_states, forcing, target_states)
+        params = None
+        if self.args.precision == "bf16":
+            # float32 master parameters; bf16 compute copies inside the step
+            params = {
+                name: p.to(torch.bfloat16)
+                for name, p in self.forecaster.predictor.named_parameters()
+            }
+        prediction, pred_std = self.forecaster(
+            init_states, forcing, target_states, params=params
+        )
+        prediction = prediction.float()
         if pred_std is None:
             pred_std = self.per_var_std
         return torch.mean(

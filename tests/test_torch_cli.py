@@ -16,6 +16,12 @@ versions):
    --restore_opt``) and the exported forecasts (``predict``) of both CLIs
    agree within 1e-5 relative (float32 on both sides, another summation
    order only), with the same keys and an equal ``forecast_meta.json``.
+   From the same carried-over checkpoint, an epoch under ``--precision
+   bf16`` (also with ``--bf16_kernels off``) and under ``--matmul_precision
+   high`` and ``high-kernels`` agrees with the JAX CLI's within 2e-2
+   relative, the bf16 tolerance of ``tests/test_torch_bf16.py`` (the JAX
+   CLI runs with Pallas off here, so its bf16 rounds where XLA's
+   operations do), and a bf16 run's checkpoint loads into a float32 run.
 """
 
 import importlib.util
@@ -46,10 +52,12 @@ from neural_lam_tpu_torch.config import load_config_and_datastore
 from neural_lam_tpu_torch.convert_checkpoint import opt_state_from_jax, params_from_jax
 from neural_lam_tpu_torch.dataset import WeatherDataset
 from neural_lam_tpu_torch.ops.fused_kernels import CACHE_PRE_ENV, FUSED_V2_ENV
+from neural_lam_tpu_torch.ops.segment import BF16_KERNELS_ENV, MATMUL_PRECISION_ENV
 from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs, make_optimizer
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-5
+BF16_RTOL = 2e-2
 
 
 @pytest.fixture(autouse=True)
@@ -274,9 +282,6 @@ def test_profile_dir_writes_a_trace(config_path, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--precision", "bf16"], "§1 item 7"),
-    (["--bf16_kernels", "auto"], "§1 item 7"),
-    (["--matmul_precision", "high"], "§1 item 7"),
     (["--multihost"], "§1 item 8"),
     (["--num_nodes", "2"], "§1 item 8"),
     (["--devices", "2"], "§1 item 8"),
@@ -486,3 +491,87 @@ def test_forecasts_match_the_jax_cli(mdp_runs):
         scale = np.abs(want["prediction"]).mean()
         np.testing.assert_allclose(got["prediction"], want["prediction"], rtol=RTOL,
                                    atol=RTOL * scale)
+
+
+# -- the reduced precisions against the JAX CLI ----------------------------------------
+
+
+def _unset_on_exit(monkeypatch, *names):
+    """The CLIs set these variables in the process: have monkeypatch
+    restore them after the test."""
+    for name in names:
+        monkeypatch.setenv(name, "sentinel")
+        monkeypatch.delenv(name)
+
+
+def _epoch_from_checkpoint(mdp_runs, tmp_path, flags):
+    """One epoch of both CLIs from the carried-over ``min_val_loss``
+    parameters (a fresh optimizer, the same shuffle order) under
+    ``flags``: the port's and the JAX CLI's history records."""
+    config, runs, common = mdp_runs
+    argv = common + ["--epochs", "1", "--logger_run_name", "r"] + flags
+    jax_train_model.main(argv + ["--runs_root", str(tmp_path / "jax"), "--load",
+                                 str(runs / "jax" / "run" / "checkpoints" / "min_val_loss")])
+    _main(argv + ["--runs_root", str(tmp_path / "torch"), "--load",
+                  str(runs / "torch" / "run" / "checkpoints" / "min_val_loss")])
+    return _history(tmp_path / "torch" / "r")[0], _history(tmp_path / "jax" / "r")[0]
+
+
+def _losses_close(got, want):
+    for key in ("train_loss", "val_loss", "val_loss_unroll1", "val_loss_unroll2"):
+        np.testing.assert_allclose(got[key], want[key], rtol=BF16_RTOL, err_msg=key)
+
+
+@pytest.mark.parametrize("kernels", [None, "off"])
+def test_bf16_epoch_matches_the_jax_cli(mdp_runs, tmp_path, monkeypatch, kernels):
+    """``--precision bf16`` (and with ``--bf16_kernels off``): float32
+    parameters, bf16 compute, an epoch's losses against the JAX CLI's;
+    the checkpoint's parameters stay float32."""
+    _unset_on_exit(monkeypatch, BF16_KERNELS_ENV, MATMUL_PRECISION_ENV)
+    flags = ["--precision", "bf16"] + ([] if kernels is None else ["--bf16_kernels", kernels])
+    got, want = _epoch_from_checkpoint(mdp_runs, tmp_path, flags)
+    _losses_close(got, want)
+    if kernels is not None:
+        import os
+
+        assert os.environ[BF16_KERNELS_ENV] == kernels
+    state = torch.load(tmp_path / "torch" / "r" / "checkpoints" / "latest" / "state.pt",
+                       weights_only=False)
+    floats = [v for v in state["model"].values() if torch.is_tensor(v)]
+    assert floats and all(v.dtype == torch.float32 for v in floats)
+
+
+@pytest.mark.parametrize("precision", ["high", "high-kernels"])
+def test_matmul_precision_epoch_matches_the_jax_cli(mdp_runs, tmp_path, monkeypatch,
+                                                    precision):
+    """``--matmul_precision high`` and ``high-kernels`` set the variable
+    the kernels read and train an epoch whose losses agree with the JAX
+    CLI's."""
+    import os
+
+    _unset_on_exit(monkeypatch, MATMUL_PRECISION_ENV)
+    got, want = _epoch_from_checkpoint(
+        mdp_runs, tmp_path, ["--matmul_precision", precision]
+    )
+    assert os.environ[MATMUL_PRECISION_ENV] == precision
+    _losses_close(got, want)
+
+
+def test_bf16_checkpoint_loads_into_a_float32_run(config_path, tmp_path, monkeypatch):
+    """A ``--precision bf16`` run's checkpoint holds float32 parameters
+    and AdamW state: ``--load --restore_opt`` continues it in float32,
+    from exactly its parameters."""
+    _unset_on_exit(monkeypatch, BF16_KERNELS_ENV, MATMUL_PRECISION_ENV)
+    common = _common(config_path, tmp_path / "runs")
+    _main(common + ["--epochs", "1", "--precision", "bf16", "--logger_run_name", "b"])
+    run = tmp_path / "runs" / "b"
+    _, tds = load_config_and_datastore(config_path)
+    saved, _ = load_forecaster_from_checkpoint(run, tds, name="latest", device="cpu")
+    assert saved.predictor.compute_dtype == torch.float32  # forecasts are float32
+    _main(common + ["--epochs", "2", "--load", str(run), "--restore_opt",
+                    "--logger_run_name", "f"])
+    history = _history(tmp_path / "runs" / "f")
+    assert [h["epoch"] for h in history] == [1] and np.isfinite(history[0]["train_loss"])
+    state = torch.load(run / "checkpoints" / "latest" / "state.pt", weights_only=False)
+    for name, p in saved.predictor.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, state["model"][name])

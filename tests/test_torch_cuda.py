@@ -40,6 +40,8 @@ from neural_lam_tpu_torch.ops.fused_kernels import (
     fused_edge_v2_bwd,
     fused_edge_v2_fwd,
 )
+from neural_lam_tpu_torch.ops import fused_kernels as fk
+from neural_lam_tpu_torch.ops import segment_kernels as sk
 from neural_lam_tpu_torch.ops.interaction import make_edge_set
 from neural_lam_tpu_torch.ops.mlp import make_mlp
 from neural_lam_tpu_torch.ops.interaction import (
@@ -1580,3 +1582,274 @@ def test_a_failed_inference_capture_raises(cuda, tmp_path):
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "capture raised" in out.stdout
+
+
+# -- the bf16 variants of K1-K4 ----------------------------------------------
+#
+# Each against its plain version at the same dtypes on the card. The
+# kernels and the plain versions multiply the same bf16 operands exactly
+# and sum in float32 in other orders; a bf16 output then rounds two nearly
+# equal float32 values, which can land one bf16 ulp (2^-8 of the value)
+# apart. So every output and gradient is held to 8e-3 of its largest
+# entry, about two bf16 ulps, and its mean error to 1e-3 of it.
+
+# mode -> (NEURAL_LAM_TPU_MATMUL_PRECISION, dtype of the inputs and weights)
+BF16_MODES = {
+    "bf16": (None, torch.bfloat16),  # mixed precision: bf16 streams, operands
+    "high": ("high", torch.float32),  # bf16 streams, operands; float32 out
+    "high-kernels": ("high-kernels", torch.float32),  # bf16 operands only
+}
+BF16_TOL, BF16_MEAN_TOL = 8e-3, 1e-3
+
+
+def _bf16_mode(monkeypatch, mode):
+    env, dtype = BF16_MODES[mode]
+    monkeypatch.delenv("NEURAL_LAM_TPU_BF16_KERNELS", raising=False)
+    if env is None:
+        monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
+    else:
+        monkeypatch.setenv("NEURAL_LAM_TPU_MATMUL_PRECISION", env)
+    return dtype
+
+
+def _close_bf16(got, want, what=""):
+    assert got.dtype == want.dtype, what
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= BF16_TOL * scale, (what, err.max().item() / scale)
+    assert err.mean().item() <= BF16_MEAN_TOL * scale, (what, err.mean().item() / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64), (3, 5)])
+def test_sender_gather_bf16_matches_plain(cuda, shape):
+    rng = np.random.default_rng(20)
+    es, _ = _edge_set(rng, 300, 200, 5000, cuda)
+    x = torch.tensor(rng.normal(size=(300,) + shape), device=cuda).to(torch.bfloat16)
+    before, f32 = sk.SENDER_GATHER_BF16.launches, sender_gather.launches
+    out = sender_gather(x, es.senders)
+    torch.cuda.synchronize()
+    assert (sk.SENDER_GATHER_BF16.launches, sender_gather.launches) == (before + 1, f32)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, sender_gather_plain(x, es.senders))  # a copy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64), (3, 5)])
+def test_sender_scatter_bf16_matches_plain(cuda, shape):
+    """bf16 rows in, float32 sums out, as the JAX kernel's ``out_dtype``."""
+    rng = np.random.default_rng(21)
+    snd = np.concatenate([rng.integers(0, 290, 4600), np.full(400, 7)])
+    es, _ = make_edge_set(snd, rng.integers(0, 200, 5000), num_rec=200, num_send=300)
+    es = es.to(cuda)
+    g = torch.tensor(rng.normal(size=(5000,) + shape), device=cuda).to(torch.bfloat16)
+    before = sk.SENDER_SCATTER_BF16.launches
+    out = sender_scatter(g, es, 310)
+    torch.cuda.synchronize()
+    assert sk.SENDER_SCATTER_BF16.launches == before + 1
+    assert out.dtype == torch.float32
+    # float32 sums of the same values in another order than index_add_'s
+    torch.testing.assert_close(out, sender_scatter_plain(g, es.senders, 310),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, sender_scatter(g, es, 310))
+
+
+def _bf16_phase_case(cuda, mode, flags, batch, seed, grad=False):
+    """Inputs, modules and the keyword arguments of one fused phase in
+    ``mode``'s dtype: ``(args, kw, leaves)``."""
+    edge_mode, update, prop, ln = flags
+    _, dtype = BF16_MODES[mode]
+    rng = np.random.default_rng(seed)
+    d, n_send, n_rec = 64, 70, 50
+    es, _ = _edge_set(rng, n_send, n_rec, 900, cuda, empty_rec=5)
+    gen = torch.Generator().manual_seed(seed)
+    edge_mlp = make_mlp([3 * d, d, d], layer_norm=ln, generator=gen).to(cuda, dtype)
+    embedder = make_mlp([3, d, d], generator=gen).to(cuda, dtype)
+
+    def t(*shape, g=False):
+        x = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+        return x.to(dtype).requires_grad_(g)
+
+    x_send, rec = t(es.num_edges, batch, d, g=grad), t(n_rec, batch, d, g=grad)
+    edge_rep, feats, emb = None, None, None
+    if edge_mode == "raw":
+        feats, emb = t(es.num_edges, 3), embedder
+    elif edge_mode == "shared":
+        edge_rep = t(es.num_edges, d, g=grad)
+    else:
+        edge_rep = t(es.num_edges, batch, d, g=grad)
+    leaves = [x_send, rec] + ([edge_rep] if edge_rep is not None else [])
+    leaves += list(edge_mlp.parameters()) + (list(emb.parameters()) if emb else [])
+    kw = dict(embedder=emb, edge_feats=feats, update_edges=update, propagation=prop)
+    return (edge_mlp, edge_rep, x_send, rec, es), kw, leaves
+
+
+def _bf16_counter(mode):
+    return fk.FUSED_EDGE_BF16_OPS if mode == "high-kernels" else fk.FUSED_EDGE_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BF16_MODES))
+@pytest.mark.parametrize("flags", FLAGS)
+@pytest.mark.parametrize("batch", [4, 1, 32])
+def test_fused_edge_phase_bf16_matches_plain(cuda, monkeypatch, mode, flags, batch):
+    """K3's bf16-operand instantiations (bf16 streams; float32 streams
+    under ``high-kernels``) against the plain version: the aggregate and
+    the updated edges in the receiver rows' dtype, receivers without
+    edges 0."""
+    _bf16_mode(monkeypatch, mode)
+    (edge_mlp, edge_rep, x_send, rec, es), kw, _ = _bf16_phase_case(
+        cuda, mode, flags, batch, seed=22
+    )
+    counter = _bf16_counter(mode)
+    with torch.no_grad():
+        before, f32 = counter.launches, fused_edge_phase.launches
+        got = fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es, **kw)
+        torch.cuda.synchronize()
+        assert (counter.launches, fused_edge_phase.launches) == (before + 1, f32)
+        want = fused_edge_phase_plain(edge_mlp, edge_rep, x_send, rec, es.receivers,
+                                      kw["embedder"], kw["edge_feats"],
+                                      kw["update_edges"], kw["propagation"])
+    assert got[0].dtype == rec.dtype
+    _close_bf16(got[0], want[0], "aggr")
+    assert torch.all(got[0][-5:] == 0)
+    if flags[1]:
+        _close_bf16(got[1], want[1], "new_edge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BF16_MODES))
+@pytest.mark.parametrize("flags", BWD_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (1, True), (32, True)])
+def test_fused_edge_phase_bf16_backward_matches_plain(cuda, monkeypatch, mode, flags,
+                                                     batch, use_new_edge):
+    """K4's bf16-operand instantiations against autograd of the plain
+    version: every input and weight gradient, in the input's or weight's
+    dtype; the same bits on a second run."""
+    _bf16_mode(monkeypatch, mode)
+    (edge_mlp, edge_rep, x_send, rec, es), kw, leaves = _bf16_phase_case(
+        cuda, mode, flags, batch, seed=23, grad=True
+    )
+    rng = np.random.default_rng(24)
+    w_aggr = torch.tensor(rng.normal(size=tuple(rec.shape)), device=cuda).to(rec.dtype)
+    w_edge = torch.tensor(rng.normal(size=tuple(x_send.shape)), device=cuda).to(rec.dtype)
+
+    def loss(out):
+        total = (out[0].float() * w_aggr.float()).sum()
+        if flags[1] and use_new_edge:
+            total = total + (out[1].float() * w_edge.float()).sum()
+        return total
+
+    counter = fk.FUSED_EDGE_BWD_BF16_OPS if mode == "high-kernels" else fk.FUSED_EDGE_BWD_BF16
+    before, f32 = counter.launches, fused_edge_bwd.launches
+    got = torch.autograd.grad(loss(fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es, **kw)),
+                              leaves)
+    torch.cuda.synchronize()
+    assert (counter.launches, fused_edge_bwd.launches) == (before + 1, f32)
+    want = torch.autograd.grad(
+        loss(fused_edge_phase_plain(edge_mlp, edge_rep, x_send, rec, es.receivers,
+                                    kw["embedder"], kw["edge_feats"], kw["update_edges"],
+                                    kw["propagation"])),
+        leaves,
+    )
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close_bf16(g, w, f"gradient {i}")
+    again = torch.autograd.grad(
+        loss(fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es, **kw)), leaves
+    )
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_off_keeps_the_float32_kernels(cuda, monkeypatch):
+    """``NEURAL_LAM_TPU_BF16_KERNELS=off``: bf16 inputs reach K1 and K3
+    as float32 (casts at their boundary), and the outputs are bf16."""
+    _bf16_mode(monkeypatch, "bf16")
+    monkeypatch.setenv("NEURAL_LAM_TPU_BF16_KERNELS", "off")
+    (edge_mlp, edge_rep, x_send, rec, es), kw, _ = _bf16_phase_case(
+        cuda, "bf16", FLAGS[2], 4, seed=25
+    )
+    send = torch.randn(70, 4, 64, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        ticks = _ticks(lambda: (gather_senders(es, send),
+                                fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es, **kw)))
+        got = fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es, **kw)
+        want = fused_edge_phase_plain(edge_mlp, edge_rep, x_send, rec, es.receivers,
+                                      None, None, kw["update_edges"], kw["propagation"])
+    assert {k for k, v in ticks.items() if v} == {"K1 sender_gather", "K3 fused_edge_phase"}
+    assert got[0].dtype == torch.bfloat16
+    _close_bf16(got[0], want[0])
+
+
+def _bf16_trainers(tmp_path, cuda, monkeypatch):
+    """``_train_setup``'s GraphLAM, built with ``compute_dtype`` bf16 and
+    trained with ``precision="bf16"``."""
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "off")
+    ds = DummyDatastore(root_path=tmp_path, n_grid_x=9, n_grid_y=9, n_timesteps=12)
+    create_graph_from_datastore(ds, tmp_path / "graph" / "multiscale")
+    model_kw = dict(hidden_dim=64, processor_layers=2, compute_dtype=torch.bfloat16)
+    weights = GraphLAM(ds, device="cpu", **model_kw).state_dict()
+    config = NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path=""))
+
+    def make_trainer():
+        model = GraphLAM(ds, device=cuda, **model_kw)
+        model.load_state_dict(weights)
+        return Trainer(ARForecaster(model, ds), config, ds,
+                       TrainingArgs(batch_size=2, precision="bf16"), device=cuda)
+
+    rng = np.random.default_rng(7)
+    n, d = ds.num_grid_points, ds.get_num_data_vars("state")
+    f = 3 * ds.get_num_data_vars("forcing")
+    data = [tuple(rng.normal(size=s).astype(np.float32)
+                  for s in ((2, 2, n, d), (2, 1, n, d), (2, 1, n, f))) for _ in range(5)]
+    return make_trainer, data
+
+
+@pytest.mark.cuda
+def test_captured_bf16_step_matches_the_eager_step(cuda, tmp_path, monkeypatch):
+    """Mixed precision through the captured graph against five eager
+    steps from the same weights, bit for bit; the parameters and AdamW's
+    state stay float32, and the step launched the bf16 variants of K1-K4
+    only."""
+    _bf16_mode(monkeypatch, "bf16")
+    make_trainer, data = _bf16_trainers(tmp_path, cuda, monkeypatch)
+    eager, captured = make_trainer(), make_trainer()
+    want = [eager.train_step(*b).item() for b in data]
+    step = captured.make_train_step()
+    got = []
+    first = _ticks(lambda: got.append(step(*data[0]).item()))
+    got += [step(*b).item() for b in data[1:]]
+    assert got == want and np.isfinite(got).all()
+    for p, q in zip(captured.forecaster.parameters(), eager.forecaster.parameters()):
+        assert p.dtype == torch.float32 and torch.equal(p, q)
+    for state in captured.optimizer.state.values():
+        assert all(t.dtype == torch.float32 for t in state.values() if torch.is_tensor(t))
+    assert {k for k, v in first.items() if v} == {
+        "K1 sender_gather bf16", "K2 sender_scatter bf16", "K3 fused_edge_phase bf16",
+        "K4 fused_edge_phase backward bf16",
+    }
+
+
+@pytest.mark.cuda
+def test_captured_step_recaptures_when_the_matmul_precision_changes(cuda, tmp_path,
+                                                                    monkeypatch):
+    """A change of ``NEURAL_LAM_TPU_MATMUL_PRECISION`` between calls
+    captures a graph of its own, which runs the bf16-operand K3 and K4,
+    and replays the eager step's values under it; going back replays the
+    first graph."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(3)
+    eager, captured = make_trainer(), make_trainer()
+    step = captured.make_train_step()
+    monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
+    want = [eager.train_step(*data[0]).item()]
+    got = [step(*data[0]).item()]
+    monkeypatch.setenv("NEURAL_LAM_TPU_MATMUL_PRECISION", "high-kernels")
+    want.append(eager.train_step(*data[1]).item())
+    ticks = _ticks(lambda: got.append(step(*data[1]).item()))
+    monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION")
+    want.append(eager.train_step(*data[2]).item())
+    later = _ticks(lambda: got.append(step(*data[2]).item()))
+    assert len(captured.graphs) == 2 and not any(later.values())
+    assert ticks["K3 fused_edge_phase bf16 operands"] > 0 and ticks["K3 fused_edge_phase"] == 0
+    np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -430,8 +430,8 @@ def test_trainer_refuses_what_is_not_ported(root):
     tds = DummyDatastore(root_path=root, **DS_KW)
     fc = ARForecaster(GraphLAM(tds, hidden_dim=8, processor_layers=1, device="cpu"), tds)
     cfg = _configs()[1]
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Trainer(fc, cfg, tds, TrainingArgs(precision="bf16"), device="cpu")
+    with pytest.raises(ValueError, match="precision '16'"):
+        Trainer(fc, cfg, tds, TrainingArgs(precision="16"), device="cpu")
     with pytest.raises(ValueError, match="Unknown metric"):
         Trainer(fc, cfg, tds, TrainingArgs(loss="rmse"), device="cpu")
     if not torch.cuda.is_available():
