@@ -11,8 +11,9 @@ and K8 (their SIMT design and C interface): its ``fused_edge.cu``,
 are built too and timed on the same inputs in the same call, beside the
 current K3, K4, K7 and K8.
 
-It builds the port's eight CUDA kernel sources (with the bf16 variants of
-K1-K4) from ``neural_lam_tpu_torch/csrc``
+It builds the port's nine CUDA kernel sources (with the bf16 variants of
+K1-K4, K7 and K8, and K4 recomputing ``pre``) from
+``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
 configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
 layers, batch 4, float32) for three model families and the three routes
@@ -86,7 +87,7 @@ backward), against the same fixtures at the same limits.
 
 After GraphLAM's route lines (below), the reduced-precision path (the
 ``bf16`` lines): the bf16 variants
-of K1-K4 at the six GraphLAM sites in each instantiation (bf16 rows; bf16
+of K1-K4, K7 and K8 at the six GraphLAM sites in each instantiation (bf16 rows; bf16
 operands on bf16 streams, with bf16 and ``high``'s float32 outputs, and
 on float32 streams) against their plain versions, within ``BF16_TOL`` of
 each output's largest entry, K1 bit for bit, each beside the float32
@@ -101,7 +102,16 @@ beside the float32 captured step's); 2 steps each of
 and 1 each under ``NEURAL_LAM_TPU_MATMUL_PRECISION=high`` and
 ``high-kernels``; and ``scripts/accuracy_probe.py``'s bf16 check, the
 19-step rollout with bf16 compute copies of the gate's weights against
-``rollout19_f32.npz``. Then GraphLAM's
+``rollout19_f32.npz``; the training (without the unfused model and HiLAM)
+and the rollout once more on the v2 route, where K7 and K8 run their bf16
+instantiations. Then ``NEURAL_LAM_TPU_CACHE_PRE`` (the ``cache pre``
+lines): K3 writing a bf16 ``pre``, K4 reading it and K4 recomputing
+``pre`` at the six GraphLAM sites of a training step, each against its
+plain version (and the recomputing K4 against K4 from K3's float32
+``pre``, within 1e-6 of each gradient's largest entry), each beside the
+kernel it stands in for; and GraphLAM's captured training step under
+``on``, ``bf16`` and ``off`` against the training fixture (``bf16`` at
+the bf16 bounds), with its time, peak memory and launches. Then GraphLAM's
 served AR step and training step on both routes, each as its kernels'
 device time beside the host's time to enqueue it; and the shapes the
 fused kernels do not take (``GraphLAM(hidden_dim=32)`` serving and
@@ -235,29 +245,43 @@ GRAPH_LOSS_RTOL = 1e-6
 # launch of its wrapper. A graph's replays do not call the wrappers, so a
 # graph's kernel nodes, whose names are mangled
 # ("...16gather_rows_vec4EPK6float4..."), count their launches by these.
-# The variants of K1-K4 are template instantiations of one entry point,
-# told apart by their mangled template arguments: the element type of K1
-# (f, 13__nv_bfloat16), K2's input word (Bf16x4, __nv_bfloat16 for bf16
-# rows) and K3's and K4's bf16-operand flag (Lb0E, Lb1E) and stream type.
+# The variants of K1-K4, K7 and K8 are template instantiations of one entry
+# point, told apart by their mangled template arguments: the element type
+# of K1 (f, 13__nv_bfloat16), K2's input word (Bf16x4, __nv_bfloat16 for
+# bf16 rows), K3's <mode, bf16 operands, bf16 pre, stream type>, K4's
+# <mode, pre: 0 float32 | 1 bf16 | 2 recomputed, bf16 operands, stream
+# type>, K7's <mode, bf16 operands, stream type> and K8's <batched, bf16
+# operands, stream type>.
 BF16_T = "13__nv_bfloat16"
 END = "(?![a-z0-9_])"  # the name ends here
 KERNEL_SYMBOLS = {
     name: re.compile(rf"(?<![A-Za-z_]){pattern}")
     for name, pattern in (
         ("K1 sender_gather", "gather_rows_(?:vec4|scalar)IfE"),
-        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0E"),
+        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0ELb0E"),
         ("K2 sender_scatter", r"scatter_rowsI(?!\w*(?:Bf16x4|__nv_bfloat16))"),
-        ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILb\dELb0E"),
+        ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILi\dELi0ELb0E"),
         ("K5 segment_sum", f"segment_sum_rows{END}"),
         ("K6 receiver_expand", f"expand_rows{END}"),
-        ("K7 fused_edge_phase_v2", f"fused_edge_v2_fwd{END}"),
-        ("K8 fused_edge_phase_v2 backward", f"fused_edge_v2_bwd_main{END}"),
+        ("K7 fused_edge_phase_v2", r"fused_edge_v2_fwdILi\dELb0E"),
+        ("K8 fused_edge_phase_v2 backward", r"fused_edge_v2_bwd_mainILb\dELb0E"),
         ("K1 sender_gather bf16", f"gather_rows_(?:vec4|scalar)I{BF16_T}E"),
         ("K2 sender_scatter bf16", r"scatter_rowsI\w*(?:Bf16x4|__nv_bfloat16)"),
-        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1E{BF16_T}E"),
-        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1EfE"),
-        ("K4 fused_edge_phase backward bf16", rf"fused_edge_bwd_mainILb\dELb1E{BF16_T}E"),
-        ("K4 fused_edge_phase backward bf16 operands", r"fused_edge_bwd_mainILb\dELb1EfE"),
+        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1ELb0E{BF16_T}E"),
+        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1ELb0EfE"),
+        ("K4 fused_edge_phase backward bf16",
+         rf"fused_edge_bwd_mainILi\dELi0ELb1E{BF16_T}E"),
+        ("K4 fused_edge_phase backward bf16 operands",
+         r"fused_edge_bwd_mainILi\dELi0ELb1EfE"),
+        ("K7 fused_edge_phase_v2 bf16", rf"fused_edge_v2_fwdILi\dELb1E{BF16_T}E"),
+        ("K7 fused_edge_phase_v2 bf16 operands", r"fused_edge_v2_fwdILi\dELb1EfE"),
+        ("K8 fused_edge_phase_v2 backward bf16",
+         rf"fused_edge_v2_bwd_mainILb\dELb1E{BF16_T}E"),
+        ("K8 fused_edge_phase_v2 backward bf16 operands",
+         r"fused_edge_v2_bwd_mainILb\dELb1EfE"),
+        ("K3 fused_edge_phase bf16 pre", r"fused_edge_fwdILi\dELb\dELb1E"),
+        ("K4 fused_edge_phase backward bf16 pre", r"fused_edge_bwd_mainILi\dELi1E"),
+        ("K4 fused_edge_phase backward recompute", r"fused_edge_bwd_mainILi\dELi2E"),
     )
 }
 # fit's store: 32 training samples at ar_steps 1 (len = n_timesteps - 3)
@@ -325,6 +349,12 @@ BF16_ROLLOUT_MEAN_REL, BF16_ROLLOUT_MAX_REL = 0.02, 0.8
 # the variables of the reduced precisions, set around whole phases
 MATMUL_PRECISION = "NEURAL_LAM_TPU_MATMUL_PRECISION"
 BF16_KERNELS = "NEURAL_LAM_TPU_BF16_KERNELS"
+# NEURAL_LAM_TPU_CACHE_PRE, set around whole phases; K4 recomputing pre
+# against K4 from K3's float32 pre: the recompute's products are K3's up to
+# the tensor-core instruction (mma.sync where K3 uses wgmma), so each
+# gradient within 1e-6 of its largest entry
+CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
+CACHE_PRE_RECOMPUTE_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -409,7 +439,8 @@ def parent_kernels(torch, parent: Path) -> dict:
     dict of four callables, each called like the current wrapper with the
     same inputs (``fused_kernels.fused_edge_fwd``, ``fused_edge_bwd``,
     ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and doing the same work.
-    K3 and K4 keep the current C interface there and run through the
+    K3 and K4 have the current C interface there less its first argument
+    (``pre_bf16``, a float32 ``pre`` in that commit) and run through the
     current wrappers on the parent's libraries; K7 (no work counter) and
     K8 (one block count, a 2-matrix main workspace per SM) use that
     commit's interface, with its wrappers' allocations."""
@@ -497,8 +528,8 @@ def parent_kernels(torch, parent: Path) -> dict:
         return d_edge, d_pre, d_rec
 
     return {
-        "K3": through("_fwd_lib", k3_c, fk.fused_edge_fwd),
-        "K4": through("_bwd_lib", k4_c, fk.fused_edge_bwd),
+        "K3": through("_fwd_lib", lambda pre_bf16, *args: k3_c(*args), fk.fused_edge_fwd),
+        "K4": through("_bwd_lib", lambda pre_bf16, *args: k4_c(*args), fk.fused_edge_bwd),
         "K7": k7,
         "K8": k8,
     }
@@ -3496,14 +3527,15 @@ def bf16_entry(name: str, source: str, replaces: str, acc: dict, library) -> dic
 
 
 def phase_bf16_kernels(torch, model) -> list[dict]:
-    """The bf16 variants of K1-K4 against their plain versions at the
-    shapes of the six GraphLAM calls at batch 4, in each instantiation:
-    K1 and K2 on bf16 rows; K3 and K4 with bf16 operands on bf16 streams
-    (mixed precision, bf16 out; also ``high``'s float32 out, checked) and
-    on float32 streams (``high-kernels``). Each beside the float32
-    kernel's time on the same shapes in the same call, its plain version's
-    and, for K1 and K2, ``index_select`` and ``index_add_``; times summed
-    over the calls of one AR step (K1, K3) or one training step (K2, K4)."""
+    """The bf16 variants of K1-K4, K7 and K8 against their plain versions
+    at the shapes of the six GraphLAM calls at batch 4, in each
+    instantiation: K1 and K2 on bf16 rows; K3, K4, K7 and K8 with bf16
+    operands on bf16 streams (mixed precision, bf16 out; also ``high``'s
+    float32 out, checked) and on float32 streams (``high-kernels``). Each
+    beside the float32 kernel's time on the same shapes in the same call,
+    its plain version's and, for K1 and K2, ``index_select`` and
+    ``index_add_``; times summed over the calls of one AR step (K1, K3,
+    K7) or one training step (K2, K4, K8)."""
     from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops.segment_kernels import (
         sender_gather,
@@ -3600,6 +3632,11 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
          n_mesh),
         ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False, 1, n_grid),
     ]
+
+    # K7 and K8: (site, net, edges, embedder, edge input, update_edges,
+    # d_new_edge given, calls, senders, receivers), as phase_v2_kernels
+    v2_sites = [(*site[:-1], n_send, site[-1]) for site, n_send in zip(
+        k4_sites, (n_grid, n_mesh, n_mesh, n_mesh, n_mesh))]
 
     def k3_flops(mode, n_e, n_rec, feat):
         rows = n_e * b
@@ -3742,6 +3779,111 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
                                  "neural_lam_tpu/ops/pallas_fused.py:879", k3, None))
         report.append(bf16_entry(f"K4 fused_edge_phase backward {label}", "fused_edge_bwd.cu",
                                  "neural_lam_tpu/ops/pallas_fused.py:1052", k4, None))
+        k7, k8 = acc(), acc()
+        for site, net, ge, emb, mode, update, has_dne, calls, n_send, n_rec in v2_sites:
+            es, raw = ge.edges, mode == "raw"
+            n_e, rows = es.num_edges, es.num_edges * b
+            wts = [None if w is None else (w.to(bf16).float() if copies else w.float())
+                   for w in fk._weights(net.edge_mlp, emb)]
+            params = [w for w in wts if w is not None]
+            sp, rp = randn(n_send, b, d, dtype=io), randn(n_rec, b, d, dtype=io)
+            edge_in = ge.features.to(io) if raw else randn(n_e, b, d, dtype=io)
+            sp32, rp32, e32 = sp.float(), rp.float(), edge_in.float()
+
+            def run7(out=io, pre=False):
+                return fk.fused_edge_v2_fwd(edge_in, sp, rp, es, wts, raw, update,
+                                            save_pre=pre, bf16_ops=True, out_dtype=out)
+
+            def plain7():
+                return fk._plain_v2(e32, sp32, rp32, es.senders, es.receivers, wts, raw,
+                                    update, bf16_ops=True)
+
+            outs = [io] if io == torch.float32 else [bf16, torch.float32]  # mixed, high
+            err = 0.0
+            for out in outs:
+                got, want = run7(out, pre=True), plain7()
+                torch.cuda.synchronize()
+                err = max(err, bf16_check(got[0], want[0].to(out), f"K7 {label} {site} aggr"))
+                if update:
+                    err = max(err, bf16_check(got[1], want[1].to(out),
+                                              f"K7 {label} {site} new_edge"))
+                err = max(err, bf16_check(got[2], want[2], f"K7 {label} {site} pre"))
+            pre = got[2]
+            ms, pre_ms = cuda_ms(run7), cuda_ms(lambda: run7(pre=True))
+            f32_ms = cuda_ms(lambda: fk.fused_edge_v2_fwd(e32, sp32, rp32, es, wts, raw,
+                                                          update))
+            plain_ms = cuda_ms(plain7)
+            got = run7()
+            moved = nbytes(edge_in, sp, rp, es.rowptr, es.senders, *params, got[0], got[1])
+            flops7 = 2 * rows * d * d + rows * d
+            if raw:
+                flops7 += n_e * (2 * edge_in.shape[1] * d + 2 * d * d * 2)
+            else:
+                flops7 += 2 * rows * d * d
+            b_ms, b_by = bf16_bound(moved, flops7)
+            log(f"K7 fused_edge_phase_v2 {label} {site}: E {n_e}, senders {n_send}, "
+                f"receivers {n_rec}, edge input {mode}, streams {str(io)[6:]}, update_edges "
+                f"{update}; max abs err {err:.3g} (tol {BF16_TOL} of the largest entry"
+                f"{', bf16 and float32 out' if len(outs) == 2 else ''}; pre float32); kernel "
+                f"{ms:.4f} ms, with the pre output {pre_ms:.4f} ms (float32 kernel "
+                f"{f32_ms:.4f} ms); plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                f"{moved / 1e6:.1f} MB, bf16 tensor cores; {100 * b_ms / ms:.1f} % of it); "
+                f"{calls} call(s) per AR step")
+            add(k7, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+
+            d_aggr = randn(n_rec, b, d, dtype=io)
+            d_new = randn(n_e, b, d, dtype=io) if has_dne else None
+            da32, dn32 = d_aggr.float(), None if d_new is None else d_new.float()
+
+            def run8():
+                return fk.fused_edge_v2_bwd(d_aggr, d_new, pre, edge_in, es, wts, raw,
+                                            bf16_ops=True)
+
+            def plain8():
+                return fk._plain_v2_bwd(da32, dn32, e32, sp32, rp32, es, wts, raw, update,
+                                        bf16_ops=True)
+
+            def flat8(out):
+                d_edge, d_pre, d_recproj, grads = out
+                return [d_pre, d_recproj] + ([] if raw else [d_edge]) + [
+                    x for x in grads if x is not None]
+
+            got, want, again = flat8(run8()), flat8(plain8()), flat8(run8())
+            torch.cuda.synchronize()
+            err = max(bf16_check(o, w.to(o.dtype), f"K8 {label} {site} gradient {i}")
+                      for i, (o, w) in enumerate(zip(got, want)))
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"K8 {label} {site}: two runs differ")
+            ms = cuda_ms(run8)
+            f32_ms = cuda_ms(lambda: fk.fused_edge_v2_bwd(da32, dn32, pre, e32, es, wts, raw))
+            plain_ms = cuda_ms(plain8)
+            moved = nbytes(pre, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
+            flops8 = 2 * rows * d * d * 3 + rows * d
+            if raw:
+                flops8 += n_e * (2 * d * d * 5 + 2 * edge_in.shape[1] * d * 2)
+            elif mode == "batched":
+                flops8 += 2 * rows * d * d * 2
+            else:
+                flops8 += 2 * n_e * d * d * 2
+            b_ms, b_by = bf16_bound(moved, flops8)
+            log(f"K8 fused_edge_phase_v2 backward {label} {site}: streams {str(io)[6:]}, "
+                f"d_new_edge {'given' if has_dne else 'none'}; max abs err {err:.3g} (tol "
+                f"{BF16_TOL} of each gradient's largest entry), repeatable; kernel {ms:.4f} ms "
+                f"(float32 kernel {f32_ms:.4f} ms); plain (autograd) {plain_ms:.4f} ms; bound "
+                f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
+                f"it); {calls} call(s) per training step")
+            add(k8, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+            del sp, rp, edge_in, sp32, rp32, e32, got, want, again, pre, d_aggr, d_new
+            torch.cuda.empty_cache()
+        log(f"K7 {label} per AR step {k7['ms']:.4f} ms against the float32 kernel's "
+            f"{k7['f32_ms']:.4f} ms (bound {k7['bound_ms']:.4f}); K8 {label} per training "
+            f"step {k8['ms']:.4f} ms against {k8['f32_ms']:.4f} ms (bound "
+            f"{k8['bound_ms']:.4f})")
+        report.append(bf16_entry(f"K7 fused_edge_phase_v2 {label}", "fused_edge_v2.cu",
+                                 "neural_lam_tpu/ops/pallas_fused.py:2143", k7, None))
+        report.append(bf16_entry(f"K8 fused_edge_phase_v2 backward {label}",
+                                 "fused_edge_v2_bwd.cu",
+                                 "neural_lam_tpu/ops/pallas_fused.py:2293", k8, None))
     log(f"K1 bf16 per AR step {k1['ms']:.4f} ms against the float32 kernel's "
         f"{k1['f32_ms']:.4f} ms; K2 bf16 per training step {k2['ms']:.4f} ms against "
         f"{k2['f32_ms']:.4f} ms")
@@ -3765,12 +3907,13 @@ def bf16_graph_lam(torch, ds):
 
 def bf16_expected(model) -> dict[str, int]:
     """Launches per mixed-precision training step: the bf16 variants in
-    place of K1-K4; on the unfused route K5 and K6 in float32 (the JAX
-    package casts around them)."""
+    place of K1-K4, K7 and K8; on the unfused route K5 and K6 in float32
+    (the JAX package casts around them)."""
     f32 = expected_launches(model, training=True)
     out = dict.fromkeys(f32, 0)
     for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
-                 "K4 fused_edge_phase backward"):
+                 "K4 fused_edge_phase backward", "K7 fused_edge_phase_v2",
+                 "K8 fused_edge_phase_v2 backward"):
         out[f"{name} bf16"] = f32[name]
     for name in ("K5 segment_sum", "K6 receiver_expand"):
         out[name] = f32[name]
@@ -3795,7 +3938,7 @@ def timed_steps(torch, step, data) -> dict:
                 peak=torch.cuda.max_memory_allocated())
 
 
-def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
+def phase_bf16_train(torch, model, ds, card: str, others: bool = True) -> dict[str, int]:
     """Mixed-precision training of GraphLAM at MEPS width, batch 4,
     ``ar_steps`` 1 (``TrainingArgs(precision="bf16")``, a model built with
     ``compute_dtype`` bf16), from the float32 training gate's weights on
@@ -3806,13 +3949,16 @@ def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
     float32 captured step's (``model``, in the same call). Then 2 steps of
     ``GraphLAM(hidden_layers=2)`` (the unfused route), of HiLAM and under
     ``NEURAL_LAM_TPU_BF16_KERNELS=off``, and 1 step each of the float32
-    model under ``high`` and ``high-kernels``, at full width. Returns each
-    kernel's launches on the device in this phase."""
+    model under ``high`` and ``high-kernels``, at full width; without
+    ``others`` only the last three (a second run of the phase, on the v2
+    route, keeps to the paths that route takes). Returns each kernel's
+    launches on the device in this phase."""
     from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
 
     total: dict[str, int] = {}
     counters = kernel_counters()
     data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    route = "v2" if on_v2() else "v1"
 
     def zero():
         torch.cuda.synchronize()
@@ -3838,7 +3984,7 @@ def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
         r = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
         if r > worst:
             worst, worst_key = r, key
-    log(f"bf16 train gate: loss {losses[0]:.8g} against the float32 fixture's "
+    log(f"bf16 train gate ({route} route): loss {losses[0]:.8g} against the float32 fixture's "
         f"{want_loss:.8g} (rel {rel:.3e}, tol {BF16_LOSS_RTOL}); {len(want_grads)} "
         f"gradients, worst {worst:.3e} of its largest entry at {worst_key} (tol "
         f"{BF16_GRAD_TOL})")
@@ -3895,7 +4041,7 @@ def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
     release(torch)
     gps = {k: BATCH * ds.num_grid_points / (r["step_ms"] / 1e3)
            for k, r in (("bf16", captured), ("f32", f32_run))}
-    log(f"bf16 train on {card}: captured step {captured['step_ms']:.3f} ms (eager "
+    log(f"bf16 train ({route} route) on {card}: captured step {captured['step_ms']:.3f} ms (eager "
         f"{eager['step_ms']:.3f} ms), device busy {busy:.3f} ms in {kernels} kernels, "
         f"{gps['bf16']:,.0f} training grid-points/s, peak device memory "
         f"{captured['peak'] / 2**30:.2f} GiB; float32 captured step (same call) "
@@ -3918,6 +4064,8 @@ def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
         (f"GraphLAM, {MATMUL_PRECISION}=high-kernels", lambda: model, "32",
          {MATMUL_PRECISION: "high-kernels"}, 1),
     ]
+    if not others:
+        runs = runs[2:]
     for label, make, precision, env, n_steps in runs:
         run_model = make()
         with contextlib.ExitStack() as stack:
@@ -3931,7 +4079,7 @@ def phase_bf16_train(torch, model, ds, card: str) -> dict[str, int]:
             step_losses = [trainer.train_step(*data).item() for _ in range(n_steps)]
             seconds = time.perf_counter() - t0
         got = {k: v for k, v in ticks().items() if v}
-        log(f"bf16 train {label}: losses {', '.join(f'{x:.6f}' for x in step_losses)} "
+        log(f"bf16 train {label} ({route} route): losses {', '.join(f'{x:.6f}' for x in step_losses)} "
             f"({seconds:.2f} s); launches {got}")
         if not np.isfinite(step_losses).all() or not got:
             raise AssertionError(f"bf16 train {label}: non-finite loss or no launch")
@@ -3997,6 +4145,291 @@ def phase_bf16_rollout(torch, ds) -> dict[str, int]:
     del captured, entry, forecaster, model, copies
     release(torch)
     return launches
+
+
+def cache_pre_expected(model, mode: str) -> dict[str, int]:
+    """Launches per float32 training step on the v1 route under
+    ``NEURAL_LAM_TPU_CACHE_PRE=mode``: ``bf16`` runs K3 writing a bf16
+    ``pre`` and K4 reading it, ``off`` K3 writing none and K4 recomputing
+    it, in place of K3 and K4."""
+    out = expected_launches(model, training=True)
+    k3, k4 = "K3 fused_edge_phase", "K4 fused_edge_phase backward"
+    if mode == "bf16":
+        out[f"{k3} bf16 pre"], out[k3] = out[k3], 0
+        out[f"{k4} bf16 pre"], out[k4] = out[k4], 0
+    elif mode == "off":
+        out[f"{k4} recompute"], out[k4] = out[k4], 0
+    return out
+
+
+def phase_cache_pre_kernels(torch, model) -> list[dict]:
+    """``NEURAL_LAM_TPU_CACHE_PRE``'s kernels at the six GraphLAM calls
+    of a training step (batch 4, float32): K3 writing a bf16 ``pre``
+    (against the float32-``pre`` K3: the same outputs bit for bit and its
+    ``pre`` rounded to nearest even; against the plain version), K4
+    reading it (against the plain backward from the same bf16 values) and
+    K4 recomputing ``pre`` (against the plain backward that recomputes it,
+    and against K4 from K3's float32 ``pre``: within
+    ``CACHE_PRE_RECOMPUTE_TOL`` of each gradient's largest entry, and how
+    many entries are the same bits), each timed beside the kernel it
+    stands in for, its plain version and its bound (3xTF32). Returns the
+    three kernels' report entries, times summed over a training step."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+    bf16 = torch.bfloat16
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n_grid, n_mesh = g.num_grid_nodes, g.num_mesh_nodes
+    m2m, proc, n_mid = g.m2m[0], list(model.processor.values()), PROC_LAYERS - 2
+    sites = [  # (site, net, edges, embedder, edge input, update_edges, d_new_edge, calls, receivers)
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, False, 1, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, True, 1, n_mesh),
+        (f"m2m layers 1-{n_mid}", proc[1], m2m, None, "batched", True, True, n_mid, n_mesh),
+        (f"m2m layer {PROC_LAYERS - 1}", proc[-1], m2m, None, "batched", True, False, 1,
+         n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, False, 1, n_grid),
+    ]
+    names = ("K3 fused_edge_phase bf16 pre", "K4 fused_edge_phase backward bf16 pre",
+             "K4 fused_edge_phase backward recompute")
+    accs = {k: dict(ms=0.0, plain_ms=0.0, base_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                    bytes_ms=0.0, err=0.0) for k in names}
+    same_bits = total_entries = 0
+
+    def add(name, calls, ms, plain_ms, base_ms, moved, flops, err):
+        b_ms, b_by = bound(moved, flops, tensor=True)
+        a = accs[name]
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("base_ms", base_ms),
+                         ("bound_ms", b_ms), ("ops_ms" if b_by == "operations" else
+                                              "bytes_ms", b_ms)):
+            a[key] += calls * val
+        a["err"] = max(a["err"], err)
+        return b_ms, b_by
+
+    def flat(out):
+        d_edge, d_send, d_rec, grads = out
+        return [d_send, d_rec] + ([] if d_edge is None else [d_edge]) + [
+            w for w in grads if w is not None]
+
+    for site, net, ge, emb, mode, update, has_dne, calls, n_rec in sites:
+        es, raw = ge.edges, mode == "raw"
+        n_e, rows = es.num_edges, es.num_edges * b
+        wts = fk._weights(net.edge_mlp, emb)
+        params = [w for w in wts if w is not None]
+        x_send, rec = randn(n_e, b, d), randn(n_rec, b, d)
+        edge_in = ge.features if raw else randn(n_e, b, d)
+        args = (edge_in, x_send, rec, es, wts, raw, update, False)
+
+        # ---- K3 writing a bf16 pre -----------------------------------------
+        def k3(pre_dtype=torch.float32):
+            return fk.fused_edge_fwd(*args, save_pre=True, pre_dtype=pre_dtype)
+
+        got16, got32 = k3(bf16), k3()
+        want = fk._plain(edge_in, x_send, rec, es.receivers, wts, raw, update, False,
+                         return_pre=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got16[0], got32[0])
+                and (not update or torch.equal(got16[1], got32[1]))
+                and torch.equal(got16[2], got32[2].to(bf16))):
+            raise AssertionError(f"K3 bf16 pre {site}: not the float32-pre K3's outputs "
+                                 "and its pre rounded")
+        err = max(errors(got16[0], want[0])[0], bf16_check(got16[2], want[2].to(bf16),
+                                                             f"K3 bf16 pre {site} pre"))
+        torch.testing.assert_close(got16[0], want[0], rtol=K3_RTOL, atol=K3_ATOL)
+        ms, base_ms = cuda_ms(lambda: k3(bf16)), cuda_ms(k3)
+        plain_ms = cuda_ms(lambda: fk._plain(edge_in, x_send, rec, es.receivers, wts, raw,
+                                             update, False, return_pre=True))
+        moved = nbytes(x_send, rec, edge_in, es.rowptr, *params, *got16)
+        flops = 2 * n_rec * b * d * d + 2 * rows * d * d * 2 + rows * d
+        if raw:
+            flops += n_e * (2 * edge_in.shape[1] * d + 4 * d * d)
+        else:
+            flops += 2 * rows * d * d
+        b_ms, b_by = add(names[0], calls, ms, plain_ms, base_ms, moved, flops, err)
+        log(f"K3 fused_edge_phase bf16 pre {site}: E {n_e}, receivers {n_rec}, edge input "
+            f"{mode}; outputs the float32-pre K3's bits and its pre rounded to nearest "
+            f"even ({got16[2].nbytes / 1e6:.1f} MB where float32 takes "
+            f"{got32[2].nbytes / 1e6:.1f}); max abs err {err:.3g} against the plain "
+            f"version; kernel {ms:.4f} ms (float32 pre {base_ms:.4f} ms); plain "
+            f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, 3xTF32: {moved / 1e6:.1f} MB; "
+            f"{100 * b_ms / ms:.1f} % of it); {calls} call(s) per training step")
+        pre16, pre32 = got16[2], got32[2]
+        del got16, got32, want
+
+        # ---- K4 reading it, and K4 recomputing pre ----------------------------
+        d_aggr = randn(n_rec, b, d)
+        d_new = randn(n_e, b, d) if has_dne else None
+
+        def k4(pre):
+            return fk.fused_edge_bwd(d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw,
+                                     False)
+
+        def plain4(pre):
+            return fk._plain_bwd(d_aggr, d_new, edge_in, x_send, rec, es, wts, raw, update,
+                                 False, pre=pre)
+
+        got, want, again = flat(k4(pre16)), flat(plain4(pre16)), flat(k4(pre16))
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, (o, w) in enumerate(zip(got, want)):
+            a_err, r_err = errors(o, w)
+            err = max(err, a_err)
+            if r_err > K4_TOL:
+                raise AssertionError(f"K4 bf16 pre {site} gradient {i}: {r_err:.3g} of its "
+                                     f"largest value off the plain backward (tol {K4_TOL})")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"K4 bf16 pre {site}: two runs differ")
+        ms, base_ms = cuda_ms(lambda: k4(pre16)), cuda_ms(lambda: k4(pre32))
+        plain_ms = cuda_ms(lambda: plain4(pre16))
+        moved = nbytes(pre16, x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
+        flops = 2 * rows * d * d * 5 + 2 * n_rec * b * d * d * 2 + rows * d
+        if raw:
+            flops += n_e * (2 * d * d * 5 + 2 * edge_in.shape[1] * d * 2)
+        else:
+            flops += 2 * rows * d * d * 2
+        b_ms, b_by = add(names[1], calls, ms, plain_ms, base_ms, moved, flops, err)
+        log(f"K4 fused_edge_phase backward bf16 pre {site}: d_new_edge "
+            f"{'given' if has_dne else 'none'}; max abs err {err:.3g} against the plain "
+            f"backward from the same bf16 pre (tol {K4_TOL} of each gradient's largest "
+            f"entry), repeatable; kernel {ms:.4f} ms (float32 pre {base_ms:.4f} ms); plain "
+            f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; "
+            f"{100 * b_ms / ms:.1f} % of it); {calls} call(s) per training step")
+
+        saved = flat(k4(pre32))
+        got, again, want = flat(k4(None)), flat(k4(None)), flat(plain4(None))
+        torch.cuda.synchronize()
+        worst = err = 0.0
+        for i, (o, w, p) in enumerate(zip(got, saved, want)):
+            worst = max(worst, errors(o, w)[1])
+            same_bits += int((o == w).sum())
+            total_entries += o.numel()
+            a_err, r_err = errors(o, p)
+            err = max(err, a_err)
+            if r_err > K4_TOL:
+                raise AssertionError(f"K4 recompute {site} gradient {i}: {r_err:.3g} of its "
+                                     f"largest value off the plain backward (tol {K4_TOL})")
+        if worst > CACHE_PRE_RECOMPUTE_TOL:
+            raise AssertionError(f"K4 recompute {site}: a gradient is {worst:.3g} of its "
+                                 f"largest value off K4 from the saved pre (tol "
+                                 f"{CACHE_PRE_RECOMPUTE_TOL})")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"K4 recompute {site}: two runs differ")
+        ms = cuda_ms(lambda: k4(None))
+        base_ms = cuda_ms(lambda: k4(pre32))
+        plain_ms = cuda_ms(lambda: plain4(None))
+        moved = nbytes(x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
+        # K4's products, and the recompute's: send . W1s per row, edge .
+        # W1e per row (batched) or the embedder and edge_val . W1e per edge,
+        # rec . W1r per (receiver, b)
+        flops += 2 * rows * d * d + 2 * n_rec * b * d * d
+        flops += n_e * (2 * edge_in.shape[1] * d + 4 * d * d) if raw else 2 * rows * d * d
+        b_ms, b_by = add(names[2], calls, ms, plain_ms, base_ms, moved, flops, err)
+        log(f"K4 fused_edge_phase backward recompute {site}: max abs err {err:.3g} against "
+            f"the plain backward recomputing pre (tol {K4_TOL} of each gradient's largest "
+            f"entry); every gradient within {worst:.3g} of its largest value of K4 from "
+            f"K3's float32 pre (tol {CACHE_PRE_RECOMPUTE_TOL}), repeatable; kernel "
+            f"{ms:.4f} ms (from the saved "
+            f"pre {base_ms:.4f} ms); plain (recomputing) {plain_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of it); "
+            f"{calls} call(s) per training step")
+        del x_send, rec, edge_in, pre16, pre32, got, want, again, saved, d_aggr, d_new
+        torch.cuda.empty_cache()
+    log(f"K4 recompute against K4 from the saved pre: {same_bits} of {total_entries} "
+        f"gradient entries the same bits")
+    for name in names:
+        a = accs[name]
+        log(f"{name} per training step: {a['ms']:.4f} ms against {a['base_ms']:.4f} ms "
+            f"with a float32 pre (bound {a['bound_ms']:.4f} ms)")
+    return [
+        bf16_entry(names[0], "fused_edge.cu", "neural_lam_tpu/ops/pallas_fused.py:879",
+                   accs[names[0]], None),
+        bf16_entry(names[1], "fused_edge_bwd.cu", "neural_lam_tpu/ops/pallas_fused.py:1052",
+                   accs[names[1]], None),
+        bf16_entry(names[2], "fused_edge_bwd_recompute.cu",
+                   "neural_lam_tpu/ops/pallas_fused.py:1052", accs[names[2]], None),
+    ]
+
+
+def phase_cache_pre_train(torch, model, ds, card: str) -> dict[str, int]:
+    """The captured training step of GraphLAM (float32, batch 4) under
+    ``NEURAL_LAM_TPU_CACHE_PRE`` ``on``, ``bf16`` and ``off``, from the
+    training gate's weights on its batch: the first loss and every
+    gradient against the exact-f32 fixture (``on`` and ``off`` at the
+    float32 gate's bounds, ``bf16`` at the bf16 ones), the memory an eager
+    forward holds for its backward, 12 captured steps' time, peak device
+    memory and the launches, by the counters (at 0 just before each mode)
+    and the graph's kernel nodes. Returns the launches."""
+    from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
+
+    with np.load(TRAIN_FIXTURE) as fx:
+        want_loss = float(fx["losses"][0])
+        want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
+    counters = kernel_counters()
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    total: dict[str, int] = {}
+    runs = {}
+    for mode in ("on", "bf16", "off"):
+        loss_tol, grad_tol = ((BF16_LOSS_RTOL, BF16_GRAD_TOL) if mode == "bf16"
+                              else (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL))
+        with env_set(CACHE_PRE_ENV, mode):
+            losses, grads = train_gate_run(torch, make_trainer(model, ds), BATCH, 1,
+                                           captured=True)
+            rel = abs(losses[0] - want_loss) / abs(want_loss)
+            worst = max(float(np.abs(grads[k] - w).max() / max(np.abs(w).max(), 1e-30))
+                        for k, w in want_grads.items())
+            if rel > loss_tol or worst > grad_tol:
+                raise AssertionError(f"cache pre {mode}: loss rel {rel:.3e} (tol {loss_tol}), "
+                                     f"worst gradient {worst:.3e} (tol {grad_tol})")
+            release(torch)  # the gate's trainer and its graph, before the peak is read
+            trainer = make_trainer(model, ds)
+            # what an eager forward holds for its backward
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            loss = trainer._loss(*data)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            loss.backward()
+            del loss
+            trainer.optimizer.zero_grad(set_to_none=True)
+            release(torch)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            step = trainer.make_train_step()
+            run = timed_steps(torch, step, data)
+            first = {name: fn.launches for name, fn in counters.items()}
+            (entry,) = trainer.graphs.values()
+            replay = graph_kernels(torch, entry.graph)
+        expected = cache_pre_expected(model, mode)
+        steps = TRAIN_WARMUP + TRAIN_ITERS
+        launches = {}
+        for name, per_step in expected.items():
+            if first[name] != per_step * (GRAPH_WARMUP_STEPS + 1) or replay[name] != per_step:
+                raise AssertionError(f"cache pre {mode} graph: {name}: {first[name]} counted, "
+                                     f"{replay[name]} in the graph, want {per_step} a step")
+            launches[name] = first[name] - replay[name] + replay[name] * steps
+        add_launches(total, launches, f"cache pre {mode} train graph")
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"cache pre {mode}: non-finite loss")
+        runs[mode] = dict(run, held=held)
+        log(f"cache pre {mode} on {card}: gate loss rel {rel:.3e} (tol {loss_tol}), worst "
+            f"gradient {worst:.3e} of its largest entry (tol {grad_tol}); the eager forward "
+            f"holds {held / 2**30:.3f} GiB for its backward; captured step "
+            f"{run['step_ms']:.3f} ms, "
+            f"{BATCH * ds.num_grid_points / (run['step_ms'] / 1e3):,.0f} training "
+            f"grid-points/s, peak device memory {run['peak'] / 2**30:.3f} GiB")
+        del trainer, step, entry
+        release(torch)
+    on = runs["on"]
+    for mode in ("bf16", "off"):
+        log(f"cache pre {mode} against on (same call): step "
+            f"{runs[mode]['step_ms'] / on['step_ms']:.3f} x, peak memory "
+            f"{(runs[mode]['peak'] - on['peak']) / 2**30:+.3f} GiB, held for the backward "
+            f"{(runs[mode]['held'] - on['held']) / 2**30:+.3f} GiB")
+    return total
 
 
 def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
@@ -4160,7 +4593,17 @@ def main() -> int:
         bf16_report = phase_bf16_kernels(torch, model)
     add_launches(total, phase_bf16_train(torch, model, gate_ds, card), "bf16 train")
     add_launches(total, phase_bf16_rollout(torch, gate_ds), "bf16 rollout")
+    with fused_v2("on"):
+        log(f"bf16 training and rollout on the v2 route ({FUSED_V2}=on):")
+        add_launches(total, phase_bf16_train(torch, model, gate_ds, card, others=False),
+                     "bf16 train v2")
+        add_launches(total, phase_bf16_rollout(torch, gate_ds), "bf16 rollout v2")
     report += bf16_report
+    # NEURAL_LAM_TPU_CACHE_PRE: K3 writing a bf16 pre, K4 reading it or
+    # recomputing pre, and the captured training step under each value
+    with torch.no_grad():
+        report += phase_cache_pre_kernels(torch, model)
+    add_launches(total, phase_cache_pre_train(torch, model, gate_ds, card), "cache pre")
     del model, forecaster
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)

@@ -11,7 +11,8 @@
 //            | edge[e, b]                                (EDGE_BATCHED)
 //   pre      = edge_val . W1e + send[e, b] . W1s + (rec[r, b] . W1r) + b1
 //              (written out as pre[e, b] when the caller will differentiate:
-//              the backward kernel, fused_edge_bwd.cu, starts from it)
+//              the backward kernel, fused_edge_bwd.cu, starts from it; in
+//              float32, or rounded to bf16 under NEURAL_LAM_TPU_CACHE_PRE=bf16)
 //   msg      = LN(SiLU(pre) . W2 + b2)         (LN optional: layer_norm)
 //   msg     += send[e, b]                      (propagation only)
 //   new_edge[e, b] = edge_val + msg            (update_edges only)
@@ -73,15 +74,25 @@
 // receiver sums in float32. Their streams edge, send and rec are of type TI:
 // bf16 under mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high,
 // float32 under high-kernels. aggr and new_edge are written in float32 or,
-// with out_bf16, rounded to bf16 on the way out; pre stays float32. The TPU
+// with out_bf16, rounded to bf16 on the way out. The TPU
 // kernel's one-hot selection matmuls also round the receiver projection and
 // each message to bf16 before they are gathered and summed; those are
 // Mosaic's way to gather, and here the gather and the sums are exact.
 // Bound: bytes at the stream dtype, or the products at the dense bf16 rate
 // (989 TFLOP/s; one TF32 pass runs at half of it).
 //
+// The saved pre-activation (the JAX kernel's pre_dt, pallas_fused.py:897,
+// :1490-1492, stored at :292-295): the instantiations with PRE_BF16 round
+// pre to bf16 (to nearest even, as astype(bfloat16)) as they store it,
+// halving the largest per-edge stream the backward keeps; the second layer,
+// aggr and new_edge are computed from the unrounded value, in every
+// precision. Under NEURAL_LAM_TPU_CACHE_PRE=off no pre is written (a null
+// pointer) and K4 recomputes it.
+//
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
+
+#include <type_traits>
 
 #include "fused_edge_common.cuh"
 #include "tc_tf32.cuh"
@@ -132,7 +143,7 @@ struct Params {
   const float* ebt;
   void* aggr;      // float, or bf16 with out_bf16
   void* new_edge;  // as aggr
-  float* pre;
+  void* pre;       // float, or bf16 with PRE_BF16; null: not saved
   int* counter;  // zero on entry: the next chunk to take
   int out_bf16;
   int num_rec;
@@ -201,10 +212,12 @@ __device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offs
     tc::copy_out_rows(static_cast<float*>(dst) + offset, stage, r0, valid);
 }
 
-// BF: bf16 operands (one TF32 pass); TI: the stream type (float or bf16)
-template <int MODE, bool BF, typename TI>
+// BF: bf16 operands (one TF32 pass); PRE_BF16: pre stored in bf16; TI: the
+// stream type (float or bf16)
+template <int MODE, bool BF, bool PRE_BF16, typename TI>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 fused_edge_fwd(const Params<TI> p) {
+  using TP = std::conditional_t<PRE_BF16, __nv_bfloat16, float>;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr Smem L = smem_plan(MODE);
@@ -377,12 +390,13 @@ fused_edge_fwd(const Params<TI> p) {
         }
       }
       if (p.pre != nullptr) {  // saved for the backward (K4)
+        TP* pre = static_cast<TP*>(p.pre) + row0 * D;
         if (p.update_edges && MODE != EDGE_BATCHED) {
           // the tile of shared memory holds the edge values: direct stores
-          tc::store_rows(p.pre + row0 * D, D, acc, r_base, nrows);
+          tc::store_rows(pre, D, acc, r_base, nrows);
         } else {
           tc::store_rows(sStage, kWld, acc, r_base, kTileRows);
-          tc::copy_out_rows(p.pre + row0 * D, sStage, r_base, nrows);
+          tc::copy_out_rows(pre, sStage, r_base, nrows);
         }
       }
 #pragma unroll
@@ -462,14 +476,14 @@ fused_edge_fwd(const Params<TI> p) {
   }
 }
 
-template <int MODE, bool BF, typename TI>
+template <int MODE, bool BF, bool PRE_BF16, typename TI>
 cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = cudaFuncSetAttribute(fused_edge_fwd<MODE, BF, TI>,
+    err = cudaFuncSetAttribute(fused_edge_fwd<MODE, BF, PRE_BF16, TI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes<MODE>());
     if (err != cudaSuccess) return err;
@@ -477,19 +491,27 @@ cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   }
   const int groups_needed = (p.num_chunks + kGroups - 1) / kGroups;
   const int blocks = min(groups_needed, tc::sm_count());
-  fused_edge_fwd<MODE, BF, TI><<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
+  fused_edge_fwd<MODE, BF, PRE_BF16, TI>
+      <<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t occupancy(int* blocks, int* regs, int* smem) {
-  return tc::occupancy(fused_edge_fwd<MODE, false, float>, kBlockThreads, smem_bytes<MODE>(),
+  return tc::occupancy(fused_edge_fwd<MODE, false, false, float>, kBlockThreads,
+                       smem_bytes<MODE>(),
                        blocks, regs, smem);
+}
+
+// the instantiation for edge_mode and the type of pre
+template <int MODE, bool BF, typename TI>
+cudaError_t launch_pre(const Params<TI>& p, int pre_bf16, cudaStream_t s) {
+  return pre_bf16 ? launch<MODE, BF, true, TI>(p, s) : launch<MODE, BF, false, TI>(p, s);
 }
 
 // Fill the parameters and launch the instantiation for edge_mode
 template <bool BF, typename TI>
-cudaError_t run(int edge_mode, int num_rec, int batch, int feat, int update_edges,
+cudaError_t run(int pre_bf16, int edge_mode, int num_rec, int batch, int feat, int update_edges,
                 int propagation, int layer_norm, int out_bf16, const void* edge,
                 const void* send, const void* rec, const void* rowptr, const void* w1,
                 const void* b1, const void* w2, const void* b2, const void* gamma,
@@ -517,7 +539,7 @@ cudaError_t run(int edge_mode, int num_rec, int batch, int feat, int update_edge
   p.ebt = static_cast<const float*>(ebt);
   p.aggr = aggr;
   p.new_edge = new_edge;
-  p.pre = static_cast<float*>(pre);
+  p.pre = pre;
   p.counter = static_cast<int*>(counter);
   p.out_bf16 = out_bf16;
   p.num_rec = num_rec;
@@ -531,9 +553,9 @@ cudaError_t run(int edge_mode, int num_rec, int batch, int feat, int update_edge
   p.layer_norm = layer_norm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (edge_mode) {
-    case EDGE_RAW: return launch<EDGE_RAW, BF, TI>(p, s);
-    case EDGE_SHARED: return launch<EDGE_SHARED, BF, TI>(p, s);
-    case EDGE_BATCHED: return launch<EDGE_BATCHED, BF, TI>(p, s);
+    case EDGE_RAW: return launch_pre<EDGE_RAW, BF, TI>(p, pre_bf16, s);
+    case EDGE_SHARED: return launch_pre<EDGE_SHARED, BF, TI>(p, pre_bf16, s);
+    case EDGE_BATCHED: return launch_pre<EDGE_BATCHED, BF, TI>(p, pre_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -561,12 +583,13 @@ extern "C" int nl_fused_edge_fwd_occupancy(int edge_mode, int* blocks, int* thre
 //   w1: (D, 3D), b1: (D,), w2: (D, D), b2, gamma, beta: (D,)
 //   ew1: (D, feat), eb1, eb2, eg, ebt: (D,), ew2: (D, D)   [edge_mode 0]
 //   aggr: (num_rec, B, D) out; new_edge: (E, B, D) out [update_edges];
-//   pre: (E, B, D) out, the first layer's pre-activation, or null
+//   pre: (E, B, D) out, the first layer's pre-activation (float32, or bf16
+//     with pre_bf16), or null
 //   counter: one int32, zero on entry (the work counter; left nonzero)
 // 1 <= batch <= 32 and feat <= 8 are checked by the caller. Returns
 // cudaGetLastError() after the launch.
 extern "C" int nl_fused_edge_fwd(
-    int edge_mode, int num_rec, int batch, int feat, int update_edges,
+    int pre_bf16, int edge_mode, int num_rec, int batch, int feat, int update_edges,
     int propagation, int layer_norm, const void* edge, const void* send,
     const void* rec, const void* rowptr, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* gamma, const void* beta,
@@ -574,17 +597,17 @@ extern "C" int nl_fused_edge_fwd(
     const void* eg, const void* ebt, void* aggr, void* new_edge, void* pre,
     void* counter, void* stream) {
   return static_cast<int>(run<false, float>(
-      edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, 0, edge, send,
-      rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr, new_edge,
-      pre, counter, stream));
+      pre_bf16, edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, 0,
+      edge, send, rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr,
+      new_edge, pre, counter, stream));
 }
 
-// The bf16-operand instantiations: the arguments of nl_fused_edge_fwd, the
-// streams edge, send and rec in bf16 (io_bf16) or float32, and aggr and
+// The bf16-operand instantiations: the arguments of nl_fused_edge_fwd (pre_bf16
+// first), the streams edge, send and rec in bf16 (io_bf16) or float32, and aggr and
 // new_edge written in bf16 (out_bf16) or float32. The weights stay float32
 // arrays; the kernel rounds the matrices to bf16 as it stages them.
 extern "C" int nl_fused_edge_fwd_bf16ops(
-    int io_bf16, int out_bf16, int edge_mode, int num_rec, int batch, int feat,
+    int pre_bf16, int io_bf16, int out_bf16, int edge_mode, int num_rec, int batch, int feat,
     int update_edges, int propagation, int layer_norm, const void* edge, const void* send,
     const void* rec, const void* rowptr, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* gamma, const void* beta,
@@ -593,11 +616,11 @@ extern "C" int nl_fused_edge_fwd_bf16ops(
     void* counter, void* stream) {
   if (io_bf16)
     return static_cast<int>(run<true, __nv_bfloat16>(
-        edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, out_bf16,
+        pre_bf16, edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, out_bf16,
         edge, send, rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt,
         aggr, new_edge, pre, counter, stream));
   return static_cast<int>(run<true, float>(
-      edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, out_bf16, edge,
-      send, rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr,
+      pre_bf16, edge_mode, num_rec, batch, feat, update_edges, propagation, layer_norm, out_bf16,
+      edge, send, rec, rowptr, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr,
       new_edge, pre, counter, stream));
 }

@@ -1,8 +1,8 @@
 // Shared pieces of the fused edge-phase kernels: the sizes, edge modes and
-// SiLU of K3, K4, K7 and K8 (fused_edge.cu, fused_edge_bwd.cu,
+// SiLU of K3, K4, K7 and K8 (fused_edge.cu, fused_edge_bwd*.cu,
 // fused_edge_v2.cu, fused_edge_v2_bwd.cu), the in-kernel edge embedder on
-// tensor-core row fragments (tc_tf32.cuh) that K3 and K7 run, and the SIMT
-// tile helpers of the edge pass that K4 and K8 share
+// tensor-core row fragments (tc_tf32.cuh) that K3, K7 and K4's recompute of
+// pre run, and the SIMT tile helpers of the edge pass that K4 and K8 share
 // (fused_edge_bwd_common.cuh).
 //
 // The SIMT helpers work on tiles of 64 rows by D = 64 features held in
@@ -76,8 +76,9 @@ __device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const T* feats, 
 // edge_val of edges t0 + el0 + g, t0 + el0 + g + 8 (zero at el >= ne) as a
 // row fragment: the shared (E, D) edge rows (EDGE_SHARED), or the embedder
 // on the raw (E, F) features, with its second layer We2 in shared memory
-// as tc::load_weight_rows leaves it and sEV = eb1 | eb2 | eg | ebt.
-template <int MODE, bool BF = false, typename T = float>
+// as tc::load_weight_rows leaves it (or, with GW, the (D, D) weight in
+// device memory, read through L1) and sEV = eb1 | eb2 | eg | ebt.
+template <int MODE, bool BF = false, bool GW = false, typename T = float>
 __device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int F,
                                            int t0, const float* sEW1, const float* sEW2,
                                            const float* sEV, int el0, int ne) {
@@ -88,7 +89,7 @@ __device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int
   embed_hidden<BF>(ev, edge, F, t0, sEW1, sEV, el0, ne);
   float z[8][4];
   tc::zero(z);
-  tc::gemm<false, BF>(z, ev, sEW2);
+  tc::gemm<GW, BF>(z, ev, sEW2, GW ? D : tc::kWld);
   tc::add_cols(z, sEV + D);
   tc::layer_norm(z, sEV + 2 * D, sEV + 3 * D, kLnEps);
 #pragma unroll

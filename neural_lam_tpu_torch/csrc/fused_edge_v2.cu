@@ -70,6 +70,21 @@
 // its node, in receiver order); at m2m and m2g sp is 6.7 MB of mesh rows
 // and stays in L2.
 //
+// Reduced precision (the JAX kernel's cdt = bf16 and io_dt,
+// make_fused_interaction_v2, pallas_fused.py:2518-2525): K3's design
+// (fused_edge.cu). The instantiations with BF multiply bf16 operands (every
+// product's two operands rounded to bf16, one TF32 pass, float32
+// accumulation; tc_tf32.cuh), with SiLU, LayerNorm, the residual, the
+// receiver sums and pre in float32. Their streams edge, sp and rp are of
+// type TI: bf16 under mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=
+// high, float32 under high-kernels; aggr and new_edge are written in
+// float32 or, with out_bf16 (bf16 inputs), rounded to bf16 on the way out,
+// as the JAX wrapper casts the float32 outputs to the input dtype (:2730-
+// 2740). The TPU kernel's one-hot selections also round sp, rp and each
+// message to bf16 before they are gathered and summed; here the gathers and
+// the sums are exact. Bound: bytes at the stream dtype, or the products at
+// the dense bf16 rate (989 TFLOP/s).
+//
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
@@ -102,10 +117,11 @@ constexpr int kBlockThreads = kGroups * kGroupThreads;
 // faster at g2m and m2m on an H100, the same at m2g
 constexpr int kChunkRows = 16;
 
+template <typename TI>
 struct Params {
-  const float* edge;
-  const float* sp;
-  const float* rp;
+  const TI* edge;
+  const TI* sp;
+  const TI* rp;
   const int* rowptr;
   const int* senders;
   const float* w1;
@@ -120,10 +136,11 @@ struct Params {
   const float* eb2;
   const float* eg;
   const float* ebt;
-  float* aggr;
-  float* new_edge;
+  void* aggr;      // float, or bf16 with out_bf16
+  void* new_edge;  // as aggr
   float* pre;
   int* counter;  // zero on entry: the next chunk to take
+  int out_bf16;
   int num_rec;
   int num_chunks;
   int batch;
@@ -168,9 +185,19 @@ constexpr int smem_bytes() {
   return smem_plan(MODE).total * static_cast<int>(sizeof(float));
 }
 
-template <int MODE>
+// rows r0 .. of the staged tile out to dst (float or bf16 by out_bf16)
+__device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offset,
+                                         const float* stage, int r0, int valid) {
+  if (out_bf16)
+    tc::copy_out_rows(static_cast<__nv_bfloat16*>(dst) + offset, stage, r0, valid);
+  else
+    tc::copy_out_rows(static_cast<float*>(dst) + offset, stage, r0, valid);
+}
+
+// BF: bf16 operands (one TF32 pass); TI: the stream type (float or bf16)
+template <int MODE, bool BF, typename TI>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-fused_edge_v2_fwd(const Params p) {
+fused_edge_v2_fwd(const Params<TI> p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr Smem L = smem_plan(MODE);
@@ -183,16 +210,17 @@ fused_edge_v2_fwd(const Params p) {
 
   // ---- the block's weights and vectors: W1e's outputs and W2's inputs
   // placed for the first layer's layout Q ------------------------------------
-  tc::load_weight_wg<false, false, true>(sm + L.w2, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<false, false, true, BF>(sm + L.w2, p.w2, D, 0, kBlockThreads);
   if (MODE == EDGE_BATCHED)
-    tc::load_weight_wg<false, true, false>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+    tc::load_weight_wg<false, true, false, BF>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   else
     tc::load_weight_rows<true>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   if (MODE == EDGE_RAW) {
     tc::load_weight_rows(sm + L.ew2, p.ew2, D, 0, kBlockThreads);
     for (int i = threadIdx.x; i < p.feat * D; i += kBlockThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
-      sm[L.ew1 + i] = __ldg(p.ew1 + c * p.feat + k);
+      const float w = __ldg(p.ew1 + c * p.feat + k);
+      sm[L.ew1 + i] = BF ? tc::bf16r(w) : w;  // the SIMT layer's operand
     }
   }
   if (threadIdx.x < D) {
@@ -240,9 +268,10 @@ fused_edge_v2_fwd(const Params p) {
     const int nr = min(R, p.num_rec - r0);
     if (tg <= nr) sRowptr[tg] = p.rowptr[r0 + tg];
     {  // the chunk's rp rows, once per (receiver, b)
-      const float4* src = reinterpret_cast<const float4*>(p.rp + static_cast<long long>(r0) * BD);
+      const TI* src = p.rp + static_cast<long long>(r0) * BD;
       for (int i = tg; i < nr * B * (D / 4); i += kGroupThreads)
-        *reinterpret_cast<float4*>(sRP + (i >> 4) * kWld + 4 * (i & 15)) = __ldg(src + i);
+        *reinterpret_cast<float4*>(sRP + (i >> 4) * kWld + 4 * (i & 15)) =
+            fused_edge::ldg4(src + 4 * i);
     }
     float agg[kAgg];
 #pragma unroll
@@ -280,24 +309,24 @@ fused_edge_v2_fwd(const Params p) {
       if (MODE == EDGE_BATCHED) {
         float x[8][4];
         tc::load_rows<true>(x, p.edge + row0 * D, D, r_base, nrows);
-        tc::gemm_wg(acc, x, sW1e);
+        tc::gemm_wg<8, BF>(acc, x, sW1e);
       } else if (B == 1) {
         // edge and row coincide: edge_val . W1e for the warp's own rows
         float x[8][4];
-        fused_edge::edge_value<MODE>(x, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
-                                     r_base, ne);
+        fused_edge::edge_value<MODE, BF>(x, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
+                                         r_base, ne);
         if (p.update_edges) tc::store_rows(sStage, kWld, x, r_base, kTileRows);
-        tc::gemm(acc, x, sW1e);
+        tc::gemm<false, BF>(acc, x, sW1e);
       }
       // ---- per-edge products, shared by the batch (B > 1) ------------------
       if (MODE != EDGE_BATCHED && B > 1 && ni_e > 1 && warp < ni_e) {
         // B = 2, 3: 32 edge rows, warps 0 and 1 take 16 each
         float ev[8][4], proj[8][4];
-        fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
-                                     r_base, ne);
+        fused_edge::edge_value<MODE, BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
+                                         r_base, ne);
         if (p.update_edges) tc::store_rows(sStage, kWld, ev, r_base, kTileRows);
         tc::zero(proj);
-        tc::gemm(proj, ev, sW1e);
+        tc::gemm<false, BF>(proj, ev, sW1e);
         tc::store_rows(sProj, kWld, proj, r_base, 32);
       } else if (MODE != EDGE_BATCHED && B > 1 && ni_e == 1) {
         // B >= 4: the tile's 16 or fewer edges fill one fragment; each warp
@@ -307,21 +336,21 @@ fused_edge_v2_fwd(const Params p) {
         float ev[8][4], part[2][4];
         if (MODE == EDGE_RAW) {
           float* sZ = sStage + 32 * kWld;  // free: edge values use rows < 16
-          fused_edge::embed_hidden(ev, p.edge, p.feat, t0, sm + L.ew1, sEV, 0, ne);
+          fused_edge::embed_hidden<BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sEV, 0, ne);
           tc::zero(part);
-          tc::gemm_cols2(part, ev, sm + L.ew2, 2 * warp);
+          tc::gemm_cols2<BF>(part, ev, sm + L.ew2, 2 * warp);
           tc::store_cols2(sZ, kWld, part, 2 * warp);
           tc::group_sync(bar, kGroupThreads);
           tc::load_rows<false>(ev, sZ, kWld, 0, 16);
           tc::add_cols(ev, sEV + D);
           tc::layer_norm(ev, sEV + 2 * D, sEV + 3 * D, kLnEps);
         } else {
-          fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
-                                       0, ne);
+          fused_edge::edge_value<MODE, BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
+                                           sEV, 0, ne);
         }
         if (p.update_edges && warp == 0) tc::store_rows(sStage, kWld, ev, 0, kTileRows);
         tc::zero(part);
-        tc::gemm_cols2(part, ev, sW1e, 2 * warp);
+        tc::gemm_cols2<BF>(part, ev, sW1e, 2 * warp);
         tc::store_cols2(sProj, kWld, part, 2 * warp);
       }
       tc::group_sync(bar, kGroupThreads);
@@ -362,7 +391,7 @@ fused_edge_v2_fwd(const Params p) {
       // ---- second layer, LayerNorm, edge residual ----------------------------
       float msg[8][4];
       tc::zero(msg);
-      tc::gemm_wg(msg, acc, sW2);
+      tc::gemm_wg<8, BF>(msg, acc, sW2);
       tc::add_cols(msg, sB2);
       if (p.layer_norm) tc::layer_norm(msg, sG, sBt, kLnEps);
       if (p.update_edges) {
@@ -390,7 +419,7 @@ fused_edge_v2_fwd(const Params p) {
         // every warp has read the edge values before the tile is reused
         if (MODE != EDGE_BATCHED && B > 1) tc::group_sync(bar, kGroupThreads);
         tc::store_rows(sStage, kWld, base, r_base, kTileRows);
-        tc::copy_out_rows(p.new_edge + row0 * D, sStage, r_base, nrows);
+        copy_out(p.new_edge, p.out_bf16, row0 * D, sStage, r_base, nrows);
       }
 
       // ---- the tile's messages into the chunk's sums, in edge order --------
@@ -413,19 +442,24 @@ fused_edge_v2_fwd(const Params p) {
 #pragma unroll
     for (int j = 0; j < kAgg; ++j) {
       const int idx = tg + j * kGroupThreads;
-      if (idx < nr * BD) p.aggr[static_cast<long long>(r0) * BD + idx] = agg[j];
+      if (idx >= nr * BD) continue;
+      const long long o = static_cast<long long>(r0) * BD + idx;
+      if (p.out_bf16)
+        tc::store_val(static_cast<__nv_bfloat16*>(p.aggr) + o, agg[j]);
+      else
+        tc::store_val(static_cast<float*>(p.aggr) + o, agg[j]);
     }
   }
 }
 
-template <int MODE>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int MODE, bool BF, typename TI>
+cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = cudaFuncSetAttribute(fused_edge_v2_fwd<MODE>,
+    err = cudaFuncSetAttribute(fused_edge_v2_fwd<MODE, BF, TI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes<MODE>());
     if (err != cudaSuccess) return err;
@@ -433,14 +467,65 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   const int groups_needed = (p.num_chunks + kGroups - 1) / kGroups;
   const int blocks = min(groups_needed, tc::sm_count());
-  fused_edge_v2_fwd<MODE><<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
+  fused_edge_v2_fwd<MODE, BF, TI><<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t occupancy(int* blocks, int* regs, int* smem) {
-  return tc::occupancy(fused_edge_v2_fwd<MODE>, kBlockThreads, smem_bytes<MODE>(), blocks,
-                       regs, smem);
+  return tc::occupancy(fused_edge_v2_fwd<MODE, false, float>, kBlockThreads,
+                       smem_bytes<MODE>(), blocks, regs, smem);
+}
+
+// Fill the parameters and launch the instantiation for edge_mode
+template <bool BF, typename TI>
+cudaError_t run(int edge_mode, int num_rec, int batch, int feat, int update_edges,
+                int layer_norm, int out_bf16, const void* edge, const void* sp,
+                const void* rp, const void* rowptr, const void* senders, const void* w1,
+                const void* b1, const void* w2, const void* b2, const void* gamma,
+                const void* beta, const void* ew1, const void* eb1, const void* ew2,
+                const void* eb2, const void* eg, const void* ebt, void* aggr, void* new_edge,
+                void* pre, void* counter, void* stream) {
+  if (num_rec <= 0) return cudaSuccess;
+  if (batch < 1 || batch > kRecRows || feat > kMaxFeat) return cudaErrorInvalidValue;
+  Params<TI> p;
+  p.edge = static_cast<const TI*>(edge);
+  p.sp = static_cast<const TI*>(sp);
+  p.rp = static_cast<const TI*>(rp);
+  p.rowptr = static_cast<const int*>(rowptr);
+  p.senders = static_cast<const int*>(senders);
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = static_cast<const float*>(w2);
+  p.b2 = static_cast<const float*>(b2);
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.ew1 = static_cast<const float*>(ew1);
+  p.eb1 = static_cast<const float*>(eb1);
+  p.ew2 = static_cast<const float*>(ew2);
+  p.eb2 = static_cast<const float*>(eb2);
+  p.eg = static_cast<const float*>(eg);
+  p.ebt = static_cast<const float*>(ebt);
+  p.aggr = aggr;
+  p.new_edge = new_edge;
+  p.pre = static_cast<float*>(pre);
+  p.counter = static_cast<int*>(counter);
+  p.out_bf16 = out_bf16;
+  p.num_rec = num_rec;
+  p.batch = batch;
+  p.feat = feat;
+  p.recv_per_chunk = batch <= kChunkRows ? kChunkRows / batch : 1;
+  p.num_chunks = (num_rec + p.recv_per_chunk - 1) / p.recv_per_chunk;
+  p.edges_per_tile = kTileRows / batch;
+  p.update_edges = update_edges;
+  p.layer_norm = layer_norm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (edge_mode) {
+    case EDGE_RAW: return launch<EDGE_RAW, BF, TI>(p, s);
+    case EDGE_SHARED: return launch<EDGE_SHARED, BF, TI>(p, s);
+    case EDGE_BATCHED: return launch<EDGE_BATCHED, BF, TI>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -479,46 +564,28 @@ extern "C" int nl_fused_edge_v2_fwd(
     const void* ew1, const void* eb1, const void* ew2, const void* eb2,
     const void* eg, const void* ebt, void* aggr, void* new_edge, void* pre,
     void* counter, void* stream) {
-  if (num_rec <= 0) return static_cast<int>(cudaSuccess);
-  if (batch < 1 || batch > kRecRows || feat > kMaxFeat)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.edge = static_cast<const float*>(edge);
-  p.sp = static_cast<const float*>(sp);
-  p.rp = static_cast<const float*>(rp);
-  p.rowptr = static_cast<const int*>(rowptr);
-  p.senders = static_cast<const int*>(senders);
-  p.w1 = static_cast<const float*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const float*>(w2);
-  p.b2 = static_cast<const float*>(b2);
-  p.gamma = static_cast<const float*>(gamma);
-  p.beta = static_cast<const float*>(beta);
-  p.ew1 = static_cast<const float*>(ew1);
-  p.eb1 = static_cast<const float*>(eb1);
-  p.ew2 = static_cast<const float*>(ew2);
-  p.eb2 = static_cast<const float*>(eb2);
-  p.eg = static_cast<const float*>(eg);
-  p.ebt = static_cast<const float*>(ebt);
-  p.aggr = static_cast<float*>(aggr);
-  p.new_edge = static_cast<float*>(new_edge);
-  p.pre = static_cast<float*>(pre);
-  p.counter = static_cast<int*>(counter);
-  p.num_rec = num_rec;
-  p.batch = batch;
-  p.feat = feat;
-  p.recv_per_chunk = batch <= kChunkRows ? kChunkRows / batch : 1;
-  p.num_chunks = (num_rec + p.recv_per_chunk - 1) / p.recv_per_chunk;
-  p.edges_per_tile = kTileRows / batch;
-  p.update_edges = update_edges;
-  p.layer_norm = layer_norm;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (edge_mode) {
-    case EDGE_RAW: err = launch<EDGE_RAW>(p, s); break;
-    case EDGE_SHARED: err = launch<EDGE_SHARED>(p, s); break;
-    case EDGE_BATCHED: err = launch<EDGE_BATCHED>(p, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(run<false, float>(
+      edge_mode, num_rec, batch, feat, update_edges, layer_norm, 0, edge, sp, rp, rowptr,
+      senders, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr, new_edge, pre,
+      counter, stream));
+}
+
+// The bf16-operand instantiations: the arguments of nl_fused_edge_v2_fwd, the
+// streams edge, sp and rp in bf16 (io_bf16) or float32, and aggr and
+// new_edge written in bf16 (out_bf16) or float32; pre stays float32. The
+// weights stay float32 arrays; the kernel rounds the matrices to bf16 as it
+// stages them.
+extern "C" int nl_fused_edge_v2_fwd_bf16ops(
+    int io_bf16, int out_bf16, int edge_mode, int num_rec, int batch, int feat,
+    int update_edges, int layer_norm, const void* edge, const void* sp, const void* rp,
+    const void* rowptr, const void* senders, const void* w1, const void* b1,
+    const void* w2, const void* b2, const void* gamma, const void* beta,
+    const void* ew1, const void* eb1, const void* ew2, const void* eb2,
+    const void* eg, const void* ebt, void* aggr, void* new_edge, void* pre,
+    void* counter, void* stream) {
+  auto go = io_bf16 ? &run<true, __nv_bfloat16> : &run<true, float>;
+  return static_cast<int>(go(
+      edge_mode, num_rec, batch, feat, update_edges, layer_norm, out_bf16, edge, sp, rp,
+      rowptr, senders, w1, b1, w2, b2, gamma, beta, ew1, eb1, ew2, eb2, eg, ebt, aggr,
+      new_edge, pre, counter, stream));
 }

@@ -67,6 +67,18 @@
 // dW1e), at 3xTF32 (495 TFLOP/s of TF32 over three); it reads pre, d_aggr
 // and d_new_edge and writes d_pre, 768-1,024 bytes a row.
 //
+// Reduced precision (the JAX kernel's cdt = bf16 and io_dt, pallas_fused.py
+// :1934, :2293): K4's design. The instantiations with BF take every
+// product's operands in bf16 (tc_tf32.cuh; float32 sums), with the
+// LayerNorm backward, SiLU' and the column sums in float32; s[e] sums d_pre
+// rounded to bf16, as K4's does. The streams d_aggr, d_new_edge and the
+// edge input, and the output d_edge, are of type TI (bf16 under mixed
+// precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high, float32 under
+// high-kernels), as the JAX wrapper casts them to io_dt (:2322, :2389); pre,
+// d_pre, d_recproj and the weight gradients stay float32, and the caller
+// casts d_pre to the streams' dtype for K2 (:2651-2657). Bound: bytes at the
+// stream dtype, or the products at the dense bf16 rate (989 TFLOP/s).
+//
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
@@ -77,7 +89,6 @@ namespace {
 
 using fused_edge::D;
 using fused_edge::EDGE_BATCHED;
-using fused_edge::EdgeParams;
 using fused_edge::kLnEps;
 using fused_edge::kMat;
 using fused_edge::kMaxFeat;
@@ -103,10 +114,11 @@ constexpr int kChunkRows = 16;
 // same): dW2 as (out, in) | db2 dgamma dbeta db1
 constexpr int kMainStride = kMat + 4 * D;
 
+template <typename TI>
 struct MainParams {
-  const float* pre;         // (E, B, D)
-  const float* d_aggr;      // (num_rec, B, D)
-  const float* d_new_edge;  // (E, B, D) or null
+  const float* pre;      // (E, B, D)
+  const TI* d_aggr;      // (num_rec, B, D)
+  const TI* d_new_edge;  // (E, B, D) or null
   const int* rowptr;
   const float* w2;
   const float* b2;
@@ -150,9 +162,10 @@ __host__ __device__ constexpr MainSmem main_plan() {
 
 constexpr int main_smem_bytes() { return main_plan().total * static_cast<int>(sizeof(float)); }
 
-template <bool BATCHED>
+// BF: bf16 operands (one TF32 pass); TI: the stream type (float or bf16)
+template <bool BATCHED, bool BF, typename TI>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-fused_edge_v2_bwd_main(const MainParams p) {
+fused_edge_v2_bwd_main(const MainParams<TI> p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr MainSmem L = main_plan();
@@ -161,8 +174,8 @@ fused_edge_v2_bwd_main(const MainParams p) {
   const float* sB2 = sm + L.vec;
   const float* sGam = sB2 + D;
 
-  tc::load_weight_wg<false>(sm + L.w2, p.w2, D, 0, kBlockThreads);
-  tc::load_weight_wg<true>(sm + L.w2t, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<false, false, false, BF>(sm + L.w2, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<true, false, false, BF>(sm + L.w2t, p.w2, D, 0, kBlockThreads);
   if (threadIdx.x < D) {
     sm[L.vec + threadIdx.x] = p.b2[threadIdx.x];
     sm[L.vec + D + threadIdx.x] = p.layer_norm ? p.gamma[threadIdx.x] : 1.0f;
@@ -222,7 +235,7 @@ fused_edge_v2_bwd_main(const MainParams p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) x[n][j] = silu(x[n][j]);
       tc::zero(z);
-      tc::gemm_wg<4>(z, x, sW2);
+      tc::gemm_wg<4, BF>(z, x, sW2);
       tc::add_cols(z, sB2);
       if (p.layer_norm) tc::layer_norm(z, nullptr, nullptr, kLnEps, rstd);
       tc::store_rows(sT1, kWld, x, r_base, kTileRows);
@@ -236,17 +249,17 @@ fused_edge_v2_bwd_main(const MainParams p) {
           const int m = r_base + l.g + 8 * h;
           const bool live = m < nrows;
           const int el = (m * inv_b) >> 16, b = m - el * B;
-          const float* da =
+          const TI* da =
               p.d_aggr + ((static_cast<long long>(r0) + (live ? sRloc[el] : 0)) * B + b) * D +
               2 * l.t;
-          const float* dn = p.d_new_edge + (row0 + m) * D + 2 * l.t;
+          const TI* dn = p.d_new_edge + (row0 + m) * D + 2 * l.t;
 #pragma unroll
           for (int n = 0; n < 8; ++n) {
             float2 v = make_float2(0.0f, 0.0f);
             if (live) {
-              v = __ldg(reinterpret_cast<const float2*>(da + 8 * n));
+              v = tc::ldg_pair(da + 8 * n);
               if (p.d_new_edge != nullptr) {
-                const float2 w = __ldg(reinterpret_cast<const float2*>(dn + 8 * n));
+                const float2 w = tc::ldg_pair(dn + 8 * n);
                 v.x += w.x;
                 v.y += w.y;
               }
@@ -264,14 +277,14 @@ fused_edge_v2_bwd_main(const MainParams p) {
       tc::add_col_sums(slot, x);  // db2
       tc::store_rows(sT2, kWld, x, r_base, kTileRows);
       tc::group_sync(bar, kGroupThreads);  // T1 = h1, T2 = dz
-      tc::gemm_tn(dW2, sT2, r_base, sT1);
+      tc::gemm_tn<BF>(dW2, sT2, r_base, sT1);
 
       // ---- d_h1 = dz . W2, d_pre = d_h1 * SiLU'(pre) ----------------------
       // (dz again from the warp's own rows of T2: kept live across the
       // weight-gradient product, it spills)
       tc::load_rows<false>(x, sT2, kWld, r_base, kTileRows);
       tc::zero(z);
-      tc::gemm_wg<4>(z, x, sW2t);
+      tc::gemm_wg<4, BF>(z, x, sW2t);
       tc::load_rows<true>(x, p.pre + row0 * D, D, r_base, nrows);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -302,7 +315,8 @@ fused_edge_v2_bwd_main(const MainParams p) {
         for (int i = tg; i < ne * D; i += kGroupThreads) {
           const int el = i / D, c = i - el * D;
           float s = 0.0f;
-          for (int b = 0; b < B; ++b) s += sT2[(el * B + b) * kWld + c];
+          for (int b = 0; b < B; ++b)
+            s += BF ? tc::bf16r(sT2[(el * B + b) * kWld + c]) : sT2[(el * B + b) * kWld + c];
           p.presum[static_cast<long long>(t0) * D + i] = s;
         }
       }
@@ -320,19 +334,95 @@ fused_edge_v2_bwd_main(const MainParams p) {
   }
 }
 
-template <bool BATCHED>
-cudaError_t launch_main(const MainParams& p, int blocks, cudaStream_t stream) {
+template <bool BATCHED, bool BF, typename TI>
+cudaError_t launch_main(const MainParams<TI>& p, int blocks, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = fused_edge::allow_smem(fused_edge_v2_bwd_main<BATCHED>, main_smem_bytes());
+    err = fused_edge::allow_smem(fused_edge_v2_bwd_main<BATCHED, BF, TI>, main_smem_bytes());
     if (err != cudaSuccess) return err;
     allowed |= 1u << (dev & 31);
   }
-  fused_edge_v2_bwd_main<BATCHED><<<blocks, kBlockThreads, main_smem_bytes(), stream>>>(p);
+  fused_edge_v2_bwd_main<BATCHED, BF, TI>
+      <<<blocks, kBlockThreads, main_smem_bytes(), stream>>>(p);
   return cudaGetLastError();
+}
+
+// Fill the parameters and launch the main kernel, the edge input's share
+// and the two reduces, for the instantiation BF, TI
+template <bool BF, typename TI>
+cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat, int layer_norm,
+                int main_blocks, int edge_blocks, const void* edge, const void* pre,
+                const void* d_aggr, const void* d_new_edge, const void* rowptr, const void* w1,
+                const void* w2, const void* b2, const void* gamma, const void* ew1,
+                const void* eb1, const void* ew2, const void* eb2, const void* eg,
+                const void* ebt, void* d_pre, void* d_edge, void* d_recproj, void* presum,
+                void* ws_main, void* out_main, void* ws_edge, void* out_edge, void* stream) {
+  if (num_rec <= 0 || n_edges <= 0 || batch < 1 || batch > kRecRows ||
+      feat > kMaxFeat || main_blocks <= 0 || edge_blocks <= 0 || edge_mode < 0 ||
+      edge_mode > 2)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool batched = edge_mode == EDGE_BATCHED;
+
+  MainParams<TI> m;
+  m.pre = static_cast<const float*>(pre);
+  m.d_aggr = static_cast<const TI*>(d_aggr);
+  m.d_new_edge = static_cast<const TI*>(d_new_edge);
+  m.rowptr = static_cast<const int*>(rowptr);
+  m.w2 = static_cast<const float*>(w2);
+  m.b2 = static_cast<const float*>(b2);
+  m.gamma = static_cast<const float*>(gamma);
+  m.d_pre = static_cast<float*>(d_pre);
+  m.presum = static_cast<float*>(presum);
+  m.d_recproj = static_cast<float*>(d_recproj);
+  m.ws = static_cast<float*>(ws_main);
+  m.num_rec = num_rec;
+  m.batch = batch;
+  m.recv_per_chunk = batch <= kChunkRows ? kChunkRows / batch : 1;
+  m.edges_per_tile = kTileRows / batch;
+  m.num_chunks = (num_rec + m.recv_per_chunk - 1) / m.recv_per_chunk;
+  m.layer_norm = layer_norm;
+  cudaError_t err = batched ? launch_main<true, BF, TI>(m, main_blocks, s)
+                            : launch_main<false, BF, TI>(m, main_blocks, s);
+  if (err != cudaSuccess) return err;
+  err = fused_edge::launch_reduce(m.ws, main_blocks * kGroups, kMainStride, 0,
+                                  static_cast<float*>(out_main), s);
+  if (err != cudaSuccess) return err;
+
+  if (batched) {  // the edge input's share per (edge, b) row, over d_pre
+    fused_edge::RowsParamsT<TI> r;
+    r.edge = static_cast<const TI*>(edge);
+    r.d_pre = m.d_pre;
+    r.d_new_edge = m.d_new_edge;
+    r.w1 = static_cast<const float*>(w1);
+    r.d_edge = static_cast<TI*>(d_edge);
+    r.ws = static_cast<float*>(ws_edge);
+    r.rows = n_edges * batch;
+    return fused_edge::launch_rows<BF>(r, edge_blocks, static_cast<float*>(out_edge), s);
+  }
+
+  // the per-edge modes: the edge pass over s
+  fused_edge::EdgeParamsT<TI> e;
+  e.edge = static_cast<const TI*>(edge);
+  e.presum = m.presum;
+  e.d_new_edge = m.d_new_edge;
+  e.w1 = static_cast<const float*>(w1);
+  e.ew1 = static_cast<const float*>(ew1);
+  e.eb1 = static_cast<const float*>(eb1);
+  e.ew2 = static_cast<const float*>(ew2);
+  e.eb2 = static_cast<const float*>(eb2);
+  e.eg = static_cast<const float*>(eg);
+  e.ebt = static_cast<const float*>(ebt);
+  e.d_edge = static_cast<TI*>(d_edge);
+  e.ws = static_cast<float*>(ws_edge);
+  e.n_edges = n_edges;
+  e.batch = batch;
+  e.feat = feat;
+  return fused_edge::launch_edge_phase<BF>(edge_mode, e, edge_blocks,
+                                           static_cast<float*>(out_edge), s);
 }
 
 }  // namespace
@@ -344,9 +434,9 @@ extern "C" int nl_fused_edge_v2_bwd_occupancy(int edge_mode, int* blocks, int* t
   *threads = kBlockThreads;
   return static_cast<int>(
       edge_mode == EDGE_BATCHED
-          ? tc::occupancy(fused_edge_v2_bwd_main<true>, kBlockThreads, main_smem_bytes(),
+          ? tc::occupancy(fused_edge_v2_bwd_main<true, false, float>, kBlockThreads, main_smem_bytes(),
                           blocks, regs, smem)
-          : tc::occupancy(fused_edge_v2_bwd_main<false>, kBlockThreads, main_smem_bytes(),
+          : tc::occupancy(fused_edge_v2_bwd_main<false, false, float>, kBlockThreads, main_smem_bytes(),
                           blocks, regs, smem));
 }
 
@@ -376,68 +466,26 @@ extern "C" int nl_fused_edge_v2_bwd(
     const void* eb1, const void* ew2, const void* eb2, const void* eg,
     const void* ebt, void* d_pre, void* d_edge, void* d_recproj, void* presum,
     void* ws_main, void* out_main, void* ws_edge, void* out_edge, void* stream) {
-  if (num_rec <= 0 || n_edges <= 0 || batch < 1 || batch > kRecRows ||
-      feat > kMaxFeat || main_blocks <= 0 || edge_blocks <= 0 || edge_mode < 0 ||
-      edge_mode > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool batched = edge_mode == EDGE_BATCHED;
+  return static_cast<int>(run<false, float>(
+      edge_mode, num_rec, n_edges, batch, feat, layer_norm, main_blocks, edge_blocks, edge,
+      pre, d_aggr, d_new_edge, rowptr, w1, w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_pre,
+      d_edge, d_recproj, presum, ws_main, out_main, ws_edge, out_edge, stream));
+}
 
-  MainParams m;
-  m.pre = static_cast<const float*>(pre);
-  m.d_aggr = static_cast<const float*>(d_aggr);
-  m.d_new_edge = static_cast<const float*>(d_new_edge);
-  m.rowptr = static_cast<const int*>(rowptr);
-  m.w2 = static_cast<const float*>(w2);
-  m.b2 = static_cast<const float*>(b2);
-  m.gamma = static_cast<const float*>(gamma);
-  m.d_pre = static_cast<float*>(d_pre);
-  m.presum = static_cast<float*>(presum);
-  m.d_recproj = static_cast<float*>(d_recproj);
-  m.ws = static_cast<float*>(ws_main);
-  m.num_rec = num_rec;
-  m.batch = batch;
-  m.recv_per_chunk = batch <= kChunkRows ? kChunkRows / batch : 1;
-  m.edges_per_tile = kTileRows / batch;
-  m.num_chunks = (num_rec + m.recv_per_chunk - 1) / m.recv_per_chunk;
-  m.layer_norm = layer_norm;
-  cudaError_t err = batched ? launch_main<true>(m, main_blocks, s)
-                            : launch_main<false>(m, main_blocks, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = fused_edge::launch_reduce(m.ws, main_blocks * kGroups, kMainStride, 0,
-                                  static_cast<float*>(out_main), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  if (batched) {  // the edge input's share per (edge, b) row, over d_pre
-    fused_edge::RowsParams r;
-    r.edge = static_cast<const float*>(edge);
-    r.d_pre = m.d_pre;
-    r.d_new_edge = m.d_new_edge;
-    r.w1 = static_cast<const float*>(w1);
-    r.d_edge = static_cast<float*>(d_edge);
-    r.ws = static_cast<float*>(ws_edge);
-    r.rows = n_edges * batch;
-    return static_cast<int>(
-        fused_edge::launch_rows(r, edge_blocks, static_cast<float*>(out_edge), s));
-  }
-
-  // the per-edge modes: the edge pass over s
-  EdgeParams e;
-  e.edge = static_cast<const float*>(edge);
-  e.presum = m.presum;
-  e.d_new_edge = m.d_new_edge;
-  e.w1 = static_cast<const float*>(w1);
-  e.ew1 = static_cast<const float*>(ew1);
-  e.eb1 = static_cast<const float*>(eb1);
-  e.ew2 = static_cast<const float*>(ew2);
-  e.eb2 = static_cast<const float*>(eb2);
-  e.eg = static_cast<const float*>(eg);
-  e.ebt = static_cast<const float*>(ebt);
-  e.d_edge = static_cast<float*>(d_edge);
-  e.ws = static_cast<float*>(ws_edge);
-  e.n_edges = n_edges;
-  e.batch = batch;
-  e.feat = feat;
-  return static_cast<int>(fused_edge::launch_edge_phase(
-      edge_mode, e, edge_blocks, static_cast<float*>(out_edge), s));
+// The bf16-operand instantiations: the arguments of nl_fused_edge_v2_bwd, with
+// edge, d_aggr, d_new_edge and d_edge in bf16 (io_bf16) or float32; pre,
+// d_pre, d_recproj, presum and the workspaces float32 as there.
+extern "C" int nl_fused_edge_v2_bwd_bf16ops(
+    int io_bf16, int edge_mode, int num_rec, int n_edges, int batch, int feat,
+    int layer_norm, int main_blocks, int edge_blocks, const void* edge, const void* pre,
+    const void* d_aggr, const void* d_new_edge, const void* rowptr, const void* w1,
+    const void* w2, const void* b2, const void* gamma, const void* ew1,
+    const void* eb1, const void* ew2, const void* eb2, const void* eg,
+    const void* ebt, void* d_pre, void* d_edge, void* d_recproj, void* presum,
+    void* ws_main, void* out_main, void* ws_edge, void* out_edge, void* stream) {
+  auto go = io_bf16 ? &run<true, __nv_bfloat16> : &run<true, float>;
+  return static_cast<int>(go(
+      edge_mode, num_rec, n_edges, batch, feat, layer_norm, main_blocks, edge_blocks, edge,
+      pre, d_aggr, d_new_edge, rowptr, w1, w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_pre,
+      d_edge, d_recproj, presum, ws_main, out_main, ws_edge, out_edge, stream));
 }

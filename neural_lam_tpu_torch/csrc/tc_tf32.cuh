@@ -1,5 +1,5 @@
 // Tensor-core helpers of the fused edge-phase kernels K3 (fused_edge.cu),
-// K4 (fused_edge_bwd.cu), K7 (fused_edge_v2.cu) and K8
+// K4 (fused_edge_bwd*.cu), K7 (fused_edge_v2.cu) and K8
 // (fused_edge_v2_bwd.cu): 64-wide row products on Hopper's tensor cores at
 // float32 accuracy, and the row epilogues on their fragments.
 //
@@ -30,7 +30,7 @@
 // of each half-warp phase on 32 distinct banks.
 //
 // bf16 operands (the template flag BF of the products below): the
-// reduced-precision kernels of K3 and K4 multiply bf16 operands with
+// reduced-precision kernels of K3, K4, K7 and K8 multiply bf16 operands with
 // float32 accumulation, as the JAX package's kernels do under mixed
 // precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high / high-kernels. A
 // bf16 value (8 significant bits) is exact in TF32 (11), so each operand
@@ -271,6 +271,19 @@ __device__ __forceinline__ void load_row_q(float (&x)[8][4], int h, const float*
   }
 }
 
+// the same from a row of 64 bf16 values (8-byte aligned): four 8-byte loads
+__device__ __forceinline__ void load_row_q(float (&x)[8][4], int h, const __nv_bfloat16* row) {
+  const Lane l;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + 16 * k + 4 * l.t));
+    x[2 * k][2 * h] = __uint_as_float(u.x << 16);
+    x[2 * k][2 * h + 1] = __uint_as_float(u.x & 0xffff0000u);
+    x[2 * k + 1][2 * h] = __uint_as_float(u.y << 16);
+    x[2 * k + 1][2 * h + 1] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
 // half h of a layout-Q fragment into a row of 64 floats
 __device__ __forceinline__ void store_row_q(float* row, const float (&x)[8][4], int h) {
   const Lane l;
@@ -351,6 +364,23 @@ __device__ __forceinline__ void store_rows(float* dst, int ld, const float (&x)[
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<float2*>(row + 8 * n) = make_float2(x[n][2 * h], x[n][2 * h + 1]);
+  }
+}
+
+// the same into bf16 rows in device memory, each pair rounded to nearest
+// even as one 4-byte store
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int ld, const float (&x)[8][4],
+                                           int r0, int valid) {
+  const Lane l;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + l.g + 8 * h;
+    if (r >= valid) continue;
+    __nv_bfloat16* row = dst + static_cast<long long>(r) * ld + 2 * l.t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+          __floats2bfloat162_rn(x[n][2 * h], x[n][2 * h + 1]);
   }
 }
 

@@ -3,16 +3,24 @@
 
 def launch_counters() -> dict:
     """Each CUDA kernel's launch count by the kernel's name: K1-K8, each
-    a wrapper, and the bf16 variants of K1-K4, whose counts the same
-    wrappers keep in objects of their own. A wrapper adds one to a
+    a wrapper, and the bf16 variants of K1-K4, K7 and K8 and the
+    ``NEURAL_LAM_TPU_CACHE_PRE`` variants of K3 and K4, whose counts the
+    same wrappers keep in objects of their own. A wrapper adds one to a
     ``launches`` where it launches that kernel, and nowhere else. Under
     CUDA graph capture that launch goes into the graph, and is counted
     once: the graph's replays do not call the wrapper."""
     from .fused_kernels import (
         FUSED_EDGE_BF16,
         FUSED_EDGE_BF16_OPS,
+        FUSED_EDGE_BF16_PRE,
         FUSED_EDGE_BWD_BF16,
         FUSED_EDGE_BWD_BF16_OPS,
+        FUSED_EDGE_BWD_BF16_PRE,
+        FUSED_EDGE_BWD_RECOMPUTE,
+        FUSED_EDGE_V2_BF16,
+        FUSED_EDGE_V2_BF16_OPS,
+        FUSED_EDGE_V2_BWD_BF16,
+        FUSED_EDGE_V2_BWD_BF16_OPS,
         fused_edge_bwd,
         fused_edge_phase,
         fused_edge_phase_v2,
@@ -38,6 +46,9 @@ def launch_counters() -> dict:
         "K8 fused_edge_phase_v2 backward": fused_edge_v2_bwd,
     }
     for count in (SENDER_GATHER_BF16, SENDER_SCATTER_BF16, FUSED_EDGE_BF16,
-                  FUSED_EDGE_BF16_OPS, FUSED_EDGE_BWD_BF16, FUSED_EDGE_BWD_BF16_OPS):
+                  FUSED_EDGE_BF16_OPS, FUSED_EDGE_BWD_BF16, FUSED_EDGE_BWD_BF16_OPS,
+                  FUSED_EDGE_V2_BF16, FUSED_EDGE_V2_BF16_OPS, FUSED_EDGE_V2_BWD_BF16,
+                  FUSED_EDGE_V2_BWD_BF16_OPS, FUSED_EDGE_BF16_PRE, FUSED_EDGE_BWD_BF16_PRE,
+                  FUSED_EDGE_BWD_RECOMPUTE):
         counters[count.name] = count
     return counters

@@ -50,20 +50,34 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   (the Function's ``W1`` gradient carries zeros in those blocks, as the
   JAX one does at :2673). :func:`fused_v2_routed` picks the route per
   edge set, from the same environment variables as the JAX package.
-- Reduced precision (K3 and K4 only): :func:`fused_precision` chooses,
-  as ``make_fused_interaction`` does (pallas_fused.py:1414-1453), whether
-  the kernels' matmul operands are bf16 (bf16 inputs, ``high``,
-  ``high-kernels``) and in which dtype the edge, sender and receiver
-  streams move (bf16 for bf16 inputs and under ``high``). The bf16
-  instantiations of K3 and K4 (``nl_fused_edge_fwd_bf16ops``,
-  ``nl_fused_edge_bwd_bf16ops``) multiply bf16 operands with float32
-  accumulation and keep SiLU, LayerNorm, the residuals and the sums in
-  float32; the outputs follow the receiver rows' dtype, the gradients the
-  inputs'. Their plain version, :func:`_plain` with ``bf16_ops``, rounds
-  each product's operands to bf16 (:class:`_BF16Product`).
+- Reduced precision: :func:`fused_precision` chooses, as
+  ``make_fused_interaction`` and ``make_fused_interaction_v2`` do
+  (pallas_fused.py:1414-1453, :2518-2525), whether the kernels' matmul
+  operands are bf16 (bf16 inputs, ``high``, ``high-kernels``) and in which
+  dtype the edge, sender and receiver streams move (bf16 for bf16 inputs
+  and under ``high``). The bf16 instantiations of K3, K4, K7 and K8
+  (``nl_fused_edge_fwd_bf16ops``, ``nl_fused_edge_bwd_bf16ops``,
+  ``nl_fused_edge_v2_fwd_bf16ops``, ``nl_fused_edge_v2_bwd_bf16ops``)
+  multiply bf16 operands with float32 accumulation and keep SiLU,
+  LayerNorm, the residuals and the sums in float32; the outputs follow the
+  receiver rows' dtype, the gradients the inputs'. On the v2 route the node
+  projections ``sp`` and ``rp`` are formed as the JAX ``proj`` forms them
+  (bf16 operands, float32 sums, the result in the streams' dtype), and
+  K8's ``d_pre`` goes to K2 in the streams' dtype. Their plain versions,
+  :func:`_plain` and :func:`_plain_v2` with ``bf16_ops``, round each
+  product's operands to bf16 (:class:`_BF16Product`).
   ``NEURAL_LAM_TPU_BF16_KERNELS=off`` keeps the float32 kernels and casts
-  at their boundary. The v2 route (K7, K8) has no reduced-precision
-  variant yet and raises ``NotImplementedError`` for one.
+  at their boundary.
+- The saved pre-activation: :func:`cache_pre` reads
+  ``NEURAL_LAM_TPU_CACHE_PRE`` as the JAX package does
+  (pallas_fused.py:1490-1492). ``on`` (the default) saves K3's ``pre`` in
+  float32, ``bf16`` rounds it to bf16 (K3's and K4's ``PRE_BF16`` and
+  ``kPreBf16`` instantiations: K4 recomputes SiLU, the second layer and
+  the LayerNorm from the rounded value, the forward's outputs come from the
+  unrounded one), and ``off`` saves none: K4's recomputing instantiation
+  (``csrc/fused_edge_bwd_recompute.cu``) forms ``pre`` again in its tile
+  loop. ``off`` also turns the v2 route off; v2 saves a float32 ``pre``
+  whatever the variable says, as the JAX package does.
 - Supported on CUDA: hidden width 64, batch 1 to 32, raw edge features
   up to 8 wide, ``propagation`` (K3, K4) and ``layer_norm=False`` in the
   kernels themselves. Other shapes raise on CUDA here; the routing in
@@ -98,6 +112,7 @@ from .segment_kernels import LaunchCount, refuse_autograd, sender_scatter
 
 KERNEL = "fused_edge"
 BWD_KERNEL = "fused_edge_bwd"
+BWD_RECOMPUTE_KERNEL = "fused_edge_bwd_recompute"
 V2_KERNEL = "fused_edge_v2"
 V2_BWD_KERNEL = "fused_edge_v2_bwd"
 KERNEL_HIDDEN = 64
@@ -117,13 +132,26 @@ _ROW_GROUPS = 4  # and of their batched edge pass
 # rows of a tile, and (receiver, b) rows of a receiver chunk of K4's and
 # K8's main kernels (kRecRows, kChunkRows)
 _TILE_ROWS, _CHUNK_ROWS_K4, _CHUNK_ROWS_K8 = 64, 32, 16
+# floats per group of K4's recompute workspace: a tile's pre and a chunk's
+# receiver products (csrc/fused_edge_bwd_main.cuh: kPreStride)
+_WS_PRE = (_TILE_ROWS + _CHUNK_ROWS_K4) * KERNEL_HIDDEN
 
-# The launch counts of K3's and K4's bf16-operand instantiations: bf16
-# streams (mixed precision, ``high``) and float32 streams (``high-kernels``)
+# The launch counts of the bf16-operand instantiations of K3, K4, K7 and
+# K8: bf16 streams (mixed precision, ``high``) and float32 streams
+# (``high-kernels``)
 FUSED_EDGE_BF16 = LaunchCount("K3 fused_edge_phase bf16")
 FUSED_EDGE_BF16_OPS = LaunchCount("K3 fused_edge_phase bf16 operands")
 FUSED_EDGE_BWD_BF16 = LaunchCount("K4 fused_edge_phase backward bf16")
 FUSED_EDGE_BWD_BF16_OPS = LaunchCount("K4 fused_edge_phase backward bf16 operands")
+FUSED_EDGE_V2_BF16 = LaunchCount("K7 fused_edge_phase_v2 bf16")
+FUSED_EDGE_V2_BF16_OPS = LaunchCount("K7 fused_edge_phase_v2 bf16 operands")
+FUSED_EDGE_V2_BWD_BF16 = LaunchCount("K8 fused_edge_phase_v2 backward bf16")
+FUSED_EDGE_V2_BWD_BF16_OPS = LaunchCount("K8 fused_edge_phase_v2 backward bf16 operands")
+# and of the instantiations of NEURAL_LAM_TPU_CACHE_PRE, in every
+# precision: K3 writing a bf16 pre, K4 reading one, K4 recomputing pre
+FUSED_EDGE_BF16_PRE = LaunchCount("K3 fused_edge_phase bf16 pre")
+FUSED_EDGE_BWD_BF16_PRE = LaunchCount("K4 fused_edge_phase backward bf16 pre")
+FUSED_EDGE_BWD_RECOMPUTE = LaunchCount("K4 fused_edge_phase backward recompute")
 
 
 def fused_precision(in_dtype: torch.dtype) -> tuple[bool, torch.dtype]:
@@ -287,14 +315,20 @@ def _messages(pre, edge_rep, rec_like, receivers, weights, update_edges,
 
 
 def _plain(edge_in, x_send, rec_rep, receivers, weights, raw, update_edges,
-           propagation, bf16_ops=False):
+           propagation, bf16_ops=False, pre_in=None, return_pre=False):
     """The phase in plain PyTorch on the weight tensors of :func:`_weights`,
     all float32. With ``bf16_ops`` each product takes bf16 operands, as
     K3's and K4's bf16 instantiations do (the JAX kernels' ``cdt``); SiLU,
     LayerNorm, the residuals and the sums stay float32. The TPU kernel's
     one-hot selection and broadcast matmuls also round the receiver
     projection, each message before its sum and a shared edge before its
-    residual to bf16; the port selects, sums and broadcasts exactly."""
+    residual to bf16; the port selects, sums and broadcasts exactly.
+
+    ``pre_in``: a saved pre-activation (float32 or bf16) for the second
+    layer to start from, with the identity as its gradient: differentiated,
+    the backward of K4 reading the ``pre`` that K3 saved (a bf16 one under
+    ``NEURAL_LAM_TPU_CACHE_PRE=bf16``). ``return_pre`` appends the float32
+    ``pre`` that the first layer formed to the outputs."""
     w1, b1 = weights[:2]
     d = w1.shape[0]
     edge_rep = _embed(edge_in, weights, raw, bf16_ops)
@@ -306,23 +340,31 @@ def _plain(edge_in, x_send, rec_rep, receivers, weights, raw, update_edges,
         + rec_proj.index_select(0, receivers)
         + b1
     )
-    return _messages(
-        pre, edge_rep, rec_rep, receivers, weights, update_edges,
+    # pre_in's value with pre's gradient (the difference is exact: a
+    # rounding of pre lies within a factor 2 of it)
+    used = pre if pre_in is None else pre + (pre_in.float() - pre).detach()
+    aggr, new_edge = _messages(
+        used, edge_rep, rec_rep, receivers, weights, update_edges,
         residual=x_send if propagation else None, bf16_ops=bf16_ops,
     )
+    return (aggr, new_edge, pre) if return_pre else (aggr, new_edge)
 
 
-def _plain_v2(edge_in, sp, rp, senders, receivers, weights, raw, update_edges):
+def _plain_v2(edge_in, sp, rp, senders, receivers, weights, raw, update_edges,
+              bf16_ops=False):
     """The v2 phase (K7) in plain PyTorch on the node projections ``sp``
-    and ``rp``: ``(aggr, new_edge | None, pre)``."""
-    edge_rep = _embed(edge_in, weights, raw)
+    and ``rp`` (float32): ``(aggr, new_edge | None, pre)``. With
+    ``bf16_ops`` each product takes bf16 operands, as K7's and K8's bf16
+    instantiations do; the gathers, sums and ``pre`` stay float32."""
+    edge_rep = _embed(edge_in, weights, raw, bf16_ops)
     pre = (
-        _edge_proj(edge_rep, weights[0])
+        _edge_proj(edge_rep, weights[0], sp.shape[1], bf16_ops)
         + sp.index_select(0, senders)
         + rp.index_select(0, receivers)
         + weights[1]
     )
-    aggr, new_edge = _messages(pre, edge_rep, rp, receivers, weights, update_edges)
+    aggr, new_edge = _messages(pre, edge_rep, rp, receivers, weights, update_edges,
+                               bf16_ops=bf16_ops)
     return aggr, new_edge, pre
 
 
@@ -342,16 +384,20 @@ def fused_edge_phase_plain(
     through it is the plain version of K4. Under a reduced precision
     (:func:`fused_precision` of ``rec_rep``'s dtype) it is the plain
     version of K3's bf16 instantiation, with the casts of
-    :func:`fused_edge_phase` around it: the same dtypes in and out."""
+    :func:`fused_edge_phase` around it: the same dtypes in and out. Under
+    ``NEURAL_LAM_TPU_CACHE_PRE=bf16`` its values are those of the exact
+    ``pre`` and its gradients those of the bf16 one (:func:`cache_pre`)."""
     raw = embedder is not None
     bf16_ops, io = fused_precision(rec_rep.dtype)
     edge_in, x_io, rec_io, weights = _kernel_inputs(
-        edge_mlp, embedder, edge_rep, edge_feats, x_send, rec_rep, io
+        edge_mlp, embedder, edge_rep, edge_feats, io, x_send, rec_rep
     )
-    outs = _plain(
-        edge_in.float(), x_io.float(), rec_io.float(), receivers, weights, raw,
-        update_edges, propagation, bf16_ops,
-    )
+    args = (edge_in.float(), x_io.float(), rec_io.float(), receivers, weights, raw,
+            update_edges, propagation, bf16_ops)
+    *outs, pre = _plain(*args, return_pre=True)
+    if cache_pre() == "bf16":  # the values of outs, the gradients of the rounded pre's
+        rounded = _plain(*args, pre_in=_bf16(pre.detach()))
+        outs = [None if t is None else r + (t - r).detach() for t, r in zip(outs, rounded)]
     outs = [None if t is None else t.to(rec_rep.dtype) for t in outs]
     if io != rec_rep.dtype:  # K4 reads the incoming gradients in the streams' dtype
         outs = [None if t is None else _GradIn.apply(t, io) for t in outs]
@@ -382,18 +428,30 @@ def fused_edge_phase_v2_plain(
     embedder: Optional[nn.Sequential] = None,
     edge_feats: Optional[torch.Tensor] = None,
     update_edges: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ):
     """Plain PyTorch version of K7: the v2 phase on the sender and
     receiver projections ``sp`` ``(N_send, B, D)`` and ``rp`` ``(N_rec,
     B, D)`` (``index_select`` by ``senders`` and ``receivers``,
-    ``index_add_`` into the receivers). Returns ``(aggr, new_edge |
-    None)``; autograd through it is the plain version of K8."""
+    ``index_add_`` into the receivers), in the streams' dtype of
+    :func:`fused_precision` of ``rp``'s dtype. Returns ``(aggr, new_edge |
+    None)`` in ``out_dtype`` (``rp``'s by default); autograd through it is
+    the plain version of K8. Under a reduced precision it is the plain
+    version of K7's bf16 instantiation: bf16 operands, float32 sums."""
     raw = embedder is not None
-    aggr, new_edge, _ = _plain_v2(
-        edge_feats if raw else edge_rep, sp, rp, senders, receivers,
-        _weights(edge_mlp, embedder), raw, update_edges,
+    bf16_ops, io = fused_precision(rp.dtype)
+    edge_in, sp_io, rp_io, weights = _kernel_inputs(
+        edge_mlp, embedder, edge_rep, edge_feats, io, sp, rp
     )
-    return aggr, new_edge
+    aggr, new_edge, _ = _plain_v2(
+        edge_in.float(), sp_io.float(), rp_io.float(), senders, receivers, weights, raw,
+        update_edges, bf16_ops,
+    )
+    out = rp.dtype if out_dtype is None else out_dtype
+    outs = [None if t is None else t.to(out) for t in (aggr, new_edge)]
+    if io != out:  # K8 reads the incoming gradients in the streams' dtype
+        outs = [None if t is None else _GradIn.apply(t, io) for t in outs]
+    return tuple(outs)
 
 
 # The environment variables that choose the route and the precision, read
@@ -415,6 +473,15 @@ def route_env() -> tuple[Optional[str], ...]:
     return tuple(os.environ.get(name) for name in _ROUTE_ENV)
 
 
+def cache_pre() -> str:
+    """``NEURAL_LAM_TPU_CACHE_PRE`` as the JAX package reads it
+    (pallas_fused.py:1490-1492), at every call: ``"off"`` saves no ``pre``
+    (K4 recomputes it), ``"bf16"`` saves it rounded to bf16, and any other
+    value saves it in float32 (``"on"``, the default)."""
+    mode = os.environ.get(CACHE_PRE_ENV, "on")
+    return mode if mode in ("off", "bf16") else "on"
+
+
 def fused_v2_enabled() -> bool:
     """The coarse gate of the v2 route, read at call time:
     ``NEURAL_LAM_TPU_FUSED_V2=off`` turns it off everywhere, and so does
@@ -422,7 +489,7 @@ def fused_v2_enabled() -> bool:
     The JAX package's ``fused_v2_enabled`` (pallas_fused.py:1755)."""
     if os.environ.get(FUSED_V2_ENV, "auto") == "off":
         return False
-    return os.environ.get(CACHE_PRE_ENV, "on") != "off"
+    return cache_pre() != "off"
 
 
 def fused_v2_routed(num_edge_slots: int, num_hoisted_rows: int) -> bool:
@@ -461,56 +528,72 @@ def fused_v2_routed(num_edge_slots: int, num_hoisted_rows: int) -> bool:
     return num_edge_slots >= ratio * max(num_hoisted_rows, 1)
 
 
-@functools.cache
-def _fwd_lib():
-    fn = kernel_build.load(KERNEL).nl_fused_edge_fwd
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 21
+def _c_fn(source: str, name: str, ints: int, pointers: int):
+    """The C entry point ``name`` of ``csrc/<source>.cu``: ``ints`` int
+    arguments, then ``pointers`` pointers (the stream last)."""
+    fn = getattr(kernel_build.load(source), name)
+    fn.argtypes = [ctypes.c_int] * ints + [ctypes.c_void_p] * pointers
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _fwd_lib():
+    """K3 in float32: ``pre_bf16`` and the arguments below."""
+    return _c_fn(KERNEL, "nl_fused_edge_fwd", 8, 21)
 
 
 @functools.cache
 def _fwd_bf16_lib():
-    """K3's bf16-operand instantiations: ``(io_bf16, out_bf16)`` and then
-    the arguments of ``nl_fused_edge_fwd``."""
-    fn = kernel_build.load(KERNEL).nl_fused_edge_fwd_bf16ops
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 21
-    fn.restype = ctypes.c_int
-    return fn
+    """K3's bf16-operand instantiations: ``(pre_bf16, io_bf16, out_bf16)``
+    and then the arguments of ``nl_fused_edge_fwd``."""
+    return _c_fn(KERNEL, "nl_fused_edge_fwd_bf16ops", 10, 21)
 
 
 @functools.cache
 def _bwd_lib():
-    fn = kernel_build.load(BWD_KERNEL).nl_fused_edge_bwd
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 25
-    fn.restype = ctypes.c_int
-    return fn
+    """K4 from a saved pre in float32: ``pre_bf16`` and the arguments
+    below."""
+    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd", 10, 25)
 
 
 @functools.cache
 def _bwd_bf16_lib():
-    """K4's bf16-operand instantiations: ``io_bf16`` and then the
-    arguments of ``nl_fused_edge_bwd``."""
-    fn = kernel_build.load(BWD_KERNEL).nl_fused_edge_bwd_bf16ops
-    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 25
-    fn.restype = ctypes.c_int
-    return fn
+    """K4's bf16-operand instantiations: ``(pre_bf16, io_bf16)`` and then
+    the arguments of ``nl_fused_edge_bwd``."""
+    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd_bf16ops", 11, 25)
+
+
+@functools.cache
+def _bwd_recompute_lib():
+    """K4 recomputing pre, every precision: ``(bf16_ops, io_bf16)`` and
+    then the arguments of ``nl_fused_edge_bwd`` with ``rec``, ``b1`` and
+    the recompute's workspace in place of ``pre``."""
+    return _c_fn(BWD_RECOMPUTE_KERNEL, "nl_fused_edge_bwd_recompute", 11, 27)
 
 
 @functools.cache
 def _v2_fwd_lib():
-    fn = kernel_build.load(V2_KERNEL).nl_fused_edge_v2_fwd
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 22
-    fn.restype = ctypes.c_int
-    return fn
+    return _c_fn(V2_KERNEL, "nl_fused_edge_v2_fwd", 6, 22)
+
+
+@functools.cache
+def _v2_fwd_bf16_lib():
+    """K7's bf16-operand instantiations: ``(io_bf16, out_bf16)`` and then
+    the arguments of ``nl_fused_edge_v2_fwd``."""
+    return _c_fn(V2_KERNEL, "nl_fused_edge_v2_fwd_bf16ops", 8, 22)
 
 
 @functools.cache
 def _v2_bwd_lib():
-    fn = kernel_build.load(V2_BWD_KERNEL).nl_fused_edge_v2_bwd
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 24
-    fn.restype = ctypes.c_int
-    return fn
+    return _c_fn(V2_BWD_KERNEL, "nl_fused_edge_v2_bwd", 8, 24)
+
+
+@functools.cache
+def _v2_bwd_bf16_lib():
+    """K8's bf16-operand instantiations: ``io_bf16`` and then the
+    arguments of ``nl_fused_edge_v2_bwd``."""
+    return _c_fn(V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_bf16ops", 9, 24)
 
 
 # kernel -> (source, its occupancy entry point)
@@ -659,7 +742,7 @@ def _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw) -> tuple[int
 
 def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
                    update_edges, propagation, save_pre=False, bf16_ops=False,
-                   out_dtype=None):
+                   out_dtype=None, pre_dtype=torch.float32):
     """Launch K3 on CUDA tensors: ``(aggr, new_edge | None, pre | None)``.
     The launcher records no autograd graph; :class:`FusedEdgePhase` does.
 
@@ -668,8 +751,10 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     instantiation runs (bf16 streams: ``FUSED_EDGE_BF16``; float32:
     ``FUSED_EDGE_BF16_OPS``), and ``aggr`` and ``new_edge`` are written in
     ``out_dtype`` (float32 or bf16; the streams' dtype by default). Without
-    it the streams must be float32 and so are the outputs; ``pre`` is
-    float32 always."""
+    it the streams must be float32 and so are the outputs. ``pre`` (with
+    ``save_pre``) is written in ``pre_dtype``: float32, or bf16 by the
+    instantiation that rounds it (``FUSED_EDGE_BF16_PRE``, in either
+    precision)."""
     refuse_autograd(
         "fused_edge_fwd", "ops.fused_kernels.fused_edge_phase",
         edge_in, x_send, rec_rep, *weights,
@@ -681,10 +766,13 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     out = io if out_dtype is None else out_dtype
     if not bf16_ops and out != torch.float32:
         raise TypeError("fused_edge_fwd: the float32 kernel writes float32")
+    if pre_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_edge_fwd: pre must be float32 or bf16, not {pre_dtype}")
     shape = tuple(x_send.shape)
     aggr = torch.empty(tuple(rec_rep.shape), dtype=out, device=dev)
     new_edge = torch.empty(shape, dtype=out, device=dev) if update_edges else None
-    pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
+    pre = torch.empty(shape, dtype=pre_dtype, device=dev) if save_pre else None
+    pre_bf16 = pre is not None and pre_dtype == torch.bfloat16
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
     # the kernel's work counter; inside a CUDA graph capture its zero-fill
@@ -698,14 +786,16 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
         _ptr(aggr), _ptr(new_edge), _ptr(pre), _ptr(counter),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    io_bf16 = io == torch.bfloat16
     if bf16_ops:
-        io_bf16 = io == torch.bfloat16
-        err = _fwd_bf16_lib()(int(io_bf16), int(out == torch.bfloat16), *args)
+        err = _fwd_bf16_lib()(int(pre_bf16), int(io_bf16), int(out == torch.bfloat16), *args)
     else:
-        err = _fwd_lib()(*args)
+        err = _fwd_lib()(int(pre_bf16), *args)
     if err != 0:
         raise RuntimeError(f"fused_edge_phase kernel launch failed: CUDA error {err}")
-    if not bf16_ops:
+    if pre_bf16:
+        FUSED_EDGE_BF16_PRE.launches += 1
+    elif not bf16_ops:
         fused_edge_phase.launches += 1
     else:
         (FUSED_EDGE_BF16 if io_bf16 else FUSED_EDGE_BF16_OPS).launches += 1
@@ -738,9 +828,13 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
 
     ``d_aggr``, ``d_new_edge``, the edge input, ``x_send`` and ``rec_rep``
     are in the streams' dtype, float32 or (with ``bf16_ops``) bf16, and so
-    are ``d_edge`` and ``d_send``; ``pre``, ``d_rec`` and the weight
-    gradients are float32. With ``bf16_ops`` the bf16-operand instantiation
-    runs (``FUSED_EDGE_BWD_BF16`` or ``FUSED_EDGE_BWD_BF16_OPS``)."""
+    are ``d_edge`` and ``d_send``; ``d_rec`` and the weight gradients are
+    float32. With ``bf16_ops`` the bf16-operand instantiation runs
+    (``FUSED_EDGE_BWD_BF16`` or ``FUSED_EDGE_BWD_BF16_OPS``). ``pre`` is
+    K3's saved pre-activation, float32 or bf16 (``FUSED_EDGE_BWD_BF16_PRE``),
+    or None: the instantiation that recomputes it from the edge input,
+    ``x_send`` and ``rec_rep`` runs (``FUSED_EDGE_BWD_RECOMPUTE``); both in
+    either precision."""
     mode, feat = _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw)
     dev, d, io = x_send.device, KERNEL_HIDDEN, x_send.dtype
     if not bf16_ops and io != torch.float32:
@@ -748,7 +842,9 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
     n_edges, batch = x_send.shape[0], x_send.shape[1]
     num_rec = edge_set.num_rec
     _check("d_aggr", d_aggr, dev, (num_rec, batch, d), dtype=io)
-    _check("pre", pre, dev, (n_edges, batch, d))
+    if pre is not None:
+        _check("pre", pre, dev, (n_edges, batch, d),
+               dtype=torch.bfloat16 if pre.dtype == torch.bfloat16 else torch.float32)
     if d_new_edge is not None:
         _check("d_new_edge", d_new_edge, dev, (n_edges, batch, d), dtype=io)
     w1, _, _, _, gamma = weights[:5]
@@ -777,32 +873,50 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
     # the summed weight gradients (the returned gradients are views of
     # them), and one allocation for the kernels' scratch, freed on return
     # (inside a CUDA graph capture both come from the graph's pool):
-    # ws_main | ws_edge | d_pre or s (multiples of 4 floats: each pointer
-    # stays 16-byte aligned)
+    # ws_main | ws_edge | d_pre or s | the recompute's workspace (multiples
+    # of 4 floats: each pointer stays 16-byte aligned)
     out_main, out_edge = empty(_WS_MAIN), empty(_WS_EDGE)
     sizes = (main_blocks * _GROUPS * _WS_MAIN, ws_edge_size,
-             n_edges * (batch if batched else 1) * d)
+             n_edges * (batch if batched else 1) * d,
+             main_blocks * _GROUPS * _WS_PRE if pre is None else 0)
     scratch = empty(sum(sizes))
-    ws_main, ws_edge, d_pre = (
-        scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)
+    ws_main, ws_edge, d_pre, pre_ws = (
+        scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(4)
     )
-    args = (
-        mode, num_rec, n_edges, batch, feat, int(propagation),
-        int(gamma is not None), main_blocks, edge_blocks,
-        _ptr(edge_in), _ptr(x_send), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
-        _ptr(edge_set.rowptr), _ptr(w1), _ptr(weights[2]), _ptr(weights[3]),
-        _ptr(gamma), *(_ptr(w) for w in weights[6:]),
-        _ptr(d_send), _ptr(d_edge), _ptr(d_recproj), d_pre,
-        ws_main, _ptr(out_main), ws_edge, _ptr(out_edge),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ints = (mode, num_rec, n_edges, batch, feat, int(propagation),
+            int(gamma is not None), main_blocks, edge_blocks)
+    outs = (_ptr(d_send), _ptr(d_edge), _ptr(d_recproj), d_pre,
+            ws_main, _ptr(out_main), ws_edge, _ptr(out_edge))
+    embedder = tuple(_ptr(w) for w in weights[6:])
+    stream = torch.cuda.current_stream(dev).cuda_stream
     io_bf16 = io == torch.bfloat16
-    err = _bwd_bf16_lib()(int(io_bf16), *args) if bf16_ops else _bwd_lib()(*args)
+    if pre is None:
+        err = _bwd_recompute_lib()(
+            int(bf16_ops), int(io_bf16), *ints, _ptr(edge_in), _ptr(x_send), _ptr(rec_rep),
+            _ptr(d_aggr), _ptr(d_new_edge), _ptr(edge_set.rowptr), _ptr(w1),
+            _ptr(weights[1]), _ptr(weights[2]), _ptr(weights[3]), _ptr(gamma), *embedder,
+            *outs, pre_ws, stream,
+        )
+    else:
+        args = (
+            *ints, _ptr(edge_in), _ptr(x_send), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
+            _ptr(edge_set.rowptr), _ptr(w1), _ptr(weights[2]), _ptr(weights[3]),
+            _ptr(gamma), *embedder, *outs, stream,
+        )
+        pre_bf16 = int(pre.dtype == torch.bfloat16)
+        if bf16_ops:
+            err = _bwd_bf16_lib()(pre_bf16, int(io_bf16), *args)
+        else:
+            err = _bwd_lib()(pre_bf16, *args)
     if err != 0:
         raise RuntimeError(
             f"fused_edge_phase backward kernel launch failed: CUDA error {err}"
         )
-    if not bf16_ops:
+    if pre is None:
+        FUSED_EDGE_BWD_RECOMPUTE.launches += 1
+    elif pre.dtype == torch.bfloat16:
+        FUSED_EDGE_BWD_BF16_PRE.launches += 1
+    elif not bf16_ops:
         fused_edge_bwd.launches += 1
     else:
         (FUSED_EDGE_BWD_BF16 if io_bf16 else FUSED_EDGE_BWD_BF16_OPS).launches += 1
@@ -829,42 +943,48 @@ class FusedEdgePhase(torch.autograd.Function):
     backward is autograd through the plain version.
 
     ``apply(edge_in, x_send, rec_rep, *weights, edge_set, raw,
-    update_edges, propagation, grad_enabled, bf16_ops, out_dtype)`` with
-    the streams in one dtype (float32, or bf16 with ``bf16_ops``), the
-    twelve float32 tensors of :func:`_weights`, ``grad_enabled`` the
-    caller's grad mode, ``bf16_ops`` the kernels' bf16 operands and
-    ``out_dtype`` that of the outputs; returns ``(aggr, new_edge |
-    None)``. The backward takes the incoming gradients in the streams'
-    dtype, as the JAX package casts them to ``io_dt``, and returns the
-    streams' gradients in their dtype and the weights' in float32.
+    update_edges, propagation, grad_enabled, bf16_ops, out_dtype,
+    pre_mode)`` with the streams in one dtype (float32, or bf16 with
+    ``bf16_ops``), the twelve float32 tensors of :func:`_weights`,
+    ``grad_enabled`` the caller's grad mode, ``bf16_ops`` the kernels'
+    bf16 operands, ``out_dtype`` that of the outputs and ``pre_mode``
+    :func:`cache_pre`'s: what K3 saves for K4 (a float32 ``pre``, a bf16
+    one, or none); returns ``(aggr, new_edge | None)``. The backward takes
+    the incoming gradients in the streams' dtype, as the JAX package casts
+    them to ``io_dt``, and returns the streams' gradients in their dtype
+    and the weights' in float32.
     """
 
     @staticmethod
     def forward(ctx, edge_in, x_send, rec_rep, *args):
         weights = args[:12]
         (edge_set, raw, update_edges, propagation, grad_enabled, bf16_ops,
-         out_dtype) = args[12:]
-        ctx.meta = (edge_set, raw, update_edges, propagation, bf16_ops)
+         out_dtype, pre_mode) = args[12:]
+        ctx.meta = (edge_set, raw, update_edges, propagation, bf16_ops, pre_mode)
         ctx.set_materialize_grads(False)
         need_grad = grad_enabled and any(ctx.needs_input_grad)
+        save_pre = need_grad and pre_mode != "off"
+        pre_dtype = torch.bfloat16 if pre_mode == "bf16" else torch.float32
         if x_send.device.type == "cpu":
-            aggr, new_edge = _plain(
+            # the plain version saves what K3 would: pre in pre_dtype, or none
+            aggr, new_edge, pre = _plain(
                 edge_in.float(), x_send.float(), rec_rep.float(),
                 edge_set.receivers, weights, raw, update_edges, propagation,
-                bf16_ops,
+                bf16_ops, return_pre=True,
             )
-            pre = None
+            pre = pre.to(pre_dtype) if save_pre else None
             aggr = aggr.to(out_dtype)
             new_edge = None if new_edge is None else new_edge.to(out_dtype)
         elif bf16_ops:
             aggr, new_edge, pre = fused_edge_fwd(
                 edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
-                propagation, save_pre=need_grad, bf16_ops=True, out_dtype=out_dtype,
+                propagation, save_pre=save_pre, bf16_ops=True, out_dtype=out_dtype,
+                pre_dtype=pre_dtype,
             )
         else:  # the float32 kernel, cast on the way out
             aggr, new_edge, pre = fused_edge_fwd(
                 edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
-                propagation, save_pre=need_grad,
+                propagation, save_pre=save_pre, pre_dtype=pre_dtype,
             )
             aggr = aggr.to(out_dtype)
             new_edge = None if new_edge is None else new_edge.to(out_dtype)
@@ -874,11 +994,12 @@ class FusedEdgePhase(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_aggr, d_new_edge):
-        edge_set, raw, update_edges, propagation, bf16_ops = ctx.meta
-        # absent weights were saved as None and come back as None
+        edge_set, raw, update_edges, propagation, bf16_ops, pre_mode = ctx.meta
+        # absent weights (and pre, under pre_mode "off") were saved as None
+        # and come back as None
         edge_in, x_send, rec_rep, *weights, pre = ctx.saved_tensors
         if d_aggr is None and d_new_edge is None:
-            return (None,) * 22
+            return (None,) * 23
         io = x_send.dtype
         d_aggr = torch.zeros_like(rec_rep) if d_aggr is None else d_aggr.to(io)
         if d_new_edge is not None:
@@ -887,7 +1008,7 @@ class FusedEdgePhase(torch.autograd.Function):
             d_edge, d_send, d_rec, grads = _plain_bwd(
                 d_aggr.float(), None if d_new_edge is None else d_new_edge.float(),
                 edge_in.float(), x_send.float(), rec_rep.float(), edge_set,
-                weights, raw, update_edges, propagation, bf16_ops,
+                weights, raw, update_edges, propagation, bf16_ops, pre,
             )
         else:
             d_edge, d_send, d_rec, grads = fused_edge_bwd(
@@ -897,13 +1018,14 @@ class FusedEdgePhase(torch.autograd.Function):
                 propagation, bf16_ops,
             )
         d_edge = None if d_edge is None else d_edge.to(io)
-        return (d_edge, d_send.to(io), d_rec.to(io), *grads, *(None,) * 7)
+        return (d_edge, d_send.to(io), d_rec.to(io), *grads, *(None,) * 8)
 
 
 def _plain_bwd(d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
-               raw, update_edges, propagation, bf16_ops=False):
+               raw, update_edges, propagation, bf16_ops=False, pre=None):
     """K4's plain version: autograd through :func:`_plain` on the same
-    inputs. Same returns as :func:`fused_edge_bwd`."""
+    inputs, from the saved ``pre`` (float32 or bf16) or, without one,
+    recomputing it. Same returns as :func:`fused_edge_bwd`."""
     with torch.enable_grad():
         leaves = [
             None if t is None else t.detach().requires_grad_(True)
@@ -913,7 +1035,7 @@ def _plain_bwd(d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
             leaves[0] = edge_in.detach()  # the raw features are constants
         aggr, new_edge = _plain(
             leaves[0], leaves[1], leaves[2], edge_set.receivers, leaves[3:],
-            raw, update_edges, propagation, bf16_ops,
+            raw, update_edges, propagation, bf16_ops, pre_in=pre,
         )
         outs, seeds = [aggr], [d_aggr]
         if d_new_edge is not None:
@@ -962,7 +1084,7 @@ def fused_edge_phase(
     raw = embedder is not None
     bf16_ops, io = fused_precision(rec_rep.dtype)
     edge_in, x_io, rec_io, weights = _kernel_inputs(
-        edge_mlp, embedder, edge_rep, edge_feats, x_send, rec_rep, io
+        edge_mlp, embedder, edge_rep, edge_feats, io, x_send, rec_rep
     )
     # grad mode decides whether K3 writes pre for the backward: inside the
     # Function, needs_input_grad follows the parameters' requires_grad even
@@ -970,22 +1092,22 @@ def fused_edge_phase(
     return FusedEdgePhase.apply(
         edge_in, x_io, rec_io, *weights,
         edge_set, raw, update_edges, propagation, torch.is_grad_enabled(),
-        bf16_ops, rec_rep.dtype,
+        bf16_ops, rec_rep.dtype, cache_pre(),
     )
 
 
-def _kernel_inputs(edge_mlp, embedder, edge_rep, edge_feats, x_send, rec_rep, io):
-    """The streams in ``io`` and the twelve weights of :func:`_weights`
-    in float32, by casts that autograd follows back to the callers'
-    dtypes (none where the dtype is already right): the JAX package's
-    casts around its kernels (pallas_fused.py:1463-1472, :1720-1735), the
-    raw features through float32 as there."""
+def _kernel_inputs(edge_mlp, embedder, edge_rep, edge_feats, io, *streams):
+    """The edge input and ``streams`` in ``io`` and the twelve weights of
+    :func:`_weights` in float32, by casts that autograd follows back to
+    the callers' dtypes (none where the dtype is already right): the JAX
+    package's casts around its kernels (pallas_fused.py:1463-1472,
+    :1720-1735), the raw features through float32 as there."""
     if embedder is not None:
         edge_in = edge_feats.float().to(io)
     else:
         edge_in = edge_rep.to(io)
     weights = [None if w is None else w.float() for w in _weights(edge_mlp, embedder)]
-    return edge_in, x_send.to(io), rec_rep.to(io), weights
+    return (edge_in, *(t.to(io) for t in streams), weights)
 
 
 fused_edge_phase.launches = 0
@@ -998,46 +1120,60 @@ _V2 = "fused_edge_phase_v2"
 
 def _check_v2_inputs(edge_in, sp, rp, edge_set, weights, raw) -> tuple[int, int]:
     """Refuse what K7 and K8 do not take; returns the edge mode and the
-    raw feature width."""
-    dev, d = rp.device, KERNEL_HIDDEN
+    raw feature width. The streams ``edge_in``, ``sp`` and ``rp`` are all
+    float32 or all bf16 (the bf16 instantiations); the weights float32."""
+    dev, d, io = rp.device, KERNEL_HIDDEN, rp.dtype
     if sp.dim() != 3 or rp.dim() != 3:
         raise ValueError(f"{_V2}: sp and rp must be (N, B, D)")
+    if io not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{_V2}: rp must be float32 or bf16, got {io}")
     batch = rp.shape[1]
-    mode, feat = _check_edge_and_weights(_V2, edge_in, edge_set, batch, dev, weights, raw)
+    mode, feat = _check_edge_and_weights(_V2, edge_in, edge_set, batch, dev, weights, raw, io)
     n_tab = edge_set.send_rowptr.shape[0] - 1
     if sp.shape[0] < n_tab:
         raise ValueError(
             f"{_V2}: sp has {sp.shape[0]} rows for an edge set with senders "
             f"up to {n_tab - 1}"
         )
-    _check("sp", sp, dev, (sp.shape[0], batch, d), _V2)
-    _check("rp", rp, dev, (edge_set.num_rec, batch, d), _V2)
+    _check("sp", sp, dev, (sp.shape[0], batch, d), _V2, io)
+    _check("rp", rp, dev, (edge_set.num_rec, batch, d), _V2, io)
     return mode, feat
 
 
 def fused_edge_v2_fwd(edge_in, sp, rp, edge_set, weights, raw, update_edges,
-                      save_pre=False):
+                      save_pre=False, bf16_ops=False, out_dtype=None):
     """Launch K7 on CUDA tensors: ``(aggr, new_edge | None, pre | None)``.
     The launcher records no autograd graph; :class:`FusedEdgePhaseV2`
-    does."""
+    does.
+
+    The streams ``edge_in``, ``sp`` and ``rp`` are all float32 or all
+    bf16 and the weights float32. With ``bf16_ops`` the bf16-operand
+    instantiation runs (bf16 streams: ``FUSED_EDGE_V2_BF16``; float32:
+    ``FUSED_EDGE_V2_BF16_OPS``), and ``aggr`` and ``new_edge`` are written
+    in ``out_dtype`` (float32 or bf16; the streams' dtype by default).
+    Without it the streams must be float32 and so are the outputs. ``pre``
+    is float32 always, as in the JAX package (pallas_fused.py:2256-2259)."""
     refuse_autograd(
         "fused_edge_v2_fwd", "ops.fused_kernels.fused_edge_phase_v2",
         edge_in, sp, rp, *weights,
     )
     mode, feat = _check_v2_inputs(edge_in, sp, rp, edge_set, weights, raw)
-    dev, batch = rp.device, rp.shape[1]
+    dev, batch, io = rp.device, rp.shape[1], rp.dtype
+    if not bf16_ops and io != torch.float32:
+        raise TypeError(f"{_V2}: bf16 streams need bf16_ops")
+    out = io if out_dtype is None else out_dtype
+    if not bf16_ops and out != torch.float32:
+        raise TypeError(f"{_V2}: the float32 kernel writes float32")
     shape = (edge_set.num_edges, batch, KERNEL_HIDDEN)
-    aggr = torch.empty(tuple(rp.shape), dtype=torch.float32, device=dev)
-    new_edge = (
-        torch.empty(shape, dtype=torch.float32, device=dev) if update_edges else None
-    )
+    aggr = torch.empty(tuple(rp.shape), dtype=out, device=dev)
+    new_edge = torch.empty(shape, dtype=out, device=dev) if update_edges else None
     pre = torch.empty(shape, dtype=torch.float32, device=dev) if save_pre else None
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
     # the kernel's work counter; inside a CUDA graph capture its zero-fill
     # is a node of the graph, so every replay starts it at 0 again
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = _v2_fwd_lib()(
+    args = (
         mode, edge_set.num_rec, batch, feat, int(update_edges),
         int(weights[4] is not None),
         _ptr(edge_in), _ptr(sp), _ptr(rp), _ptr(edge_set.rowptr),
@@ -1045,13 +1181,22 @@ def fused_edge_v2_fwd(edge_in, sp, rp, edge_set, weights, raw, update_edges,
         _ptr(aggr), _ptr(new_edge), _ptr(pre), _ptr(counter),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    io_bf16 = io == torch.bfloat16
+    if bf16_ops:
+        err = _v2_fwd_bf16_lib()(int(io_bf16), int(out == torch.bfloat16), *args)
+    else:
+        err = _v2_fwd_lib()(*args)
     if err != 0:
         raise RuntimeError(f"{_V2} kernel launch failed: CUDA error {err}")
-    fused_edge_phase_v2.launches += 1
+    if not bf16_ops:
+        fused_edge_phase_v2.launches += 1
+    else:
+        (FUSED_EDGE_V2_BF16 if io_bf16 else FUSED_EDGE_V2_BF16_OPS).launches += 1
     return aggr, new_edge, pre
 
 
-def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
+def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw,
+                      bf16_ops=False):
     """Launch K8 on CUDA tensors. ``d_new_edge`` may be None (no gradient
     reaches the updated edges). Returns ``(d_edge | None, d_pre,
     d_recproj, weight grads)``: ``d_edge`` in the edge input's shape, None
@@ -1059,27 +1204,35 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
     sum per (receiver, b); the weight grads in the order of
     :func:`_weights`, None where the weight is, with zeros in the sender
     and receiver blocks of ``W1``: those come from autograd of the node
-    projections."""
-    dev, d = pre.device, KERNEL_HIDDEN
+    projections.
+
+    ``d_aggr``, ``d_new_edge`` and the edge input are in the streams'
+    dtype, float32 or (with ``bf16_ops``) bf16, and so is ``d_edge``;
+    ``pre``, ``d_pre``, ``d_recproj`` and the weight gradients are
+    float32. With ``bf16_ops`` the bf16-operand instantiation runs
+    (``FUSED_EDGE_V2_BWD_BF16`` or ``FUSED_EDGE_V2_BWD_BF16_OPS``)."""
+    dev, d, io = pre.device, KERNEL_HIDDEN, d_aggr.dtype
     n_edges, num_rec, batch = edge_set.num_edges, edge_set.num_rec, pre.shape[1]
-    mode, feat = _check_edge_and_weights(_V2, edge_in, edge_set, batch, dev, weights, raw)
+    if io not in (torch.float32, torch.bfloat16) or (not bf16_ops and io != torch.float32):
+        raise TypeError(f"{_V2}: streams of {io} need bf16_ops, or are float32")
+    mode, feat = _check_edge_and_weights(_V2, edge_in, edge_set, batch, dev, weights, raw, io)
     _check("pre", pre, dev, (n_edges, batch, d), _V2)
-    _check("d_aggr", d_aggr, dev, (num_rec, batch, d), _V2)
+    _check("d_aggr", d_aggr, dev, (num_rec, batch, d), _V2, io)
     if d_new_edge is not None:
-        _check("d_new_edge", d_new_edge, dev, (n_edges, batch, d), _V2)
+        _check("d_new_edge", d_new_edge, dev, (n_edges, batch, d), _V2, io)
     gamma = weights[4]
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
     batched = mode == _EDGE_BATCHED
     d_pre = empty(n_edges, batch, d)
     d_recproj = empty(num_rec, batch, d)
     d_edge = None
     if batched:
-        d_edge = empty(n_edges, batch, d)
+        d_edge = empty(n_edges, batch, d, dtype=io)
     elif mode == _EDGE_SHARED:
-        d_edge = empty(n_edges, d)
+        d_edge = empty(n_edges, d, dtype=io)
     if num_rec == 0 or n_edges == 0:
         # no edge reaches a weight or a node: every gradient is zero
         zeros = [None if w is None else torch.zeros_like(w) for w in weights]
@@ -1102,7 +1255,7 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
     ws_main, ws_edge, presum = (
         scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)
     )
-    err = _v2_bwd_lib()(
+    args = (
         mode, num_rec, n_edges, batch, feat, int(gamma is not None), main_blocks,
         edge_blocks, _ptr(edge_in), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
         _ptr(edge_set.rowptr), _ptr(weights[0]), _ptr(weights[2]),
@@ -1111,9 +1264,14 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw):
         ws_main, _ptr(out_main), ws_edge, _ptr(out_edge),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    io_bf16 = io == torch.bfloat16
+    err = _v2_bwd_bf16_lib()(int(io_bf16), *args) if bf16_ops else _v2_bwd_lib()(*args)
     if err != 0:
         raise RuntimeError(f"{_V2} backward kernel launch failed: CUDA error {err}")
-    fused_edge_v2_bwd.launches += 1
+    if not bf16_ops:
+        fused_edge_v2_bwd.launches += 1
+    else:
+        (FUSED_EDGE_V2_BWD_BF16 if io_bf16 else FUSED_EDGE_V2_BWD_BF16_OPS).launches += 1
 
     dw2 = out_main[:_MAT].view(d, d)  # (out, in)
     db2, dgamma, dbeta, db1 = out_main[_MAT:].view(4, d)
@@ -1128,16 +1286,16 @@ fused_edge_v2_bwd.launches = 0
 
 
 def _plain_v2_bwd(d_aggr, d_new_edge, edge_in, sp, rp, edge_set, weights, raw,
-                  update_edges):
+                  update_edges, bf16_ops=False):
     """K8's plain version: autograd through :func:`_plain_v2` on the same
-    inputs, with ``sp`` and ``rp`` held constant. Same returns as
-    :func:`fused_edge_v2_bwd`."""
+    inputs (float32), with ``sp`` and ``rp`` held constant. Same returns as
+    :func:`fused_edge_v2_bwd`, all float32."""
     with torch.enable_grad():
         leaves = [None if w is None else w.detach().requires_grad_(True) for w in weights]
         edge = edge_in.detach().requires_grad_(not raw)  # raw features: constants
         aggr, new_edge, pre = _plain_v2(
             edge, sp.detach(), rp.detach(), edge_set.senders, edge_set.receivers,
-            leaves, raw, update_edges,
+            leaves, raw, update_edges, bf16_ops,
         )
         outs, seeds = [aggr], [d_aggr]
         if d_new_edge is not None:
@@ -1159,29 +1317,45 @@ class FusedEdgePhaseV2(torch.autograd.Function):
     version and the backward autograd through it, then K2's plain version.
 
     ``apply(edge_in, sp, rp, *weights, edge_set, raw, update_edges,
-    grad_enabled)`` with the twelve tensors of :func:`_weights`,
-    ``grad_enabled`` the caller's grad mode; returns ``(aggr, new_edge |
-    None)``. The gradient of ``W1`` carries zeros in its sender and
-    receiver blocks: the node projections that formed ``sp`` and ``rp``
-    add theirs."""
+    grad_enabled, bf16_ops, out_dtype)`` with the streams in one dtype
+    (float32, or bf16 with ``bf16_ops``), the twelve float32 tensors of
+    :func:`_weights`, ``grad_enabled`` the caller's grad mode, ``bf16_ops``
+    the kernels' bf16 operands and ``out_dtype`` that of the outputs;
+    returns ``(aggr, new_edge | None)``. The backward takes the incoming
+    gradients in the streams' dtype and hands K2 ``d_pre`` in it, as the
+    JAX package casts them to ``io_dt`` (pallas_fused.py:2322, :2389,
+    :2651-2657), and returns the streams' gradients in their dtype. The
+    gradient of ``W1`` carries zeros in its sender and receiver blocks: the
+    node projections that formed ``sp`` and ``rp`` add theirs."""
 
     @staticmethod
     def forward(ctx, edge_in, sp, rp, *args):
-        weights, (edge_set, raw, update_edges, grad_enabled) = args[:12], args[12:]
-        ctx.meta = (edge_set, raw, update_edges, sp.shape[0], tuple(rp.shape))
+        weights = args[:12]
+        edge_set, raw, update_edges, grad_enabled, bf16_ops, out_dtype = args[12:]
+        ctx.meta = (edge_set, raw, update_edges, bf16_ops, sp.shape[0], tuple(rp.shape))
+        ctx.io = rp.dtype  # the streams'
         ctx.set_materialize_grads(False)
         need_grad = grad_enabled and any(ctx.needs_input_grad)
         on_cpu = rp.device.type == "cpu"
         if on_cpu:
             aggr, new_edge, pre = _plain_v2(
-                edge_in, sp, rp, edge_set.senders, edge_set.receivers, weights,
-                raw, update_edges,
+                edge_in.float(), sp.float(), rp.float(), edge_set.senders,
+                edge_set.receivers, weights, raw, update_edges, bf16_ops,
             )
-        else:
+            aggr = aggr.to(out_dtype)
+            new_edge = None if new_edge is None else new_edge.to(out_dtype)
+        elif bf16_ops:
+            aggr, new_edge, pre = fused_edge_v2_fwd(
+                edge_in, sp, rp, edge_set, weights, raw, update_edges,
+                save_pre=need_grad, bf16_ops=True, out_dtype=out_dtype,
+            )
+        else:  # the float32 kernel, cast on the way out
             aggr, new_edge, pre = fused_edge_v2_fwd(
                 edge_in, sp, rp, edge_set, weights, raw, update_edges,
                 save_pre=need_grad,
             )
+            aggr = aggr.to(out_dtype)
+            new_edge = None if new_edge is None else new_edge.to(out_dtype)
         if need_grad:
             # the plain backward recomputes from sp and rp; K8 needs only pre
             extra = (sp, rp) if on_cpu else (pre,)
@@ -1190,27 +1364,43 @@ class FusedEdgePhaseV2(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_aggr, d_new_edge):
-        edge_set, raw, update_edges, num_send, rec_shape = ctx.meta
+        edge_set, raw, update_edges, bf16_ops, num_send, rec_shape = ctx.meta
         # absent weights were saved as None and come back as None
         edge_in, *saved = ctx.saved_tensors
         weights, extra = saved[:12], saved[12:]
         if d_aggr is None and d_new_edge is None:
-            return (None,) * 19
-        if d_aggr is None:
-            d_aggr = edge_in.new_zeros(rec_shape)
+            return (None,) * 21
+        io = ctx.io
+        d_aggr = edge_in.new_zeros(rec_shape, dtype=io) if d_aggr is None else d_aggr.to(io)
+        if d_new_edge is not None:
+            d_new_edge = d_new_edge.to(io)
         if len(extra) == 2:
             d_edge, d_pre, d_recproj, grads = _plain_v2_bwd(
-                d_aggr, d_new_edge, edge_in, *extra, edge_set, weights, raw,
-                update_edges,
+                d_aggr.float(), None if d_new_edge is None else d_new_edge.float(),
+                edge_in.float(), extra[0].float(), extra[1].float(), edge_set, weights,
+                raw, update_edges, bf16_ops,
             )
         else:
             d_edge, d_pre, d_recproj, grads = fused_edge_v2_bwd(
                 d_aggr.contiguous(),
                 None if d_new_edge is None else d_new_edge.contiguous(),
-                extra[0], edge_in, edge_set, weights, raw,
+                extra[0], edge_in, edge_set, weights, raw, bf16_ops,
             )
-        d_sp = sender_scatter(d_pre, edge_set, num_send)  # K2
-        return (d_edge, d_sp, d_recproj, *grads, None, None, None, None)
+        d_sp = sender_scatter(d_pre.to(io), edge_set, num_send)  # K2, float32 sums
+        d_edge = None if d_edge is None else d_edge.to(io)
+        return (d_edge, d_sp.to(io), d_recproj.to(io), *grads, *(None,) * 6)
+
+
+def _projection(x, w, bf16_ops, io):
+    """A node projection ``x . w^T`` outside the kernel, as the JAX
+    package's ``proj`` forms it (pallas_fused.py:2541-2560): the operands
+    in float32, or rounded to bf16 with ``bf16_ops``, float32 sums, the
+    result in the streams' dtype ``io``. The casts are autograd's, so its
+    backward rounds the gradients of the bf16 operands to bf16 as JAX's
+    transpose of the product does."""
+    if bf16_ops:
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    return (x.float() @ w.float().T).to(io)
 
 
 def fused_edge_phase_v2(
@@ -1230,22 +1420,14 @@ def fused_edge_phase_v2(
     node arrays: their first-layer products ``sp`` and ``rp`` are formed
     here with ``torch`` matmuls, under autograd, and K7 gathers ``sp`` by
     sender. The edge input is as for :func:`fused_edge_phase`. Returns
-    ``(aggregated_sum (N_rec, B, D), new_edge (E, B, D) | None)``.
+    ``(aggregated_sum (N_rec, B, D), new_edge (E, B, D) | None)`` in
+    ``rec_rep``'s dtype. Under a reduced precision (:func:`fused_precision`)
+    the projections take bf16 operands and the streams move in its dtype,
+    through K7's and K8's bf16 instantiations, as in the JAX package's
+    ``make_fused_interaction_v2`` (pallas_fused.py:2518-2525).
     """
     if rec_rep.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"{_V2}: unsupported device {rec_rep.device}")
-    if any(t is not None and t.dtype != torch.float32 for t in (edge_rep, send_rep, rec_rep)):
-        reason = "bf16 inputs"
-    elif kernel_matmul_high():
-        reason = f"{MATMUL_PRECISION_ENV}={os.environ[MATMUL_PRECISION_ENV]}"
-    else:
-        reason = None
-    if reason is not None:
-        raise NotImplementedError(
-            f"{_V2}: the v2 route (K7, K8) has no reduced-precision variant yet "
-            f"({reason}; ROADMAP.md §2b item 1): take the v1 route "
-            f"({FUSED_V2_ENV}=off) or float32"
-        )
     if not fusable(edge_mlp) or (
         embedder is not None
         and not embedder_fusable(embedder, linear_layers(edge_mlp)[1].out_features)
@@ -1255,14 +1437,15 @@ def fused_edge_phase_v2(
             "Linear-SiLU-Linear-LayerNorm embedder"
         )
     raw = embedder is not None
-    w1 = linear_layers(edge_mlp)[0].weight
+    bf16_ops, io = fused_precision(rec_rep.dtype)
+    edge_in, weights = _kernel_inputs(edge_mlp, embedder, edge_rep, edge_feats, io)
+    w1 = weights[0]
     d = w1.shape[0]
-    sp = send_rep @ w1[:, d : 2 * d].T  # once per sender row
-    rp = rec_rep @ w1[:, 2 * d :].T  # once per receiver row
+    sp = _projection(send_rep, w1[:, d : 2 * d], bf16_ops, io)  # once per sender row
+    rp = _projection(rec_rep, w1[:, 2 * d :], bf16_ops, io)  # once per receiver row
     return FusedEdgePhaseV2.apply(  # pre only under grad, as in fused_edge_phase
-        edge_feats if raw else edge_rep, sp, rp,
-        *_weights(edge_mlp, embedder),
-        edge_set, raw, update_edges, torch.is_grad_enabled(),
+        edge_in, sp, rp, *weights,
+        edge_set, raw, update_edges, torch.is_grad_enabled(), bf16_ops, rec_rep.dtype,
     )
 
 

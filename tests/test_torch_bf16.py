@@ -528,27 +528,107 @@ def test_bf16_train_steps_and_eval_step_match_jax(roots):
 # -- the v2 route -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", list(MODES) + ["bf16 kernels off"])
-def test_v2_route_refuses_a_reduced_precision(monkeypatch, mode):
-    """K7 and K8 have no reduced-precision variant yet: a phase that
-    ``fused_v2_routed`` sends to v2 raises under bf16 inputs (also with
-    ``NEURAL_LAM_TPU_BF16_KERNELS=off``), ``high`` and ``high-kernels``,
-    naming the ROADMAP item; it takes neither v1 nor the float32 kernels.
-    Float32 still takes v2."""
-    bf16 = _mode(monkeypatch, mode.split()[0])
+def _took_v2(jax_edge_sets) -> bool:
+    return any(k[0] == "fused_v2" for es in jax_edge_sets for k in es.fn_cache)
+
+
+@pytest.mark.parametrize("mode", list(MODES) + ["bf16 kernels off", "float32"])
+def test_v2_route_takes_a_reduced_precision(monkeypatch, mode):
+    """An InteractionNet step (a shared edge state, the edge update) that
+    ``fused_v2_routed`` sends to v2 runs there under bf16 inputs (also with
+    ``NEURAL_LAM_TPU_BF16_KERNELS=off``), ``high``, ``high-kernels`` and
+    float32, in both packages, and the port's outputs and gradients match
+    the JAX package's within 2e-2 and 5e-2 of their largest entry (float32
+    within 1e-4): the node projections, K7, K8 and K2 in the mode's
+    precision, no K1. Measured worst: outputs 8.2e-3 and gradients 3.5e-2
+    (bf16 inputs; 9.2e-3 and 3.1e-2 with the kernels off, 1.6e-3 and 7.4e-3
+    under ``high``, 2.7e-3 and 9.1e-3 under ``high-kernels``); float32
+    3.2e-7 and 5.5e-7."""
+    from neural_lam_tpu.ops import interaction as jax_interaction
+    from neural_lam_tpu.ops.interaction import init_interaction_net
+
+    bf16 = mode in ("bf16", "bf16 kernels off")
+    if mode in MODES:
+        _mode(monkeypatch, mode)
     if mode.endswith("off"):
         monkeypatch.setenv("NEURAL_LAM_TPU_BF16_KERNELS", "off")
     monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "on")
-    _, tes, _ = _graph()
-    net = interaction.InteractionNet(8, generator=torch.Generator().manual_seed(0))
-    dt = BF16 if bf16 else torch.float32
-    send, rec = torch.randn(N_SEND, 2, 8).to(dt), torch.randn(N_REC, 2, 8).to(dt)
-    edge = torch.randn(N_EDGES, 8).to(dt)
+    jes, tes, live = _graph()
+    jp = init_interaction_net(jax.random.PRNGKey(5), 8)
+    net = interaction.InteractionNet(8)
+    net.load_state_dict({k[2:]: v for k, v in params_from_jax({"m": jp}).items()})
+    j_dt, t_dt = (jnp.bfloat16, BF16) if bf16 else (jnp.float32, torch.float32)
     if bf16:
-        net = net.to(BF16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2b item 1"):
-        interaction.apply_interaction_net(net, tes, send, rec, edge)
-    monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
-    out = interaction.apply_interaction_net(net.float(), tes, send.float(), rec.float(),
-                                            edge.float())
-    assert out[0].dtype == torch.float32 and out[0].shape == (N_REC, 2, 8)
+        jp, net = _to_bf16(jp), net.to(BF16)
+    rng = np.random.default_rng(9)
+    send, rec = (rng.normal(size=(n, 2, 8)).astype(np.float32) for n in (N_SEND, N_REC))
+    edge = rng.normal(size=(N_EDGES, 8)).astype(np.float32)
+    w_rec, w_edge = (rng.normal(size=s).astype(np.float32)
+                     for s in ((N_REC, 2, 8), (N_EDGES, 2, 8)))
+
+    def jax_loss(p, s, r, e):
+        new_rec, new_edge = jax_interaction.apply_interaction_net(p, jes, s, r, e)
+        loss = jnp.sum(new_rec.astype(jnp.float32) * w_rec)
+        loss += jnp.sum(new_edge.astype(jnp.float32) * _slots(w_edge, live, jes))
+        return loss, (new_rec, new_edge)
+
+    jes.fn_cache.clear()
+    (_, j_out), j_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        jp, *(jnp.asarray(a, j_dt) for a in (send, rec, _slots(edge, live, jes)))
+    )
+    assert _took_v2([jes])
+
+    calls = []
+    apply = fused_kernels.FusedEdgePhaseV2.apply
+    monkeypatch.setattr(fused_kernels.FusedEdgePhaseV2, "apply",
+                        lambda *a: calls.append(a[-2]) or apply(*a))
+    gather = segment.SenderGather.apply
+    monkeypatch.setattr(segment.SenderGather, "apply",
+                        lambda *a: calls.append("K1") or gather(*a))
+    leaves = [torch.from_numpy(a).to(t_dt).requires_grad_(True) for a in (send, rec, edge)]
+    new_rec, new_edge = interaction.apply_interaction_net(net, tes, *leaves)
+    ((new_rec.float() * torch.from_numpy(w_rec)).sum()
+     + (new_edge.float() * torch.from_numpy(w_edge)).sum()).backward()
+    # one v2 application, with bf16 operands unless float32 or kernels off
+    assert calls == [mode in MODES]
+    out_tol, grad_tol = (OUT_TOL, GRAD_TOL) if mode != "float32" else (1e-4, 1e-4)
+    _same_dtype(new_rec, j_out[0])
+    _same_dtype(new_edge, j_out[1])
+    out_err = max(_rel(new_rec, j_out[0]), _rel(new_edge, np.asarray(j_out[1], np.float32)[live]))
+    want = params_from_jax({"m": jax.device_get(j_grads[0])})
+    grad_err = max(_rel(p.grad, want["m." + n]) for n, p in net.named_parameters())
+    for leaf, j, rows in zip(leaves, j_grads[1:], (None, None, live)):
+        _same_dtype(leaf.grad, j)
+        grad_err = max(grad_err, _rel(leaf.grad, _np(j) if rows is None else _np(j)[rows]))
+    assert out_err <= out_tol and grad_err <= grad_tol, (out_err, grad_err)
+
+
+def test_bf16_trainer_on_v2_matches_jax(roots, monkeypatch):
+    """``Trainer(precision="bf16")._loss`` and every parameter gradient of
+    GraphLAM with every fused phase on the v2 route
+    (``NEURAL_LAM_TPU_FUSED_V2=on``: the bf16 instantiations of K7 and K8)
+    against the JAX bf16 trainer on its v2 route, as
+    ``test_bf16_trainer_loss_and_grads_match_jax`` holds the v1 route.
+    Measured: loss 6.1e-4 relative, gradients 2.5e-2 of their largest
+    entry."""
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_V2", "on")
+    jt, params, tt, tm, tds = _trainers(roots, "graph_lam")
+    batch = _batch(tds, 1)
+    want_loss, want_grads = jax.value_and_grad(jt._loss)(params, *batch)
+    calls = []
+    apply, v1 = fused_kernels.FusedEdgePhaseV2.apply, fused_kernels.FusedEdgePhase.apply
+    monkeypatch.setattr(fused_kernels.FusedEdgePhaseV2, "apply",
+                        lambda *a: calls.append(a[-2]) or apply(*a))
+    monkeypatch.setattr(fused_kernels.FusedEdgePhase, "apply",
+                        lambda *a: calls.append("v1") or v1(*a))
+    g = jt.forecaster.predictor.graph
+    assert _took_v2([p.edges for p in (g.g2m, g.m2g, *g.m2m)])
+    got_loss = tt._loss(*batch)
+    got_loss.backward()
+    assert calls and set(calls) == {True}  # every phase on v2, with bf16 operands
+    assert abs(got_loss.item() - float(want_loss)) <= LOSS_RTOL * abs(float(want_loss))
+    want = export_state_dict(jax.device_get(want_grads))
+    got = grads_to_numpy(tm)
+    assert sorted(got) == sorted(want)
+    worst = max(_rel(got[k], want[k]) for k in want)
+    assert worst <= GRAD_TOL, worst

@@ -310,9 +310,9 @@ def test_fused_edge_phase_writes_pre_only_when_differentiated(cuda, monkeypatch,
     name = "fused_edge_v2_fwd" if v2 else "fused_edge_fwd"
     launcher, saved = getattr(fk, name), []
 
-    def spy(*args, save_pre=False):
+    def spy(*args, save_pre=False, **kw):
         saved.append(save_pre)
-        return launcher(*args, save_pre=save_pre)
+        return launcher(*args, save_pre=save_pre, **kw)
 
     monkeypatch.setattr(fk, name, spy)
     phase = fk.fused_edge_phase_v2 if v2 else fk.fused_edge_phase
@@ -1853,3 +1853,339 @@ def test_captured_step_recaptures_when_the_matmul_precision_changes(cuda, tmp_pa
     assert len(captured.graphs) == 2 and not any(later.values())
     assert ticks["K3 fused_edge_phase bf16 operands"] > 0 and ticks["K3 fused_edge_phase"] == 0
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# -- NEURAL_LAM_TPU_CACHE_PRE: K3 writing a bf16 pre, K4 reading it, K4
+# recomputing it ------------------------------------------------------------
+#
+# In each precision: float32 (3xTF32) and the two bf16-operand ones. K4
+# from a bf16 pre is held to the plain backward from the same bf16 values
+# (``_plain_bwd`` with ``pre``), so that a rounding of pre that lands one
+# bf16 ulp apart in kernel and plain version does not count against it.
+
+PRE_MODES = {"float32": (None, torch.float32), **BF16_MODES}
+PRE_FLAGS = [FLAGS[0], FLAGS[1], FLAGS[2], FLAGS[3], FLAGS[4]]
+
+
+def _pre_case(cuda, monkeypatch, mode, flags, batch, seed):
+    """The kernel arguments of one phase in ``mode``'s streams and
+    operands: ``(edge_in, x_send, rec, es, wts, raw, update, prop,
+    bf16_ops)``, the weights float32 (bf16 copies under mixed precision)."""
+    env, _ = PRE_MODES[mode]
+    if env is None:
+        monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
+    else:
+        monkeypatch.setenv("NEURAL_LAM_TPU_MATMUL_PRECISION", env)
+    case_mode = "bf16" if mode == "float32" else mode
+    (edge_mlp, edge_rep, x_send, rec, es), kw, _ = _bf16_phase_case(
+        cuda, case_mode, flags, batch, seed
+    )
+    if mode == "float32":
+        edge_mlp = edge_mlp.float()
+        kw["embedder"] = None if kw["embedder"] is None else kw["embedder"].float()
+    bf16_ops, io = fk.fused_precision(rec.dtype if mode != "float32" else torch.float32)
+    raw = flags[0] == "raw"
+    edge_in = kw["edge_feats"] if raw else edge_rep
+    wts = [None if w is None else w.detach().float() for w in
+           _weights(edge_mlp, kw["embedder"])]
+    args = [t.detach().float().to(io).contiguous() for t in (edge_in, x_send, rec)]
+    return (*args, es, wts, raw, flags[1], flags[2], bf16_ops)
+
+
+def _close_grads(got, want, mode, tol=1e-4):
+    """float32: each gradient within ``tol`` of its largest entry; the bf16
+    modes: ``_close_bf16`` in the gradient's dtype."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None:
+            assert w is None or not w.any(), i
+            continue
+        if mode == "float32":
+            scale = max(w.abs().max().item(), 1e-30)
+            assert (g.float() - w.float()).abs().max().item() <= tol * scale, i
+        else:
+            _close_bf16(g, w.to(g.dtype), f"gradient {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(PRE_MODES))
+@pytest.mark.parametrize("flags", PRE_FLAGS)
+def test_bf16_pre_is_the_rounded_float32_pre(cuda, monkeypatch, mode, flags):
+    """K3's ``PRE_BF16`` instantiations write the pre-activation that the
+    float32-pre K3 writes, rounded to nearest even, in half the bytes, and
+    the same outputs bit for bit; their launches count apart."""
+    edge_in, x_send, rec, es, wts, raw, update, prop, bf16_ops = _pre_case(
+        cuda, monkeypatch, mode, flags, 4, seed=40
+    )
+    args = (edge_in, x_send, rec, es, wts, raw, update, prop)
+    with torch.no_grad():
+        a32, e32, pre32 = fused_edge_fwd(*args, save_pre=True, bf16_ops=bf16_ops)
+        ticks = _ticks(lambda: fused_edge_fwd(*args, save_pre=True, bf16_ops=bf16_ops,
+                                              pre_dtype=torch.bfloat16))
+        a16, e16, pre16 = fused_edge_fwd(*args, save_pre=True, bf16_ops=bf16_ops,
+                                         pre_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert {k for k, v in ticks.items() if v} == {"K3 fused_edge_phase bf16 pre"}
+    assert pre16.dtype == torch.bfloat16 and pre16.nbytes * 2 == pre32.nbytes
+    assert torch.equal(pre16, pre32.to(torch.bfloat16))
+    assert torch.equal(a16, a32) and (e16 is None or torch.equal(e16, e32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(PRE_MODES))
+@pytest.mark.parametrize("flags", PRE_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (1, True), (32, True)])
+def test_backward_from_bf16_pre_matches_plain(cuda, monkeypatch, mode, flags, batch,
+                                              use_new_edge):
+    """K4's ``kPreBf16`` instantiations against the plain backward from
+    the same bf16 pre: every gradient (float32 within 1e-4 of each one's
+    largest entry, the bf16 modes within the bf16 bounds), the same bits on
+    a second run, counted apart from the float32-pre K4."""
+    edge_in, x_send, rec, es, wts, raw, update, prop, bf16_ops = _pre_case(
+        cuda, monkeypatch, mode, flags, batch, seed=41
+    )
+    with torch.no_grad():
+        _, _, pre = fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, prop,
+                                   save_pre=True, bf16_ops=bf16_ops, pre_dtype=torch.bfloat16)
+    rng = np.random.default_rng(42)
+    d_aggr = torch.tensor(rng.normal(size=tuple(rec.shape)), device=cuda).to(rec.dtype)
+    d_new = None
+    if update and use_new_edge:
+        d_new = torch.tensor(rng.normal(size=tuple(x_send.shape)), device=cuda).to(rec.dtype)
+
+    def run():
+        return fused_edge_bwd(d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw, prop,
+                              bf16_ops)
+
+    got = []
+    ticks = _ticks(lambda: got.append(run()))
+    torch.cuda.synchronize()
+    assert {k for k, v in ticks.items() if v} == {"K4 fused_edge_phase backward bf16 pre"}
+    want = fk._plain_bwd(d_aggr.float(), None if d_new is None else d_new.float(),
+                         edge_in.float(), x_send.float(), rec.float(), es, wts, raw, update,
+                         prop, bf16_ops, pre=pre)
+    flat = lambda r: [r[0], r[1], r[2], *r[3]]  # noqa: E731
+    _close_grads(flat(got[0]), flat(want), mode)
+    again = run()
+    assert all(a is None or torch.equal(a, b) for a, b in zip(flat(got[0]), flat(again)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(PRE_MODES))
+@pytest.mark.parametrize("flags", PRE_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (3, True), (1, True),
+                                                (32, True)])
+def test_recomputing_backward_matches_the_saved_pre_backward(cuda, monkeypatch, mode, flags,
+                                                             batch, use_new_edge):
+    """K4 without a saved pre (``fused_edge_bwd_recompute.cu``) against K4
+    from K3's float32 pre on the same inputs: in float32 every gradient
+    within 1e-6 of its largest entry (the recompute forms pre with
+    mma.sync where K3 used wgmma: the same operands, another tensor-core
+    instruction); with bf16 operands within the bf16 bounds (a last-bit
+    difference of pre can move a bf16 rounding). Also against the plain
+    backward that recomputes pre (1e-4 in float32, the bf16 bounds).
+    Counted apart, and the same bits on a second run."""
+    edge_in, x_send, rec, es, wts, raw, update, prop, bf16_ops = _pre_case(
+        cuda, monkeypatch, mode, flags, batch, seed=43
+    )
+    with torch.no_grad():
+        _, _, pre = fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, prop,
+                                   save_pre=True, bf16_ops=bf16_ops)
+    rng = np.random.default_rng(44)
+    d_aggr = torch.tensor(rng.normal(size=tuple(rec.shape)), device=cuda).to(rec.dtype)
+    d_new = None
+    if update and use_new_edge:
+        d_new = torch.tensor(rng.normal(size=tuple(x_send.shape)), device=cuda).to(rec.dtype)
+
+    def run(saved):
+        return fused_edge_bwd(d_aggr, d_new, saved, edge_in, x_send, rec, es, wts, raw, prop,
+                              bf16_ops)
+
+    got = []
+    ticks = _ticks(lambda: got.append(run(None)))
+    torch.cuda.synchronize()
+    assert {k for k, v in ticks.items() if v} == {"K4 fused_edge_phase backward recompute"}
+    flat = lambda r: [r[0], r[1], r[2], *r[3]]  # noqa: E731
+    _close_grads(flat(got[0]), flat(run(pre)), mode, tol=1e-6)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(flat(got[0]), flat(run(None))))
+    want = fk._plain_bwd(d_aggr.float(), None if d_new is None else d_new.float(),
+                         edge_in.float(), x_send.float(), rec.float(), es, wts, raw, update,
+                         prop, bf16_ops)  # the plain backward recomputing pre
+    _close_grads(flat(got[0]), flat(want), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_mode", ["on", "bf16", "off"])
+def test_fused_edge_phase_follows_cache_pre(cuda, monkeypatch, pre_mode):
+    """``fused_edge_phase`` under ``NEURAL_LAM_TPU_CACHE_PRE``: K3 saves a
+    float32 pre (``on``), a bf16 one (``bf16``) or none (``off``), by a
+    spy on its launcher, and the backward runs the matching K4; the
+    gradients equal those of ``on`` within 1e-6 (``off``) or 1e-2
+    (``bf16``, the rounding of pre) of each one's largest entry."""
+    grads, saved = {}, []
+    launcher = fk.fused_edge_fwd
+
+    def spy(*args, **kw):
+        out = launcher(*args, **kw)
+        saved.append(None if out[2] is None else out[2].dtype)
+        return out
+
+    monkeypatch.setattr(fk, "fused_edge_fwd", spy)
+    for mode in ("on", pre_mode):
+        monkeypatch.setenv("NEURAL_LAM_TPU_CACHE_PRE", mode)
+        (edge_mlp, edge_rep, x_send, rec, es), kw, leaves = _bf16_phase_case(
+            cuda, "bf16", FLAGS[2], 4, seed=45, grad=True
+        )
+        edge_mlp.float()
+        leaves = [t.detach().float().requires_grad_(True) for t in (x_send, rec, edge_rep)]
+        leaves += list(edge_mlp.parameters())
+        out = fused_edge_phase(edge_mlp, leaves[2], leaves[0], leaves[1], es, **kw)
+        loss = (out[0] * out[0]).sum() + out[1].sin().sum()
+        ticks = _ticks(lambda: grads.__setitem__(mode, torch.autograd.grad(loss, leaves)))
+    want_k4 = {"on": "K4 fused_edge_phase backward",
+               "bf16": "K4 fused_edge_phase backward bf16 pre",
+               "off": "K4 fused_edge_phase backward recompute"}[pre_mode]
+    assert {k for k, v in ticks.items() if v} == {want_k4}
+    want_pre = {"on": torch.float32, "bf16": torch.bfloat16, "off": None}[pre_mode]
+    assert saved == [torch.float32, want_pre]
+    tol = {"on": 0.0, "bf16": 1e-2, "off": 1e-6}[pre_mode]
+    for g, w in zip(grads[pre_mode], grads["on"]):
+        assert (g - w).abs().max().item() <= tol * max(w.abs().max().item(), 1e-30)
+
+
+# -- the bf16 variants of K7 and K8 -------------------------------------------
+
+
+def _v2_bf16_case(cuda, monkeypatch, mode, flags, batch, seed):
+    """``_v2_case`` in ``mode``'s dtype: node rows, edge input and MLPs of
+    one v2 call, the leaves, and the loss weights."""
+    dtype = _bf16_mode(monkeypatch, mode)
+    edge_mode, update, ln = flags
+    rng = np.random.default_rng(seed)
+    n_send, n_rec = 70, 50
+    snd = rng.integers(0, n_send - 1, 900)  # sender n_send - 1 sends nothing
+    es, _ = make_edge_set(snd, rng.integers(0, n_rec - 5, 900), num_rec=n_rec,
+                          num_send=n_send)
+    es = es.to(cuda)
+    edge_mlp, emb, send, rec, edge_rep, feats, _, w_aggr, w_edge = _v2_case(
+        rng, cuda, es, n_send, n_rec, edge_mode, batch, ln, seed=seed
+    )
+    edge_mlp = edge_mlp.to(dtype)
+    emb = None if emb is None else emb.to(dtype)
+    cast = lambda t: None if t is None else t.detach().to(dtype).requires_grad_(  # noqa: E731
+        t.requires_grad)
+    send, rec, edge_rep, feats = cast(send), cast(rec), cast(edge_rep), cast(feats)
+    leaves = [send, rec] + ([edge_rep] if edge_rep is not None else [])
+    leaves += list(edge_mlp.parameters()) + (list(emb.parameters()) if emb else [])
+    return edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, w_edge, es
+
+
+def _v2_bf16_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, update):
+    """The plain reference under the current precision: the node
+    projections as ``fused_edge_phase_v2`` forms them, then K7's plain
+    version (autograd through both is K8's and K2's)."""
+    bf16_ops, io = fk.fused_precision(rec.dtype)
+    w1 = edge_mlp[0].weight.float()
+    d = w1.shape[0]
+    return fused_edge_phase_v2_plain(
+        edge_mlp, edge_rep, fk._projection(send, w1[:, d : 2 * d], bf16_ops, io),
+        fk._projection(rec, w1[:, 2 * d :], bf16_ops, io), es.senders, es.receivers, emb,
+        feats, update, out_dtype=rec.dtype,
+    )
+
+
+def _v2_counters(mode):
+    if mode == "high-kernels":
+        return "K7 fused_edge_phase_v2 bf16 operands", "K8 fused_edge_phase_v2 backward bf16 operands"
+    return "K7 fused_edge_phase_v2 bf16", "K8 fused_edge_phase_v2 backward bf16"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BF16_MODES))
+@pytest.mark.parametrize("flags", V2_FLAGS)
+@pytest.mark.parametrize("batch", [4, 1, 32])
+def test_fused_edge_phase_v2_bf16_matches_plain(cuda, monkeypatch, mode, flags, batch):
+    """K7's bf16-operand instantiations (bf16 streams; float32 streams
+    under ``high-kernels``) through ``fused_edge_phase_v2`` against the
+    plain version: the aggregate and the updated edges in the receiver
+    rows' dtype, receivers without edges 0; counted apart from K7."""
+    edge_mlp, emb, send, rec, edge_rep, feats, _, _, _, es = _v2_bf16_case(
+        cuda, monkeypatch, mode, flags, batch, seed=46
+    )
+    got = []
+    with torch.no_grad():
+        ticks = _ticks(lambda: got.append(fused_edge_phase_v2(
+            edge_mlp, edge_rep, send, rec, es, embedder=emb, edge_feats=feats,
+            update_edges=flags[1])))
+        torch.cuda.synchronize()
+        want = _v2_bf16_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, flags[1])
+    assert {k for k, v in ticks.items() if v} == {_v2_counters(mode)[0]}
+    got = got[0]
+    assert got[0].dtype == rec.dtype
+    _close_bf16(got[0], want[0], "aggr")
+    assert torch.all(got[0][-5:] == 0)
+    if flags[1]:
+        _close_bf16(got[1], want[1], "new_edge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BF16_MODES))
+@pytest.mark.parametrize("flags", V2_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (1, True), (32, True)])
+def test_fused_edge_phase_v2_bf16_backward_matches_plain(cuda, monkeypatch, mode, flags,
+                                                        batch, use_new_edge):
+    """K8's bf16-operand instantiations, with K2 on ``d_pre`` in the
+    streams' dtype and the projections' backward, against autograd of the
+    plain version: every node, edge and weight gradient in its dtype, a
+    sender without edges zero, the same bits on a second run."""
+    edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, w_edge, es = _v2_bf16_case(
+        cuda, monkeypatch, mode, flags, batch, seed=47
+    )
+
+    def loss(out):
+        total = (out[0].float() * w_aggr).sum()
+        if flags[1] and use_new_edge:
+            total = total + (out[1].float() * w_edge).sum()
+        return total
+
+    def run():
+        out = fused_edge_phase_v2(edge_mlp, edge_rep, send, rec, es, embedder=emb,
+                                  edge_feats=feats, update_edges=flags[1])
+        return torch.autograd.grad(loss(out), leaves)
+
+    got = []
+    ticks = _ticks(lambda: got.append(run()))
+    torch.cuda.synchronize()
+    k2 = "K2 sender_scatter bf16" if mode != "high-kernels" else "K2 sender_scatter"
+    assert {k for k, v in ticks.items() if v} == {*_v2_counters(mode), k2}
+    want = torch.autograd.grad(
+        loss(_v2_bf16_plain(edge_mlp, edge_rep, send, rec, es, emb, feats, flags[1])), leaves
+    )
+    for i, (g, w) in enumerate(zip(got[0], want)):
+        _close_bf16(g, w, f"gradient {i}")
+    assert torch.all(got[0][0][-1] == 0)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], run()))
+
+
+@pytest.mark.cuda
+def test_v2_bf16_kernels_off_keeps_the_float32_kernels(cuda, monkeypatch):
+    """``NEURAL_LAM_TPU_BF16_KERNELS=off`` on the v2 route: bf16 inputs
+    reach K7 and K8 as float32 (casts at their boundary), the outputs and
+    gradients are bf16, as in the JAX package."""
+    edge_mlp, emb, send, rec, edge_rep, feats, leaves, w_aggr, _, es = _v2_bf16_case(
+        cuda, monkeypatch, "bf16", V2_FLAGS[2], 4, seed=48
+    )
+    monkeypatch.setenv("NEURAL_LAM_TPU_BF16_KERNELS", "off")
+
+    def run():
+        out = fused_edge_phase_v2(edge_mlp, edge_rep, send, rec, es, update_edges=True)
+        return out, torch.autograd.grad((out[0].float() * w_aggr).sum(), leaves)
+
+    result = []
+    ticks = _ticks(lambda: result.append(run()))
+    assert {k for k, v in ticks.items() if v} == {
+        "K7 fused_edge_phase_v2", "K8 fused_edge_phase_v2 backward", "K2 sender_scatter"}
+    (out, grads), = result
+    assert out[0].dtype == torch.bfloat16
+    assert all(g.dtype == t.dtype for g, t in zip(grads, leaves))
+    want = _v2_bf16_plain(edge_mlp, edge_rep, send, rec, es, None, None, True)
+    _close_bf16(out[0], want[0], "aggr")
