@@ -11,8 +11,9 @@ and K8 (their SIMT design and C interface): its ``fused_edge.cu``,
 are built too and timed on the same inputs in the same call, beside the
 current K3, K4, K7 and K8.
 
-It builds the port's nine CUDA kernel sources (with the bf16 variants of
-K1-K4, K7 and K8, and K4 recomputing ``pre``) from
+It builds the port's eleven CUDA kernel sources (with the bf16 variants of
+K1-K4, K7 and K8, K4 recomputing ``pre``, K3's node-MLP epilogue and the
+node backward) from
 ``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
 configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
@@ -111,7 +112,15 @@ plain version (and the recomputing K4 against K4 from K3's float32
 ``pre``, within 1e-6 of each gradient's largest entry), each beside the
 kernel it stands in for; and GraphLAM's captured training step under
 ``on``, ``bf16`` and ``off`` against the training fixture (``bf16`` at
-the bf16 bounds), with its time, peak memory and launches. Then GraphLAM's
+the bf16 bounds), with its time, peak memory and launches. Then
+``NEURAL_LAM_TPU_FUSED_AGGR`` (the ``fused aggr`` lines): K3 with the
+node-MLP epilogue and the node backward at the six sites in three
+precisions (beside K3 plus the node tail with ``torch``) and at HiLAM's
+ten level sets, each against its plain version; under ``on`` the
+accuracy gate, GraphLAM's request and training steps (captured against
+eager), the training gate, bf16 training and the bf16 rollout, HiLAM's
+gate, request and captured step; and GraphLAM's captured step under
+``off`` and ``on`` in one call. Then GraphLAM's
 served AR step and training step on both routes, each as its kernels'
 device time beside the host's time to enqueue it; and the shapes the
 fused kernels do not take (``GraphLAM(hidden_dim=32)`` serving and
@@ -248,17 +257,18 @@ GRAPH_LOSS_RTOL = 1e-6
 # The variants of K1-K4, K7 and K8 are template instantiations of one entry
 # point, told apart by their mangled template arguments: the element type
 # of K1 (f, 13__nv_bfloat16), K2's input word (Bf16x4, __nv_bfloat16 for
-# bf16 rows), K3's <mode, bf16 operands, bf16 pre, stream type>, K4's
-# <mode, pre: 0 float32 | 1 bf16 | 2 recomputed, bf16 operands, stream
-# type>, K7's <mode, bf16 operands, stream type> and K8's <batched, bf16
-# operands, stream type>.
+# bf16 rows), K3's <mode, bf16 operands, bf16 pre, node-MLP epilogue, stream
+# type>, K4's <mode, pre: 0 float32 | 1 bf16 | 2 recomputed, bf16 operands,
+# stream type>, K7's <mode, bf16 operands, stream type>, K8's <batched, bf16
+# operands, stream type> and the node backward's <bf16 operands, stream
+# type>. K3 with the epilogue counts by its precision whatever pre it saves.
 BF16_T = "13__nv_bfloat16"
 END = "(?![a-z0-9_])"  # the name ends here
 KERNEL_SYMBOLS = {
     name: re.compile(rf"(?<![A-Za-z_]){pattern}")
     for name, pattern in (
         ("K1 sender_gather", "gather_rows_(?:vec4|scalar)IfE"),
-        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0ELb0E"),
+        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0ELb0ELb0E"),
         ("K2 sender_scatter", r"scatter_rowsI(?!\w*(?:Bf16x4|__nv_bfloat16))"),
         ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILi\dELi0ELb0E"),
         ("K5 segment_sum", f"segment_sum_rows{END}"),
@@ -267,8 +277,8 @@ KERNEL_SYMBOLS = {
         ("K8 fused_edge_phase_v2 backward", r"fused_edge_v2_bwd_mainILb\dELb0E"),
         ("K1 sender_gather bf16", f"gather_rows_(?:vec4|scalar)I{BF16_T}E"),
         ("K2 sender_scatter bf16", r"scatter_rowsI\w*(?:Bf16x4|__nv_bfloat16)"),
-        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1ELb0E{BF16_T}E"),
-        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1ELb0EfE"),
+        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1ELb0ELb0E{BF16_T}E"),
+        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1ELb0ELb0EfE"),
         ("K4 fused_edge_phase backward bf16",
          rf"fused_edge_bwd_mainILi\dELi0ELb1E{BF16_T}E"),
         ("K4 fused_edge_phase backward bf16 operands",
@@ -279,9 +289,17 @@ KERNEL_SYMBOLS = {
          rf"fused_edge_v2_bwd_mainILb\dELb1E{BF16_T}E"),
         ("K8 fused_edge_phase_v2 backward bf16 operands",
          r"fused_edge_v2_bwd_mainILb\dELb1EfE"),
-        ("K3 fused_edge_phase bf16 pre", r"fused_edge_fwdILi\dELb\dELb1E"),
+        ("K3 fused_edge_phase bf16 pre", r"fused_edge_fwdILi\dELb\dELb1ELb0E"),
         ("K4 fused_edge_phase backward bf16 pre", r"fused_edge_bwd_mainILi\dELi1E"),
         ("K4 fused_edge_phase backward recompute", r"fused_edge_bwd_mainILi\dELi2E"),
+        ("K3 fused_edge_phase node epilogue", r"fused_edge_fwdILi\dELb0ELb\dELb1E"),
+        ("K3 fused_edge_phase node epilogue bf16",
+         rf"fused_edge_fwdILi\dELb1ELb\dELb1E{BF16_T}E"),
+        ("K3 fused_edge_phase node epilogue bf16 operands",
+         r"fused_edge_fwdILi\dELb1ELb\dELb1EfE"),
+        ("K4 node backward", r"fused_node_bwdILb0EfE"),
+        ("K4 node backward bf16", rf"fused_node_bwdILb1E{BF16_T}E"),
+        ("K4 node backward bf16 operands", r"fused_node_bwdILb1EfE"),
     )
 }
 # fit's store: 32 training samples at ar_steps 1 (len = n_timesteps - 3)
@@ -355,6 +373,10 @@ BF16_KERNELS = "NEURAL_LAM_TPU_BF16_KERNELS"
 # gradient within 1e-6 of its largest entry
 CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
 CACHE_PRE_RECOMPUTE_TOL = 1e-6
+# NEURAL_LAM_TPU_FUSED_AGGR, set around whole phases: K3 with the node-MLP
+# epilogue and the node backward. Held to their plain versions as K3 and K4
+# are (K3_RTOL/K3_ATOL, K4_TOL; in bf16 bf16_check).
+FUSED_AGGR = "NEURAL_LAM_TPU_FUSED_AGGR"
 
 
 def log(msg: str) -> None:
@@ -906,7 +928,12 @@ def expected_launches(model, training: bool) -> dict[str, int]:
     launches K1 and K3 (K2 and K4 backward), or under
     ``NEURAL_LAM_TPU_FUSED_V2=on`` K7 alone (K8 and K2 backward); on the
     unfused route K1, K6 and K5 (backward K2, and K5 and K6 once more as
-    each other's VJP)."""
+    each other's VJP). Under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` K3 runs with
+    the node-MLP epilogue (the node backward before K4) at every
+    application of GraphLAM and HiLAM: all of theirs are interaction-wired
+    with sum aggregation (HiLAMParallel's sections never take it)."""
+    from neural_lam_tpu_torch.ops.fused_kernels import fused_aggr_enabled
+
     n = gnn_applications(model)
     fused = model.hidden_layers == 1
     want = dict.fromkeys(kernel_counters(), 0)
@@ -915,8 +942,16 @@ def expected_launches(model, training: bool) -> dict[str, int]:
         if training:
             want["K8 fused_edge_phase_v2 backward"] = want["K2 sender_scatter"] = n
         return want
+    node = fused and fused_aggr_enabled()
+    if node and type(model).__name__ not in ("GraphLAM", "HiLAM"):
+        raise AssertionError(f"expected_launches: {type(model).__name__} under "
+                             f"{FUSED_AGGR}=on is not counted here")
     want["K1 sender_gather"] = n
-    if fused:
+    if node:
+        want["K3 fused_edge_phase node epilogue"] = n
+        if training:
+            want["K4 node backward"] = n
+    elif fused:
         want["K3 fused_edge_phase"] = n
     else:
         want["K5 segment_sum"] = want["K6 receiver_expand"] = n
@@ -2438,7 +2473,8 @@ def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int
     eager_ms = cuda_ms(eager, reps=3, warmup=1) / ar_steps
     graph_ms = cuda_ms(lambda: forecast(*batch), reps=3, warmup=1) / ar_steps
     # the same kernels on the same values: one busy time for both
-    busy = device_busy_ms(torch, lambda: forecast(*batch)) / ar_steps
+    busy, kernels = device_kernels(torch, lambda: forecast(*batch))
+    busy /= ar_steps
     gps = BATCH * ds.num_grid_points / (graph_ms / 1e3)
     log(
         f"serve {label} on {card}: {written} forecasts of {ar_steps} steps in "
@@ -2446,7 +2482,8 @@ def phase_serve(torch, ds, model, card: str, ar_steps: int = 0) -> dict[str, int
         f"(warm-up, capture, replay, copy back and npz writes); per AR step: device "
         f"busy {busy:.3f} ms; eager {eager_ms:.3f} ms (idle {1 - busy / eager_ms:.1%}), "
         f"captured {graph_ms:.3f} ms (idle {1 - busy / graph_ms:.1%}), "
-        f"{eager_ms / graph_ms:.2f}x; captured against eager: {bits}; "
+        f"{eager_ms / graph_ms:.2f}x; {kernels} kernels a replay; captured against "
+        f"eager: {bits}; "
         f"{gps:,.0f} grid-points/s captured; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
@@ -2469,25 +2506,29 @@ def bench_batch(ds, batch: int = BATCH):
     )
 
 
+def load_gate_params(model) -> None:
+    """The GraphLAM fixture's parameters into ``model``, afresh."""
+    from neural_lam_tpu_torch.convert_checkpoint import (
+        load_jax_params_npz,
+        params_from_jax,
+    )
+
+    model.load_state_dict(
+        params_from_jax(load_jax_params_npz(FIXTURES / "graph_lam_meps_params_seed0.npz")),
+        strict=True,
+    )
+
+
 def make_trainer(model, ds, reload: bool = True, precision: str = "32"):
     """The ``bench.build_trainer`` trainer around ``model`` with a new
     optimizer; ``reload`` loads the GraphLAM fixture's parameters afresh;
     ``precision="bf16"`` trains on bf16 copies of them."""
     from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
-    from neural_lam_tpu_torch.convert_checkpoint import (
-        load_jax_params_npz,
-        params_from_jax,
-    )
     from neural_lam_tpu_torch.models import ARForecaster
     from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
 
     if reload:
-        model.load_state_dict(
-            params_from_jax(
-                load_jax_params_npz(FIXTURES / "graph_lam_meps_params_seed0.npz")
-            ),
-            strict=True,
-        )
+        load_gate_params(model)
     config = NeuralLAMConfig(
         datastore=DatastoreSelection(kind="dummydata", config_path="")
     )
@@ -3913,7 +3954,8 @@ def bf16_expected(model) -> dict[str, int]:
     out = dict.fromkeys(f32, 0)
     for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
                  "K4 fused_edge_phase backward", "K7 fused_edge_phase_v2",
-                 "K8 fused_edge_phase_v2 backward"):
+                 "K8 fused_edge_phase_v2 backward", "K3 fused_edge_phase node epilogue",
+                 "K4 node backward"):
         out[f"{name} bf16"] = f32[name]
     for name in ("K5 segment_sum", "K6 receiver_expand"):
         out[name] = f32[name]
@@ -4354,14 +4396,26 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
 
 
 def phase_cache_pre_train(torch, model, ds, card: str) -> dict[str, int]:
+    """The captured training step of GraphLAM under
+    ``NEURAL_LAM_TPU_CACHE_PRE`` ``on``, ``bf16`` and ``off``
+    (:func:`compare_train_modes`): ``on`` and ``off`` at the float32 gate's
+    bounds, ``bf16`` at the bf16 ones."""
+    tols = {mode: (BF16_LOSS_RTOL, BF16_GRAD_TOL) if mode == "bf16"
+            else (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL) for mode in ("on", "bf16", "off")}
+    return compare_train_modes(torch, model, ds, card, "cache pre", CACHE_PRE_ENV, tols,
+                               cache_pre_expected)
+
+
+def compare_train_modes(torch, model, ds, card: str, what: str, env: str, tols: dict,
+                        expected) -> dict[str, int]:
     """The captured training step of GraphLAM (float32, batch 4) under
-    ``NEURAL_LAM_TPU_CACHE_PRE`` ``on``, ``bf16`` and ``off``, from the
-    training gate's weights on its batch: the first loss and every
-    gradient against the exact-f32 fixture (``on`` and ``off`` at the
-    float32 gate's bounds, ``bf16`` at the bf16 ones), the memory an eager
-    forward holds for its backward, 12 captured steps' time, peak device
-    memory and the launches, by the counters (at 0 just before each mode)
-    and the graph's kernel nodes. Returns the launches."""
+    ``env`` set to each mode of ``tols`` in turn (in one call, the first
+    mode the base), from the training gate's weights on its batch: the
+    first loss and every gradient against the exact-f32 fixture (within
+    ``tols[mode]``), the memory an eager forward holds for its backward,
+    12 captured steps' time, peak device memory and the launches, by the
+    counters (at 0 just before each mode) and the graph's kernel nodes,
+    ``expected(model, mode)`` a step. Returns the launches."""
     from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
 
     with np.load(TRAIN_FIXTURE) as fx:
@@ -4371,17 +4425,15 @@ def phase_cache_pre_train(torch, model, ds, card: str) -> dict[str, int]:
     data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
     total: dict[str, int] = {}
     runs = {}
-    for mode in ("on", "bf16", "off"):
-        loss_tol, grad_tol = ((BF16_LOSS_RTOL, BF16_GRAD_TOL) if mode == "bf16"
-                              else (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL))
-        with env_set(CACHE_PRE_ENV, mode):
+    for mode, (loss_tol, grad_tol) in tols.items():
+        with env_set(env, mode):
             losses, grads = train_gate_run(torch, make_trainer(model, ds), BATCH, 1,
                                            captured=True)
             rel = abs(losses[0] - want_loss) / abs(want_loss)
             worst = max(float(np.abs(grads[k] - w).max() / max(np.abs(w).max(), 1e-30))
                         for k, w in want_grads.items())
             if rel > loss_tol or worst > grad_tol:
-                raise AssertionError(f"cache pre {mode}: loss rel {rel:.3e} (tol {loss_tol}), "
+                raise AssertionError(f"{what} {mode}: loss rel {rel:.3e} (tol {loss_tol}), "
                                      f"worst gradient {worst:.3e} (tol {grad_tol})")
             release(torch)  # the gate's trainer and its graph, before the peak is read
             trainer = make_trainer(model, ds)
@@ -4403,32 +4455,304 @@ def phase_cache_pre_train(torch, model, ds, card: str) -> dict[str, int]:
             first = {name: fn.launches for name, fn in counters.items()}
             (entry,) = trainer.graphs.values()
             replay = graph_kernels(torch, entry.graph)
-        expected = cache_pre_expected(model, mode)
-        steps = TRAIN_WARMUP + TRAIN_ITERS
+            busy, kernels = device_kernels(torch, lambda: step(*data))
+            want = expected(model, mode)
+        steps = TRAIN_WARMUP + TRAIN_ITERS + 2  # and the two profiled replays
         launches = {}
-        for name, per_step in expected.items():
+        for name, per_step in want.items():
             if first[name] != per_step * (GRAPH_WARMUP_STEPS + 1) or replay[name] != per_step:
-                raise AssertionError(f"cache pre {mode} graph: {name}: {first[name]} counted, "
+                raise AssertionError(f"{what} {mode} graph: {name}: {first[name]} counted, "
                                      f"{replay[name]} in the graph, want {per_step} a step")
             launches[name] = first[name] - replay[name] + replay[name] * steps
-        add_launches(total, launches, f"cache pre {mode} train graph")
+        add_launches(total, launches, f"{what} {mode} train graph")
         if not np.isfinite(run["losses"]).all():
-            raise AssertionError(f"cache pre {mode}: non-finite loss")
-        runs[mode] = dict(run, held=held)
-        log(f"cache pre {mode} on {card}: gate loss rel {rel:.3e} (tol {loss_tol}), worst "
+            raise AssertionError(f"{what} {mode}: non-finite loss")
+        runs[mode] = dict(run, held=held, busy=busy, kernels=kernels)
+        log(f"{what} {mode} on {card}: gate loss rel {rel:.3e} (tol {loss_tol}), worst "
             f"gradient {worst:.3e} of its largest entry (tol {grad_tol}); the eager forward "
             f"holds {held / 2**30:.3f} GiB for its backward; captured step "
-            f"{run['step_ms']:.3f} ms, "
-            f"{BATCH * ds.num_grid_points / (run['step_ms'] / 1e3):,.0f} training "
+            f"{run['step_ms']:.3f} ms (device busy {busy:.3f} ms, {kernels} kernels a "
+            f"replay), {BATCH * ds.num_grid_points / (run['step_ms'] / 1e3):,.0f} training "
             f"grid-points/s, peak device memory {run['peak'] / 2**30:.3f} GiB")
         del trainer, step, entry
         release(torch)
-    on = runs["on"]
-    for mode in ("bf16", "off"):
-        log(f"cache pre {mode} against on (same call): step "
-            f"{runs[mode]['step_ms'] / on['step_ms']:.3f} x, peak memory "
-            f"{(runs[mode]['peak'] - on['peak']) / 2**30:+.3f} GiB, held for the backward "
-            f"{(runs[mode]['held'] - on['held']) / 2**30:+.3f} GiB")
+    base_mode, *others = tols
+    base = runs[base_mode]
+    for mode in others:
+        log(f"{what} {mode} against {base_mode} (same call): step "
+            f"{runs[mode]['step_ms'] / base['step_ms']:.3f} x "
+            f"({runs[mode]['step_ms'] - base['step_ms']:+.3f} ms), device busy "
+            f"{runs[mode]['busy'] - base['busy']:+.3f} ms, kernels a replay "
+            f"{runs[mode]['kernels'] - base['kernels']:+d}, peak memory "
+            f"{(runs[mode]['peak'] - base['peak']) / 2**30:+.3f} GiB, held for the backward "
+            f"{(runs[mode]['held'] - base['held']) / 2**30:+.3f} GiB")
+    return total
+
+
+# -- NEURAL_LAM_TPU_FUSED_AGGR: K3 with the node-MLP epilogue, the node backward --
+
+
+def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
+    """``NEURAL_LAM_TPU_FUSED_AGGR``'s kernels at the six GraphLAM calls of
+    a step (batch 4), in each precision: float32 (3xTF32), bf16 streams and
+    operands (mixed precision) and bf16 operands on float32 streams
+    (``high-kernels``). K3 with the node-MLP epilogue, as served (no
+    ``pre``, no aggregate kept): its node update and updated edges against
+    the plain version (``_plain`` then ``_plain_node``), repeatable to the
+    bit, timed beside K3 plus the port's unfused node tail on the same
+    inputs (the node MLP with ``torch`` on K3's aggregate), its plain
+    version and its bound; the aggregate it keeps for the backward is K3's
+    own, bit for bit. The node backward from that aggregate: ``d_aggr``,
+    the receiver's gradient and the node weights' seven gradients against
+    ``_plain_node_bwd``, repeatable, timed beside the unfused tail's
+    forward and backward with ``torch``, its plain version and its bound.
+    Then both in float32 at HiLAM's ten level sets, the whole phase and
+    every gradient against the plain version. Returns the six kernels'
+    report entries, times summed over an AR step (K3) or a training step
+    (the node backward)."""
+    import copy
+
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+    from neural_lam_tpu_torch.ops.mlp import apply_mlp_split_first
+
+    bf16 = torch.bfloat16
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n_grid, n_mesh = g.num_grid_nodes, g.num_mesh_nodes
+    m2m, proc, n_mid = g.m2m[0], list(model.processor.values()), PROC_LAYERS - 2
+    sites = [  # (site, net, edges, embedder, edge input, update_edges, calls, receivers)
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, 1, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, "raw", True, 1, n_mesh),
+        (f"m2m layers 1-{n_mid}", proc[1], m2m, None, "batched", True, n_mid, n_mesh),
+        (f"m2m layer {PROC_LAYERS - 1}", proc[-1], m2m, None, "batched", True, 1, n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, 1, n_grid),
+    ]
+    # precision -> (bf16 operands, streams, outputs, counter suffix)
+    precisions = {"float32": (False, torch.float32, torch.float32, ""),
+                  "bf16": (True, bf16, bf16, " bf16"),
+                  "bf16 operands": (True, torch.float32, torch.float32, " bf16 operands")}
+    k3n, nbw = "K3 fused_edge_phase node epilogue", "K4 node backward"
+    accs = {f"{k}{sfx}": dict(ms=0.0, plain_ms=0.0, base_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                              bytes_ms=0.0, err=0.0)
+            for k in (k3n, nbw) for *_, sfx in precisions.values()}
+
+    def add(name, calls, ms, plain_ms, base_ms, moved, flops, err, bf16_ops):
+        b_ms, b_by = bf16_bound(moved, flops) if bf16_ops else bound(moved, flops, tensor=True)
+        a = accs[name]
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("base_ms", base_ms),
+                         ("bound_ms", b_ms), ("ops_ms" if b_by == "operations" else
+                                              "bytes_ms", b_ms)):
+            a[key] += calls * val
+        a["err"] = max(a["err"], err)
+        return b_ms, b_by
+
+    def check(got, want, what, bf16_ops, tol=None) -> float:
+        """Within the bf16 kernels' bounds, or in float32 K3's (outputs) or
+        ``tol`` of the largest entry (gradients); the max abs error."""
+        if bf16_ops:
+            return bf16_check(got, want.to(got.dtype), what)
+        a_err, r_err = errors(got, want)
+        if tol is None:
+            torch.testing.assert_close(got, want, rtol=K3_RTOL, atol=K3_ATOL, msg=what)
+        elif r_err > tol:
+            raise AssertionError(f"{what}: {r_err:.3g} of its largest value off (tol {tol})")
+        return a_err
+
+    with torch.no_grad():  # the launchers record no autograd graph
+        for site, net, ge, emb, mode, update, calls, n_rec in sites:
+            es, raw = ge.edges, mode == "raw"
+            n_e, rows = es.num_edges, es.num_edges * b
+            wts = fk._weights(net.edge_mlp, emb)
+            nw = [w if w is None else w.float() for w in fk._node_weights(net.aggr_mlp)]
+            params = [w for w in wts if w is not None]
+            node_params = [w for w in nw if w is not None]
+            x32, r32 = randn(n_e, b, d), randn(n_rec, b, d)
+            e32 = ge.features.float() if raw else randn(n_e, b, d)
+            for label, (bf16_ops, io, out, sfx) in precisions.items():
+                x_send, rec, edge_in = x32.to(io), r32.to(io), e32.to(io)
+                out_kw = dict(bf16_ops=bf16_ops, out_dtype=out if bf16_ops else None)
+                args = (edge_in, x_send, rec, es, wts, raw, update, False)
+                tail_mlp = copy.deepcopy(net.aggr_mlp).to(io)
+
+                # ---- K3 with the epilogue ---------------------------------------
+                def k3(keep=False):
+                    return fk.fused_edge_fwd(*args, save_pre=keep, node_weights=nw,
+                                             save_aggr=keep, **out_kw)
+
+                def k3_and_tail():
+                    aggr = fk.fused_edge_fwd(*args, **out_kw)[0]
+                    return rec + apply_mlp_split_first(tail_mlp, (rec, aggr.to(io)))
+
+                def plain3():
+                    aggr, new_edge = fk._plain(edge_in.float(), x_send.float(), rec.float(),
+                                               es.receivers, wts, raw, update, False, bf16_ops)
+                    return fk._plain_node(rec.float(), aggr, nw, bf16_ops), new_edge, aggr
+
+                node, new_edge, _, _ = k3()
+                again = k3()
+                kept = k3(keep=True)
+                aggr_k3 = fk.fused_edge_fwd(*args, bf16_ops=bf16_ops,
+                                            out_dtype=torch.float32 if bf16_ops else None)[0]
+                want_node, want_edge, _ = plain3()
+                torch.cuda.synchronize()
+                if not (torch.equal(node, again[0]) and torch.equal(kept[0], node)
+                        and torch.equal(kept[3], aggr_k3)):
+                    raise AssertionError(f"{k3n}{sfx} {site}: not repeatable, or the kept "
+                                         "aggregate is not K3's")
+                err = check(node, want_node.to(out), f"{k3n}{sfx} {site} node update", bf16_ops)
+                if update:
+                    err = max(err, check(new_edge, want_edge.to(out), f"{k3n}{sfx} {site} new "
+                                         "edges", bf16_ops))
+                ms, base_ms, plain_ms = cuda_ms(k3), cuda_ms(k3_and_tail), cuda_ms(plain3)
+                moved = nbytes(x_send, rec, edge_in, es.rowptr, *params, *node_params, node,
+                               new_edge)
+                flops = 2 * n_rec * b * d * d * 4 + 2 * rows * d * d * 2 + rows * d
+                flops += (n_e * (2 * edge_in.shape[1] * d + 4 * d * d) if raw
+                          else 2 * rows * d * d)
+                b_ms, b_by = add(f"{k3n}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
+                                 bf16_ops)
+                log(f"{k3n}{sfx} {site}: E {n_e}, receivers {n_rec}, edge input {mode}; max abs "
+                    f"err {err:.3g} against the plain version, repeatable, the kept aggregate "
+                    f"K3's bits; kernel {ms:.4f} ms against K3 plus the node tail with torch "
+                    f"{base_ms:.4f} ms ({base_ms / ms:.2f} x); plain {plain_ms:.4f} ms; bound "
+                    f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
+                    f"it); {calls} call(s) per AR step")
+
+                # ---- the node backward -------------------------------------------
+                aggr = kept[3]
+                d_node = randn(n_rec, b, d).to(io)
+
+                def nb():
+                    return fk.fused_node_bwd(d_node, rec, aggr, nw, bf16_ops)
+
+                def plain_nb():
+                    return fk._plain_node_bwd(d_node.float(), rec.float(), aggr, nw, bf16_ops)
+
+                leaves = [rec.detach().clone().requires_grad_(True),
+                          aggr.detach().to(io, copy=True).requires_grad_(True),
+                          *tail_mlp.parameters()]
+
+                def tail_fwd_bwd():
+                    with torch.enable_grad():
+                        out_t = leaves[0] + apply_mlp_split_first(tail_mlp, tuple(leaves[:2]))
+                        return torch.autograd.grad(out_t, leaves, d_node)
+
+                got, again, want = nb(), nb(), plain_nb()
+                torch.cuda.synchronize()
+                flat_got = [got[0], got[1], *(t for t in got[2] if t is not None)]
+                flat_again = [again[0], again[1], *(t for t in again[2] if t is not None)]
+                flat_want = [want[0].to(io), want[1], *(t for t in want[2] if t is not None)]
+                if not all(torch.equal(x, y) for x, y in zip(flat_got, flat_again)):
+                    raise AssertionError(f"{nbw}{sfx} {site}: two runs differ")
+                err = 0.0
+                for i, (o, w) in enumerate(zip(flat_got, flat_want)):
+                    err = max(err, check(o, w, f"{nbw}{sfx} {site} gradient {i}", bf16_ops,
+                                         tol=K4_TOL))
+                ms, plain_ms = cuda_ms(nb), cuda_ms(plain_nb)
+                base_ms = cuda_ms(tail_fwd_bwd)
+                moved = nbytes(rec, aggr, d_node, *node_params, *flat_got)
+                flops = 9 * 2 * n_rec * b * d * d
+                b_ms, b_by = add(f"{nbw}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
+                                 bf16_ops)
+                log(f"{nbw}{sfx} {site}: rows {n_rec * b}; max abs err {err:.3g} against the "
+                    f"plain version (tol {K4_TOL} of each gradient's largest entry, or the bf16 "
+                    f"bounds), repeatable; kernel {ms:.4f} ms against the node tail's forward "
+                    f"and backward with torch {base_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                    f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
+                    f"it); {calls} call(s) per training step")
+                del node, new_edge, again, kept, aggr_k3, got, want, leaves, tail_mlp
+            del x32, r32, e32
+            torch.cuda.empty_cache()
+    for name, a in accs.items():
+        log(f"{name} per {'AR' if name.startswith('K3') else 'training'} step: "
+            f"{a['ms']:.4f} ms against {a['base_ms']:.4f} ms unfused (bound "
+            f"{a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms)")
+
+    # ---- HiLAM's ten level sets, float32, the phase through autograd -----------
+    hg = hi_lam.graph
+    net = hi_lam.mesh_init_gnns[0]
+    mlp, amlp = net.edge_mlp, net.aggr_mlp
+    params = list(mlp.parameters()) + list(amlp.parameters())
+    for kind, sets in (("m2m", hg.m2m), ("up", hg.up), ("down", hg.down)):
+        for i, ge in enumerate(sets):
+            es = ge.edges
+            x_send = randn(es.num_edges, b, d).requires_grad_(True)
+            rec = randn(es.num_rec, b, d).requires_grad_(True)
+            edge = randn(es.num_edges, b, d).requires_grad_(True)
+            w_node, w_edge = randn(es.num_rec, b, d), randn(es.num_edges, b, d)
+            leaves = [x_send, rec, edge] + params
+            got = fk.fused_edge_phase(mlp, edge, x_send, rec, es, update_edges=True,
+                                      aggr_mlp=amlp)
+            want = fk.fused_edge_phase_plain(mlp, edge, x_send, rec, es.receivers,
+                                             update_edges=True, aggr_mlp=amlp)
+            got_g = torch.autograd.grad((got[0] * w_node).sum() + (got[1] * w_edge).sum(),
+                                        leaves)
+            want_g = torch.autograd.grad((want[0] * w_node).sum() + (want[1] * w_edge).sum(),
+                                         leaves)
+            torch.cuda.synchronize()
+            err = max(check(o.detach(), w.detach(), f"{k3n} {kind}[{i}]", False)
+                      for o, w in zip(got, want))
+            accs[k3n]["err"] = max(accs[k3n]["err"], err)
+            g_err = 0.0
+            for j, (o, w) in enumerate(zip(got_g, want_g)):
+                g_err = max(g_err, check(o, w, f"{nbw} {kind}[{i}] gradient {j}", False,
+                                         tol=K4_TOL))
+            accs[nbw]["err"] = max(accs[nbw]["err"], g_err)
+            log(f"{k3n} level set {kind}[{i}]: E {es.num_edges}, receivers {es.num_rec}; "
+                f"outputs max abs err {err:.3g}, every gradient (node backward, then K4) "
+                f"max abs err {g_err:.3g} against the plain version")
+    torch.cuda.empty_cache()
+    source = {k3n: "fused_edge_node.cu", nbw: "fused_node_bwd.cu"}
+    replaces = {k3n: "neural_lam_tpu/ops/pallas_fused.py:879",
+                nbw: "neural_lam_tpu/ops/pallas_fused.py:1052"}
+    return [bf16_entry(name, source[name.split(" bf16")[0]],
+                       replaces[name.split(" bf16")[0]], a, None)
+            for name, a in accs.items()]
+
+
+def fused_aggr_expected(model, mode: str) -> dict[str, int]:
+    """Launches per float32 training step under ``NEURAL_LAM_TPU_FUSED_AGGR=mode``."""
+    with env_set(FUSED_AGGR, mode):
+        return expected_launches(model, training=True)
+
+
+def phase_fused_aggr(torch, model, forecaster, gate_ds, serve_ds, card: str) -> dict[str, int]:
+    """The main paths under ``NEURAL_LAM_TPU_FUSED_AGGR=on``: the accuracy
+    gate through the captured forecast; GraphLAM's served request (eager
+    against captured, the same bits expected) and training step (12 eager
+    steps, 12 captured, the same losses), the training gate eagerly and
+    captured; mixed-precision training (``others=False``: also
+    ``--bf16_kernels off``, ``high`` and ``high-kernels``) and the bf16
+    rollout; HiLAM's model gate, served request and captured step
+    (:func:`drive_gate_model`), each at its existing bounds. Then the
+    captured float32 step under ``off`` and ``on`` in one call
+    (:func:`compare_train_modes`). Returns the launches."""
+    total: dict[str, int] = {}
+    with env_set(FUSED_AGGR, "on"):
+        log(f"fused aggr: the main paths with {FUSED_AGGR}=on")
+        load_gate_params(model)  # earlier phases trained the gate's weights in place
+        phase_gate(torch, gate_ds, forecaster)
+        add_launches(total, phase_serve(torch, serve_ds, model, card), "fused aggr serve")
+        phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE)
+        launches, eager = phase_train(torch, make_trainer(model, gate_ds), card)
+        add_launches(total, launches, "fused aggr train")
+        add_launches(
+            total, phase_train_graph(torch, make_trainer(model, gate_ds), card, eager),
+            "fused aggr train graph",
+        )
+        phase_train_gate(torch, make_trainer(model, gate_ds), TRAIN_FIXTURE, captured=True)
+        add_launches(total, phase_bf16_train(torch, model, gate_ds, card, others=False),
+                     "fused aggr bf16 train")
+        add_launches(total, phase_bf16_rollout(torch, gate_ds), "fused aggr bf16 rollout")
+        drive_gate_model(torch, "hi_lam", gate_ds, serve_ds, card, total)
+    tols = {mode: (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL) for mode in ("off", "on")}
+    add_launches(total, compare_train_modes(torch, model, gate_ds, card, "fused aggr",
+                                            FUSED_AGGR, tols, fused_aggr_expected),
+                 "fused aggr off/on")
     return total
 
 
@@ -4544,6 +4868,9 @@ def main() -> int:
     level_errs = phase_level_sets(torch, hi_lam)
     for key, err in phase_v2_level_sets(torch, hi_lam).items():
         level_errs[key] = max(level_errs.get(key, 0.0), err)
+    # NEURAL_LAM_TPU_FUSED_AGGR: K3 with the node-MLP epilogue and the node
+    # backward at the six MEPS sites (every precision) and the level sets
+    aggr_report = phase_fused_aggr_kernels(torch, model, hi_lam)
     del hi_lam
     for entry in report:
         err = level_errs.get(entry["name"][:2], 0.0)
@@ -4604,6 +4931,11 @@ def main() -> int:
     with torch.no_grad():
         report += phase_cache_pre_kernels(torch, model)
     add_launches(total, phase_cache_pre_train(torch, model, gate_ds, card), "cache pre")
+    # NEURAL_LAM_TPU_FUSED_AGGR=on: the gates, GraphLAM's and HiLAM's main
+    # paths, bf16 training and rollout, and the step under off and on
+    add_launches(total, phase_fused_aggr(torch, model, forecaster, gate_ds, serve_ds, card),
+                 "fused aggr")
+    report += aggr_report
     del model, forecaster
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)

@@ -203,6 +203,37 @@ __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
   }
 }
 
+// acc += x . W for the same (64, 64) weight W held output-major (W[o][k]
+// at w[o * ld + k]): the product with its transpose, whose k-step kk and
+// n-tile j take the pair (W[8 kk + 2t][8 j + g], W[8 kk + 2t + 1][8 j + g])
+// as two 4-byte loads; in shared memory or, with GLOBAL, in device memory
+// (through L1)
+template <bool GLOBAL = false, bool BF = false>
+__device__ __forceinline__ void gemm_t(float (&acc)[8][4], const float (&x)[8][4],
+                                       const float* w, int ld = kWld) {
+  const Lane l;
+  const float* wl = w + 2 * l.t * ld + l.g;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ah[4], al[4];
+    a_operand<BF>(x, kk, ah, al);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float b[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* src = wl + 8 * kk * ld + 8 * (4 * h + q);
+        b[q][0] = GLOBAL ? __ldg(src) : src[0];
+        b[q][1] = GLOBAL ? __ldg(src + ld) : src[ld];
+      }
+      if (h == 0)
+        mma3x4<0, 4, 8, BF>(acc, ah, al, b);
+      else
+        mma3x4<4, 4, 8, BF>(acc, ah, al, b);
+    }
+  }
+}
+
 // acc[q] += (x . W^T)[., n-tiles n0 + q], q < 2: two of gemm's eight output
 // n-tiles (16 of the 64 columns), W in shared memory
 template <bool BF = false>

@@ -78,6 +78,19 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   (``csrc/fused_edge_bwd_recompute.cu``) forms ``pre`` again in its tile
   loop. ``off`` also turns the v2 route off; v2 saves a float32 ``pre``
   whatever the variable says, as the JAX package does.
+- The node-MLP epilogue: under ``NEURAL_LAM_TPU_FUSED_AGGR=on``
+  (:func:`fused_aggr_enabled`, off by default) an interaction-wired phase
+  with sum aggregation and a two-layer node MLP (:func:`aggr_fusable`) hands
+  that MLP to K3 (``fused_edge_phase(..., aggr_mlp=...)``), which returns the
+  receiver's node update ``rec + LN(MLP([rec, aggr]))`` instead of the
+  aggregate, as the JAX kernel's ``node_epilogue`` does (pallas_fused.py
+  :335-391, :1042-1049; K3's ``NODE`` instantiations,
+  ``csrc/fused_edge_node.cu``). Its backward runs the node MLP's backward
+  (``csrc/fused_node_bwd.cu``, the JAX kernel's :509-599) before K4, which
+  then reads the aggregate's gradient as it reads ``d_aggr`` otherwise. The
+  aggregate is kept in float32 for it only when the call will be
+  differentiated; under a reduced precision the node MLP's products take
+  bf16 operands on the float32 aggregate (:func:`_plain_node`).
 - Supported on CUDA: hidden width 64, batch 1 to 32, raw edge features
   up to 8 wide, ``propagation`` (K3, K4) and ``layer_norm=False`` in the
   kernels themselves. Other shapes raise on CUDA here; the routing in
@@ -111,8 +124,10 @@ from .segment import (
 from .segment_kernels import LaunchCount, refuse_autograd, sender_scatter
 
 KERNEL = "fused_edge"
+NODE_KERNEL = "fused_edge_node"
 BWD_KERNEL = "fused_edge_bwd"
 BWD_RECOMPUTE_KERNEL = "fused_edge_bwd_recompute"
+NODE_BWD_KERNEL = "fused_node_bwd"
 V2_KERNEL = "fused_edge_v2"
 V2_BWD_KERNEL = "fused_edge_v2_bwd"
 KERNEL_HIDDEN = 64
@@ -135,6 +150,10 @@ _TILE_ROWS, _CHUNK_ROWS_K4, _CHUNK_ROWS_K8 = 64, 32, 16
 # floats per group of K4's recompute workspace: a tile's pre and a chunk's
 # receiver products (csrc/fused_edge_bwd_main.cuh: kPreStride)
 _WS_PRE = (_TILE_ROWS + _CHUNK_ROWS_K4) * KERNEL_HIDDEN
+# floats per block of the node backward's workspace, and its blocks per SM
+# (csrc/fused_node_bwd.cu: kStride, kBlocksPerSm)
+_WS_NODE = 3 * _MAT + 4 * KERNEL_HIDDEN
+_NODE_BWD_BLOCKS_PER_SM = 2
 
 # The launch counts of the bf16-operand instantiations of K3, K4, K7 and
 # K8: bf16 streams (mixed precision, ``high``) and float32 streams
@@ -152,6 +171,15 @@ FUSED_EDGE_V2_BWD_BF16_OPS = LaunchCount("K8 fused_edge_phase_v2 backward bf16 o
 FUSED_EDGE_BF16_PRE = LaunchCount("K3 fused_edge_phase bf16 pre")
 FUSED_EDGE_BWD_BF16_PRE = LaunchCount("K4 fused_edge_phase backward bf16 pre")
 FUSED_EDGE_BWD_RECOMPUTE = LaunchCount("K4 fused_edge_phase backward recompute")
+# and of the node-MLP epilogue (NEURAL_LAM_TPU_FUSED_AGGR=on): K3 with it
+# and the node MLP's backward, in float32, with bf16 streams and with bf16
+# operands on float32 streams (whatever pre K3 saves)
+FUSED_EDGE_NODE = LaunchCount("K3 fused_edge_phase node epilogue")
+FUSED_EDGE_NODE_BF16 = LaunchCount("K3 fused_edge_phase node epilogue bf16")
+FUSED_EDGE_NODE_BF16_OPS = LaunchCount("K3 fused_edge_phase node epilogue bf16 operands")
+FUSED_NODE_BWD = LaunchCount("K4 node backward")
+FUSED_NODE_BWD_BF16 = LaunchCount("K4 node backward bf16")
+FUSED_NODE_BWD_BF16_OPS = LaunchCount("K4 node backward bf16 operands")
 
 
 def fused_precision(in_dtype: torch.dtype) -> tuple[bool, torch.dtype]:
@@ -204,6 +232,23 @@ def fusable(edge_mlp: nn.Sequential) -> bool:
     )
 
 
+def aggr_fusable(aggr_mlp: nn.Sequential) -> bool:
+    """True if the node MLP has the two-linear-layer shape the node-MLP
+    epilogue implements (``hidden_layers=1``): a ``(2h -> h)`` first layer
+    over ``[rec, aggr]`` and an ``(h -> h)`` second layer, with the default
+    LayerNorm eps if it has one. The JAX package's ``aggr_fusable``
+    (pallas_fused.py:1333)."""
+    layers = linear_layers(aggr_mlp)
+    if len(layers) != 2:
+        return False
+    h = layers[0].out_features
+    return (
+        layers[0].in_features == 2 * h
+        and (layers[1].in_features, layers[1].out_features) == (h, h)
+        and _ln_ok(aggr_mlp)
+    )
+
+
 def embedder_fusable(embedder: nn.Sequential, hidden: int) -> bool:
     """True if the edge embedder is the Linear-SiLU-Linear-LayerNorm the
     fused phase runs on the raw edge features."""
@@ -231,6 +276,17 @@ def _weights(edge_mlp: nn.Sequential, embedder: Optional[nn.Sequential]):
     e1, e2 = linear_layers(embedder)
     eln = output_layer_norm(embedder)
     return out + [e1.weight, e1.bias, e2.weight, e2.bias, eln.weight, eln.bias]
+
+
+def _node_weights(aggr_mlp: nn.Sequential) -> list:
+    """The six weight tensors of the node-MLP epilogue, None where a part is
+    absent: ``wa1 ba1 wa2 ba2 gn bn``, ``wa1 = [War | Wag]`` the ``(D, 2D)``
+    first layer in nn.Linear's layout (the part order ``(rec, aggr)`` of
+    ``_prep_node_weights``, pallas_fused.py:820-849)."""
+    lin1, lin2 = linear_layers(aggr_mlp)
+    ln = output_layer_norm(aggr_mlp)
+    out = [lin1.weight, lin1.bias, lin2.weight, lin2.bias]
+    return out + ([ln.weight, ln.bias] if ln is not None else [None, None])
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -350,6 +406,39 @@ def _plain(edge_in, x_send, rec_rep, receivers, weights, raw, update_edges,
     return (aggr, new_edge, pre) if return_pre else (aggr, new_edge)
 
 
+def _plain_node(rec, aggr, node_weights, bf16_ops=False):
+    """The node-MLP epilogue in plain PyTorch, in the JAX kernel's order
+    (pallas_fused.py:335-391): ``rec + LN(SiLU(rec . War + aggr . Wag +
+    ba1) . Wa2 + ba2)`` on float32 ``rec`` and the float32 aggregate. With
+    ``bf16_ops`` each product takes bf16 operands (:class:`_BF16Product`,
+    whose backward is the JAX backward kernel's, :509-599); the sums, SiLU,
+    the LayerNorm and the residual stay float32."""
+    wa1, ba1, wa2, ba2, gn, bn = node_weights
+    d = wa2.shape[0]
+    pre = (_linear(rec, wa1[:, :d], None, bf16_ops)
+           + _linear(aggr, wa1[:, d:], None, bf16_ops) + ba1)
+    z = _linear(F.silu(pre), wa2, ba2, bf16_ops)
+    if gn is not None:
+        z = F.layer_norm(z, (d,), gn, bn, LN_EPS)
+    return rec + z
+
+
+def _plain_node_bwd(d_node, rec, aggr, node_weights, bf16_ops=False):
+    """The node backward's plain version: autograd through
+    :func:`_plain_node` (all float32). Returns ``(d_aggr, d_rec, grads)``:
+    ``d_rec`` the receiver's share through the node MLP and its residual,
+    the grads in the order of :func:`_node_weights`, None where the weight
+    is."""
+    with torch.enable_grad():
+        leaves = [None if w is None else w.detach().requires_grad_(True)
+                  for w in (rec, aggr, *node_weights)]
+        out = _plain_node(leaves[0], leaves[1], leaves[2:], bf16_ops)
+        wanted = [t for t in leaves if t is not None]
+        got = iter(torch.autograd.grad(out, wanted, d_node))
+    grads = [None if t is None else next(got) for t in leaves]
+    return grads[1], grads[0], grads[2:]
+
+
 def _plain_v2(edge_in, sp, rp, senders, receivers, weights, raw, update_edges,
               bf16_ops=False):
     """The v2 phase (K7) in plain PyTorch on the node projections ``sp``
@@ -378,10 +467,12 @@ def fused_edge_phase_plain(
     edge_feats: Optional[torch.Tensor] = None,
     update_edges: bool = False,
     propagation: bool = False,
+    aggr_mlp: Optional[nn.Sequential] = None,
 ):
     """Plain PyTorch version of K3 (same arguments as
     :func:`fused_edge_phase` plus the per-edge ``receivers``). Autograd
-    through it is the plain version of K4. Under a reduced precision
+    through it is the plain version of K4 (and of the node backward, with
+    ``aggr_mlp``). Under a reduced precision
     (:func:`fused_precision` of ``rec_rep``'s dtype) it is the plain
     version of K3's bf16 instantiation, with the casts of
     :func:`fused_edge_phase` around it: the same dtypes in and out. Under
@@ -398,6 +489,11 @@ def fused_edge_phase_plain(
     if cache_pre() == "bf16":  # the values of outs, the gradients of the rounded pre's
         rounded = _plain(*args, pre_in=_bf16(pre.detach()))
         outs = [None if t is None else r + (t - r).detach() for t, r in zip(outs, rounded)]
+    if aggr_mlp is not None:
+        node_weights = [None if w is None else w.float() for w in _node_weights(aggr_mlp)]
+        # K4 reads the aggregate's gradient in the streams' dtype
+        outs[0] = _plain_node(rec_io.float(), _GradIn.apply(outs[0], io), node_weights,
+                              bf16_ops)
     outs = [None if t is None else t.to(rec_rep.dtype) for t in outs]
     if io != rec_rep.dtype:  # K4 reads the incoming gradients in the streams' dtype
         outs = [None if t is None else _GradIn.apply(t, io) for t in outs]
@@ -459,18 +555,40 @@ def fused_edge_phase_v2_plain(
 FUSED_V2_ENV = "NEURAL_LAM_TPU_FUSED_V2"
 FUSED_V2_RATIO_ENV = "NEURAL_LAM_TPU_FUSED_V2_RATIO"
 CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
+FUSED_AGGR_ENV = "NEURAL_LAM_TPU_FUSED_AGGR"
+FUSED_ENV = "NEURAL_LAM_TPU_FUSED"
 _ROUTE_ENV = (
     FUSED_V2_ENV, FUSED_V2_RATIO_ENV, CACHE_PRE_ENV, BF16_KERNELS_ENV,
-    MATMUL_PRECISION_ENV,
+    MATMUL_PRECISION_ENV, FUSED_AGGR_ENV, FUSED_ENV,
 )
 
 
 def route_env() -> tuple[Optional[str], ...]:
-    """The environment variables that :func:`fused_v2_routed` and
-    :func:`fused_precision` read, as they stand now. A captured CUDA graph
-    fixes the route and the kernels' precision it was captured with, so a
-    cache of graphs keys on these."""
+    """The environment variables that choose the route and the kernels'
+    precision (:func:`fused_v2_routed`, :func:`fused_precision`,
+    :func:`fused_aggr_enabled`, ``NEURAL_LAM_TPU_FUSED`` in
+    ``ops.interaction.fused_edge_phase_supported``), as they stand now. A
+    captured CUDA graph fixes the route and the kernels' precision it was
+    captured with, so a cache of graphs keys on these."""
     return tuple(os.environ.get(name) for name in _ROUTE_ENV)
+
+
+def fused_disabled() -> bool:
+    """``NEURAL_LAM_TPU_FUSED=off``, read at every call: every phase takes
+    the unfused route, as in the JAX package's
+    ``fused_edge_phase_supported`` (neural_lam_tpu/ops/interaction.py:413)."""
+    return os.environ.get(FUSED_ENV, "auto") == "off"
+
+
+def fused_aggr_enabled() -> bool:
+    """``NEURAL_LAM_TPU_FUSED_AGGR`` as the JAX package reads it
+    (pallas_fused.py:1346-1364), at every call: ``on`` runs the node MLP as
+    K3's epilogue where the phase allows it (interaction wiring, sum
+    aggregation, one two-layer node MLP, the v1 route); anything else, and
+    the default, leaves the node MLP to the caller. The JAX package keeps it
+    as an option for tight memory: the node MLP's per-node intermediates are
+    never stored."""
+    return os.environ.get(FUSED_AGGR_ENV, "off") == "on"
 
 
 def cache_pre() -> str:
@@ -548,6 +666,22 @@ def _fwd_bf16_lib():
     """K3's bf16-operand instantiations: ``(pre_bf16, io_bf16, out_bf16)``
     and then the arguments of ``nl_fused_edge_fwd``."""
     return _c_fn(KERNEL, "nl_fused_edge_fwd_bf16ops", 10, 21)
+
+
+@functools.cache
+def _fwd_node_lib():
+    """K3 with the node-MLP epilogue, every precision: ``(bf16_ops,
+    pre_bf16, io_bf16, out_bf16, node_layer_norm)``, the ints of
+    ``nl_fused_edge_fwd``, its pointers up to ``pre``, the node weights and
+    ``node_out``, then ``counter`` and the stream."""
+    return _c_fn(NODE_KERNEL, "nl_fused_edge_fwd_node", 12, 28)
+
+
+@functools.cache
+def _node_bwd_lib():
+    """The node MLP's backward, every precision: ``(bf16_ops, io_bf16,
+    rows, layer_norm, blocks)`` and its pointers."""
+    return _c_fn(NODE_BWD_KERNEL, "nl_fused_node_bwd", 5, 13)
 
 
 @functools.cache
@@ -742,9 +876,17 @@ def _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw) -> tuple[int
 
 def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
                    update_edges, propagation, save_pre=False, bf16_ops=False,
-                   out_dtype=None, pre_dtype=torch.float32):
+                   out_dtype=None, pre_dtype=torch.float32, node_weights=None,
+                   save_aggr=False):
     """Launch K3 on CUDA tensors: ``(aggr, new_edge | None, pre | None)``.
     The launcher records no autograd graph; :class:`FusedEdgePhase` does.
+
+    With ``node_weights`` (the six tensors of :func:`_node_weights`,
+    float32) K3 runs the node-MLP epilogue and returns ``(node_out,
+    new_edge | None, pre | None, aggr | None)``: ``node_out`` in
+    ``out_dtype``, the aggregate in float32 and only with ``save_aggr``
+    (``FUSED_EDGE_NODE``, ``FUSED_EDGE_NODE_BF16`` or
+    ``FUSED_EDGE_NODE_BF16_OPS``).
 
     The streams ``edge_in``, ``x_send`` and ``rec_rep`` are all float32 or
     all bf16 and the weights float32. With ``bf16_ops`` the bf16-operand
@@ -769,10 +911,36 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     if pre_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_edge_fwd: pre must be float32 or bf16, not {pre_dtype}")
     shape = tuple(x_send.shape)
-    aggr = torch.empty(tuple(rec_rep.shape), dtype=out, device=dev)
+    node = node_weights is not None
+    aggr_dtype = torch.float32 if node else out
+    aggr = (torch.empty(tuple(rec_rep.shape), dtype=aggr_dtype, device=dev)
+            if save_aggr or not node else None)
     new_edge = torch.empty(shape, dtype=out, device=dev) if update_edges else None
     pre = torch.empty(shape, dtype=pre_dtype, device=dev) if save_pre else None
     pre_bf16 = pre is not None and pre_dtype == torch.bfloat16
+    io_bf16 = io == torch.bfloat16
+    if node:
+        _check_node_weights("fused_edge_fwd", node_weights, dev)
+        node_out = torch.empty(tuple(rec_rep.shape), dtype=out, device=dev)
+        if edge_set.num_rec == 0:
+            return node_out, new_edge, pre, aggr
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = _fwd_node_lib()(
+            int(bf16_ops), int(pre_bf16), int(io_bf16), int(out == torch.bfloat16),
+            int(node_weights[4] is not None), mode, edge_set.num_rec, shape[1], feat,
+            int(update_edges), int(propagation), int(weights[4] is not None),
+            _ptr(edge_in), _ptr(x_send), _ptr(rec_rep), _ptr(edge_set.rowptr),
+            *(_ptr(w) for w in weights), _ptr(aggr), _ptr(new_edge), _ptr(pre),
+            *(_ptr(w) for w in node_weights), _ptr(node_out), _ptr(counter),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"fused_edge_phase node epilogue kernel launch failed: CUDA error {err}"
+            )
+        (FUSED_EDGE_NODE if not bf16_ops else
+         FUSED_EDGE_NODE_BF16 if io_bf16 else FUSED_EDGE_NODE_BF16_OPS).launches += 1
+        return node_out, new_edge, pre, aggr
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
     # the kernel's work counter; inside a CUDA graph capture its zero-fill
@@ -786,7 +954,6 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
         _ptr(aggr), _ptr(new_edge), _ptr(pre), _ptr(counter),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    io_bf16 = io == torch.bfloat16
     if bf16_ops:
         err = _fwd_bf16_lib()(int(pre_bf16), int(io_bf16), int(out == torch.bfloat16), *args)
     else:
@@ -800,6 +967,74 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     else:
         (FUSED_EDGE_BF16 if io_bf16 else FUSED_EDGE_BF16_OPS).launches += 1
     return aggr, new_edge, pre
+
+
+def _check_node_weights(who, node_weights, dev) -> None:
+    """Refuse node weights that the node-MLP kernels do not take."""
+    d = KERNEL_HIDDEN
+    wa1, ba1, wa2, ba2, gn, bn = node_weights
+    if tuple(wa1.shape) != (d, 2 * d) or tuple(wa2.shape) != (d, d) or (gn is None) != (bn is None):
+        raise ValueError(f"{who}: the CUDA kernels take a (2*{d} -> {d} -> {d}) node MLP")
+    for w in node_weights:
+        if w is not None and (w.device != dev or w.dtype != torch.float32
+                              or not w.is_contiguous() or w.data_ptr() % 16):
+            raise ValueError(
+                f"{who}: node weights must be contiguous, 16-byte aligned float32 on {dev}"
+            )
+
+
+def fused_node_bwd(d_node, rec_rep, aggr, node_weights, bf16_ops=False):
+    """Launch the node MLP's backward on CUDA tensors (before K4): from
+    ``d_node``, the gradient of K3's node update, recompute the node MLP
+    from ``rec_rep`` and the saved float32 aggregate ``aggr`` and return
+    ``(d_aggr, d_rec, grads)``: ``d_aggr`` for K4, in the streams' dtype;
+    ``d_rec`` the receiver's share through the node MLP and its residual,
+    float32; the weight gradients in the order of :func:`_node_weights`,
+    None where the weight is, summed deterministically.
+
+    ``d_node`` and ``rec_rep`` are ``(N_rec, B, D)`` in the streams' dtype,
+    float32 or (with ``bf16_ops``) bf16. With ``bf16_ops`` the products take
+    bf16 operands (``FUSED_NODE_BWD_BF16`` or ``FUSED_NODE_BWD_BF16_OPS``);
+    without, 3xTF32 (``FUSED_NODE_BWD``)."""
+    refuse_autograd("fused_node_bwd", "ops.fused_kernels.fused_edge_phase",
+                    d_node, rec_rep, aggr, *node_weights)
+    dev, d, io = rec_rep.device, KERNEL_HIDDEN, rec_rep.dtype
+    who = "fused_node_bwd"
+    if io not in (torch.float32, torch.bfloat16) or (not bf16_ops and io != torch.float32):
+        raise TypeError(f"{who}: streams of {io} need bf16_ops, or are float32")
+    if rec_rep.dim() != 3 or rec_rep.shape[2] != d:
+        raise ValueError(f"{who}: rec_rep must be (N, B, {d})")
+    shape = tuple(rec_rep.shape)
+    _check("rec_rep", rec_rep, dev, shape, who, io)
+    _check("d_node", d_node, dev, shape, who, io)
+    _check("aggr", aggr, dev, shape, who)
+    _check_node_weights(who, node_weights, dev)
+    d_aggr = torch.empty(shape, dtype=io, device=dev)
+    d_rec = torch.empty(shape, dtype=torch.float32, device=dev)
+    rows = shape[0] * shape[1]
+    if rows == 0:
+        return d_aggr, d_rec, [None if w is None else torch.zeros_like(w) for w in node_weights]
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    blocks = min(_NODE_BWD_BLOCKS_PER_SM * sms, -(-rows // _TILE_ROWS))
+    out = torch.empty(_WS_NODE, dtype=torch.float32, device=dev)
+    ws = torch.empty(blocks * _WS_NODE, dtype=torch.float32, device=dev)
+    wa1, ba1, wa2, ba2, gn, bn = node_weights
+    io_bf16 = io == torch.bfloat16
+    err = _node_bwd_lib()(
+        int(bf16_ops), int(io_bf16), rows, int(gn is not None), blocks, _ptr(rec_rep),
+        _ptr(aggr), _ptr(d_node), _ptr(wa1), _ptr(ba1), _ptr(wa2), _ptr(ba2), _ptr(gn),
+        _ptr(d_aggr), _ptr(d_rec), _ptr(ws), _ptr(out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_node_bwd kernel launch failed: CUDA error {err}")
+    (FUSED_NODE_BWD if not bf16_ops else
+     FUSED_NODE_BWD_BF16 if io_bf16 else FUSED_NODE_BWD_BF16_OPS).launches += 1
+    dwar, dwag, dwa2 = out[: 3 * _MAT].view(3, d, d)
+    dba1, dba2, dgn, dbn = out[3 * _MAT :].view(4, d)
+    grads = [torch.cat([dwar, dwag], dim=1), dba1, dwa2, dba2]
+    grads += [dgn, dbn] if gn is not None else [None, None]
+    return d_aggr, d_rec, grads
 
 
 def _edge_grads(out_edge, raw, feat):
@@ -942,68 +1177,88 @@ class FusedEdgePhase(torch.autograd.Function):
     backward. On CPU tensors the forward is the plain version and the
     backward is autograd through the plain version.
 
-    ``apply(edge_in, x_send, rec_rep, *weights, edge_set, raw,
-    update_edges, propagation, grad_enabled, bf16_ops, out_dtype,
+    ``apply(edge_in, x_send, rec_rep, *weights, *node_weights, edge_set,
+    raw, update_edges, propagation, grad_enabled, bf16_ops, out_dtype,
     pre_mode)`` with the streams in one dtype (float32, or bf16 with
-    ``bf16_ops``), the twelve float32 tensors of :func:`_weights`,
+    ``bf16_ops``), the twelve float32 tensors of :func:`_weights`, the six
+    of :func:`_node_weights` (six Nones without the node-MLP epilogue),
     ``grad_enabled`` the caller's grad mode, ``bf16_ops`` the kernels'
     bf16 operands, ``out_dtype`` that of the outputs and ``pre_mode``
     :func:`cache_pre`'s: what K3 saves for K4 (a float32 ``pre``, a bf16
-    one, or none); returns ``(aggr, new_edge | None)``. The backward takes
-    the incoming gradients in the streams' dtype, as the JAX package casts
-    them to ``io_dt``, and returns the streams' gradients in their dtype
-    and the weights' in float32.
+    one, or none); returns ``(aggr, new_edge | None)``, or with node
+    weights ``(node_out, new_edge | None)``, when K3 also saves the float32
+    aggregate for the node backward, which runs before K4. The backward
+    takes the incoming gradients in the streams' dtype, as the JAX package
+    casts them to ``io_dt``, and returns the streams' gradients in their
+    dtype and the weights' in float32.
     """
 
     @staticmethod
     def forward(ctx, edge_in, x_send, rec_rep, *args):
-        weights = args[:12]
+        weights, node_weights = args[:12], args[12:18]
         (edge_set, raw, update_edges, propagation, grad_enabled, bf16_ops,
-         out_dtype, pre_mode) = args[12:]
+         out_dtype, pre_mode) = args[18:]
+        node = node_weights[0] is not None
         ctx.meta = (edge_set, raw, update_edges, propagation, bf16_ops, pre_mode)
         ctx.set_materialize_grads(False)
         need_grad = grad_enabled and any(ctx.needs_input_grad)
         save_pre = need_grad and pre_mode != "off"
         pre_dtype = torch.bfloat16 if pre_mode == "bf16" else torch.float32
+        aggr32 = None
         if x_send.device.type == "cpu":
-            # the plain version saves what K3 would: pre in pre_dtype, or none
+            # the plain version saves what K3 would: pre in pre_dtype, or
+            # none, and with the epilogue the float32 aggregate
             aggr, new_edge, pre = _plain(
                 edge_in.float(), x_send.float(), rec_rep.float(),
                 edge_set.receivers, weights, raw, update_edges, propagation,
                 bf16_ops, return_pre=True,
             )
             pre = pre.to(pre_dtype) if save_pre else None
+            if node:
+                aggr32 = aggr if need_grad else None
+                aggr = _plain_node(rec_rep.float(), aggr, node_weights, bf16_ops)
             aggr = aggr.to(out_dtype)
             new_edge = None if new_edge is None else new_edge.to(out_dtype)
-        elif bf16_ops:
-            aggr, new_edge, pre = fused_edge_fwd(
+        else:  # the float32 kernel writes float32, cast on the way out
+            out = fused_edge_fwd(
                 edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
-                propagation, save_pre=save_pre, bf16_ops=True, out_dtype=out_dtype,
-                pre_dtype=pre_dtype,
+                propagation, save_pre=save_pre, bf16_ops=bf16_ops,
+                out_dtype=out_dtype if bf16_ops else None, pre_dtype=pre_dtype,
+                node_weights=node_weights if node else None, save_aggr=need_grad,
             )
-        else:  # the float32 kernel, cast on the way out
-            aggr, new_edge, pre = fused_edge_fwd(
-                edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
-                propagation, save_pre=save_pre, pre_dtype=pre_dtype,
-            )
+            aggr, new_edge, pre = out[:3]
+            aggr32 = out[3] if node else None
             aggr = aggr.to(out_dtype)
             new_edge = None if new_edge is None else new_edge.to(out_dtype)
         if need_grad:
-            ctx.save_for_backward(edge_in, x_send, rec_rep, *weights, pre)
+            ctx.save_for_backward(edge_in, x_send, rec_rep, *weights, *node_weights, pre,
+                                  aggr32)
         return aggr, new_edge
 
     @staticmethod
     def backward(ctx, d_aggr, d_new_edge):
         edge_set, raw, update_edges, propagation, bf16_ops, pre_mode = ctx.meta
-        # absent weights (and pre, under pre_mode "off") were saved as None
-        # and come back as None
-        edge_in, x_send, rec_rep, *weights, pre = ctx.saved_tensors
+        # absent weights (and pre, under pre_mode "off", and the aggregate
+        # without the epilogue) were saved as None and come back as None
+        edge_in, x_send, rec_rep, *saved = ctx.saved_tensors
+        weights, node_weights, (pre, aggr32) = saved[:12], saved[12:18], saved[18:]
         if d_aggr is None and d_new_edge is None:
-            return (None,) * 23
+            return (None,) * 29
         io = x_send.dtype
         d_aggr = torch.zeros_like(rec_rep) if d_aggr is None else d_aggr.to(io)
         if d_new_edge is not None:
             d_new_edge = d_new_edge.to(io)
+        node_grads, d_rec_node = [None] * 6, None
+        if aggr32 is not None:
+            # the node MLP's backward first: d_aggr is the node update's
+            # gradient, and K4 reads the aggregate's, in the streams' dtype
+            if x_send.device.type == "cpu":
+                d_agg, d_rec_node, node_grads = _plain_node_bwd(
+                    d_aggr.float(), rec_rep.float(), aggr32, node_weights, bf16_ops)
+                d_aggr = d_agg.to(io)
+            else:
+                d_aggr, d_rec_node, node_grads = fused_node_bwd(
+                    d_aggr.contiguous(), rec_rep, aggr32, node_weights, bf16_ops)
         if x_send.device.type == "cpu":
             d_edge, d_send, d_rec, grads = _plain_bwd(
                 d_aggr.float(), None if d_new_edge is None else d_new_edge.float(),
@@ -1017,8 +1272,10 @@ class FusedEdgePhase(torch.autograd.Function):
                 pre, edge_in, x_send, rec_rep, edge_set, weights, raw,
                 propagation, bf16_ops,
             )
+        if d_rec_node is not None:
+            d_rec = d_rec + d_rec_node
         d_edge = None if d_edge is None else d_edge.to(io)
-        return (d_edge, d_send.to(io), d_rec.to(io), *grads, *(None,) * 8)
+        return (d_edge, d_send.to(io), d_rec.to(io), *grads, *node_grads, *(None,) * 8)
 
 
 def _plain_bwd(d_aggr, d_new_edge, edge_in, x_send, rec_rep, edge_set, weights,
@@ -1061,6 +1318,7 @@ def fused_edge_phase(
     edge_feats: Optional[torch.Tensor] = None,
     update_edges: bool = False,
     propagation: bool = False,
+    aggr_mlp: Optional[nn.Sequential] = None,
 ):
     """K3, differentiable through K4: the fused edge phase over
     ``edge_set`` (receiver-sorted CSR).
@@ -1070,6 +1328,12 @@ def fused_edge_phase(
     ``(E, B, D)`` or ``(E, D)`` (shared across the batch), or, with
     ``embedder``, the raw ``edge_feats`` of shape ``(E, F)``. Returns
     ``(aggregated_sum (N_rec, B, D), new_edge (E, B, D) | None)``.
+
+    With ``aggr_mlp`` (an :func:`aggr_fusable` node MLP over ``[rec,
+    aggr]``) K3 also runs the node-MLP epilogue and the first output is
+    the receiver's node update ``rec_rep + aggr_mlp([rec_rep, aggr])``
+    instead of the aggregate, as the JAX kernel's with ``aggr_params``;
+    differentiated, the node MLP's backward runs before K4.
     """
     if x_send.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"fused_edge_phase: unsupported device {x_send.device}")
@@ -1081,16 +1345,26 @@ def fused_edge_phase(
             "fused_edge_phase takes a two-layer (3h -> h -> h) edge MLP and a "
             "Linear-SiLU-Linear-LayerNorm embedder"
         )
+    if aggr_mlp is not None and not (
+        aggr_fusable(aggr_mlp)
+        and linear_layers(aggr_mlp)[1].out_features == linear_layers(edge_mlp)[1].out_features
+    ):
+        raise ValueError("fused_edge_phase's node epilogue takes a two-layer "
+                         "(2h -> h -> h) node MLP of the edge MLP's width")
     raw = embedder is not None
     bf16_ops, io = fused_precision(rec_rep.dtype)
     edge_in, x_io, rec_io, weights = _kernel_inputs(
         edge_mlp, embedder, edge_rep, edge_feats, io, x_send, rec_rep
     )
-    # grad mode decides whether K3 writes pre for the backward: inside the
-    # Function, needs_input_grad follows the parameters' requires_grad even
-    # under no_grad and inference_mode, where no backward will run
+    node_weights = [None] * 6
+    if aggr_mlp is not None:
+        node_weights = [None if w is None else w.float() for w in _node_weights(aggr_mlp)]
+    # grad mode decides whether K3 writes pre (and, with the epilogue, the
+    # aggregate) for the backward: inside the Function, needs_input_grad
+    # follows the parameters' requires_grad even under no_grad and
+    # inference_mode, where no backward will run
     return FusedEdgePhase.apply(
-        edge_in, x_io, rec_io, *weights,
+        edge_in, x_io, rec_io, *weights, *node_weights,
         edge_set, raw, update_edges, propagation, torch.is_grad_enabled(),
         bf16_ops, rec_rep.dtype, cache_pre(),
     )

@@ -25,6 +25,15 @@ sender gather inside (K8 and K2 backward), and no K1. The unfused route
 serves every other edge MLP: K1 and K6 gather the sender and receiver
 rows, the MLP runs as plain ``torch`` matmuls (the JAX package computes
 it outside any Pallas kernel too) and K5 sums the messages.
+``NEURAL_LAM_TPU_FUSED=off`` sends every phase to the unfused route, as in
+the JAX package.
+
+The node update after the edge phase runs with ``torch`` on the
+aggregate, or, under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` on the fused (not
+v2) route of an interaction-wired step with sum aggregation and one
+two-layer node MLP, inside K3 as its epilogue (the node MLP's backward
+before K4), where the JAX package runs it inside its kernel
+(neural_lam_tpu/ops/interaction.py:654-679).
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 from torch import nn
 
 from . import fused_kernels
-from .fused_kernels import embedder_fusable, fusable
+from .fused_kernels import aggr_fusable, embedder_fusable, fusable
 from .mlp import SplitMLPs, apply_mlp_split_first, linear_layers, make_mlps
 from .segment import (
     aggregate_sum,
@@ -212,7 +221,11 @@ def fused_edge_phase_supported(
     width, and on CUDA tensors only the widths and batches the kernels
     are built for (``fused_kernels.kernels_take``, asked with the batch
     that :func:`_batch_nodes` gives the call); anything else takes the
-    unfused route."""
+    unfused route, and so does every phase under
+    ``NEURAL_LAM_TPU_FUSED=off`` (read at every call, as the JAX package's
+    ``fused_edge_phase_supported`` reads it)."""
+    if fused_kernels.fused_disabled():
+        return False
     if isinstance(mlp, SplitMLPs) or not fusable(mlp):
         return False
     h = linear_layers(mlp)[-1].out_features
@@ -271,25 +284,29 @@ def _squeeze(out: tuple, squeeze: bool) -> tuple:
 
 
 def _fused_phase(mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,
-                 propagation, embedder=None, edge_features=None):
+                 propagation, embedder=None, edge_features=None, aggr_mlp=None):
     """K1 then K3 on batched node arrays, or K7 where the phase routes to
     v2 (interaction wiring only: a PropagationNet's sender residual needs
     the per-edge sender rows, as in the JAX package, interaction.py:486
-    and :603). The route is read at every call."""
+    and :603). The route is read at every call. Returns ``(aggregated_sum
+    or node update, new_edge | None, node_done)``: with ``aggr_mlp`` the v1
+    route runs it as K3's epilogue and returns the node update
+    (``node_done``); the v2 route, which the JAX package checks first
+    (:603-611), has no epilogue and returns the sum."""
     if not propagation and fused_kernels.fused_v2_routed(
         edge_set.num_edges, send_rep.shape[0] + edge_set.num_rec
     ):
-        return fused_kernels.fused_edge_phase_v2(
+        return (*fused_kernels.fused_edge_phase_v2(
             mlp, edge_rep, send_rep, rec_rep, edge_set,
             embedder=embedder, edge_feats=edge_features,
             update_edges=update_edges,
-        )
+        ), False)
     x_send = gather_senders(edge_set, send_rep)  # (E, B, D)
-    return fused_kernels.fused_edge_phase(
+    return (*fused_kernels.fused_edge_phase(
         mlp, edge_rep, x_send, rec_rep, edge_set,
         embedder=embedder, edge_feats=edge_features,
-        update_edges=update_edges, propagation=propagation,
-    )
+        update_edges=update_edges, propagation=propagation, aggr_mlp=aggr_mlp,
+    ), aggr_mlp is not None)
 
 
 def _unfused_phase(mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,
@@ -330,7 +347,7 @@ def fused_edge_phase(
     out = _fused_phase(
         mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges, propagation
     )
-    return _squeeze(out, squeeze)
+    return _squeeze(out[:2], squeeze)
 
 
 def unfused_edge_phase(
@@ -399,12 +416,25 @@ def apply_interaction_net(
 
     send_rep, rec_rep, squeeze = _batch_nodes(send_rep, rec_rep, edge_rep)
     if embed_in_kernel or _use_fused(net, edge_set, send_rep, rec_rep, edge_rep):
-        aggregated, new_edge = _fused_phase(
+        # the node-MLP epilogue, where the JAX package takes it
+        # (neural_lam_tpu/ops/interaction.py:654-679): nothing between the
+        # sum and the node update, and one node MLP of the fusable shape
+        node_ep = (
+            not propagation
+            and aggr == "sum"
+            and aggr_fusable(net.aggr_mlp)
+            and fused_kernels.fused_aggr_enabled()
+        )
+        aggregated, new_edge, node_done = _fused_phase(
             net.edge_mlp, edge_set, send_rep, rec_rep,
             None if embed_in_kernel else edge_rep, update_edges, propagation,
             embedder=edge_embedder if embed_in_kernel else None,
             edge_features=edge_features if embed_in_kernel else None,
+            aggr_mlp=net.aggr_mlp if node_ep else None,
         )
+        if node_done:
+            new_rec, new_edge = _squeeze((aggregated, new_edge), squeeze)
+            return (new_rec, new_edge) if update_edges else new_rec
     else:
         aggregated, new_edge = _unfused_phase(
             net.edge_mlp, edge_set, send_rep, rec_rep, edge_rep, update_edges,

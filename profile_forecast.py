@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 profile_forecast.py [--model NAME] [--train] [--fused-v2 MODE]
-                                [--trace PATH]
+                                [--fused-aggr MODE] [--trace PATH]
 
 It builds a MEPS model of ``chip_smoke.py``: ``--model graph_lam`` (the
 default; GraphLAM with the fixture's parameters) or one of
@@ -38,6 +38,12 @@ occupancy of K3, K4, K7 and K8.
 K3). With ``on`` every fused phase takes the v2 route: K7 forward, K8
 and K2 backward, grouped as such (K8 shares its edge, rows and reduce
 kernels' names with K4, which does not run on that route).
+
+``--fused-aggr on|off`` sets ``NEURAL_LAM_TPU_FUSED_AGGR`` for the run
+(unset: ``off``). With ``on`` K3 runs with the node-MLP epilogue at every
+GraphLAM and HiLAM application (its instantiations are grouped as ``K3
+node epilogue``) and the node backward runs before K4 (``K4 node
+backward``), in place of the node MLP's matmuls and LayerNorm.
 """
 
 from __future__ import annotations
@@ -57,7 +63,11 @@ import chip_smoke as cs
 GROUPS = (
     ("K7 fused_edge_phase_v2", re.compile(r"fused_edge_v2_fwd")),
     ("K8 fused_edge_phase_v2 backward", re.compile(r"fused_edge_v2_bwd")),
+    # K3's NODE instantiations, by their mangled or their demangled name
+    ("K3 node epilogue",
+     re.compile(r"fused_edge_fwd(?:ILi\dELb\dELb\dELb1E|<\d, \w+, \w+, true)")),
     ("K3 fused_edge_phase", re.compile(r"fused_edge_fwd")),
+    ("K4 node backward", re.compile(r"fused_node_bwd")),
     ("K4 fused_edge_phase backward", re.compile(r"fused_edge_bwd|reduce_workspace")),
     ("K1 sender_gather", re.compile(r"gather_rows")),
     ("K2 sender_scatter", re.compile(r"scatter_rows")),
@@ -180,9 +190,14 @@ def main() -> int:
                     help="build the kernels and run chip_smoke's K3/K4 probe only")
     ap.add_argument("--fused-v2", choices=["on", "off", "auto"],
                     help="set NEURAL_LAM_TPU_FUSED_V2 for the run (on: K7, K8)")
+    ap.add_argument("--fused-aggr", choices=["on", "off"],
+                    help="set NEURAL_LAM_TPU_FUSED_AGGR for the run (on: K3's node-MLP "
+                         "epilogue, the node backward)")
     args = ap.parse_args()
     if args.fused_v2:
         os.environ["NEURAL_LAM_TPU_FUSED_V2"] = args.fused_v2
+    if args.fused_aggr:
+        os.environ["NEURAL_LAM_TPU_FUSED_AGGR"] = args.fused_aggr
 
     import torch
     from torch.profiler import ProfilerActivity, profile

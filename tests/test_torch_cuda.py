@@ -2189,3 +2189,238 @@ def test_v2_bf16_kernels_off_keeps_the_float32_kernels(cuda, monkeypatch):
     assert all(g.dtype == t.dtype for g, t in zip(grads, leaves))
     want = _v2_bf16_plain(edge_mlp, edge_rep, send, rec, es, None, None, True)
     _close_bf16(out[0], want[0], "aggr")
+
+
+# -- the node-MLP epilogue (NEURAL_LAM_TPU_FUSED_AGGR=on): K3 with it and the
+# node MLP's backward before K4 ------------------------------------------------
+#
+# In each precision: float32 (3xTF32, held as K3 and K4 are) and the two
+# bf16-operand ones (held as the bf16 K3 and K4 are, _close_bf16).
+
+NODE_MODES = {"float32": (None, torch.float32), **BF16_MODES}
+NODE_FLAGS = [
+    # (edge mode, update_edges, the node MLP's LayerNorm)
+    ("raw", False, True),  # g2m / m2g
+    ("raw", True, True),  # m2m layer 0
+    ("batched", True, True),  # m2m layers 1-3
+    ("shared", True, True),  # a shared edge rep
+    ("batched", False, False),  # a node MLP without LayerNorm
+]
+
+
+def _node_counters(mode):
+    """K3 with the epilogue and the node backward, counted in ``mode``."""
+    if mode == "float32":
+        return fk.FUSED_EDGE_NODE, fk.FUSED_NODE_BWD
+    if mode == "high-kernels":
+        return fk.FUSED_EDGE_NODE_BF16_OPS, fk.FUSED_NODE_BWD_BF16_OPS
+    return fk.FUSED_EDGE_NODE_BF16, fk.FUSED_NODE_BWD_BF16
+
+
+def _node_case(cuda, monkeypatch, mode, flags, batch, seed, grad=False, degree=0):
+    """One phase with the epilogue in ``mode``'s dtype: ``(args, kw,
+    leaves)``; 5 receivers without edges and, with ``degree``, one
+    receiver with that many."""
+    if mode == "float32":
+        monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
+        monkeypatch.delenv("NEURAL_LAM_TPU_BF16_KERNELS", raising=False)
+        dtype = torch.float32
+    else:
+        dtype = _bf16_mode(monkeypatch, mode)
+    edge_mode, update, node_ln = flags
+    rng = np.random.default_rng(seed)
+    d, n_send, n_rec, n_edges = 64, 70, 50, 900
+    snd = rng.integers(0, n_send, n_edges + degree)
+    rcv = np.concatenate([rng.integers(0, n_rec - 5, n_edges), np.full(degree, 3)])
+    es, _ = make_edge_set(snd, rcv, num_rec=n_rec, num_send=n_send)
+    es = es.to(cuda)
+    gen = torch.Generator().manual_seed(seed)
+    edge_mlp = make_mlp([3 * d, d, d], generator=gen).to(cuda, dtype)
+    aggr_mlp = make_mlp([2 * d, d, d], layer_norm=node_ln, generator=gen).to(cuda, dtype)
+    embedder = make_mlp([3, d, d], generator=gen).to(cuda, dtype)
+
+    def t(*shape, g=False):
+        x = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+        return x.to(dtype).requires_grad_(g)
+
+    x_send, rec = t(es.num_edges, batch, d, g=grad), t(n_rec, batch, d, g=grad)
+    edge_rep, feats, emb = None, None, None
+    if edge_mode == "raw":
+        feats, emb = t(es.num_edges, 3), embedder
+    elif edge_mode == "shared":
+        edge_rep = t(es.num_edges, d, g=grad)
+    else:
+        edge_rep = t(es.num_edges, batch, d, g=grad)
+    leaves = [x_send, rec] + ([edge_rep] if edge_rep is not None else [])
+    leaves += list(edge_mlp.parameters()) + list(aggr_mlp.parameters())
+    leaves += list(emb.parameters()) if emb else []
+    kw = dict(embedder=emb, edge_feats=feats, update_edges=update, aggr_mlp=aggr_mlp)
+    return (edge_mlp, edge_rep, x_send, rec, es), kw, leaves
+
+
+def _node_plain(args, kw):
+    edge_mlp, edge_rep, x_send, rec, es = args
+    return fused_edge_phase_plain(edge_mlp, edge_rep, x_send, rec, es.receivers,
+                                  kw["embedder"], kw["edge_feats"], kw["update_edges"],
+                                  aggr_mlp=kw["aggr_mlp"])
+
+
+def _node_close(mode, got, want, what=""):
+    if mode != "float32":
+        _close_bf16(got, want, what)
+        return
+    assert got.dtype == want.dtype, what
+    scale = max(want.abs().max().item(), 1.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+@pytest.mark.parametrize("flags", NODE_FLAGS)
+@pytest.mark.parametrize("batch", [4, 1, 32])
+def test_node_epilogue_matches_plain(cuda, monkeypatch, mode, flags, batch):
+    """K3 with the node-MLP epilogue against the plain version: the node
+    update (receivers without edges too: ``rec + MLP([rec, 0])``) and the
+    updated edges, in the receiver rows' dtype; the same bits on a second
+    call; one launch of the epilogue's counter and none of K3's others."""
+    args, kw, _ = _node_case(cuda, monkeypatch, mode, flags, batch, seed=50)
+    counter, _ = _node_counters(mode)
+    with torch.no_grad():
+        result = []
+        ticks = _ticks(lambda: result.append(fused_edge_phase(*args, **kw)))
+        (got,) = result
+        want = _node_plain(args, kw)
+        again = fused_edge_phase(*args, **kw)
+    torch.cuda.synchronize()
+    assert {k for k, v in ticks.items() if v} == {counter.name}
+    assert got[0].dtype == args[3].dtype
+    _node_close(mode, got[0], want[0], "node update")
+    if flags[1]:
+        _node_close(mode, got[1], want[1], "new_edge")
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+@pytest.mark.parametrize("flags", NODE_FLAGS)
+@pytest.mark.parametrize("batch,use_new_edge", [(4, True), (4, False), (1, True), (32, True)])
+def test_node_backward_matches_plain(cuda, monkeypatch, mode, flags, batch, use_new_edge):
+    """The node backward, then K4, against autograd of the plain version:
+    every input and weight gradient (the node MLP's seven included), in the
+    input's or weight's dtype; the same bits on a second run; each kernel
+    launched once."""
+    args, kw, leaves = _node_case(cuda, monkeypatch, mode, flags, batch, seed=51, grad=True)
+    rec, x_send = args[3], args[2]
+    rng = np.random.default_rng(52)
+    w_node = torch.tensor(rng.normal(size=tuple(rec.shape)), device=cuda).float()
+    w_edge = torch.tensor(rng.normal(size=tuple(x_send.shape)), device=cuda).float()
+
+    def loss(out):
+        total = (out[0].float() * w_node).sum()
+        if flags[1] and use_new_edge:
+            total = total + (out[1].float() * w_edge).sum()
+        return total
+
+    def run():
+        return torch.autograd.grad(loss(fused_edge_phase(*args, **kw)), leaves)
+
+    _, node_bwd = _node_counters(mode)
+    result = []
+    ticks = _ticks(lambda: result.append(run()))
+    torch.cuda.synchronize()
+    assert ticks[node_bwd.name] == 1
+    assert sum(v for k, v in ticks.items() if k.startswith("K4 fused_edge_phase")) == 1
+    (got,) = result
+    want = torch.autograd.grad(loss(_node_plain(args, kw)), leaves)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _node_close(mode, g, w, f"gradient {i}")
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+def test_node_epilogue_degree_400(cuda, monkeypatch, mode):
+    """A receiver with 400 edges more (a chunk that spans many tiles) beside
+    receivers without edges: the node update and every gradient against the
+    plain version."""
+    args, kw, leaves = _node_case(cuda, monkeypatch, mode, NODE_FLAGS[2], 4, seed=53,
+                                  grad=True, degree=400)
+    got = fused_edge_phase(*args, **kw)
+    want = _node_plain(args, kw)
+    _node_close(mode, got[0], want[0], "node update")
+    # a random seed: with ones, the LayerNorm's gradient sums to 0 and the
+    # inputs' gradients are rounding noise
+    seed = torch.randn(tuple(got[0].shape), device=cuda)
+    g_got = torch.autograd.grad((got[0].float() * seed).sum(), leaves)
+    g_want = torch.autograd.grad((want[0].float() * seed).sum(), leaves)
+    for i, (g, w) in enumerate(zip(g_got, g_want)):
+        _node_close(mode, g, w, f"gradient {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+def test_node_launchers_match_their_plain_versions(cuda, monkeypatch, mode):
+    """The launchers as ``chip_smoke.py`` calls them: K3 with the epilogue
+    keeps the aggregate only when asked, and then K3's own aggregate bit for
+    bit; the node backward against ``_plain_node_bwd`` from the same
+    aggregate, its ``d_aggr`` in the streams' dtype."""
+    args, kw, _ = _node_case(cuda, monkeypatch, mode, NODE_FLAGS[2], 4, seed=54)
+    edge_mlp, edge_rep, x_send, rec, es = args
+    bf16_ops, io = fk.fused_precision(rec.dtype)
+    edge_in, x_io, rec_io, wts = fk._kernel_inputs(edge_mlp, None, edge_rep, None, io,
+                                                   x_send, rec)
+    nw = [w if w is None else w.float() for w in fk._node_weights(kw["aggr_mlp"])]
+    out = torch.float32 if mode != "bf16" else torch.bfloat16
+    with torch.no_grad():
+        node, new_edge, pre, aggr = fused_edge_fwd(
+            edge_in, x_io, rec_io, es, wts, False, True, False, bf16_ops=bf16_ops,
+            out_dtype=out if bf16_ops else None, node_weights=nw, save_aggr=True)
+        none = fused_edge_fwd(edge_in, x_io, rec_io, es, wts, False, True, False,
+                              bf16_ops=bf16_ops, out_dtype=out if bf16_ops else None,
+                              node_weights=nw)[3]
+        base = fused_edge_fwd(edge_in, x_io, rec_io, es, wts, False, True, False,
+                              bf16_ops=bf16_ops, out_dtype=torch.float32 if bf16_ops else None)
+        assert none is None and pre is None and aggr.dtype == torch.float32
+        assert torch.equal(aggr, base[0]) and torch.equal(new_edge, base[1].to(new_edge.dtype))
+        gen = torch.Generator(device=cuda).manual_seed(55)
+        d_node = torch.randn(tuple(rec.shape), device=cuda, generator=gen).to(io)
+        d_aggr, d_rec, grads = fk.fused_node_bwd(d_node, rec_io, aggr, nw, bf16_ops)
+        w_aggr, w_rec, w_grads = fk._plain_node_bwd(d_node.float(), rec_io.float(), aggr, nw,
+                                                     bf16_ops)
+        with pytest.raises(TypeError, match="need bf16_ops"):
+            fk.fused_node_bwd(d_node.bfloat16(), rec_io.bfloat16(), aggr, nw, False)
+    assert d_aggr.dtype == io and d_rec.dtype == torch.float32
+    # bf16 operands: d_pre, rounded to bf16 as an operand, can land one bf16
+    # ulp apart in kernel and plain version (the bounds above)
+    _node_close(mode if bf16_ops else "float32", d_aggr, w_aggr.to(io), "d_aggr")
+    for i, (g, w) in enumerate(zip([d_rec, *grads], [w_rec, *w_grads])):
+        if w is not None:
+            _node_close(mode if bf16_ops else "float32", g, w, f"node gradient {i}")
+
+
+@pytest.mark.cuda
+def test_captured_step_with_the_node_epilogue_matches_eager(cuda, tmp_path, monkeypatch):
+    """GraphLAM's step under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` through the
+    captured graph against five eager steps, bit for bit; the capture
+    launched the epilogue's K3 and node backward and no K3 or K4 without
+    them (every phase of GraphLAM takes it); turning the variable off
+    captures a graph of its own with K3 and K4 alone."""
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_AGGR", "on")
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(6)
+    eager, captured = make_trainer(), make_trainer()
+    want = [eager.train_step(*b).item() for b in data[:5]]
+    step = captured.make_train_step()
+    got = []
+    first = _ticks(lambda: got.append(step(*data[0]).item()))
+    got += [step(*b).item() for b in data[1:5]]
+    assert got == want and np.isfinite(got).all()
+    ran = {k for k, v in first.items() if v}
+    assert {"K3 fused_edge_phase node epilogue", "K4 node backward"} <= ran
+    assert "K3 fused_edge_phase" not in ran
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_AGGR", "off")
+    want.append(eager.train_step(*data[5]).item())
+    off = _ticks(lambda: got.append(step(*data[5]).item()))
+    assert len(captured.graphs) == 2
+    assert off["K3 fused_edge_phase"] > 0 and off["K4 node backward"] == 0
+    np.testing.assert_allclose(got, want, rtol=1e-6)

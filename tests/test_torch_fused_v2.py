@@ -275,27 +275,31 @@ def test_section_entry_v2_matches_jax(graph, spies):
 
 # -- routing -------------------------------------------------------------------
 
-# (NEURAL_LAM_TPU_FUSED_V2, _RATIO, _CACHE_PRE) -> v2 on the test's edge set
+# (NEURAL_LAM_TPU_FUSED_V2, _RATIO, _CACHE_PRE, NEURAL_LAM_TPU_FUSED) -> v2
+# on the test's edge set
 ROUTES = [
-    ((None, None, None), False),  # auto at the default ratio 8
-    (("auto", "2", None), True),
-    (("auto", "50", None), False),
-    (("on", None, None), True),
-    (("on", "50", None), True),
-    (("off", "2", None), False),
-    (("on", None, "off"), False),  # K8 needs the saved pre
-    (("auto", "2", "off"), False),
-    (("on", None, "on"), True),
+    ((None, None, None, None), False),  # auto at the default ratio 8
+    (("auto", "2", None, None), True),
+    (("auto", "50", None, None), False),
+    (("on", None, None, None), True),
+    (("on", "50", None, None), True),
+    (("off", "2", None, None), False),
+    (("on", None, "off", None), False),  # K8 needs the saved pre
+    (("auto", "2", "off", None), False),
+    (("on", None, "on", None), True),
+    (("on", None, None, "off"), False),  # every phase on the unfused route
 ]
-ENV = ("NEURAL_LAM_TPU_FUSED_V2", "NEURAL_LAM_TPU_FUSED_V2_RATIO", "NEURAL_LAM_TPU_CACHE_PRE")
+ENV = ("NEURAL_LAM_TPU_FUSED_V2", "NEURAL_LAM_TPU_FUSED_V2_RATIO", "NEURAL_LAM_TPU_CACHE_PRE",
+       "NEURAL_LAM_TPU_FUSED")
 
 
 @pytest.mark.parametrize("env,want", ROUTES)
 def test_both_packages_route_alike(graph, spies, monkeypatch, env, want):
     """The routing rule of ``test_v2_routing_and_gates`` and
     ``test_v2_auto_ratio_routing`` (tests/test_pallas_fused_v2.py), each
-    package with its own counts, and the port's phase takes the route its
-    rule names."""
+    package with its own counts, behind each package's
+    ``fused_edge_phase_supported`` (which ``NEURAL_LAM_TPU_FUSED=off``
+    turns off), and the port's phase takes the route its rule names."""
     jes, tes, _ = graph
     for name, value in zip(ENV, env):
         if value is None:
@@ -303,10 +307,13 @@ def test_both_packages_route_alike(graph, spies, monkeypatch, env, want):
         else:
             monkeypatch.setenv(name, value)
     lay = jes.layout
-    j_route = jax_fused_v2_routed(
-        lay.num_blocked, N_SEND + lay.num_blocks * lay.block_rows
-    )
-    t_route = fused_kernels.fused_v2_routed(tes.num_edges, N_SEND + tes.num_rec)
+    j_mlp = init_mlp(jax.random.PRNGKey(0), [3 * 8, 8, 8])
+    j_route = jax_interaction.fused_edge_phase_supported(
+        j_mlp, jes, jnp.zeros((N_SEND, 8)), jnp.zeros((N_REC, 8)), None
+    ) and jax_fused_v2_routed(lay.num_blocked, N_SEND + lay.num_blocks * lay.block_rows)
+    t_route = interaction.fused_edge_phase_supported(
+        make_mlp([3 * 8, 8, 8]), tes, torch.zeros(N_SEND, 8), torch.zeros(N_REC, 8), None
+    ) and fused_kernels.fused_v2_routed(tes.num_edges, N_SEND + tes.num_rec)
     assert j_route == t_route == want
     net = interaction.InteractionNet(8)
     with torch.no_grad():
