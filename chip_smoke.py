@@ -5,6 +5,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--parent DIR]
 
+``python -m torch.distributed.run --nproc_per_node=N chip_smoke.py
+--dp-cards`` runs only GraphLAM's captured data-parallel step over the
+N cards of a machine (:func:`dp_cards_main`).
+
 ``--parent DIR`` names a checkout of the commit before the tensor-core K7
 and K8 (their SIMT design and C interface): its ``fused_edge.cu``,
 ``fused_edge_bwd.cu``, ``fused_edge_v2.cu`` and ``fused_edge_v2_bwd.cu``
@@ -120,7 +124,15 @@ ten level sets, each against its plain version; under ``on`` the
 accuracy gate, GraphLAM's request and training steps (captured against
 eager), the training gate, bf16 training and the bf16 rollout, HiLAM's
 gate, request and captured step; and GraphLAM's captured step under
-``off`` and ``on`` in one call. Then GraphLAM's
+``off`` and ``on`` in one call. Then data parallelism (the ``dp`` lines,
+``phase_dp``): GraphLAM's captured step without a process group, then in
+an NCCL group of one rank in this process under ZeRO-1 and under
+``flat_opt`` (the training gate through it, captured against eager bit
+for bit, step time, device busy, kernel nodes a replay and peak memory
+beside the step without a group), and two gloo ranks on this one card,
+each its own process (``--dp-rank``) with a deadline, at 2 samples each:
+their losses and mean gradients against the one-rank run, and the merged
+``evaluate`` against one process's. Then GraphLAM's
 served AR step and training step on both routes, each as its kernels'
 device time beside the host's time to enqueue it; and the shapes the
 fused kernels do not take (``GraphLAM(hidden_dim=32)`` serving and
@@ -377,6 +389,12 @@ CACHE_PRE_RECOMPUTE_TOL = 1e-6
 # epilogue and the node backward. Held to their plain versions as K3 and K4
 # are (K3_RTOL/K3_ATOL, K4_TOL; in bf16 bf16_check).
 FUSED_AGGR = "NEURAL_LAM_TPU_FUSED_AGGR"
+# dp: two gloo ranks share the card, each with its own deadline; the merged
+# evaluate sums the same per-sample float32 values in float64 in another
+# grouping
+DP_RANKS = 2
+DP_RANK_TIMEOUT_S = 240
+DP_EVAL_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -2305,6 +2323,17 @@ def graph_kernels(torch, graph) -> dict[str, int]:
     A profile of the replay is not used for this: in a long run the
     profiler lost a record now and then (911 of the 912 K1 launches of
     HiLAMParallel's request graph), which a count must not."""
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for name in graph_kernel_names(torch, graph):
+        for kernel, symbol in KERNEL_SYMBOLS.items():
+            if symbol.search(name):
+                counts[kernel] += 1
+    return counts
+
+
+def graph_kernel_names(torch, graph) -> list[str]:
+    """The (mangled) name of every kernel node of the kept ``graph``: one
+    replay's kernel launches, every library's included."""
     import ctypes
 
     ptr, out = ctypes.c_void_p, ctypes.POINTER
@@ -2329,7 +2358,7 @@ def graph_kernels(torch, graph) -> dict[str, int]:
     nodes = (ptr * n.value)()
     check(cuda.cuGraphGetNodes(handle, ctypes.cast(nodes, ptr), ctypes.byref(n)),
           "cuGraphGetNodes")
-    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    names = []
     for node in nodes:
         kind = ctypes.c_int()
         check(cuda.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)), "cuGraphNodeGetType")
@@ -2344,10 +2373,8 @@ def graph_kernels(torch, graph) -> dict[str, int]:
             check(cuda.cuFuncGetName(ctypes.byref(name), ptr(params[0])), "cuFuncGetName")
         else:
             check(cuda.cuKernelGetName(ctypes.byref(name), ptr(params[7])), "cuKernelGetName")
-        for kernel, symbol in KERNEL_SYMBOLS.items():
-            if symbol.search(name.value.decode()):
-                counts[kernel] += 1
-    return counts
+        names.append(name.value.decode())
+    return names
 
 
 def replayed_launches(torch, made, label: str) -> dict[str, int]:
@@ -2519,10 +2546,11 @@ def load_gate_params(model) -> None:
     )
 
 
-def make_trainer(model, ds, reload: bool = True, precision: str = "32"):
+def make_trainer(model, ds, reload: bool = True, precision: str = "32", **train_args):
     """The ``bench.build_trainer`` trainer around ``model`` with a new
     optimizer; ``reload`` loads the GraphLAM fixture's parameters afresh;
-    ``precision="bf16"`` trains on bf16 copies of them."""
+    ``precision="bf16"`` trains on bf16 copies of them; ``train_args`` go
+    to ``TrainingArgs`` (``flat_opt``, ``shard_opt_state``)."""
     from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
     from neural_lam_tpu_torch.models import ARForecaster
     from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
@@ -2533,7 +2561,7 @@ def make_trainer(model, ds, reload: bool = True, precision: str = "32"):
         datastore=DatastoreSelection(kind="dummydata", config_path="")
     )
     args = TrainingArgs(batch_size=BATCH, ar_steps_train=1, lr=TRAIN_LR,
-                        precision=precision)
+                        precision=precision, **train_args)
     return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device)
 
 
@@ -2557,12 +2585,10 @@ def train_gate_run(torch, trainer, batch: int, n_losses: int, captured: bool = F
         grads = grads_to_numpy(trainer.forecaster.predictor)
         losses += [step(*data).item() for _ in range(n_losses - 1)]
     else:
-        trainer.optimizer.zero_grad(set_to_none=True)
-        loss = trainer._loss(*data)
-        loss.backward()
+        # the step leaves each parameter's gradient in its .grad (over a
+        # process group, the mean over the ranks)
+        losses = [trainer.train_step(*data).item()]
         grads = grads_to_numpy(trainer.forecaster.predictor)
-        trainer.optimizer.step()
-        losses = [loss.item()]
         losses += [trainer.train_step(*data).item() for _ in range(n_losses - 1)]
     if not np.isfinite(losses).all():
         raise AssertionError("train gate: non-finite loss")
@@ -4756,6 +4782,371 @@ def phase_fused_aggr(torch, model, forecaster, gate_ds, serve_ds, card: str) -> 
     return total
 
 
+# -- dp: data-parallel training over torch.distributed ---------------------
+
+
+@contextlib.contextmanager
+def launch_env(world: int, rank: int, port: int):
+    """``torchrun``'s environment for rank ``rank`` of ``world`` on one
+    node, restored after."""
+    values = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                  RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    with contextlib.ExitStack() as stack:
+        for name, value in values.items():
+            stack.enter_context(env_set(name, value))
+        yield
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_eval_loader(ds, layout=None):
+    """The gates' validation split (5 samples at ``ar_steps`` 1) in node
+    batches of ``BATCH``, a tail of 1; with ``layout``, the rank's blocks."""
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.loader import DataLoader
+
+    blocks = {} if layout is None else dict(block_index=layout.local_rank,
+                                            num_blocks=layout.local_world)
+    return DataLoader(WeatherDataset(ds, "val", ar_steps=1), BATCH, prefetch=0, **blocks)
+
+
+def dp_captured(torch, trainer, data, label: str, card: str) -> dict:
+    """``TRAIN_WARMUP + TRAIN_ITERS`` replays of ``trainer``'s captured step
+    (the counters at 0 just before), two more under the profiler: step
+    time, device busy, kernels a replay, peak memory and the launches,
+    ``expected_launches`` a step by the counters (the warm-up steps and the
+    capture) and by the graph's kernel nodes."""
+    from neural_lam_tpu_torch.trainer import GRAPH_WARMUP_STEPS
+
+    model = trainer.forecaster.predictor
+    counters = kernel_counters()
+    # the gradients an earlier trainer's graph left in the parameters would
+    # hold its memory pool through the peak read here
+    trainer.optimizer.zero_grad(set_to_none=True)
+    release(torch)
+    held = torch.cuda.memory_allocated()
+    for fn in counters.values():
+        fn.launches = 0
+    step = trainer.make_train_step()
+    run = timed_steps(torch, step, data)
+    first = {name: fn.launches for name, fn in counters.items()}
+    (entry,) = trainer.graphs.values()
+    replay = graph_kernels(torch, entry.graph)
+    nodes = graph_kernel_names(torch, entry.graph)
+    busy, kernels = device_kernels(torch, lambda: step(*data))
+    steps = TRAIN_WARMUP + TRAIN_ITERS + 2
+    launches = {}
+    for name, per_step in expected_launches(model, training=True).items():
+        if first[name] != per_step * (GRAPH_WARMUP_STEPS + 1) or replay[name] != per_step:
+            raise AssertionError(f"dp {label}: {name}: {first[name]} counted, {replay[name]} "
+                                 f"in the graph, want {per_step} a step")
+        launches[name] = first[name] - replay[name] + replay[name] * steps
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError(f"dp {label}: non-finite loss")
+    nccl = sum("nccl" in n.lower() for n in nodes)
+    log(f"dp {label} on {card}: captured step {run['step_ms']:.3f} ms (device busy "
+        f"{busy:.3f} ms, {kernels} kernels a replay in the profile; the graph's "
+        f"{len(nodes)} kernel nodes, {nccl} of them NCCL's), "
+        f"{BATCH * trainer.datastore.num_grid_points / (run['step_ms'] / 1e3):,.0f} training "
+        f"grid-points/s, peak device memory {run['peak'] / 2**30:.3f} GiB, of it "
+        f"{(run['peak'] - held) / 2**30:.3f} GiB above what was held before the first call")
+    return dict(run, busy=busy, kernels=kernels, nodes=len(nodes), launches=launches,
+                step_peak=run["peak"] - held)
+
+
+def dp_eager_against_captured(torch, model, ds, label: str, **train_args) -> None:
+    """``TRAIN_WARMUP + TRAIN_ITERS`` eager steps and as many replays of
+    the captured step, each from the gate's weights on the bench batch:
+    the losses and the weights after, bit for bit."""
+    from neural_lam_tpu_torch.convert_checkpoint import params_to_numpy
+
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    runs = []
+    for captured in (False, True):
+        trainer = make_trainer(model, ds, **train_args)
+        step = trainer.make_train_step() if captured else trainer.train_step
+        losses = [step(*data) for _ in range(TRAIN_WARMUP + TRAIN_ITERS)]
+        runs.append((torch.stack(losses).cpu().numpy(), params_to_numpy(model)))
+        del trainer, step
+        release(torch)
+    (eager, w_eager), (graph, w_graph) = runs
+    same = sum(int(np.sum(w_eager[k] == w_graph[k])) for k in w_eager)
+    total = sum(w.size for w in w_eager.values())
+    log(f"dp {label}: captured against eager over {len(eager)} steps: losses "
+        f"{int(np.sum(eager == graph))} of {len(eager)} the same bits, weights after "
+        f"{same} of {total} entries the same bits")
+    if not (np.array_equal(eager, graph) and same == total):
+        raise AssertionError(f"dp {label}: the captured step differs from the eager step")
+
+
+def phase_dp(torch, model, ds, card: str) -> dict[str, int]:
+    """Data-parallel training (``torch.distributed``), GraphLAM at the
+    bench configuration:
+
+    1. the captured step without a process group (``torch.optim.AdamW``),
+       the one-rank eager run of the training gate and one process's
+       ``evaluate``: the references;
+    2. an NCCL group of one rank in this process: under ZeRO-1
+       (``shard_opt_state``, ``FlatAdamW`` sharded over the group, its
+       all-reduce and all-gather inside the graph) and under ``flat_opt``,
+       the training gate through the captured step, captured against eager
+       bit for bit, and step time, device busy, kernels a replay and peak
+       memory beside step 1's;
+    3. two gloo ranks on this card (:func:`dp_rank_main`, each its own
+       process with a deadline), each on 2 of the bench batch's 4 samples:
+       eager steps launching K1-K4 on the card, their losses and the mean
+       gradients against step 1's one-rank run at the gate's bounds, and
+       the merged ``evaluate`` (a tail of one sample, below the rank count)
+       against one process's at 1e-6.
+
+    Returns each kernel's launches in this phase (the ranks' included)."""
+    from neural_lam_tpu_torch.optim import FlatAdamW
+    from neural_lam_tpu_torch.utils import distributed
+
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    base = dp_captured(torch, make_trainer(model, ds), data, "no process group", card)
+    add_launches(total, base["launches"], "dp no group train graph")
+    ref_losses, ref_grads = train_gate_run(torch, make_trainer(model, ds), BATCH, 4)
+    ref_eval = make_trainer(model, ds).evaluate(dp_eval_loader(ds))
+    release(torch)
+
+    with launch_env(1, 0, free_port()):
+        distributed.init_from_env("nccl")
+    try:
+        for label, args in (("ZeRO-1", dict(shard_opt_state=True)),
+                            ("flat_opt", dict(flat_opt=True))):
+            trainer = make_trainer(model, ds, **args)
+            if not isinstance(trainer.optimizer, FlatAdamW):
+                raise AssertionError(f"dp {label}: the optimizer is not FlatAdamW")
+            log(f"dp NCCL world 1, {label}: training gate through the captured step:")
+            phase_train_gate(torch, trainer, TRAIN_FIXTURE, captured=True)
+            del trainer
+            dp_eager_against_captured(torch, model, ds, f"NCCL world 1, {label}", **args)
+            run = dp_captured(torch, make_trainer(model, ds, **args), data,
+                              f"NCCL world 1, {label}", card)
+            add_launches(total, run["launches"], f"dp {label} train graph")
+            log(f"dp {label} against no process group (same call, {card}): step "
+                f"{run['step_ms'] / base['step_ms']:.3f} x "
+                f"({run['step_ms'] - base['step_ms']:+.3f} ms), device busy "
+                f"{run['busy'] - base['busy']:+.3f} ms, kernel nodes a replay "
+                f"{run['nodes'] - base['nodes']:+d}, peak above what was held before "
+                f"{(run['step_peak'] - base['step_peak']) / 2**30:+.3f} GiB")
+            release(torch)
+    finally:
+        distributed.destroy()
+
+    out = CACHE / "dp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    port = free_port()
+    procs = []
+    for rank in range(DP_RANKS):
+        with launch_env(DP_RANKS, rank, port):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--dp-rank", str(out)],
+                env=dict(os.environ), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+    try:
+        logs = [p.communicate(timeout=DP_RANK_TIMEOUT_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"dp gloo ranks: not done in {DP_RANK_TIMEOUT_S} s")
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  rank {rank}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"dp gloo rank {rank} failed (exit {p.returncode})")
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(DP_RANKS)]
+    losses = [r["losses"] for r in ranks]
+    if not all(np.array_equal(losses[0], l) for l in losses[1:]):
+        raise AssertionError("dp gloo ranks: the ranks' losses differ")
+    rels = np.abs(losses[0] - ref_losses) / np.abs(ref_losses)
+    grad_rel = max(float(np.abs(ranks[0][f"grad/{k}"] - w).max() / max(np.abs(w).max(), 1e-30))
+                   for k, w in ref_grads.items())
+    for r in ranks[1:]:
+        if any(not np.array_equal(r[f"grad/{k}"], ranks[0][f"grad/{k}"]) for k in ref_grads):
+            raise AssertionError("dp gloo ranks: the ranks' gradients differ")
+    log(f"dp {DP_RANKS} gloo ranks on {card}, 2 samples each: losses "
+        f"{', '.join(f'{x:.8g}' for x in losses[0])} on every rank, against the one-rank "
+        f"run's {', '.join(f'{x:.8g}' for x in ref_losses)} (rel {rels[0]:.3e}, tol "
+        f"{TRAIN_LOSS_RTOL}; then up to {rels[1:].max():.3e}, tol {TRAIN_TRAJ_RTOL}); "
+        f"{len(ref_grads)} mean gradients, worst {grad_rel:.3e} of its largest entry "
+        f"(tol {TRAIN_GRAD_TOL})")
+    if rels[0] > TRAIN_LOSS_RTOL or rels[1:].max() > TRAIN_TRAJ_RTOL or grad_rel > TRAIN_GRAD_TOL:
+        raise AssertionError("dp gloo ranks: outside the training gate's bounds")
+    keys = sorted(ref_eval)
+    for r in ranks:
+        got = {k: float(r[f"eval/{k}"]) for k in keys}
+        worst = max(abs(got[k] - ref_eval[k]) / max(abs(ref_eval[k]), 1e-30) for k in keys)
+        if worst > DP_EVAL_RTOL:
+            raise AssertionError(f"dp gloo ranks: merged evaluate off by {worst:.3e}")
+    log(f"dp {DP_RANKS} gloo ranks: merged evaluate {json.dumps(got)} against one "
+        f"process's {json.dumps(ref_eval)} (max rel {worst:.3e}, tol {DP_EVAL_RTOL})")
+    for r in ranks:
+        add_launches(total, {k[len("launches/"):]: int(v) for k, v in r.items()
+                             if k.startswith("launches/")}, "dp gloo rank")
+    log(f"dp phase: {time.perf_counter() - t0:.1f} s on {card}")
+    return total
+
+
+def dp_rank_main(out: Path) -> int:
+    """One gloo rank of :func:`phase_dp`, in its own process on the card:
+    GraphLAM with the gate's weights, ``evaluate`` through its blocks, then
+    ``TRAIN_WARMUP + 2`` eager steps on its 2 samples of the bench batch
+    (the counters at 0 just before; each must read ``expected_launches``
+    a step after) and the mean gradients of the first; written to
+    ``out/rank<r>.npz``."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
+    from neural_lam_tpu_torch.models import GraphLAM
+    from neural_lam_tpu_torch.utils import distributed
+
+    distributed.init_from_env("gloo")
+    lay = distributed.layout()
+    ds = meps_datastores()[0]
+    model = GraphLAM(ds, hidden_dim=HIDDEN, processor_layers=PROC_LAYERS, device=DEVICE)
+    trainer = make_trainer(model, ds)
+    per = BATCH // lay.world
+    data = [torch.from_numpy(a[lay.rank * per:(lay.rank + 1) * per]).to(DEVICE)
+            for a in bench_batch(ds)]
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    # evaluate from the gate's weights, then train
+    result = trainer.evaluate(dp_eval_loader(ds, lay))
+    torch.cuda.synchronize()
+    evaluated = {name: fn.launches for name, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [trainer.train_step(*data).item()]
+    grads = grads_to_numpy(model)
+    losses += [trainer.train_step(*data).item() for _ in range(3)]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, per_step in expected_launches(model, training=True).items():
+        if launches[name] != 4 * per_step:
+            raise AssertionError(f"rank {lay.rank}: {name} {launches[name]} launches, want "
+                                 f"{4 * per_step}")
+        launches[name] += evaluated[name]
+    np.savez(out / f"rank{lay.rank}.npz", losses=np.array(losses),
+             **{f"grad/{k}": v for k, v in grads.items()},
+             **{f"eval/{k}": v for k, v in result.items()},
+             **{f"launches/{k}": v for k, v in launches.items()})
+    print(f"rank {lay.rank} of {lay.world} ({torch.cuda.get_device_name(0)}): losses "
+          f"{', '.join(f'{x:.8g}' for x in losses)}; launches "
+          f"{', '.join(f'{k} {v}' for k, v in launches.items() if v)}", flush=True)
+    distributed.destroy()
+    return 0
+
+
+def dp_cards_main() -> int:
+    """GraphLAM's captured data-parallel step at the bench configuration
+    over every card of a machine, one rank each, NCCL between them:
+    ``python -m torch.distributed.run --nproc_per_node=N chip_smoke.py
+    --dp-cards``. Each rank takes ``BATCH / N`` of the bench batch; under
+    ZeRO-1, replicated moments and ``flat_opt``: the training gate through
+    the captured step (the loss, the mean gradients and 3 further losses
+    against the fixture at its bounds, the same losses on every rank), 12
+    captured steps against 12 eager ones (losses and weights, every bit),
+    the step time, the global training grid-points/s and the graph's
+    kernel nodes, NCCL's among them. Rank 0 prints."""
+    import torch
+
+    from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy, params_to_numpy
+    from neural_lam_tpu_torch.ops import kernel_build
+    from neural_lam_tpu_torch.utils import distributed
+
+    global DEVICE
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch = distributed.launch_layout()
+    torch.cuda.set_device(launch.local_rank)
+    DEVICE = f"cuda:{launch.local_rank}"
+    keep_cuda_graphs(torch)
+    distributed.init_from_env("nccl")
+    lay = distributed.layout()
+    say = log if lay.rank == 0 else (lambda msg: None)
+    card = card_line()
+    t0 = time.perf_counter()
+    if lay.local_rank == 0:
+        kernel_build.build()
+    distributed.barrier()
+    say(f"dp cards: {lay.world} ranks on {card}; kernel build {time.perf_counter() - t0:.1f} s")
+    CACHE.mkdir(exist_ok=True)
+    if lay.rank == 0:  # the graph is built once, on disk
+        gate_ds, _, model, _ = build_meps(torch)
+    distributed.barrier()
+    if lay.rank != 0:
+        gate_ds, _, model, _ = build_meps(torch)
+    with np.load(TRAIN_FIXTURE) as fx:
+        want = fx["losses"].astype(np.float64)
+        want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
+    per = BATCH // lay.world
+    data = [torch.from_numpy(a[lay.rank * per:(lay.rank + 1) * per]).to(DEVICE)
+            for a in bench_batch(gate_ds)]
+    for label, args in (("ZeRO-1", {}), ("replicated", dict(shard_opt_state=False)),
+                        ("flat_opt", dict(flat_opt=True))):
+        trainer = make_trainer(model, gate_ds, **args)
+        step = trainer.make_train_step()
+        losses = [step(*data).item()]
+        grads = grads_to_numpy(model)
+        losses += [step(*data).item() for _ in range(len(want) - 1)]
+        rels = np.abs(np.array(losses) - want) / np.abs(want)
+        worst = max(float(np.abs(grads[k] - w).max() / max(np.abs(w).max(), 1e-30))
+                    for k, w in want_grads.items())
+        gathered = distributed.allgather_sums(np.array(losses))
+        same_ranks = bool((gathered == gathered[0]).all())
+        del trainer, step
+        runs = []
+        for captured in (False, True):
+            trainer = make_trainer(model, gate_ds, **args)
+            step = trainer.make_train_step() if captured else trainer.train_step
+            run_losses = torch.stack([step(*data) for _ in range(TRAIN_WARMUP + TRAIN_ITERS)])
+            runs.append((run_losses.cpu().numpy(), params_to_numpy(model)))
+            del trainer, step
+            release(torch)
+        (eager, w_eager), (graph, w_graph) = runs
+        bits = np.array_equal(eager, graph) and all(
+            np.array_equal(w_eager[k], w_graph[k]) for k in w_eager)
+        trainer = make_trainer(model, gate_ds, **args)
+        step = trainer.make_train_step()
+        run = timed_steps(torch, step, data)
+        (entry,) = trainer.graphs.values()
+        nodes = graph_kernel_names(torch, entry.graph)
+        nccl = sum("nccl" in n.lower() for n in nodes)
+        say(f"dp {lay.world} cards NCCL, {label} on {card}: gate loss rel {rels[0]:.3e} (tol "
+            f"{TRAIN_LOSS_RTOL}), worst mean gradient {worst:.3e} of its largest entry (tol "
+            f"{TRAIN_GRAD_TOL}), {len(want) - 1} further losses up to {rels[1:].max():.3e} (tol "
+            f"{TRAIN_TRAJ_RTOL}), the same losses on every rank: {same_ranks}; captured "
+            f"against eager over {len(eager)} steps, losses and weights every bit: {bits}; "
+            f"captured step {run['step_ms']:.3f} ms at {per} sample(s) a rank, "
+            f"{BATCH * gate_ds.num_grid_points / (run['step_ms'] / 1e3):,.0f} global training "
+            f"grid-points/s; {len(nodes)} kernel nodes a replay, {nccl} of them NCCL's; peak "
+            f"device memory {run['peak'] / 2**30:.3f} GiB")
+        if (rels[0] > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_TOL
+                or rels[1:].max() > TRAIN_TRAJ_RTOL or not same_ranks):
+            raise AssertionError(f"dp cards {label}: outside the training gate's bounds")
+        del trainer, step, entry
+        release(torch)
+    distributed.destroy()
+    return 0
+
+
 def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
@@ -4836,6 +5227,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
+    if len(sys.argv) > 2 and sys.argv[1] == "--dp-rank":
+        return dp_rank_main(Path(sys.argv[2]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-cards":
+        return dp_cards_main()
     sys.path.insert(0, str(REPO))
     keep_cuda_graphs(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4936,6 +5331,9 @@ def main() -> int:
     add_launches(total, phase_fused_aggr(torch, model, forecaster, gate_ds, serve_ds, card),
                  "fused aggr")
     report += aggr_report
+    # data parallelism: an NCCL group of one in this process (ZeRO-1 and
+    # flat_opt, captured), two gloo ranks on the card (eager)
+    add_launches(total, phase_dp(torch, model, gate_ds, card), "dp")
     del model, forecaster
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)

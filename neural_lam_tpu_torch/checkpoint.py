@@ -21,6 +21,14 @@ reference's ``persistent=False`` buffers are
 The dual-checkpoint policy mirrors the reference's two callbacks
 (reference: train_model.py:500-516): ``min_val_loss`` tracks the best
 validation loss, ``latest`` is written every epoch as a crash rescue.
+
+Over a process group (data parallelism) every rank calls ``save``, which
+gathers the optimizer's full moments (``optim.FlatAdamW.state_dict``, the
+counterpart of ``checkpoint._to_host``, ``neural_lam_tpu/checkpoint.py:29-46``);
+rank 0 writes the files and every rank waits at a barrier after, so that
+none reads a checkpoint half written (``:95-125``). The file is the one a
+single process writes, and restores at any rank count: each rank reads it
+and keeps its part of the moments.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .utils import distributed
 from .utils.device import resolve_device
 
 CHECKPOINT_NAMES = ("latest", "min_val_loss")
@@ -104,21 +113,27 @@ class CheckpointManager:
     ) -> None:
         """Write one named checkpoint, replacing an earlier one of that
         name; ``state.pt`` is written to a temporary file first and
-        renamed, so a reader never sees half of it."""
-        path = self._path(name)
-        path.mkdir(parents=True, exist_ok=True)
+        renamed, so a reader never sees half of it. Over a process group
+        every rank calls it (the optimizer's state is gathered), rank 0
+        writes, and all wait for the write."""
         state = {
-            "model": model.state_dict(),
+            # a parameter that is a view of the optimizer's flat buffer is
+            # saved as a tensor of its own, as without the buffer
+            "model": {k: _own_storage(v) for k, v in model.state_dict().items()},
             "optimizer": optimizer.state_dict(),
             "step": int(step),
         }
-        tmp = path / "state.pt.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path / "state.pt")
-        if hparams is not None:
-            (path / "hparams.json").write_text(
-                json.dumps(hparams, indent=2, default=str), encoding="utf-8"
-            )
+        if distributed.rank() == 0:
+            path = self._path(name)
+            path.mkdir(parents=True, exist_ok=True)
+            tmp = path / "state.pt.tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path / "state.pt")
+            if hparams is not None:
+                (path / "hparams.json").write_text(
+                    json.dumps(hparams, indent=2, default=str), encoding="utf-8"
+                )
+        distributed.barrier()
 
     def save_latest(self, model, optimizer, step, hparams=None) -> None:
         self.save("latest", model, optimizer, step, hparams)
@@ -126,13 +141,15 @@ class CheckpointManager:
     def maybe_save_best(
         self, val_loss: float, model, optimizer, step, hparams=None
     ) -> bool:
-        """Save as ``min_val_loss`` iff this is the best validation loss."""
+        """Save as ``min_val_loss`` iff this is the best validation loss
+        (the same on every rank: ``evaluate`` merges the ranks' sums)."""
         if val_loss < self.best_val_loss:
             self.best_val_loss = val_loss
             self.save("min_val_loss", model, optimizer, step, hparams)
-            (self.ckpt_dir / "best.json").write_text(
-                json.dumps({"val_loss": val_loss, "step": step}), encoding="utf-8"
-            )
+            if distributed.rank() == 0:
+                (self.ckpt_dir / "best.json").write_text(
+                    json.dumps({"val_loss": val_loss, "step": step}), encoding="utf-8"
+                )
             return True
         return False
 
@@ -174,6 +191,13 @@ class CheckpointManager:
         if not path.exists():
             return None
         return json.loads(path.read_text(encoding="utf-8"))
+
+
+def _own_storage(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it views a larger storage."""
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone()
+    return t
 
 
 def _check_keys(model: nn.Module, state_dict: dict) -> None:

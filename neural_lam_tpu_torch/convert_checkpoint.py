@@ -13,7 +13,9 @@ legacy ``g2m_gnn.grid_mlp`` rename (reference: module.py:974-1010), and
 
 :func:`export_state_dict` is the way back, the reference's names with
 numpy values. :func:`opt_state_from_jax` carries the JAX package's AdamW
-moments and step count into the port's optimizer.
+moments and step count into the port's optimizer, also from the one flat
+vector of ``--flat_opt`` (``optax.flatten``), whose order is
+``ravel_pytree``'s and not the port's (:func:`unravel_like`).
 
 The JAX package keeps parameters as pytrees of MLPs,
 ``{"layers": [{"w": (in, out), "b": (out,)}, ...], "ln": {"scale", "bias"}
@@ -115,32 +117,71 @@ def grads_to_numpy(module: torch.nn.Module) -> dict[str, np.ndarray]:
     return out
 
 
+def unravel_like(template: Any, flat) -> Any:
+    """``flat``, a vector in ``ravel_pytree(template)``'s order (each leaf
+    raveled, leaves in ``jax.tree_util`` order), as a pytree shaped like
+    ``template``: the inverse of the flattening of ``optax.flatten``."""
+    flat = np.asarray(flat)
+    offset = 0
+
+    def build(node):
+        nonlocal offset
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(item) for item in node]
+        shape = np.shape(node)
+        size = int(np.prod(shape))
+        out = flat[offset:offset + size].reshape(shape)
+        offset += size
+        return out
+
+    tree = build(template)
+    if offset != flat.size:
+        raise ValueError(f"flat vector of {flat.size} values for a pytree of {offset}")
+    return tree
+
+
 def opt_state_from_jax(
-    mu: dict, nu: dict, count, optimizer: torch.optim.Optimizer, model: nn.Module
+    mu, nu, count, optimizer, model: nn.Module, template: Any = None
 ) -> None:
     """Load the JAX package's AdamW state into ``optimizer``, in place:
     optax's first and second moments ``mu`` and ``nu`` (numpy pytrees
     shaped like the parameters) become each parameter's ``exp_avg`` and
     ``exp_avg_sq``, and its step ``count`` the ``step``. ``model`` names
-    the optimizer's parameters (its ``named_parameters``). optax's
-    ``adamw`` and torch's ``AdamW`` keep the same moments and bias
-    corrections, so the next steps go on as the JAX package's would."""
+    the optimizer's parameters (its ``named_parameters``). Under
+    ``--flat_opt`` (``optax.flatten``) ``mu`` and ``nu`` are flat vectors
+    in ``ravel_pytree``'s order: ``template``, the JAX parameter pytree
+    (numpy leaves), gives their layout. optax's ``adamw`` and torch's
+    ``AdamW`` keep the same moments and bias corrections, so the next
+    steps go on as the JAX package's would. ``optimizer`` is a
+    ``torch.optim.AdamW`` over the model's parameters or an
+    ``optim.FlatAdamW`` (either layout)."""
     from .checkpoint import load_optimizer_state
 
+    if not isinstance(mu, dict):
+        if template is None:
+            raise ValueError("flat AdamW moments need the parameter pytree as template")
+        mu, nu = unravel_like(template, mu), unravel_like(template, nu)
     names = {id(p): name for name, p in model.named_parameters()}
+    # the per-parameter layout, in the optimizer's order of the parameters
+    params = getattr(optimizer, "params", None) or [
+        p for group in optimizer.param_groups for p in group["params"]]
     exp_avg, exp_avg_sq = params_from_jax(mu), params_from_jax(nu)
-    state, index = {}, 0
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            name = names[id(p)]
-            state[index] = {
-                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
-                "exp_avg": exp_avg[name].to(p.device),
-                "exp_avg_sq": exp_avg_sq[name].to(p.device),
-            }
-            index += 1
-    groups = optimizer.state_dict()["param_groups"]
-    load_optimizer_state(optimizer, {"state": state, "param_groups": groups})
+    state = {}
+    for index, p in enumerate(params):
+        name = names[id(p)]
+        state[index] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }
+    (group,) = optimizer.param_groups
+    group = {k: v for k, v in group.items() if k != "params"}
+    group["params"] = list(range(len(params)))
+    load_optimizer_state(optimizer, {"state": state, "param_groups": [group]})
 
 
 def convert_state_dict(
@@ -218,10 +259,6 @@ def main(argv=None, device: str | torch.device = "cuda") -> None:
     parser.add_argument("--flat_opt", action="store_true")
     parser.add_argument("--out", type=str, required=True)
     args = parser.parse_args(argv)
-    if args.flat_opt:
-        raise SystemExit(
-            "--flat_opt: not ported to neural_lam_tpu_torch yet (ROADMAP.md §1 item 6)"
-        )
     device = resolve_device(device)
 
     # a Lightning file pickles more than tensors (its hyper_parameters)
@@ -233,7 +270,9 @@ def main(argv=None, device: str | torch.device = "cuda") -> None:
     forecaster = build_forecaster_from_hparams(hparams, datastore, device)
     model = forecaster.predictor
     model.load_state_dict(convert_state_dict(state_dict, model.state_dict()), strict=True)
-    optimizer = make_optimizer(model.parameters(), args.lr, args.weight_decay)
+    # the state's layout follows --flat_opt, which hparams records
+    optimizer = make_optimizer(model.parameters(), args.lr, args.weight_decay,
+                               flat_opt=args.flat_opt)
     CheckpointManager(args.out).save_latest(model, optimizer, step=0, hparams=hparams)
     print(f"Converted checkpoint written to {args.out}/checkpoints/latest")
 

@@ -9,14 +9,15 @@ over a torch.distributed NCCL/Gloo group
 (reference: c_s_s.py:92-139, 304-358); here one process streams the
 memory-mapped files with a thread pool, and ``shard_index`` /
 ``num_shards`` cut the analysis times into strided shards whose moments
-merge exactly on the host (:func:`merge_moments`). Results are written
-as ``.npy`` files in ``static/`` (the store also reads the legacy
+merge exactly on the host (:func:`merge_moments`). ``--multihost`` runs
+one shard per rank of the gloo process group of ``torchrun``'s
+environment, merges the moments across the group
+(``_RunningMoments.all_reduce``) and rank 0 writes them. Results are
+written as ``.npy`` files in ``static/`` (the store also reads the legacy
 ``.pt`` names).
 
 The port's own copy of
 ``neural_lam_tpu/datastore/npyfilesmeps/compute_standardization_stats.py``.
-The JAX package's ``--multihost`` merge over a process group waits for
-data parallelism (ROADMAP §1 item 8): here the flag raises.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ...utils import distributed
 from .store import NpyFilesDatastoreMEPS
 
 
@@ -48,6 +50,22 @@ class _RunningMoments:
         var = np.maximum(self.sumsq / self.count - mean * mean, 0.0)
         return mean.astype(np.float32), np.sqrt(var).astype(np.float32)
 
+    def all_reduce(self) -> "_RunningMoments":
+        """The moments merged over the process group: one gather of
+        ``(count, sum, sumsq)`` per rank, added in rank order, the same on
+        every rank (the reference's ``dist.all_gather_object`` merge,
+        reference: c_s_s.py:304-358); itself without a group."""
+        if distributed.world_size() == 1:
+            return self
+        n = self.sum.shape[0]
+        gathered = distributed.allgather_sums(
+            np.concatenate([[float(self.count)], self.sum, self.sumsq]))
+        merged = _RunningMoments(n)
+        merged.count = int(gathered[:, 0].sum())
+        merged.sum = gathered[:, 1:1 + n].sum(axis=0)
+        merged.sumsq = gathered[:, 1 + n:].sum(axis=0)
+        return merged
+
 
 def merge_moments(parts: list[_RunningMoments]) -> _RunningMoments:
     """The moments of the union of the parts' samples: counts, sums and
@@ -68,6 +86,7 @@ def compute_stats(
     num_workers: int = 1,
     shard_index: int = 0,
     num_shards: int = 1,
+    all_reduce: bool = False,
 ) -> dict[str, np.ndarray]:
     """Return all stats arrays for the train split.
 
@@ -76,9 +95,9 @@ def compute_stats(
     apart (the effective model step, reference: c_s_s.py:363-465).
     ``num_workers > 1`` parallelises the per-analysis-time reads with a
     thread pool; ``shard_index``/``num_shards`` restrict this process to
-    a strided slice of the analysis times (the multi-node variant of the
-    reference, reference: c_s_s.py:92-139, merges such shards across
-    processes; that merge is not ported yet). Sharding is by whole
+    a strided slice of the analysis times, with ``all_reduce`` merging
+    the moments across the process group (the multi-node variant of the
+    reference, reference: c_s_s.py:92-139). Sharding is by whole
     analysis-time series, so the one-step diffs within each series stay
     intact on one shard.
     """
@@ -104,6 +123,9 @@ def compute_stats(
         for state, forcing in pool.map(load_pair, my_indices):
             state_mom.update(state)  # (T[, M], grid, d)
             flux_mom.update(forcing[..., :1])
+    if all_reduce:
+        state_mom = state_mom.all_reduce()
+        flux_mom = flux_mom.all_reduce()
     state_mean, state_std = state_mom.finalize()
     flux_mean, flux_std = flux_mom.finalize()
 
@@ -120,6 +142,8 @@ def compute_stats(
             )
             diffs = np.diff(sub, axis=0)
             diff_mom.update(diffs)
+    if all_reduce:
+        diff_mom = diff_mom.all_reduce()
     diff_mean, diff_std = diff_mom.finalize()
 
     return {
@@ -152,23 +176,35 @@ def main(argv=None) -> None:
     parser.add_argument(
         "--multihost",
         action="store_true",
-        help="Shard the passes over a process group (not ported yet: "
-        "raises)",
+        help="Shard the passes over the gloo process group of torchrun's "
+        "environment (torchrun --nproc_per_node=N -m ...); rank 0 writes "
+        "the merged stats",
     )
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise SystemExit(
-            "--multihost is not ported yet: the merge of the moments across "
-            "processes comes with data parallelism (ROADMAP.md §1 item 8)"
-        )
 
-    datastore = NpyFilesDatastoreMEPS(config_path=args.datastore_config_path)
-    stats = compute_stats(
-        datastore,
-        subsample_step=args.subsample_step,
-        num_workers=args.num_workers,
-    )
-    save_stats(datastore.root_path / "static", stats)
+    shard_index, num_shards = 0, 1
+    joined = args.multihost and not distributed.active()
+    if joined:
+        distributed.init_from_env("gloo")
+    try:
+        if args.multihost:
+            shard_index, num_shards = distributed.rank(), distributed.world_size()
+        datastore = NpyFilesDatastoreMEPS(config_path=args.datastore_config_path)
+        stats = compute_stats(
+            datastore,
+            subsample_step=args.subsample_step,
+            num_workers=args.num_workers,
+            shard_index=shard_index,
+            num_shards=num_shards,
+            all_reduce=args.multihost,
+        )
+        if shard_index == 0:
+            save_stats(datastore.root_path / "static", stats)
+        # no rank reads the files before rank 0 has written them
+        distributed.barrier()
+    finally:
+        if joined:
+            distributed.destroy()
     for name, arr in stats.items():
         print(f"{name}: shape {arr.shape}")
 

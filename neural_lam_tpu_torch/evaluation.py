@@ -17,6 +17,12 @@ eagerly; its per-sample rows leave the device after the batch, so nothing
 of size ``(samples, steps, grid)`` stays there. The figures need
 matplotlib: where it is not installed, the metrics and the CSV tables are
 written, and one line on stderr names the figures that were not drawn.
+
+Over a process group each rank sums its own rows, one merge of the sums
+and counts per pass gives every rank the same metrics
+(``Trainer._merge_host_sums``), and rank 0 alone writes the artifacts
+and plots the examples, from its own block, which holds the globally
+first samples (``neural_lam_tpu/evaluation.py:126-160``, ``:258``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from .loggers import BaseLogger, NullLogger
 from .metrics import mae as mae_metric
 from .metrics import mse as mse_metric
 from .metrics import wmae as wmae_metric
+from .utils import distributed
 from .utils.cuda_graph import CapturedFunction
 
 
@@ -129,6 +136,9 @@ def run_test_evaluation(
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     logger = logger or NullLogger()
+    is_rank_zero = distributed.rank() == 0
+    if not is_rank_zero:
+        n_example_pred = 0
     vis, no_vis = _import_vis()
     skipped: list[str] = []
     if vis is None and n_example_pred > 0:
@@ -187,6 +197,8 @@ def run_test_evaluation(
             "is too short for the requested ar_steps/forcing window "
             "(dataset length formula: T - (max(2, past) + ar + future) + 1)"
         )
+    # one merge of the ranks' sums and counts per pass
+    sums, count = trainer._merge_host_sums(sums, count)
 
     mean_loss_per_step = sums["loss"] / count  # (T,)
     mse_per_step_var = sums["mse"] / count  # (T, d)
@@ -225,6 +237,9 @@ def run_test_evaluation(
                     if 1 <= lead <= table.shape[0]:
                         metrics[f"{split}_{key}_{var}_step{lead}"] = float(table[lead - 1, v])
 
+    # the artifacts: rank 0's, the metrics being the same on every rank
+    if not is_rank_zero:
+        return metrics
     save_metrics_csv(rmse_phys, datastore, run_dir / f"{split}_rmse.csv")
     save_metrics_csv(mae_phys, datastore, run_dir / f"{split}_mae.csv")
     if vis is None:

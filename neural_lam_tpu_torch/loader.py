@@ -8,7 +8,10 @@ the device computes; the caller moves each batch to the device.
 For multi-host SPMD each process constructs a loader with its
 ``(shard_index, num_shards)`` so every host reads a disjoint slice of each
 (identically shuffled) epoch — the explicit per-host index scheme the
-reference delegates to ``DistributedSampler``.
+reference delegates to ``DistributedSampler``. The JAX package then cuts
+each host's batch into contiguous blocks, one per device; the port runs a
+process per GPU, and ``(block_index, num_blocks)`` makes a rank's loader
+read only its block of its node's batch (:class:`Block`).
 """
 
 from __future__ import annotations
@@ -20,8 +23,31 @@ from typing import Iterator, Optional
 import numpy as np
 
 
+class Block(tuple):
+    """A rank's block of its node's batch: a tuple of stacked arrays whose
+    first ``real`` rows are samples of the batch and whose other rows
+    repeat the batch's last sample."""
+
+    real: int
+
+
+def block_rows(batch_size: int, block_index: int, num_blocks: int) -> tuple[np.ndarray, int]:
+    """Rows of a node batch of ``batch_size`` real samples that block
+    ``block_index`` of ``num_blocks`` reads, and how many of them are
+    real. As the JAX package places a host's batch on its devices
+    (``neural_lam_tpu/trainer.py:323-360``): the batch is padded to a
+    multiple of ``num_blocks`` by repeating its last sample and cut into
+    contiguous blocks, in order."""
+    per = -(-batch_size // num_blocks)
+    start = block_index * per
+    rows = np.minimum(np.arange(start, start + per), batch_size - 1)
+    return rows, int(np.clip(batch_size - start, 0, per))
+
+
 class DataLoader:
-    """Iterates minibatches of stacked-sample numpy tuples."""
+    """Iterates minibatches of stacked-sample numpy tuples; with
+    ``num_blocks > 1``, each batch's block ``block_index``
+    (:func:`block_rows`) as a :class:`Block`."""
 
     def __init__(
         self,
@@ -33,6 +59,8 @@ class DataLoader:
         prefetch: int = 2,
         shard_index: int = 0,
         num_shards: int = 1,
+        block_index: int = 0,
+        num_blocks: int = 1,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -44,6 +72,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.block_index = block_index
+        self.num_blocks = num_blocks
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -83,10 +113,19 @@ class DataLoader:
         )
         for start in range(0, stop, self.batch_size):
             batch_idx = idxs[start : start + self.batch_size]
-            samples = [self.dataset[int(i)] for i in batch_idx]
-            yield tuple(
+            real = None
+            if self.num_blocks > 1:
+                rows, real = block_rows(len(batch_idx), self.block_index, self.num_blocks)
+                batch_idx = batch_idx[rows]
+            loaded = {int(i): self.dataset[int(i)] for i in dict.fromkeys(batch_idx)}
+            samples = [loaded[int(i)] for i in batch_idx]
+            batch = tuple(
                 np.stack([s[j] for s in samples]) for j in range(len(samples[0]))
             )
+            if real is not None:
+                batch = Block(batch)
+                batch.real = real
+            yield batch
 
     def __iter__(self) -> Iterator[tuple]:
         if self.prefetch <= 0:
@@ -167,6 +206,8 @@ class WeatherDataModule:
         seed: int = 0,
         shard_index: int = 0,
         num_shards: int = 1,
+        block_index: int = 0,
+        num_blocks: int = 1,
     ) -> None:
         from .dataset import WeatherDataset
 
@@ -176,6 +217,8 @@ class WeatherDataModule:
             seed=seed,
             shard_index=shard_index,
             num_shards=num_shards,
+            block_index=block_index,
+            num_blocks=num_blocks,
         )
 
         def make(split, ar_steps):

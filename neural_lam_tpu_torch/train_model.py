@@ -3,9 +3,25 @@
 Counterpart of ``neural_lam_tpu/train_model.py`` with the same flag set
 (reference: neural_lam/train_model.py:76-548), so that an argv written
 for the JAX CLI parses unchanged, on top of the port's
-:class:`~neural_lam_tpu_torch.trainer.Trainer`. It runs on one device,
-``cuda`` unless :func:`main` is called with ``device="cpu"``. The flags
-fall into four groups:
+:class:`~neural_lam_tpu_torch.trainer.Trainer`. It runs on ``cuda``
+unless :func:`main` is called with ``device="cpu"``.
+
+On several GPUs it runs one process per GPU, as ``torchrun`` starts
+them::
+
+    torchrun --nproc_per_node=N -m neural_lam_tpu_torch.train_model ...
+
+``torchrun``'s environment (``WORLD_SIZE`` above 1), or ``--multihost``,
+makes each process join the process group (NCCL on CUDA, gloo on the
+CPU) on ``cuda:<LOCAL_RANK>``. ``--batch_size`` is per node, as in the
+JAX CLI (and not per process, as under Lightning's DDP): the global
+batch is ``batch_size x nodes``, each node reads its shard of every epoch
+and each of its ranks its contiguous block of the node's batch, so that
+each step sees the samples the JAX CLI's step sees with the same
+``--num_nodes``, ``--devices`` and ``--batch_size``. ``--devices`` caps
+the ranks per node, ``--num_nodes`` is checked against the launch, rank 0
+logs and writes the files, and every rank saves the checkpoints
+collectively. The flags fall into four groups:
 
 - flags with a counterpart, which do what they do in the JAX CLI;
 - ``--fused_v2``, ``--cache_pre``, ``--bf16_kernels`` and
@@ -29,6 +45,8 @@ import sys
 import time
 from pathlib import Path
 
+import torch
+
 from . import utils
 from .checkpoint import CheckpointManager, resolve_load
 from .config import load_config_and_datastore
@@ -39,6 +57,7 @@ from .models import MODELS, ARForecaster
 from .ops.fused_kernels import CACHE_PRE_ENV, FUSED_V2_ENV
 from .ops.segment import BF16_KERNELS_ENV, MATMUL_PRECISION_ENV, apply_matmul_precision
 from .trainer import Trainer, TrainingArgs
+from .utils import distributed
 from .utils.device import resolve_device
 
 
@@ -65,21 +84,23 @@ def build_parser() -> argparse.ArgumentParser:
     runtime.add_argument(
         "--multihost",
         action="store_true",
-        help="Multi-host training (not ported yet: raises)",
+        help="Join the torch.distributed process group that torchrun's "
+        "environment describes (also done without the flag when "
+        "WORLD_SIZE is above 1)",
     )
     runtime.add_argument(
         "--devices",
         type=int,
         default=None,
-        help="Number of devices (reference: Lightning's --devices); the "
-        "port trains on one device, so only 1 is accepted",
+        help="Ranks (GPUs) per node that train, the first N local ranks "
+        "of every node (reference: Lightning's --devices); the others exit",
     )
     runtime.add_argument(
         "--num_nodes",
         type=int,
         default=None,
-        help="Expected number of hosts, checked against the port's one "
-        "process (the reference passes it to Lightning DDP)",
+        help="Expected number of nodes, checked against the launch "
+        "(the reference passes it to Lightning DDP)",
     )
     runtime.add_argument(
         "--num_workers",
@@ -124,8 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
     runtime.add_argument(
         "--flat_opt",
         action="store_true",
-        help="AdamW on one raveled parameter vector (not ported yet: "
-        "raises)",
+        help="Run AdamW on one flat parameter buffer (the counterpart "
+        "of optax.flatten); the optimizer state is one vector, so a "
+        "checkpoint restores with the same setting",
     )
     runtime.add_argument(
         "--profile_dir",
@@ -349,11 +371,7 @@ NO_EFFECT_FLAGS = (
 )
 # Flags of work not ported yet: (flag, is it asked for, ROADMAP item)
 UNPORTED = (
-    ("--multihost", lambda a: a.multihost, "§1 item 8"),
-    ("--num_nodes other than 1", lambda a: a.num_nodes not in (None, 1), "§1 item 8"),
-    ("--devices other than 1", lambda a: a.devices not in (None, 1), "§1 item 8"),
-    ("--spatial_shards above 1", lambda a: a.spatial_shards > 1, "§1 item 9"),
-    ("--flat_opt", lambda a: a.flat_opt, "§1 item 6"),
+    ("--spatial_shards above 1", lambda a: a.spatial_shards > 1, "§1 item 7"),
 )
 
 
@@ -388,13 +406,67 @@ def apply_kernel_flags(args) -> None:
         )
 
 
+def check_launch(args, launch: distributed.Layout) -> None:
+    """The JAX CLI's checks of ``--devices``, ``--num_nodes`` and the
+    global batch against the launch (``neural_lam_tpu/train_model.py:438-488``),
+    with its messages."""
+    if args.devices is not None and not 1 <= args.devices <= launch.local_world:
+        raise SystemExit(
+            f"--devices {args.devices} outside 1..{launch.local_world} "
+            f"(local devices per host)"
+        )
+    if args.num_nodes is not None and launch.nodes != args.num_nodes:
+        raise SystemExit(
+            f"--num_nodes {args.num_nodes} but torch.distributed discovered "
+            f"{launch.nodes} node(s); check the launch configuration"
+        )
+    per_node = args.devices or launch.local_world
+    global_batch = args.batch_size * launch.nodes
+    if global_batch % (per_node * launch.nodes):
+        raise SystemExit(
+            f"--devices {per_node * launch.nodes} does not divide the global "
+            f"batch size {global_batch}"
+        )
+
+
 def main(argv=None, device: str = "cuda") -> None:
-    """Train, or with ``--eval`` evaluate, on ``device``."""
+    """Train, or with ``--eval`` evaluate, on ``device``; over a process
+    group (``torchrun``), on ``cuda:<LOCAL_RANK>`` or the CPU."""
     args = build_parser().parse_args(argv)
     if args.config_path is None:
         raise SystemExit("--config_path is required")
     check_unported(args)
     dev = resolve_device(device)
+    launch = distributed.launch_layout()
+    check_launch(args, launch)
+    join = (args.multihost or launch.world > 1) and not distributed.active()
+    if dev.type == "cuda" and (join or distributed.active()):
+        dev = torch.device("cuda", launch.local_rank)
+        torch.cuda.set_device(dev)
+    if join and not distributed.init_from_env(
+        "nccl" if dev.type == "cuda" else "gloo", devices=args.devices
+    ):
+        print(f"rank {launch.rank}: beyond --devices {args.devices} on its node, "
+              "not training", file=sys.stderr)
+        return
+    try:
+        _run(args, dev)
+    finally:
+        if join:
+            distributed.destroy()
+
+
+def _run(args, dev: torch.device) -> None:
+    lay = distributed.layout()
+    is_rank_zero = lay.rank == 0
+    if dev.type == "cuda" and lay.world > 1:
+        # every rank would build the kernels on first use: one per node
+        # builds them first
+        from .ops import kernel_build
+
+        if lay.local_rank == 0:
+            kernel_build.build()
+        distributed.barrier()
     apply_kernel_flags(args)
     # Validate eval step logging against rollout length. Validation
     # during training also unrolls ar_steps_eval steps, so the check is
@@ -450,6 +522,7 @@ def main(argv=None, device: str = "cuda") -> None:
         precision=args.precision,
         metrics_watch=tuple(args.metrics_watch),
         var_leads_metrics_watch=json.loads(args.var_leads_metrics_watch),
+        flat_opt=args.flat_opt,
     )
     trainer = Trainer(
         forecaster, config, datastore, targs, device=dev, debug_nans=args.debug_nans
@@ -483,7 +556,8 @@ def main(argv=None, device: str = "cuda") -> None:
             start_epoch = src.restore(name, predictor, trainer.optimizer) + 1
         else:
             src.restore_params_only(name, predictor)
-        print(f"loaded checkpoint {name!r} from {src.ckpt_dir}")
+        if is_rank_zero:
+            print(f"loaded checkpoint {name!r} from {src.ckpt_dir}")
 
     def make_loader(split, ar_steps, shuffle):
         dataset = WeatherDataset(
@@ -494,31 +568,43 @@ def main(argv=None, device: str = "cuda") -> None:
             num_future_forcing_steps=args.num_future_forcing_steps,
             load_single_member=args.load_single_member,
         )
+        # each node reads its shard of every epoch (the explicit per-host
+        # index scheme replacing the reference's DistributedSampler,
+        # SURVEY.md 7), each rank its block of the node's batch
         return DataLoader(
             dataset,
             batch_size=args.batch_size,
             shuffle=shuffle,
             seed=args.seed,
             prefetch=args.num_workers,
+            shard_index=lay.node,
+            num_shards=lay.nodes,
+            block_index=lay.local_rank,
+            num_blocks=lay.local_world,
         )
 
     from .evaluation import run_test_evaluation
-    from .loggers import setup_training_logger
+    from .loggers import NullLogger, setup_training_logger
 
-    if args.logger_run_id and args.logger != "wandb":
+    if args.logger_run_id and args.logger != "wandb" and is_rank_zero:
         print(
             f"warning: --logger_run_id is set but logger is "
             f"{args.logger!r}; the run id has no effect "
             "(reference: utils.py:754-757)"
         )
-    logger = setup_training_logger(
-        args.logger,
-        run_dir,
-        project=args.logger_project,
-        run_name=run_name,
-        run_id=args.logger_run_id,
-        config=hparams,
-    )
+    # rank 0 logs; the others get a logger that does nothing (reference:
+    # Lightning's rank_zero_only gating)
+    if is_rank_zero:
+        logger = setup_training_logger(
+            args.logger,
+            run_dir,
+            project=args.logger_project,
+            run_name=run_name,
+            run_id=args.logger_run_id,
+            config=hparams,
+        )
+    else:
+        logger = NullLogger()
     logger.log_hparams(hparams)
     # Run-level min summaries for the validation losses
     # (reference: neural_lam/utils.py:689-713)
@@ -555,7 +641,8 @@ def main(argv=None, device: str = "cuda") -> None:
             metrics_watch=args.metrics_watch,
             var_leads_metrics_watch=var_leads,
         )
-        print(json.dumps(metrics, indent=2))
+        if is_rank_zero:
+            print(json.dumps(metrics, indent=2))
         logger.finish()
         return
 
@@ -566,10 +653,12 @@ def main(argv=None, device: str = "cuda") -> None:
     history_path = run_dir / "history.jsonl"
 
     def log_fn(record):
-        with open(history_path, "a", encoding="utf-8") as f:
-            f.write(json.dumps(record) + "\n")
-        print(json.dumps(record))
-        logger.log_metrics(record, step=record["epoch"])
+        if is_rank_zero:
+            with open(history_path, "a", encoding="utf-8") as f:
+                f.write(json.dumps(record) + "\n")
+            print(json.dumps(record))
+            logger.log_metrics(record, step=record["epoch"])
+        # every rank saves: the optimizer's state is gathered, rank 0 writes
         ckpt.save_latest(predictor, trainer.optimizer, record["epoch"], hparams)
         if "val_loss" in record:
             ckpt.maybe_save_best(
@@ -598,10 +687,11 @@ def main(argv=None, device: str = "cuda") -> None:
             record["epoch"] = epoch
             log_fn(record)
             if trainer.preempt_event.is_set():
-                print(
-                    "preemption signal received: latest checkpoint saved, "
-                    "exiting (resume with --load <run_dir> --restore_opt)"
-                )
+                if is_rank_zero:
+                    print(
+                        "preemption signal received: latest checkpoint saved, "
+                        "exiting (resume with --load <run_dir> --restore_opt)"
+                    )
                 break
     finally:
         for s, handler in handlers.items():

@@ -16,10 +16,21 @@
   preemption handler and :meth:`Trainer.fit`.
 
 The trainer holds the ``nn.Module`` and the optimizer and updates both
-in place; ``checkpoint.CheckpointManager`` saves and restores them. It
-runs in one process: the JAX package's multi-host merges are the identity
-here. Data parallelism, the sharded optimizer state and spatial sharding
-are not ported yet.
+in place; ``checkpoint.CheckpointManager`` saves and restores them.
+
+Data parallelism (the JAX package's ``Mesh`` data axis) runs one process
+per GPU in a ``torch.distributed`` process group (``utils/distributed.py``),
+each rank on its own block of the global batch. Over a group the
+optimizer is :class:`~.optim.FlatAdamW`: the step all-reduces the
+gradients (and the loss) as one flat buffer, inside the captured graph,
+and with ``shard_opt_state`` (ZeRO-1, on by default as in the JAX
+package) each rank keeps ``1/P`` of AdamW's moments and all-gathers the
+updated parameters. ``flat_opt`` is the same optimizer without a group.
+The preemption flag is agreed every ``preempt_check_every`` steps and at
+each epoch's end, and ``evaluate`` merges the ranks' sums once per pass.
+Without a group the trainer runs as before: ``torch.optim.AdamW`` over
+the parameters, and the multi-host merges are the identity. Spatial
+sharding is not ported yet.
 
 Mixed precision (``TrainingArgs.precision="bf16"``, with a model built
 with ``compute_dtype=torch.bfloat16``) is the JAX package's
@@ -52,6 +63,8 @@ from .loss_weighting import get_state_feature_weighting
 from .metrics import get_metric
 from .models.forecaster import ARForecaster
 from .ops.fused_kernels import route_env
+from .optim import FlatAdamW
+from .utils import distributed
 from .utils.cuda_graph import CapturedFunction
 from .utils.device import resolve_device
 
@@ -90,15 +103,32 @@ class TrainingArgs:
     # epoch, written to <profile_dir>/trace.json
     profile_dir: Optional[str] = None
     profile_steps: int = 5
+    # ZeRO-1 over a process group: each rank keeps 1/P of AdamW's moments
+    # (neural_lam_tpu/trainer.py:69-72); the numbers do not change
+    shard_opt_state: bool = True
+    # AdamW over one flat parameter buffer, the counterpart of
+    # optax.flatten (neural_lam_tpu/trainer.py:73-82): the optimizer state
+    # is one vector, so a checkpoint restores with the same setting
+    flat_opt: bool = False
+    # over a process group, the preemption flag is agreed every k steps
+    # (and at each epoch's end); 0: at the epoch's end only
+    preempt_check_every: int = 50
 
 
 def make_optimizer(
-    params, lr: float, weight_decay: float = 0.01
-) -> torch.optim.Optimizer:
+    params, lr: float, weight_decay: float = 0.01, flat_opt: bool = False,
+    shard_opt_state: bool = True,
+) -> torch.optim.Optimizer | FlatAdamW:
     """The training optimizer: AdamW matching the reference recipe,
     ``torch.optim.AdamW(params, lr=..., betas=(0.9, 0.95))`` (reference:
     models/module.py:284-287), the same update as the JAX package's
     ``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=...)``.
+
+    With ``flat_opt``, or over a process group, it is a
+    :class:`~.optim.FlatAdamW` over the parameters, which then live in its
+    flat buffer (sharded over the ranks with ``shard_opt_state``; state
+    saved per parameter unless ``flat_opt``); otherwise
+    ``torch.optim.AdamW`` over them.
 
     Over CUDA parameters it is built ``capturable=True``, so that its
     update can be captured in a CUDA graph (:meth:`Trainer.make_train_step`):
@@ -106,6 +136,9 @@ def make_optimizer(
     computed there in float32, where the default computes them on the
     host in Python doubles. The updates differ by float32 rounding only."""
     params = list(params)
+    if flat_opt or distributed.active():
+        return FlatAdamW(params, lr, weight_decay, flat_layout=flat_opt,
+                         shard=shard_opt_state)
     return torch.optim.AdamW(
         params, lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=weight_decay,
         capturable=any(p.device.type == "cuda" for p in params),
@@ -261,17 +294,23 @@ class Trainer:
         # (SURVEY.md 5.3; reference: train_model.py:500-516)
         self.preempt_event = threading.Event()
 
-    def init_state(self) -> torch.optim.Optimizer:
+    def init_state(self) -> torch.optim.Optimizer | FlatAdamW:
         """A fresh AdamW (zero moments, step 0) over the forecaster's
-        parameters; the steps use the one in ``self.optimizer``."""
+        parameters (:func:`make_optimizer`); the steps use the one in
+        ``self.optimizer``. Over a process group every rank must call it."""
         return make_optimizer(
-            self.forecaster.parameters(), self.args.lr, self.args.weight_decay
+            self.forecaster.parameters(), self.args.lr, self.args.weight_decay,
+            flat_opt=self.args.flat_opt, shard_opt_state=self.args.shard_opt_state,
         )
 
     def install_preemption_handler(self, signals=None) -> None:
         """Install SIGTERM/SIGUSR1 handlers that request a graceful stop:
         ``fit`` returns after the current step, its last record marked
-        ``preempted``."""
+        ``preempted``. Over a process group the ranks agree on the flag
+        every ``preempt_check_every`` steps and at each epoch's end
+        (:meth:`_sync_preempt_flag`), so that all of them stop at the same
+        step: a rank that left alone would leave its peers waiting in a
+        collective."""
         import signal as signal_mod
 
         if signals is None:
@@ -282,6 +321,14 @@ class Trainer:
 
         for s in signals:
             signal_mod.signal(s, handler)
+
+    def _sync_preempt_flag(self) -> bool:
+        """Over more than one rank, whether any rank was signalled (one
+        collective), which then sets the local flag too; returns the flag
+        (``neural_lam_tpu/trainer.py:277-291``)."""
+        if distributed.world_size() > 1 and distributed.any_flag(self.preempt_event.is_set()):
+            self.preempt_event.set()
+        return self.preempt_event.is_set()
 
     # -- batches -----------------------------------------------------------
     def _to_device(self, a) -> torch.Tensor:
@@ -296,10 +343,17 @@ class Trainer:
         every step has one shape and one captured graph; ``real`` is the
         count before padding, by which ``evaluate`` drops the padded rows
         (the JAX package pads to its mesh the same way,
-        ``neural_lam_tpu/trainer.py:323-360``). On CUDA the arrays are
-        pinned and copied without blocking, on the current stream."""
+        ``neural_lam_tpu/trainer.py:323-360``). Over a process group a
+        rank's batch is its block of the node's batch, padded by the
+        loader as the JAX package pads a host's batch to its devices
+        (``loader.Block``, whose ``real`` is used), and nothing is added.
+        On CUDA the arrays are pinned and copied without blocking, on the
+        current stream."""
         real = int(np.asarray(batch[0]).shape[0])
-        pad = max(self.args.batch_size - real, 0)
+        if distributed.active():
+            real, pad = getattr(batch, "real", real), 0
+        else:
+            pad = max(self.args.batch_size - real, 0)
         out = []
         for a in batch[:3]:
             t = torch.as_tensor(np.asarray(a), dtype=torch.float32)
@@ -425,10 +479,15 @@ class Trainer:
     def train_step(self, init_states, target_states, forcing) -> torch.Tensor:
         """Forward, backward and one AdamW update on one batch, eagerly;
         returns the loss before the update as a 0-d tensor on the device
-        (read it with ``.item()``, which waits for the device)."""
+        (read it with ``.item()``, which waits for the device). Over a
+        process group the gradients and the loss are the means over the
+        ranks (:meth:`FlatAdamW.reduce_gradients`), so every rank takes
+        the same step and returns the same loss."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(init_states, target_states, forcing)
         loss.backward()
+        if isinstance(self.optimizer, FlatAdamW):
+            loss = self.optimizer.reduce_gradients(loss)
         self.optimizer.step()
         return loss.detach()
 
@@ -467,8 +526,20 @@ class Trainer:
         are copied in place and keep them valid. A capture that fails
         raises: there is no eager fallback.
 
+        Over a process group the graph holds the step's collectives
+        (NCCL captures them once its communicator exists, which the
+        warm-up steps' collectives create); a CUDA step over any other
+        backend raises, since gloo's collectives cannot be captured:
+        ``train_step`` is the eager step there.
+
         On CPU tensors the step is ``train_step``, looped ``k`` times with
         ``scan_steps``."""
+        if self.device.type == "cuda" and distributed.active() and not distributed.is_nccl():
+            raise RuntimeError(
+                "the captured training step needs an NCCL process group on CUDA "
+                "(gloo's collectives cannot be captured); use Trainer.train_step "
+                "for eager steps"
+            )
         if self.device.type != "cuda" and not scan_steps:
             return self.train_step
 
@@ -487,12 +558,14 @@ class Trainer:
         return step
 
     def _state_tensors(self) -> tuple[list[torch.Tensor], dict[tuple, torch.Tensor]]:
-        """What a step updates in place: the parameters, and the
-        optimizer's state tensors by ``(id(param), name)``."""
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        """What a step updates in place: the forecaster's parameters (the
+        optimizer's, or views of its flat buffer), and the optimizer's
+        state tensors by ``(id(param), name)``."""
+        params = list(self.forecaster.parameters())
         state = {
             (id(p), name): t
-            for p in params
+            for g in self.optimizer.param_groups
+            for p in g["params"]
             for name, t in self.optimizer.state.get(p, {}).items()
             if torch.is_tensor(t)
         }
@@ -523,8 +596,7 @@ class Trainer:
         for static, a in zip(entry.inputs, batch):
             static.copy_(a)
         entry.graph.replay()
-        params = (p for g in self.optimizer.param_groups for p in g["params"])
-        for p, grad in zip(params, entry.grads):
+        for p, grad in zip(self.forecaster.parameters(), entry.grads):
             if p.grad is not grad:
                 p.grad = grad
         return entry.loss.clone()
@@ -631,10 +703,33 @@ class Trainer:
             tables.append("wmae")
         return tuple(tables)
 
+    def _merge_host_sums(self, sums: dict, count: int) -> tuple[dict, int]:
+        """Over more than one rank, the sums and the sample count of every
+        rank added up, the same on each: one all-gather of one float64
+        vector per pass (``neural_lam_tpu/trainer.py:807-834``). The
+        identity on one rank or on empty sums."""
+        if distributed.world_size() == 1 or not sums:
+            return sums, count
+        keys = sorted(sums)
+        shapes = {k: np.shape(sums[k]) for k in keys}
+        flat = np.concatenate(
+            [np.ravel(np.asarray(sums[k], np.float64)) for k in keys]
+            + [np.array([count], np.float64)]
+        )
+        total = distributed.allgather_sums(flat).sum(axis=0)
+        merged, off = {}, 0
+        for k in keys:
+            size = int(np.prod(shapes[k]))
+            merged[k] = total[off : off + size].reshape(shapes[k])
+            off += size
+        return merged, int(round(total[-1]))
+
     def evaluate(self, loader, prefix: str = "val") -> dict:
         """Mean eval metrics over a loader, padded tail rows dropped
         (reference metric sync: module.py:399-418), with the watched
-        scalars promoted."""
+        scalars promoted. Over a process group each rank sums its own
+        rows, and one merge per pass (:meth:`_merge_host_sums`) gives
+        every rank the same means."""
         sums: dict[str, np.ndarray] = {}
         count = 0
         for batch in loader:
@@ -647,6 +742,7 @@ class Trainer:
                 rows = v[:real].cpu().numpy()
                 sums[k] = sums.get(k, 0.0) + rows.sum(axis=0)
             count += real
+        sums, count = self._merge_host_sums(sums, count)
         means = {k: v / max(count, 1) for k, v in sums.items()}
         tables = {
             k[: -len("_table")]: means.pop(k)
@@ -724,10 +820,15 @@ class Trainer:
         """Train for ``epochs`` (``args.epochs`` by default) through
         ``make_train_step()``, validating every ``val_interval`` epochs;
         returns one record per epoch (``neural_lam_tpu/trainer.py:664-795``).
-        The losses stay on the device until the epoch ends."""
+        The losses stay on the device until the epoch ends. Over more than
+        one rank a preemption stops every rank at the same step (the first
+        agreement point after the signal), and ``n_samples`` and
+        ``grid_points_per_s`` count this rank's samples."""
         if self._train_step is None:
             self._train_step = self.make_train_step()
         epochs = self.args.epochs if epochs is None else epochs
+        ranks = distributed.world_size()
+        check_every = self.args.preempt_check_every
         history = []
         for epoch in range(start_epoch, start_epoch + epochs):
             train_loader.set_epoch(epoch)
@@ -760,11 +861,19 @@ class Trainer:
                     if profiler is not None and step_idx == 1 + self.args.profile_steps:
                         self._stop_profile(profiler)
                         profiler = None
-                    if self.preempt_event.is_set():
+                    if self.preempt_event.is_set() and ranks == 1:
+                        break
+                    # every rank checks at the same step index, and the
+                    # loaders give every rank the same number of batches
+                    if (ranks > 1 and check_every > 0 and step_idx % check_every
+                            == check_every - 1 and self._sync_preempt_flag()):
                         break
             finally:
                 if profiler is not None:  # a short epoch: close the trace
                     self._stop_profile(profiler)
+            # a signal after the epoch's last agreement point: agree once
+            # more, so that no rank validates while another stops
+            self._sync_preempt_flag()
             if losses:
                 train_loss = float(torch.stack(losses).mean())
             else:

@@ -280,9 +280,20 @@ def test_convert_checkpoint_main(root, tmp_path):
     got = export_state_dict(fc.predictor)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        convert_checkpoint.main(["--ckpt", str(ckpt), "--config_path", "x", "--out",
-                                 str(out), "--flat_opt"], device="cpu")
+    # --flat_opt: the optimizer state in one vector, the setting recorded
+    flat = tmp_path / "converted_flat"
+    convert_checkpoint.main([
+        "--ckpt", str(ckpt), "--config_path", str(root / "config.yaml"),
+        "--hidden_dim", str(HIDDEN), "--processor_layers", "2", "--out", str(flat),
+        "--flat_opt",
+    ], device="cpu")
+    fc, hparams = load_forecaster_from_checkpoint(flat, ds, device="cpu")
+    assert hparams["flat_opt"] is True
+    got = export_state_dict(fc.predictor)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    saved = torch.load(flat / "checkpoints" / "latest" / "state.pt", weights_only=True)
+    assert saved["optimizer"]["param_groups"][0]["params"] == [0]
 
 
 def test_optimizer_state_crosses_over(root):

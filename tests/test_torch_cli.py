@@ -282,16 +282,80 @@ def test_profile_dir_writes_a_trace(config_path, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--multihost"], "§1 item 8"),
-    (["--num_nodes", "2"], "§1 item 8"),
-    (["--devices", "2"], "§1 item 8"),
-    (["--spatial_shards", "4"], "§1 item 9"),
-    (["--flat_opt"], "§1 item 6"),
+    (["--spatial_shards", "4"], "§1 item 7"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         _main(["--config_path", "unused", "--runs_root", str(tmp_path)] + flags)
     assert not list(tmp_path.iterdir())
+
+
+def _group_of_one(monkeypatch):
+    """``torchrun``'s environment for one process."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1",
+                           RANK="0", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(key, value)
+
+
+def test_multihost_trains_in_a_process_group(config_path, tmp_path, monkeypatch):
+    """``--multihost`` joins the process group of ``torchrun``'s
+    environment (here one gloo process), trains through ``FlatAdamW``
+    (ZeRO-1 on, by default) and leaves the group after; its history is
+    the run's without the flag."""
+    from neural_lam_tpu_torch.utils import distributed
+
+    _main(_common(config_path, tmp_path / "runs", "plain") + ["--epochs", "1"])
+    _group_of_one(monkeypatch)
+    _main(_common(config_path, tmp_path / "runs", "group") + ["--epochs", "1", "--multihost"])
+    assert not distributed.active()
+    (want,), (got,) = _history(tmp_path / "runs" / "plain"), _history(tmp_path / "runs" / "group")
+    np.testing.assert_allclose(got["train_loss"], want["train_loss"], rtol=1e-6)
+    np.testing.assert_allclose(got["val_loss"], want["val_loss"], rtol=1e-6)
+    hparams = json.loads((tmp_path / "runs" / "group" / "checkpoints" / "latest"
+                          / "hparams.json").read_text())
+    assert hparams["multihost"] is True
+
+
+def test_num_nodes_against_the_launch_raises(tmp_path):
+    """``--num_nodes 2`` in a launch of one node: the JAX CLI's message."""
+    with pytest.raises(SystemExit, match="--num_nodes 2 but torch.distributed discovered "
+                                         "1 node"):
+        _main(["--config_path", "unused", "--runs_root", str(tmp_path), "--num_nodes", "2"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_devices_above_the_local_count_raises(tmp_path):
+    """``--devices 2`` with one process on the node: the JAX CLI's message
+    (``neural_lam_tpu/train_model.py:455-460``)."""
+    with pytest.raises(SystemExit, match=r"--devices 2 outside 1\.\.1 \(local devices per host\)"):
+        _main(["--config_path", "unused", "--runs_root", str(tmp_path), "--devices", "2"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_flat_opt_trains_and_resumes(config_path, tmp_path):
+    """``--flat_opt``: the same epoch as the per-tensor AdamW, the
+    optimizer state saved as one vector, the setting in ``hparams.json``,
+    and a resume with ``--load --restore_opt --flat_opt``."""
+    runs = tmp_path / "runs"
+    _main(_common(config_path, runs, "tensors") + ["--epochs", "1"])
+    _main(_common(config_path, runs, "flat") + ["--epochs", "1", "--flat_opt"])
+    (want,), (got,) = _history(runs / "tensors"), _history(runs / "flat")
+    np.testing.assert_allclose(got["train_loss"], want["train_loss"], rtol=1e-6)
+    np.testing.assert_allclose(got["val_loss"], want["val_loss"], rtol=1e-6)
+    latest = runs / "flat" / "checkpoints" / "latest"
+    assert json.loads((latest / "hparams.json").read_text())["flat_opt"] is True
+    saved = torch.load(latest / "state.pt", weights_only=True)["optimizer"]
+    n = sum(v.numel() for v in torch.load(latest / "state.pt", weights_only=True)["model"].values())
+    assert saved["param_groups"][0]["params"] == [0]
+    assert saved["state"][0]["exp_avg"].shape == (n,)
+    _main(_common(config_path, runs, "flat") + ["--epochs", "2", "--flat_opt", "--load",
+                                                str(runs / "flat"), "--restore_opt"])
+    assert [r["epoch"] for r in _history(runs / "flat")] == [0, 1]
 
 
 def test_matmul_precision_highest_is_the_ports_default(config_path, tmp_path):

@@ -16,6 +16,7 @@ rounding and far below any real error. The backward kernels' tolerances
 are stated in their tests.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -1195,6 +1196,91 @@ def test_capture_with_remat_at_three_ar_steps(cuda, tmp_path, monkeypatch):
     # the warm-up steps and the capture: three AR steps each, each forward
     # twice (the recompute), of 4 applications
     assert ticks["K3 fused_edge_phase"] == (GRAPH_WARMUP_STEPS + 1) * 3 * 2 * 4
+
+
+@contextlib.contextmanager
+def _process_group(backend, monkeypatch):
+    """A process group of one rank in this process (``torchrun``'s
+    environment), left after."""
+    import socket
+
+    from neural_lam_tpu_torch.utils import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1",
+                           RANK="0", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(key, value)
+    distributed.init_from_env(backend)
+    try:
+        yield
+    finally:
+        distributed.destroy()
+
+
+def _with_args(trainer, **args):
+    """``trainer`` with ``TrainingArgs`` fields replaced and a new
+    optimizer made from them."""
+    for key, value in args.items():
+        setattr(trainer.args, key, value)
+    trainer.optimizer = trainer.init_state()
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("args", [dict(), dict(shard_opt_state=False), dict(flat_opt=True)],
+                         ids=["zero1", "replicated", "flat_opt"])
+def test_dp_captured_step_in_an_nccl_group(cuda, tmp_path, monkeypatch, args):
+    """In an NCCL group of one, the captured step (its all-reduce, and
+    under ZeRO-1 its all-gather, inside the graph) against the eager step
+    over 5 steps, bit for bit, and both against the step without a group
+    (``torch.optim.AdamW``), whose trajectory ``FlatAdamW`` keeps."""
+    from neural_lam_tpu_torch.optim import FlatAdamW
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(5)
+    plain = make_trainer()
+    want = [plain.train_step(*b).item() for b in data]
+    with _process_group("nccl", monkeypatch):
+        eager, captured = _with_args(make_trainer(), **args), _with_args(make_trainer(), **args)
+        assert isinstance(captured.optimizer, FlatAdamW)
+        got_eager = [eager.train_step(*b).item() for b in data]
+        step = captured.make_train_step()
+        got = [step(*b).item() for b in data]
+        assert len(captured.graphs) == 1
+        assert _assert_same_training(captured, eager, got, got_eager)
+    _assert_same_training(eager, plain, got_eager, want)
+
+
+@pytest.mark.cuda
+def test_captured_step_refuses_a_gloo_group_on_cuda(cuda, tmp_path, monkeypatch):
+    """gloo's collectives cannot be captured: the captured step raises,
+    the eager step runs (the collectives through host copies) and keeps
+    the step of no group."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(3)
+    plain = make_trainer()
+    want = [plain.train_step(*b).item() for b in data]
+    with _process_group("gloo", monkeypatch):
+        trainer = make_trainer()
+        with pytest.raises(RuntimeError, match="NCCL"):
+            trainer.make_train_step()
+        got = [trainer.train_step(*b).item() for b in data]
+    _assert_same_training(trainer, plain, got, want)
+
+
+@pytest.mark.cuda
+def test_flat_opt_captured_step_keeps_the_per_tensor_trajectory(cuda, tmp_path, monkeypatch):
+    """``flat_opt`` without a group: the captured step against the
+    per-tensor optimizer's captured step over 5 steps."""
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    data = batches(5)
+    plain, flat = make_trainer(), _with_args(make_trainer(), flat_opt=True)
+    want = [plain.make_train_step()(*b).item() for b in data]
+    step = flat.make_train_step()
+    got = [step(*b).item() for b in data]
+    _assert_same_training(flat, plain, got, want)
 
 
 CAPTURE_FAILS = """

@@ -235,7 +235,7 @@ def test_weather_dataset_on_meps(stores):
             np.testing.assert_array_equal(got, want)
 
 
-def test_compute_standardization_stats(meps_root, tmp_path):
+def test_compute_standardization_stats(meps_root, tmp_path, monkeypatch):
     cfg = meps_root / "data_config.yaml"
     store = NpyFilesDatastoreMEPS(config_path=cfg)
     stats = compute_stats(store, num_workers=2)
@@ -252,13 +252,20 @@ def test_compute_standardization_stats(meps_root, tmp_path):
     reloaded = NpyFilesDatastoreMEPS(copy / "data_config.yaml")
     np.testing.assert_array_equal(
         reloaded.get_standardization_dataarray("state")["state_mean"], stats["parameter_mean"])
-    # the CLI writes the same files; --multihost waits for data parallelism
+    # the CLI writes the same files, also with --multihost in a process
+    # group of one (torchrun's environment; two ranks: tests/test_torch_dp.py)
     stats_main(["--datastore_config_path", str(copy / "data_config.yaml")])
     for key in want:
         np.testing.assert_array_equal(np.load(copy / "static" / f"{key}.npy"), want[key])
-    with pytest.raises(SystemExit, match="§1 item 8"):
-        stats_main(["--datastore_config_path", str(copy / "data_config.yaml"),
-                    "--multihost"])
+        (copy / "static" / f"{key}.npy").unlink()
+    from neural_lam_tpu_torch.utils import distributed
+    from test_torch_cli import _group_of_one
+
+    _group_of_one(monkeypatch)
+    stats_main(["--datastore_config_path", str(copy / "data_config.yaml"), "--multihost"])
+    assert not distributed.active()
+    for key in want:
+        np.testing.assert_array_equal(np.load(copy / "static" / f"{key}.npy"), want[key])
 
 
 def test_sharded_stats_merge_exact(stores):
