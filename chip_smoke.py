@@ -395,6 +395,10 @@ FUSED_AGGR = "NEURAL_LAM_TPU_FUSED_AGGR"
 DP_RANKS = 2
 DP_RANK_TIMEOUT_S = 240
 DP_EVAL_RTOL = 1e-6
+# spatial partitioning: gloo ranks on the one card as S = 2, and their deadline
+SPATIAL_RANKS = 2
+SPATIAL_RANK_TIMEOUT_S = 300
+STENCIL = "NEURAL_LAM_TPU_STENCIL"
 
 
 def log(msg: str) -> None:
@@ -1654,7 +1658,8 @@ def phase_segment_kernels(torch, graph, hier_graph) -> list[dict]:
     ]
 
 
-def phase_level_sets(torch, model) -> dict[str, float]:
+def phase_level_sets(torch, model, sites=None, mlp=None,
+                     label: str = "level set") -> dict[str, float]:
     """K1 to K4 at every mesh edge set of the hierarchical graph (same
     level, up and down; from more blocks than SMs down to fewer receivers
     than one block's share, in-degrees of exactly 9 and exactly 1), at the
@@ -1665,7 +1670,8 @@ def phase_level_sets(torch, model) -> dict[str, float]:
     per-section entry, unbatched sender rows beside batched receiver rows
     (K1 and K2 then run inside the comparison too). Outputs and every
     gradient against the plain version; returns each kernel's largest
-    absolute error."""
+    absolute error. ``sites`` (``(name, GraphEdges)`` pairs) and ``mlp``
+    (an edge MLP) replace the level sets and the mesh init GNN's MLP."""
     from neural_lam_tpu_torch.ops import interaction
     from neural_lam_tpu_torch.ops.fused_kernels import (
         fused_edge_phase,
@@ -1684,16 +1690,17 @@ def phase_level_sets(torch, model) -> dict[str, float]:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    sites = [
-        (f"{kind}[{i}]", ge)
-        for kind, sets in (("m2m", g.m2m), ("up", g.up), ("down", g.down))
-        for i, ge in enumerate(sets)
-    ]
+    if sites is None:
+        sites = [
+            (f"{kind}[{i}]", ge)
+            for kind, sets in (("m2m", g.m2m), ("up", g.up), ("down", g.down))
+            for i, ge in enumerate(sets)
+        ]
     # (edge input, update_edges, propagation, sender rows)
     modes = [("shared", True, False, "batched"), ("shared", True, True, "batched"),
              ("batched", True, False, "batched"), ("batched", False, False, "batched"),
              ("shared", True, False, "unbatched")]
-    mlp = model.mesh_init_gnns[0].edge_mlp
+    mlp = model.mesh_init_gnns[0].edge_mlp if mlp is None else mlp
     params = list(mlp.parameters())
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     for site, ge in sites:
@@ -1717,7 +1724,7 @@ def phase_level_sets(torch, model) -> dict[str, float]:
             raise AssertionError(f"K2 {site}: two runs differ")
         worst["K1"], worst["K2"] = max(worst["K1"], err1), max(worst["K2"], err2)
         log(
-            f"K1/K2 level set {site}: {shape}; K1 max abs err {err1:.3g} (tol "
+            f"K1/K2 {label} {site}: {shape}; K1 max abs err {err1:.3g} (tol "
             f"{K1_TOL}); K2 max abs err {err2:.3g}, max rel err {rel2:.3g} (tol "
             f"{K2_TOL} of the largest sum), repeatable"
         )
@@ -1765,7 +1772,7 @@ def phase_level_sets(torch, model) -> dict[str, float]:
                         f"largest value (tol {K4_TOL})"
                     )
             log(
-                f"K3/K4 level set {site}: {shape}, edge input {mode}, sender rows "
+                f"K3/K4 {label} {site}: {shape}, edge input {mode}, sender rows "
                 f"{senders}, update_edges {update}, propagation {prop}: outputs "
                 f"within rtol/atol {K3_RTOL}, gradients within {worst_rel:.3g} of "
                 f"their largest value (tol {K4_TOL})"
@@ -2231,13 +2238,7 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     (``utils.cuda_graph.CapturedFunction``), captured and replayed once."""
     from neural_lam_tpu_torch.utils.cuda_graph import CapturedFunction
 
-    fx = np.load(FIXTURES / "rollout19_f32.npz")
-    steps, sub = int(fx["steps"]), int(fx["subsample"])
-    n = ds.num_grid_points
-    rng = np.random.default_rng(0)
-    init = rng.normal(size=(1, 2, n, N_STATE)).astype(np.float32)
-    forcing = rng.normal(size=(1, steps, n, N_FORCING * 3)).astype(np.float32)
-    boundary = rng.normal(size=(1, steps, n, N_STATE)).astype(np.float32)
+    init, forcing, boundary = gate_inputs(ds)
     captured = CapturedFunction(forecaster, forecaster, DEVICE)
     pred, _ = captured(
         *(torch.from_numpy(a).to(DEVICE) for a in (init, forcing, boundary))
@@ -2245,9 +2246,29 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     (entry,) = captured.graphs.values()
     if entry.replays != 1:
         raise AssertionError(f"gate: {entry.replays} replays of the forecast's graph")
-    pred = pred.cpu().numpy()
     del captured, entry
-    if pred.shape != (1, steps, n, N_STATE) or not np.isfinite(pred).all():
+    return gate_check(pred.cpu().numpy(), "captured forecast")
+
+
+def gate_inputs(ds):
+    """The accuracy gate's rollout inputs ``(init, forcing, boundary)``
+    (scripts/accuracy_probe.py:80-88)."""
+    fx = np.load(FIXTURES / "rollout19_f32.npz")
+    steps, n = int(fx["steps"]), ds.num_grid_points
+    rng = np.random.default_rng(0)
+    init = rng.normal(size=(1, 2, n, N_STATE)).astype(np.float32)
+    forcing = rng.normal(size=(1, steps, n, N_FORCING * 3)).astype(np.float32)
+    boundary = rng.normal(size=(1, steps, n, N_STATE)).astype(np.float32)
+    return init, forcing, boundary
+
+
+def gate_check(pred, label: str) -> list[dict]:
+    """The accuracy gate's metrics of a 19-step rollout ``pred`` against
+    ``rollout19_f32.npz`` (scripts/accuracy_probe.py:104-117), logged and
+    held to the probe's thresholds."""
+    fx = np.load(FIXTURES / "rollout19_f32.npz")
+    steps, sub = int(fx["steps"]), int(fx["subsample"])
+    if pred.shape[:2] != (1, steps) or pred.shape[-1] != N_STATE or not np.isfinite(pred).all():
         raise AssertionError(f"gate rollout: shape {pred.shape} or non-finite")
     want = fx["prediction_sub"]
     got = pred[:, :, ::sub, :]
@@ -2270,7 +2291,7 @@ def phase_gate(torch, ds, forecaster) -> list[dict]:
     worst_mean = max(r["mean_rel"] for r in rows)
     worst_max = max(r["max_rel"] for r in rows)
     log(
-        f"gate (captured forecast): worst mean_rel {worst_mean:.3e} (limit {GATE_MEAN_REL}), "
+        f"gate ({label}): worst mean_rel {worst_mean:.3e} (limit {GATE_MEAN_REL}), "
         f"worst max_rel {worst_max:.3e} (limit {GATE_MAX_REL}), abs_mean "
         f"drift {drift:.3e} (limit {GATE_MEAN_REL})"
     )
@@ -2546,11 +2567,13 @@ def load_gate_params(model) -> None:
     )
 
 
-def make_trainer(model, ds, reload: bool = True, precision: str = "32", **train_args):
+def make_trainer(model, ds, reload: bool = True, precision: str = "32",
+                 spatial_shards: Optional[int] = None, **train_args):
     """The ``bench.build_trainer`` trainer around ``model`` with a new
     optimizer; ``reload`` loads the GraphLAM fixture's parameters afresh;
-    ``precision="bf16"`` trains on bf16 copies of them; ``train_args`` go
-    to ``TrainingArgs`` (``flat_opt``, ``shard_opt_state``)."""
+    ``precision="bf16"`` trains on bf16 copies of them; ``spatial_shards``
+    runs it through the sharded executor; ``train_args`` go to
+    ``TrainingArgs`` (``flat_opt``, ``shard_opt_state``)."""
     from neural_lam_tpu_torch.config import DatastoreSelection, NeuralLAMConfig
     from neural_lam_tpu_torch.models import ARForecaster
     from neural_lam_tpu_torch.trainer import Trainer, TrainingArgs
@@ -2562,20 +2585,23 @@ def make_trainer(model, ds, reload: bool = True, precision: str = "32", **train_
     )
     args = TrainingArgs(batch_size=BATCH, ar_steps_train=1, lr=TRAIN_LR,
                         precision=precision, **train_args)
-    return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device)
+    return Trainer(ARForecaster(model, ds), config, ds, args, device=model.device,
+                   spatial_shards=spatial_shards)
 
 
-def train_gate_run(torch, trainer, batch: int, n_losses: int, captured: bool = False):
+def train_gate_run(torch, trainer, batch: int, n_losses: int, captured: bool = False,
+                   block: Optional[slice] = None):
     """The training gate's run: from a fresh optimizer, the loss and the
     gradients of the bench batch, then ``n_losses - 1`` further AdamW
     steps on it. Returns the losses and the first step's gradients by
     state-dict name. With ``captured`` every step is a replay of the
     captured step (``Trainer.make_train_step``), and the gradients are
-    those its first replay left in the parameters' ``.grad``."""
+    those its first replay left in the parameters' ``.grad``. ``block``
+    takes a data-parallel rank's rows of the batch."""
     from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
 
     data = [
-        torch.from_numpy(a).to(trainer.device)
+        torch.from_numpy(a[block or slice(None)]).to(trainer.device)
         for a in bench_batch(trainer.datastore, batch)
     ]
     trainer.optimizer = trainer.init_state()
@@ -2604,7 +2630,8 @@ def check_gate_fixture(trainer, grid, lr) -> None:
         )
 
 
-def phase_train_gate(torch, trainer, fixture_path, captured: bool = False) -> dict:
+def phase_train_gate(torch, trainer, fixture_path, captured: bool = False,
+                     block: Optional[slice] = None) -> dict:
     """Loss and gradients of the bench batch, then the losses of further
     AdamW steps, against the JAX package's fixture (made by
     ``tests/test_torch_train.py``), through the eager step or, with
@@ -2616,7 +2643,7 @@ def phase_train_gate(torch, trainer, fixture_path, captured: bool = False) -> di
         want_grads = {k[len("grad/"):]: fx[k] for k in fx.files if k.startswith("grad/")}
     check_gate_fixture(trainer, grid, lr)
     losses, got_grads = train_gate_run(
-        torch, trainer, batch, len(want_losses), captured
+        torch, trainer, batch, len(want_losses), captured, block
     )
 
     if sorted(got_grads) != sorted(want_grads):
@@ -2669,14 +2696,17 @@ def grad_sample_index(size: int) -> np.ndarray:
 
 
 def phase_model_gate(torch, name: str, model, ds, fixture_path,
-                     captured: bool = False) -> dict:
+                     captured: bool = False, spatial_shards: Optional[int] = None) -> dict:
     """One of ``GATE_MODELS`` against the JAX package's fixture (made by
     ``tests/test_torch_hier.py``): the states after the first and the
     last step of a short rollout at every ``GATE_NODE_STRIDE``-th grid
     node, then the training loss, each gradient's largest entry and
     sampled entries, and the losses of further AdamW steps. ``model``
     must hold the seeded parameters; they are updated in place. With
-    ``captured`` the training steps are replays of the captured step."""
+    ``captured`` the training steps are replays of the captured step.
+    With ``spatial_shards`` (every rank of the spatial group calls it) the
+    trainer and the rollout run sharded, the rollout gathered to the
+    grid."""
     from neural_lam_tpu_torch.models import ARForecaster
 
     with np.load(fixture_path) as fx:
@@ -2686,14 +2716,20 @@ def phase_model_gate(torch, name: str, model, ds, fixture_path,
         names = [str(n) for n in fx["grad_names"]]
         want_max, want_samples = fx["grad_max"], fx["grad_samples"]
         stride, steps = int(fx["node_stride"]), int(fx["rollout_steps"])
-    trainer = make_trainer(model, ds, reload=False)
+    trainer = make_trainer(model, ds, reload=False, spatial_shards=spatial_shards)
     check_gate_fixture(trainer, grid, lr)
 
     inputs = gate_rollout_inputs(ds, batch, steps)
+    sp = trainer.spatial
     with torch.inference_mode():
-        pred, _ = ARForecaster(model, ds)(
-            *(torch.from_numpy(a).to(model.device) for a in inputs)
-        )
+        if sp is None:
+            pred, _ = ARForecaster(model, ds)(
+                *(torch.from_numpy(a).to(model.device) for a in inputs)
+            )
+        else:
+            pred, _ = trainer._local_fc(
+                *(torch.from_numpy(sp.grid_slab(a)).to(model.device) for a in inputs))
+            pred = sp.gather_grid(pred)
     got_states = pred[:, [0, steps - 1]][:, :, ::stride].cpu().numpy()
     if got_states.shape != want_states.shape or not np.isfinite(got_states).all():
         raise AssertionError(
@@ -5147,6 +5183,397 @@ def dp_cards_main() -> int:
     return 0
 
 
+def spatial_sets(sharded) -> list:
+    """A shard's edge sets, ``(name, GraphEdges)``, by the metas' names."""
+    g = sharded.graph
+    return ([("g2m", g.g2m), ("m2g", g.m2g)]
+            + [(f"m2m{i}", ge) for i, ge in enumerate(g.m2m)]
+            + [(f"up{i}", ge) for i, ge in enumerate(g.up)]
+            + [(f"down{i}", ge) for i, ge in enumerate(g.down)])
+
+
+def spatial_rounds(model) -> dict[str, int]:
+    """Forward exchanges of each edge set in one GraphLAM step: the m2m set
+    once per processor layer, the others once."""
+    return {"m2m0": model.processor_layers}
+
+
+def pack_launches(sharded, rounds: dict[str, int]) -> int:
+    """K1 launches (and K2's, backward) that a training step adds on this
+    shard: one halo payload pack per exchange that sends rows."""
+    return sum(rounds.get(name, 1) for name, ge in spatial_sets(sharded)
+               if ge.exchange.pack is not None)
+
+
+def exchange_summary(sharded, records, steps: int) -> dict:
+    """Per edge set on this shard: strategy, offsets, halo rows received
+    and sent per exchange, and the bytes received per training step (the
+    records of ``steps`` steps)."""
+    from neural_lam_tpu_torch.parallel.collective_budget import recorded_bytes
+
+    got = recorded_bytes(records)
+    out = {}
+    for name, meta in sharded.metas.items():
+        sent = (meta.n_send_local * (meta.n_shards - 1) if meta.strategy == "all_gather"
+                else sum(meta.send_plan(sharded.shard)[1]))
+        out[name] = dict(strategy=meta.strategy, offsets=list(meta.offsets),
+                         recv_rows=meta.recv_rows(sharded.shard), sent_rows=sent,
+                         bytes_per_step=got.get(name, 0) // steps)
+    return out
+
+
+def check_exchange_bytes(summaries: list[dict], metas: dict, rounds: dict, batch_local: int,
+                         label: str) -> None:
+    """The bytes the ranks of one spatial group received per step, per edge
+    set, against ``analytic_budget``'s ``bytes_per_step_shards`` (every byte
+    equal), logged beside the strategy and the halo rows."""
+    from neural_lam_tpu_torch.parallel.collective_budget import analytic_budget
+
+    budget = {a["edge_set"]: a for a in analytic_budget(metas, batch_local, HIDDEN,
+                                                          rounds=rounds)}
+    for name, a in budget.items():
+        got = sum(s[name]["bytes_per_step"] for s in summaries)
+        log(f"{label} {name}: {a['strategy']}, offsets {a['offsets']}, halo rows received "
+            f"per exchange by shard {[s[name]['recv_rows'] for s in summaries]}, sent "
+            f"{[s[name]['sent_rows'] for s in summaries]}; {a['exchanges_per_step']} exchanges "
+            f"a step; bytes received a step {[s[name]['bytes_per_step'] for s in summaries]}, "
+            f"sum {got:,} against analytic_budget's {a['bytes_per_step_shards']:,}")
+        if got != a["bytes_per_step_shards"]:
+            raise AssertionError(f"{label} {name}: {got} bytes a step, the budget says "
+                                 f"{a['bytes_per_step_shards']}")
+
+
+def phase_spatial(torch, model, ds, card: str) -> tuple[dict[str, int], dict]:
+    """Spatial partitioning (``parallel/spatial.py``), GraphLAM at the bench
+    configuration:
+
+    (a) the executor at ``S = 1`` in an NCCL group of one rank in this
+        process: the training gate through the captured step, captured
+        against eager bit for bit over 12 steps, and the captured step's
+        time beside the replicated step's in the same group (both ZeRO-1);
+    (c) K1-K4 at shard 0's shapes of the six sites at ``S = 2`` (its g2m,
+        m2m and m2g edge sets over the extended sender rows) against their
+        plain versions (``phase_level_sets``);
+    (b) two gloo ranks on this card as ``S = 2`` (:func:`spatial_rank_main`,
+        each its own process with a deadline), eager: the accuracy gate of
+        the sharded 19-step forecast, the training gate, each edge set's
+        strategy, halo rows and bytes a step beside ``analytic_budget``,
+        and HiLAM's model gate (its coarse levels on ``all_gather``).
+
+    Returns each kernel's launches in this phase (the ranks' included) and
+    each of K1-K4's largest error in (c)."""
+    t0 = time.perf_counter()
+    total = spatial_one_shard(torch, model, ds, card)
+    shard0, errs = spatial_shard_kernels(torch, model, ds)
+    add_launches(total, spatial_gloo_ranks(torch, model, shard0, card), "spatial gloo ranks")
+    log(f"spatial phase: {time.perf_counter() - t0:.1f} s on {card}")
+    return total, errs
+
+
+def spatial_one_shard(torch, model, ds, card: str) -> dict[str, int]:
+    """:func:`phase_spatial`'s (a); returns the launches of its captured
+    steps."""
+    from neural_lam_tpu_torch.utils import distributed
+
+    total: dict[str, int] = {}
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    with launch_env(1, 0, free_port()):
+        distributed.init_from_env("nccl")
+    try:
+        trainer = make_trainer(model, ds, spatial_shards=1)
+        log("spatial S=1, NCCL world 1: training gate through the captured step:")
+        phase_train_gate(torch, trainer, TRAIN_FIXTURE, captured=True)
+        del trainer
+        dp_eager_against_captured(torch, model, ds, "spatial S=1, NCCL world 1",
+                                  spatial_shards=1)
+        base = dp_captured(torch, make_trainer(model, ds), data,
+                           "spatial: replicated step, NCCL world 1", card)
+        add_launches(total, base["launches"], "spatial replicated train graph")
+        release(torch)
+        run = dp_captured(torch, make_trainer(model, ds, spatial_shards=1), data,
+                          "spatial S=1, NCCL world 1", card)
+        add_launches(total, run["launches"], "spatial S=1 train graph")
+        log(f"spatial S=1 against the replicated step (same call, same group, {card}): "
+            f"step {run['step_ms'] / base['step_ms']:.4f} x ({run['step_ms'] - base['step_ms']:+.3f}"
+            f" ms), device busy {run['busy'] - base['busy']:+.3f} ms, kernel nodes a replay "
+            f"{run['nodes'] - base['nodes']:+d}, peak above what was held before "
+            f"{(run['step_peak'] - base['step_peak']) / 2**30:+.3f} GiB")
+        release(torch)
+    finally:
+        distributed.destroy()
+    return total
+
+
+def spatial_shard_kernels(torch, model, ds):
+    """:func:`phase_spatial`'s (c): shard 0 of ``SPATIAL_RANKS`` (its tables,
+    built without a process group) and K1-K4 on its g2m, m2m and m2g edge
+    sets; returns the shard and K1-K4's largest errors."""
+    from neural_lam_tpu_torch.parallel.spatial import ShardedModel
+
+    shard0 = ShardedModel(model, ds, SPATIAL_RANKS, shard=0)
+    g = shard0.graph
+    errs = phase_level_sets(
+        torch, model, sites=[("g2m", g.g2m), ("m2m", g.m2m[0]), ("m2g", g.m2g)],
+        mlp=model.processor["module_0"].edge_mlp, label=f"shard 0 of {SPATIAL_RANKS}")
+    for name, ge in spatial_sets(shard0):
+        meta = shard0.metas[name]
+        log(f"spatial shard 0 of {SPATIAL_RANKS} {name}: {ge.edges.num_edges} edges into "
+            f"{meta.n_rec_local} receivers, {ge.edges.num_send} sender rows ({meta.n_send_local} "
+            f"own, {meta.recv_rows(0)} halo), {meta.strategy}, offsets {list(meta.offsets)}")
+    return shard0, errs
+
+
+def spatial_gloo_ranks(torch, model, shard0, card: str) -> dict[str, int]:
+    """:func:`phase_spatial`'s (b): the ranks' processes, their results
+    checked here; returns their launches."""
+    total: dict[str, int] = {}
+    out = CACHE / "spatial"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    port = free_port()
+    procs = []
+    for rank in range(SPATIAL_RANKS):
+        with launch_env(SPATIAL_RANKS, rank, port):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--spatial-rank", str(out)],
+                env=dict(os.environ), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+    try:
+        logs = [p.communicate(timeout=SPATIAL_RANK_TIMEOUT_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"spatial gloo ranks: not done in {SPATIAL_RANK_TIMEOUT_S} s")
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  rank {rank}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"spatial gloo rank {rank} failed (exit {p.returncode})")
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(SPATIAL_RANKS)]
+    losses = [r["losses"] for r in ranks]
+    if not all(np.array_equal(losses[0], l) for l in losses[1:]):
+        raise AssertionError("spatial gloo ranks: the ranks' losses differ")
+    check_exchange_bytes([json.loads(str(r["exchange"])) for r in ranks], shard0.metas,
+                         spatial_rounds(model), BATCH,
+                         f"spatial S={SPATIAL_RANKS} gloo ranks, {card}:")
+    for r in ranks:
+        add_launches(total, {k[len("launches/"):]: int(v) for k, v in r.items()
+                             if k.startswith("launches/")}, "spatial gloo rank")
+    return total
+
+
+def spatial_rank_main(out: Path) -> int:
+    """One gloo rank of :func:`phase_spatial`'s ``S = 2`` on the card, in its
+    own process: GraphLAM with the gate's weights, the sharded 19-step
+    forecast against the accuracy gate, then the training gate's four eager
+    steps with the collectives recorded (the counters at 0 just before;
+    each kernel must read ``expected_launches`` a step after, K1 and K2 the
+    halo packs besides), then HiLAM's model gate sharded; written to
+    ``out/rank<r>.npz``."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from neural_lam_tpu_torch.models import GraphLAM
+    from neural_lam_tpu_torch.parallel.spatial import record_collectives
+    from neural_lam_tpu_torch.utils import distributed
+
+    distributed.init_from_env("gloo")
+    lay = distributed.layout()
+    t0 = time.perf_counter()
+    ds = meps_datastores()[0]
+    model = GraphLAM(ds, hidden_dim=HIDDEN, processor_layers=PROC_LAYERS, device=DEVICE)
+    trainer = make_trainer(model, ds, spatial_shards=lay.world)
+    sp = trainer.spatial
+    with torch.no_grad():
+        pred, _ = trainer._local_fc(
+            *(torch.from_numpy(sp.grid_slab(a)).to(DEVICE) for a in gate_inputs(ds)))
+        pred = sp.gather_grid(pred).cpu().numpy()
+    gate_check(pred, f"sharded forecast, S={lay.world}, gloo, eager")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = 4
+    with record_collectives() as records:
+        gate = phase_train_gate(torch, trainer, TRAIN_FIXTURE)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    packs = pack_launches(sp, spatial_rounds(model))
+    for name, per_step in expected_launches(model, training=True).items():
+        want = steps * (per_step + (packs if name in ("K1 sender_gather",
+                                                       "K2 sender_scatter") else 0))
+        if launches[name] != want:
+            raise AssertionError(f"rank {lay.rank}: {name} {launches[name]} launches, want "
+                                 f"{want}")
+    losses = np.array(gate["losses"])
+    exchange = exchange_summary(sp, records, steps)
+    del trainer, model
+    torch.cuda.empty_cache()
+    hi_lam = build_model(torch, "hi_lam", ds)
+    for fn in counters.values():
+        fn.launches = 0
+    phase_model_gate(torch, "hi_lam", hi_lam, ds, gate_fixture("hi_lam"),
+                     spatial_shards=lay.world)
+    torch.cuda.synchronize()
+    for name, fn in counters.items():
+        launches[name] += fn.launches
+    np.savez(out / f"rank{lay.rank}.npz", losses=losses, exchange=json.dumps(exchange),
+             **{f"launches/{k}": v for k, v in launches.items()})
+    print(f"rank {lay.rank} of {lay.world} ({torch.cuda.get_device_name(0)}): "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{', '.join(f'{k} {v}' for k, v in launches.items() if v)}", flush=True)
+    distributed.destroy()
+    return 0
+
+
+def spatial_cards_main() -> int:
+    """GraphLAM's captured step under spatial partitioning over every card of
+    a machine, one rank each, NCCL between them: ``python -m
+    torch.distributed.run --nproc_per_node=N chip_smoke.py --spatial-cards``.
+    At ``S x D`` = N x 1 and, for an even N above 2, N/2 x 2, each spatial
+    group on its data block of the bench batch: the training gate through
+    the captured step (the same losses on every rank), 12 captured steps
+    against 12 eager ones (losses and weights, every bit), the step time and
+    the global training grid-points/s, the graph's kernel nodes (NCCL's
+    among them), and the exchange bytes of an eager step against
+    ``analytic_budget``. Rank 0 prints."""
+    import torch
+
+    from neural_lam_tpu_torch.convert_checkpoint import params_to_numpy
+    from neural_lam_tpu_torch.ops import kernel_build
+    from neural_lam_tpu_torch.parallel.spatial import record_collectives
+    from neural_lam_tpu_torch.utils import distributed
+
+    global DEVICE
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch = distributed.launch_layout()
+    torch.cuda.set_device(launch.local_rank)
+    DEVICE = f"cuda:{launch.local_rank}"
+    keep_cuda_graphs(torch)
+    distributed.init_from_env("nccl")
+    lay = distributed.layout()
+    if lay.rank != 0:  # rank 0 prints, every rank checks
+        global log
+        log = lambda msg: None  # noqa: E731
+    say = log
+    card = card_line()
+    t0 = time.perf_counter()
+    if lay.local_rank == 0:
+        kernel_build.build()
+    distributed.barrier()
+    say(f"spatial cards: {lay.world} ranks on {card}; kernel build "
+        f"{time.perf_counter() - t0:.1f} s")
+    CACHE.mkdir(exist_ok=True)
+    if lay.rank == 0:  # the graph is built once, on disk
+        gate_ds, _, model, _ = build_meps(torch)
+    distributed.barrier()
+    if lay.rank != 0:
+        gate_ds, _, model, _ = build_meps(torch)
+    layouts = [lay.world] + ([lay.world // 2] if lay.world > 2 and lay.world % 2 == 0 else [])
+    for shards in layouts:
+        groups = lay.world // shards
+        per = BATCH // groups
+        d = lay.rank // shards
+        batch = [a[d * per:(d + 1) * per] for a in bench_batch(gate_ds)]
+        data = [torch.from_numpy(a).to(DEVICE) for a in batch]
+        label = f"spatial {shards} x {groups} cards NCCL"
+        # each data group on its block: their mean is the bench batch's gate
+        say(f"{label}: training gate through the captured step:")
+        phase_train_gate(torch, make_trainer(model, gate_ds, spatial_shards=shards),
+                         TRAIN_FIXTURE, captured=True, block=slice(d * per, (d + 1) * per))
+        runs = []
+        for captured in (False, True):
+            trainer = make_trainer(model, gate_ds, spatial_shards=shards)
+            step = trainer.make_train_step() if captured else trainer.train_step
+            run_losses = torch.stack([step(*data) for _ in range(TRAIN_WARMUP + TRAIN_ITERS)])
+            runs.append((run_losses.cpu().numpy(), params_to_numpy(model)))
+            del trainer, step
+            release(torch)
+        (eager, w_eager), (graph, w_graph) = runs
+        bits = np.array_equal(eager, graph) and all(
+            np.array_equal(w_eager[k], w_graph[k]) for k in w_eager)
+        gathered = distributed.allgather_sums(graph.astype(np.float64))
+        same_ranks = bool((gathered == gathered[0]).all())
+        trainer = make_trainer(model, gate_ds, spatial_shards=shards)
+        with record_collectives() as records:
+            trainer.train_step(*data)
+        summary = exchange_summary(trainer.spatial, records, 1)
+        names = sorted(summary)
+        fields = ("bytes_per_step", "recv_rows", "sent_rows")
+        rows = distributed.allgather_sums(  # (world, names x fields)
+            np.array([summary[k][f] for k in names for f in fields], np.float64))
+        step = trainer.make_train_step()
+        run = timed_steps(torch, step, data)
+        (entry,) = trainer.graphs.values()
+        nodes = graph_kernel_names(torch, entry.graph)
+        nccl = sum("nccl" in n.lower() for n in nodes)
+        say(f"{label} on {card}: captured against eager over {len(eager)} steps, losses and "
+            f"weights every bit: {bits}; the same losses on every rank: {same_ranks}; "
+            f"captured step {run['step_ms']:.3f} ms at {per} sample(s) a spatial group, "
+            f"{BATCH * gate_ds.num_grid_points / (run['step_ms'] / 1e3):,.0f} global training "
+            f"grid-points/s; {len(nodes)} kernel nodes a replay, {nccl} of them NCCL's; peak "
+            f"device memory {run['peak'] / 2**30:.3f} GiB")
+        if lay.rank == 0:
+            group0 = [{n: dict(summary[n], **{f: int(rows[r][i * len(fields) + j])
+                                              for j, f in enumerate(fields)})
+                       for i, n in enumerate(names)} for r in range(shards)]
+            check_exchange_bytes(group0, trainer.spatial.metas, spatial_rounds(model), per,
+                                 f"{label}, data group 0:")
+        if not (bits and same_ranks):
+            raise AssertionError(f"{label}: captured differs from eager, or ranks differ")
+        del trainer, step, entry
+        release(torch)
+    distributed.destroy()
+    return 0
+
+
+def phase_stencil(torch, model, forecaster, ds, card: str) -> None:
+    """GraphLAM under ``NEURAL_LAM_TPU_STENCIL=on`` (``ops/stencil.py``, the
+    m2m processor as shifted dense MLPs, plain ``torch``) against the
+    edge-list route in the same call: the accuracy gate through the
+    captured forecast and the training gate through the captured step on
+    the stencil route; the captured forecast's ms per AR step (the gate's
+    19-step rollout) and the captured training step's ms, each route,
+    in turns (edge list, stencil, stencil, edge list)."""
+    from neural_lam_tpu_torch.utils.cuda_graph import CapturedFunction
+
+    t0 = time.perf_counter()
+    inputs = [torch.from_numpy(a).to(DEVICE) for a in gate_inputs(ds)]
+    data = [torch.from_numpy(a).to(DEVICE) for a in bench_batch(ds)]
+    # earlier phases train the weights in place: the gates start from the
+    # fixture's
+    load_gate_params(model)
+    with env_set(STENCIL, "on"):
+        st = model._m2m_stencil()
+        if st is None:
+            raise AssertionError("stencil: the MEPS multiscale mesh is not detected")
+        log(f"stencil: {len(st.layout.groups)} stride groups "
+            f"{[(g.stride, len(g.offsets), g.dims) for g in st.layout.groups]}, "
+            f"{st.layout.num_edges} edges, lattice {st.layout.dims}")
+        phase_gate(torch, ds, forecaster)
+        phase_train_gate(torch, make_trainer(model, ds), TRAIN_FIXTURE, captured=True)
+    times = {}
+    for mode in ("off", "on", "on", "off"):
+        with env_set(STENCIL, mode):
+            load_gate_params(model)
+            captured = CapturedFunction(forecaster, forecaster, DEVICE)
+            serve = cuda_ms(lambda: captured(*inputs), reps=5, warmup=2) / inputs[1].shape[1]
+            run = timed_steps(torch, make_trainer(model, ds).make_train_step(), data)
+            times.setdefault(mode, []).append((serve, run["step_ms"]))
+            del captured
+            release(torch)
+    for mode, label in (("off", "edge list"), ("on", "stencil")):
+        log(f"stencil phase, {label} route on {card}: captured forecast "
+            f"{', '.join(f'{s:.3f}' for s, _ in times[mode])} ms per AR step (batch 1), "
+            f"captured training step {', '.join(f'{t:.3f}' for _, t in times[mode])} ms "
+            f"(batch {BATCH})")
+    log(f"stencil phase: {time.perf_counter() - t0:.1f} s")
+
+
 def add_launches(total: dict[str, int], launches: dict[str, int], what: str) -> None:
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
@@ -5231,6 +5658,10 @@ def main() -> int:
         return dp_rank_main(Path(sys.argv[2]))
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-cards":
         return dp_cards_main()
+    if len(sys.argv) > 2 and sys.argv[1] == "--spatial-rank":
+        return spatial_rank_main(Path(sys.argv[2]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--spatial-cards":
+        return spatial_cards_main()
     sys.path.insert(0, str(REPO))
     keep_cuda_graphs(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5334,6 +5765,15 @@ def main() -> int:
     # data parallelism: an NCCL group of one in this process (ZeRO-1 and
     # flat_opt, captured), two gloo ranks on the card (eager)
     add_launches(total, phase_dp(torch, model, gate_ds, card), "dp")
+    # spatial partitioning: the executor at S = 1 in an NCCL group of one
+    # (captured), K1-K4 at shard 0's shapes, two gloo ranks as S = 2
+    spatial, spatial_errs = phase_spatial(torch, model, gate_ds, card)
+    add_launches(total, spatial, "spatial")
+    for entry in report:
+        err = spatial_errs.get(entry["name"][:2], 0.0)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    # the stencil m2m processor against the edge-list route
+    phase_stencil(torch, model, forecaster, gate_ds, card)
     del model, forecaster
     torch.cuda.empty_cache()
     phase_unfused_shapes(torch, gate_ds)

@@ -23,6 +23,13 @@ and counts per pass gives every rank the same metrics
 (``Trainer._merge_host_sums``), and rank 0 alone writes the artifacts
 and plots the examples, from its own block, which holds the globally
 first samples (``neural_lam_tpu/evaluation.py:126-160``, ``:258``).
+
+Under spatial partitioning (``Trainer(spatial_shards=...)``) each rank
+runs its shard: the batch's metrics are summed over the spatial group
+inside the batch function, the per-node loss map is gathered from the
+slabs and cut to the grid there too, and the forecasts rank 0 plots are
+gathered by the ranks of its spatial group (the JAX package's sharded
+``forward`` returns the unpadded global prediction, ``:89-95``).
 """
 
 from __future__ import annotations
@@ -35,9 +42,6 @@ from typing import Optional
 import numpy as np
 
 from .loggers import BaseLogger, NullLogger
-from .metrics import mae as mae_metric
-from .metrics import mse as mse_metric
-from .metrics import wmae as wmae_metric
 from .utils import distributed
 from .utils.cuda_graph import CapturedFunction
 
@@ -94,28 +98,31 @@ def make_eval_batch(trainer) -> CapturedFunction:
     units: the counterpart of the JAX package's jitted ``eval_batch``
     (``neural_lam_tpu/evaluation.py:84-121``). A CUDA graph per batch
     shape and route on the card, whose replays return clones, eager on the
-    CPU."""
-    mask = trainer._interior_mask
+    CPU. Under spatial partitioning the prediction is this shard's slab."""
 
     def eval_batch(init, target, forcing):
         init_s, target_s, forcing_s = trainer._standardize(init, target, forcing)
-        prediction, pred_std = trainer.forecaster(init_s, forcing_s, target_s)
+        prediction, pred_std = trainer._local_fc(init_s, forcing_s, target_s)
         if pred_std is None:
             pred_std = trainer.per_var_std
-        loss = trainer.loss_fn(prediction, target_s, pred_std, mask=mask)  # (B, T)
-        tables = tuple(
-            fn(prediction, target_s, pred_std, mask=mask, sum_vars=False)
-            for fn in (mse_metric, mae_metric, wmae_metric)
-        )  # (B, T, d) each
+        # the loss (B, T) and the mse, mae and wmae tables (B, T, d)
+        metrics = trainer._spatial_sum(
+            [trainer.masked_metric(trainer.args.loss, prediction, target_s, pred_std)]
+            + [trainer.masked_metric(name, prediction, target_s, pred_std, sum_vars=False)
+               for name in ("mse", "mae", "wmae")]
+        )
         # per grid node, summed over vars, per sample so that padded
         # tail rows can be dropped (reference: module.py:571-582)
         spatial = trainer.loss_fn(
             prediction, target_s, pred_std, mask=None,
             average_grid=False, sum_vars=True,
         )  # (B, T, N)
-        return (loss, *tables, spatial), prediction
+        if trainer.spatial is not None:
+            spatial = trainer.spatial.gather_grid(spatial.unsqueeze(-1)).squeeze(-1)
+        return (*metrics, spatial), prediction
 
-    return CapturedFunction(eval_batch, trainer.forecaster, trainer.device)
+    return CapturedFunction(eval_batch, trainer.forecaster, trainer.device,
+                            eager=trainer._eager_inference())
 
 
 def run_test_evaluation(
@@ -137,7 +144,9 @@ def run_test_evaluation(
     run_dir.mkdir(parents=True, exist_ok=True)
     logger = logger or NullLogger()
     is_rank_zero = distributed.rank() == 0
-    if not is_rank_zero:
+    # the ranks of rank 0's spatial group gather the forecasts it plots
+    gathers = trainer.spatial is not None and trainer.data_index == 0
+    if not (is_rank_zero or gathers):
         n_example_pred = 0
     vis, no_vis = _import_vis()
     skipped: list[str] = []
@@ -171,8 +180,11 @@ def run_test_evaluation(
         # (reference: module.py:584-768)
         n_plot = min(n_example_pred - example_plotted, real) if n_example_pred > 0 else 0
         if n_plot > 0:
-            pred_local = prediction[:n_plot].cpu().numpy()
-        for i in range(n_plot):
+            pred_local = prediction[:n_plot]
+            if trainer.spatial is not None:
+                pred_local = trainer.spatial.gather_grid(pred_local)
+            pred_local = pred_local.cpu().numpy()
+        for i in range(n_plot if is_rank_zero else 0):
             ex = example_plotted + i  # global example index for naming
             pred_phys = pred_local[i] * state_std + state_mean  # (T, N, d)
             target_phys = np.asarray(batch[1])[i]

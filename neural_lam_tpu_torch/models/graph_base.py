@@ -177,11 +177,12 @@ class BaseGraphModel(StepPredictor):
     ):
         """Apply one GNN over the edge bundle ``ge``; passing
         ``edge_embedder`` (with ``edge_rep=None``) delegates the static
-        edge embedding to the op, which fuses it into K3."""
+        edge embedding to the op, which fuses it into K3. The senders go
+        through ``ge.sender_rows`` (the halo exchange on a shard)."""
         return apply_interaction_net(
             net,
             ge.edges,
-            send_rep=send_rep,
+            send_rep=ge.sender_rows(send_rep),
             rec_rep=rec_rep,
             edge_rep=edge_rep,
             edge_embedder=edge_embedder,

@@ -16,7 +16,7 @@ so receivers with no incoming edges still get a (zero) aggregate.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -27,14 +27,27 @@ from ..ops.interaction import EdgeSet, make_edge_set, place_edge_features
 @dataclasses.dataclass(frozen=True)
 class GraphEdges:
     """An edge set with its per-edge features, in sorted edge order
-    (the counterpart of the JAX package's ``PaddedEdges``)."""
+    (the counterpart of the JAX package's ``PaddedEdges``).
+
+    ``exchange``, set on a shard's edge sets under spatial partitioning
+    (``parallel/spatial.py``), maps the shard's rows of the sender set to
+    the extended array (its rows, then the halo rows) that the edge set's
+    sender ids index; every edge phase takes its senders through
+    :meth:`sender_rows`."""
 
     edges: EdgeSet
     features: torch.Tensor  # (E, d_feat), in the model's compute dtype
+    exchange: Optional[Callable[[torch.Tensor], torch.Tensor]] = dataclasses.field(
+        default=None, compare=False)
 
     @property
     def feature_dim(self) -> int:
         return int(self.features.shape[-1])
+
+    def sender_rows(self, send_rep: torch.Tensor) -> torch.Tensor:
+        """The sender array the edge set's sender ids index: ``send_rep``,
+        or on a shard its exchange's extended array."""
+        return send_rep if self.exchange is None else self.exchange(send_rep)
 
     def to(self, device: torch.device) -> "GraphEdges":
         return GraphEdges(self.edges.to(device), self.features.to(device))

@@ -69,14 +69,16 @@ class HiLAMParallel(BaseHiGraphModel):
         """One processor layer as per-section edge phases: every section
         has its own edge MLP, a level's aggregate is the sum of its
         incoming sections' sums, and one node MLP per level applies
-        after."""
+        after. A section's senders go through ``ge.sender_rows`` (the halo
+        exchange on a shard, as the JAX package's ``_sharded_combined``
+        exchanges per section)."""
         agg = [None] * self.num_levels
         new_edges = []
         for k, (ge, mlp) in enumerate(zip(self._sections, chunk_mlps(net.edge_mlp))):
             a, new_edge = edge_phase(
                 mlp,
                 ge.edges,
-                mesh_rep_levels[self._section_send_levels[k]],
+                ge.sender_rows(mesh_rep_levels[self._section_send_levels[k]]),
                 mesh_rep_levels[self._section_recv_levels[k]],
                 edge_reps[k],
                 update_edges=True,

@@ -557,9 +557,10 @@ FUSED_V2_RATIO_ENV = "NEURAL_LAM_TPU_FUSED_V2_RATIO"
 CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
 FUSED_AGGR_ENV = "NEURAL_LAM_TPU_FUSED_AGGR"
 FUSED_ENV = "NEURAL_LAM_TPU_FUSED"
+STENCIL_ENV = "NEURAL_LAM_TPU_STENCIL"
 _ROUTE_ENV = (
     FUSED_V2_ENV, FUSED_V2_RATIO_ENV, CACHE_PRE_ENV, BF16_KERNELS_ENV,
-    MATMUL_PRECISION_ENV, FUSED_AGGR_ENV, FUSED_ENV,
+    MATMUL_PRECISION_ENV, FUSED_AGGR_ENV, FUSED_ENV, STENCIL_ENV,
 )
 
 
@@ -567,7 +568,8 @@ def route_env() -> tuple[Optional[str], ...]:
     """The environment variables that choose the route and the kernels'
     precision (:func:`fused_v2_routed`, :func:`fused_precision`,
     :func:`fused_aggr_enabled`, ``NEURAL_LAM_TPU_FUSED`` in
-    ``ops.interaction.fused_edge_phase_supported``), as they stand now. A
+    ``ops.interaction.fused_edge_phase_supported``, ``NEURAL_LAM_TPU_STENCIL``
+    in ``ops.stencil.stencil_enabled``), as they stand now. A
     captured CUDA graph fixes the route and the kernels' precision it was
     captured with, so a cache of graphs keys on these."""
     return tuple(os.environ.get(name) for name in _ROUTE_ENV)

@@ -15,7 +15,12 @@ the ranks of a process group (ZeRO-1).
   divided by the rank count: the gradient of the mean over the global
   batch, and the loss every rank reports (XLA inserts the same
   all-reduce into the JAX package's step); after it each parameter's
-  ``.grad`` is its view of the buffer, the same on every rank;
+  ``.grad`` is its view of the buffer, the same on every rank. Under
+  spatial partitioning the divisor is the data-parallel rank count
+  (``grad_divisor``): each rank's loss and gradients are its shard's
+  part of its data group's, so the sum over a spatial group is that
+  group's (the JAX step's ``psum`` over both mesh axes after a ``pmean``
+  over data, ``neural_lam_tpu/parallel/spatial.py:1203``, ``:1222-1227``);
 - ``torch.optim.AdamW`` updates ``shard``: the whole buffer, or with
   ``shard=True`` this rank's contiguous ``1/P`` of it, whose moments are
   all this rank keeps; an all-gather then brings every rank's updated
@@ -36,7 +41,7 @@ same file at any rank count and restores at any other.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -55,10 +60,11 @@ class FlatAdamW:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  weight_decay: float = 0.01, flat_layout: bool = False,
-                 shard: bool = False) -> None:
+                 shard: bool = False, grad_divisor: Optional[int] = None) -> None:
         self.params = list(params)
         lay = distributed.layout()
         self.world, self.rank = lay.world, lay.rank
+        self.grad_divisor = self.world if grad_divisor is None else int(grad_divisor)
         self.flat_layout = flat_layout
         self.sharded = shard and distributed.active()
         first = self.params[0]
@@ -109,9 +115,10 @@ class FlatAdamW:
     def reduce_gradients(self, loss: torch.Tensor) -> torch.Tensor:
         """After ``loss.backward()``: the parameters' gradients into
         ``grad_buffer`` and, over a process group, their mean over the
-        ranks (one all-reduce, the loss with them); each parameter's
-        ``.grad`` is then its view of the buffer. Returns the loss, the
-        mean over the ranks."""
+        ranks (one all-reduce, the loss with them; the sum divided by
+        ``grad_divisor``); each parameter's ``.grad`` is then its view of
+        the buffer. Returns the loss, the mean over the ranks (over the
+        data-parallel ranks of the spatial groups' sums)."""
         torch._foreach_copy_(
             self._grad_views,
             [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params],
@@ -119,7 +126,7 @@ class FlatAdamW:
         if distributed.active():
             self.grad_buffer[-1:].copy_(loss.detach().reshape(1))
             distributed.all_reduce_(self.grad_buffer)
-            self.grad_buffer.div_(self.world)
+            self.grad_buffer.div_(self.grad_divisor)
             loss = self.grad_buffer[-1].clone()
         for p, g in zip(self.params, self._grad_views):
             p.grad = g

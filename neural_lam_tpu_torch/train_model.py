@@ -21,7 +21,12 @@ each step sees the samples the JAX CLI's step sees with the same
 ``--num_nodes``, ``--devices`` and ``--batch_size``. ``--devices`` caps
 the ranks per node, ``--num_nodes`` is checked against the launch, rank 0
 logs and writes the files, and every rank saves the checkpoints
-collectively. The flags fall into four groups:
+collectively. ``--spatial_shards S`` partitions the grid and the mesh
+over groups of ``S`` ranks of a node (``parallel/spatial.py``): the ranks
+form a ``(data, spatial)`` layout as the JAX CLI's mesh, the ranks of a
+spatial group read the same block of the node's batch, and the node's
+batch is cut into ``ranks per node / S`` blocks. The flags fall into four
+groups:
 
 - flags with a counterpart, which do what they do in the JAX CLI;
 - ``--fused_v2``, ``--cache_pre``, ``--bf16_kernels`` and
@@ -31,8 +36,8 @@ collectively. The flags fall into four groups:
 - flags of TPU layouts the port does not have (``--pallas``,
   ``--fused_embed``, ``--kernel_tiling``, ``--banded_gather``,
   ``--aligned_layout``): accepted, with no effect, named on stderr;
-- flags of work not ported yet, which raise ``SystemExit`` naming the
-  ROADMAP item that brings them (:data:`UNPORTED`).
+- flags of work not ported yet, which would raise ``SystemExit`` naming
+  the ROADMAP item that brings them (:data:`UNPORTED`, empty now).
 """
 
 from __future__ import annotations
@@ -122,8 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--spatial_shards",
         type=int,
         default=1,
-        help="Shard grid+mesh nodes over this many devices; the port "
-        "takes only 1 (spatial sharding is not ported yet)",
+        help="Shard grid+mesh nodes over this many devices (a 'spatial' "
+        "axis of ranks; the remaining ranks form the data axis)",
     )
     runtime.add_argument(
         "--precision",
@@ -370,9 +375,7 @@ NO_EFFECT_FLAGS = (
     "pallas", "fused_embed", "kernel_tiling", "banded_gather", "aligned_layout",
 )
 # Flags of work not ported yet: (flag, is it asked for, ROADMAP item)
-UNPORTED = (
-    ("--spatial_shards above 1", lambda a: a.spatial_shards > 1, "§1 item 7"),
-)
+UNPORTED: tuple = ()
 
 
 def check_unported(args) -> None:
@@ -421,10 +424,21 @@ def check_launch(args, launch: distributed.Layout) -> None:
             f"{launch.nodes} node(s); check the launch configuration"
         )
     per_node = args.devices or launch.local_world
-    global_batch = args.batch_size * launch.nodes
-    if global_batch % (per_node * launch.nodes):
+    shards = args.spatial_shards
+    if shards < 1 or (per_node * launch.nodes) % shards:
         raise SystemExit(
-            f"--devices {per_node * launch.nodes} does not divide the global "
+            f"--spatial_shards {shards} does not divide the device count "
+            f"{per_node * launch.nodes}"
+        )
+    if per_node % shards:
+        raise SystemExit(
+            f"--spatial_shards {shards} does not divide the {per_node} ranks per "
+            "node: a spatial group lies within one node"
+        )
+    global_batch = args.batch_size * launch.nodes
+    if global_batch % (per_node * launch.nodes // shards):
+        raise SystemExit(
+            f"--devices {per_node * launch.nodes // shards} does not divide the global "
             f"batch size {global_batch}"
         )
 
@@ -525,7 +539,8 @@ def _run(args, dev: torch.device) -> None:
         flat_opt=args.flat_opt,
     )
     trainer = Trainer(
-        forecaster, config, datastore, targs, device=dev, debug_nans=args.debug_nans
+        forecaster, config, datastore, targs, device=dev, debug_nans=args.debug_nans,
+        spatial_shards=args.spatial_shards if args.spatial_shards > 1 else None,
     )
 
     run_name = args.logger_run_name or (
@@ -570,7 +585,9 @@ def _run(args, dev: torch.device) -> None:
         )
         # each node reads its shard of every epoch (the explicit per-host
         # index scheme replacing the reference's DistributedSampler,
-        # SURVEY.md 7), each rank its block of the node's batch
+        # SURVEY.md 7), each rank its block of the node's batch (the ranks
+        # of a spatial group the same block)
+        shards = args.spatial_shards
         return DataLoader(
             dataset,
             batch_size=args.batch_size,
@@ -579,8 +596,8 @@ def _run(args, dev: torch.device) -> None:
             prefetch=args.num_workers,
             shard_index=lay.node,
             num_shards=lay.nodes,
-            block_index=lay.local_rank,
-            num_blocks=lay.local_world,
+            block_index=lay.local_rank // shards,
+            num_blocks=lay.local_world // shards,
         )
 
     from .evaluation import run_test_evaluation

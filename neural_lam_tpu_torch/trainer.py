@@ -29,8 +29,22 @@ updated parameters. ``flat_opt`` is the same optimizer without a group.
 The preemption flag is agreed every ``preempt_check_every`` steps and at
 each epoch's end, and ``evaluate`` merges the ranks' sums once per pass.
 Without a group the trainer runs as before: ``torch.optim.AdamW`` over
-the parameters, and the multi-host merges are the identity. Spatial
-sharding is not ported yet.
+the parameters, and the multi-host merges are the identity.
+
+Spatial partitioning (``spatial_shards=S``, the JAX trainer's ``spatial``
+mesh axis, ``neural_lam_tpu/trainer.py:172-186``) runs the model through
+``parallel.spatial.ShardedModel``: rank ``r`` is data index ``r // S`` and
+shard ``r % S``, as the JAX package reshapes its devices into a ``(data,
+spatial)`` mesh; the ranks of one spatial group take the same batch
+block, each its own slab of the grid (``device_put_batch``; a step takes
+whole-grid arrays or this shard's slab). A rank's loss is its shard's part
+(the interior sum over the global interior count), whose backward sends
+the halo gradients home through the exchanges; the flat all-reduce then
+sums the gradients and the loss over every rank and divides by the data
+rank count ``D``, so every rank holds the gradient of the mean over the
+global batch. ZeRO-1 and ``flat_opt`` shard over the whole world. The eval
+step sums its metrics over the spatial group inside the step, and the
+test evaluation gathers the per-node maps and the plotted forecasts.
 
 Mixed precision (``TrainingArgs.precision="bf16"``, with a model built
 with ``compute_dtype=torch.bfloat16``) is the JAX package's
@@ -117,7 +131,7 @@ class TrainingArgs:
 
 def make_optimizer(
     params, lr: float, weight_decay: float = 0.01, flat_opt: bool = False,
-    shard_opt_state: bool = True,
+    shard_opt_state: bool = True, grad_divisor: Optional[int] = None,
 ) -> torch.optim.Optimizer | FlatAdamW:
     """The training optimizer: AdamW matching the reference recipe,
     ``torch.optim.AdamW(params, lr=..., betas=(0.9, 0.95))`` (reference:
@@ -127,7 +141,8 @@ def make_optimizer(
     With ``flat_opt``, or over a process group, it is a
     :class:`~.optim.FlatAdamW` over the parameters, which then live in its
     flat buffer (sharded over the ranks with ``shard_opt_state``; state
-    saved per parameter unless ``flat_opt``); otherwise
+    saved per parameter unless ``flat_opt``; the summed gradients divided
+    by ``grad_divisor``, default the rank count); otherwise
     ``torch.optim.AdamW`` over them.
 
     Over CUDA parameters it is built ``capturable=True``, so that its
@@ -138,7 +153,7 @@ def make_optimizer(
     params = list(params)
     if flat_opt or distributed.active():
         return FlatAdamW(params, lr, weight_decay, flat_layout=flat_opt,
-                         shard=shard_opt_state)
+                         shard=shard_opt_state, grad_divisor=grad_divisor)
     return torch.optim.AdamW(
         params, lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=weight_decay,
         capturable=any(p.device.type == "cuda" for p in params),
@@ -237,6 +252,7 @@ class Trainer:
         args: TrainingArgs,
         device: str | torch.device = "cuda",
         debug_nans: bool = False,
+        spatial_shards: Optional[int] = None,
     ) -> None:
         if args.precision not in ("32", "bf16"):
             raise ValueError(f"precision {args.precision!r}: '32' or 'bf16'")
@@ -275,6 +291,24 @@ class Trainer:
         self.stats = standardization_stats(datastore)
         self._device_stats: dict[int, tuple[torch.Tensor, ...]] = {}
         self.loss_fn = get_metric(args.loss)
+
+        # spatial partitioning: this rank's shard of the model
+        self.spatial = None
+        self.data_shards = distributed.world_size()
+        self.data_index = distributed.rank()
+        self._local_fc = forecaster
+        if spatial_shards is not None:
+            from .parallel.spatial import ShardedModel
+
+            world = distributed.world_size()
+            if spatial_shards < 1 or world % spatial_shards:
+                raise ValueError(f"--spatial_shards {spatial_shards} does not divide the "
+                                 f"device count {world}")
+            self.spatial = ShardedModel(forecaster.predictor, datastore, spatial_shards,
+                                        group=distributed.spatial_group(spatial_shards))
+            self.data_shards = world // spatial_shards
+            self.data_index = distributed.rank() // spatial_shards
+            self._local_fc = self.spatial.local_forecaster(forecaster)
         self.optimizer = self.init_state()
 
         # captured steps by (scan_steps, route, input shapes), the state
@@ -301,6 +335,7 @@ class Trainer:
         return make_optimizer(
             self.forecaster.parameters(), self.args.lr, self.args.weight_decay,
             flat_opt=self.args.flat_opt, shard_opt_state=self.args.shard_opt_state,
+            grad_divisor=self.data_shards,
         )
 
     def install_preemption_handler(self, signals=None) -> None:
@@ -347,8 +382,9 @@ class Trainer:
         rank's batch is its block of the node's batch, padded by the
         loader as the JAX package pads a host's batch to its devices
         (``loader.Block``, whose ``real`` is used), and nothing is added.
-        On CUDA the arrays are pinned and copied without blocking, on the
-        current stream."""
+        Under spatial partitioning only this shard's slab of the grid axis
+        is copied. On CUDA the arrays are pinned and copied without
+        blocking, on the current stream."""
         real = int(np.asarray(batch[0]).shape[0])
         if distributed.active():
             real, pad = getattr(batch, "real", real), 0
@@ -356,7 +392,10 @@ class Trainer:
             pad = max(self.args.batch_size - real, 0)
         out = []
         for a in batch[:3]:
-            t = torch.as_tensor(np.asarray(a), dtype=torch.float32)
+            a = np.asarray(a)
+            if self.spatial is not None:
+                a = self.spatial.grid_slab(a)
+            t = torch.as_tensor(a, dtype=torch.float32)
             if pad:
                 t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
             if self.device.type == "cuda":
@@ -439,8 +478,20 @@ class Trainer:
             raise err[0]
 
     # -- steps -------------------------------------------------------------
+    def _local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Under spatial partitioning, this shard's slab of a batch array
+        given for the whole grid (or already cut to the slab)."""
+        sp = self.spatial
+        if sp is None or t.shape[-2] == sp.n_grid_local:
+            return t
+        if t.shape[-2] != sp.n_grid:
+            raise ValueError(f"{t.shape[-2]} grid rows: want {sp.n_grid} (the grid) or "
+                             f"{sp.n_grid_local} (this shard's slab)")
+        return sp.slab(t, sp.n_grid_local, axis=-2)
+
     def _standardize(self, init_states, target_states, forcing):
-        forcing = self._to_device(forcing)
+        init_states, target_states, forcing = (
+            self._local_rows(self._to_device(a)) for a in (init_states, target_states, forcing))
         width = forcing.shape[-1]
         if width not in self._device_stats:
             self._device_stats[width] = device_stats(self.stats, width, self.device)
@@ -464,17 +515,35 @@ class Trainer:
                 name: p.to(torch.bfloat16)
                 for name, p in self.forecaster.predictor.named_parameters()
             }
-        prediction, pred_std = self.forecaster(
+        prediction, pred_std = self._local_fc(
             init_states, forcing, target_states, params=params
         )
         prediction = prediction.float()
         if pred_std is None:
             pred_std = self.per_var_std
         return torch.mean(
-            self.loss_fn(
-                prediction, target_states, pred_std, mask=self._interior_mask
-            )
+            self.masked_metric(self.args.loss, prediction, target_states, pred_std)
         )
+
+    def masked_metric(self, name: str, prediction, target, pred_std,
+                      sum_vars: bool = True) -> torch.Tensor:
+        """The interior-masked grid mean of metric ``name`` per (sample,
+        step) (per variable too without ``sum_vars``); under spatial
+        partitioning this shard's part of it, which
+        :meth:`_spatial_sum` adds up over the spatial group."""
+        if self.spatial is not None:
+            return self.spatial.masked_metric(name, prediction, target, pred_std, sum_vars)
+        return get_metric(name)(prediction, target, pred_std, mask=self._interior_mask,
+                                sum_vars=sum_vars)
+
+    def _spatial_sum(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each tensor summed over the spatial group (one all-reduce of a
+        flat buffer); the identity without spatial partitioning."""
+        if self.spatial is None or self.spatial.n_shards == 1:
+            return tensors
+        flat = self.spatial.spatial_sum_(torch.cat([t.reshape(-1) for t in tensors]))
+        return [part.reshape(t.shape) for part, t in
+                zip(flat.split([t.numel() for t in tensors]), tensors)]
 
     def train_step(self, init_states, target_states, forcing) -> torch.Tensor:
         """Forward, backward and one AdamW update on one batch, eagerly;
@@ -665,26 +734,32 @@ class Trainer:
 
         def eval_step(init, target, forcing) -> dict[str, torch.Tensor]:
             init_s, target_s, forcing_s = self._standardize(init, target, forcing)
-            prediction, pred_std = self.forecaster(init_s, forcing_s, target_s)
+            prediction, pred_std = self._local_fc(init_s, forcing_s, target_s)
             if pred_std is None:
                 pred_std = self.per_var_std
-            time_step_loss = self.loss_fn(
-                prediction, target_s, pred_std, mask=self._interior_mask,
-                average_grid=True, sum_vars=True,
-            )  # (B, pred_steps), per sample so padded rows can be dropped
+            # (B, pred_steps), per sample so padded rows can be dropped;
+            # standardized per-(step, var) tables for the watch promotion
+            # (mse and mae take no std)
+            time_step_loss, *table_vals = self._spatial_sum(
+                [self.masked_metric(self.args.loss, prediction, target_s, pred_std)]
+                + [self.masked_metric(key, prediction, target_s, pred_std, sum_vars=False)
+                   for key in tables]
+            )
             out = {"loss": time_step_loss.mean(dim=-1)}
             for s in steps_to_log:
                 out[f"loss_unroll{s}"] = time_step_loss[:, s - 1]
-            # standardized per-(step, var) tables for the watch promotion;
-            # mse and mae replace the std by ones themselves
-            for key in tables:
-                out[f"{key}_table"] = get_metric(key)(
-                    prediction, target_s, pred_std, mask=self._interior_mask,
-                    average_grid=True, sum_vars=False,
-                )  # (B, T, d)
+            for key, val in zip(tables, table_vals):
+                out[f"{key}_table"] = val  # (B, T, d)
             return out
 
-        return CapturedFunction(eval_step, self.forecaster, self.device)
+        return CapturedFunction(eval_step, self.forecaster, self.device,
+                                eager=self._eager_inference())
+
+    def _eager_inference(self) -> bool:
+        """Whether inference runs eagerly on the card: under spatial
+        partitioning over a group that is not NCCL's, whose collectives
+        inside the function a CUDA graph cannot hold."""
+        return self.spatial is not None and distributed.active() and not distributed.is_nccl()
 
     def _watched_tables(self) -> tuple[str, ...]:
         """The per-(step, var) metric tables the eval step computes for

@@ -62,17 +62,21 @@ class CapturedCall:
 class CapturedFunction:
     """``fn(*inputs)`` as one CUDA graph per input shapes and route; see
     the module's docstring. ``graphs`` holds the captured calls by
-    ``(route, shapes and dtypes)``."""
+    ``(route, shapes and dtypes)``. With ``eager`` it calls ``fn`` under
+    ``no_grad`` on the card too (a function whose collectives go through
+    gloo, which a graph cannot hold)."""
 
     def __init__(
         self,
         fn: Callable[..., Any],
         module: nn.Module,
         device: str | torch.device = "cuda",
+        eager: bool = False,
     ) -> None:
         self.fn = fn
         self.module = module
         self.device = resolve_device(device)
+        self.eager = eager
         self.graphs: dict[tuple, CapturedCall] = {}
         self._state: tuple = ()
         self._pool = None
@@ -85,7 +89,7 @@ class CapturedFunction:
         )
 
     def __call__(self, *inputs: torch.Tensor) -> Any:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             with torch.no_grad():
                 return self.fn(*inputs)
         if self._fingerprint() != self._state:

@@ -15,7 +15,9 @@ of the JAX package is a node here, holding ``local_world`` ranks:
 - :func:`barrier`, :func:`allgather_sums` (float64 host sums, one row per
   rank), :func:`any_flag`, :func:`broadcast_` and :func:`all_reduce_`
   are the collectives the trainer, the checkpoints and the statistics
-  need.
+  need; :func:`spatial_group`, :func:`all_to_all_`,
+  :func:`all_gather_into_` and :func:`reduce_scatter_` (over a group of
+  ranks) those of spatial partitioning (``parallel/spatial.py``).
 
 Without a process group every function answers for one process and does
 nothing, exactly as the port ran before data parallelism. An NCCL group
@@ -115,6 +117,7 @@ def init_from_env(backend: str, devices: Optional[int] = None) -> bool:
 
 def destroy() -> None:
     """Leave the process group, if any."""
+    _SPATIAL_GROUPS.clear()
     if active():
         dist.destroy_process_group()
 
@@ -153,10 +156,11 @@ def _staged(fn, *tensors: torch.Tensor) -> None:
         t.copy_(h)
 
 
-def all_reduce_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the ranks, in place."""
+def all_reduce_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``tensor`` over the ranks (of ``group``, default all), in
+    place."""
     if active():
-        _staged(dist.all_reduce, tensor)
+        _staged(lambda t: dist.all_reduce(t, group=group), tensor)
     return tensor
 
 
@@ -167,19 +171,75 @@ def broadcast_(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
     return tensor
 
 
-def all_gather_into_(out: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``part`` concatenated in rank order into ``out``
-    (``world`` times ``part``'s size), which covers every entry of
-    ``out``."""
-    if out.numel() != part.numel() * world_size():
-        raise ValueError(f"all_gather: {out.numel()} entries for {world_size()} parts "
+def group_size(group=None) -> int:
+    """The ranks in ``group`` (default all; 1 without a process group)."""
+    return dist.get_world_size(group) if active() else 1
+
+
+def all_gather_into_(out: torch.Tensor, part: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``part`` (of ``group``, default all) concatenated in
+    rank order into ``out`` (the group's size times ``part``'s size), which
+    covers every entry of ``out``."""
+    size = group_size(group)
+    if out.numel() != part.numel() * size:
+        raise ValueError(f"all_gather: {out.numel()} entries for {size} parts "
                          f"of {part.numel()}")
     if not active():
         out.copy_(part.reshape(out.shape))
         return out
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    _staged(gather, out, part)
+    _staged(lambda o, p: gather(o, p, group=group), out, part)
     return out
+
+
+def reduce_scatter_(out: torch.Tensor, full: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of their ``full``, cut into
+    as many parts along the first axis: this rank's part, into ``out``
+    (the transpose of :func:`all_gather_into_`)."""
+    if not active():
+        out.copy_(full.reshape(out.shape))
+        return out
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    _staged(lambda o, f: scatter(o, f, group=group), out, full)
+    return out
+
+
+def all_to_all_(out: torch.Tensor, inp: torch.Tensor, out_splits: list[int],
+                in_splits: list[int], group=None) -> torch.Tensor:
+    """One all-to-all over ``group``: ``inp``'s first ``in_splits[q]``
+    rows (then the next ...) go to rank ``q`` of the group, and ``out``
+    receives ``out_splits[t]`` rows from each rank ``t``, in rank order."""
+    if active():
+        _staged(lambda o, i: dist.all_to_all_single(
+            o, i, output_split_sizes=out_splits, input_split_sizes=in_splits, group=group),
+            out, inp)
+    else:
+        out.copy_(inp)
+    return out
+
+
+def spatial_group(shards: int):
+    """This rank's spatial group: ranks ``d * shards`` to ``d * shards +
+    shards - 1`` for data index ``d = rank // shards``, as the JAX package
+    reshapes its devices into a ``(data, spatial)`` mesh
+    (``neural_lam_tpu/train_model.py:465-477``). Every rank makes every
+    group, in the same order, as ``torch.distributed.new_group`` asks, once
+    per process group joined (later calls return the same group);
+    ``None`` (the default group) when the groups are the whole world or
+    there is no process group."""
+    world = world_size()
+    if world % shards:
+        raise ValueError(f"{shards} spatial shards do not divide the {world} ranks")
+    if not active() or shards == world:
+        return None
+    if shards not in _SPATIAL_GROUPS:  # made once per group joined
+        groups = [dist.new_group(list(range(d * shards, (d + 1) * shards)))
+                  for d in range(world // shards)]
+        _SPATIAL_GROUPS[shards] = groups[rank() // shards]
+    return _SPATIAL_GROUPS[shards]
+
+
+_SPATIAL_GROUPS: dict = {}
 
 
 def allgather_sums(values: np.ndarray) -> np.ndarray:

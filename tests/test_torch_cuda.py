@@ -2510,3 +2510,81 @@ def test_captured_step_with_the_node_epilogue_matches_eager(cuda, tmp_path, monk
     assert len(captured.graphs) == 2
     assert off["K3 fused_edge_phase"] > 0 and off["K4 node backward"] == 0
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# -- spatial partitioning and the stencil route ------------------------------------
+
+
+def _spatial_trainer(ds, weights, device, graph="multiscale", **trainer_kw):
+    model = GraphLAM(ds, hidden_dim=64, processor_layers=2, graph_name=graph, device=device)
+    model.load_state_dict(weights)
+    config = NeuralLAMConfig(datastore=DatastoreSelection(kind="dummydata", config_path=""))
+    return Trainer(ARForecaster(model, ds), config, ds, TrainingArgs(batch_size=2),
+                   device=device, **trainer_kw)
+
+
+@pytest.mark.cuda
+def test_sharded_step_at_one_shard_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """The sharded executor at ``S = 1`` in an NCCL group of one: the
+    captured step (its loss, gradients and AdamW in one graph, the
+    executor's local model and masked loss inside) over 3 steps against
+    the same executor on the CPU (losses 1e-5, the first step's gradients
+    2e-4 of their largest entry, the training gate's bounds), and against
+    the card's replicated step in the same group bit for bit (one shard
+    exchanges nothing)."""
+    from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    ds = make_trainer().datastore
+    weights = make_trainer().forecaster.predictor.state_dict()
+    cpu_weights = {k: v.cpu() for k, v in weights.items()}
+    data = batches(3)
+    cpu = _spatial_trainer(ds, cpu_weights, "cpu", spatial_shards=1)
+    want = [cpu.train_step(*data[0]).item()]
+    want_g = grads_to_numpy(cpu.forecaster.predictor)
+    want += [cpu.train_step(*b).item() for b in data[1:]]
+    with _process_group("nccl", monkeypatch):
+        sharded = _spatial_trainer(ds, weights, cuda, spatial_shards=1)
+        step = sharded.make_train_step()
+        got = [step(*data[0]).item()]
+        got_g = grads_to_numpy(sharded.forecaster.predictor)
+        got += [step(*b).item() for b in data[1:]]
+        assert len(sharded.graphs) == 1
+        replicated = _spatial_trainer(ds, weights, cuda)
+        rep_step = replicated.make_train_step()
+        assert [rep_step(*b).item() for b in data] == got
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for key, w in want_g.items():
+        assert np.abs(got_g[key] - w).max() <= 2e-4 * max(np.abs(w).max(), 1e-30), key
+
+
+@pytest.mark.cuda
+def test_stencil_route_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """GraphLAM under ``NEURAL_LAM_TPU_STENCIL=on`` on the 27x27 multiscale
+    mesh: the loss and every gradient of a step on the card against the
+    CPU (1e-4 of the largest entry), and the captured step gives the eager
+    step's losses bit for bit."""
+    from neural_lam_tpu_torch.convert_checkpoint import grads_to_numpy
+
+    monkeypatch.setenv("NEURAL_LAM_TPU_STENCIL", "on")
+    ds = DummyDatastore(root_path=tmp_path, n_grid_x=27, n_grid_y=27, n_timesteps=12)
+    create_graph_from_datastore(ds, tmp_path / "graph" / "multiscale")
+    torch.manual_seed(0)
+    weights = GraphLAM(ds, hidden_dim=64, processor_layers=2, device="cpu").state_dict()
+    rng = np.random.default_rng(3)
+    n, f = ds.num_grid_points, 3 * ds.get_num_data_vars("forcing")
+    data = [tuple(rng.normal(size=s).astype(np.float32)
+                  for s in ((2, 2, n, 3), (2, 1, n, 3), (2, 1, n, f))) for _ in range(3)]
+    runs = {}
+    for device in ("cpu", cuda):
+        trainer = _spatial_trainer(ds, weights, device)
+        assert trainer.forecaster.predictor._m2m_stencil() is not None
+        loss = trainer.train_step(*data[0]).item()
+        runs[str(device)] = (loss, grads_to_numpy(trainer.forecaster.predictor))
+    (want, want_g), (got, got_g) = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for key, w in want_g.items():
+        assert np.abs(got_g[key] - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-30), key
+    eager, captured = (_spatial_trainer(ds, weights, cuda) for _ in range(2))
+    step = captured.make_train_step()
+    assert [step(*b).item() for b in data] == [eager.train_step(*b).item() for b in data]
