@@ -9,11 +9,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 --dp-cards`` runs only GraphLAM's captured data-parallel step over the
 N cards of a machine (:func:`dp_cards_main`).
 
-``--parent DIR`` names a checkout of the commit before the tensor-core K7
-and K8 (their SIMT design and C interface): its ``fused_edge.cu``,
-``fused_edge_bwd.cu``, ``fused_edge_v2.cu`` and ``fused_edge_v2_bwd.cu``
-are built too and timed on the same inputs in the same call, beside the
-current K3, K4, K7 and K8.
+``--parent DIR`` names a checkout of the commit before K3's and K4's
+redesign on bf16 fragments (the C interface of now): its sources of K3,
+K4, K7 and K8 are built beside the current ones and timed on the same
+inputs in the same call, in float32 and in every bf16 instantiation (the
+``bf16``, ``cache pre`` and ``fused aggr`` kernel lines too).
 
 It builds the port's eleven CUDA kernel sources (with the bf16 variants of
 K1-K4, K7 and K8, K4 recomputing ``pre``, K3's node-MLP epilogue and the
@@ -270,10 +270,11 @@ GRAPH_LOSS_RTOL = 1e-6
 # point, told apart by their mangled template arguments: the element type
 # of K1 (f, 13__nv_bfloat16), K2's input word (Bf16x4, __nv_bfloat16 for
 # bf16 rows), K3's <mode, bf16 operands, bf16 pre, node-MLP epilogue, stream
-# type>, K4's <mode, pre: 0 float32 | 1 bf16 | 2 recomputed, bf16 operands,
-# stream type>, K7's <mode, bf16 operands, stream type>, K8's <batched, bf16
-# operands, stream type> and the node backward's <bf16 operands, stream
-# type>. K3 with the epilogue counts by its precision whatever pre it saves.
+# type>, K4's main kernel's <mode, pre: 0 float32 | 1 bf16 | 2 recomputed,
+# stream type> (fused_edge_bwd_main_bf with bf16 operands), K7's <mode,
+# bf16 operands, stream type>, K8's <batched, bf16 operands, stream type>
+# and the node backward's <bf16 operands, stream type>. K3 with the
+# epilogue counts by its precision whatever pre it saves.
 BF16_T = "13__nv_bfloat16"
 END = "(?![a-z0-9_])"  # the name ends here
 KERNEL_SYMBOLS = {
@@ -282,7 +283,7 @@ KERNEL_SYMBOLS = {
         ("K1 sender_gather", "gather_rows_(?:vec4|scalar)IfE"),
         ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0ELb0ELb0E"),
         ("K2 sender_scatter", r"scatter_rowsI(?!\w*(?:Bf16x4|__nv_bfloat16))"),
-        ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILi\dELi0ELb0E"),
+        ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILi\dELi0EfE"),
         ("K5 segment_sum", f"segment_sum_rows{END}"),
         ("K6 receiver_expand", f"expand_rows{END}"),
         ("K7 fused_edge_phase_v2", r"fused_edge_v2_fwdILi\dELb0E"),
@@ -291,10 +292,8 @@ KERNEL_SYMBOLS = {
         ("K2 sender_scatter bf16", r"scatter_rowsI\w*(?:Bf16x4|__nv_bfloat16)"),
         ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1ELb0ELb0E{BF16_T}E"),
         ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1ELb0ELb0EfE"),
-        ("K4 fused_edge_phase backward bf16",
-         rf"fused_edge_bwd_mainILi\dELi0ELb1E{BF16_T}E"),
-        ("K4 fused_edge_phase backward bf16 operands",
-         r"fused_edge_bwd_mainILi\dELi0ELb1EfE"),
+        ("K4 fused_edge_phase backward bf16", rf"fused_edge_bwd_main_bfILi\dELi0E{BF16_T}E"),
+        ("K4 fused_edge_phase backward bf16 operands", r"fused_edge_bwd_main_bfILi\dELi0EfE"),
         ("K7 fused_edge_phase_v2 bf16", rf"fused_edge_v2_fwdILi\dELb1E{BF16_T}E"),
         ("K7 fused_edge_phase_v2 bf16 operands", r"fused_edge_v2_fwdILi\dELb1EfE"),
         ("K8 fused_edge_phase_v2 backward bf16",
@@ -302,8 +301,8 @@ KERNEL_SYMBOLS = {
         ("K8 fused_edge_phase_v2 backward bf16 operands",
          r"fused_edge_v2_bwd_mainILb\dELb1EfE"),
         ("K3 fused_edge_phase bf16 pre", r"fused_edge_fwdILi\dELb\dELb1ELb0E"),
-        ("K4 fused_edge_phase backward bf16 pre", r"fused_edge_bwd_mainILi\dELi1E"),
-        ("K4 fused_edge_phase backward recompute", r"fused_edge_bwd_mainILi\dELi2E"),
+        ("K4 fused_edge_phase backward bf16 pre", r"fused_edge_bwd_main(?:_bf)?ILi\dELi1E"),
+        ("K4 fused_edge_phase backward recompute", r"fused_edge_bwd_main(?:_bf)?ILi\dELi2E"),
         ("K3 fused_edge_phase node epilogue", r"fused_edge_fwdILi\dELb0ELb\dELb1E"),
         ("K3 fused_edge_phase node epilogue bf16",
          rf"fused_edge_fwdILi\dELb1ELb\dELb1E{BF16_T}E"),
@@ -477,105 +476,112 @@ def bound(nbytes: float, flops: float, tensor: bool = False) -> tuple[float, str
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def parent_kernels(torch, parent: Path) -> dict:
-    """K3, K4, K7 and K8 of the commit before the tensor-core K7 and K8,
-    from a checkout of it at ``parent``, for a same-call comparison: a
-    dict of four callables, each called like the current wrapper with the
-    same inputs (``fused_kernels.fused_edge_fwd``, ``fused_edge_bwd``,
-    ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and doing the same work.
-    K3 and K4 have the current C interface there less its first argument
-    (``pre_bf16``, a float32 ``pre`` in that commit) and run through the
-    current wrappers on the parent's libraries; K7 (no work counter) and
-    K8 (one block count, a 2-matrix main workspace per SM) use that
-    commit's interface, with its wrappers' allocations."""
-    import ctypes
+# The library getters of the wrappers of K3, K4, K7 and K8
+# (ops/fused_kernels.py) and the source each one loads: a parent build
+# stands in for them through the same C interface
+PARENT_SOURCES = {
+    "_fwd_lib": "fused_edge", "_fwd_bf16_lib": "fused_edge",
+    "_fwd_node_lib": "fused_edge_node", "_bwd_lib": "fused_edge_bwd",
+    "_bwd_bf16_lib": "fused_edge_bwd", "_bwd_recompute_lib": "fused_edge_bwd_recompute",
+    "_v2_fwd_lib": "fused_edge_v2", "_v2_fwd_bf16_lib": "fused_edge_v2",
+    "_v2_bwd_lib": "fused_edge_v2_bwd", "_v2_bwd_bf16_lib": "fused_edge_v2_bwd",
+}
 
-    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+def same_as_parent(parent, fn, what: str) -> int:
+    """``fn()``'s outputs through the current kernels against the parent
+    commit's (:func:`parent_kernels`) on the same inputs: every tensor of
+    them the same bits, else AssertionError. Returns how many tensors were
+    compared (0 without a parent)."""
+    import torch
+
+    if parent is None:
+        return 0
+
+    def flat(out):
+        if isinstance(out, (tuple, list)):
+            return [t for o in out for t in flat(o)]
+        return [] if out is None else [out]
+
+    got = flat(fn())
+    with parent["use"]():
+        old = flat(fn())
+    torch.cuda.synchronize()
+    if len(got) != len(old) or not all(torch.equal(x, y) for x, y in zip(got, old)):
+        raise AssertionError(f"{what}: not the parent's bits")
+    return len(got)
+
+
+def start_parent_build(parent: Path) -> list:
+    """Start ``nvcc`` on the parent checkout's sources of K3, K4, K7 and K8
+    (one process each, beside the current build); :func:`parent_kernels`
+    waits for them."""
     from neural_lam_tpu_torch.ops import kernel_build
 
     csrc = parent / "neural_lam_tpu_torch" / "csrc"
-    names = ("fused_edge", "fused_edge_bwd", "fused_edge_v2", "fused_edge_v2_bwd")
     procs = []
-    for name in names:
+    for name in sorted(set(PARENT_SOURCES.values())):
         out = kernel_build.BUILD_DIR / f"parent-{name}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(out),
                str(csrc / f"{name}.cu")]
         procs.append((name, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def parent_kernels(torch, procs: list) -> dict:
+    """K3, K4, K7 and K8 of the commit before K3's and K4's redesign on
+    bf16 fragments, built by :func:`start_parent_build`, for a same-call
+    comparison: a dict of four callables, each called like the current
+    wrapper with the same inputs (``fused_kernels.fused_edge_fwd``,
+    ``fused_edge_bwd``, ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and
+    doing the same work, and ``"use"``, a context manager under which every
+    wrapper of the four (every precision, ``pre`` type and the node-MLP
+    epilogue) launches the parent's kernels. That commit has the current C
+    interface."""
+    import contextlib
+    import ctypes
+
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
     libs = {}
     for name, out, proc in procs:
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
         libs[name] = ctypes.CDLL(str(out))
-    k3_c = libs["fused_edge"].nl_fused_edge_fwd
-    k3_c.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 21
-    k4_c = libs["fused_edge_bwd"].nl_fused_edge_bwd
-    k4_c.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 25
-    k7_c = libs["fused_edge_v2"].nl_fused_edge_v2_fwd
-    k7_c.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
-    k8_c = libs["fused_edge_v2_bwd"].nl_fused_edge_v2_bwd
-    k8_c.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 24
-    ptr, d = fk._ptr, HIDDEN
+    fns = {}
+    for getter, source in PARENT_SOURCES.items():
+        current = getattr(fk, getter)()  # the C entry of the current build, for its name
+        fn = getattr(libs[source], current.__name__)
+        fn.argtypes, fn.restype = current.argtypes, ctypes.c_int
+        fns[getter] = fn
 
-    def through(lib_name, c_fn, wrapper):
+    @contextlib.contextmanager
+    def use():
+        saved = {getter: getattr(fk, getter) for getter in fns}
+        for getter, fn in fns.items():
+            setattr(fk, getter, lambda fn=fn: fn)
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(fk, name, fn)
+
+    def through(wrapper):
         def run(*args, **kw):
-            old = getattr(fk, lib_name)
-            setattr(fk, lib_name, lambda: c_fn)
-            try:
+            with use():
                 return wrapper(*args, **kw)
-            finally:
-                setattr(fk, lib_name, old)
 
         return run
 
-    def k7(edge_in, sp, rp, es, weights, raw, update, save_pre=False):
-        mode, feat = fk._check_v2_inputs(edge_in, sp, rp, es, weights, raw)
-        dev, shape = rp.device, (es.num_edges, rp.shape[1], d)
-        aggr = torch.empty(tuple(rp.shape), device=dev)
-        new_edge = torch.empty(shape, device=dev) if update else None
-        pre = torch.empty(shape, device=dev) if save_pre else None
-        err = k7_c(mode, es.num_rec, shape[1], feat, int(update), int(weights[4] is not None),
-                   ptr(edge_in), ptr(sp), ptr(rp), ptr(es.rowptr), ptr(es.senders),
-                   *(ptr(w) for w in weights), ptr(aggr), ptr(new_edge), ptr(pre),
-                   torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent K7: CUDA error {err}")
-        return aggr, new_edge, pre
-
-    def k8(d_aggr, d_new, pre, edge_in, es, weights, raw):
-        dev, n_e, b = pre.device, es.num_edges, pre.shape[1]
-        mode, feat = fk._check_edge_and_weights("parent K8", edge_in, es, b, dev, weights, raw)
-        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-        batched = mode == 2
-        d_pre, d_rec = torch.empty(n_e, b, d, device=dev), torch.empty(es.num_rec, b, d, device=dev)
-        d_edge = torch.empty((n_e, b, d) if batched else (n_e, d), device=dev)
-        out_main, ws_main = torch.empty(8448, device=dev), torch.empty(blocks, 8448, device=dev)
-        presum = out_edge = ws_edge = None
-        if not batched:
-            presum, out_edge = torch.empty(n_e, d, device=dev), torch.empty(8960, device=dev)
-            ws_edge = torch.empty(blocks, 8960, device=dev)
-        err = k8_c(mode, es.num_rec, n_e, b, feat, int(weights[4] is not None), blocks,
-                   ptr(edge_in), ptr(pre), ptr(d_aggr), ptr(d_new), ptr(es.rowptr),
-                   ptr(weights[0]), ptr(weights[2]), ptr(weights[3]), ptr(weights[4]),
-                   *(ptr(w) for w in weights[6:]), ptr(d_pre), ptr(d_edge), ptr(d_rec),
-                   ptr(presum), ptr(ws_main), ptr(out_main), ptr(ws_edge), ptr(out_edge),
-                   torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent K8: CUDA error {err}")
-        # the rest of that wrapper: the first layer's assembled gradient
-        mats = out_main[: 2 * d * d].view(2, d, d)
-        dw1e = mats[1] if batched else out_edge[: d * d].view(d, d)
-        zero = torch.zeros((d, d), device=dev)
-        torch.cat([dw1e, zero, zero], dim=1)
-        return d_edge, d_pre, d_rec
-
     return {
-        "K3": through("_fwd_lib", lambda pre_bf16, *args: k3_c(*args), fk.fused_edge_fwd),
-        "K4": through("_bwd_lib", lambda pre_bf16, *args: k4_c(*args), fk.fused_edge_bwd),
-        "K7": k7,
-        "K8": k8,
+        "K3": through(fk.fused_edge_fwd),
+        "K4": through(fk.fused_edge_bwd),
+        "K7": through(fk.fused_edge_v2_fwd),
+        "K8": through(fk.fused_edge_v2_bwd),
+        "use": use,
     }
 
 
@@ -1095,7 +1101,7 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, "raw", False, 1, n_grid),
     ]
     k3 = dict(ms=0.0, pre_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0,
-              bytes_ms=0.0, simt_ms=0.0, old_ms=0.0, old_pre_ms=0.0)
+              bytes_ms=0.0, simt_ms=0.0, old_ms=0.0, old_pre_ms=0.0, same=0)
     for site, net, ge, emb, mode, update, calls, n_rec in k3_sites:
         es = ge.edges
         n_e = es.num_edges
@@ -1150,7 +1156,11 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
                 save_pre=True))
             k3["old_ms"] += calls * old_ms
             k3["old_pre_ms"] += calls * old_pre_ms
-            old = f"parent {old_ms:.4f} ms, with pre {old_pre_ms:.4f} ms"
+            k3["same"] += same_as_parent(parent, lambda: fused_edge_fwd(
+                edge_in, x_send, rec, es, wts, mode == "raw", update, False,
+                save_pre=True), f"K3 {site}")
+            old = (f"parent {old_ms:.4f} ms, with pre {old_pre_ms:.4f} ms; its "
+                   "outputs the same bits")
         log(
             f"K3 fused_edge_phase {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, update_edges {update}; max abs err "
@@ -1194,7 +1204,7 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
          1, n_grid),
     ]
     k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0,
-              simt_ms=0.0, old_ms=0.0)
+              simt_ms=0.0, old_ms=0.0, same=0)
     for site, net, ge, emb, mode, update, has_dne, calls, n_rec in k4_sites:
         es = ge.edges
         n_e = es.num_edges
@@ -1278,7 +1288,8 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
             old_ms = cuda_ms(lambda: parent["K4"](
                 d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw, False))
             k4["old_ms"] += calls * old_ms
-            old = f"parent {old_ms:.4f} ms"
+            k4["same"] += same_as_parent(parent, run_k4, f"K4 {site}")
+            old = f"parent {old_ms:.4f} ms, its gradients the same bits"
         log(
             f"K4 fused_edge_phase backward {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, d_new_edge {'given' if has_dne else 'none'}; "
@@ -1305,6 +1316,10 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         f"{k4['bound_ms']:.4f} ms (3xTF32), {100 * k4['bound_ms'] / k4['ms']:.1f} % "
         f"of it; SIMT bound {k4['simt_ms']:.4f} ms; plain {k4['plain_ms']:.4f})"
     )
+    if parent is not None:
+        log(f"float32 K3 and K4 against the parent's kernels on the same inputs at "
+            f"{len(k4_sites)} sites: {k3['same']} outputs of K3 (with its pre) and "
+            f"{k4['same']} of K4, every one the same bits")
 
     torch.cuda.empty_cache()
     return [
@@ -3629,7 +3644,78 @@ def bf16_entry(name: str, source: str, replaces: str, acc: dict, library) -> dic
     )
 
 
-def phase_bf16_kernels(torch, model) -> list[dict]:
+def parent_ms(parent, fn):
+    """``fn``'s time through the parent commit's kernels (:func:`parent_kernels`),
+    or None without a parent."""
+    if parent is None:
+        return None
+    with parent["use"]():
+        return cuda_ms(fn)
+
+
+def ptxas_report(source: str) -> dict[str, tuple[int, int, int]]:
+    """Each kernel entry of ``csrc/<source>.cu``'s build: registers, spill
+    stores and spill loads in bytes, from the compiler's ``-Xptxas -v``
+    report."""
+    from neural_lam_tpu_torch.ops import kernel_build
+
+    out, entry, spills = {}, None, (-1, -1)
+    for line in kernel_build.build_log(source).splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills = (int(found.group(1)), int(found.group(2)))
+        elif "Used" in line and entry is not None:
+            out[entry] = (int(re.search(r"Used (\d+) registers", line).group(1)), *spills)
+            entry, spills = None, (-1, -1)
+    return out
+
+
+def mangled_args(row: dict) -> str:
+    """The template arguments of an instantiation of K3 or of K4's main
+    kernel (a row of ``fused_kernels.instantiation_occupancy``) as they
+    appear in its mangled name."""
+    ti = "13__nv_bfloat16" if row["io_bf16"] else "f"
+    if row["kernel"] == "K3":
+        return (f"fused_edge_fwdILi{row['mode']}ELb{row['bf16_ops']}ELb"
+                f"{int(row['pre'] == 'bf16')}ELb{int(row['node'])}E{ti}E")
+    pre = {"float32": 0, "bf16": 1, "recompute": 2}[row["pre"]]
+    # the saved-pre kernels serve the raw mode with the shared one
+    mode = 1 if row["mode"] == 0 and pre != 2 else row["mode"]
+    if row["bf16_ops"]:
+        return f"fused_edge_bwd_main_bfILi{mode}ELi{pre}E{ti}E"
+    return f"fused_edge_bwd_mainILi{mode}ELi{pre}E{ti}E"
+
+
+def log_occupancy(what: str, keep) -> None:
+    """Blocks, warps, registers, shared and local memory per instantiation
+    of K3 and of K4's main kernel with bf16 operands for which ``keep(row)``
+    holds (the CUDA runtime's), and its spill stores and loads (the
+    compiler's report: AssertionError unless exactly one of its entries is
+    the instantiation, with its spills)."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+    reports = {}
+    for row in fk.instantiation_occupancy(bf16_ops=True):
+        if not keep(row):
+            continue
+        if row["source"] not in reports:
+            reports[row["source"]] = ptxas_report(row["source"])
+        args = mangled_args(row)
+        found = [v for k, v in reports[row["source"]].items() if args in k]
+        if len(found) != 1 or found[0][1] < 0:
+            raise AssertionError(f"{what} occupancy {row['name']}: {len(found)} entries of "
+                                 f"the {row['source']}.cu build's report match {args}, or "
+                                 "its spills are missing")
+        _, stores, loads = found[0]
+        log(f"{what} occupancy {row['name']}: {row['blocks']} block(s) of {row['threads']} "
+            f"threads = {row['warps']} warps per SM, {row['regs']} registers a thread, "
+            f"{row['smem']} bytes of shared memory a block, {row['local']} bytes of local "
+            f"memory a thread; spill stores {stores} bytes, spill loads {loads} bytes")
+
+
+def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     """The bf16 variants of K1-K4, K7 and K8 against their plain versions
     at the shapes of the six GraphLAM calls at batch 4, in each
     instantiation: K1 and K2 on bf16 rows; K3, K4, K7 and K8 with bf16
@@ -3638,7 +3724,10 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
     beside the float32 kernel's time on the same shapes in the same call,
     its plain version's and, for K1 and K2, ``index_select`` and
     ``index_add_``; times summed over the calls of one AR step (K1, K3,
-    K7) or one training step (K2, K4, K8)."""
+    K7) or one training step (K2, K4, K8). K3 and K4 are also timed through
+    the ``parent`` commit's kernels where one is given (:func:`parent_kernels`),
+    and each of their bf16 instantiations' occupancy, registers and spills
+    is printed."""
     from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops.segment_kernels import (
         sender_gather,
@@ -3656,10 +3745,11 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
 
     def acc():
         return dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                    ops_ms=0.0, bytes_ms=0.0, err=0.0)
+                    ops_ms=0.0, bytes_ms=0.0, err=0.0, parent_ms=0.0)
 
-    def add(a, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, lib_ms=0.0):
+    def add(a, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, lib_ms=0.0, old_ms=None):
         a["ms"] += calls * ms
+        a["parent_ms"] += calls * (old_ms or 0.0)
         a["f32_ms"] += calls * f32_ms
         a["plain_ms"] += calls * plain_ms
         a["library_ms"] += calls * lib_ms
@@ -3788,6 +3878,7 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
             e32 = edge_in.float()
             ms = cuda_ms(run)
             pre_ms = cuda_ms(lambda: run(pre=True))
+            old_ms, old_pre_ms = parent_ms(parent, run), parent_ms(parent, lambda: run(pre=True))
             f32_ms = cuda_ms(lambda: fk.fused_edge_fwd(e32, x32, r32, es, wts, raw, update,
                                                        False))
             plain_ms = cuda_ms(plain)
@@ -3799,10 +3890,12 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
                 f"{mode}, streams {str(io)[6:]}, update_edges {update}; max abs err "
                 f"{err:.3g} (tol {BF16_TOL} of the largest entry{', bf16 and float32 out' if len(outs) == 2 else ''}); "
                 f"kernel {ms:.4f} ms, with the pre output {pre_ms:.4f} ms (float32 kernel "
-                f"{f32_ms:.4f} ms); plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                f"{f32_ms:.4f} ms; parent {old_ms or 0.0:.4f} ms, with pre "
+                f"{old_pre_ms or 0.0:.4f} ms, 0 = not measured); plain {plain_ms:.4f} ms; "
+                f"bound {b_ms:.4f} ms ({b_by}, "
                 f"{moved / 1e6:.1f} MB, bf16 tensor cores; {100 * b_ms / ms:.1f} % of it); "
                 f"{calls} call(s) per AR step")
-            add(k3, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+            add(k3, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, old_ms=old_ms)
             del x_send, rec, edge_in, got, want, x32, r32, e32
 
         for site, net, ge, emb, mode, update, has_dne, calls, n_rec in k4_sites:
@@ -3858,6 +3951,7 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
             da32 = d_aggr.float()
             dn32 = None if d_new is None else d_new.float()
             ms = cuda_ms(run_k4)
+            old_ms = parent_ms(parent, run_k4)
             f32_ms = cuda_ms(lambda: fk.fused_edge_bwd(da32, dn32, pre, e32, x32, r32, es, wts,
                                                        raw, False))
             plain_ms = cuda_ms(run_plain)
@@ -3867,10 +3961,11 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
                 f"edge input {mode}, streams {str(io)[6:]}, d_new_edge "
                 f"{'given' if has_dne else 'none'}; max abs err {err:.3g} (tol {BF16_TOL} of "
                 f"each gradient's largest entry), repeatable; kernel {ms:.4f} ms (float32 "
-                f"kernel {f32_ms:.4f} ms); plain (autograd) {plain_ms:.4f} ms; bound "
+                f"kernel {f32_ms:.4f} ms; parent {old_ms or 0.0:.4f} ms, 0 = not measured); "
+                f"plain (autograd) {plain_ms:.4f} ms; bound "
                 f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
                 f"it); {calls} call(s) per training step")
-            add(k4, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+            add(k4, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, old_ms=old_ms)
             del x_send, rec, edge_in, d_aggr, d_new, pre, outs, want, got, again, leaves
             del d_edge, d_send, d_rec, w_grads, aggr_p, new_p, params, p_wts
             torch.cuda.empty_cache()
@@ -3878,6 +3973,11 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
             f"{k3['f32_ms']:.4f} ms (bound {k3['bound_ms']:.4f}); K4 {label} per training "
             f"step {k4['ms']:.4f} ms against {k4['f32_ms']:.4f} ms (bound "
             f"{k4['bound_ms']:.4f})")
+        if parent is not None:
+            log(f"K3 {label} per AR step {k3['ms']:.4f} ms against the parent's "
+                f"{k3['parent_ms']:.4f} ms ({k3['parent_ms'] / k3['ms']:.3f} x); K4 {label} "
+                f"per training step {k4['ms']:.4f} ms against the parent's "
+                f"{k4['parent_ms']:.4f} ms ({k4['parent_ms'] / k4['ms']:.3f} x), same call")
         report.append(bf16_entry(f"K3 fused_edge_phase {label}", "fused_edge.cu",
                                  "neural_lam_tpu/ops/pallas_fused.py:879", k3, None))
         report.append(bf16_entry(f"K4 fused_edge_phase backward {label}", "fused_edge_bwd.cu",
@@ -3990,6 +4090,7 @@ def phase_bf16_kernels(torch, model) -> list[dict]:
     log(f"K1 bf16 per AR step {k1['ms']:.4f} ms against the float32 kernel's "
         f"{k1['f32_ms']:.4f} ms; K2 bf16 per training step {k2['ms']:.4f} ms against "
         f"{k2['f32_ms']:.4f} ms")
+    log_occupancy("bf16", lambda row: not row["node"] and row["pre"] == "float32")
     torch.cuda.empty_cache()
     return [
         bf16_entry("K1 sender_gather bf16", "sender_gather.cu",
@@ -4266,7 +4367,7 @@ def cache_pre_expected(model, mode: str) -> dict[str, int]:
     return out
 
 
-def phase_cache_pre_kernels(torch, model) -> list[dict]:
+def phase_cache_pre_kernels(torch, model, parent=None) -> list[dict]:
     """``NEURAL_LAM_TPU_CACHE_PRE``'s kernels at the six GraphLAM calls
     of a training step (batch 4, float32): K3 writing a bf16 ``pre``
     (against the float32-``pre`` K3: the same outputs bit for bit and its
@@ -4276,8 +4377,11 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
     and against K4 from K3's float32 ``pre``: within
     ``CACHE_PRE_RECOMPUTE_TOL`` of each gradient's largest entry, and how
     many entries are the same bits), each timed beside the kernel it
-    stands in for, its plain version and its bound (3xTF32). Returns the
-    three kernels' report entries, times summed over a training step."""
+    stands in for, its plain version and its bound (3xTF32). Then the same
+    three with bf16 operands on bf16 streams (mixed precision) against their
+    plain versions, timed beside the ``parent`` commit's kernels where one is
+    given, and their occupancy, registers and spills. Returns the three
+    kernels' report entries (float32), times summed over a training step."""
     from neural_lam_tpu_torch.ops import fused_kernels as fk
 
     bf16 = torch.bfloat16
@@ -4301,7 +4405,9 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
              "K4 fused_edge_phase backward recompute")
     accs = {k: dict(ms=0.0, plain_ms=0.0, base_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                     bytes_ms=0.0, err=0.0) for k in names}
-    same_bits = total_entries = 0
+    same_bits = total_entries = same = 0
+    # with bf16 operands on bf16 streams: kernel, parent, plain and bound ms
+    bf_ms = {k: dict(ms=0.0, parent_ms=0.0, plain_ms=0.0, bound_ms=0.0) for k in names}
 
     def add(name, calls, ms, plain_ms, base_ms, moved, flops, err):
         b_ms, b_by = bound(moved, flops, tensor=True)
@@ -4346,12 +4452,14 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
         ms, base_ms = cuda_ms(lambda: k3(bf16)), cuda_ms(k3)
         plain_ms = cuda_ms(lambda: fk._plain(edge_in, x_send, rec, es.receivers, wts, raw,
                                              update, False, return_pre=True))
+        same += same_as_parent(parent, lambda: k3(bf16), f"K3 bf16 pre {site}")
         moved = nbytes(x_send, rec, edge_in, es.rowptr, *params, *got16)
         flops = 2 * n_rec * b * d * d + 2 * rows * d * d * 2 + rows * d
         if raw:
             flops += n_e * (2 * edge_in.shape[1] * d + 4 * d * d)
         else:
             flops += 2 * rows * d * d
+        flops_of = {names[0]: flops}  # kept for the bf16-operand kernels' bounds
         b_ms, b_by = add(names[0], calls, ms, plain_ms, base_ms, moved, flops, err)
         log(f"K3 fused_edge_phase bf16 pre {site}: E {n_e}, receivers {n_rec}, edge input "
             f"{mode}; outputs the float32-pre K3's bits and its pre rounded to nearest "
@@ -4388,12 +4496,14 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
             raise AssertionError(f"K4 bf16 pre {site}: two runs differ")
         ms, base_ms = cuda_ms(lambda: k4(pre16)), cuda_ms(lambda: k4(pre32))
         plain_ms = cuda_ms(lambda: plain4(pre16))
+        same += same_as_parent(parent, lambda: k4(pre16), f"K4 bf16 pre {site}")
         moved = nbytes(pre16, x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
         flops = 2 * rows * d * d * 5 + 2 * n_rec * b * d * d * 2 + rows * d
         if raw:
             flops += n_e * (2 * d * d * 5 + 2 * edge_in.shape[1] * d * 2)
         else:
             flops += 2 * rows * d * d * 2
+        flops_of[names[1]] = flops
         b_ms, b_by = add(names[1], calls, ms, plain_ms, base_ms, moved, flops, err)
         log(f"K4 fused_edge_phase backward bf16 pre {site}: d_new_edge "
             f"{'given' if has_dne else 'none'}; max abs err {err:.3g} against the plain "
@@ -4424,12 +4534,14 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
         ms = cuda_ms(lambda: k4(None))
         base_ms = cuda_ms(lambda: k4(pre32))
         plain_ms = cuda_ms(lambda: plain4(None))
+        same += same_as_parent(parent, lambda: k4(None), f"K4 recompute {site}")
         moved = nbytes(x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
         # K4's products, and the recompute's: send . W1s per row, edge .
         # W1e per row (batched) or the embedder and edge_val . W1e per edge,
         # rec . W1r per (receiver, b)
         flops += 2 * rows * d * d + 2 * n_rec * b * d * d
         flops += n_e * (2 * edge_in.shape[1] * d + 4 * d * d) if raw else 2 * rows * d * d
+        flops_of[names[2]] = flops
         b_ms, b_by = add(names[2], calls, ms, plain_ms, base_ms, moved, flops, err)
         log(f"K4 fused_edge_phase backward recompute {site}: max abs err {err:.3g} against "
             f"the plain backward recomputing pre (tol {K4_TOL} of each gradient's largest "
@@ -4439,10 +4551,74 @@ def phase_cache_pre_kernels(torch, model) -> list[dict]:
             f"pre {base_ms:.4f} ms); plain (recomputing) {plain_ms:.4f} ms; bound "
             f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of it); "
             f"{calls} call(s) per training step")
-        del x_send, rec, edge_in, pre16, pre32, got, want, again, saved, d_aggr, d_new
+        del pre16, pre32, got, want, again, saved
+
+        # ---- the three with bf16 operands on bf16 streams ---------------------
+        w16 = [None if w is None else w.to(bf16).float() for w in wts]
+        x16, r16, e16, da16 = x_send.to(bf16), rec.to(bf16), edge_in.to(bf16), d_aggr.to(bf16)
+        dn16 = None if d_new is None else d_new.to(bf16)
+        args16 = (e16, x16, r16, es, w16, raw, update, False)
+
+        def k3b():
+            return fk.fused_edge_fwd(*args16, save_pre=True, bf16_ops=True, pre_dtype=bf16)
+
+        def k4b(pre):
+            return fk.fused_edge_bwd(da16, dn16, pre, e16, x16, r16, es, w16, raw, False, True)
+
+        def plain3b():
+            return fk._plain(e16.float(), x16.float(), r16.float(), es.receivers, w16, raw,
+                             update, False, bf16_ops=True, return_pre=True)
+
+        def plain4b(pre):
+            return fk._plain_bwd(da16.float(), None if dn16 is None else dn16.float(),
+                                 e16.float(), x16.float(), r16.float(), es, w16, raw, update,
+                                 False, True, pre=pre)
+
+        w16_params = [w for w in w16 if w is not None]
+        got, want = k3b(), plain3b()
+        torch.cuda.synchronize()
+        bf16_check(got[0], want[0].to(bf16), f"K3 bf16 pre, bf16 operands, {site}")
+        bf16_check(got[2], want[2].to(bf16), f"K3 bf16 pre, bf16 operands, {site} pre")
+        pre_b = got[2]
+        # (name, kernel, plain version, bytes moved)
+        times = [(names[0], k3b, plain3b,
+                  nbytes(x16, r16, e16, es.rowptr, *w16_params, *got))]
+        for name, pre in ((names[1], pre_b), (names[2], None)):
+            got, again, want = flat(k4b(pre)), flat(k4b(pre)), flat(plain4b(pre))
+            torch.cuda.synchronize()
+            for i, (o, w) in enumerate(zip(got, want)):
+                bf16_check(o, w.to(o.dtype), f"{name}, bf16 operands, {site} gradient {i}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name}, bf16 operands, {site}: two runs differ")
+            moved = nbytes(pre, x16, r16, e16, da16, dn16, es.rowptr, *w16_params, *got)
+            times.append((name, lambda pre=pre: k4b(pre), lambda pre=pre: plain4b(pre), moved))
+        row = []
+        for name, fn, plain_fn, moved in times:
+            ms, old_ms, plain_ms = cuda_ms(fn), parent_ms(parent, fn), cuda_ms(plain_fn)
+            b_ms, b_by = bf16_bound(moved, flops_of[name])
+            a = bf_ms[name]
+            for key, val in (("ms", ms), ("parent_ms", old_ms or 0.0),
+                             ("plain_ms", plain_ms), ("bound_ms", b_ms)):
+                a[key] += calls * val
+            row.append(f"{name} {ms:.4f} ms (parent {old_ms or 0.0:.4f}; plain "
+                       f"{plain_ms:.4f}; bound {b_ms:.4f}, {b_by}, {moved / 1e6:.1f} MB, "
+                       f"bf16 tensor cores)")
+        log(f"bf16 operands, bf16 streams, {site}: within the bf16 bounds of the plain "
+            f"versions, repeatable; {'; '.join(row)}; 0 = not measured")
+        del x_send, rec, edge_in, d_aggr, d_new, x16, r16, e16, da16, dn16, pre_b, got, want
+        del again
         torch.cuda.empty_cache()
     log(f"K4 recompute against K4 from the saved pre: {same_bits} of {total_entries} "
         f"gradient entries the same bits")
+    for name, a in bf_ms.items():
+        log(f"{name}, bf16 operands and streams, per training step: {a['ms']:.4f} ms against "
+            f"the parent's {a['parent_ms']:.4f} ms (0 = not measured); plain "
+            f"{a['plain_ms']:.4f} ms; bound {a['bound_ms']:.4f} ms")
+    if parent is not None:
+        log(f"float32 K3 bf16 pre, K4 bf16 pre and K4 recompute against the parent's "
+            f"kernels on the same inputs at {len(sites)} sites: {same} outputs and "
+            f"gradients, every one the same bits")
+    log_occupancy("cache pre", lambda row: not row["node"] and row["pre"] != "float32")
     for name in names:
         a = accs[name]
         log(f"{name} per training step: {a['ms']:.4f} ms against {a['base_ms']:.4f} ms "
@@ -4554,7 +4730,7 @@ def compare_train_modes(torch, model, ds, card: str, what: str, env: str, tols: 
 # -- NEURAL_LAM_TPU_FUSED_AGGR: K3 with the node-MLP epilogue, the node backward --
 
 
-def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
+def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
     """``NEURAL_LAM_TPU_FUSED_AGGR``'s kernels at the six GraphLAM calls of
     a step (batch 4), in each precision: float32 (3xTF32), bf16 streams and
     operands (mixed precision) and bf16 operands on float32 streams
@@ -4569,9 +4745,11 @@ def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
     ``_plain_node_bwd``, repeatable, timed beside the unfused tail's
     forward and backward with ``torch``, its plain version and its bound.
     Then both in float32 at HiLAM's ten level sets, the whole phase and
-    every gradient against the plain version. Returns the six kernels'
-    report entries, times summed over an AR step (K3) or a training step
-    (the node backward)."""
+    every gradient against the plain version. K3 with the epilogue is also
+    timed through the ``parent`` commit's kernels where one is given, and
+    each bf16 instantiation's occupancy, registers and spills printed.
+    Returns the six kernels' report entries, times summed over an AR step
+    (K3) or a training step (the node backward)."""
     import copy
 
     from neural_lam_tpu_torch.ops import fused_kernels as fk
@@ -4599,8 +4777,9 @@ def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
                   "bf16 operands": (True, torch.float32, torch.float32, " bf16 operands")}
     k3n, nbw = "K3 fused_edge_phase node epilogue", "K4 node backward"
     accs = {f"{k}{sfx}": dict(ms=0.0, plain_ms=0.0, base_ms=0.0, bound_ms=0.0, ops_ms=0.0,
-                              bytes_ms=0.0, err=0.0)
+                              bytes_ms=0.0, err=0.0, parent_ms=0.0)
             for k in (k3n, nbw) for *_, sfx in precisions.values()}
+    same = 0  # float32 outputs compared with the parent's
 
     def add(name, calls, ms, plain_ms, base_ms, moved, flops, err, bf16_ops):
         b_ms, b_by = bf16_bound(moved, flops) if bf16_ops else bound(moved, flops, tensor=True)
@@ -4670,6 +4849,10 @@ def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
                     err = max(err, check(new_edge, want_edge.to(out), f"{k3n}{sfx} {site} new "
                                          "edges", bf16_ops))
                 ms, base_ms, plain_ms = cuda_ms(k3), cuda_ms(k3_and_tail), cuda_ms(plain3)
+                old_ms = parent_ms(parent, k3)
+                accs[f"{k3n}{sfx}"]["parent_ms"] += calls * (old_ms or 0.0)
+                if not bf16_ops:
+                    same += same_as_parent(parent, lambda: k3(True), f"{k3n} {site}")
                 moved = nbytes(x_send, rec, edge_in, es.rowptr, *params, *node_params, node,
                                new_edge)
                 flops = 2 * n_rec * b * d * d * 4 + 2 * rows * d * d * 2 + rows * d
@@ -4679,7 +4862,8 @@ def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
                                  bf16_ops)
                 log(f"{k3n}{sfx} {site}: E {n_e}, receivers {n_rec}, edge input {mode}; max abs "
                     f"err {err:.3g} against the plain version, repeatable, the kept aggregate "
-                    f"K3's bits; kernel {ms:.4f} ms against K3 plus the node tail with torch "
+                    f"K3's bits; kernel {ms:.4f} ms (parent {old_ms or 0.0:.4f} ms, 0 = not "
+                    f"measured) against K3 plus the node tail with torch "
                     f"{base_ms:.4f} ms ({base_ms / ms:.2f} x); plain {plain_ms:.4f} ms; bound "
                     f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
                     f"it); {calls} call(s) per AR step")
@@ -4732,7 +4916,13 @@ def phase_fused_aggr_kernels(torch, model, hi_lam) -> list[dict]:
     for name, a in accs.items():
         log(f"{name} per {'AR' if name.startswith('K3') else 'training'} step: "
             f"{a['ms']:.4f} ms against {a['base_ms']:.4f} ms unfused (bound "
-            f"{a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms)")
+            f"{a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms"
+            + (f"; the parent's {a['parent_ms']:.4f} ms" if name.startswith("K3") and parent
+               else "") + ")")
+    if parent is not None:
+        log(f"float32 {k3n} against the parent's kernel on the same inputs: {same} "
+            f"outputs, every one the same bits")
+    log_occupancy("fused aggr", lambda row: row["node"])
 
     # ---- HiLAM's ten level sets, float32, the phase through autograd -----------
     hg = hi_lam.graph
@@ -5674,11 +5864,14 @@ def main() -> int:
         "TF32 off (matmul and cuDNN)"
     )
 
+    parent_build = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--parent":
+        parent_build = start_parent_build(Path(sys.argv[2]).resolve())
     build_kernels()
 
     parent = None
-    if len(sys.argv) > 2 and sys.argv[1] == "--parent":
-        parent = parent_kernels(torch, Path(sys.argv[2]).resolve())
+    if parent_build is not None:
+        parent = parent_kernels(torch, parent_build)
         log(f"parent kernels (K3, K4, K7, K8) built from {sys.argv[2]}")
 
     CACHE.mkdir(exist_ok=True)
@@ -5696,7 +5889,7 @@ def main() -> int:
         level_errs[key] = max(level_errs.get(key, 0.0), err)
     # NEURAL_LAM_TPU_FUSED_AGGR: K3 with the node-MLP epilogue and the node
     # backward at the six MEPS sites (every precision) and the level sets
-    aggr_report = phase_fused_aggr_kernels(torch, model, hi_lam)
+    aggr_report = phase_fused_aggr_kernels(torch, model, hi_lam, parent)
     del hi_lam
     for entry in report:
         err = level_errs.get(entry["name"][:2], 0.0)
@@ -5743,7 +5936,7 @@ def main() -> int:
     # the reduced-precision path: the bf16 variants of K1-K4 at the MEPS
     # sites, mixed-precision training, and the bf16 rollout check
     with torch.no_grad():
-        bf16_report = phase_bf16_kernels(torch, model)
+        bf16_report = phase_bf16_kernels(torch, model, parent)
     add_launches(total, phase_bf16_train(torch, model, gate_ds, card), "bf16 train")
     add_launches(total, phase_bf16_rollout(torch, gate_ds), "bf16 rollout")
     with fused_v2("on"):
@@ -5755,7 +5948,7 @@ def main() -> int:
     # NEURAL_LAM_TPU_CACHE_PRE: K3 writing a bf16 pre, K4 reading it or
     # recomputing pre, and the captured training step under each value
     with torch.no_grad():
-        report += phase_cache_pre_kernels(torch, model)
+        report += phase_cache_pre_kernels(torch, model, parent)
     add_launches(total, phase_cache_pre_train(torch, model, gate_ds, card), "cache pre")
     # NEURAL_LAM_TPU_FUSED_AGGR=on: the gates, GraphLAM's and HiLAM's main
     # paths, bf16 training and rollout, and the step under off and on

@@ -8,17 +8,13 @@
 
 #include "fused_edge_fwd.cuh"
 
-// Blocks of the kernel for edge_mode that fit on one SM, its threads per
-// block, registers per thread and dynamic shared memory per block.
-extern "C" int nl_fused_edge_fwd_occupancy(int edge_mode, int* blocks, int* threads,
-                                           int* regs, int* smem) {
-  *threads = kBlockThreads;
-  switch (edge_mode) {
-    case EDGE_RAW: return static_cast<int>(occupancy<EDGE_RAW>(blocks, regs, smem));
-    case EDGE_SHARED: return static_cast<int>(occupancy<EDGE_SHARED>(blocks, regs, smem));
-    case EDGE_BATCHED: return static_cast<int>(occupancy<EDGE_BATCHED>(blocks, regs, smem));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The launch resources of one instantiation: bf16_ops (then io_bf16, the
+// stream type), pre_bf16 and edge_mode pick it; out = blocks per SM,
+// threads per block, registers per thread, dynamic shared memory per block
+// and local memory per thread (bytes).
+extern "C" int nl_fused_edge_fwd_occupancy(int bf16_ops, int io_bf16, int pre_bf16,
+                                           int edge_mode, int* out) {
+  return static_cast<int>(occupancy_mode<false>(bf16_ops, io_bf16, pre_bf16, edge_mode, out));
 }
 
 // Shapes (all f32 contiguous and 16-byte aligned on the device unless

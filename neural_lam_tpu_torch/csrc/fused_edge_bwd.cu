@@ -84,8 +84,13 @@
 //
 // Reduced precision (the JAX kernel's cdt = bf16 and io_dt, pallas_fused.py
 // :397, :1052): the instantiations with BF take every product's operands in
-// bf16 (tc_tf32.cuh; float32 sums), with the LayerNorm backward, SiLU' and
-// the column sums in float32. The streams send, d_aggr, d_new_edge and the
+// bf16 (float32 sums), with the LayerNorm backward, SiLU' and the column
+// sums in float32. Their main kernel is fused_edge_bwd_main_bf
+// (fused_edge_bwd_main.cuh), on Hopper's bf16 tensor cores (tc_bf16.cuh):
+// wgmma m64n64k16 on bf16 fragments and bf16 tiles, one bf16 copy of W2 and
+// W1s read in both orientations through wgmma's transpose bit; the edge
+// pass and the reduces are the float32 ones with bf16-rounded operands
+// (tc_tf32.cuh's one TF32 pass), as K8's. The streams send, d_aggr, d_new_edge and the
 // edge input, and the outputs d_send and d_edge, are of type TI (bf16 under
 // mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high, float32 under
 // high-kernels), as the JAX wrapper casts them to io_dt; d_recproj and the
@@ -97,17 +102,15 @@
 
 #include "fused_edge_bwd_main.cuh"
 
-// Blocks of the main kernel for edge_mode that fit on one SM, its threads
-// per block, registers per thread and dynamic shared memory per block.
-extern "C" int nl_fused_edge_bwd_occupancy(int edge_mode, int* blocks, int* threads,
-                                           int* regs, int* smem) {
-  *threads = kBlockThreads;
+// The launch resources of the main kernel's instantiation: bf16_ops (then
+// io_bf16), pre_bf16 and edge_mode pick it; out = blocks per SM, threads
+// per block, registers per thread, dynamic shared memory per block and
+// local memory per thread (bytes).
+extern "C" int nl_fused_edge_bwd_occupancy(int bf16_ops, int io_bf16, int pre_bf16,
+                                           int edge_mode, int* out) {
   return static_cast<int>(
-      edge_mode == EDGE_BATCHED
-          ? tc::occupancy(fused_edge_bwd_main<EDGE_BATCHED, kPreF32, false, float>,
-                          kBlockThreads, main_smem_bytes(false), blocks, regs, smem)
-          : tc::occupancy(fused_edge_bwd_main<EDGE_SHARED, kPreF32, false, float>,
-                          kBlockThreads, main_smem_bytes(false), blocks, regs, smem));
+      pre_bf16 ? main_occupancy_mode<kPreBf16>(bf16_ops, io_bf16, edge_mode, out)
+               : main_occupancy_mode<kPreF32>(bf16_ops, io_bf16, edge_mode, out));
 }
 
 namespace {

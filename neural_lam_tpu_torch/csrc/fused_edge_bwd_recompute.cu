@@ -20,6 +20,14 @@
 
 #include "fused_edge_bwd_main.cuh"
 
+// nl_fused_edge_bwd_occupancy (fused_edge_bwd.cu) for the recomputing main
+// kernel
+extern "C" int nl_fused_edge_bwd_recompute_occupancy(int bf16_ops, int io_bf16, int edge_mode,
+                                                     int* out) {
+  return static_cast<int>(
+      main_occupancy_mode<kPreRecompute>(bf16_ops, io_bf16, edge_mode, out));
+}
+
 // The arguments of nl_fused_edge_bwd_bf16ops (fused_edge_bwd.cu) without
 // pre_bf16 and pre, with bf16_ops (0: the float32 kernel, whose streams must
 // be float32) and, for the recompute, rec (num_rec, B, D) in the streams'

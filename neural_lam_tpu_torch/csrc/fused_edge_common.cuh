@@ -1,7 +1,8 @@
 // Shared pieces of the fused edge-phase kernels: the sizes, edge modes and
 // SiLU of K3, K4, K7 and K8 (fused_edge.cu, fused_edge_bwd*.cu,
 // fused_edge_v2.cu, fused_edge_v2_bwd.cu), the in-kernel edge embedder on
-// tensor-core row fragments (tc_tf32.cuh) that K3, K7 and K4's recompute of
+// tensor-core row fragments (tc_tf32.cuh; on bf16 fragments, tc_bf16.cuh,
+// for the bf16-operand K3 and K4) that K3, K7 and K4's recompute of
 // pre run, and the SIMT tile helpers of the edge pass that K4 and K8 share
 // (fused_edge_bwd_common.cuh).
 //
@@ -15,6 +16,7 @@
 
 #include <cuda_runtime.h>
 
+#include "tc_bf16.cuh"
 #include "tc_tf32.cuh"
 
 namespace fused_edge {
@@ -90,6 +92,36 @@ __device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int
   float z[8][4];
   tc::zero(z);
   tc::gemm<GW, BF>(z, ev, sEW2, GW ? D : tc::kWld);
+  tc::add_cols(z, sEV + D);
+  tc::layer_norm(z, sEV + 2 * D, sEV + 3 * D, kLnEps);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ev[n][j] = z[n][j];
+}
+
+// edge_value for the bf16-operand kernels on bf16 fragments (tc_bf16.cuh:
+// K3's BF instantiations and K4's BF recompute): the embedder's second
+// layer as mma.sync m16n8k16 on We2 in shared memory in the core layout
+// (tcb::load_weight) or, with GW, the float32 (D, D) weight in device
+// memory; everything else as edge_value<MODE, true>.
+template <int MODE, bool GW = false, typename T = float>
+__device__ __forceinline__ void edge_value_bf(float (&ev)[8][4], const T* edge, int F, int t0,
+                                              const float* sEW1, const void* ew2,
+                                              const float* sEV, int el0, int ne) {
+  if (MODE == EDGE_SHARED) {
+    tc::load_rows<true>(ev, edge + static_cast<long long>(t0) * D, D, el0, ne);
+    return;
+  }
+  embed_hidden<true>(ev, edge, F, t0, sEW1, sEV, el0, ne);
+  uint32_t a[4][4];
+  tcb::pack_frag(a, ev);
+  float z[8][4];
+  tc::zero(z);
+  if (GW)
+    tcb::gemm_g(z, a, static_cast<const float*>(ew2), D);
+  else
+    tcb::gemm(z, a, static_cast<const tcb::bf16*>(ew2));
   tc::add_cols(z, sEV + D);
   tc::layer_norm(z, sEV + 2 * D, sEV + 3 * D, kLnEps);
 #pragma unroll

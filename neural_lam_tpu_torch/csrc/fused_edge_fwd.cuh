@@ -73,9 +73,17 @@
 //
 // Reduced precision (the JAX kernel's cdt = bf16 and io_dt, pallas_fused.py
 // :1414-1453): the instantiations with BF multiply bf16 operands (every
-// product's two operands rounded to bf16, one TF32 pass, float32
-// accumulation; tc_tf32.cuh), with SiLU, LayerNorm, the residuals and the
-// receiver sums in float32. Their streams edge, send and rec are of type TI:
+// product's two operands rounded to bf16, float32 accumulation), with SiLU,
+// LayerNorm, the residuals and the receiver sums in float32. They run on
+// Hopper's bf16 tensor cores (tc_bf16.cuh): the row products as wgmma
+// m64n64k16 on packed bf16 fragments, the per-edge, embedder, receiver and
+// node products as mma.sync m16n8k16; every weight is one bf16 copy in
+// shared memory (8 KB where the split float32 one takes 32), W1r and the
+// node MLP's weights too, and sender, batched edge and receiver rows load
+// straight into k-slot order with 16-byte loads. That leaves room for four
+// groups a block (16 warps per SM, up to 128 registers a thread; three and
+// five ran 8 % and 17 % slower per AR step on an H100). Their streams edge,
+// send and rec are of type TI:
 // bf16 under mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high,
 // float32 under high-kernels. aggr and new_edge are written in float32 or,
 // with out_bf16, rounded to bf16 on the way out. The TPU
@@ -83,7 +91,7 @@
 // each message to bf16 before they are gathered and summed; those are
 // Mosaic's way to gather, and here the gather and the sums are exact.
 // Bound: bytes at the stream dtype, or the products at the dense bf16 rate
-// (989 TFLOP/s; one TF32 pass runs at half of it).
+// (989 TFLOP/s).
 //
 // The saved pre-activation (the JAX kernel's pre_dt, pallas_fused.py:897,
 // :1490-1492, stored at :292-295): the instantiations with PRE_BF16 round
@@ -106,7 +114,8 @@
 // pointer otherwise). The products read their weights from device memory
 // through L1 (mma.sync, tc::gemm<true>), as the receiver projection does:
 // shared memory holds K3's own weights and three groups' tiles. 3xTF32, or
-// with BF bf16 operands, as the edge MLP's; the aggregate enters as the
+// with BF bf16 operands from bf16 copies in shared memory, as the edge
+// MLP's; the aggregate enters as the
 // float32 sum, SiLU, the LayerNorm and the residual are float32, and
 // node_out is written in float32 or, with out_bf16, rounded once. The
 // epilogue is a template flag (NODE): the instantiations without it compile
@@ -121,6 +130,7 @@
 #include <type_traits>
 
 #include "fused_edge_common.cuh"
+#include "tc_bf16.cuh"
 #include "tc_tf32.cuh"
 
 namespace {
@@ -141,6 +151,7 @@ constexpr int kGroupThreads = 32 * kGroupWarps;
 constexpr int kAgg = kRecRows * D / kGroupThreads;  // sums per thread
 constexpr int kMat = D * kWld;           // a weight for mma.sync in shared memory
 constexpr int kWgMat = 2 * tc::kWgHalf;  // a weight for wgmma: its hi and lo halves
+constexpr int kBfMat = tcb::kMatFloats;  // a bf16 weight in the core layout (BF)
 
 // groups per block: what fits in 227 KB of shared memory beside the
 // weights in the raw mode (12 warps per SM, up to 168 registers a thread);
@@ -148,6 +159,16 @@ constexpr int kWgMat = 2 * tc::kWgHalf;  // a weight for wgmma: its hi and lo ha
 // (128 registers a thread spill)
 constexpr int kGroups = 3;
 constexpr int kBlockThreads = kGroups * kGroupThreads;
+// and of the BF instantiations: their bf16 weights take a quarter of the
+// float32 ones' shared memory and their products half the registers, so
+// more groups fit: four (at 128 registers a thread) ran 8 % faster than
+// three and 17 % faster than five on an H100
+constexpr int kGroupsBf = 4;
+
+__host__ __device__ constexpr int groups_of(bool bf) { return bf ? kGroupsBf : kGroups; }
+__host__ __device__ constexpr int block_threads(bool bf) {
+  return groups_of(bf) * kGroupThreads;
+}
 
 template <typename TI>
 struct Params {
@@ -194,25 +215,28 @@ struct Params {
 
 // Shared-memory plan, in floats: the block's weights (W1s and W2, and W1e
 // of a batched edge input, split for wgmma; W1e of a per-edge input and the
-// embedder's We2 for mma.sync) and vectors (the node MLP's too), then per
-// group a tile of 64
+// embedder's We2 for mma.sync; with bf, each one bf16 copy in the core
+// layout, and W1r and, with node, the node MLP's three 64 x 64 weights
+// too) and vectors (the node MLP's too), then per group a tile of 64
 // rows (messages; edge values before them), the per-edge products of a
 // tile (32 rows), the chunk's receiver projections (32 rows) and its
 // integers.
 struct Smem {
-  int w1s, w2, w1e, ew2, ew1, vec, groups, group_floats, total;
+  int w1s, w2, w1e, ew2, ew1, vec, w1r, wn, groups, group_floats, total;
   int stage, proj, rp, ints;  // offsets inside a group
 };
 
-__host__ __device__ constexpr Smem smem_plan(int mode) {
+__host__ __device__ constexpr Smem smem_plan(int mode, bool bf = false, bool node = false) {
   Smem s{};
   int o = 0;
-  s.w1s = o; o += kWgMat;
-  s.w2 = o; o += kWgMat;
-  s.w1e = o; o += (mode == EDGE_BATCHED) ? kWgMat : kMat;
-  s.ew2 = o; o += (mode == EDGE_RAW) ? kMat : 0;
+  s.w1s = o; o += bf ? kBfMat : kWgMat;
+  s.w2 = o; o += bf ? kBfMat : kWgMat;
+  s.w1e = o; o += bf ? kBfMat : (mode == EDGE_BATCHED) ? kWgMat : kMat;
+  s.ew2 = o; o += (mode == EDGE_RAW) ? (bf ? kBfMat : kMat) : 0;
   s.ew1 = o; o += (mode == EDGE_RAW) ? kMaxFeat * D : 0;
   s.vec = o; o += 12 * D;  // b1 b2 gamma beta | eb1 eb2 eg ebt | ba1 ba2 gn bn
+  s.w1r = o; o += bf ? kBfMat : 0;               // W1r, k-slot order
+  s.wn = o; o += (bf && node) ? 3 * kBfMat : 0;  // War | Wag | Wa2
   s.groups = o;
   int g = 0;
   s.stage = g; g += kTileRows * kWld;
@@ -220,13 +244,13 @@ __host__ __device__ constexpr Smem smem_plan(int mode) {
   s.rp = g; g += kRecRows * kWld;
   s.ints = g; g += 100;  // rowptr (<= 33), chunk index, receiver of each tile edge (64)
   s.group_floats = g;
-  s.total = o + kGroups * g;
+  s.total = o + groups_of(bf) * g;
   return s;
 }
 
-template <int MODE>
+template <int MODE, bool BF = false, bool NODE = false>
 constexpr int smem_bytes() {
-  return smem_plan(MODE).total * static_cast<int>(sizeof(float));
+  return smem_plan(MODE, BF, NODE).total * static_cast<int>(sizeof(float));
 }
 
 // edge_val of the tile's edges el0 + g, el0 + g + 8 (zero at el >= ne) as
@@ -234,10 +258,15 @@ constexpr int smem_bytes() {
 template <int MODE, bool BF, typename TI>
 __device__ __forceinline__ void edge_value(float (&ev)[8][4], const Params<TI>& p,
                                            const float* sm, int t0, int el0, int ne) {
-  constexpr Smem L = smem_plan(MODE);
-  fused_edge::edge_value<MODE, BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
-                                   sm + L.vec + 4 * D, el0, ne);
+  constexpr Smem L = smem_plan(MODE, BF);
+  if constexpr (BF)
+    fused_edge::edge_value_bf<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
+                                    sm + L.vec + 4 * D, el0, ne);
+  else
+    fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
+                                 sm + L.vec + 4 * D, el0, ne);
 }
+
 
 // rows r0 .. of the staged tile out to dst (float or bf16 by out_bf16)
 __device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offset,
@@ -253,11 +282,14 @@ __device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offs
 // (row (tg >> 6) + 2 j, feature tg & 63). The sums go through the group's
 // tile (and out to aggr when it is kept); warps 0 and 1 then take 16 rows
 // each: rec . War + aggr . Wag + ba1, SiLU, . Wa2 + ba2, the LayerNorm, + rec.
-// sNV is ba1 ba2 gn bn in shared memory.
+// sNV is ba1 ba2 gn bn in shared memory; with BF, sNW the three weights'
+// bf16 copies (War | Wag | Wa2 in the core layout), else they are read
+// from device memory.
 template <bool BF, typename TI>
 __device__ __forceinline__ void node_epilogue(const Params<TI>& p, const float (&agg)[kAgg],
-                                              float* sStage, const float* sNV, long long row0,
-                                              int nq, int tg, int bar) {
+                                              float* sStage, const float* sNV,
+                                              const tcb::bf16* sNW, long long row0, int nq,
+                                              int tg, int bar) {
 #pragma unroll
   for (int j = 0; j < kAgg; ++j) {
     const int q = (tg >> 6) + 2 * j;
@@ -273,15 +305,29 @@ __device__ __forceinline__ void node_epilogue(const Params<TI>& p, const float (
   tc::load_rows<true>(x, p.rec + row0 * D, D, r_base, nq);
   tc::load_rows<false>(a, sStage, kWld, r_base, nq);
   tc::zero(h);
-  tc::gemm<true, BF>(h, x, p.wa1, 2 * D);
-  tc::gemm<true, BF>(h, a, p.wa1 + D, 2 * D);
+  if constexpr (BF) {
+    uint32_t b[4][4];
+    tcb::pack_frag(b, x);
+    tcb::gemm(h, b, sNW);
+    tcb::pack_frag(b, a);
+    tcb::gemm(h, b, sNW + 2 * kBfMat);
+  } else {
+    tc::gemm<true>(h, x, p.wa1, 2 * D);
+    tc::gemm<true>(h, a, p.wa1 + D, 2 * D);
+  }
   tc::add_cols(h, sNV);
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int j = 0; j < 4; ++j) h[n][j] = silu(h[n][j]);
   tc::zero(a);
-  tc::gemm<true, BF>(a, h, p.wa2, D);
+  if constexpr (BF) {
+    uint32_t b[4][4];
+    tcb::pack_frag(b, h);
+    tcb::gemm(a, b, sNW + 4 * kBfMat);
+  } else {
+    tc::gemm<true>(a, h, p.wa2, D);
+  }
   tc::add_cols(a, sNV + D);
   if (p.node_layer_norm) tc::layer_norm(a, sNV + 2 * D, sNV + 3 * D, kLnEps);
 #pragma unroll
@@ -293,15 +339,22 @@ __device__ __forceinline__ void node_epilogue(const Params<TI>& p, const float (
   copy_out(p.node_out, p.out_bf16, row0 * D, sStage, r_base, nq);
 }
 
-// BF: bf16 operands (one TF32 pass); PRE_BF16: pre stored in bf16; NODE: the
-// node-MLP epilogue; TI: the stream type (float or bf16)
+// BF: bf16 operands (bf16 fragments, tc_bf16.cuh); PRE_BF16: pre stored in
+// bf16; NODE: the node-MLP epilogue; TI: the stream type (float or bf16)
 template <int MODE, bool BF, bool PRE_BF16, bool NODE, typename TI>
-__global__ void __launch_bounds__(kBlockThreads, 1)
+__global__ void __launch_bounds__(block_threads(BF), 1)
 fused_edge_fwd(const Params<TI> p) {
   using TP = std::conditional_t<PRE_BF16, __nv_bfloat16, float>;
+  constexpr int kThreads = block_threads(BF);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  constexpr Smem L = smem_plan(MODE);
+  constexpr Smem L = smem_plan(MODE, BF, NODE);
+  // BF: the weights' bf16 copies
+  const tcb::bf16* bW1r = reinterpret_cast<const tcb::bf16*>(sm + L.w1r);
+  const tcb::bf16* bW1e = reinterpret_cast<const tcb::bf16*>(sm + L.w1e);
+  const tcb::bf16* bW1s = reinterpret_cast<const tcb::bf16*>(sm + L.w1s);
+  const tcb::bf16* bW2 = reinterpret_cast<const tcb::bf16*>(sm + L.w2);
+  const tcb::bf16* bEW2 = reinterpret_cast<const tcb::bf16*>(sm + L.ew2);
   const float* sW1e = sm + L.w1e;
   const float* sW1s = sm + L.w1s;
   const float* sW2 = sm + L.w2;
@@ -311,15 +364,34 @@ fused_edge_fwd(const Params<TI> p) {
   const float* sBt = sG + D;
 
   // ---- the block's weights and vectors ------------------------------------
-  tc::load_weight_wg<false, false, false, BF>(sm + L.w1s, p.w1, 3 * D, D, kBlockThreads);
-  tc::load_weight_wg<false, false, false, BF>(sm + L.w2, p.w2, D, 0, kBlockThreads);
-  if (MODE == EDGE_BATCHED)
-    tc::load_weight_wg<false, false, false, BF>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
-  else
-    tc::load_weight_rows(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+  if constexpr (BF) {
+    // W1s (and a batched W1e) meet rows read by load_rows_k: k-slot order
+    tcb::bf16* w = reinterpret_cast<tcb::bf16*>(sm);
+    tcb::load_weight<true>(w + 2 * L.w1s, p.w1, 3 * D, D, kThreads);
+    tcb::load_weight<false>(w + 2 * L.w2, p.w2, D, 0, kThreads);
+    if (MODE == EDGE_BATCHED)
+      tcb::load_weight<true>(w + 2 * L.w1e, p.w1, 3 * D, 0, kThreads);
+    else
+      tcb::load_weight<false>(w + 2 * L.w1e, p.w1, 3 * D, 0, kThreads);
+    if (MODE == EDGE_RAW) tcb::load_weight<false>(w + 2 * L.ew2, p.ew2, D, 0, kThreads);
+    tcb::load_weight<true>(w + 2 * L.w1r, p.w1, 3 * D, 2 * D, kThreads);
+    if (NODE) {
+      tcb::load_weight<false>(w + 2 * L.wn, p.wa1, 2 * D, 0, kThreads);
+      tcb::load_weight<false>(w + 2 * (L.wn + kBfMat), p.wa1, 2 * D, D, kThreads);
+      tcb::load_weight<false>(w + 2 * (L.wn + 2 * kBfMat), p.wa2, D, 0, kThreads);
+    }
+    tcb::fence_async();
+  } else {
+    tc::load_weight_wg(sm + L.w1s, p.w1, 3 * D, D, kBlockThreads);
+    tc::load_weight_wg(sm + L.w2, p.w2, D, 0, kBlockThreads);
+    if (MODE == EDGE_BATCHED)
+      tc::load_weight_wg(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+    else
+      tc::load_weight_rows(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+    if (MODE == EDGE_RAW) tc::load_weight_rows(sm + L.ew2, p.ew2, D, 0, kBlockThreads);
+  }
   if (MODE == EDGE_RAW) {
-    tc::load_weight_rows(sm + L.ew2, p.ew2, D, 0, kBlockThreads);
-    for (int i = threadIdx.x; i < p.feat * D; i += kBlockThreads) {  // (D, F) -> (F, D)
+    for (int i = threadIdx.x; i < p.feat * D; i += kThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
       const float w = __ldg(p.ew1 + c * p.feat + k);
       sm[L.ew1 + i] = BF ? tc::bf16r(w) : w;  // the SIMT layer's operand
@@ -377,10 +449,17 @@ fused_edge_fwd(const Params<TI> p) {
 
     // ---- rec . W1r once per (receiver, b): warp w takes rows 16 w .. ------
     if (warp < 2) {
-      float x[8][4], acc[8][4];
-      tc::load_rows<true>(x, p.rec + static_cast<long long>(r0) * BD, D, r_base, nr * B);
+      float acc[8][4];
       tc::zero(acc);
-      tc::gemm<true, BF>(acc, x, p.w1 + 2 * D, 3 * D);
+      if constexpr (BF) {
+        uint32_t a[4][4];
+        tcb::load_rows_k(a, p.rec + static_cast<long long>(r0) * BD, r_base, nr * B);
+        tcb::gemm(acc, a, bW1r);
+      } else {
+        float x[8][4];
+        tc::load_rows<true>(x, p.rec + static_cast<long long>(r0) * BD, D, r_base, nr * B);
+        tc::gemm<true>(acc, x, p.w1 + 2 * D, 3 * D);
+      }
       tc::store_rows(sRP, kWld, acc, r_base, kRecRows);
     }
     float agg[kAgg];
@@ -401,19 +480,36 @@ fused_edge_fwd(const Params<TI> p) {
       // ---- first layer: the row products --------------------------------
       float acc[8][4];
       tc::zero(acc);
-      {
+      if constexpr (BF) {
+        // the sender rows' loads go out first; the edge input's product
+        // waits on its own
+        uint32_t a[4][4], s[4][4];
+        tcb::load_rows_k(s, p.send + row0 * D, r_base, nrows);
+        if (MODE == EDGE_BATCHED) {
+          tcb::load_rows_k(a, p.edge + row0 * D, r_base, nrows);
+          tcb::gemm_wg(acc, a, bW1e);
+        } else if (B == 1) {
+          // edge and row coincide: edge_val . W1e for the warp's own rows
+          float x[8][4];
+          edge_value<MODE, BF>(x, p, sm, t0, r_base, ne);
+          if (p.update_edges) tc::store_rows(sStage, kWld, x, r_base, kTileRows);
+          tcb::pack_frag(a, x);
+          tcb::gemm(acc, a, bW1e);
+        }
+        tcb::gemm_wg(acc, s, bW1s);
+      } else {
         float x[8][4];
         if (MODE == EDGE_BATCHED) {
           tc::load_rows<true>(x, p.edge + row0 * D, D, r_base, nrows);
-          tc::gemm_wg<8, BF>(acc, x, sW1e);
+          tc::gemm_wg<8>(acc, x, sW1e);
         } else if (B == 1) {
           // edge and row coincide: edge_val . W1e for the warp's own rows
           edge_value<MODE, BF>(x, p, sm, t0, r_base, ne);
           if (p.update_edges) tc::store_rows(sStage, kWld, x, r_base, kTileRows);
-          tc::gemm<false, BF>(acc, x, sW1e);
+          tc::gemm(acc, x, sW1e);
         }
         tc::load_rows<true>(x, p.send + row0 * D, D, r_base, nrows);
-        tc::gemm_wg<8, BF>(acc, x, sW1s);
+        tc::gemm_wg<8>(acc, x, sW1s);
       }
       // ---- per-edge products, shared by the batch (B > 1) ----------------
       if (MODE != EDGE_BATCHED && B > 1 && ni_e > 1 && warp < ni_e) {
@@ -422,7 +518,13 @@ fused_edge_fwd(const Params<TI> p) {
         edge_value<MODE, BF>(ev, p, sm, t0, r_base, ne);
         if (p.update_edges) tc::store_rows(sStage, kWld, ev, r_base, kTileRows);
         tc::zero(proj);
-        tc::gemm<false, BF>(proj, ev, sW1e);
+        if constexpr (BF) {
+          uint32_t a[4][4];
+          tcb::pack_frag(a, ev);
+          tcb::gemm(proj, a, bW1e);
+        } else {
+          tc::gemm(proj, ev, sW1e);
+        }
         tc::store_rows(sProj, kWld, proj, r_base, 32);
       } else if (MODE != EDGE_BATCHED && B > 1 && ni_e == 1) {
         // B >= 4: the tile's 16 or fewer edges fill one fragment; each warp
@@ -435,7 +537,13 @@ fused_edge_fwd(const Params<TI> p) {
           fused_edge::embed_hidden<BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.vec + 4 * D,
                                        0, ne);
           tc::zero(part);
-          tc::gemm_cols2<BF>(part, ev, sm + L.ew2, 2 * warp);
+          if constexpr (BF) {
+            uint32_t a[4][4];
+            tcb::pack_frag(a, ev);
+            tcb::gemm_cols2(part, a, bEW2, 2 * warp);
+          } else {
+            tc::gemm_cols2(part, ev, sm + L.ew2, 2 * warp);
+          }
           tc::store_cols2(sZ, kWld, part, 2 * warp);
           tc::group_sync(bar, kGroupThreads);
           tc::load_rows<false>(ev, sZ, kWld, 0, 16);
@@ -446,7 +554,13 @@ fused_edge_fwd(const Params<TI> p) {
         }
         if (p.update_edges && warp == 0) tc::store_rows(sStage, kWld, ev, 0, kTileRows);
         tc::zero(part);
-        tc::gemm_cols2<BF>(part, ev, sW1e, 2 * warp);
+        if constexpr (BF) {
+          uint32_t a[4][4];
+          tcb::pack_frag(a, ev);
+          tcb::gemm_cols2(part, a, bW1e, 2 * warp);
+        } else {
+          tc::gemm_cols2(part, ev, sW1e, 2 * warp);
+        }
         tc::store_cols2(sProj, kWld, part, 2 * warp);
       }
       tc::group_sync(bar, kGroupThreads);
@@ -494,7 +608,13 @@ fused_edge_fwd(const Params<TI> p) {
       // ---- second layer, LayerNorm, residuals ------------------------------
       float msg[8][4];
       tc::zero(msg);
-      tc::gemm_wg<8, BF>(msg, acc, sW2);
+      if constexpr (BF) {
+        uint32_t a[4][4];
+        tcb::pack_frag(a, acc);
+        tcb::gemm_wg(msg, a, bW2);
+      } else {
+        tc::gemm_wg<8>(msg, acc, sW2);
+      }
       tc::add_cols(msg, sB2);
       if (p.layer_norm) tc::layer_norm(msg, sG, sBt, kLnEps);
       if (p.propagation) {
@@ -551,8 +671,9 @@ fused_edge_fwd(const Params<TI> p) {
       tc::group_sync(bar, kGroupThreads);  // the tile is done with gs
     }
     if (NODE) {
-      node_epilogue<BF>(p, agg, sStage, sm + L.vec + 8 * D, static_cast<long long>(r0) * B,
-                        nr * B, tg, bar);
+      node_epilogue<BF>(p, agg, sStage, sm + L.vec + 8 * D,
+                        reinterpret_cast<const tcb::bf16*>(sm + L.wn),
+                        static_cast<long long>(r0) * B, nr * B, tg, bar);
       continue;
     }
 #pragma unroll
@@ -577,22 +698,46 @@ cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   if (!(allowed & (1u << (dev & 31)))) {
     err = cudaFuncSetAttribute(fused_edge_fwd<MODE, BF, PRE_BF16, NODE, TI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<MODE>());
+                               smem_bytes<MODE, BF, NODE>());
     if (err != cudaSuccess) return err;
     allowed |= 1u << (dev & 31);
   }
-  const int groups_needed = (p.num_chunks + kGroups - 1) / kGroups;
+  constexpr int groups = groups_of(BF);
+  const int groups_needed = (p.num_chunks + groups - 1) / groups;
   const int blocks = min(groups_needed, tc::sm_count());
   fused_edge_fwd<MODE, BF, PRE_BF16, NODE, TI>
-      <<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
+      <<<blocks, block_threads(BF), smem_bytes<MODE, BF, NODE>(), stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t occupancy(int* blocks, int* regs, int* smem) {
-  return tc::occupancy(fused_edge_fwd<MODE, false, false, false, float>, kBlockThreads,
-                       smem_bytes<MODE>(),
-                       blocks, regs, smem);
+// the launch resources of one instantiation: out = blocks per SM, threads
+// per block, registers per thread, shared memory per block, local memory
+// per thread (bytes)
+template <int MODE, bool BF, bool PRE_BF16, bool NODE, typename TI>
+cudaError_t occupancy_of(int* out) {
+  out[1] = block_threads(BF);
+  out[3] = smem_bytes<MODE, BF, NODE>();
+  return tcb::occupancy(fused_edge_fwd<MODE, BF, PRE_BF16, NODE, TI>, out[1], out[3], out,
+                        out + 2, out + 4);
+}
+
+// occupancy_of for edge_mode, bf16_ops (then io_bf16) and pre_bf16
+template <bool NODE>
+cudaError_t occupancy_mode(int bf16_ops, int io_bf16, int pre_bf16, int edge_mode, int* out) {
+#define NL_OCC(M)                                                                           \
+  (!bf16_ops ? (pre_bf16 ? occupancy_of<M, false, true, NODE, float>(out)                  \
+                         : occupancy_of<M, false, false, NODE, float>(out))                \
+   : io_bf16 ? (pre_bf16 ? occupancy_of<M, true, true, NODE, __nv_bfloat16>(out)           \
+                         : occupancy_of<M, true, false, NODE, __nv_bfloat16>(out))         \
+             : (pre_bf16 ? occupancy_of<M, true, true, NODE, float>(out)                   \
+                         : occupancy_of<M, true, false, NODE, float>(out)))
+  switch (edge_mode) {
+    case EDGE_RAW: return NL_OCC(EDGE_RAW);
+    case EDGE_SHARED: return NL_OCC(EDGE_SHARED);
+    case EDGE_BATCHED: return NL_OCC(EDGE_BATCHED);
+    default: return cudaErrorInvalidValue;
+  }
+#undef NL_OCC
 }
 
 // the instantiation for edge_mode and the type of pre

@@ -8,6 +8,13 @@
 
 #include "fused_edge_fwd.cuh"
 
+// nl_fused_edge_fwd_occupancy (fused_edge.cu) for the instantiations with
+// the epilogue
+extern "C" int nl_fused_edge_fwd_node_occupancy(int bf16_ops, int io_bf16, int pre_bf16,
+                                                int edge_mode, int* out) {
+  return static_cast<int>(occupancy_mode<true>(bf16_ops, io_bf16, pre_bf16, edge_mode, out));
+}
+
 // K3 with the node-MLP epilogue, in every precision: bf16_ops picks the
 // bf16-operand instantiations (then io_bf16 the stream type), pre_bf16 and
 // out_bf16 as above, node_layer_norm the node MLP's LayerNorm; then the

@@ -30,8 +30,9 @@
 // of each half-warp phase on 32 distinct banks.
 //
 // bf16 operands (the template flag BF of the products below): the
-// reduced-precision kernels of K3, K4, K7 and K8 multiply bf16 operands with
-// float32 accumulation, as the JAX package's kernels do under mixed
+// reduced-precision kernels of K7, K8, K4's edge pass and the node backward
+// (K3 and K4's main kernel run on bf16 fragments, tc_bf16.cuh) multiply
+// bf16 operands with float32 accumulation, as the JAX package's kernels do under mixed
 // precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high / high-kernels. A
 // bf16 value (8 significant bits) is exact in TF32 (11), so each operand
 // is rounded to bf16 (to nearest even, as astype(bfloat16)) and the

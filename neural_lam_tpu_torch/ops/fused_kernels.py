@@ -732,10 +732,9 @@ def _v2_bwd_bf16_lib():
     return _c_fn(V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_bf16ops", 9, 24)
 
 
-# kernel -> (source, its occupancy entry point)
+# kernel -> (source, its occupancy entry point); K3 and K4 are served by
+# instantiation_occupancy
 _OCCUPANCY = {
-    "K3": (KERNEL, "nl_fused_edge_fwd_occupancy"),
-    "K4": (BWD_KERNEL, "nl_fused_edge_bwd_occupancy"),
     "K7": (V2_KERNEL, "nl_fused_edge_v2_fwd_occupancy"),
     "K8": (V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_occupancy"),
 }
@@ -746,6 +745,15 @@ def kernel_occupancy(kernel: str) -> dict[str, dict[str, int]]:
     kernel) in each edge mode, from the CUDA runtime on the current
     device: blocks and warps per SM, threads per block, registers per
     thread and dynamic shared memory per block in bytes."""
+    if kernel in ("K3", "K4"):
+        # the float32 kernel without the epilogue, from a float32 pre; K4's
+        # saved-pre kernel serves the raw mode with the shared one
+        rows = {row["mode"]: row for row in instantiation_occupancy(bf16_ops=False)
+                if row["kernel"] == kernel and not row["node"] and row["pre"] == "float32"}
+        rows.setdefault(_EDGE_RAW, rows[_EDGE_SHARED])
+        return {name: {k: rows[mode][k] for k in ("blocks", "warps", "threads", "regs", "smem")}
+                for name, mode in (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED),
+                                   ("batched", _EDGE_BATCHED))}
     source, entry = _OCCUPANCY[kernel]
     fn = getattr(kernel_build.load(source), entry)
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -760,6 +768,58 @@ def kernel_occupancy(kernel: str) -> dict[str, dict[str, int]]:
         blocks, threads, regs, smem = (v.value for v in vals)
         out[name] = dict(blocks=blocks, warps=blocks * threads // 32,
                          threads=threads, regs=regs, smem=smem)
+    return out
+
+
+# The instantiations of K3 and of K4's main kernel whose launch resources
+# instantiation_occupancy reports: (kernel, source, C entry, the entry's
+# flags between io_bf16 and the edge mode, label)
+_INSTANTIATIONS = (
+    ("K3", KERNEL, "nl_fused_edge_fwd_occupancy", (0,), ""),
+    ("K3", KERNEL, "nl_fused_edge_fwd_occupancy", (1,), " bf16 pre"),
+    ("K3", NODE_KERNEL, "nl_fused_edge_fwd_node_occupancy", (0,), " node epilogue"),
+    ("K3", NODE_KERNEL, "nl_fused_edge_fwd_node_occupancy", (1,),
+     " node epilogue, bf16 pre"),
+    ("K4", BWD_KERNEL, "nl_fused_edge_bwd_occupancy", (0,), " main"),
+    ("K4", BWD_KERNEL, "nl_fused_edge_bwd_occupancy", (1,), " main, bf16 pre"),
+    ("K4", BWD_RECOMPUTE_KERNEL, "nl_fused_edge_bwd_recompute_occupancy", (),
+     " main, recompute"),
+)
+
+
+def instantiation_occupancy(bf16_ops: bool = True) -> list[dict]:
+    """The launch resources of every instantiation of K3 and of K4's main
+    kernel with (``bf16_ops``) or without bf16 operands, from the CUDA
+    runtime on the current device: one dict per instantiation (``name``,
+    ``blocks`` and ``warps`` per SM, ``threads``, ``regs`` per thread,
+    ``smem`` per block, ``local`` bytes per thread: the spill stack; and
+    what picks the instantiation: ``kernel``, its ``source``, edge
+    ``mode``, ``bf16_ops``, ``io_bf16``, ``node`` and ``pre``)."""
+    out = []
+    precisions = (("bf16 streams", 1, 1), ("float32 streams", 1, 0)) if bf16_ops else (
+        ("float32", 0, 0),)
+    for kernel, source, entry, flags, label in _INSTANTIATIONS:
+        fn = getattr(kernel_build.load(source), entry)
+        fn.argtypes = [ctypes.c_int] * (3 + len(flags)) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        modes = (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED), ("batched", _EDGE_BATCHED))
+        if kernel == "K4" and "recompute" not in label:
+            modes = modes[1:]  # the saved-pre kernels take one per-edge instantiation
+        for prec, ops, io in precisions:
+            for mode_name, mode in modes:
+                vals = (ctypes.c_int * 5)()
+                err = fn(ops, io, *flags, mode, ctypes.addressof(vals))
+                if err != 0:
+                    raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+                blocks, threads, regs, smem, local = vals
+                out.append(dict(
+                    name=f"{kernel}{label}, {prec}, {mode_name}", blocks=blocks,
+                    warps=blocks * threads // 32, threads=threads, regs=regs, smem=smem,
+                    local=local, kernel=kernel, source=source, mode=mode, bf16_ops=ops,
+                    io_bf16=io, node="node" in label,
+                    pre="recompute" if "recompute" in label else
+                    "bf16" if "bf16 pre" in label else "float32",
+                ))
     return out
 
 

@@ -2588,3 +2588,237 @@ def test_stencil_route_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
     eager, captured = (_spatial_trainer(ds, weights, cuda) for _ in range(2))
     step = captured.make_train_step()
     assert [step(*b).item() for b in data] == [eager.train_step(*b).item() for b in data]
+
+
+# -- K3's and K4's bf16-operand instantiations on bf16 fragments
+# (csrc/tc_bf16.cuh): wgmma and mma.sync at k16, bf16 weights and tiles ----
+#
+# Each instantiation against its plain version over the edge cases: five
+# receivers without edges and one of 400 edges (a chunk over many tiles), a
+# shared unbatched edge rep, the raw embedder, update_edges and
+# propagation, batch 1, 2, 3, 4 and 32, bf16 and float32 streams, and each
+# pre that K3 saves for K4 (float32, bf16, none). The bounds are the bf16
+# ones of the tests above: the same function as before, in another order of
+# the tensor cores' sums.
+
+BF_STREAM_MODES = ["bf16", "high-kernels"]  # bf16 streams; float32 streams
+BF_CASES = [
+    # (edge mode, update_edges, propagation)
+    ("raw", False, False),  # g2m / m2g
+    ("raw", True, False),  # m2m layer 0
+    ("batched", True, True),
+    ("shared", True, False),  # a shared edge rep
+    ("raw", False, True),  # PropagationNet
+]
+BF_PRE = {"on": torch.float32, "bf16": torch.bfloat16, "off": None}
+
+
+def _bf_case(cuda, monkeypatch, mode, flags, batch, seed):
+    """The kernel arguments of one phase in ``mode``'s streams over 1,300
+    edges into 50 receivers (five without edges, one with 400 more):
+    ``(edge_in, x_send, rec, es, wts, raw, update, prop, bf16_ops)``."""
+    dtype = _bf16_mode(monkeypatch, mode)
+    edge_mode, update, prop = flags
+    rng = np.random.default_rng(seed)
+    d, n_send, n_rec = 64, 70, 50
+    snd = rng.integers(0, n_send, 1300)
+    rcv = np.concatenate([rng.integers(0, n_rec - 5, 900), np.full(400, 3)])
+    es, _ = make_edge_set(snd, rcv, num_rec=n_rec, num_send=n_send)
+    es = es.to(cuda)
+    gen = torch.Generator().manual_seed(seed)
+    edge_mlp = make_mlp([3 * d, d, d], generator=gen)
+    embedder = make_mlp([3, d, d], generator=gen) if edge_mode == "raw" else None
+    # the weights as a bf16 model holds them
+    wts = [None if w is None else w.detach().to(dtype).float().to(cuda)
+           for w in _weights(edge_mlp, embedder)]
+    bf16_ops, io = fk.fused_precision(dtype)
+    assert bf16_ops
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda).to(io)
+
+    x_send, rec = t(es.num_edges, batch, d), t(n_rec, batch, d)
+    if edge_mode == "raw":
+        edge_in = t(es.num_edges, 3)
+    elif edge_mode == "shared":
+        edge_in = t(es.num_edges, d)
+    else:
+        edge_in = t(es.num_edges, batch, d)
+    return edge_in, x_send, rec, es, wts, edge_mode == "raw", update, prop, bf16_ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF_STREAM_MODES)
+@pytest.mark.parametrize("pre", list(BF_PRE))
+@pytest.mark.parametrize("flags", BF_CASES)
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 32])
+def test_bf16_fragments_forward_matches_plain(cuda, monkeypatch, mode, pre, flags, batch):
+    """K3's BF instantiations (each stream type, each pre type) against
+    the plain version: the aggregate (0 for receivers without edges), the
+    updated edges and the saved pre (a bf16 one is the float32 one rounded);
+    the same bits on a second launch."""
+    edge_in, x_send, rec, es, wts, raw, update, prop, bf16_ops = _bf_case(
+        cuda, monkeypatch, mode, flags, batch, seed=60
+    )
+    pre_dtype = BF_PRE[pre]
+
+    def run():
+        with torch.no_grad():
+            return fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, prop,
+                                  save_pre=pre_dtype is not None, bf16_ops=bf16_ops,
+                                  pre_dtype=pre_dtype or torch.float32)
+
+    got = run()
+    torch.cuda.synchronize()
+    want = fk._plain(edge_in.float(), x_send.float(), rec.float(), es.receivers, wts, raw,
+                     update, prop, bf16_ops=True, return_pre=True)
+    assert got[0].dtype == rec.dtype
+    _close_bf16(got[0], want[0].to(rec.dtype), "aggr")
+    assert torch.all(got[0][-5:] == 0)
+    if update:
+        _close_bf16(got[1], want[1].to(rec.dtype), "new_edge")
+    if pre_dtype is None:
+        assert got[2] is None
+    else:
+        assert got[2].dtype == pre_dtype
+        _close_bf16(got[2].float(), want[2], "pre")
+    again = run()
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF_STREAM_MODES)
+@pytest.mark.parametrize("pre", list(BF_PRE))
+@pytest.mark.parametrize("flags", BF_CASES)
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 32])
+def test_bf16_fragments_backward_matches_plain(cuda, monkeypatch, mode, pre, flags, batch):
+    """K4's BF main kernel from a float32 pre, a bf16 pre or recomputing
+    it, against the plain backward from the same pre (or recomputing it):
+    every input and weight gradient, the same bits on a second run, and the
+    launch counted by its instantiation."""
+    edge_in, x_send, rec, es, wts, raw, update, prop, bf16_ops = _bf_case(
+        cuda, monkeypatch, mode, flags, batch, seed=61
+    )
+    pre_dtype = BF_PRE[pre]
+    saved = None
+    if pre_dtype is not None:
+        with torch.no_grad():
+            saved = fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, update, prop,
+                                   save_pre=True, bf16_ops=bf16_ops, pre_dtype=pre_dtype)[2]
+    rng = np.random.default_rng(62)
+    d_aggr = torch.tensor(rng.normal(size=tuple(rec.shape)), device=cuda).to(rec.dtype)
+    d_new = None
+    if update:
+        d_new = torch.tensor(rng.normal(size=tuple(x_send.shape)), device=cuda).to(rec.dtype)
+
+    def run():
+        return fused_edge_bwd(d_aggr, d_new, saved, edge_in, x_send, rec, es, wts, raw, prop,
+                              bf16_ops)
+
+    got = []
+    ticks = _ticks(lambda: got.append(run()))
+    torch.cuda.synchronize()
+    counter = {"on": fk.FUSED_EDGE_BWD_BF16_OPS if mode == "high-kernels"
+               else fk.FUSED_EDGE_BWD_BF16,
+               "bf16": fk.FUSED_EDGE_BWD_BF16_PRE, "off": fk.FUSED_EDGE_BWD_RECOMPUTE}[pre]
+    assert {k for k, v in ticks.items() if v} == {counter.name}
+    want = fk._plain_bwd(d_aggr.float(), None if d_new is None else d_new.float(),
+                         edge_in.float(), x_send.float(), rec.float(), es, wts, raw, update,
+                         prop, bf16_ops, pre=saved)
+    flat = lambda r: [r[0], r[1], r[2], *r[3]]  # noqa: E731
+    _close_grads(flat(got[0]), flat(want), mode)
+    again = run()
+    assert all(a is None or torch.equal(a, b) for a, b in zip(flat(got[0]), flat(again)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF_STREAM_MODES)
+@pytest.mark.parametrize("pre", list(BF_PRE))
+@pytest.mark.parametrize("flags", NODE_FLAGS)
+@pytest.mark.parametrize("batch", [2, 3])
+def test_bf16_fragments_node_epilogue_matches_plain(cuda, monkeypatch, mode, pre, flags, batch):
+    """K3's BF instantiations with the node-MLP epilogue (``NODE``) under
+    each ``NEURAL_LAM_TPU_CACHE_PRE``, beside a receiver of 400 edges and
+    five without: the node update, the updated edges and every gradient
+    (the node backward, then K4) against the plain version."""
+    monkeypatch.setenv("NEURAL_LAM_TPU_CACHE_PRE", pre)
+    args, kw, leaves = _node_case(cuda, monkeypatch, mode, flags, batch, seed=63, grad=True,
+                                  degree=400)
+    counter, _ = _node_counters(mode)
+    result = []
+    ticks = _ticks(lambda: result.append(fused_edge_phase(*args, **kw)))
+    (got,) = result
+    assert ticks[counter.name] == 1
+    want = _node_plain(args, kw)
+    _node_close(mode, got[0], want[0], "node update")
+    if flags[1]:
+        _node_close(mode, got[1], want[1], "new_edge")
+    seed = torch.randn(tuple(got[0].shape), device=cuda)
+
+    def loss(out):
+        total = (out[0].float() * seed).sum()
+        return total + (out[1].float().sum() if flags[1] else 0.0)
+
+    for i, (g, w) in enumerate(zip(torch.autograd.grad(loss(got), leaves),
+                                   torch.autograd.grad(loss(want), leaves))):
+        _node_close(mode, g, w, f"gradient {i}")
+
+
+@pytest.mark.cuda
+def test_float32_and_bf16_instantiations_share_no_state(cuda):
+    """At the MEPS g2m shapes (100,656 edges from 63,784 grid nodes into
+    6,561 mesh nodes, the raw embedder, batch 4), K3's and K4's float32
+    outputs and gradients are the same bits before and after a launch of
+    their bf16-operand instantiations on other inputs."""
+    rng = np.random.default_rng(64)
+    d, b, n_send, n_rec, n_e = 64, 4, 63_784, 6_561, 100_656
+    es, _ = make_edge_set(rng.integers(0, n_send, n_e), rng.integers(0, n_rec, n_e),
+                          num_rec=n_rec, num_send=n_send)
+    es = es.to(cuda)
+    gen = torch.Generator().manual_seed(64)
+    wts = [None if w is None else w.detach().to(cuda) for w in
+           _weights(make_mlp([3 * d, d, d], generator=gen), make_mlp([3, d, d], generator=gen))]
+
+    def t(*shape, dtype=torch.float32):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda).to(dtype)
+
+    def phase(dtype, ops):
+        feats, x_send, rec = t(n_e, 3, dtype=dtype), t(n_e, b, d, dtype=dtype), t(n_rec, b, d,
+                                                                                  dtype=dtype)
+        d_aggr = t(n_rec, b, d, dtype=dtype)
+
+        def run():
+            with torch.no_grad():
+                aggr, _, pre = fused_edge_fwd(feats, x_send, rec, es, wts, True, False, False,
+                                              save_pre=True, bf16_ops=ops)
+            d_edge, d_send, d_rec, grads = fused_edge_bwd(d_aggr, None, pre, feats, x_send,
+                                                          rec, es, wts, True, False, ops)
+            return [aggr, pre, d_send, d_rec] + [g for g in grads if g is not None]
+
+        return run
+
+    f32, bf = phase(torch.float32, False), phase(torch.bfloat16, True)
+    before = [x.clone() for x in f32()]
+    bf()
+    after = f32()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+
+
+@pytest.mark.cuda
+def test_occupancy_rows_match_the_launches(cuda):
+    """Every instantiation of K3 and of K4's main kernel fits a block on an
+    SM; K4's main kernels run the 3 groups a block that the wrapper sizes
+    the grid and the workspace by; ``kernel_occupancy``'s K3 and K4 are the
+    float32 instantiations' rows."""
+    f32 = fk.instantiation_occupancy(bf16_ops=False)
+    rows = f32 + fk.instantiation_occupancy(bf16_ops=True)
+    assert all(r["blocks"] >= 1 for r in rows)
+    assert all(r["threads"] == 128 * fk._GROUPS for r in rows if r["kernel"] == "K4")
+    keys = ("blocks", "warps", "threads", "regs", "smem")
+    for kernel in ("K3", "K4"):
+        occ = fk.kernel_occupancy(kernel)
+        for name, mode in (("shared", 1), ("batched", 2)):
+            (row,) = [r for r in f32 if r["kernel"] == kernel and r["mode"] == mode
+                      and not r["node"] and r["pre"] == "float32"]
+            assert occ[name] == {k: row[k] for k in keys}
