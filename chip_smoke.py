@@ -9,11 +9,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 --dp-cards`` runs only GraphLAM's captured data-parallel step over the
 N cards of a machine (:func:`dp_cards_main`).
 
-``--parent DIR`` names a checkout of the commit before K3's and K4's
-redesign on bf16 fragments (the C interface of now): its sources of K3,
-K4, K7 and K8 are built beside the current ones and timed on the same
-inputs in the same call, in float32 and in every bf16 instantiation (the
-``bf16``, ``cache pre`` and ``fused aggr`` kernel lines too).
+``--parent DIR`` names a checkout of an earlier commit (the C interface
+of now, or K4's from before its receiver slice went into C): its sources
+of K3, K4, K7 and K8 are built beside the current ones and timed on the
+same inputs in the same call, in float32 and in every bf16 instantiation
+(the ``bf16``, ``cache pre`` and ``fused aggr`` kernel lines too), and K4
+is split by piece beside the parent's.
 
 It builds the port's eleven CUDA kernel sources (with the bf16 variants of
 K1-K4, K7 and K8, K4 recomputing ``pre``, K3's node-MLP epilogue and the
@@ -35,7 +36,10 @@ GraphLAM, ``hidden_layers=1`` (the fused route: K1-K4, and K7/K8 on v2):
    its plain version and, for K1, K2, K5 and K6, ``index_select`` and
    ``index_add_``). K3 is timed with and without the ``pre`` output that
    its backward, K4, starts from; K3 and K4 beside their bound on the
-   tensor cores (3xTF32) and on the SIMT units, and then in the probe of
+   tensor cores (3xTF32) and on the SIMT units; K4 split by piece (main
+   kernel, edge pass or rows pass, receiver slice, reduces) with each
+   piece's bound, and its receiver slice alone against the two ``torch``
+   products it replaced; and then in the probe of
    ``phase_probe`` (uniform in-degree, LayerNorm off, occupancy). All six kernels are also held against
    their plain versions at each of the ten mesh edge sets of the
    hierarchical graph (from 51,520 edges into 6,561 receivers down to 40
@@ -250,6 +254,10 @@ K3_RTOL = K3_ATOL = 1e-4
 # them at m2g: each gradient is held to 1e-4 of its own largest entry.
 K2_TOL = 1e-5
 K4_TOL = 1e-4
+# K4's receiver slice (3xTF32) against the two float32 torch products, of
+# each output's largest entry
+RECEIVER_TOL = 2e-5
+K4_RECEIVER_SLICE = "K4 receiver slice"
 # Training against the JAX package's float32 run on a CPU: the loss is a
 # mean over 4.3e6 entries and each gradient a sum over as many paths, in
 # another order on the card; Adam then amplifies rounding where a gradient
@@ -274,7 +282,8 @@ GRAPH_LOSS_RTOL = 1e-6
 # stream type> (fused_edge_bwd_main_bf with bf16 operands), K7's <mode,
 # bf16 operands, stream type>, K8's <batched, bf16 operands, stream type>
 # and the node backward's <bf16 operands, stream type>. K3 with the
-# epilogue counts by its precision whatever pre it saves.
+# epilogue counts by its precision whatever pre it saves; K4's receiver
+# slice, launched by every K4 entry, counts whatever its row type.
 BF16_T = "13__nv_bfloat16"
 END = "(?![a-z0-9_])"  # the name ends here
 KERNEL_SYMBOLS = {
@@ -311,6 +320,7 @@ KERNEL_SYMBOLS = {
         ("K4 node backward", r"fused_node_bwdILb0EfE"),
         ("K4 node backward bf16", rf"fused_node_bwdILb1E{BF16_T}E"),
         ("K4 node backward bf16 operands", r"fused_node_bwdILb1EfE"),
+        (K4_RECEIVER_SLICE, r"fused_edge_bwd_receiverI"),
     )
 }
 # fit's store: 32 training samples at ar_steps 1 (len = n_timesteps - 3)
@@ -485,7 +495,253 @@ PARENT_SOURCES = {
     "_bwd_bf16_lib": "fused_edge_bwd", "_bwd_recompute_lib": "fused_edge_bwd_recompute",
     "_v2_fwd_lib": "fused_edge_v2", "_v2_fwd_bf16_lib": "fused_edge_v2",
     "_v2_bwd_lib": "fused_edge_v2_bwd", "_v2_bwd_bf16_lib": "fused_edge_v2_bwd",
+    "_node_bwd_lib": "fused_node_bwd",
 }
+
+
+# K4's C entries since its receiver slice became a kernel take one int more
+# (rec_blocks, the last int) and the receiver slice's pointers (rec, unless
+# the entry had it, d_rec, ws_rec, out_rec) before the stream, or before
+# the recompute's workspace; the parent commit's take neither, and its
+# wrapper formed d_rec and dW1r with torch. Per getter: the indices of
+# num_rec, batch and io_bf16 (None: float32) among the ints, and of w1,
+# d_recproj, rec and the first of the n_new new pointers among the pointers.
+K4_PARENT_ABI = {
+    "_bwd_lib": dict(num_rec=2, batch=4, io=None, w1=6, d_recproj=18, rec=24, new=24,
+                     n_new=4),
+    "_bwd_bf16_lib": dict(num_rec=3, batch=5, io=1, w1=6, d_recproj=18, rec=24, new=24,
+                          n_new=4),
+    "_bwd_recompute_lib": dict(num_rec=3, batch=5, io=1, w1=6, d_recproj=19, rec=2, new=25,
+                               n_new=3),
+}
+
+
+def device_tensor(torch, ptr: int, shape, dtype):
+    """A tensor over ``shape`` floats or bf16 values at the device address
+    ``ptr`` (no copy), through the CUDA array interface."""
+    holder = type("DevicePointer", (), {})()
+    holder.__cuda_array_interface__ = dict(
+        shape=tuple(shape), typestr="<i2" if dtype == torch.bfloat16 else "<f4",
+        data=(ptr, False), version=2, strides=None)
+    out = torch.as_tensor(holder, device="cuda")
+    return out.view(torch.bfloat16) if dtype == torch.bfloat16 else out
+
+
+def parent_k4_entry(torch, fn, current, abi: dict):
+    """The parent commit's K4 entry ``fn`` behind the current entry's
+    arguments: it drops the receiver slice's, launches the parent's kernels
+    and forms d_rec and dW1r as the parent's wrapper did, with torch, into
+    the current outputs (``out=``, so that no copy is added)."""
+    import ctypes
+
+    n_ints, n_new = current.argtypes.count(ctypes.c_int), abi["n_new"]
+    fn.argtypes = [ctypes.c_int] * (n_ints - 1) + [ctypes.c_void_p] * (
+        len(current.argtypes) - n_ints - n_new)
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        ints, ptrs = args[:n_ints], args[n_ints:]
+        new = abi["new"]
+        err = fn(*ints[:-1], *ptrs[:new], *ptrs[new + n_new:])
+        if err != 0:
+            return err
+        shape = (ints[abi["num_rec"]], ints[abi["batch"]], HIDDEN)
+        io = torch.bfloat16 if abi["io"] is not None and ints[abi["io"]] else torch.float32
+        d_recproj = device_tensor(torch, ptrs[abi["d_recproj"]], shape, torch.float32)
+        rec = device_tensor(torch, ptrs[abi["rec"]], shape, io)
+        w1 = device_tensor(torch, ptrs[abi["w1"]], (HIDDEN, 3 * HIDDEN), torch.float32)
+        d_rec, out_rec = ptrs[new + n_new - 3], ptrs[new + n_new - 1]
+        torch.matmul(d_recproj, w1[:, 2 * HIDDEN:],
+                     out=device_tensor(torch, d_rec, shape, torch.float32))
+        torch.mm(d_recproj.reshape(-1, HIDDEN).T, rec.reshape(-1, HIDDEN).float(),
+                 out=device_tensor(torch, out_rec, (HIDDEN, HIDDEN), torch.float32))
+        return 0
+
+    call.__name__ = current.__name__
+    return call
+
+
+# K4's pieces by kernel name (the first pattern that matches): its main
+# kernel, the edge input's share (edge pass or rows pass), the receiver
+# slice, the workspace reduces, and where the receiver slice was torch
+# (the parent commit), its cuBLAS products and casts
+K4_PIECES = (
+    ("main kernel", re.compile(r"fused_edge_bwd_main")),
+    ("edge pass", re.compile(r"fused_edge_bwd_edge")),
+    ("rows pass", re.compile(r"fused_edge_bwd_rows")),
+    ("receiver slice", re.compile(r"fused_edge_bwd_receiver")),
+    ("reduces", re.compile(r"reduce_workspace")),
+    ("cuBLAS products", re.compile(r"gemm|gemv|cutlass|sm90_xmma|ampere", re.I)),
+    ("casts and copies", re.compile(r"elementwise|copy|cast", re.I)),
+)
+# the tail: the pieces after the main kernel but the rows pass
+K4_TAIL = ("edge pass", "receiver slice", "reduces", "cuBLAS products", "casts and copies",
+           "other")
+
+
+def k4_pieces(torch, fn, reps: int = 10) -> tuple[dict[str, float], float]:
+    """Device ms per call of ``fn`` (a K4 call) by piece (:data:`K4_PIECES`,
+    the rest ``other``) and its kernels per call, from ``reps`` calls under
+    ``torch.profiler`` after 3 warm-up calls. In a long process the
+    profiler now and then loses a kernel's record: a profile in which some
+    kernel has not a multiple of ``reps`` records, or that has no record,
+    is taken again, up to three times in all; the kernels per call then
+    show a loss that stayed (not a whole number, or 0)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.events()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA and "#" not in evt.name
+                  and evt.device_time_total > 0]
+        if events and all(n % reps == 0
+                          for n in Counter(evt.name for evt in events).values()):
+            break
+    sums = {name: 0.0 for name, _ in K4_PIECES}
+    sums["other"] = 0.0
+    for evt in events:
+        piece = next((n for n, pat in K4_PIECES if pat.search(evt.name)), "other")
+        sums[piece] += evt.device_time_total / 1e3 / reps
+    return sums, len(events) / reps
+
+
+def k4_tail_bounds(torch, es, n_rec: int, batch: int, raw: bool, edge_in, d_new, io,
+                   flop_rate_bf16: bool) -> dict[str, tuple[float, str]]:
+    """Least time (ms) and what sets it of K4's tail pieces at one call's
+    shapes: the edge pass or rows pass (the edge input's share), the
+    receiver slice (float32 products, 3xTF32 in every precision) and the
+    reduces (their workspaces read once, the sums written once); products at
+    3xTF32 or, with ``flop_rate_bf16``, at the bf16 rate."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+    d, n_e = HIDDEN, es.num_edges
+    size = torch.tensor([], dtype=io).element_size()
+    prod = bf16_bound if flop_rate_bf16 else (lambda b, f: bound(b, f, tensor=True))
+    dne = 0 if d_new is None else d_new.numel() * size
+    if raw or edge_in.dim() == 2:  # the edge pass over s (E, D)
+        feat = edge_in.shape[1] if raw else 0
+        moved = n_e * d * 4 + edge_in.numel() * size + dne + (0 if raw else n_e * d * size)
+        flops = n_e * 2 * d * d * 2 + (n_e * (2 * d * d * 3 + 2 * feat * d * 2) if raw else 0)
+        share = ("edge pass", prod(moved, flops))
+        ws_edge = fk._edge_blocks(es.rowptr.device, n_e) * fk._EDGE_GROUPS * fk._WS_EDGE
+    else:  # the rows pass over d_pre (E, B, D)
+        rows = n_e * batch
+        moved = rows * d * 4 + 2 * rows * d * size + dne
+        share = ("rows pass", prod(moved, rows * 2 * d * d * 2))
+        ws_edge = fk._rows_blocks(es.rowptr.device, rows) * fk._ROW_GROUPS * fk._MAT
+    rec_rows = n_rec * batch
+    receiver = bound(rec_rows * d * (4 + size + 4), rec_rows * 2 * d * d * 2, tensor=True)
+    main_blocks = fk._bwd_grid(es.rowptr.device, n_rec, n_e, batch, False,
+                               fk._CHUNK_ROWS_K4)[0]
+    ws = (main_blocks * fk._GROUPS * fk._WS_MAIN + ws_edge
+          + fk._rows_blocks(es.rowptr.device, rec_rows) * fk._ROW_GROUPS * fk._MAT)
+    reduces = bound(4 * (ws + fk._WS_MAIN + fk._WS_EDGE + fk._MAT), 0.0)
+    return {share[0]: share[1], "receiver slice": receiver, "reduces": reduces}
+
+
+def log_k4_split(torch, what: str, run_k4, parent, calls: int, bounds: dict,
+                 acc: dict) -> None:
+    """One K4 call split by piece (:func:`k4_pieces`), beside the parent
+    commit's K4 on the same inputs where ``parent`` is given; adds ``calls``
+    times each piece's ms (and the parent's) into ``acc``."""
+    got, kernels = k4_pieces(torch, run_k4)
+    old, old_kernels = ({}, 0.0)
+    if parent is not None:
+        with parent["use"]():
+            old, old_kernels = k4_pieces(torch, run_k4)
+    parts = []
+    for name in ("main kernel", "edge pass", "rows pass", "receiver slice", "reduces",
+                 "cuBLAS products", "casts and copies", "other"):
+        ms, old_ms = got.get(name, 0.0), old.get(name, 0.0)
+        if ms <= 0.0 and old_ms <= 0.0:
+            continue
+        text = f"{name} {ms:.4f}"
+        if parent is not None:
+            text += f" (parent {old_ms:.4f})"
+        if name in bounds and ms > 0:
+            b_ms, b_by = bounds[name]
+            text += f" bound {b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f} % of it)"
+        parts.append(text)
+        acc[name] = acc.get(name, 0.0) + calls * ms
+        acc[f"parent {name}"] = acc.get(f"parent {name}", 0.0) + calls * old_ms
+        if name in bounds:
+            acc[f"bound {name}"] = acc.get(f"bound {name}", 0.0) + calls * bounds[name][0]
+    tail = sum(got.get(n, 0.0) for n in K4_TAIL)
+    old_tail = sum(old.get(n, 0.0) for n in K4_TAIL)
+    acc["tail"] = acc.get("tail", 0.0) + calls * tail
+    acc["parent tail"] = acc.get("parent tail", 0.0) + calls * old_tail
+    acc["kernels"] = acc.get("kernels", 0.0) + calls * kernels
+    acc["parent kernels"] = acc.get("parent kernels", 0.0) + calls * old_kernels
+    log(f"{what} split (torch.profiler, ms a call): " + ", ".join(parts)
+        + f"; tail {tail:.4f}" + (f" (parent {old_tail:.4f})" if parent else "")
+        + f"; {kernels:g} kernels a call, one launch of each piece"
+        + (f" (parent {old_kernels:g})" if parent else ""))
+
+
+def log_k4_tail(what: str, acc: dict, parent) -> None:
+    """The per-training-step sums of :func:`log_k4_split`."""
+    names = [n for n in ("main kernel", "edge pass", "rows pass", "receiver slice",
+                         "reduces", "cuBLAS products", "casts and copies", "other")
+             if acc.get(n, 0.0) > 0 or acc.get(f"parent {n}", 0.0) > 0]
+    text = ", ".join(
+        f"{n} {acc.get(n, 0.0):.4f}"
+        + (f" (parent {acc.get(f'parent {n}', 0.0):.4f})" if parent else "")
+        + (f" bound {acc[f'bound {n}']:.4f}" if f"bound {n}" in acc else "")
+        for n in names)
+    ratio = (f", {acc['parent tail'] / acc['tail']:.3f} x the parent's"
+             if parent and acc.get("tail") else "")
+    log(f"{what} per training step by piece (ms): {text}; tail (edge pass, receiver "
+        f"slice, reduces) {acc.get('tail', 0.0):.4f}"
+        + (f" against the parent's {acc.get('parent tail', 0.0):.4f}{ratio}" if parent else "")
+        + f"; {acc.get('kernels', 0.0):.0f} kernels"
+        + (f" (parent {acc.get('parent kernels', 0.0):.0f})" if parent else ""))
+
+
+def same_k4_as_parent(parent, run_k4, per_edge: bool, what: str) -> tuple[int, float]:
+    """K4's outputs against the parent commit's on the same inputs: its
+    main kernel's (d_send, dW2, dW1s, db1, db2, dgamma, dbeta; and the rows
+    pass's d_edge and dW1e for a batched edge input) the same bits, else
+    AssertionError; the outputs that now come from other arithmetic (the
+    edge pass's d_edge, dW1e and embedder gradients, and the receiver
+    slice's d_rec and dW1r) within ``K4_TOL`` of each one's largest entry.
+    Returns how many tensors matched bit for bit and the largest relative
+    difference of the others (0 without a parent)."""
+    if parent is None:
+        return 0, 0.0
+    d = HIDDEN
+
+    def split(out):
+        d_edge, d_send, d_rec, grads = out
+        dw1 = grads[0]
+        same = [d_send, dw1[:, d:2 * d], *[g for g in grads[1:6] if g is not None]]
+        moved = [d_rec, dw1[:, 2 * d:], *[g for g in grads[6:] if g is not None]]
+        share = [dw1[:, :d]] + ([] if d_edge is None else [d_edge])
+        return (same, moved + share) if per_edge else (same + share, moved)
+
+    got = split(run_k4())
+    with parent["use"]():
+        old = split(run_k4())
+    import torch
+
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got[0], old[0])):
+        raise AssertionError(f"{what}: the main kernel's outputs are not the parent's bits")
+    worst = 0.0
+    for x, y in zip(got[1], old[1]):
+        scale = max(y.float().abs().max().item(), 1e-30)
+        worst = max(worst, (x.float() - y.float()).abs().max().item() / scale)
+    if worst > K4_TOL:
+        raise AssertionError(f"{what}: {worst:.3g} of the parent's largest entry off "
+                             f"(tol {K4_TOL})")
+    return len(got[0]), worst
 
 
 def same_as_parent(parent, fn, what: str) -> int:
@@ -513,16 +769,21 @@ def same_as_parent(parent, fn, what: str) -> int:
 
 
 def start_parent_build(parent: Path) -> list:
-    """Start ``nvcc`` on the parent checkout's sources of K3, K4, K7 and K8
-    (one process each, beside the current build); :func:`parent_kernels`
+    """Start ``nvcc`` on the parent checkout's sources of K3, K4, K7, K8 and
+    the node backward (one process each, beside the current build);
+    :func:`parent_kernels`
     waits for them."""
     from neural_lam_tpu_torch.ops import kernel_build
 
     csrc = parent / "neural_lam_tpu_torch" / "csrc"
+    newest = max(f.stat().st_mtime for f in csrc.iterdir())
     procs = []
     for name in sorted(set(PARENT_SOURCES.values())):
         out = kernel_build.BUILD_DIR / f"parent-{name}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
+        if out.exists() and out.stat().st_mtime > newest:
+            procs.append((name, out, None))  # built from these sources by an earlier run
+            continue
         cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(out),
                str(csrc / f"{name}.cu")]
         procs.append((name, out, subprocess.Popen(
@@ -538,8 +799,9 @@ def parent_kernels(torch, procs: list) -> dict:
     ``fused_edge_bwd``, ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and
     doing the same work, and ``"use"``, a context manager under which every
     wrapper of the four (every precision, ``pre`` type and the node-MLP
-    epilogue) launches the parent's kernels. That commit has the current C
-    interface."""
+    epilogue) and the node backward's launches the parent's kernels. That commit has the current C
+    interface, or K4's from before its receiver slice went into C
+    (:data:`K4_PARENT_ABI`)."""
     import contextlib
     import ctypes
 
@@ -547,14 +809,20 @@ def parent_kernels(torch, procs: list) -> dict:
 
     libs = {}
     for name, out, proc in procs:
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
+        if proc is not None:
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
         libs[name] = ctypes.CDLL(str(out))
     fns = {}
+    # a parent whose K4 library has no receiver slice takes the old arguments
+    old_k4 = not hasattr(libs["fused_edge_bwd"], "nl_fused_edge_bwd_receiver_slice")
     for getter, source in PARENT_SOURCES.items():
         current = getattr(fk, getter)()  # the C entry of the current build, for its name
         fn = getattr(libs[source], current.__name__)
+        if old_k4 and getter in K4_PARENT_ABI:
+            fns[getter] = parent_k4_entry(torch, fn, current, K4_PARENT_ABI[getter])
+            continue
         fn.argtypes, fn.restype = current.argtypes, ctypes.c_int
         fns[getter] = fn
 
@@ -953,9 +1221,9 @@ def gnn_applications(model) -> int:
 def expected_launches(model, training: bool) -> dict[str, int]:
     """Launches of each kernel per AR step (serving) or per training
     step, derived from the model. On the fused route every application
-    launches K1 and K3 (K2 and K4 backward), or under
-    ``NEURAL_LAM_TPU_FUSED_V2=on`` K7 alone (K8 and K2 backward); on the
-    unfused route K1, K6 and K5 (backward K2, and K5 and K6 once more as
+    launches K1 and K3 (K2 and K4 backward, and K4's receiver slice), or
+    under ``NEURAL_LAM_TPU_FUSED_V2=on`` K7 alone (K8 and K2 backward); on
+    the unfused route K1, K6 and K5 (backward K2, and K5 and K6 once more as
     each other's VJP). Under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` K3 runs with
     the node-MLP epilogue (the node backward before K4) at every
     application of GraphLAM and HiLAM: all of theirs are interaction-wired
@@ -986,7 +1254,7 @@ def expected_launches(model, training: bool) -> dict[str, int]:
     if training:
         want["K2 sender_scatter"] = n
         if fused:
-            want["K4 fused_edge_phase backward"] = n
+            want["K4 fused_edge_phase backward"] = want[K4_RECEIVER_SLICE] = n
         else:
             want["K5 segment_sum"] = want["K6 receiver_expand"] = 2 * n
     return want
@@ -998,6 +1266,7 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
     of one AR step (K1, K3) or one training step (K2, K4). With
     ``parent`` (:func:`parent_kernels`), K3 and K4 of the parent commit
     are timed on the same inputs in the same call."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops.fused_kernels import (
         _weights,
         fused_edge_bwd,
@@ -1204,7 +1473,9 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
          1, n_grid),
     ]
     k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, ops_ms=0.0, bytes_ms=0.0,
-              simt_ms=0.0, old_ms=0.0, same=0)
+              simt_ms=0.0, old_ms=0.0, same=0, moved=0.0)
+    tail: dict[str, float] = {}
+    rs = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)  # the receiver slice alone
     for site, net, ge, emb, mode, update, has_dne, calls, n_rec in k4_sites:
         es = ge.edges
         n_e = es.num_edges
@@ -1288,8 +1559,12 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
             old_ms = cuda_ms(lambda: parent["K4"](
                 d_aggr, d_new, pre, edge_in, x_send, rec, es, wts, raw, False))
             k4["old_ms"] += calls * old_ms
-            k4["same"] += same_as_parent(parent, run_k4, f"K4 {site}")
-            old = f"parent {old_ms:.4f} ms, its gradients the same bits"
+            same, moved_rel = same_k4_as_parent(parent, run_k4, mode != "batched",
+                                                f"K4 {site}")
+            k4["same"] += same
+            k4["moved"] = max(k4["moved"], moved_rel)
+            old = (f"parent {old_ms:.4f} ms, its main kernel's outputs the same bits, "
+                   f"the tail's within {moved_rel:.3g} of the parent's (tol {K4_TOL})")
         log(
             f"K4 fused_edge_phase backward {site}: E {n_e}, receivers {n_rec}, "
             f"edge input {mode}, d_new_edge {'given' if has_dne else 'none'}; "
@@ -1306,6 +1581,32 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         k4["bound_ms"] += calls * b_ms
         k4["ops_ms" if b_by == "operations" else "bytes_ms"] += calls * b_ms
         k4["err"] = max(k4["err"], abs_err)
+        log_k4_split(torch, f"K4 {site}", run_k4, parent, calls, k4_tail_bounds(
+            torch, es, n_rec, b, raw, edge_in, d_new, torch.float32, False), tail)
+        # the receiver slice alone at this call's shapes, against the two
+        # torch products it replaces
+        d_recproj = randn(n_rec, b, d)
+        w1 = wts[0]
+        got_rs = fk.fused_edge_bwd_receiver_slice(d_recproj, rec, w1)
+        want_rs = fk._plain_receiver_slice(d_recproj, rec, w1)
+        torch.cuda.synchronize()
+        for name, o, w in zip(("d_rec", "dW1r"), got_rs, want_rs):
+            a_err, r_err = errors(o, w)
+            if r_err > RECEIVER_TOL:
+                raise AssertionError(f"K4 receiver slice {site} {name}: {r_err:.3g} of the "
+                                     f"largest value off (tol {RECEIVER_TOL})")
+            rs["err"] = max(rs["err"], a_err)
+        rs_ms = cuda_ms(lambda: fk.fused_edge_bwd_receiver_slice(d_recproj, rec, w1))
+        rs_plain = cuda_ms(lambda: fk._plain_receiver_slice(d_recproj, rec, w1))
+        rs_bound = k4_tail_bounds(torch, es, n_rec, b, raw, edge_in, d_new, torch.float32,
+                                  False)["receiver slice"]
+        log(f"K4 receiver slice {site} alone (and its reduce): d_recproj {tuple(d_recproj.shape)}, "
+            f"within {RECEIVER_TOL} of the two torch products; kernel {rs_ms:.4f} ms, the "
+            f"torch products {rs_plain:.4f} ms, bound {rs_bound[0]:.4f} ms ({rs_bound[1]})")
+        rs["ms"] += calls * rs_ms
+        rs["plain_ms"] += calls * rs_plain
+        rs["bound_ms"] += calls * rs_bound[0]
+        del d_recproj, got_rs, want_rs
         del x_send, rec, edge_in, d_aggr, d_new, pre, outs, want, got, again, leaves
         del d_edge, d_send, d_rec, w_grads, aggr_p, new_p
         torch.cuda.empty_cache()
@@ -1316,10 +1617,16 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
         f"{k4['bound_ms']:.4f} ms (3xTF32), {100 * k4['bound_ms'] / k4['ms']:.1f} % "
         f"of it; SIMT bound {k4['simt_ms']:.4f} ms; plain {k4['plain_ms']:.4f})"
     )
+    log_k4_tail("K4 float32", tail, parent)
+    log(f"K4 receiver slice per training step, alone: {rs['ms']:.4f} ms against the torch "
+        f"products' {rs['plain_ms']:.4f} ms (bound {rs['bound_ms']:.4f} ms)")
+    log_tail_occupancy("K4 float32", bf16_ops=False)
     if parent is not None:
         log(f"float32 K3 and K4 against the parent's kernels on the same inputs at "
             f"{len(k4_sites)} sites: {k3['same']} outputs of K3 (with its pre) and "
-            f"{k4['same']} of K4, every one the same bits")
+            f"{k4['same']} of K4's main kernel and rows pass, every one the same bits; "
+            f"K4's edge pass and receiver slice within {k4['moved']:.3g} of the parent's "
+            f"(tol {K4_TOL})")
 
     torch.cuda.empty_cache()
     return [
@@ -1374,6 +1681,19 @@ def phase_kernels(torch, model, parent=None) -> list[dict]:
             bound_ms=k4["bound_ms"],
             bound_by="operations" if k4["ops_ms"] >= k4["bytes_ms"] else "bytes",
             library_ms=None,
+        ),
+        dict(
+            name=K4_RECEIVER_SLICE,
+            route="cuda",
+            source="neural_lam_tpu_torch/csrc/fused_edge_bwd_common.cuh",
+            replaces="neural_lam_tpu/ops/pallas_fused.py:1624",
+            launches=0,
+            max_abs_err=rs["err"],
+            ms=rs["ms"],
+            plain_ms=rs["plain_ms"],
+            bound_ms=rs["bound_ms"],
+            bound_by="bytes",
+            library_ms=rs["plain_ms"],
         ),
     ]
 
@@ -3715,6 +4035,35 @@ def log_occupancy(what: str, keep) -> None:
             f"memory a thread; spill stores {stores} bytes, spill loads {loads} bytes")
 
 
+def log_tail_occupancy(what: str, bf16_ops: bool) -> None:
+    """Blocks, warps, registers, shared and local memory of each piece of
+    K4's tail (``fused_kernels.tail_occupancy``) with or without bf16
+    operands, and its spill stores and loads from the compiler's report of
+    the fused_edge_bwd.cu build (AssertionError unless exactly one entry of
+    it is the instantiation)."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+    report = ptxas_report("fused_edge_bwd")
+    for row in fk.tail_occupancy(bf16_ops=bf16_ops):
+        ti = "13__nv_bfloat16" if "bf16 streams" in row["name"] else "f"
+        bf = int(bf16_ops)
+        if "edge pass" in row["name"]:
+            args = f"fused_edge_bwd_edgeILb{int('raw' in row['name'])}ELb{bf}E{ti}E"
+        elif "rows pass" in row["name"]:
+            args = f"fused_edge_bwd_rowsILb{bf}E{ti}E"
+        else:
+            args = f"fused_edge_bwd_receiverI{ti}E"
+        found = [v for k, v in report.items() if args in k]
+        if len(found) != 1 or found[0][1] < 0:
+            raise AssertionError(f"{what} occupancy {row['name']}: {len(found)} entries of the "
+                                 f"fused_edge_bwd.cu build's report match {args}")
+        _, stores, loads = found[0]
+        log(f"{what} tail occupancy {row['name']}: {row['blocks']} block(s) of "
+            f"{row['threads']} threads = {row['warps']} warps per SM, {row['regs']} registers "
+            f"a thread, {row['smem']} bytes of shared memory a block, {row['local']} bytes of "
+            f"local memory a thread; spill stores {stores} bytes, spill loads {loads} bytes")
+
+
 def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     """The bf16 variants of K1-K4, K7 and K8 against their plain versions
     at the shapes of the six GraphLAM calls at batch 4, in each
@@ -3846,6 +4195,7 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
         return flops + 2 * rows * d * d * 2
 
     report = []
+    tails = {"bf16": {}, "bf16 operands": {}}
     # (instantiation, stream dtype, weights as bf16 copies)
     for label, io, copies in (("bf16", bf16, True), ("bf16 operands", torch.float32, False)):
         k3, k4 = acc(), acc()
@@ -3966,6 +4316,8 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
                 f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
                 f"it); {calls} call(s) per training step")
             add(k4, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, old_ms=old_ms)
+            log_k4_split(torch, f"K4 {label} {site}", run_k4, parent, calls, k4_tail_bounds(
+                torch, es, n_rec, b, raw, edge_in, d_new, io, True), tails[label])
             del x_send, rec, edge_in, d_aggr, d_new, pre, outs, want, got, again, leaves
             del d_edge, d_send, d_rec, w_grads, aggr_p, new_p, params, p_wts
             torch.cuda.empty_cache()
@@ -3973,6 +4325,7 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
             f"{k3['f32_ms']:.4f} ms (bound {k3['bound_ms']:.4f}); K4 {label} per training "
             f"step {k4['ms']:.4f} ms against {k4['f32_ms']:.4f} ms (bound "
             f"{k4['bound_ms']:.4f})")
+        log_k4_tail(f"K4 {label}", tails[label], parent)
         if parent is not None:
             log(f"K3 {label} per AR step {k3['ms']:.4f} ms against the parent's "
                 f"{k3['parent_ms']:.4f} ms ({k3['parent_ms'] / k3['ms']:.3f} x); K4 {label} "
@@ -4091,6 +4444,7 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
         f"{k1['f32_ms']:.4f} ms; K2 bf16 per training step {k2['ms']:.4f} ms against "
         f"{k2['f32_ms']:.4f} ms")
     log_occupancy("bf16", lambda row: not row["node"] and row["pre"] == "float32")
+    log_tail_occupancy("K4 bf16", bf16_ops=True)
     torch.cuda.empty_cache()
     return [
         bf16_entry("K1 sender_gather bf16", "sender_gather.cu",
@@ -4111,8 +4465,9 @@ def bf16_graph_lam(torch, ds):
 
 def bf16_expected(model) -> dict[str, int]:
     """Launches per mixed-precision training step: the bf16 variants in
-    place of K1-K4, K7 and K8; on the unfused route K5 and K6 in float32
-    (the JAX package casts around them)."""
+    place of K1-K4, K7 and K8; K4's receiver slice (float32 in every
+    precision) and, on the unfused route, K5 and K6 in float32 (the JAX
+    package casts around them)."""
     f32 = expected_launches(model, training=True)
     out = dict.fromkeys(f32, 0)
     for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
@@ -4120,7 +4475,7 @@ def bf16_expected(model) -> dict[str, int]:
                  "K8 fused_edge_phase_v2 backward", "K3 fused_edge_phase node epilogue",
                  "K4 node backward"):
         out[f"{name} bf16"] = f32[name]
-    for name in ("K5 segment_sum", "K6 receiver_expand"):
+    for name in ("K5 segment_sum", "K6 receiver_expand", K4_RECEIVER_SLICE):
         out[name] = f32[name]
     return out
 
@@ -4406,6 +4761,7 @@ def phase_cache_pre_kernels(torch, model, parent=None) -> list[dict]:
     accs = {k: dict(ms=0.0, plain_ms=0.0, base_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                     bytes_ms=0.0, err=0.0) for k in names}
     same_bits = total_entries = same = 0
+    tails = {"bf16 pre": {}, "recompute": {}}  # K4's pieces per training step, float32
     # with bf16 operands on bf16 streams: kernel, parent, plain and bound ms
     bf_ms = {k: dict(ms=0.0, parent_ms=0.0, plain_ms=0.0, bound_ms=0.0) for k in names}
 
@@ -4496,7 +4852,12 @@ def phase_cache_pre_kernels(torch, model, parent=None) -> list[dict]:
             raise AssertionError(f"K4 bf16 pre {site}: two runs differ")
         ms, base_ms = cuda_ms(lambda: k4(pre16)), cuda_ms(lambda: k4(pre32))
         plain_ms = cuda_ms(lambda: plain4(pre16))
-        same += same_as_parent(parent, lambda: k4(pre16), f"K4 bf16 pre {site}")
+        same += same_k4_as_parent(parent, lambda: k4(pre16), mode != "batched",
+                                  f"K4 bf16 pre {site}")[0]
+        tail_bounds = k4_tail_bounds(torch, es, n_rec, b, raw, edge_in, d_new, torch.float32,
+                                     False)
+        log_k4_split(torch, f"K4 bf16 pre {site}", lambda: k4(pre16), parent, calls,
+                     tail_bounds, tails["bf16 pre"])
         moved = nbytes(pre16, x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
         flops = 2 * rows * d * d * 5 + 2 * n_rec * b * d * d * 2 + rows * d
         if raw:
@@ -4534,7 +4895,10 @@ def phase_cache_pre_kernels(torch, model, parent=None) -> list[dict]:
         ms = cuda_ms(lambda: k4(None))
         base_ms = cuda_ms(lambda: k4(pre32))
         plain_ms = cuda_ms(lambda: plain4(None))
-        same += same_as_parent(parent, lambda: k4(None), f"K4 recompute {site}")
+        same += same_k4_as_parent(parent, lambda: k4(None), mode != "batched",
+                                  f"K4 recompute {site}")[0]
+        log_k4_split(torch, f"K4 recompute {site}", lambda: k4(None), parent, calls,
+                     tail_bounds, tails["recompute"])
         moved = nbytes(x_send, rec, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
         # K4's products, and the recompute's: send . W1s per row, edge .
         # W1e per row (batched) or the embedder and edge_val . W1e per edge,
@@ -4608,6 +4972,8 @@ def phase_cache_pre_kernels(torch, model, parent=None) -> list[dict]:
         del x_send, rec, edge_in, d_aggr, d_new, x16, r16, e16, da16, dn16, pre_b, got, want
         del again
         torch.cuda.empty_cache()
+    for label, acc in tails.items():
+        log_k4_tail(f"K4 {label}", acc, parent)
     log(f"K4 recompute against K4 from the saved pre: {same_bits} of {total_entries} "
         f"gradient entries the same bits")
     for name, a in bf_ms.items():
@@ -4900,16 +5266,37 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
                                          tol=K4_TOL))
                 ms, plain_ms = cuda_ms(nb), cuda_ms(plain_nb)
                 base_ms = cuda_ms(tail_fwd_bwd)
+                old_ms = parent_ms(parent, nb)
+                accs[f"{nbw}{sfx}"]["parent_ms"] += calls * (old_ms or 0.0)
+                if not bf16_ops:
+                    same += same_as_parent(parent, nb, f"{nbw} {site}")
                 moved = nbytes(rec, aggr, d_node, *node_params, *flat_got)
                 flops = 9 * 2 * n_rec * b * d * d
                 b_ms, b_by = add(f"{nbw}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
                                  bf16_ops)
+                pieces, _ = k4_pieces(torch, nb)
+                reduce_ms = pieces["reduces"]
+                old_pieces = {}
+                if parent is not None:
+                    with parent["use"]():
+                        old_pieces, _ = k4_pieces(torch, nb)
+                for key, piece in (("dev_ms", pieces), ("parent_dev_ms", old_pieces)):
+                    accs[f"{nbw}{sfx}"][key] = accs[f"{nbw}{sfx}"].get(key, 0.0) + calls * (
+                        piece.get("other", 0.0) + piece.get("reduces", 0.0))
+                reduce_bound = bound(4 * (fk._WS_NODE * min(
+                    fk._NODE_BWD_BLOCKS_PER_SM * fk._device_sms(rec.device),
+                    -(-n_rec * b // fk._TILE_ROWS)) + fk._WS_NODE), 0.0)[0]
                 log(f"{nbw}{sfx} {site}: rows {n_rec * b}; max abs err {err:.3g} against the "
                     f"plain version (tol {K4_TOL} of each gradient's largest entry, or the bf16 "
                     f"bounds), repeatable; kernel {ms:.4f} ms against the node tail's forward "
                     f"and backward with torch {base_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                     f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
-                    f"it); {calls} call(s) per training step")
+                    f"it); {calls} call(s) per training step; split (torch.profiler, ms a "
+                    f"call): the node backward {pieces['other']:.4f}, its workspace reduce "
+                    f"{reduce_ms:.4f} (bound {reduce_bound:.4f}, bytes), one launch of each"
+                    + (f"; the parent's kernel {old_ms:.4f} ms, split: the node backward "
+                       f"{old_pieces.get('other', 0.0):.4f}, its reduce "
+                       f"{old_pieces.get('reduces', 0.0):.4f}" if parent else ""))
                 del node, new_edge, again, kept, aggr_k3, got, want, leaves, tail_mlp
             del x32, r32, e32
             torch.cuda.empty_cache()
@@ -4917,11 +5304,13 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
         log(f"{name} per {'AR' if name.startswith('K3') else 'training'} step: "
             f"{a['ms']:.4f} ms against {a['base_ms']:.4f} ms unfused (bound "
             f"{a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms"
-            + (f"; the parent's {a['parent_ms']:.4f} ms" if name.startswith("K3") and parent
-               else "") + ")")
+            + (f"; the parent's {a['parent_ms']:.4f} ms" if parent else "")
+            + (f"; device time (torch.profiler) {a['dev_ms']:.4f} ms"
+               + (f", the parent's {a['parent_dev_ms']:.4f} ms" if parent else "")
+               if "dev_ms" in a else "") + ")")
     if parent is not None:
-        log(f"float32 {k3n} against the parent's kernel on the same inputs: {same} "
-            f"outputs, every one the same bits")
+        log(f"float32 {k3n} and {nbw} against the parent's kernels on the same inputs: "
+            f"{same} outputs, every one the same bits")
     log_occupancy("fused aggr", lambda row: row["node"])
 
     # ---- HiLAM's ten level sets, float32, the phase through autograd -----------
@@ -5872,7 +6261,7 @@ def main() -> int:
     parent = None
     if parent_build is not None:
         parent = parent_kernels(torch, parent_build)
-        log(f"parent kernels (K3, K4, K7, K8) built from {sys.argv[2]}")
+        log(f"parent kernels (K3, K4, K7, K8, node backward) built from {sys.argv[2]}")
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)

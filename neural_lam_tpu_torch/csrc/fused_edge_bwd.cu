@@ -35,7 +35,7 @@
 // step of a sequential grid and adds into them step by step; CUDA blocks
 // run in no order. Here each group of warps keeps its partial weight
 // gradients in registers, writes them once to a (groups, stride) workspace,
-// and a last small kernel sums the workspace over the groups in group
+// and a last small kernel sums the workspaces over the groups in group
 // order: with a fixed grid and a fixed assignment of work to groups the
 // result is deterministic, with no float atomics anywhere.
 //
@@ -59,19 +59,27 @@
 //      added on the float32 units. The column sums (db2, dgamma, dbeta,
 //      db1) are shuffle trees into per-warp slots. It writes d_pre
 //      (EDGE_BATCHED) or s[e] = sum_b d_pre[e, b] (the per-edge modes) for
-//      the edge pass.
+//      the edge input's share.
 //   2. The edge input's share (fused_edge_bwd_common.cuh, shared with K8).
 //      EDGE_BATCHED: fused_edge_bwd_rows, d_edge (wgmma) and dW1e
 //      (mma.sync) per (edge, b) row over d_pre. The per-edge modes:
 //      fused_edge_bwd_edge, dW1e and d_edge, and for EDGE_RAW the embedder's
 //      backward, over tiles of 64 rows of s (B times fewer rows than the
-//      edge stream) on the SIMT units.
-//   3. reduce_workspace after each: sums the partials in group (block) order.
+//      edge stream), its chain in registers on the tensor cores.
+//   3. fused_edge_bwd_receiver, the receiver slice (the rows pass's
+//      pattern, fused_edge_bwd_common.cuh): d_rec = d_recproj . W1r and
+//      dW1r += d_recproj^T . rec per (receiver, b) row, 3xTF32 in every
+//      precision, as the JAX package forms them outside its kernel
+//      (pallas_fused.py:1624-1631); it reads rec in the streams' dtype.
+//   4. reduce_workspace: sums the three workspaces (main, edge input,
+//      receiver slice) over their groups in group order.
 //
 // Bound on the H100: operations. Per (edge, b) row the main kernel does
 // five 64x64 products (z, d_h1, dW2, d_send, dW1s) and the batched edge
-// pass two more (d_edge, dW1e), on the tensor cores (495 TFLOP/s of TF32,
-// divided by three for 3xTF32).
+// pass two more (d_edge, dW1e), per (receiver, b) row the receiver slice
+// two (d_rec, dW1r), and per edge the edge pass two (d_edge_val, dW1e) and
+// for raw features three more (the embedder's second layer, dEW2, d_a1),
+// on the tensor cores (495 TFLOP/s of TF32, divided by three for 3xTF32).
 //
 // The main kernel, its recompute of pre and the launch sequence are in
 // fused_edge_bwd_main.cuh; this library holds the instantiations that start
@@ -88,9 +96,10 @@
 // sums in float32. Their main kernel is fused_edge_bwd_main_bf
 // (fused_edge_bwd_main.cuh), on Hopper's bf16 tensor cores (tc_bf16.cuh):
 // wgmma m64n64k16 on bf16 fragments and bf16 tiles, one bf16 copy of W2 and
-// W1s read in both orientations through wgmma's transpose bit; the edge
-// pass and the reduces are the float32 ones with bf16-rounded operands
-// (tc_tf32.cuh's one TF32 pass), as K8's. The streams send, d_aggr, d_new_edge and the
+// W1s read in both orientations through wgmma's transpose bit; so is the
+// edge pass's (fused_edge_bwd_common.cuh, shared with K8's bf16 variants);
+// the rows pass takes bf16-rounded operands in one TF32 pass (tc_tf32.cuh),
+// the receiver slice stays 3xTF32. The streams send, d_aggr, d_new_edge and the
 // edge input, and the outputs d_send and d_edge, are of type TI (bf16 under
 // mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high, float32 under
 // high-kernels), as the JAX wrapper casts them to io_dt; d_recproj and the
@@ -119,18 +128,102 @@ namespace {
 template <bool BF, typename TI>
 cudaError_t run_saved(int pre_bf16, int edge_mode, int num_rec, int n_edges, int batch,
                       int feat, int propagation, int layer_norm, int main_blocks,
-                      int edge_blocks, const void* edge, const void* send, const void* pre,
-                      const void* d_aggr, const void* d_new_edge, const void* rowptr,
-                      const void* w1, const void* w2, const void* b2, const void* gamma,
-                      const void* ew1, const void* eb1, const void* ew2, const void* eb2,
-                      const void* eg, const void* ebt, void* d_send, void* d_edge,
-                      void* d_recproj, void* d_pre, void* ws_main, void* out_main,
-                      void* ws_edge, void* out_edge, void* stream) {
+                      int edge_blocks, int rec_blocks, const void* edge, const void* send,
+                      const void* pre, const void* d_aggr, const void* d_new_edge,
+                      const void* rowptr, const void* w1, const void* w2, const void* b2,
+                      const void* gamma, const void* ew1, const void* eb1, const void* ew2,
+                      const void* eb2, const void* eg, const void* ebt, void* d_send,
+                      void* d_edge, void* d_recproj, void* d_pre, void* ws_main,
+                      void* out_main, void* ws_edge, void* out_edge, const void* rec,
+                      void* d_rec, void* ws_rec, void* out_rec, void* stream) {
   auto go = pre_bf16 ? &run<kPreBf16, BF, TI> : &run<kPreF32, BF, TI>;
   return go(edge_mode, num_rec, n_edges, batch, feat, propagation, layer_norm, main_blocks,
-            edge_blocks, edge, send, pre, nullptr, d_aggr, d_new_edge, rowptr, w1, nullptr,
-            w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre,
-            ws_main, out_main, ws_edge, out_edge, nullptr, stream);
+            edge_blocks, rec_blocks, edge, send, pre, rec, d_aggr, d_new_edge, rowptr, w1,
+            nullptr, w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj,
+            d_pre, ws_main, out_main, ws_edge, out_edge, d_rec, ws_rec, out_rec, nullptr,
+            stream);
+}
+
+// the launch resources of a piece of K4's tail (out as
+// nl_fused_edge_bwd_occupancy's): the edge pass (pieces 0 and 1) and the
+// rows pass (2) in the instantiation BF, TI
+template <bool BF, typename TI>
+cudaError_t tail_occupancy_of(int piece, int* out) {
+  using namespace fused_edge;
+  switch (piece) {
+    case 0: return edge_occupancy_of<true, BF, TI>(out);
+    case 1: return edge_occupancy_of<false, BF, TI>(out);
+    case 2:
+      out[1] = kRowThreads;
+      out[3] = rows_smem_bytes();
+      return tcb::occupancy(fused_edge_bwd_rows<BF, TI>, out[1], out[3], out, out + 2,
+                            out + 4);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// and of the receiver slice (piece 3) on rows of type TI
+template <typename TI>
+cudaError_t receiver_occupancy_of(int* out) {
+  using namespace fused_edge;
+  out[1] = kRowThreads;
+  out[3] = rows_smem_bytes();
+  return tcb::occupancy(fused_edge_bwd_receiver<TI>, out[1], out[3], out, out + 2, out + 4);
+}
+
+// the edge pass alone and its reduce
+template <bool BF, typename TI>
+cudaError_t edge_pass(int edge_mode, int n_edges, int batch, int feat, int edge_blocks,
+                      const void* edge, const void* presum, const void* d_new_edge,
+                      const void* w1, const void* ew1, const void* eb1, const void* ew2,
+                      const void* eb2, const void* eg, const void* ebt, void* d_edge,
+                      void* ws_edge, void* out_edge, void* stream) {
+  fused_edge::EdgeParamsT<TI> e;
+  e.edge = static_cast<const TI*>(edge);
+  e.presum = static_cast<const float*>(presum);
+  e.d_new_edge = static_cast<const TI*>(d_new_edge);
+  e.w1 = static_cast<const float*>(w1);
+  e.ew1 = static_cast<const float*>(ew1);
+  e.eb1 = static_cast<const float*>(eb1);
+  e.ew2 = static_cast<const float*>(ew2);
+  e.eb2 = static_cast<const float*>(eb2);
+  e.eg = static_cast<const float*>(eg);
+  e.ebt = static_cast<const float*>(ebt);
+  e.d_edge = static_cast<TI*>(d_edge);
+  e.ws = static_cast<float*>(ws_edge);
+  e.n_edges = n_edges;
+  e.batch = batch;
+  e.feat = feat;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fused_edge::ReduceJobs jobs{};
+  jobs.n = 1;
+  cudaError_t err = fused_edge::launch_edge_pass<BF>(edge_mode, e, edge_blocks,
+                                                     static_cast<float*>(out_edge),
+                                                     &jobs.job[0], s);
+  if (err != cudaSuccess) return err;
+  return fused_edge::launch_reduces(jobs, s);
+}
+
+// the receiver slice alone and its reduce
+template <typename TI>
+cudaError_t receiver_slice(int rows, int blocks, const void* rec, const void* d_recproj,
+                           const void* w1, void* d_rec, void* ws, void* out, void* stream) {
+  fused_edge::RowsParamsT<TI, float> q;
+  q.x = static_cast<const TI*>(rec);
+  q.g = static_cast<const float*>(d_recproj);
+  q.add = nullptr;
+  q.w1 = static_cast<const float*>(w1);
+  q.w_off = 2 * fused_edge::D;
+  q.out = static_cast<float*>(d_rec);
+  q.ws = static_cast<float*>(ws);
+  q.rows = rows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fused_edge::ReduceJobs jobs{};
+  jobs.n = 1;
+  cudaError_t err = fused_edge::launch_rows<true, false>(q, blocks, static_cast<float*>(out),
+                                                         &jobs.job[0], s);
+  if (err != cudaSuccess) return err;
+  return fused_edge::launch_reduces(jobs, s);
 }
 
 }  // namespace
@@ -145,47 +238,112 @@ cudaError_t run_saved(int pre_bf16, int edge_mode, int num_rec, int n_edges, int
 //   d_pre: (E, B, D) scratch [edge_mode 2], (E, D) [0, 1]
 //   ws_main: (main_blocks * 3, 8448) scratch; out_main: (8448,) out =
 //     dW2, dW1s as (out, in) | db2 dgamma dbeta db1
-//   ws_edge: (edge_blocks, 8960) scratch [edge_mode 0, 1], (edge_blocks * 4,
-//     4096) [2]; out_edge: (8960,) out = dW1e, dEW2 as (out, in) | dEW1 as
-//     (D, 8) | deb1 deb2 deg debt (dW1e alone [2])
+//   ws_edge: (edge_blocks * 3, 8960) scratch [edge_mode 0, 1],
+//     (edge_blocks * 4, 4096) [2]; out_edge: (8960,) out = dW1e, dEW2 as
+//     (out, in) | dEW1 as (D, 8) | deb1 deb2 deg debt (dW1e alone [1, 2])
+//   rec: (num_rec, B, D) in the streams' dtype; d_rec: (num_rec, B, D)
+//     float32 out; ws_rec: (rec_blocks * 4, 4096) scratch; out_rec: (4096,)
+//     out = dW1r as (out, in)
 //   main_blocks = min(SMs, ceil(chunks / 3)) with chunks = ceil(num_rec /
 //   (32 / batch)); edge_blocks = min(SMs, ceil(tiles / 4)) with tiles =
-//   ceil(E * B / 64) [edge_mode 2], else min(SMs, ceil(E / 64))
-// num_rec > 0, n_edges > 0, 1 <= batch <= 32, feat <= 8 and both block
+//   ceil(E * B / 64) [edge_mode 2], else min(SMs, ceil(ceil(E / 64) / 3));
+//   rec_blocks = min(SMs, ceil(ceil(num_rec * B / 64) / 4))
+// num_rec > 0, n_edges > 0, 1 <= batch <= 32, feat <= 8 and the block
 // counts > 0 are checked by the caller. Returns the first CUDA error of the
 // launches.
 extern "C" int nl_fused_edge_bwd(
     int pre_bf16, int edge_mode, int num_rec, int n_edges, int batch, int feat,
-    int propagation, int layer_norm, int main_blocks, int edge_blocks,
+    int propagation, int layer_norm, int main_blocks, int edge_blocks, int rec_blocks,
     const void* edge, const void* send, const void* pre, const void* d_aggr,
     const void* d_new_edge, const void* rowptr, const void* w1, const void* w2,
     const void* b2, const void* gamma, const void* ew1, const void* eb1,
     const void* ew2, const void* eb2, const void* eg, const void* ebt,
     void* d_send, void* d_edge, void* d_recproj, void* d_pre, void* ws_main,
-    void* out_main, void* ws_edge, void* out_edge, void* stream) {
+    void* out_main, void* ws_edge, void* out_edge, const void* rec, void* d_rec,
+    void* ws_rec, void* out_rec, void* stream) {
   return static_cast<int>(run_saved<false, float>(
       pre_bf16, edge_mode, num_rec, n_edges, batch, feat, propagation, layer_norm,
-      main_blocks, edge_blocks, edge, send, pre, d_aggr, d_new_edge, rowptr, w1, w2, b2, gamma,
-      ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre, ws_main, out_main,
-      ws_edge, out_edge, stream));
+      main_blocks, edge_blocks, rec_blocks, edge, send, pre, d_aggr, d_new_edge, rowptr, w1,
+      w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre, ws_main,
+      out_main, ws_edge, out_edge, rec, d_rec, ws_rec, out_rec, stream));
 }
 
 // The bf16-operand instantiations: the arguments of nl_fused_edge_bwd (pre_bf16
-// first), with edge, send, d_aggr, d_new_edge, d_send and d_edge in bf16
+// first), with edge, send, rec, d_aggr, d_new_edge, d_send and d_edge in bf16
 // (io_bf16) or float32; everything else as there.
 extern "C" int nl_fused_edge_bwd_bf16ops(
     int pre_bf16, int io_bf16, int edge_mode, int num_rec, int n_edges, int batch, int feat,
-    int propagation, int layer_norm, int main_blocks, int edge_blocks,
+    int propagation, int layer_norm, int main_blocks, int edge_blocks, int rec_blocks,
     const void* edge, const void* send, const void* pre, const void* d_aggr,
     const void* d_new_edge, const void* rowptr, const void* w1, const void* w2,
     const void* b2, const void* gamma, const void* ew1, const void* eb1,
     const void* ew2, const void* eb2, const void* eg, const void* ebt,
     void* d_send, void* d_edge, void* d_recproj, void* d_pre, void* ws_main,
-    void* out_main, void* ws_edge, void* out_edge, void* stream) {
+    void* out_main, void* ws_edge, void* out_edge, const void* rec, void* d_rec,
+    void* ws_rec, void* out_rec, void* stream) {
   auto go = io_bf16 ? &run_saved<true, __nv_bfloat16> : &run_saved<true, float>;
   return static_cast<int>(go(
       pre_bf16, edge_mode, num_rec, n_edges, batch, feat, propagation, layer_norm,
-      main_blocks, edge_blocks, edge, send, pre, d_aggr, d_new_edge, rowptr, w1, w2, b2, gamma,
-      ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre, ws_main, out_main,
-      ws_edge, out_edge, stream));
+      main_blocks, edge_blocks, rec_blocks, edge, send, pre, d_aggr, d_new_edge, rowptr, w1,
+      w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre, ws_main,
+      out_main, ws_edge, out_edge, rec, d_rec, ws_rec, out_rec, stream));
+}
+
+// The launch resources of a piece of K4's tail: piece 0 the edge pass on
+// raw features, 1 on a shared edge input, 2 the rows pass, 3 the receiver
+// slice (bf16_ops picks no other instantiation of it: it runs 3xTF32); in
+// the instantiation of bf16_ops and io_bf16; out as for
+// nl_fused_edge_bwd_occupancy.
+extern "C" int nl_fused_edge_bwd_tail_occupancy(int piece, int bf16_ops, int io_bf16,
+                                                int* out) {
+  if (piece == 3)
+    return static_cast<int>(io_bf16 ? receiver_occupancy_of<__nv_bfloat16>(out)
+                                    : receiver_occupancy_of<float>(out));
+  if (!bf16_ops && io_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(!bf16_ops ? tail_occupancy_of<false, float>(piece, out)
+                          : io_bf16 ? tail_occupancy_of<true, __nv_bfloat16>(piece, out)
+                                    : tail_occupancy_of<true, float>(piece, out));
+}
+
+// The edge pass alone (edge_mode 0 or 1) and its reduce, as nl_fused_edge_bwd
+// launches them after its main kernel: presum is s (E, D) float32; edge,
+// d_new_edge and d_edge in the streams' dtype (bf16 with io_bf16, which
+// needs bf16_ops); ws_edge, out_edge and edge_blocks as there.
+extern "C" int nl_fused_edge_bwd_edge_pass(
+    int bf16_ops, int io_bf16, int edge_mode, int n_edges, int batch, int feat,
+    int edge_blocks, const void* edge, const void* presum, const void* d_new_edge,
+    const void* w1, const void* ew1, const void* eb1, const void* ew2, const void* eb2,
+    const void* eg, const void* ebt, void* d_edge, void* ws_edge, void* out_edge,
+    void* stream) {
+  if (n_edges <= 0 || batch < 1 || feat > fused_edge::kMaxFeat || edge_blocks <= 0 ||
+      (edge_mode != EDGE_RAW && edge_mode != EDGE_SHARED) || (!bf16_ops && io_bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto go = !bf16_ops ? &edge_pass<false, float>
+            : io_bf16 ? &edge_pass<true, __nv_bfloat16>
+                      : &edge_pass<true, float>;
+  return static_cast<int>(go(edge_mode, n_edges, batch, feat, edge_blocks, edge, presum,
+                             d_new_edge, w1, ew1, eb1, ew2, eb2, eg, ebt, d_edge, ws_edge,
+                             out_edge, stream));
+}
+
+// The receiver slice alone and its reduce: rec (rows / B, B, D) in bf16
+// (io_bf16) or float32, d_recproj and d_rec (rows / B, B, D) float32, ws
+// (blocks * 4, 4096), out (4096,) = dW1r as (out, in).
+extern "C" int nl_fused_edge_bwd_receiver_slice(int io_bf16, int rows, int blocks,
+                                                const void* rec, const void* d_recproj,
+                                                const void* w1, void* d_rec, void* ws,
+                                                void* out, void* stream) {
+  if (rows <= 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto go = io_bf16 ? &receiver_slice<__nv_bfloat16> : &receiver_slice<float>;
+  return static_cast<int>(go(rows, blocks, rec, d_recproj, w1, d_rec, ws, out, stream));
+}
+
+// The workspace reduce alone: out (stride,) = ws (parts, stride) summed over
+// its parts in part order.
+extern "C" int nl_reduce_workspace(int parts, int stride, const void* ws, void* out,
+                                   void* stream) {
+  if (parts <= 0 || stride <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fused_edge::launch_reduce(static_cast<const float*>(ws), parts,
+                                                    stride, static_cast<float*>(out),
+                                                    static_cast<cudaStream_t>(stream)));
 }

@@ -937,20 +937,22 @@ cudaError_t launch_main_mode(int edge_mode, const MainParams<TI>& p, int blocks,
 }
 
 // Fill the parameters and launch the main kernel, the edge input's share
-// and the two reduces, for the instantiation PRE, BF, TI
+// (the edge pass or the rows pass), the receiver slice and the reduce of
+// the three workspaces, for the instantiation PRE, BF, TI
 template <int PRE, bool BF, typename TI>
 cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat,
                 int propagation, int layer_norm, int main_blocks, int edge_blocks,
-                const void* edge, const void* send, const void* pre, const void* rec,
-                const void* d_aggr, const void* d_new_edge, const void* rowptr, const void* w1,
-                const void* b1, const void* w2, const void* b2, const void* gamma,
-                const void* ew1, const void* eb1, const void* ew2, const void* eb2,
-                const void* eg, const void* ebt, void* d_send, void* d_edge, void* d_recproj,
-                void* d_pre, void* ws_main, void* out_main, void* ws_edge, void* out_edge,
-                void* pre_ws, void* stream) {
+                int rec_blocks, const void* edge, const void* send, const void* pre,
+                const void* rec, const void* d_aggr, const void* d_new_edge,
+                const void* rowptr, const void* w1, const void* b1, const void* w2,
+                const void* b2, const void* gamma, const void* ew1, const void* eb1,
+                const void* ew2, const void* eb2, const void* eg, const void* ebt,
+                void* d_send, void* d_edge, void* d_recproj, void* d_pre, void* ws_main,
+                void* out_main, void* ws_edge, void* out_edge, void* d_rec, void* ws_rec,
+                void* out_rec, void* pre_ws, void* stream) {
   if (num_rec <= 0 || n_edges <= 0 || batch < 1 || batch > kRecRows ||
-      feat > kMaxFeat || main_blocks <= 0 || edge_blocks <= 0 || edge_mode < 0 ||
-      edge_mode > 2)
+      feat > kMaxFeat || main_blocks <= 0 || edge_blocks <= 0 || rec_blocks <= 0 ||
+      edge_mode < 0 || edge_mode > 2 || rec == nullptr)
     return cudaErrorInvalidValue;
   if (PRE == kPreRecompute ? pre_ws == nullptr : pre == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -990,41 +992,59 @@ cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat,
   m.layer_norm = layer_norm;
   cudaError_t err = launch_main_mode<PRE, BF, TI>(edge_mode, m, main_blocks, s);
   if (err != cudaSuccess) return err;
-  err = fused_edge::launch_reduce(m.ws, main_blocks * kGroups, kMainStride, 0,
-                                  static_cast<float*>(out_main), s);
-  if (err != cudaSuccess) return err;
+  fused_edge::ReduceJobs jobs{};
+  jobs.n = 3;
+  jobs.job[0] = fused_edge::ReduceJob{m.ws, static_cast<float*>(out_main),
+                                      main_blocks * kGroups, kMainStride, kMainStride};
 
   if (batched) {  // the edge input's share per (edge, b) row
     fused_edge::RowsParamsT<TI> r;
-    r.edge = m.edge;
-    r.d_pre = m.d_pre;
-    r.d_new_edge = m.d_new_edge;
+    r.x = m.edge;
+    r.g = m.d_pre;
+    r.add = m.d_new_edge;
     r.w1 = m.w1;
-    r.d_edge = static_cast<TI*>(d_edge);
+    r.w_off = 0;
+    r.out = static_cast<TI*>(d_edge);
     r.ws = static_cast<float*>(ws_edge);
     r.rows = n_edges * batch;
-    return fused_edge::launch_rows<BF>(r, edge_blocks, static_cast<float*>(out_edge), s);
+    err = fused_edge::launch_rows<false, BF>(r, edge_blocks, static_cast<float*>(out_edge),
+                                             &jobs.job[1], s);
+  } else {  // the per-edge modes: the edge pass over s
+    fused_edge::EdgeParamsT<TI> e;
+    e.edge = m.edge;
+    e.presum = m.d_pre;
+    e.d_new_edge = m.d_new_edge;
+    e.w1 = m.w1;
+    e.ew1 = m.ew1;
+    e.eb1 = m.eb1;
+    e.ew2 = m.ew2;
+    e.eb2 = m.eb2;
+    e.eg = m.eg;
+    e.ebt = m.ebt;
+    e.d_edge = static_cast<TI*>(d_edge);
+    e.ws = static_cast<float*>(ws_edge);
+    e.n_edges = n_edges;
+    e.batch = batch;
+    e.feat = feat;
+    err = fused_edge::launch_edge_pass<BF>(edge_mode, e, edge_blocks,
+                                           static_cast<float*>(out_edge), &jobs.job[1], s);
   }
+  if (err != cudaSuccess) return err;
 
-  // the per-edge modes: the edge pass over s
-  fused_edge::EdgeParamsT<TI> e;
-  e.edge = m.edge;
-  e.presum = m.d_pre;
-  e.d_new_edge = m.d_new_edge;
-  e.w1 = m.w1;
-  e.ew1 = m.ew1;
-  e.eb1 = m.eb1;
-  e.ew2 = m.ew2;
-  e.eb2 = m.eb2;
-  e.eg = m.eg;
-  e.ebt = m.ebt;
-  e.d_edge = static_cast<TI*>(d_edge);
-  e.ws = static_cast<float*>(ws_edge);
-  e.n_edges = n_edges;
-  e.batch = batch;
-  e.feat = feat;
-  return fused_edge::launch_edge_phase<BF>(edge_mode, e, edge_blocks,
-                                           static_cast<float*>(out_edge), s);
+  // the receiver slice, in float32 whatever the precision
+  fused_edge::RowsParamsT<TI, float> q;
+  q.x = m.rec;
+  q.g = m.d_recproj;
+  q.add = nullptr;
+  q.w1 = m.w1;
+  q.w_off = 2 * D;
+  q.out = static_cast<float*>(d_rec);
+  q.ws = static_cast<float*>(ws_rec);
+  q.rows = num_rec * batch;
+  err = fused_edge::launch_rows<true, false>(q, rec_blocks, static_cast<float*>(out_rec),
+                                             &jobs.job[2], s);
+  if (err != cudaSuccess) return err;
+  return fused_edge::launch_reduces(jobs, s);
 }
 
 }  // namespace

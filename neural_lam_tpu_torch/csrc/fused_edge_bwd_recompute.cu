@@ -30,24 +30,26 @@ extern "C" int nl_fused_edge_bwd_recompute_occupancy(int bf16_ops, int io_bf16, 
 
 // The arguments of nl_fused_edge_bwd_bf16ops (fused_edge_bwd.cu) without
 // pre_bf16 and pre, with bf16_ops (0: the float32 kernel, whose streams must
-// be float32) and, for the recompute, rec (num_rec, B, D) in the streams'
-// type, b1 (D,) and pre_ws, a (main_blocks * 3, 6144) float32 scratch.
+// be float32), rec (num_rec, B, D) in the streams' type among the inputs,
+// b1 (D,), and pre_ws, a (main_blocks * 3, 6144) float32 scratch, after
+// out_rec.
 extern "C" int nl_fused_edge_bwd_recompute(
     int bf16_ops, int io_bf16, int edge_mode, int num_rec, int n_edges, int batch, int feat,
-    int propagation, int layer_norm, int main_blocks, int edge_blocks,
+    int propagation, int layer_norm, int main_blocks, int edge_blocks, int rec_blocks,
     const void* edge, const void* send, const void* rec, const void* d_aggr,
     const void* d_new_edge, const void* rowptr, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* gamma, const void* ew1, const void* eb1,
     const void* ew2, const void* eb2, const void* eg, const void* ebt,
     void* d_send, void* d_edge, void* d_recproj, void* d_pre, void* ws_main,
-    void* out_main, void* ws_edge, void* out_edge, void* pre_ws, void* stream) {
+    void* out_main, void* ws_edge, void* out_edge, void* d_rec, void* ws_rec,
+    void* out_rec, void* pre_ws, void* stream) {
   if (!bf16_ops && io_bf16) return static_cast<int>(cudaErrorInvalidValue);
   auto go = !bf16_ops ? &run<kPreRecompute, false, float>
             : io_bf16 ? &run<kPreRecompute, true, __nv_bfloat16>
                       : &run<kPreRecompute, true, float>;
   return static_cast<int>(go(
       edge_mode, num_rec, n_edges, batch, feat, propagation, layer_norm, main_blocks,
-      edge_blocks, edge, send, nullptr, rec, d_aggr, d_new_edge, rowptr, w1, b1, w2, b2,
-      gamma, ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre, ws_main, out_main,
-      ws_edge, out_edge, pre_ws, stream));
+      edge_blocks, rec_blocks, edge, send, nullptr, rec, d_aggr, d_new_edge, rowptr, w1, b1,
+      w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_send, d_edge, d_recproj, d_pre, ws_main,
+      out_main, ws_edge, out_edge, d_rec, ws_rec, out_rec, pre_ws, stream));
 }

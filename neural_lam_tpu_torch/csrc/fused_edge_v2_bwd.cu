@@ -29,8 +29,8 @@
 // outside its kernel (pallas_fused.py:2655-2674). Weight gradients come out
 // in nn.Linear's (out, in) layout.
 //
-// Design: K4's (fused_edge_bwd.cu), without its sender half. Three or four
-// launches, with no float atomics anywhere:
+// Design: K4's (fused_edge_bwd.cu), without its sender half and its
+// receiver slice. Three launches, with no float atomics anywhere:
 //   1. fused_edge_v2_bwd_main, on the tensor cores with the 3xTF32 split
 //      (tc_tf32.cuh), at float32 accuracy. A block of 12 warps holds W2 in
 //      both orientations, split for wgmma, in shared memory and runs three
@@ -54,9 +54,10 @@
 //      inputs, s[e] = sum_b d_pre[e, b].
 //   2. The edge input's share (fused_edge_bwd_common.cuh, shared with K4):
 //      fused_edge_bwd_rows over d_pre for a batched input (d_edge by wgmma,
-//      dW1e by mma.sync), fused_edge_bwd_edge over s for the others.
-//   3. reduce_workspace after each: sums the partials in group (block)
-//      order.
+//      dW1e by mma.sync), fused_edge_bwd_edge over s for the others (its
+//      chain on the tensor cores).
+//   3. reduce_workspace: sums both workspaces over their groups in group
+//      order, in one launch.
 //   Without K4's d_send and dW1s the main kernel has three products a row
 //   where K4 has five, one 16 x 64 gradient share a warp where K4 has two,
 //   and one weight fewer in shared memory.
@@ -388,41 +389,45 @@ cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat, in
   cudaError_t err = batched ? launch_main<true, BF, TI>(m, main_blocks, s)
                             : launch_main<false, BF, TI>(m, main_blocks, s);
   if (err != cudaSuccess) return err;
-  err = fused_edge::launch_reduce(m.ws, main_blocks * kGroups, kMainStride, 0,
-                                  static_cast<float*>(out_main), s);
-  if (err != cudaSuccess) return err;
+  fused_edge::ReduceJobs jobs{};
+  jobs.n = 2;
+  jobs.job[0] = fused_edge::ReduceJob{m.ws, static_cast<float*>(out_main),
+                                      main_blocks * kGroups, kMainStride, kMainStride};
 
   if (batched) {  // the edge input's share per (edge, b) row, over d_pre
     fused_edge::RowsParamsT<TI> r;
-    r.edge = static_cast<const TI*>(edge);
-    r.d_pre = m.d_pre;
-    r.d_new_edge = m.d_new_edge;
+    r.x = static_cast<const TI*>(edge);
+    r.g = m.d_pre;
+    r.add = m.d_new_edge;
     r.w1 = static_cast<const float*>(w1);
-    r.d_edge = static_cast<TI*>(d_edge);
+    r.w_off = 0;
+    r.out = static_cast<TI*>(d_edge);
     r.ws = static_cast<float*>(ws_edge);
     r.rows = n_edges * batch;
-    return fused_edge::launch_rows<BF>(r, edge_blocks, static_cast<float*>(out_edge), s);
+    err = fused_edge::launch_rows<false, BF>(r, edge_blocks, static_cast<float*>(out_edge),
+                                             &jobs.job[1], s);
+  } else {  // the per-edge modes: the edge pass over s
+    fused_edge::EdgeParamsT<TI> e;
+    e.edge = static_cast<const TI*>(edge);
+    e.presum = m.presum;
+    e.d_new_edge = m.d_new_edge;
+    e.w1 = static_cast<const float*>(w1);
+    e.ew1 = static_cast<const float*>(ew1);
+    e.eb1 = static_cast<const float*>(eb1);
+    e.ew2 = static_cast<const float*>(ew2);
+    e.eb2 = static_cast<const float*>(eb2);
+    e.eg = static_cast<const float*>(eg);
+    e.ebt = static_cast<const float*>(ebt);
+    e.d_edge = static_cast<TI*>(d_edge);
+    e.ws = static_cast<float*>(ws_edge);
+    e.n_edges = n_edges;
+    e.batch = batch;
+    e.feat = feat;
+    err = fused_edge::launch_edge_pass<BF>(edge_mode, e, edge_blocks,
+                                           static_cast<float*>(out_edge), &jobs.job[1], s);
   }
-
-  // the per-edge modes: the edge pass over s
-  fused_edge::EdgeParamsT<TI> e;
-  e.edge = static_cast<const TI*>(edge);
-  e.presum = m.presum;
-  e.d_new_edge = m.d_new_edge;
-  e.w1 = static_cast<const float*>(w1);
-  e.ew1 = static_cast<const float*>(ew1);
-  e.eb1 = static_cast<const float*>(eb1);
-  e.ew2 = static_cast<const float*>(ew2);
-  e.eb2 = static_cast<const float*>(eb2);
-  e.eg = static_cast<const float*>(eg);
-  e.ebt = static_cast<const float*>(ebt);
-  e.d_edge = static_cast<TI*>(d_edge);
-  e.ws = static_cast<float*>(ws_edge);
-  e.n_edges = n_edges;
-  e.batch = batch;
-  e.feat = feat;
-  return fused_edge::launch_edge_phase<BF>(edge_mode, e, edge_blocks,
-                                           static_cast<float*>(out_edge), s);
+  if (err != cudaSuccess) return err;
+  return fused_edge::launch_reduces(jobs, s);
 }
 
 }  // namespace
@@ -449,12 +454,12 @@ extern "C" int nl_fused_edge_v2_bwd_occupancy(int edge_mode, int* blocks, int* t
 //   presum: (E, D) scratch [edge_mode 0, 1]
 //   ws_main: (main_blocks * 3, 4352) scratch; out_main: (4352,) out =
 //     dW2 as (out, in) | db2 dgamma dbeta db1
-//   ws_edge: (edge_blocks, 8960) scratch [edge_mode 0, 1], (edge_blocks * 4,
+//   ws_edge: (edge_blocks * 3, 8960) scratch [edge_mode 0, 1], (edge_blocks * 4,
 //     4096) [2]; out_edge: (8960,) out = dW1e, dEW2 as (out, in) | dEW1 as
 //     (D, 8) | deb1 deb2 deg debt (dW1e alone [2])
 //   main_blocks = min(SMs, ceil(chunks / 3)) with chunks = ceil(num_rec /
 //   max(1, 16 / batch)); edge_blocks = min(SMs, ceil(tiles / 4)) with tiles =
-//   ceil(E * B / 64) [edge_mode 2], else min(SMs, ceil(E / 64))
+//   ceil(E * B / 64) [edge_mode 2], else min(SMs, ceil(ceil(E / 64) / 3))
 // num_rec > 0, n_edges > 0, 1 <= batch <= 32, feat <= 8 and both block
 // counts > 0 are checked by the caller. Returns the first CUDA error of the
 // launches.

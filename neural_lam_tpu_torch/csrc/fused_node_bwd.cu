@@ -252,7 +252,7 @@ cudaError_t launch(const Params<TI>& p, int blocks, float* out, cudaStream_t str
   fused_node_bwd<BF, TI><<<blocks, kBlockThreads, smem_bytes(), stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return fused_edge::launch_reduce(p.ws, blocks, kStride, 0, out, stream);
+  return fused_edge::launch_reduce(p.ws, blocks, kStride, out, stream);
 }
 
 template <bool BF, typename TI>

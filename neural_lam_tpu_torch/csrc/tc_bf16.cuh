@@ -1,5 +1,6 @@
 // Tensor-core helpers of the bf16-operand (BF) instantiations of K3
-// (fused_edge_fwd.cuh) and of K4's main kernel (fused_edge_bwd_main.cuh):
+// (fused_edge_fwd.cuh), of K4's main kernel (fused_edge_bwd_main.cuh) and
+// of K4's and K8's edge pass (fused_edge_bwd_common.cuh):
 // 64-wide row products on Hopper's bf16 tensor cores, with float32
 // accumulation.
 //
@@ -7,7 +8,8 @@
 // even, as astype(bfloat16)) with float32 sums, as the JAX package's
 // kernels do under mixed precision. The product of two bf16 values is exact
 // in float32, so the result is the JAX kernel's up to summation order. The
-// float32 kernels and the BF forms of K7, K8 and the node backward keep
+// float32 kernels and the BF forms of K7, K8's main kernel, the rows pass
+// and the node backward keep
 // tc_tf32.cuh (3xTF32, or one TF32 pass on bf16-rounded values); this
 // header runs the same products on bf16 fragments at k = 16: half the
 // instructions of k = 8, each at twice the rate, and half the registers.
@@ -90,6 +92,23 @@ __device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4], const float (&x)[
     a[j][2] = pack(x[2 * j + 1][0], x[2 * j + 1][1]);
     a[j][3] = pack(x[2 * j + 1][2], x[2 * j + 1][3]);
   }
+}
+
+// x as two packed fragments, hi = bf16(x) and lo = bf16(x - hi): x = hi + lo
+// to about 16 significant bits, for a float32 operand that enters a bf16
+// product as it is (two products, hi and lo, with the same other operand)
+__device__ __forceinline__ void pack_split(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                           const float (&x)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float u = x[2 * j + q][2 * h], v = x[2 * j + q][2 * h + 1];
+        hi[j][2 * q + h] = pack(u, v);
+        lo[j][2 * q + h] = pack(u - tc::bf16r(u), v - tc::bf16r(v));
+      }
 }
 
 // c += a . b for one k-step and one n-tile (not volatile: the compiler may
@@ -419,6 +438,26 @@ __device__ __forceinline__ void gemm_wg(float (&acc)[8][4], uint32_t (&a)[4][4],
   fence_packed(a);
 }
 
+// acc += (a + c) . W^T (TRANS = 0) or (a + c) . W (TRANS = 1): gemm_wg
+// for an operand held as two packed fragments (pack_split), eight k-steps
+// and one wait
+template <int TRANS = 0>
+__device__ __forceinline__ void gemm_wg2(float (&acc)[8][4], uint32_t (&a)[4][4],
+                                         uint32_t (&c)[4][4], const bf16* w) {
+  const uint64_t d0 = TRANS ? desc(w, 1024, 128) : desc(w, 128, 1024);
+  constexpr int kStep = TRANS ? 2048 / 16 : 256 / 16;
+  tc::fence_operands(acc);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs<TRANS>(acc, a[j], d0 + kStep * j);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs<TRANS>(acc, c[j], d0 + kStep * j);
+  wg_commit();
+  wg_wait(acc);
+  fence_packed(a);
+  fence_packed(c);
+}
+
 // acc += A^T . G over the 64 rows of two tiles in the core layout (A[m][o],
 // G[m][i]; acc in the row-fragment layout, output rows o = 16 w + g (+8) of
 // warp w): a weight gradient's share of one tile, added in the tensor core
@@ -431,6 +470,20 @@ __device__ __forceinline__ void gemm_tn_issue(float (&acc)[8][4], const bf16* a,
   wg_fence();
 #pragma unroll
   for (int j = 0; j < 4; ++j) wgmma_ss_tt(acc, da + 128 * j, dg + 128 * j);  // 2048 bytes a k-step
+  wg_commit();
+}
+
+// acc += (A1 + A2)^T . G: gemm_tn_issue for an A held as two tiles (the hi
+// and lo terms of pack_split), eight k-steps in one commit
+__device__ __forceinline__ void gemm_tn_issue2(float (&acc)[8][4], const bf16* a1,
+                                               const bf16* a2, const bf16* g) {
+  const uint64_t d1 = desc(a1, 1024, 128), d2 = desc(a2, 1024, 128), dg = desc(g, 1024, 128);
+  tc::fence_operands(acc);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_ss_tt(acc, d1 + 128 * j, dg + 128 * j);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_ss_tt(acc, d2 + 128 * j, dg + 128 * j);
   wg_commit();
 }
 

@@ -32,9 +32,15 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   and a last small kernel sums the workspace in group order, so the
   gradients are deterministic.
 - The gradient of the receiver rows and of the receiver slice of the
-  first layer are node-sized products of K4's ``d_recproj`` output,
-  formed here with ``torch`` as the JAX package forms them outside its
-  kernel (pallas_fused.py:1624-1631).
+  first layer are node-sized products of ``d_recproj``, which the JAX
+  package forms outside its kernel (pallas_fused.py:1624-1631); K4's
+  receiver slice (``fused_edge_bwd_receiver``, csrc/fused_edge_bwd_common.cuh)
+  forms them in one kernel after K4's main kernel, in float32 (3xTF32)
+  whatever the precision, and :func:`_plain_receiver_slice` is its plain
+  version. K4's edge pass (the per-edge edge input's share: ``dW1e``,
+  ``d_edge`` and the embedder's backward) has its plain version in
+  :func:`_plain_edge_pass`, and the workspace reduce of every backward
+  kernel in :func:`reduce_workspace_plain`.
 - K7 (``csrc/fused_edge_v2.cu``) replaces ``_fused_v2_fwd_impl``
   (pallas_fused.py:2143, its pallas_call at :2281 over
   ``_fused_v2_fwd_kernel`` :1800) and K8 (``csrc/fused_edge_v2_bwd.cu``)
@@ -143,7 +149,8 @@ _WS_MAIN = 2 * _MAT + 4 * KERNEL_HIDDEN
 _WS_EDGE = 2 * _MAT + MAX_RAW_FEATURES * KERNEL_HIDDEN + 4 * KERNEL_HIDDEN
 _WS_MAIN_V2 = _MAT + 4 * KERNEL_HIDDEN
 _GROUPS = 3  # groups of warps per block of K4's and K8's main kernels
-_ROW_GROUPS = 4  # and of their batched edge pass
+_ROW_GROUPS = 4  # and of their rows pass and K4's receiver slice
+_EDGE_GROUPS = 3  # and of their edge pass (kEdgeGroups)
 # rows of a tile, and (receiver, b) rows of a receiver chunk of K4's and
 # K8's main kernels (kRecRows, kChunkRows)
 _TILE_ROWS, _CHUNK_ROWS_K4, _CHUNK_ROWS_K8 = 64, 32, 16
@@ -171,6 +178,9 @@ FUSED_EDGE_V2_BWD_BF16_OPS = LaunchCount("K8 fused_edge_phase_v2 backward bf16 o
 FUSED_EDGE_BF16_PRE = LaunchCount("K3 fused_edge_phase bf16 pre")
 FUSED_EDGE_BWD_BF16_PRE = LaunchCount("K4 fused_edge_phase backward bf16 pre")
 FUSED_EDGE_BWD_RECOMPUTE = LaunchCount("K4 fused_edge_phase backward recompute")
+# and of K4's receiver slice (csrc/fused_edge_bwd_common.cuh), which every K4
+# entry launches once, in every precision and pre mode
+FUSED_EDGE_BWD_RECEIVER = LaunchCount("K4 receiver slice")
 # and of the node-MLP epilogue (NEURAL_LAM_TPU_FUSED_AGGR=on): K3 with it
 # and the node MLP's backward, in float32, with bf16 streams and with bf16
 # operands on float32 streams (whatever pre K3 saves)
@@ -690,22 +700,44 @@ def _node_bwd_lib():
 def _bwd_lib():
     """K4 from a saved pre in float32: ``pre_bf16`` and the arguments
     below."""
-    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd", 10, 25)
+    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd", 11, 29)
 
 
 @functools.cache
 def _bwd_bf16_lib():
     """K4's bf16-operand instantiations: ``(pre_bf16, io_bf16)`` and then
     the arguments of ``nl_fused_edge_bwd``."""
-    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd_bf16ops", 11, 25)
+    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd_bf16ops", 12, 29)
 
 
 @functools.cache
 def _bwd_recompute_lib():
     """K4 recomputing pre, every precision: ``(bf16_ops, io_bf16)`` and
-    then the arguments of ``nl_fused_edge_bwd`` with ``rec``, ``b1`` and
-    the recompute's workspace in place of ``pre``."""
-    return _c_fn(BWD_RECOMPUTE_KERNEL, "nl_fused_edge_bwd_recompute", 11, 27)
+    then the arguments of ``nl_fused_edge_bwd`` with ``rec`` among the
+    inputs in place of ``pre``, ``b1``, and the recompute's workspace after
+    ``out_rec``."""
+    return _c_fn(BWD_RECOMPUTE_KERNEL, "nl_fused_edge_bwd_recompute", 12, 30)
+
+
+@functools.cache
+def _edge_pass_lib():
+    """K4's edge pass alone: ``(bf16_ops, io_bf16, edge_mode, n_edges,
+    batch, feat, edge_blocks)`` and its pointers."""
+    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd_edge_pass", 7, 14)
+
+
+@functools.cache
+def _receiver_slice_lib():
+    """K4's receiver slice alone: ``(io_bf16, rows, blocks)`` and its
+    pointers."""
+    return _c_fn(BWD_KERNEL, "nl_fused_edge_bwd_receiver_slice", 3, 7)
+
+
+@functools.cache
+def _reduce_lib():
+    """The workspace reduce alone: ``(parts, stride)``, ``ws``, ``out``,
+    the stream."""
+    return _c_fn(BWD_KERNEL, "nl_reduce_workspace", 2, 3)
 
 
 @functools.cache
@@ -823,27 +855,80 @@ def instantiation_occupancy(bf16_ops: bool = True) -> list[dict]:
     return out
 
 
+# The pieces of K4's tail and their launch resources, as
+# nl_fused_edge_bwd_tail_occupancy numbers them: (piece, name)
+_TAIL_PIECES = ((0, "edge pass, raw"), (1, "edge pass, shared"), (2, "rows pass"),
+                (3, "receiver slice"))
+
+
+def tail_occupancy(bf16_ops: bool = False) -> list[dict]:
+    """The launch resources of each piece of K4's tail (the edge pass in
+    both per-edge modes, the rows pass, the receiver slice) with or
+    without ``bf16_ops``, from the CUDA runtime on the current device: one
+    dict per instantiation (``name``, ``blocks`` and ``warps`` per SM,
+    ``threads``, ``regs`` per thread, ``smem`` per block, ``local`` bytes
+    per thread: the spill stack). The receiver slice runs 3xTF32 in every
+    precision: its rows are of the streams' dtype."""
+    fn = getattr(kernel_build.load(BWD_KERNEL), "nl_fused_edge_bwd_tail_occupancy")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    precisions = (("bf16 streams", 1, 1), ("float32 streams", 1, 0)) if bf16_ops else (
+        ("float32", 0, 0),)
+    out = []
+    for prec, ops, io in precisions:
+        for piece, name in _TAIL_PIECES:
+            vals = (ctypes.c_int * 5)()
+            err = fn(piece, ops, io, ctypes.addressof(vals))
+            if err != 0:
+                raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+            blocks, threads, regs, smem, local = vals
+            out.append(dict(name=f"K4 {name}, {prec}", blocks=blocks,
+                            warps=blocks * threads // 32, threads=threads, regs=regs,
+                            smem=smem, local=local))
+    return out
+
+
 @functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _device_sms(dev) -> int:
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rows_blocks(dev, rows: int) -> int:
+    """The blocks of a rows pass (K4's and K8's batched edge input's share,
+    K4's receiver slice) over ``rows`` rows: 4 groups of warps a block over
+    tiles of 64 rows, up to one block per SM."""
+    return min(_device_sms(dev), _cdiv(_cdiv(rows, _TILE_ROWS), _ROW_GROUPS))
+
+
+def _edge_blocks(dev, n_edges: int) -> int:
+    """The blocks of the edge pass over ``n_edges`` edges: 3 groups of
+    warps a block over tiles of 64 edges, up to one block per SM."""
+    return min(_device_sms(dev), _cdiv(_cdiv(n_edges, _TILE_ROWS), _EDGE_GROUPS))
+
+
 def _bwd_grid(dev, num_rec, n_edges, batch, batched, chunk_rows) -> tuple[int, int, int]:
     """The grids of K4's and K8's launches, sized to the work, and the
-    floats of their edge pass's workspace: the main kernel runs 3 groups
+    floats of their edge input's workspace: the main kernel runs 3 groups
     of warps a block, each over chunks of ``chunk_rows / B`` receivers (at
-    least one); the edge pass 4 groups a block over tiles of 64 (edge, b)
-    rows of d_pre (batched), or one block per tile of 64 rows of s (per
-    edge)."""
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    least one); the rows pass 4 groups a block over tiles of 64 (edge, b)
+    rows of d_pre (batched), or the edge pass 3 groups a block over tiles of
+    64 rows of s (per edge); each group writes one stride of the
+    workspace."""
     chunks = -(-num_rec // max(1, chunk_rows // batch))
-    main_blocks = min(sms, -(-chunks // _GROUPS))
+    main_blocks = min(_device_sms(dev), -(-chunks // _GROUPS))
     if batched:
-        tiles = -(-n_edges * batch // _TILE_ROWS)
-        edge_blocks = min(sms, -(-tiles // _ROW_GROUPS))
+        edge_blocks = _rows_blocks(dev, n_edges * batch)
         return main_blocks, edge_blocks, edge_blocks * _ROW_GROUPS * _MAT
-    edge_blocks = min(sms, -(-n_edges // _TILE_ROWS))
-    return main_blocks, edge_blocks, edge_blocks * _WS_EDGE
+    edge_blocks = _edge_blocks(dev, n_edges)
+    return main_blocks, edge_blocks, edge_blocks * _EDGE_GROUPS * _WS_EDGE
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -1167,23 +1252,28 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
     main_blocks, edge_blocks, ws_edge_size = _bwd_grid(
         dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K4
     )
+    rec_blocks = _rows_blocks(dev, num_rec * batch)
     # the summed weight gradients (the returned gradients are views of
     # them), and one allocation for the kernels' scratch, freed on return
     # (inside a CUDA graph capture both come from the graph's pool):
-    # ws_main | ws_edge | d_pre or s | the recompute's workspace (multiples
-    # of 4 floats: each pointer stays 16-byte aligned)
-    out_main, out_edge = empty(_WS_MAIN), empty(_WS_EDGE)
+    # ws_main | ws_edge | d_pre or s | the recompute's workspace | ws_rec
+    # (multiples of 4 floats: each pointer stays 16-byte aligned)
+    sums = empty(_WS_MAIN + _WS_EDGE + _MAT)
+    out_main, out_edge, out_rec = sums.split([_WS_MAIN, _WS_EDGE, _MAT])
+    d_rec = empty(num_rec, batch, d)
     sizes = (main_blocks * _GROUPS * _WS_MAIN, ws_edge_size,
              n_edges * (batch if batched else 1) * d,
-             main_blocks * _GROUPS * _WS_PRE if pre is None else 0)
+             main_blocks * _GROUPS * _WS_PRE if pre is None else 0,
+             rec_blocks * _ROW_GROUPS * _MAT)
     scratch = empty(sum(sizes))
-    ws_main, ws_edge, d_pre, pre_ws = (
-        scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(4)
+    ws_main, ws_edge, d_pre, pre_ws, ws_rec = (
+        scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(5)
     )
     ints = (mode, num_rec, n_edges, batch, feat, int(propagation),
-            int(gamma is not None), main_blocks, edge_blocks)
+            int(gamma is not None), main_blocks, edge_blocks, rec_blocks)
     outs = (_ptr(d_send), _ptr(d_edge), _ptr(d_recproj), d_pre,
             ws_main, _ptr(out_main), ws_edge, _ptr(out_edge))
+    rec_outs = (_ptr(d_rec), ws_rec, _ptr(out_rec))
     embedder = tuple(_ptr(w) for w in weights[6:])
     stream = torch.cuda.current_stream(dev).cuda_stream
     io_bf16 = io == torch.bfloat16
@@ -1192,13 +1282,13 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
             int(bf16_ops), int(io_bf16), *ints, _ptr(edge_in), _ptr(x_send), _ptr(rec_rep),
             _ptr(d_aggr), _ptr(d_new_edge), _ptr(edge_set.rowptr), _ptr(w1),
             _ptr(weights[1]), _ptr(weights[2]), _ptr(weights[3]), _ptr(gamma), *embedder,
-            *outs, pre_ws, stream,
+            *outs, *rec_outs, pre_ws, stream,
         )
     else:
         args = (
             *ints, _ptr(edge_in), _ptr(x_send), _ptr(pre), _ptr(d_aggr), _ptr(d_new_edge),
             _ptr(edge_set.rowptr), _ptr(w1), _ptr(weights[2]), _ptr(weights[3]),
-            _ptr(gamma), *embedder, *outs, stream,
+            _ptr(gamma), *embedder, *outs, _ptr(rec_rep), *rec_outs, stream,
         )
         pre_bf16 = int(pre.dtype == torch.bfloat16)
         if bf16_ops:
@@ -1217,21 +1307,187 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
         fused_edge_bwd.launches += 1
     else:
         (FUSED_EDGE_BWD_BF16 if io_bf16 else FUSED_EDGE_BWD_BF16_OPS).launches += 1
+    FUSED_EDGE_BWD_RECEIVER.launches += 1
 
     mats = out_main[: 2 * _MAT].view(2, d, d)  # dW2, dW1s as (out, in)
     db2, dgamma, dbeta, db1 = out_main[2 * _MAT :].view(4, d)
     dw1e, emb_grads = _edge_grads(out_edge, raw, feat)
-    # the receiver slice: node-sized products in float32, as the JAX
-    # package forms them (its einsums promote bf16 rows to float32)
-    w1r = w1[:, 2 * d :]
-    d_rec = d_recproj @ w1r
-    dw1r = torch.einsum("nbc,nbk->ck", d_recproj, rec_rep.float())
-    grads = [torch.cat([dw1e, mats[1], dw1r], dim=1), db1, mats[0], db2]
+    grads = [torch.cat([dw1e, mats[1], out_rec.view(d, d)], dim=1), db1, mats[0], db2]
     grads += [dgamma, dbeta] if gamma is not None else [None, None]
     return d_edge, d_send, d_rec, grads + emb_grads
 
 
 fused_edge_bwd.launches = 0
+
+
+def _plain_edge_pass(s, edge_in, d_new_edge, weights, raw, bf16_ops=False):
+    """K4's edge pass in plain PyTorch, all float32: the per-edge edge
+    input's share of K4 from ``s`` (E, D), the sum over the batch of the
+    first layer's ``d_pre``: ``d_edge_val = s . W1e`` (+ the sum over the
+    batch of ``d_new_edge``), ``dW1e = s^T . edge_val`` in (out, in), and
+    for raw features the embedder's six weight gradients, autograd through
+    :func:`_embed` with ``d_edge_val`` as its seed (the raw features are
+    constants). With ``bf16_ops`` the products take bf16 operands as the
+    kernel's BF instantiations do (W1e and ``edge_val`` rounded, ``s`` as it
+    is; the embedder through :class:`_BF16Product`). Returns ``(d_edge |
+    None, dW1e, embedder grads)``: ``d_edge`` (E, D) for a shared edge
+    input, the grads in the order of ``weights[6:]`` (Nones without an
+    embedder)."""
+    w1 = weights[0].detach()
+    d = w1.shape[0]
+    w1e = _bf16(w1[:, :d]) if bf16_ops else w1[:, :d]
+    d_val = s @ w1e
+    if d_new_edge is not None:
+        d_val = d_val + d_new_edge.float().sum(1)
+    with torch.enable_grad():
+        emb = [None if w is None else w.detach().requires_grad_(raw) for w in weights[6:]]
+        edge_val = _embed(edge_in.float(), [None] * 6 + emb, raw, bf16_ops)
+        dw1e = s.T @ (_bf16(edge_val) if bf16_ops else edge_val).detach()
+        grads = list(torch.autograd.grad(edge_val, emb, d_val)) if raw else [None] * 6
+    return (None if raw else d_val), dw1e, grads
+
+
+def fused_edge_bwd_edge_pass(s, edge_in, d_new_edge, weights, raw, bf16_ops=False):
+    """Launch K4's edge pass (K8's too) alone, and its reduce, on CUDA
+    tensors, as K4 launches it after its main kernel: the returns of
+    :func:`_plain_edge_pass` from the same arguments, which runs instead on
+    CPU tensors. ``s`` (E, D) is
+    float32; ``edge_in`` (raw features (E, F) or a shared (E, D) input) and
+    ``d_new_edge`` (E, B, D) or None are in the streams' dtype, float32 or
+    (with ``bf16_ops``) bf16, and so is ``d_edge``. Counts its launches in
+    ``fused_edge_bwd_edge_pass.launches`` (not a main path's kernel: K4
+    launches its edge pass itself)."""
+    if s.device.type == "cpu":
+        return _plain_edge_pass(s, edge_in, d_new_edge, weights, raw, bf16_ops)
+    refuse_autograd("fused_edge_bwd_edge_pass", "ops.fused_kernels.fused_edge_phase",
+                    s, edge_in, d_new_edge, *weights)
+    dev, d, io = s.device, KERNEL_HIDDEN, edge_in.dtype
+    n_edges = s.shape[0]
+    who = "fused_edge_bwd_edge_pass"
+    if io not in (torch.float32, torch.bfloat16) or (not bf16_ops and io != torch.float32):
+        raise TypeError(f"{who}: streams of {io} need bf16_ops, or are float32")
+    batch = 1 if d_new_edge is None else d_new_edge.shape[1]
+    feat = weights[6].shape[1] if raw else 0
+    if raw:
+        if feat > MAX_RAW_FEATURES:
+            raise ValueError(f"{who}: at most {MAX_RAW_FEATURES} raw features")
+        _check("edge_feats", edge_in, dev, (n_edges, feat), who, io)
+    else:
+        _check("edge_rep", edge_in, dev, (n_edges, d), who, io)
+    for w in [weights[0], *weights[6:]]:
+        if w is not None:
+            _check("weight", w, dev, tuple(w.shape), who)
+    _check("s", s, dev, (n_edges, d), who)
+    if d_new_edge is not None:
+        _check("d_new_edge", d_new_edge, dev, (n_edges, batch, d), who, io)
+    mode = _EDGE_RAW if raw else _EDGE_SHARED
+    d_edge = None if raw else torch.empty((n_edges, d), dtype=io, device=dev)
+    if n_edges == 0:  # no edge reaches a weight
+        return d_edge, torch.zeros((d, d), dtype=torch.float32, device=dev), [
+            None if w is None else torch.zeros_like(w) for w in weights[6:]]
+    blocks = _edge_blocks(dev, n_edges)
+    out = torch.empty(_WS_EDGE, dtype=torch.float32, device=dev)
+    ws = torch.empty(blocks * _EDGE_GROUPS * _WS_EDGE, dtype=torch.float32, device=dev)
+    err = _edge_pass_lib()(
+        int(bf16_ops), int(io == torch.bfloat16), mode, n_edges, batch, feat, blocks,
+        _ptr(edge_in), _ptr(s), _ptr(d_new_edge), *(_ptr(w) for w in weights[:1]),
+        *(_ptr(w) for w in weights[6:]), _ptr(d_edge), _ptr(ws), _ptr(out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err}")
+    fused_edge_bwd_edge_pass.launches += 1
+    dw1e, grads = _edge_grads(out, raw, feat)
+    return d_edge, dw1e, grads
+
+
+fused_edge_bwd_edge_pass.launches = 0
+
+
+def _plain_receiver_slice(d_recproj, rec_rep, w1):
+    """K4's receiver slice in plain PyTorch: ``d_rec = d_recproj . W1r``
+    and ``dW1r = sum over (n, b) of d_recproj^T . rec`` in (out, in), in
+    float32 as the JAX package forms them (its einsums promote bf16 rows to
+    float32, pallas_fused.py:1624-1631)."""
+    d = w1.shape[0]
+    return (d_recproj @ w1[:, 2 * d :],
+            torch.einsum("nbc,nbk->ck", d_recproj, rec_rep.float()))
+
+
+def fused_edge_bwd_receiver_slice(d_recproj, rec_rep, w1):
+    """Launch K4's receiver slice alone, and its reduce, on CUDA tensors, as
+    K4 launches it after its main kernel: the returns of
+    :func:`_plain_receiver_slice`, which runs instead on CPU tensors.
+    ``rec_rep`` (N, B, D) float32 or bf16,
+    ``d_recproj`` (N, B, D) float32, ``w1`` the (D, 3 D) first layer;
+    ``d_rec`` is float32. Counts its launches in
+    ``fused_edge_bwd_receiver_slice.launches`` (not a main path's kernel)."""
+    if d_recproj.device.type == "cpu":
+        return _plain_receiver_slice(d_recproj, rec_rep, w1)
+    refuse_autograd("fused_edge_bwd_receiver_slice", "ops.fused_kernels.fused_edge_phase",
+                    d_recproj, rec_rep, w1)
+    dev, d, who = d_recproj.device, KERNEL_HIDDEN, "fused_edge_bwd_receiver_slice"
+    shape = tuple(d_recproj.shape)
+    if len(shape) != 3 or shape[2] != d:
+        raise ValueError(f"{who}: d_recproj must be (N, B, {d})")
+    _check("d_recproj", d_recproj, dev, shape, who)
+    _check("rec_rep", rec_rep, dev, shape, who,
+           torch.bfloat16 if rec_rep.dtype == torch.bfloat16 else torch.float32)
+    _check("w1", w1, dev, (d, 3 * d), who)
+    rows = shape[0] * shape[1]
+    d_rec = torch.empty(shape, dtype=torch.float32, device=dev)
+    if rows == 0:
+        return d_rec, torch.zeros((d, d), dtype=torch.float32, device=dev)
+    blocks = _rows_blocks(dev, rows)
+    out = torch.empty(_MAT, dtype=torch.float32, device=dev)
+    ws = torch.empty(blocks * _ROW_GROUPS * _MAT, dtype=torch.float32, device=dev)
+    err = _receiver_slice_lib()(
+        int(rec_rep.dtype == torch.bfloat16), rows, blocks, _ptr(rec_rep), _ptr(d_recproj),
+        _ptr(w1), _ptr(d_rec), _ptr(ws), _ptr(out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err}")
+    fused_edge_bwd_receiver_slice.launches += 1
+    return d_rec, out.view(d, d)
+
+
+fused_edge_bwd_receiver_slice.launches = 0
+
+
+def reduce_workspace_plain(ws: torch.Tensor) -> torch.Tensor:
+    """The workspace reduce in plain PyTorch: the (parts, stride) float32
+    workspace summed over its parts in part order, one float32 add at a
+    time from zero, the kernel's order (so the same bits)."""
+    out = torch.zeros(ws.shape[1], dtype=torch.float32, device=ws.device)
+    for part in ws:
+        out = out + part
+    return out
+
+
+def reduce_workspace(ws: torch.Tensor) -> torch.Tensor:
+    """Launch the workspace reduce of K4, K8 and the node backward alone on
+    a (parts, stride) float32 CUDA workspace: the returns of
+    :func:`reduce_workspace_plain`, which runs instead on a CPU tensor.
+    Counts its launches in
+    ``reduce_workspace.launches`` (not a main path's kernel: the backward
+    kernels launch it themselves)."""
+    if ws.device.type == "cpu":
+        return reduce_workspace_plain(ws)
+    who = "reduce_workspace"
+    if ws.dim() != 2 or ws.shape[0] < 1 or ws.shape[1] < 1:
+        raise ValueError(f"{who}: ws must be (parts, stride) with both at least 1")
+    _check("ws", ws, ws.device, tuple(ws.shape), who)
+    out = torch.empty(ws.shape[1], dtype=torch.float32, device=ws.device)
+    err = _reduce_lib()(ws.shape[0], ws.shape[1], _ptr(ws), _ptr(out),
+                        torch.cuda.current_stream(ws.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err}")
+    reduce_workspace.launches += 1
+    return out
+
+
+reduce_workspace.launches = 0
 
 
 class FusedEdgePhase(torch.autograd.Function):

@@ -33,6 +33,30 @@ as the main path calls them, on a uniform-in-degree edge set of the same
 size, with LayerNorm off and K3 with and without ``pre``, and the
 occupancy of K3, K4, K7 and K8.
 
+With ``--train --captured`` it profiles one replay of the captured step
+(``Trainer.make_train_step()``, after its warm-up and capture) instead of
+an eager step, and ``--precision bf16`` trains GraphLAM with bf16 compute
+on bf16 copies of the parameters (``TrainingArgs(precision="bf16")``, as
+``chip_smoke.py``'s ``bf16 train`` lines do).
+
+``--k4-split`` builds the kernels and splits K4 (the backward of the fused
+edge phase) by kernel name at each of GraphLAM's MEPS training sites, in
+float32 and with bf16 streams and operands, in a process of its own, by
+the split that ``chip_smoke.py``'s K4 lines print: its main kernel, the
+edge pass, the rows pass, the receiver slice, the workspace reduces,
+cuBLAS products and the casts, each per call and per training step, from
+10 calls under ``torch.profiler`` after 3 warm-up calls. ``--parent DIR``
+(a checkout of an earlier commit, as ``chip_smoke.py --parent`` takes it)
+splits that commit's K4 on the same inputs after each.
+
+``--aggr-kernels`` builds the kernels and runs ``chip_smoke.py``'s
+``fused aggr`` kernel lines alone (``phase_fused_aggr_kernels``: K3's
+node epilogue and the node backward at the six sites, in each precision,
+then HiLAM's level sets); with ``--parent DIR`` beside that commit's
+kernels. ``--train --parent DIR`` profiles the training step on that
+commit's K3, K4, K7, K8 and node backward (each wrapper launching the
+parent's build), for a same-call comparison with a run without it.
+
 ``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
 (unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
 K3). With ``on`` every fused phase takes the v2 route: K7 forward, K8
@@ -122,17 +146,82 @@ def report(torch, prof, card: str, what: str, wall: float, per: int, unit: str) 
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
 
 
+def k4_sites(torch, model, bf16: bool):
+    """K4's calls of one GraphLAM training step at the MEPS sites, on
+    seeded inputs: ``(site, calls per step, kwargs of fused_edge_bwd)``,
+    the streams in bf16 with ``bf16``; ``pre`` from K3."""
+    from neural_lam_tpu_torch.ops.fused_kernels import _weights, fused_edge_fwd
+
+    g, dev, d, b = model.graph, model.device, cs.HIDDEN, cs.BATCH
+    io = torch.bfloat16 if bf16 else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(io)
+
+    proc = list(model.processor.values())
+    n_grid, n_mesh, m2m = g.num_grid_nodes, g.num_mesh_nodes, g.m2m[0]
+    sites = [
+        ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, False, False, 1, n_mesh),
+        ("m2m layer 0", proc[0], m2m, model.m2m_embedder, False, True, 1, n_mesh),
+        ("m2m layers 1-2", proc[1], m2m, None, True, True, 2, n_mesh),
+        ("m2m layer 3", proc[-1], m2m, None, True, False, 1, n_mesh),
+        ("m2g", model.m2g_gnn, g.m2g, model.m2g_embedder, False, False, 1, n_grid),
+    ]
+    for site, net, ge, emb, batched, has_dne, calls, n_rec in sites:
+        es, raw = ge.edges, not batched
+        n_e = es.num_edges
+        x_send, rec = randn(n_e, b, d), randn(n_rec, b, d)
+        edge_in = ge.features.to(io) if raw else randn(n_e, b, d)
+        wts = _weights(net.edge_mlp, emb)
+        _, _, pre = fused_edge_fwd(edge_in, x_send, rec, es, wts, raw, has_dne, False,
+                                   save_pre=True, bf16_ops=bf16)
+        yield site, calls, dict(
+            d_aggr=randn(n_rec, b, d), d_new_edge=randn(n_e, b, d) if has_dne else None,
+            pre=pre, edge_in=edge_in, x_send=x_send, rec_rep=rec, edge_set=es,
+            weights=wts, raw=raw, propagation=False, bf16_ops=bf16,
+        )
+
+
+def k4_split(torch, card: str, model, parent=None) -> None:
+    """K4 split by kernel name at each MEPS training site, in float32 and
+    bf16, per call and per training step, each tail piece beside its bound,
+    by ``chip_smoke``'s split (``log_k4_split``, ``log_k4_tail``): with
+    ``parent`` (``chip_smoke.parent_kernels``) the parent commit's K4 on the
+    same inputs after each, in the same process."""
+    from neural_lam_tpu_torch.ops.fused_kernels import fused_edge_bwd
+
+    print(card)
+    for label, bf16 in (("float32", False), ("bf16", True)):
+        acc: dict = {}
+        for site, calls, kw in k4_sites(torch, model, bf16):
+            bounds = cs.k4_tail_bounds(
+                torch, kw["edge_set"], kw["rec_rep"].shape[0], cs.BATCH, kw["raw"],
+                kw["edge_in"], kw["d_new_edge"], kw["x_send"].dtype, bf16)
+            cs.log_k4_split(torch, f"K4 {label} {site} ({calls} call(s) per training step)",
+                            lambda: fused_edge_bwd(**kw), parent, calls, bounds, acc)
+            del kw
+            torch.cuda.empty_cache()
+        cs.log_k4_tail(f"K4 {label} on {card}", acc, parent)
+
+
 def profile_train(torch, args, card: str, gate_ds, model) -> int:
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = cs.make_trainer(model, gate_ds, reload=args.model == "graph_lam")
+    if args.precision == "bf16":
+        if args.model != "graph_lam":
+            raise SystemExit("profile_forecast.py: --precision bf16 profiles GraphLAM only")
+        model = cs.bf16_graph_lam(torch, gate_ds)  # bf16 compute, the gate's parameters
+    trainer = cs.make_trainer(model, gate_ds, reload=args.model == "graph_lam",
+                              precision=args.precision)
     data = [torch.from_numpy(a).cuda() for a in cs.bench_batch(gate_ds)]
+    step = trainer.make_train_step() if args.captured else trainer.train_step
     for _ in range(cs.TRAIN_WARMUP):
-        trainer.train_step(*data)
+        step(*data)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = trainer.train_step(*data)
+        loss = step(*data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if args.trace:
@@ -140,15 +229,15 @@ def profile_train(torch, args, card: str, gate_ds, model) -> int:
         prof.export_chrome_trace(str(args.trace))
     report(
         torch, prof, card,
-        f"{args.model} training step of batch {cs.BATCH}, ar_steps 1 "
-        f"(loss {loss.item():.6f})",
+        f"{args.model} {'captured ' if args.captured else ''}training step of batch "
+        f"{cs.BATCH}, ar_steps 1, precision {args.precision} (loss {loss.item():.6f})",
         wall, 1, "training step",
     )
 
     steps = cs.TRAIN_ITERS
     t0 = time.perf_counter()
     for _ in range(steps):
-        trainer.train_step(*data)
+        step(*data)
     enqueued = time.perf_counter() - t0
     torch.cuda.synchronize()
     done = time.perf_counter() - t0
@@ -186,6 +275,18 @@ def main() -> int:
                     help="profile one training step, not a forecast request")
     ap.add_argument("--host-profile", action="store_true",
                     help="with --train: cProfile ten more steps on the host")
+    ap.add_argument("--captured", action="store_true",
+                    help="with --train: profile one replay of the captured step")
+    ap.add_argument("--precision", choices=["32", "bf16"], default="32",
+                    help="with --train: the training precision (default 32)")
+    ap.add_argument("--k4-split", action="store_true",
+                    help="build the kernels and split K4 by kernel name at each MEPS site")
+    ap.add_argument("--aggr-kernels", action="store_true",
+                    help="build the kernels and run chip_smoke's fused aggr kernel lines")
+    ap.add_argument("--parent", type=Path,
+                    help="a checkout of an earlier commit: with --k4-split and "
+                         "--aggr-kernels its K3, K4, K7, K8 and node backward run beside "
+                         "the current ones, with --train in their place")
     ap.add_argument("--probe", action="store_true",
                     help="build the kernels and run chip_smoke's K3/K4 probe only")
     ap.add_argument("--fused-v2", choices=["on", "off", "auto"],
@@ -218,6 +319,22 @@ def main() -> int:
         with torch.no_grad():
             cs.phase_probe(torch, cs.build_meps(torch)[2])
         return 0
+    parent = None
+    if args.parent or args.k4_split or args.aggr_kernels:
+        parent_build = cs.start_parent_build(args.parent.resolve()) if args.parent else None
+        cs.build_kernels()
+        parent = cs.parent_kernels(torch, parent_build) if parent_build else None
+    if args.k4_split:
+        with torch.no_grad():
+            k4_split(torch, card, cs.build_meps(torch)[2], parent=parent)
+        return 0
+    if args.aggr_kernels:
+        print(card)
+        gate_ds, _, model, _ = cs.build_meps(torch)
+        # outside no_grad, as the smoke runs it: the level sets go through autograd
+        cs.phase_fused_aggr_kernels(torch, model, cs.build_model(torch, "hi_lam", gate_ds),
+                                    parent)
+        return 0
     if args.model == "graph_lam":
         gate_ds, serve_ds, model, forecaster = cs.build_meps(torch)
     else:
@@ -227,7 +344,11 @@ def main() -> int:
         model = cs.build_model(torch, args.model, gate_ds)
         forecaster = ARForecaster(model, gate_ds)
     if args.train:
-        return profile_train(torch, args, card, gate_ds, model)
+        if parent is None:
+            return profile_train(torch, args, card, gate_ds, model)
+        print(f"the parent's kernels, built from {args.parent}")
+        with parent["use"]():
+            return profile_train(torch, args, card, gate_ds, model)
     n, b, t = gate_ds.num_grid_points, cs.BATCH, cs.AR_STEPS
     rng = np.random.default_rng(0)
     inputs = [

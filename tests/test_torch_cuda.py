@@ -242,14 +242,16 @@ def test_fused_edge_phase_backward_matches_plain(cuda, mode, update, prop, ln, b
         return total
 
     kw = dict(update_edges=update, propagation=prop)
-    before = fused_edge_bwd.launches
+    before = fused_edge_bwd.launches, fk.FUSED_EDGE_BWD_RECEIVER.launches
     got = torch.autograd.grad(
         loss(fused_edge_phase(edge_mlp, edge_rep, x_send, rec, es,
                               embedder=emb, edge_feats=feats, **kw)),
         leaves,
     )
     torch.cuda.synchronize()
-    assert fused_edge_bwd.launches == before + 1
+    # K4 and the receiver slice that its entry launches
+    assert (fused_edge_bwd.launches, fk.FUSED_EDGE_BWD_RECEIVER.launches) == (
+        before[0] + 1, before[1] + 1)
     want = torch.autograd.grad(
         loss(fused_edge_phase_plain(edge_mlp, edge_rep, x_send, rec,
                                     es.receivers, emb, feats, **kw)),
@@ -2822,3 +2824,167 @@ def test_occupancy_rows_match_the_launches(cuda):
             (row,) = [r for r in f32 if r["kernel"] == kernel and r["mode"] == mode
                       and not r["node"] and r["pre"] == "float32"]
             assert occ[name] == {k: row[k] for k in keys}
+
+
+# -- K4's tail: the edge pass, the receiver slice, the workspace reduce ------------
+
+# precision -> (bf16_ops, the streams' dtype)
+TAIL_PRECISIONS = {
+    "float32": (False, torch.float32),
+    "bf16 streams": (True, torch.bfloat16),
+    "bf16 operands": (True, torch.float32),
+}
+
+
+def _tail_weights(cuda, feat, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    d = 64
+    edge_mlp = make_mlp([3 * d, d, d], generator=gen).to(cuda)
+    embedder = make_mlp([feat, d, d], generator=gen).to(cuda) if feat else None
+    return [None if w is None else w.detach() for w in _weights(edge_mlp, embedder)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", list(TAIL_PRECISIONS))
+@pytest.mark.parametrize("batch", [1, 4, 32])
+@pytest.mark.parametrize("n_edges", [0, 1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("new_edge", [False, True])
+@pytest.mark.parametrize("feat", [1, 3, 8, 0], ids=["raw1", "raw3", "raw8", "shared"])
+def test_edge_pass_matches_plain(cuda, feat, new_edge, n_edges, batch, precision):
+    """K4's edge pass alone (``fused_edge_bwd_edge_pass``, on the tensor
+    cores) against its plain version on the same inputs: ``dW1e``, the
+    shared edge input's gradient and the embedder's gradients, within 1e-4
+    of each one's largest entry in float32 (3xTF32 against exact float32)
+    and within the bf16 bounds with bf16 operands (the same roundings, in
+    another summation order)."""
+    bf16_ops, io = TAIL_PRECISIONS[precision]
+    rng = np.random.default_rng(n_edges + 3 * batch + feat)
+    raw = feat > 0
+    weights = _tail_weights(cuda, feat)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda).to(dtype)
+
+    s = t(n_edges, 64)
+    edge_in = t(n_edges, feat, dtype=io) if raw else t(n_edges, 64, dtype=io)
+    d_new = t(n_edges, batch, 64, dtype=io) if new_edge else None
+    before = fk.fused_edge_bwd_edge_pass.launches
+    got = fk.fused_edge_bwd_edge_pass(s, edge_in, d_new, weights, raw, bf16_ops)
+    torch.cuda.synchronize()
+    assert fk.fused_edge_bwd_edge_pass.launches == before + (n_edges > 0)
+    want = fk._plain_edge_pass(s, edge_in, d_new, weights, raw, bf16_ops)
+    pairs = [(got[1], want[1])] + ([] if raw else [(got[0].float(), want[0])])
+    pairs += [(g, w) for g, w in zip(got[2], want[2]) if w is not None]
+    for i, (g, w) in enumerate(pairs):
+        assert g.shape == w.shape, i
+        if w.numel() == 0:
+            continue
+        if bf16_ops:
+            _close_bf16(g.float(), w.float(), f"edge pass output {i}")
+        else:
+            scale = max(w.abs().max().item(), 1e-30)
+            assert (g - w).abs().max().item() <= 1e-4 * scale, i
+    again = fk.fused_edge_bwd_edge_pass(s, edge_in, d_new, weights, raw, bf16_ops)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [got[1], *(g for g in got[2] if g is not None)],
+        [again[1], *(g for g in again[2] if g is not None)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("n_rec,batch", [(1, 1), (50, 3), (64, 1), (1000, 4), (33, 32)])
+def test_receiver_slice_matches_plain(cuda, n_rec, batch, rows_dtype):
+    """K4's receiver slice alone against the two ``torch`` products it
+    replaces (``_plain_receiver_slice``: float32, TF32 off), with the
+    receiver rows in float32 and in bf16: 3xTF32 in both, within 2e-5 of
+    the largest entry."""
+    rng = np.random.default_rng(n_rec + batch)
+    w1 = _tail_weights(cuda, 0)[0]
+    rec = torch.tensor(rng.normal(size=(n_rec, batch, 64)), dtype=torch.float32,
+                       device=cuda).to(rows_dtype)
+    d_recproj = torch.tensor(rng.normal(size=(n_rec, batch, 64)), dtype=torch.float32,
+                             device=cuda)
+    got = fk.fused_edge_bwd_receiver_slice(d_recproj, rec, w1)
+    want = fk._plain_receiver_slice(d_recproj, rec, w1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        scale = max(w.abs().max().item(), 1e-30)
+        assert (g - w).abs().max().item() <= 2e-5 * scale
+    again = fk.fused_edge_bwd_receiver_slice(d_recproj, rec, w1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,stride", [(1, 1), (15, 100), (16, 64), (17, 8448),
+                                          (396, 8448), (528, 4096), (3, 8960)])
+def test_reduce_sums_in_block_order(cuda, parts, stride):
+    """The workspace reduce gives the bits of a float32 sum over the parts
+    in part order from zero (``reduce_workspace_plain``), twice."""
+    gen = torch.Generator(device=cuda).manual_seed(parts)
+    ws = torch.randn((parts, stride), generator=gen, device=cuda)
+    got = fk.reduce_workspace(ws)
+    again = fk.reduce_workspace(ws)
+    want = fk.reduce_workspace_plain(ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", list(TAIL_PRECISIONS))
+@pytest.mark.parametrize("mode", ["raw", "shared", "batched"])
+def test_captured_k4_replays_the_same_bits(cuda, mode, precision):
+    """K4 (main kernel, edge input's share, receiver slice and reduce)
+    captured in a CUDA graph and replayed twice gives the eager call's bits
+    each time: nothing in its launches carries state from one run to the
+    next."""
+    bf16_ops, io = TAIL_PRECISIONS[precision]
+    rng = np.random.default_rng(40)
+    d, b, n_rec = 64, 4, 60
+    es, _ = _edge_set(rng, 80, n_rec, 1500, cuda, empty_rec=3)
+    feat = 3 if mode == "raw" else 0
+    weights = _tail_weights(cuda, feat, seed=5)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda).to(io)
+
+    x_send, rec = t(es.num_edges, b, d), t(n_rec, b, d)
+    edge_in = {"raw": t(es.num_edges, feat), "shared": t(es.num_edges, d),
+               "batched": t(es.num_edges, b, d)}[mode]
+    d_aggr, d_new = t(n_rec, b, d), t(es.num_edges, b, d)
+    raw = mode == "raw"
+    _, _, pre = fused_edge_fwd(edge_in, x_send, rec, es, weights, raw, True, False,
+                               save_pre=True, bf16_ops=bf16_ops)
+
+    def run():
+        d_edge, d_send, d_rec, grads = fused_edge_bwd(d_aggr, d_new, pre, edge_in, x_send,
+                                                      rec, es, weights, raw, False, bf16_ops)
+        return [x for x in (d_edge, d_send, d_rec, *grads) if x is not None]
+
+    eager = run()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        for x in captured:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+
+
+@pytest.mark.cuda
+def test_tail_occupancy_rows(cuda):
+    """Every piece of K4's tail fits a block on an SM in every precision,
+    and the edge pass runs the groups the wrapper sizes its grid and
+    workspace by."""
+    rows = fk.tail_occupancy(bf16_ops=False) + fk.tail_occupancy(bf16_ops=True)
+    assert len(rows) == 12 and all(r["blocks"] >= 1 for r in rows)
+    for r in rows:
+        if "edge pass" in r["name"]:
+            assert r["threads"] == 128 * fk._EDGE_GROUPS, r

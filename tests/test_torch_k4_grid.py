@@ -1,8 +1,9 @@
 """How the wrappers of K3 and K4 size their launches and report their
 launch resources, on the CPU.
 
-K4's and K8's main kernels run 3 groups of warps per block, and the
-wrapper sizes the grids and the workspaces to the work. K3's and K4's
+K4's and K8's main kernels and their edge pass run 3 groups of warps per
+block, their rows pass and K4's receiver slice 4, and the wrapper sizes
+the grids and the workspaces to the work. K3's and K4's
 libraries report the launch resources of each instantiation through one
 C entry each. These tests stub the SM count and the libraries' C entry
 points, so they need no card and no compiler.
@@ -39,9 +40,9 @@ def test_bwd_grid_sizes_the_grids_to_the_work(sms, chunk_rows, batched, num_rec,
                                               batch):
     """The main kernel takes one group per chunk of ``chunk_rows / B``
     receivers (at least one), 3 groups a block, up to one block per SM;
-    the edge pass 4 groups a block over tiles of 64 (edge, b) rows
-    (batched), or one block per tile of 64 edges, and its workspace holds
-    one stride per group or block."""
+    the rows pass 4 groups a block over tiles of 64 (edge, b) rows
+    (batched), or the edge pass 3 groups a block over tiles of 64 edges,
+    and the workspace holds one stride per group."""
     main, edge, ws_edge = fk._bwd_grid(sms, num_rec, n_edges, batch, batched, chunk_rows)
     chunks = -(-num_rec // max(1, chunk_rows // batch))
     assert main == min(SMS, -(-chunks // 3))
@@ -51,9 +52,25 @@ def test_bwd_grid_sizes_the_grids_to_the_work(sms, chunk_rows, batched, num_rec,
         assert edge == min(SMS, -(-tiles // 4))
         assert ws_edge == edge * 4 * 64 * 64
     else:
-        assert edge == min(SMS, -(-n_edges // 64))
-        assert ws_edge == edge * fk._WS_EDGE
+        tiles = -(-n_edges // 64)
+        assert edge == min(SMS, -(-tiles // 3))
+        assert edge * 3 >= tiles or edge == SMS
+        assert ws_edge == edge * 3 * fk._WS_EDGE
     assert 1 <= main <= SMS and 1 <= edge <= SMS
+
+
+@pytest.mark.parametrize("num_rec,n_edges,batch", SIZES)
+def test_rows_and_edge_blocks_size_to_the_work(sms, num_rec, n_edges, batch):
+    """The receiver slice takes 4 groups a block over tiles of 64
+    (receiver, b) rows and the edge pass 3 over tiles of 64 edges, each up
+    to one block per SM and never a block without a tile."""
+    rows = num_rec * batch
+    tiles = -(-rows // 64)
+    rec = fk._rows_blocks(sms, rows)
+    assert rec == min(SMS, -(-tiles // 4)) and (rec - 1) * 4 < tiles
+    edge_tiles = -(-n_edges // 64)
+    edge = fk._edge_blocks(sms, n_edges)
+    assert edge == min(SMS, -(-edge_tiles // 3)) and (edge - 1) * 3 < edge_tiles
 
 
 class _Lib:
