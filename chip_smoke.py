@@ -9,16 +9,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 --dp-cards`` runs only GraphLAM's captured data-parallel step over the
 N cards of a machine (:func:`dp_cards_main`).
 
-``--parent DIR`` names a checkout of an earlier commit (the C interface
-of now, or K4's from before its receiver slice went into C): its sources
-of K3, K4, K7 and K8 are built beside the current ones and timed on the
-same inputs in the same call, in float32 and in every bf16 instantiation
-(the ``bf16``, ``cache pre`` and ``fused aggr`` kernel lines too), and K4
-is split by piece beside the parent's.
+``--parent DIR`` names a checkout of the parent commit, which has the
+current C interface of K3, K4, K7 and K8: their sources are built beside
+the current ones and timed on the same inputs in the same call, in float32
+and in every bf16 instantiation (the ``bf16`` and ``cache pre`` kernel lines
+too), and K4 is split by piece beside the parent's; the node-MLP route of
+that commit (K3 with its node epilogue, the node backward) is timed by that
+commit's own ``profile_forecast.py --aggr-kernels``, run in ``DIR`` before
+and after the ``fused aggr`` kernel lines.
 
 It builds the port's eleven CUDA kernel sources (with the bf16 variants of
-K1-K4, K7 and K8, K4 recomputing ``pre``, K3's node-MLP epilogue and the
-node backward) from
+K1-K4, K7 and K8, K4 recomputing ``pre``, and the node-MLP route's node
+update and node backward) from
 ``neural_lam_tpu_torch/csrc``
 and drives the forecast path and the training step at the MEPS
 configuration of ``bench.py`` (268x238 grid, hidden 64, 4 processor
@@ -121,10 +123,10 @@ plain version (and the recomputing K4 against K4 from K3's float32
 kernel it stands in for; and GraphLAM's captured training step under
 ``on``, ``bf16`` and ``off`` against the training fixture (``bf16`` at
 the bf16 bounds), with its time, peak memory and launches. Then
-``NEURAL_LAM_TPU_FUSED_AGGR`` (the ``fused aggr`` lines): K3 with the
-node-MLP epilogue and the node backward at the six sites in three
-precisions (beside K3 plus the node tail with ``torch``) and at HiLAM's
-ten level sets, each against its plain version; under ``on`` the
+``NEURAL_LAM_TPU_FUSED_AGGR`` (the ``fused aggr`` lines): the node update
+after K3 and the node backward at the six sites in three precisions (beside
+K3 plus the node tail with ``torch``) and at HiLAM's ten level sets, each
+against its plain version; under ``on`` the
 accuracy gate, GraphLAM's request and training steps (captured against
 eager), the training gate, bf16 training and the bf16 rollout, HiLAM's
 gate, request and captured step; and GraphLAM's captured step under
@@ -277,20 +279,19 @@ GRAPH_LOSS_RTOL = 1e-6
 # The variants of K1-K4, K7 and K8 are template instantiations of one entry
 # point, told apart by their mangled template arguments: the element type
 # of K1 (f, 13__nv_bfloat16), K2's input word (Bf16x4, __nv_bfloat16 for
-# bf16 rows), K3's <mode, bf16 operands, bf16 pre, node-MLP epilogue, stream
-# type>, K4's main kernel's <mode, pre: 0 float32 | 1 bf16 | 2 recomputed,
-# stream type> (fused_edge_bwd_main_bf with bf16 operands), K7's <mode,
-# bf16 operands, stream type>, K8's <batched, bf16 operands, stream type>
-# and the node backward's <bf16 operands, stream type>. K3 with the
-# epilogue counts by its precision whatever pre it saves; K4's receiver
-# slice, launched by every K4 entry, counts whatever its row type.
+# bf16 rows), K3's <mode, bf16 operands, bf16 pre, stream type>, K4's main
+# kernel's <mode, pre: 0 float32 | 1 bf16 | 2 recomputed, stream type>
+# (fused_edge_bwd_main_bf with bf16 operands), K7's <mode, bf16 operands,
+# stream type>, K8's <batched, bf16 operands, stream type> and the node-MLP
+# route's node update and node backward <bf16 operands, stream type>. K4's
+# receiver slice, launched by every K4 entry, counts whatever its row type.
 BF16_T = "13__nv_bfloat16"
 END = "(?![a-z0-9_])"  # the name ends here
 KERNEL_SYMBOLS = {
     name: re.compile(rf"(?<![A-Za-z_]){pattern}")
     for name, pattern in (
         ("K1 sender_gather", "gather_rows_(?:vec4|scalar)IfE"),
-        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0ELb0ELb0E"),
+        ("K3 fused_edge_phase", r"fused_edge_fwdILi\dELb0ELb0EfE"),
         ("K2 sender_scatter", r"scatter_rowsI(?!\w*(?:Bf16x4|__nv_bfloat16))"),
         ("K4 fused_edge_phase backward", r"fused_edge_bwd_mainILi\dELi0EfE"),
         ("K5 segment_sum", f"segment_sum_rows{END}"),
@@ -299,8 +300,8 @@ KERNEL_SYMBOLS = {
         ("K8 fused_edge_phase_v2 backward", r"fused_edge_v2_bwd_mainILb\dELb0E"),
         ("K1 sender_gather bf16", f"gather_rows_(?:vec4|scalar)I{BF16_T}E"),
         ("K2 sender_scatter bf16", r"scatter_rowsI\w*(?:Bf16x4|__nv_bfloat16)"),
-        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1ELb0ELb0E{BF16_T}E"),
-        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1ELb0ELb0EfE"),
+        ("K3 fused_edge_phase bf16", rf"fused_edge_fwdILi\dELb1ELb0E{BF16_T}E"),
+        ("K3 fused_edge_phase bf16 operands", r"fused_edge_fwdILi\dELb1ELb0EfE"),
         ("K4 fused_edge_phase backward bf16", rf"fused_edge_bwd_main_bfILi\dELi0E{BF16_T}E"),
         ("K4 fused_edge_phase backward bf16 operands", r"fused_edge_bwd_main_bfILi\dELi0EfE"),
         ("K7 fused_edge_phase_v2 bf16", rf"fused_edge_v2_fwdILi\dELb1E{BF16_T}E"),
@@ -309,14 +310,12 @@ KERNEL_SYMBOLS = {
          rf"fused_edge_v2_bwd_mainILb\dELb1E{BF16_T}E"),
         ("K8 fused_edge_phase_v2 backward bf16 operands",
          r"fused_edge_v2_bwd_mainILb\dELb1EfE"),
-        ("K3 fused_edge_phase bf16 pre", r"fused_edge_fwdILi\dELb\dELb1ELb0E"),
+        ("K3 fused_edge_phase bf16 pre", r"fused_edge_fwdILi\dELb\dELb1E"),
         ("K4 fused_edge_phase backward bf16 pre", r"fused_edge_bwd_main(?:_bf)?ILi\dELi1E"),
         ("K4 fused_edge_phase backward recompute", r"fused_edge_bwd_main(?:_bf)?ILi\dELi2E"),
-        ("K3 fused_edge_phase node epilogue", r"fused_edge_fwdILi\dELb0ELb\dELb1E"),
-        ("K3 fused_edge_phase node epilogue bf16",
-         rf"fused_edge_fwdILi\dELb1ELb\dELb1E{BF16_T}E"),
-        ("K3 fused_edge_phase node epilogue bf16 operands",
-         r"fused_edge_fwdILi\dELb1ELb\dELb1EfE"),
+        ("K3 node update", r"fused_node_fwdILb0EfE"),
+        ("K3 node update bf16", rf"fused_node_fwdILb1E{BF16_T}E"),
+        ("K3 node update bf16 operands", r"fused_node_fwdILb1EfE"),
         ("K4 node backward", r"fused_node_bwdILb0EfE"),
         ("K4 node backward bf16", rf"fused_node_bwdILb1E{BF16_T}E"),
         ("K4 node backward bf16 operands", r"fused_node_bwdILb1EfE"),
@@ -394,9 +393,9 @@ BF16_KERNELS = "NEURAL_LAM_TPU_BF16_KERNELS"
 # gradient within 1e-6 of its largest entry
 CACHE_PRE_ENV = "NEURAL_LAM_TPU_CACHE_PRE"
 CACHE_PRE_RECOMPUTE_TOL = 1e-6
-# NEURAL_LAM_TPU_FUSED_AGGR, set around whole phases: K3 with the node-MLP
-# epilogue and the node backward. Held to their plain versions as K3 and K4
-# are (K3_RTOL/K3_ATOL, K4_TOL; in bf16 bf16_check).
+# NEURAL_LAM_TPU_FUSED_AGGR, set around whole phases: the node update after
+# K3 and the node backward before K4. Held to their plain versions as K3 and
+# K4 are (K3_RTOL/K3_ATOL, K4_TOL; in bf16 bf16_check).
 FUSED_AGGR = "NEURAL_LAM_TPU_FUSED_AGGR"
 # dp: two gloo ranks share the card, each with its own deadline; the merged
 # evaluate sums the same per-sample float32 values in float64 in another
@@ -488,77 +487,17 @@ def bound(nbytes: float, flops: float, tensor: bool = False) -> tuple[float, str
 
 # The library getters of the wrappers of K3, K4, K7 and K8
 # (ops/fused_kernels.py) and the source each one loads: a parent build
-# stands in for them through the same C interface
+# stands in for them through the same C interface. The node-MLP route's
+# kernels are not among them: the parent (34b9653) ran the node update
+# inside K3 (fused_edge_node.cu), so it is timed by its own script
+# (parent_aggr_run).
 PARENT_SOURCES = {
     "_fwd_lib": "fused_edge", "_fwd_bf16_lib": "fused_edge",
-    "_fwd_node_lib": "fused_edge_node", "_bwd_lib": "fused_edge_bwd",
-    "_bwd_bf16_lib": "fused_edge_bwd", "_bwd_recompute_lib": "fused_edge_bwd_recompute",
+    "_bwd_lib": "fused_edge_bwd", "_bwd_bf16_lib": "fused_edge_bwd",
+    "_bwd_recompute_lib": "fused_edge_bwd_recompute",
     "_v2_fwd_lib": "fused_edge_v2", "_v2_fwd_bf16_lib": "fused_edge_v2",
     "_v2_bwd_lib": "fused_edge_v2_bwd", "_v2_bwd_bf16_lib": "fused_edge_v2_bwd",
-    "_node_bwd_lib": "fused_node_bwd",
 }
-
-
-# K4's C entries since its receiver slice became a kernel take one int more
-# (rec_blocks, the last int) and the receiver slice's pointers (rec, unless
-# the entry had it, d_rec, ws_rec, out_rec) before the stream, or before
-# the recompute's workspace; the parent commit's take neither, and its
-# wrapper formed d_rec and dW1r with torch. Per getter: the indices of
-# num_rec, batch and io_bf16 (None: float32) among the ints, and of w1,
-# d_recproj, rec and the first of the n_new new pointers among the pointers.
-K4_PARENT_ABI = {
-    "_bwd_lib": dict(num_rec=2, batch=4, io=None, w1=6, d_recproj=18, rec=24, new=24,
-                     n_new=4),
-    "_bwd_bf16_lib": dict(num_rec=3, batch=5, io=1, w1=6, d_recproj=18, rec=24, new=24,
-                          n_new=4),
-    "_bwd_recompute_lib": dict(num_rec=3, batch=5, io=1, w1=6, d_recproj=19, rec=2, new=25,
-                               n_new=3),
-}
-
-
-def device_tensor(torch, ptr: int, shape, dtype):
-    """A tensor over ``shape`` floats or bf16 values at the device address
-    ``ptr`` (no copy), through the CUDA array interface."""
-    holder = type("DevicePointer", (), {})()
-    holder.__cuda_array_interface__ = dict(
-        shape=tuple(shape), typestr="<i2" if dtype == torch.bfloat16 else "<f4",
-        data=(ptr, False), version=2, strides=None)
-    out = torch.as_tensor(holder, device="cuda")
-    return out.view(torch.bfloat16) if dtype == torch.bfloat16 else out
-
-
-def parent_k4_entry(torch, fn, current, abi: dict):
-    """The parent commit's K4 entry ``fn`` behind the current entry's
-    arguments: it drops the receiver slice's, launches the parent's kernels
-    and forms d_rec and dW1r as the parent's wrapper did, with torch, into
-    the current outputs (``out=``, so that no copy is added)."""
-    import ctypes
-
-    n_ints, n_new = current.argtypes.count(ctypes.c_int), abi["n_new"]
-    fn.argtypes = [ctypes.c_int] * (n_ints - 1) + [ctypes.c_void_p] * (
-        len(current.argtypes) - n_ints - n_new)
-    fn.restype = ctypes.c_int
-
-    def call(*args):
-        ints, ptrs = args[:n_ints], args[n_ints:]
-        new = abi["new"]
-        err = fn(*ints[:-1], *ptrs[:new], *ptrs[new + n_new:])
-        if err != 0:
-            return err
-        shape = (ints[abi["num_rec"]], ints[abi["batch"]], HIDDEN)
-        io = torch.bfloat16 if abi["io"] is not None and ints[abi["io"]] else torch.float32
-        d_recproj = device_tensor(torch, ptrs[abi["d_recproj"]], shape, torch.float32)
-        rec = device_tensor(torch, ptrs[abi["rec"]], shape, io)
-        w1 = device_tensor(torch, ptrs[abi["w1"]], (HIDDEN, 3 * HIDDEN), torch.float32)
-        d_rec, out_rec = ptrs[new + n_new - 3], ptrs[new + n_new - 1]
-        torch.matmul(d_recproj, w1[:, 2 * HIDDEN:],
-                     out=device_tensor(torch, d_rec, shape, torch.float32))
-        torch.mm(d_recproj.reshape(-1, HIDDEN).T, rec.reshape(-1, HIDDEN).float(),
-                 out=device_tensor(torch, out_rec, (HIDDEN, HIDDEN), torch.float32))
-        return 0
-
-    call.__name__ = current.__name__
-    return call
 
 
 # K4's pieces by kernel name (the first pattern that matches): its main
@@ -769,9 +708,8 @@ def same_as_parent(parent, fn, what: str) -> int:
 
 
 def start_parent_build(parent: Path) -> list:
-    """Start ``nvcc`` on the parent checkout's sources of K3, K4, K7, K8 and
-    the node backward (one process each, beside the current build);
-    :func:`parent_kernels`
+    """Start ``nvcc`` on the parent checkout's sources of K3, K4, K7 and K8
+    (one process each, beside the current build); :func:`parent_kernels`
     waits for them."""
     from neural_lam_tpu_torch.ops import kernel_build
 
@@ -791,17 +729,17 @@ def start_parent_build(parent: Path) -> list:
     return procs
 
 
-def parent_kernels(torch, procs: list) -> dict:
-    """K3, K4, K7 and K8 of the commit before K3's and K4's redesign on
-    bf16 fragments, built by :func:`start_parent_build`, for a same-call
-    comparison: a dict of four callables, each called like the current
-    wrapper with the same inputs (``fused_kernels.fused_edge_fwd``,
+def parent_kernels(torch, procs: list, parent_dir: Path) -> dict:
+    """K3, K4, K7 and K8 of the parent commit of this change (34b9653, in
+    the checkout ``parent_dir``), built by :func:`start_parent_build`, for a
+    same-call comparison: a dict of four callables, each called like the
+    current wrapper with the same inputs (``fused_kernels.fused_edge_fwd``,
     ``fused_edge_bwd``, ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and
-    doing the same work, and ``"use"``, a context manager under which every
-    wrapper of the four (every precision, ``pre`` type and the node-MLP
-    epilogue) and the node backward's launches the parent's kernels. That commit has the current C
-    interface, or K4's from before its receiver slice went into C
-    (:data:`K4_PARENT_ABI`)."""
+    doing the same work; ``"use"``, a context manager under which every
+    wrapper of the four (every precision and ``pre`` type) launches the
+    parent's kernels through the current C interface, which that commit
+    has; and ``"dir"``, the checkout, whose own script times its node-MLP
+    route (:func:`parent_aggr_run`)."""
     import contextlib
     import ctypes
 
@@ -815,14 +753,9 @@ def parent_kernels(torch, procs: list) -> dict:
                 raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
         libs[name] = ctypes.CDLL(str(out))
     fns = {}
-    # a parent whose K4 library has no receiver slice takes the old arguments
-    old_k4 = not hasattr(libs["fused_edge_bwd"], "nl_fused_edge_bwd_receiver_slice")
     for getter, source in PARENT_SOURCES.items():
         current = getattr(fk, getter)()  # the C entry of the current build, for its name
         fn = getattr(libs[source], current.__name__)
-        if old_k4 and getter in K4_PARENT_ABI:
-            fns[getter] = parent_k4_entry(torch, fn, current, K4_PARENT_ABI[getter])
-            continue
         fn.argtypes, fn.restype = current.argtypes, ctypes.c_int
         fns[getter] = fn
 
@@ -850,6 +783,7 @@ def parent_kernels(torch, procs: list) -> dict:
         "K7": through(fk.fused_edge_v2_fwd),
         "K8": through(fk.fused_edge_v2_bwd),
         "use": use,
+        "dir": parent_dir,
     }
 
 
@@ -1224,10 +1158,10 @@ def expected_launches(model, training: bool) -> dict[str, int]:
     launches K1 and K3 (K2 and K4 backward, and K4's receiver slice), or
     under ``NEURAL_LAM_TPU_FUSED_V2=on`` K7 alone (K8 and K2 backward); on
     the unfused route K1, K6 and K5 (backward K2, and K5 and K6 once more as
-    each other's VJP). Under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` K3 runs with
-    the node-MLP epilogue (the node backward before K4) at every
-    application of GraphLAM and HiLAM: all of theirs are interaction-wired
-    with sum aggregation (HiLAMParallel's sections never take it)."""
+    each other's VJP). Under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` the node update
+    runs after K3 (the node backward before K4) at every application of
+    GraphLAM and HiLAM: all of theirs are interaction-wired with sum
+    aggregation (HiLAMParallel's sections never take it)."""
     from neural_lam_tpu_torch.ops.fused_kernels import fused_aggr_enabled
 
     n = gnn_applications(model)
@@ -1244,10 +1178,10 @@ def expected_launches(model, training: bool) -> dict[str, int]:
                              f"{FUSED_AGGR}=on is not counted here")
     want["K1 sender_gather"] = n
     if node:
-        want["K3 fused_edge_phase node epilogue"] = n
+        want["K3 node update"] = n
         if training:
             want["K4 node backward"] = n
-    elif fused:
+    if fused:
         want["K3 fused_edge_phase"] = n
     else:
         want["K5 segment_sum"] = want["K6 receiver_expand"] = n
@@ -3999,7 +3933,7 @@ def mangled_args(row: dict) -> str:
     ti = "13__nv_bfloat16" if row["io_bf16"] else "f"
     if row["kernel"] == "K3":
         return (f"fused_edge_fwdILi{row['mode']}ELb{row['bf16_ops']}ELb"
-                f"{int(row['pre'] == 'bf16')}ELb{int(row['node'])}E{ti}E")
+                f"{int(row['pre'] == 'bf16')}E{ti}E")
     pre = {"float32": 0, "bf16": 1, "recompute": 2}[row["pre"]]
     # the saved-pre kernels serve the raw mode with the shared one
     mode = 1 if row["mode"] == 0 and pre != 2 else row["mode"]
@@ -4028,6 +3962,31 @@ def log_occupancy(what: str, keep) -> None:
             raise AssertionError(f"{what} occupancy {row['name']}: {len(found)} entries of "
                                  f"the {row['source']}.cu build's report match {args}, or "
                                  "its spills are missing")
+        _, stores, loads = found[0]
+        log(f"{what} occupancy {row['name']}: {row['blocks']} block(s) of {row['threads']} "
+            f"threads = {row['warps']} warps per SM, {row['regs']} registers a thread, "
+            f"{row['smem']} bytes of shared memory a block, {row['local']} bytes of local "
+            f"memory a thread; spill stores {stores} bytes, spill loads {loads} bytes")
+
+
+def log_node_occupancy(what: str) -> None:
+    """Blocks, warps, registers, shared and local memory of every
+    instantiation of the node-MLP route's node update and node backward
+    (``fused_kernels.node_occupancy``: float32 and both bf16-operand forms),
+    and its spill stores and loads from the compiler's report of its build
+    (AssertionError unless exactly one entry of it is the instantiation)."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+
+    reports = {src: ptxas_report(src) for src in ("fused_node", "fused_node_bwd")}
+    for row in fk.node_occupancy():
+        ti = "13__nv_bfloat16" if row["io_bf16"] else "f"
+        fwd = row["name"].startswith("K3")
+        args = f"fused_node_{'fwd' if fwd else 'bwd'}ILb{row['bf16_ops']}E{ti}E"
+        found = [v for k, v in reports["fused_node" if fwd else "fused_node_bwd"].items()
+                 if args in k]
+        if len(found) != 1 or found[0][1] < 0:
+            raise AssertionError(f"{what} occupancy {row['name']}: {len(found)} entries of "
+                                 f"the build's report match {args}, or its spills are missing")
         _, stores, loads = found[0]
         log(f"{what} occupancy {row['name']}: {row['blocks']} block(s) of {row['threads']} "
             f"threads = {row['warps']} warps per SM, {row['regs']} registers a thread, "
@@ -4443,7 +4402,7 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     log(f"K1 bf16 per AR step {k1['ms']:.4f} ms against the float32 kernel's "
         f"{k1['f32_ms']:.4f} ms; K2 bf16 per training step {k2['ms']:.4f} ms against "
         f"{k2['f32_ms']:.4f} ms")
-    log_occupancy("bf16", lambda row: not row["node"] and row["pre"] == "float32")
+    log_occupancy("bf16", lambda row: row["pre"] == "float32")
     log_tail_occupancy("K4 bf16", bf16_ops=True)
     torch.cuda.empty_cache()
     return [
@@ -4472,8 +4431,7 @@ def bf16_expected(model) -> dict[str, int]:
     out = dict.fromkeys(f32, 0)
     for name in ("K1 sender_gather", "K2 sender_scatter", "K3 fused_edge_phase",
                  "K4 fused_edge_phase backward", "K7 fused_edge_phase_v2",
-                 "K8 fused_edge_phase_v2 backward", "K3 fused_edge_phase node epilogue",
-                 "K4 node backward"):
+                 "K8 fused_edge_phase_v2 backward", "K3 node update", "K4 node backward"):
         out[f"{name} bf16"] = f32[name]
     for name in ("K5 segment_sum", "K6 receiver_expand", K4_RECEIVER_SLICE):
         out[name] = f32[name]
@@ -4984,7 +4942,7 @@ def phase_cache_pre_kernels(torch, model, parent=None) -> list[dict]:
         log(f"float32 K3 bf16 pre, K4 bf16 pre and K4 recompute against the parent's "
             f"kernels on the same inputs at {len(sites)} sites: {same} outputs and "
             f"gradients, every one the same bits")
-    log_occupancy("cache pre", lambda row: not row["node"] and row["pre"] != "float32")
+    log_occupancy("cache pre", lambda row: row["pre"] != "float32")
     for name in names:
         a = accs[name]
         log(f"{name} per training step: {a['ms']:.4f} ms against {a['base_ms']:.4f} ms "
@@ -5093,34 +5051,85 @@ def compare_train_modes(torch, model, ds, card: str, what: str, env: str, tols: 
     return total
 
 
-# -- NEURAL_LAM_TPU_FUSED_AGGR: K3 with the node-MLP epilogue, the node backward --
+# -- NEURAL_LAM_TPU_FUSED_AGGR: the node update after K3, the node backward -------
+
+
+# the per-step lines of the parent commit's (34b9653's) fused aggr kernel
+# lines: its K3 with the node-MLP epilogue, per AR step, and its node
+# backward, per training step, with the device time of its kernel and reduce
+PARENT_AGGR_STEP = re.compile(
+    r"^(K3 fused_edge_phase node epilogue|K4 node backward)( bf16(?: operands)?)? per "
+    r"(?:AR|training) step: ([0-9.]+) ms against ([0-9.]+) ms unfused"
+    r"(?:.*?device time \(torch\.profiler\) ([0-9.]+) ms)?")
+
+
+def parent_aggr_run(parent_dir: Path, label: str) -> dict[str, dict[str, float]]:
+    """The parent commit's node-MLP route timed by its own script, in this
+    process's card, one run: ``python3 profile_forecast.py --aggr-kernels``
+    in its checkout (it builds its kernels there). Returns, by precision
+    suffix ("", " bf16", " bf16 operands"), ``k3_node_ms`` (its K3 with the
+    epilogue per AR step, CUDA events), ``k3_tail_ms`` (its K3 plus the node
+    tail with torch), ``bwd_ms`` and ``bwd_dev_ms`` (its node backward per
+    training step: CUDA events, and the device time of the kernel and its
+    reduce). Its whole output goes to ``chiprun_out/parent_aggr_<label>.log``."""
+    proc = subprocess.run([sys.executable, "profile_forecast.py", "--aggr-kernels"],
+                          cwd=parent_dir, capture_output=True, text=True, timeout=1500)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"parent_aggr_{label}.log").write_text(proc.stdout + proc.stderr,
+                                                       encoding="utf-8")
+    if proc.returncode != 0:
+        raise RuntimeError(f"the parent's profile_forecast.py --aggr-kernels failed "
+                           f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    found: dict[str, dict[str, float]] = {}
+    for line in proc.stdout.splitlines():
+        m = PARENT_AGGR_STEP.match(line.strip())
+        if not m:
+            continue
+        kernel, sfx, ms, base, dev = m.groups()
+        row = found.setdefault(sfx or "", {})
+        if kernel.startswith("K3"):
+            row.update(k3_node_ms=float(ms), k3_tail_ms=float(base))
+        else:
+            row.update(bwd_ms=float(ms), bwd_dev_ms=float(dev or 0.0))
+    if sorted(found) != ["", " bf16", " bf16 operands"] or any(len(v) != 4 for v in found.values()):
+        raise AssertionError(f"the parent's run gave no per-step line of each kernel: {found}")
+    return found
 
 
 def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
     """``NEURAL_LAM_TPU_FUSED_AGGR``'s kernels at the six GraphLAM calls of
     a step (batch 4), in each precision: float32 (3xTF32), bf16 streams and
     operands (mixed precision) and bf16 operands on float32 streams
-    (``high-kernels``). K3 with the node-MLP epilogue, as served (no
-    ``pre``, no aggregate kept): its node update and updated edges against
-    the plain version (``_plain`` then ``_plain_node``), repeatable to the
-    bit, timed beside K3 plus the port's unfused node tail on the same
-    inputs (the node MLP with ``torch`` on K3's aggregate), its plain
-    version and its bound; the aggregate it keeps for the backward is K3's
-    own, bit for bit. The node backward from that aggregate: ``d_aggr``,
-    the receiver's gradient and the node weights' seven gradients against
+    (``high-kernels``). K3 as the route runs it (its aggregate in float32,
+    no ``pre`` as served), then the node update on that aggregate: the node
+    update and K3's updated edges against the plain version (``_plain`` then
+    ``_plain_node``), repeatable to the bit, K3's float32 aggregate the bits
+    of K3's own float32 output; each timed (CUDA events) alone, and K3 plus
+    the node update beside K3 plus the port's unfused node tail on the same
+    inputs (the node MLP with ``torch`` on K3's aggregate), the plain
+    version and the bounds; the node update's device time (torch.profiler).
+    The node backward from that aggregate: ``d_aggr``, the receiver's
+    gradient and the node weights' seven gradients against
     ``_plain_node_bwd``, repeatable, timed beside the unfused tail's
-    forward and backward with ``torch``, its plain version and its bound.
-    Then both in float32 at HiLAM's ten level sets, the whole phase and
-    every gradient against the plain version. K3 with the epilogue is also
-    timed through the ``parent`` commit's kernels where one is given, and
-    each bf16 instantiation's occupancy, registers and spills printed.
-    Returns the six kernels' report entries, times summed over an AR step
-    (K3) or a training step (the node backward)."""
+    forward and backward with ``torch``, its plain version and its bound,
+    and split into the kernel and its workspace reduce. Then both in
+    float32 at HiLAM's ten level sets, the whole phase and every gradient
+    against the plain version. With a ``parent`` (:func:`parent_kernels`),
+    the parent commit's own script times its node-MLP route on this card
+    before and after (:func:`parent_aggr_run`), and float32 K3 is held to
+    the parent's K3 bits. Prints the occupancy, registers and spills of
+    every instantiation of both kernels. Returns the six kernels' report
+    entries, times summed over an AR step (the node update) or a training
+    step (the node backward)."""
     import copy
 
     from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops.mlp import apply_mlp_split_first
 
+    parent_runs = []
+    if parent is not None:
+        parent_runs.append(parent_aggr_run(parent["dir"], "before"))
     bf16 = torch.bfloat16
     g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -5141,18 +5150,19 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
     precisions = {"float32": (False, torch.float32, torch.float32, ""),
                   "bf16": (True, bf16, bf16, " bf16"),
                   "bf16 operands": (True, torch.float32, torch.float32, " bf16 operands")}
-    k3n, nbw = "K3 fused_edge_phase node epilogue", "K4 node backward"
+    nfw, nbw = "K3 node update", "K4 node backward"
     accs = {f"{k}{sfx}": dict(ms=0.0, plain_ms=0.0, base_ms=0.0, bound_ms=0.0, ops_ms=0.0,
-                              bytes_ms=0.0, err=0.0, parent_ms=0.0)
-            for k in (k3n, nbw) for *_, sfx in precisions.values()}
-    same = 0  # float32 outputs compared with the parent's
+                              bytes_ms=0.0, err=0.0, dev_ms=0.0, k3_ms=0.0, k3_node_ms=0.0,
+                              k3_node_dev_ms=0.0)
+            for k in (nfw, nbw) for *_, sfx in precisions.values()}
+    same = 0  # float32 K3 outputs compared with the parent's
 
-    def add(name, calls, ms, plain_ms, base_ms, moved, flops, err, bf16_ops):
+    def add(name, calls, ms, plain_ms, base_ms, moved, flops, err, bf16_ops, **more):
         b_ms, b_by = bf16_bound(moved, flops) if bf16_ops else bound(moved, flops, tensor=True)
         a = accs[name]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("base_ms", base_ms),
                          ("bound_ms", b_ms), ("ops_ms" if b_by == "operations" else
-                                              "bytes_ms", b_ms)):
+                                              "bytes_ms", b_ms), *more.items()):
             a[key] += calls * val
         a["err"] = max(a["err"], err)
         return b_ms, b_by
@@ -5185,57 +5195,65 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
                 args = (edge_in, x_send, rec, es, wts, raw, update, False)
                 tail_mlp = copy.deepcopy(net.aggr_mlp).to(io)
 
-                # ---- K3 with the epilogue ---------------------------------------
-                def k3(keep=False):
-                    return fk.fused_edge_fwd(*args, save_pre=keep, node_weights=nw,
-                                             save_aggr=keep, **out_kw)
+                # ---- K3 on the route, then the node update ------------------------
+                def k3():
+                    return fk.fused_edge_fwd(*args, aggr_dtype=torch.float32, **out_kw)
+
+                aggr, new_edge, _ = k3()
+
+                def nu():
+                    return fk.fused_node_fwd(rec, aggr, nw, bf16_ops, out)
+
+                def k3_node():
+                    return fk.fused_node_fwd(rec, k3()[0], nw, bf16_ops, out)
 
                 def k3_and_tail():
-                    aggr = fk.fused_edge_fwd(*args, **out_kw)[0]
-                    return rec + apply_mlp_split_first(tail_mlp, (rec, aggr.to(io)))
+                    aggr_t = fk.fused_edge_fwd(*args, **out_kw)[0]
+                    return rec + apply_mlp_split_first(tail_mlp, (rec, aggr_t.to(io)))
 
                 def plain3():
-                    aggr, new_edge = fk._plain(edge_in.float(), x_send.float(), rec.float(),
-                                               es.receivers, wts, raw, update, False, bf16_ops)
-                    return fk._plain_node(rec.float(), aggr, nw, bf16_ops), new_edge, aggr
+                    aggr_p, new_edge_p = fk._plain(edge_in.float(), x_send.float(), rec.float(),
+                                                   es.receivers, wts, raw, update, False,
+                                                   bf16_ops)
+                    return fk._plain_node(rec.float(), aggr_p, nw, bf16_ops), new_edge_p
 
-                node, new_edge, _, _ = k3()
-                again = k3()
-                kept = k3(keep=True)
+                def plain_nu():
+                    return fk._plain_node(rec.float(), aggr, nw, bf16_ops)
+
+                node, again = nu(), k3_node()
                 aggr_k3 = fk.fused_edge_fwd(*args, bf16_ops=bf16_ops,
                                             out_dtype=torch.float32 if bf16_ops else None)[0]
-                want_node, want_edge, _ = plain3()
+                want_node, want_edge = plain3()
                 torch.cuda.synchronize()
-                if not (torch.equal(node, again[0]) and torch.equal(kept[0], node)
-                        and torch.equal(kept[3], aggr_k3)):
-                    raise AssertionError(f"{k3n}{sfx} {site}: not repeatable, or the kept "
-                                         "aggregate is not K3's")
-                err = check(node, want_node.to(out), f"{k3n}{sfx} {site} node update", bf16_ops)
+                if not (torch.equal(node, again) and torch.equal(aggr, aggr_k3)):
+                    raise AssertionError(f"{nfw}{sfx} {site}: not repeatable, or K3's float32 "
+                                         "aggregate is not K3's own")
+                err = check(node, want_node.to(out), f"{nfw}{sfx} {site}", bf16_ops)
                 if update:
-                    err = max(err, check(new_edge, want_edge.to(out), f"{k3n}{sfx} {site} new "
+                    err = max(err, check(new_edge, want_edge.to(out), f"K3{sfx} {site} new "
                                          "edges", bf16_ops))
-                ms, base_ms, plain_ms = cuda_ms(k3), cuda_ms(k3_and_tail), cuda_ms(plain3)
-                old_ms = parent_ms(parent, k3)
-                accs[f"{k3n}{sfx}"]["parent_ms"] += calls * (old_ms or 0.0)
+                ms, plain_ms = cuda_ms(nu), cuda_ms(plain_nu)
+                k3_ms, both_ms, base_ms = cuda_ms(k3), cuda_ms(k3_node), cuda_ms(k3_and_tail)
+                dev_ms = k4_pieces(torch, nu)[0]["other"]
+                both_dev = k4_pieces(torch, k3_node)[0]["other"]
                 if not bf16_ops:
-                    same += same_as_parent(parent, lambda: k3(True), f"{k3n} {site}")
-                moved = nbytes(x_send, rec, edge_in, es.rowptr, *params, *node_params, node,
-                               new_edge)
-                flops = 2 * n_rec * b * d * d * 4 + 2 * rows * d * d * 2 + rows * d
-                flops += (n_e * (2 * edge_in.shape[1] * d + 4 * d * d) if raw
-                          else 2 * rows * d * d)
-                b_ms, b_by = add(f"{k3n}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
-                                 bf16_ops)
-                log(f"{k3n}{sfx} {site}: E {n_e}, receivers {n_rec}, edge input {mode}; max abs "
-                    f"err {err:.3g} against the plain version, repeatable, the kept aggregate "
-                    f"K3's bits; kernel {ms:.4f} ms (parent {old_ms or 0.0:.4f} ms, 0 = not "
-                    f"measured) against K3 plus the node tail with torch "
-                    f"{base_ms:.4f} ms ({base_ms / ms:.2f} x); plain {plain_ms:.4f} ms; bound "
-                    f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
-                    f"it); {calls} call(s) per AR step")
+                    same += same_as_parent(parent, lambda: fk.fused_edge_fwd(
+                        *args, aggr_dtype=torch.float32, save_pre=True), f"K3 {site}")
+                moved = nbytes(rec, aggr, *node_params, node)
+                flops = 3 * 2 * n_rec * b * d * d
+                b_ms, b_by = add(f"{nfw}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
+                                 bf16_ops, dev_ms=dev_ms, k3_ms=k3_ms, k3_node_ms=both_ms,
+                                 k3_node_dev_ms=both_dev)
+                log(f"{nfw}{sfx} {site}: E {n_e}, receivers {n_rec}, edge input {mode}; max abs "
+                    f"err {err:.3g} against the plain version, repeatable, K3's float32 "
+                    f"aggregate K3's own bits; node update {ms:.4f} ms (device "
+                    f"{dev_ms:.4f} ms), K3 {k3_ms:.4f} ms, K3 + node update {both_ms:.4f} ms "
+                    f"(device {both_dev:.4f} ms) against K3 plus the node tail with torch "
+                    f"{base_ms:.4f} ms ({base_ms / both_ms:.2f} x); plain {plain_ms:.4f} ms; "
+                    f"bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} "
+                    f"% of it); {calls} call(s) per AR step")
 
                 # ---- the node backward -------------------------------------------
-                aggr = kept[3]
                 d_node = randn(n_rec, b, d).to(io)
 
                 def nb():
@@ -5266,52 +5284,58 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
                                          tol=K4_TOL))
                 ms, plain_ms = cuda_ms(nb), cuda_ms(plain_nb)
                 base_ms = cuda_ms(tail_fwd_bwd)
-                old_ms = parent_ms(parent, nb)
-                accs[f"{nbw}{sfx}"]["parent_ms"] += calls * (old_ms or 0.0)
-                if not bf16_ops:
-                    same += same_as_parent(parent, nb, f"{nbw} {site}")
                 moved = nbytes(rec, aggr, d_node, *node_params, *flat_got)
                 flops = 9 * 2 * n_rec * b * d * d
-                b_ms, b_by = add(f"{nbw}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
-                                 bf16_ops)
                 pieces, _ = k4_pieces(torch, nb)
-                reduce_ms = pieces["reduces"]
-                old_pieces = {}
-                if parent is not None:
-                    with parent["use"]():
-                        old_pieces, _ = k4_pieces(torch, nb)
-                for key, piece in (("dev_ms", pieces), ("parent_dev_ms", old_pieces)):
-                    accs[f"{nbw}{sfx}"][key] = accs[f"{nbw}{sfx}"].get(key, 0.0) + calls * (
-                        piece.get("other", 0.0) + piece.get("reduces", 0.0))
-                reduce_bound = bound(4 * (fk._WS_NODE * min(
-                    fk._NODE_BWD_BLOCKS_PER_SM * fk._device_sms(rec.device),
-                    -(-n_rec * b // fk._TILE_ROWS)) + fk._WS_NODE), 0.0)[0]
+                b_ms, b_by = add(f"{nbw}{sfx}", calls, ms, plain_ms, base_ms, moved, flops, err,
+                                 bf16_ops, dev_ms=pieces["other"] + pieces["reduces"])
+                blocks = fk._node_bwd_blocks(rec.device, n_rec * b)
+                reduce_bound = bound(4 * (fk._WS_NODE * blocks + fk._WS_NODE), 0.0)[0]
                 log(f"{nbw}{sfx} {site}: rows {n_rec * b}; max abs err {err:.3g} against the "
                     f"plain version (tol {K4_TOL} of each gradient's largest entry, or the bf16 "
                     f"bounds), repeatable; kernel {ms:.4f} ms against the node tail's forward "
                     f"and backward with torch {base_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                     f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
                     f"it); {calls} call(s) per training step; split (torch.profiler, ms a "
-                    f"call): the node backward {pieces['other']:.4f}, its workspace reduce "
-                    f"{reduce_ms:.4f} (bound {reduce_bound:.4f}, bytes), one launch of each"
-                    + (f"; the parent's kernel {old_ms:.4f} ms, split: the node backward "
-                       f"{old_pieces.get('other', 0.0):.4f}, its reduce "
-                       f"{old_pieces.get('reduces', 0.0):.4f}" if parent else ""))
-                del node, new_edge, again, kept, aggr_k3, got, want, leaves, tail_mlp
+                    f"call): the node backward {pieces['other']:.4f} ({blocks} blocks), its "
+                    f"workspace reduce {pieces['reduces']:.4f} (bound {reduce_bound:.4f}, "
+                    "bytes), one launch of each")
+                del node, new_edge, again, aggr, aggr_k3, got, want, leaves, tail_mlp
             del x32, r32, e32
             torch.cuda.empty_cache()
-    for name, a in accs.items():
-        log(f"{name} per {'AR' if name.startswith('K3') else 'training'} step: "
-            f"{a['ms']:.4f} ms against {a['base_ms']:.4f} ms unfused (bound "
-            f"{a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms"
-            + (f"; the parent's {a['parent_ms']:.4f} ms" if parent else "")
-            + (f"; device time (torch.profiler) {a['dev_ms']:.4f} ms"
-               + (f", the parent's {a['parent_dev_ms']:.4f} ms" if parent else "")
-               if "dev_ms" in a else "") + ")")
     if parent is not None:
-        log(f"float32 {k3n} and {nbw} against the parent's kernels on the same inputs: "
+        parent_runs.append(parent_aggr_run(parent["dir"], "after"))
+    for name, a in accs.items():
+        sfx = name[len(nfw):] if name.startswith(nfw) else name[len(nbw):]
+        old = [run[sfx] for run in parent_runs]
+        if name.startswith(nfw):
+            text = (f"{name} per AR step: {a['ms']:.4f} ms (device {a['dev_ms']:.4f} ms; bound "
+                    f"{a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms); K3 {a['k3_ms']:.4f} "
+                    f"ms, K3 + node update {a['k3_node_ms']:.4f} ms (device "
+                    f"{a['k3_node_dev_ms']:.4f} ms) against {a['base_ms']:.4f} ms with the node "
+                    "tail in torch")
+            if old:
+                text += ("; the parent's K3 with the node epilogue "
+                         + ", ".join(f"{r['k3_node_ms']:.4f}" for r in old)
+                         + f" ms (its own script, before and after), "
+                         f"{sum(r['k3_node_ms'] for r in old) / len(old) / a['k3_node_ms']:.3f} "
+                         "x this K3 + node update's, same call")
+        else:
+            text = (f"{name} per training step: {a['ms']:.4f} ms against {a['base_ms']:.4f} ms "
+                    f"unfused (bound {a['bound_ms']:.4f} ms, plain {a['plain_ms']:.4f} ms; "
+                    f"device time (torch.profiler) {a['dev_ms']:.4f} ms, "
+                    f"{100 * a['bound_ms'] / max(a['dev_ms'], 1e-9):.1f} % of the bound)")
+            if old:
+                text += ("; the parent's " + ", ".join(f"{r['bwd_ms']:.4f}" for r in old)
+                         + " ms, device " + ", ".join(f"{r['bwd_dev_ms']:.4f}" for r in old)
+                         + f" ms (its own script, before and after), "
+                         f"{sum(r['bwd_dev_ms'] for r in old) / len(old) / a['dev_ms']:.3f} x "
+                         "this one's device time, same call")
+        log(text)
+    if parent is not None:
+        log(f"float32 K3 on the node-MLP route against the parent's K3 on the same inputs: "
             f"{same} outputs, every one the same bits")
-    log_occupancy("fused aggr", lambda row: row["node"])
+    log_node_occupancy("fused aggr")
 
     # ---- HiLAM's ten level sets, float32, the phase through autograd -----------
     hg = hi_lam.graph
@@ -5335,21 +5359,21 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
             want_g = torch.autograd.grad((want[0] * w_node).sum() + (want[1] * w_edge).sum(),
                                          leaves)
             torch.cuda.synchronize()
-            err = max(check(o.detach(), w.detach(), f"{k3n} {kind}[{i}]", False)
+            err = max(check(o.detach(), w.detach(), f"{nfw} {kind}[{i}]", False)
                       for o, w in zip(got, want))
-            accs[k3n]["err"] = max(accs[k3n]["err"], err)
+            accs[nfw]["err"] = max(accs[nfw]["err"], err)
             g_err = 0.0
             for j, (o, w) in enumerate(zip(got_g, want_g)):
                 g_err = max(g_err, check(o, w, f"{nbw} {kind}[{i}] gradient {j}", False,
                                          tol=K4_TOL))
             accs[nbw]["err"] = max(accs[nbw]["err"], g_err)
-            log(f"{k3n} level set {kind}[{i}]: E {es.num_edges}, receivers {es.num_rec}; "
+            log(f"{nfw} level set {kind}[{i}]: E {es.num_edges}, receivers {es.num_rec}; "
                 f"outputs max abs err {err:.3g}, every gradient (node backward, then K4) "
                 f"max abs err {g_err:.3g} against the plain version")
     torch.cuda.empty_cache()
-    source = {k3n: "fused_edge_node.cu", nbw: "fused_node_bwd.cu"}
-    replaces = {k3n: "neural_lam_tpu/ops/pallas_fused.py:879",
-                nbw: "neural_lam_tpu/ops/pallas_fused.py:1052"}
+    source = {nfw: "fused_node.cu", nbw: "fused_node_bwd.cu"}
+    replaces = {nfw: "neural_lam_tpu/ops/pallas_fused.py:335",
+                nbw: "neural_lam_tpu/ops/pallas_fused.py:509"}
     return [bf16_entry(name, source[name.split(" bf16")[0]],
                        replaces[name.split(" bf16")[0]], a, None)
             for name, a in accs.items()]
@@ -6260,8 +6284,8 @@ def main() -> int:
 
     parent = None
     if parent_build is not None:
-        parent = parent_kernels(torch, parent_build)
-        log(f"parent kernels (K3, K4, K7, K8, node backward) built from {sys.argv[2]}")
+        parent = parent_kernels(torch, parent_build, Path(sys.argv[2]).resolve())
+        log(f"parent kernels (K3, K4, K7, K8) built from {sys.argv[2]}")
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)
@@ -6276,7 +6300,7 @@ def main() -> int:
     level_errs = phase_level_sets(torch, hi_lam)
     for key, err in phase_v2_level_sets(torch, hi_lam).items():
         level_errs[key] = max(level_errs.get(key, 0.0), err)
-    # NEURAL_LAM_TPU_FUSED_AGGR: K3 with the node-MLP epilogue and the node
+    # NEURAL_LAM_TPU_FUSED_AGGR: the node update after K3 and the node
     # backward at the six MEPS sites (every precision) and the level sets
     aggr_report = phase_fused_aggr_kernels(torch, model, hi_lam, parent)
     del hi_lam

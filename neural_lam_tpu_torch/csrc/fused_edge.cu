@@ -1,6 +1,6 @@
-// K3 without the node-MLP epilogue: the fused edge phase's forward
-// (csrc/fused_edge_fwd.cuh holds the kernel and describes its design), in
-// float32 and the bf16-operand instantiations, with a float32 or a bf16 pre.
+// K3: the fused edge phase's forward (csrc/fused_edge_fwd.cuh holds the
+// kernel and describes its design), in float32 and the bf16-operand
+// instantiations, with a float32 or a bf16 pre.
 // Replaces neural_lam_tpu/ops/pallas_fused.py::_fused_fwd_impl.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
@@ -14,7 +14,7 @@
 // and local memory per thread (bytes).
 extern "C" int nl_fused_edge_fwd_occupancy(int bf16_ops, int io_bf16, int pre_bf16,
                                            int edge_mode, int* out) {
-  return static_cast<int>(occupancy_mode<false>(bf16_ops, io_bf16, pre_bf16, edge_mode, out));
+  return static_cast<int>(occupancy_mode(bf16_ops, io_bf16, pre_bf16, edge_mode, out));
 }
 
 // Shapes (all f32 contiguous and 16-byte aligned on the device unless
@@ -46,7 +46,9 @@ extern "C" int nl_fused_edge_fwd(
 
 // The bf16-operand instantiations: the arguments of nl_fused_edge_fwd (pre_bf16
 // first), the streams edge, send and rec in bf16 (io_bf16) or float32, and aggr and
-// new_edge written in bf16 (out_bf16) or float32. The weights stay float32
+// new_edge written in bf16 (out_bf16 1) or float32 (0); out_bf16 3 writes
+// new_edge in bf16 and aggr in float32 (the node-MLP route's aggregate, which
+// the node update, fused_node.cu, reads). The weights stay float32
 // arrays; the kernel rounds the matrices to bf16 as it stages them.
 extern "C" int nl_fused_edge_fwd_bf16ops(
     int pre_bf16, int io_bf16, int out_bf16, int edge_mode, int num_rec, int batch, int feat,

@@ -1,8 +1,6 @@
 // K3: fused edge-phase forward of one InteractionNet / PropagationNet step:
-// the kernel and its launch sequence, shared by the two libraries that
-// instantiate it: fused_edge.cu without the node-MLP epilogue and
-// fused_edge_node.cu with it (two libraries, so that nvcc builds the 36
-// instantiations at once).
+// the kernel and its launch sequence, which fused_edge.cu instantiates
+// (18 instantiations).
 //
 // Replaces neural_lam_tpu/ops/pallas_fused.py::_fused_fwd_impl (the
 // _fused_fwd_kernel + _embed_forward pallas_call), which the JAX package
@@ -76,10 +74,10 @@
 // product's two operands rounded to bf16, float32 accumulation), with SiLU,
 // LayerNorm, the residuals and the receiver sums in float32. They run on
 // Hopper's bf16 tensor cores (tc_bf16.cuh): the row products as wgmma
-// m64n64k16 on packed bf16 fragments, the per-edge, embedder, receiver and
-// node products as mma.sync m16n8k16; every weight is one bf16 copy in
-// shared memory (8 KB where the split float32 one takes 32), W1r and the
-// node MLP's weights too, and sender, batched edge and receiver rows load
+// m64n64k16 on packed bf16 fragments, the per-edge, embedder and receiver
+// products as mma.sync m16n8k16; every weight is one bf16 copy in
+// shared memory (8 KB where the split float32 one takes 32), W1r too, and
+// sender, batched edge and receiver rows load
 // straight into k-slot order with 16-byte loads. That leaves room for four
 // groups a block (16 warps per SM, up to 128 registers a thread; three and
 // five ran 8 % and 17 % slower per AR step on an H100). Their streams edge,
@@ -101,28 +99,11 @@
 // precision. Under NEURAL_LAM_TPU_CACHE_PRE=off no pre is written (a null
 // pointer) and K4 recomputes it.
 //
-// The node-MLP epilogue (NEURAL_LAM_TPU_FUSED_AGGR=on; the JAX kernel's
-// node_epilogue, pallas_fused.py:335-391, returned at :1042-1049): with a
-// node_out pointer the group runs the receiver's node update on a chunk's
-// (receiver, b) rows at the chunk's end, before the sums leave the SM,
-//
-//   node_out[r, b] = rec + LN(SiLU(rec . War + aggr . Wag + ba1) . Wa2 + ba2)
-//
-// (LN optional: node_layer_norm; wa1 = [War | Wag] is the node MLP's (D, 2D)
-// first layer in nn.Linear's layout, wa2 its (D, D) second), and writes
-// aggr, in float32, only where the backward will start from it (a null
-// pointer otherwise). The products read their weights from device memory
-// through L1 (mma.sync, tc::gemm<true>), as the receiver projection does:
-// shared memory holds K3's own weights and three groups' tiles. 3xTF32, or
-// with BF bf16 operands from bf16 copies in shared memory, as the edge
-// MLP's; the aggregate enters as the
-// float32 sum, SiLU, the LayerNorm and the residual are float32, and
-// node_out is written in float32 or, with out_bf16, rounded once. The
-// epilogue is a template flag (NODE): the instantiations without it compile
-// to the code they were, and a CUDA graph's kernel nodes tell the two apart
-// by name; it doubles K3's instantiations (36). Bound: the extra products
-// (three 64x64 a row) and bytes (rec read again, node_out written) are
-// about a seventh of K3's own.
+// The node-MLP route (NEURAL_LAM_TPU_FUSED_AGGR=on; the JAX kernel's
+// node_epilogue, pallas_fused.py:335-391): K3 writes the aggregate in
+// float32 (aggr_f32, in every precision, beside bf16 updated edges under
+// out_bf16) and the node update runs as a row kernel of its own right after
+// it (fused_node.cu), which describes its design.
 //
 
 #pragma once
@@ -188,20 +169,12 @@ struct Params {
   const float* eb2;
   const float* eg;
   const float* ebt;
-  void* aggr;      // float, or bf16 with out_bf16; with node_out float, or null
+  void* aggr;      // float, or bf16 with out_bf16 unless aggr_f32
   void* new_edge;  // float, or bf16 with out_bf16
   void* pre;       // float, or bf16 with PRE_BF16; null: not saved
-  // the node-MLP epilogue (the NODE instantiations)
-  const float* wa1;  // (D, 2D) [War | Wag]
-  const float* ba1;
-  const float* wa2;  // (D, D)
-  const float* ba2;
-  const float* gn;
-  const float* bn;
-  void* node_out;  // (num_rec, B, D): float, or bf16 with out_bf16
   int* counter;  // zero on entry: the next chunk to take
   int out_bf16;
-  int node_layer_norm;
+  int aggr_f32;
   int num_rec;
   int num_chunks;
   int batch;
@@ -216,17 +189,16 @@ struct Params {
 // Shared-memory plan, in floats: the block's weights (W1s and W2, and W1e
 // of a batched edge input, split for wgmma; W1e of a per-edge input and the
 // embedder's We2 for mma.sync; with bf, each one bf16 copy in the core
-// layout, and W1r and, with node, the node MLP's three 64 x 64 weights
-// too) and vectors (the node MLP's too), then per group a tile of 64
+// layout, and W1r too) and vectors, then per group a tile of 64
 // rows (messages; edge values before them), the per-edge products of a
 // tile (32 rows), the chunk's receiver projections (32 rows) and its
 // integers.
 struct Smem {
-  int w1s, w2, w1e, ew2, ew1, vec, w1r, wn, groups, group_floats, total;
+  int w1s, w2, w1e, ew2, ew1, vec, w1r, groups, group_floats, total;
   int stage, proj, rp, ints;  // offsets inside a group
 };
 
-__host__ __device__ constexpr Smem smem_plan(int mode, bool bf = false, bool node = false) {
+__host__ __device__ constexpr Smem smem_plan(int mode, bool bf = false) {
   Smem s{};
   int o = 0;
   s.w1s = o; o += bf ? kBfMat : kWgMat;
@@ -234,9 +206,8 @@ __host__ __device__ constexpr Smem smem_plan(int mode, bool bf = false, bool nod
   s.w1e = o; o += bf ? kBfMat : (mode == EDGE_BATCHED) ? kWgMat : kMat;
   s.ew2 = o; o += (mode == EDGE_RAW) ? (bf ? kBfMat : kMat) : 0;
   s.ew1 = o; o += (mode == EDGE_RAW) ? kMaxFeat * D : 0;
-  s.vec = o; o += 12 * D;  // b1 b2 gamma beta | eb1 eb2 eg ebt | ba1 ba2 gn bn
-  s.w1r = o; o += bf ? kBfMat : 0;               // W1r, k-slot order
-  s.wn = o; o += (bf && node) ? 3 * kBfMat : 0;  // War | Wag | Wa2
+  s.vec = o; o += 8 * D;  // b1 b2 gamma beta | eb1 eb2 eg ebt
+  s.w1r = o; o += bf ? kBfMat : 0;  // W1r, k-slot order
   s.groups = o;
   int g = 0;
   s.stage = g; g += kTileRows * kWld;
@@ -248,9 +219,9 @@ __host__ __device__ constexpr Smem smem_plan(int mode, bool bf = false, bool nod
   return s;
 }
 
-template <int MODE, bool BF = false, bool NODE = false>
+template <int MODE, bool BF = false>
 constexpr int smem_bytes() {
-  return smem_plan(MODE, BF, NODE).total * static_cast<int>(sizeof(float));
+  return smem_plan(MODE, BF).total * static_cast<int>(sizeof(float));
 }
 
 // edge_val of the tile's edges el0 + g, el0 + g + 8 (zero at el >= ne) as
@@ -277,78 +248,16 @@ __device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offs
     tc::copy_out_rows(static_cast<float*>(dst) + offset, stage, r0, valid);
 }
 
-// The node-MLP epilogue of one chunk: its nq (receiver, b) rows from row0
-// on, whose sums this thread holds in agg as the tile loop leaves them
-// (row (tg >> 6) + 2 j, feature tg & 63). The sums go through the group's
-// tile (and out to aggr when it is kept); warps 0 and 1 then take 16 rows
-// each: rec . War + aggr . Wag + ba1, SiLU, . Wa2 + ba2, the LayerNorm, + rec.
-// sNV is ba1 ba2 gn bn in shared memory; with BF, sNW the three weights'
-// bf16 copies (War | Wag | Wa2 in the core layout), else they are read
-// from device memory.
-template <bool BF, typename TI>
-__device__ __forceinline__ void node_epilogue(const Params<TI>& p, const float (&agg)[kAgg],
-                                              float* sStage, const float* sNV,
-                                              const tcb::bf16* sNW, long long row0, int nq,
-                                              int tg, int bar) {
-#pragma unroll
-  for (int j = 0; j < kAgg; ++j) {
-    const int q = (tg >> 6) + 2 * j;
-    sStage[q * kWld + (tg & (D - 1))] = agg[j];
-    if (p.aggr != nullptr && q < nq)
-      static_cast<float*>(p.aggr)[row0 * D + tg + j * kGroupThreads] = agg[j];
-  }
-  tc::group_sync(bar, kGroupThreads);  // the chunk's sums are staged
-  const int warp = tg >> 5;
-  if (warp >= 2) return;
-  const int r_base = 16 * warp;
-  float x[8][4], a[8][4], h[8][4];
-  tc::load_rows<true>(x, p.rec + row0 * D, D, r_base, nq);
-  tc::load_rows<false>(a, sStage, kWld, r_base, nq);
-  tc::zero(h);
-  if constexpr (BF) {
-    uint32_t b[4][4];
-    tcb::pack_frag(b, x);
-    tcb::gemm(h, b, sNW);
-    tcb::pack_frag(b, a);
-    tcb::gemm(h, b, sNW + 2 * kBfMat);
-  } else {
-    tc::gemm<true>(h, x, p.wa1, 2 * D);
-    tc::gemm<true>(h, a, p.wa1 + D, 2 * D);
-  }
-  tc::add_cols(h, sNV);
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) h[n][j] = silu(h[n][j]);
-  tc::zero(a);
-  if constexpr (BF) {
-    uint32_t b[4][4];
-    tcb::pack_frag(b, h);
-    tcb::gemm(a, b, sNW + 4 * kBfMat);
-  } else {
-    tc::gemm<true>(a, h, p.wa2, D);
-  }
-  tc::add_cols(a, sNV + D);
-  if (p.node_layer_norm) tc::layer_norm(a, sNV + 2 * D, sNV + 3 * D, kLnEps);
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) x[n][j] += a[n][j];
-  // each lane overwrites only the entries of the warp's rows it read above
-  tc::store_rows(sStage, kWld, x, r_base, kTileRows);
-  copy_out(p.node_out, p.out_bf16, row0 * D, sStage, r_base, nq);
-}
-
 // BF: bf16 operands (bf16 fragments, tc_bf16.cuh); PRE_BF16: pre stored in
-// bf16; NODE: the node-MLP epilogue; TI: the stream type (float or bf16)
-template <int MODE, bool BF, bool PRE_BF16, bool NODE, typename TI>
+// bf16; TI: the stream type (float or bf16)
+template <int MODE, bool BF, bool PRE_BF16, typename TI>
 __global__ void __launch_bounds__(block_threads(BF), 1)
 fused_edge_fwd(const Params<TI> p) {
   using TP = std::conditional_t<PRE_BF16, __nv_bfloat16, float>;
   constexpr int kThreads = block_threads(BF);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  constexpr Smem L = smem_plan(MODE, BF, NODE);
+  constexpr Smem L = smem_plan(MODE, BF);
   // BF: the weights' bf16 copies
   const tcb::bf16* bW1r = reinterpret_cast<const tcb::bf16*>(sm + L.w1r);
   const tcb::bf16* bW1e = reinterpret_cast<const tcb::bf16*>(sm + L.w1e);
@@ -375,11 +284,6 @@ fused_edge_fwd(const Params<TI> p) {
       tcb::load_weight<false>(w + 2 * L.w1e, p.w1, 3 * D, 0, kThreads);
     if (MODE == EDGE_RAW) tcb::load_weight<false>(w + 2 * L.ew2, p.ew2, D, 0, kThreads);
     tcb::load_weight<true>(w + 2 * L.w1r, p.w1, 3 * D, 2 * D, kThreads);
-    if (NODE) {
-      tcb::load_weight<false>(w + 2 * L.wn, p.wa1, 2 * D, 0, kThreads);
-      tcb::load_weight<false>(w + 2 * (L.wn + kBfMat), p.wa1, 2 * D, D, kThreads);
-      tcb::load_weight<false>(w + 2 * (L.wn + 2 * kBfMat), p.wa2, D, 0, kThreads);
-    }
     tcb::fence_async();
   } else {
     tc::load_weight_wg(sm + L.w1s, p.w1, 3 * D, D, kBlockThreads);
@@ -409,12 +313,6 @@ fused_edge_fwd(const Params<TI> p) {
       v[5 * D + c] = p.eb2[c];
       v[6 * D + c] = p.eg[c];
       v[7 * D + c] = p.ebt[c];
-    }
-    if (NODE) {
-      v[8 * D + c] = p.ba1[c];
-      v[9 * D + c] = p.ba2[c];
-      v[10 * D + c] = p.node_layer_norm ? p.gn[c] : 1.0f;
-      v[11 * D + c] = p.node_layer_norm ? p.bn[c] : 0.0f;
     }
   }
   __syncthreads();
@@ -670,18 +568,12 @@ fused_edge_fwd(const Params<TI> p) {
       }
       tc::group_sync(bar, kGroupThreads);  // the tile is done with gs
     }
-    if (NODE) {
-      node_epilogue<BF>(p, agg, sStage, sm + L.vec + 8 * D,
-                        reinterpret_cast<const tcb::bf16*>(sm + L.wn),
-                        static_cast<long long>(r0) * B, nr * B, tg, bar);
-      continue;
-    }
 #pragma unroll
     for (int j = 0; j < kAgg; ++j) {
       const int idx = tg + j * kGroupThreads;
       if (idx >= nr * BD) continue;
       const long long o = static_cast<long long>(r0) * BD + idx;
-      if (p.out_bf16)
+      if (p.out_bf16 && !p.aggr_f32)
         tc::store_val(static_cast<__nv_bfloat16*>(p.aggr) + o, agg[j]);
       else
         tc::store_val(static_cast<float*>(p.aggr) + o, agg[j]);
@@ -689,48 +581,47 @@ fused_edge_fwd(const Params<TI> p) {
   }
 }
 
-template <int MODE, bool BF, bool PRE_BF16, bool NODE, typename TI>
+template <int MODE, bool BF, bool PRE_BF16, typename TI>
 cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = cudaFuncSetAttribute(fused_edge_fwd<MODE, BF, PRE_BF16, NODE, TI>,
+    err = cudaFuncSetAttribute(fused_edge_fwd<MODE, BF, PRE_BF16, TI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<MODE, BF, NODE>());
+                               smem_bytes<MODE, BF>());
     if (err != cudaSuccess) return err;
     allowed |= 1u << (dev & 31);
   }
   constexpr int groups = groups_of(BF);
   const int groups_needed = (p.num_chunks + groups - 1) / groups;
   const int blocks = min(groups_needed, tc::sm_count());
-  fused_edge_fwd<MODE, BF, PRE_BF16, NODE, TI>
-      <<<blocks, block_threads(BF), smem_bytes<MODE, BF, NODE>(), stream>>>(p);
+  fused_edge_fwd<MODE, BF, PRE_BF16, TI>
+      <<<blocks, block_threads(BF), smem_bytes<MODE, BF>(), stream>>>(p);
   return cudaGetLastError();
 }
 
 // the launch resources of one instantiation: out = blocks per SM, threads
 // per block, registers per thread, shared memory per block, local memory
 // per thread (bytes)
-template <int MODE, bool BF, bool PRE_BF16, bool NODE, typename TI>
+template <int MODE, bool BF, bool PRE_BF16, typename TI>
 cudaError_t occupancy_of(int* out) {
   out[1] = block_threads(BF);
-  out[3] = smem_bytes<MODE, BF, NODE>();
-  return tcb::occupancy(fused_edge_fwd<MODE, BF, PRE_BF16, NODE, TI>, out[1], out[3], out,
+  out[3] = smem_bytes<MODE, BF>();
+  return tcb::occupancy(fused_edge_fwd<MODE, BF, PRE_BF16, TI>, out[1], out[3], out,
                         out + 2, out + 4);
 }
 
 // occupancy_of for edge_mode, bf16_ops (then io_bf16) and pre_bf16
-template <bool NODE>
-cudaError_t occupancy_mode(int bf16_ops, int io_bf16, int pre_bf16, int edge_mode, int* out) {
+inline cudaError_t occupancy_mode(int bf16_ops, int io_bf16, int pre_bf16, int edge_mode, int* out) {
 #define NL_OCC(M)                                                                           \
-  (!bf16_ops ? (pre_bf16 ? occupancy_of<M, false, true, NODE, float>(out)                  \
-                         : occupancy_of<M, false, false, NODE, float>(out))                \
-   : io_bf16 ? (pre_bf16 ? occupancy_of<M, true, true, NODE, __nv_bfloat16>(out)           \
-                         : occupancy_of<M, true, false, NODE, __nv_bfloat16>(out))         \
-             : (pre_bf16 ? occupancy_of<M, true, true, NODE, float>(out)                   \
-                         : occupancy_of<M, true, false, NODE, float>(out)))
+  (!bf16_ops ? (pre_bf16 ? occupancy_of<M, false, true, float>(out)                  \
+                         : occupancy_of<M, false, false, float>(out))                \
+   : io_bf16 ? (pre_bf16 ? occupancy_of<M, true, true, __nv_bfloat16>(out)           \
+                         : occupancy_of<M, true, false, __nv_bfloat16>(out))         \
+             : (pre_bf16 ? occupancy_of<M, true, true, float>(out)                   \
+                         : occupancy_of<M, true, false, float>(out)))
   switch (edge_mode) {
     case EDGE_RAW: return NL_OCC(EDGE_RAW);
     case EDGE_SHARED: return NL_OCC(EDGE_SHARED);
@@ -741,29 +632,23 @@ cudaError_t occupancy_mode(int bf16_ops, int io_bf16, int pre_bf16, int edge_mod
 }
 
 // the instantiation for edge_mode and the type of pre
-template <int MODE, bool BF, bool NODE, typename TI>
+template <int MODE, bool BF, typename TI>
 cudaError_t launch_pre(const Params<TI>& p, int pre_bf16, cudaStream_t s) {
-  return pre_bf16 ? launch<MODE, BF, true, NODE, TI>(p, s)
-                  : launch<MODE, BF, false, NODE, TI>(p, s);
+  return pre_bf16 ? launch<MODE, BF, true, TI>(p, s) : launch<MODE, BF, false, TI>(p, s);
 }
 
-// Fill the parameters and launch the instantiation for edge_mode; NODE (the
-// epilogue) takes the node MLP's weights and a node_out pointer
-template <bool BF, typename TI, bool NODE = false>
+// Fill the parameters and launch the instantiation for edge_mode; out_bf16
+// bit 0 writes new_edge (and aggr) in bf16, bit 1 aggr in float32 all the
+// same (the node-MLP route's)
+template <bool BF, typename TI>
 cudaError_t run(int pre_bf16, int edge_mode, int num_rec, int batch, int feat, int update_edges,
                 int propagation, int layer_norm, int out_bf16, const void* edge,
                 const void* send, const void* rec, const void* rowptr, const void* w1,
                 const void* b1, const void* w2, const void* b2, const void* gamma,
                 const void* beta, const void* ew1, const void* eb1, const void* ew2,
                 const void* eb2, const void* eg, const void* ebt, void* aggr, void* new_edge,
-                void* pre, void* counter, void* stream, int node_layer_norm = 0,
-                const void* wa1 = nullptr, const void* ba1 = nullptr,
-                const void* wa2 = nullptr, const void* ba2 = nullptr,
-                const void* gn = nullptr, const void* bn = nullptr, void* node_out = nullptr) {
+                void* pre, void* counter, void* stream) {
   if (num_rec <= 0) return cudaSuccess;
-  if (NODE && (node_out == nullptr || wa1 == nullptr || ba1 == nullptr || wa2 == nullptr ||
-               ba2 == nullptr || (node_layer_norm && (gn == nullptr || bn == nullptr))))
-    return cudaErrorInvalidValue;
   if (batch < 1 || batch > kRecRows || feat > kMaxFeat) return cudaErrorInvalidValue;
   Params<TI> p;
   p.edge = static_cast<const TI*>(edge);
@@ -785,16 +670,9 @@ cudaError_t run(int pre_bf16, int edge_mode, int num_rec, int batch, int feat, i
   p.aggr = aggr;
   p.new_edge = new_edge;
   p.pre = pre;
-  p.wa1 = static_cast<const float*>(wa1);
-  p.ba1 = static_cast<const float*>(ba1);
-  p.wa2 = static_cast<const float*>(wa2);
-  p.ba2 = static_cast<const float*>(ba2);
-  p.gn = static_cast<const float*>(gn);
-  p.bn = static_cast<const float*>(bn);
-  p.node_out = node_out;
-  p.node_layer_norm = node_layer_norm;
   p.counter = static_cast<int*>(counter);
-  p.out_bf16 = out_bf16;
+  p.out_bf16 = out_bf16 & 1;
+  p.aggr_f32 = (out_bf16 >> 1) & 1;
   p.num_rec = num_rec;
   p.batch = batch;
   p.feat = feat;
@@ -806,9 +684,9 @@ cudaError_t run(int pre_bf16, int edge_mode, int num_rec, int batch, int feat, i
   p.layer_norm = layer_norm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (edge_mode) {
-    case EDGE_RAW: return launch_pre<EDGE_RAW, BF, NODE, TI>(p, pre_bf16, s);
-    case EDGE_SHARED: return launch_pre<EDGE_SHARED, BF, NODE, TI>(p, pre_bf16, s);
-    case EDGE_BATCHED: return launch_pre<EDGE_BATCHED, BF, NODE, TI>(p, pre_bf16, s);
+    case EDGE_RAW: return launch_pre<EDGE_RAW, BF, TI>(p, pre_bf16, s);
+    case EDGE_SHARED: return launch_pre<EDGE_SHARED, BF, TI>(p, pre_bf16, s);
+    case EDGE_BATCHED: return launch_pre<EDGE_BATCHED, BF, TI>(p, pre_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }

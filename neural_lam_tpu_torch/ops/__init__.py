@@ -5,8 +5,8 @@ def launch_counters() -> dict:
     """Each CUDA kernel's launch count by the kernel's name: K1-K8, each
     a wrapper, and the bf16 variants of K1-K4, K7 and K8, the
     ``NEURAL_LAM_TPU_CACHE_PRE`` variants of K3 and K4, K4's receiver
-    slice, and K3 with the node-MLP epilogue and the node MLP's backward
-    (``NEURAL_LAM_TPU_FUSED_AGGR``), in each precision, whose counts the
+    slice, and the node-MLP route's node update after K3 and node backward
+    before K4 (``NEURAL_LAM_TPU_FUSED_AGGR``), in each precision, whose counts the
     same wrappers keep in objects of their own. A wrapper adds one to a
     ``launches`` where it launches that kernel, and nowhere else. Under
     CUDA graph capture that launch goes into the graph, and is counted
@@ -20,9 +20,6 @@ def launch_counters() -> dict:
         FUSED_EDGE_BWD_BF16_PRE,
         FUSED_EDGE_BWD_RECEIVER,
         FUSED_EDGE_BWD_RECOMPUTE,
-        FUSED_EDGE_NODE,
-        FUSED_EDGE_NODE_BF16,
-        FUSED_EDGE_NODE_BF16_OPS,
         FUSED_EDGE_V2_BF16,
         FUSED_EDGE_V2_BF16_OPS,
         FUSED_EDGE_V2_BWD_BF16,
@@ -30,6 +27,9 @@ def launch_counters() -> dict:
         FUSED_NODE_BWD,
         FUSED_NODE_BWD_BF16,
         FUSED_NODE_BWD_BF16_OPS,
+        FUSED_NODE_FWD,
+        FUSED_NODE_FWD_BF16,
+        FUSED_NODE_FWD_BF16_OPS,
         fused_edge_bwd,
         fused_edge_phase,
         fused_edge_phase_v2,
@@ -58,8 +58,8 @@ def launch_counters() -> dict:
                   FUSED_EDGE_BF16_OPS, FUSED_EDGE_BWD_BF16, FUSED_EDGE_BWD_BF16_OPS,
                   FUSED_EDGE_V2_BF16, FUSED_EDGE_V2_BF16_OPS, FUSED_EDGE_V2_BWD_BF16,
                   FUSED_EDGE_V2_BWD_BF16_OPS, FUSED_EDGE_BF16_PRE, FUSED_EDGE_BWD_BF16_PRE,
-                  FUSED_EDGE_BWD_RECOMPUTE, FUSED_EDGE_BWD_RECEIVER, FUSED_EDGE_NODE,
-                  FUSED_EDGE_NODE_BF16, FUSED_EDGE_NODE_BF16_OPS, FUSED_NODE_BWD,
+                  FUSED_EDGE_BWD_RECOMPUTE, FUSED_EDGE_BWD_RECEIVER, FUSED_NODE_FWD,
+                  FUSED_NODE_FWD_BF16, FUSED_NODE_FWD_BF16_OPS, FUSED_NODE_BWD,
                   FUSED_NODE_BWD_BF16, FUSED_NODE_BWD_BF16_OPS):
         counters[count.name] = count
     return counters

@@ -84,19 +84,23 @@ receivers (see ``csrc/fused_edge.cu`` for the formula, and
   (``csrc/fused_edge_bwd_recompute.cu``) forms ``pre`` again in its tile
   loop. ``off`` also turns the v2 route off; v2 saves a float32 ``pre``
   whatever the variable says, as the JAX package does.
-- The node-MLP epilogue: under ``NEURAL_LAM_TPU_FUSED_AGGR=on``
+- The node-MLP route: under ``NEURAL_LAM_TPU_FUSED_AGGR=on``
   (:func:`fused_aggr_enabled`, off by default) an interaction-wired phase
   with sum aggregation and a two-layer node MLP (:func:`aggr_fusable`) hands
-  that MLP to K3 (``fused_edge_phase(..., aggr_mlp=...)``), which returns the
-  receiver's node update ``rec + LN(MLP([rec, aggr]))`` instead of the
-  aggregate, as the JAX kernel's ``node_epilogue`` does (pallas_fused.py
-  :335-391, :1042-1049; K3's ``NODE`` instantiations,
-  ``csrc/fused_edge_node.cu``). Its backward runs the node MLP's backward
-  (``csrc/fused_node_bwd.cu``, the JAX kernel's :509-599) before K4, which
-  then reads the aggregate's gradient as it reads ``d_aggr`` otherwise. The
-  aggregate is kept in float32 for it only when the call will be
-  differentiated; under a reduced precision the node MLP's products take
-  bf16 operands on the float32 aggregate (:func:`_plain_node`).
+  that MLP to the phase (``fused_edge_phase(..., aggr_mlp=...)``), which
+  returns the receiver's node update ``rec + LN(MLP([rec, aggr]))`` instead
+  of the aggregate, as the JAX kernel's ``node_epilogue`` does
+  (pallas_fused.py :335-391, :1042-1049). K3 writes the aggregate in
+  float32 and the node update runs right after it as a row kernel of its
+  own (:func:`fused_node_fwd`, ``csrc/fused_node.cu``); the backward runs
+  the node MLP's backward (:func:`fused_node_bwd`,
+  ``csrc/fused_node_bwd.cu``, the JAX kernel's :509-599) before K4, which
+  then reads the aggregate's gradient as it reads ``d_aggr`` otherwise. Both
+  are persistent row kernels with the node MLP's weights resident in shared
+  memory (``csrc/fused_node.cuh``). The aggregate is kept for the backward
+  only when the call will be differentiated; under a reduced precision the
+  node MLP's products take bf16 operands on the float32 aggregate
+  (:func:`_plain_node`).
 - Supported on CUDA: hidden width 64, batch 1 to 32, raw edge features
   up to 8 wide, ``propagation`` (K3, K4) and ``layer_norm=False`` in the
   kernels themselves. Other shapes raise on CUDA here; the routing in
@@ -130,7 +134,7 @@ from .segment import (
 from .segment_kernels import LaunchCount, refuse_autograd, sender_scatter
 
 KERNEL = "fused_edge"
-NODE_KERNEL = "fused_edge_node"
+NODE_KERNEL = "fused_node"
 BWD_KERNEL = "fused_edge_bwd"
 BWD_RECOMPUTE_KERNEL = "fused_edge_bwd_recompute"
 NODE_BWD_KERNEL = "fused_node_bwd"
@@ -158,9 +162,12 @@ _TILE_ROWS, _CHUNK_ROWS_K4, _CHUNK_ROWS_K8 = 64, 32, 16
 # receiver products (csrc/fused_edge_bwd_main.cuh: kPreStride)
 _WS_PRE = (_TILE_ROWS + _CHUNK_ROWS_K4) * KERNEL_HIDDEN
 # floats per block of the node backward's workspace, and its blocks per SM
-# (csrc/fused_node_bwd.cu: kStride, kBlocksPerSm)
+# (csrc/fused_node_bwd.cu: kStride; one block an SM); the node update's
+# warpgroups a block, without and with bf16 operands (csrc/fused_node.cu:
+# kGroups, kGroupsBf), each over tiles of 64 rows
 _WS_NODE = 3 * _MAT + 4 * KERNEL_HIDDEN
-_NODE_BWD_BLOCKS_PER_SM = 2
+_NODE_BWD_BLOCKS_PER_SM = 1
+_NODE_FWD_GROUPS = {False: 3, True: 4}
 
 # The launch counts of the bf16-operand instantiations of K3, K4, K7 and
 # K8: bf16 streams (mixed precision, ``high``) and float32 streams
@@ -181,12 +188,12 @@ FUSED_EDGE_BWD_RECOMPUTE = LaunchCount("K4 fused_edge_phase backward recompute")
 # and of K4's receiver slice (csrc/fused_edge_bwd_common.cuh), which every K4
 # entry launches once, in every precision and pre mode
 FUSED_EDGE_BWD_RECEIVER = LaunchCount("K4 receiver slice")
-# and of the node-MLP epilogue (NEURAL_LAM_TPU_FUSED_AGGR=on): K3 with it
-# and the node MLP's backward, in float32, with bf16 streams and with bf16
-# operands on float32 streams (whatever pre K3 saves)
-FUSED_EDGE_NODE = LaunchCount("K3 fused_edge_phase node epilogue")
-FUSED_EDGE_NODE_BF16 = LaunchCount("K3 fused_edge_phase node epilogue bf16")
-FUSED_EDGE_NODE_BF16_OPS = LaunchCount("K3 fused_edge_phase node epilogue bf16 operands")
+# and of the node-MLP route (NEURAL_LAM_TPU_FUSED_AGGR=on): the node update
+# after K3 and the node MLP's backward before K4, in float32, with bf16
+# streams and with bf16 operands on float32 streams
+FUSED_NODE_FWD = LaunchCount("K3 node update")
+FUSED_NODE_FWD_BF16 = LaunchCount("K3 node update bf16")
+FUSED_NODE_FWD_BF16_OPS = LaunchCount("K3 node update bf16 operands")
 FUSED_NODE_BWD = LaunchCount("K4 node backward")
 FUSED_NODE_BWD_BF16 = LaunchCount("K4 node backward bf16")
 FUSED_NODE_BWD_BF16_OPS = LaunchCount("K4 node backward bf16 operands")
@@ -681,12 +688,10 @@ def _fwd_bf16_lib():
 
 
 @functools.cache
-def _fwd_node_lib():
-    """K3 with the node-MLP epilogue, every precision: ``(bf16_ops,
-    pre_bf16, io_bf16, out_bf16, node_layer_norm)``, the ints of
-    ``nl_fused_edge_fwd``, its pointers up to ``pre``, the node weights and
-    ``node_out``, then ``counter`` and the stream."""
-    return _c_fn(NODE_KERNEL, "nl_fused_edge_fwd_node", 12, 28)
+def _node_fwd_lib():
+    """The node update, every precision: ``(bf16_ops, io_bf16, out_bf16,
+    rows, layer_norm, blocks)`` and its pointers."""
+    return _c_fn(NODE_KERNEL, "nl_fused_node_fwd", 6, 10)
 
 
 @functools.cache
@@ -778,10 +783,10 @@ def kernel_occupancy(kernel: str) -> dict[str, dict[str, int]]:
     device: blocks and warps per SM, threads per block, registers per
     thread and dynamic shared memory per block in bytes."""
     if kernel in ("K3", "K4"):
-        # the float32 kernel without the epilogue, from a float32 pre; K4's
+        # the float32 kernel, from a float32 pre; K4's
         # saved-pre kernel serves the raw mode with the shared one
         rows = {row["mode"]: row for row in instantiation_occupancy(bf16_ops=False)
-                if row["kernel"] == kernel and not row["node"] and row["pre"] == "float32"}
+                if row["kernel"] == kernel and row["pre"] == "float32"}
         rows.setdefault(_EDGE_RAW, rows[_EDGE_SHARED])
         return {name: {k: rows[mode][k] for k in ("blocks", "warps", "threads", "regs", "smem")}
                 for name, mode in (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED),
@@ -809,9 +814,6 @@ def kernel_occupancy(kernel: str) -> dict[str, dict[str, int]]:
 _INSTANTIATIONS = (
     ("K3", KERNEL, "nl_fused_edge_fwd_occupancy", (0,), ""),
     ("K3", KERNEL, "nl_fused_edge_fwd_occupancy", (1,), " bf16 pre"),
-    ("K3", NODE_KERNEL, "nl_fused_edge_fwd_node_occupancy", (0,), " node epilogue"),
-    ("K3", NODE_KERNEL, "nl_fused_edge_fwd_node_occupancy", (1,),
-     " node epilogue, bf16 pre"),
     ("K4", BWD_KERNEL, "nl_fused_edge_bwd_occupancy", (0,), " main"),
     ("K4", BWD_KERNEL, "nl_fused_edge_bwd_occupancy", (1,), " main, bf16 pre"),
     ("K4", BWD_RECOMPUTE_KERNEL, "nl_fused_edge_bwd_recompute_occupancy", (),
@@ -826,7 +828,7 @@ def instantiation_occupancy(bf16_ops: bool = True) -> list[dict]:
     ``blocks`` and ``warps`` per SM, ``threads``, ``regs`` per thread,
     ``smem`` per block, ``local`` bytes per thread: the spill stack; and
     what picks the instantiation: ``kernel``, its ``source``, edge
-    ``mode``, ``bf16_ops``, ``io_bf16``, ``node`` and ``pre``)."""
+    ``mode``, ``bf16_ops``, ``io_bf16`` and ``pre``)."""
     out = []
     precisions = (("bf16 streams", 1, 1), ("float32 streams", 1, 0)) if bf16_ops else (
         ("float32", 0, 0),)
@@ -848,8 +850,7 @@ def instantiation_occupancy(bf16_ops: bool = True) -> list[dict]:
                     name=f"{kernel}{label}, {prec}, {mode_name}", blocks=blocks,
                     warps=blocks * threads // 32, threads=threads, regs=regs, smem=smem,
                     local=local, kernel=kernel, source=source, mode=mode, bf16_ops=ops,
-                    io_bf16=io, node="node" in label,
-                    pre="recompute" if "recompute" in label else
+                    io_bf16=io, pre="recompute" if "recompute" in label else
                     "bf16" if "bf16 pre" in label else "float32",
                 ))
     return out
@@ -888,6 +889,37 @@ def tail_occupancy(bf16_ops: bool = False) -> list[dict]:
     return out
 
 
+# The node-MLP route's kernels and their occupancy entries: (name, source,
+# C entry)
+_NODE_KERNELS = (("K3 node update", NODE_KERNEL, "nl_fused_node_fwd_occupancy"),
+                 ("K4 node backward", NODE_BWD_KERNEL, "nl_fused_node_bwd_occupancy"))
+
+
+def node_occupancy() -> list[dict]:
+    """The launch resources of every instantiation of the node update and
+    the node backward (float32; bf16 operands on bf16 and on float32
+    streams), from the CUDA runtime on the current device: one dict per
+    instantiation (``name``, ``blocks`` and ``warps`` per SM, ``threads``,
+    ``regs`` per thread, ``smem`` per block, ``local`` bytes per thread:
+    the spill stack)."""
+    out = []
+    for name, source, entry in _NODE_KERNELS:
+        fn = getattr(kernel_build.load(source), entry)
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for prec, ops, io in (("float32", 0, 0), ("bf16 streams", 1, 1),
+                              ("float32 streams", 1, 0)):
+            vals = (ctypes.c_int * 5)()
+            err = fn(ops, io, ctypes.addressof(vals))
+            if err != 0:
+                raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+            blocks, threads, regs, smem, local = vals
+            out.append(dict(name=f"{name}, {prec}", blocks=blocks,
+                            warps=blocks * threads // 32, threads=threads, regs=regs,
+                            smem=smem, local=local, bf16_ops=ops, io_bf16=io))
+    return out
+
+
 @functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -912,6 +944,20 @@ def _edge_blocks(dev, n_edges: int) -> int:
     """The blocks of the edge pass over ``n_edges`` edges: 3 groups of
     warps a block over tiles of 64 edges, up to one block per SM."""
     return min(_device_sms(dev), _cdiv(_cdiv(n_edges, _TILE_ROWS), _EDGE_GROUPS))
+
+
+def _node_fwd_blocks(dev, rows: int, bf16_ops: bool) -> int:
+    """The blocks of the node update over ``rows`` rows: 3 warpgroups a
+    block (4 with bf16 operands) over tiles of 64 rows, up to one block per
+    SM, and never a block without a tile."""
+    return min(_device_sms(dev), _cdiv(_cdiv(rows, _TILE_ROWS), _NODE_FWD_GROUPS[bf16_ops]))
+
+
+def _node_bwd_blocks(dev, rows: int) -> int:
+    """The blocks of the node backward over ``rows`` rows, each writing one
+    part of the workspace: one block per SM, at most one a tile of 64
+    rows."""
+    return min(_NODE_BWD_BLOCKS_PER_SM * _device_sms(dev), _cdiv(rows, _TILE_ROWS))
 
 
 def _bwd_grid(dev, num_rec, n_edges, batch, batched, chunk_rows) -> tuple[int, int, int]:
@@ -1023,27 +1069,21 @@ def _check_inputs(edge_in, x_send, rec_rep, edge_set, weights, raw) -> tuple[int
 
 def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
                    update_edges, propagation, save_pre=False, bf16_ops=False,
-                   out_dtype=None, pre_dtype=torch.float32, node_weights=None,
-                   save_aggr=False):
+                   out_dtype=None, pre_dtype=torch.float32, aggr_dtype=None):
     """Launch K3 on CUDA tensors: ``(aggr, new_edge | None, pre | None)``.
     The launcher records no autograd graph; :class:`FusedEdgePhase` does.
-
-    With ``node_weights`` (the six tensors of :func:`_node_weights`,
-    float32) K3 runs the node-MLP epilogue and returns ``(node_out,
-    new_edge | None, pre | None, aggr | None)``: ``node_out`` in
-    ``out_dtype``, the aggregate in float32 and only with ``save_aggr``
-    (``FUSED_EDGE_NODE``, ``FUSED_EDGE_NODE_BF16`` or
-    ``FUSED_EDGE_NODE_BF16_OPS``).
 
     The streams ``edge_in``, ``x_send`` and ``rec_rep`` are all float32 or
     all bf16 and the weights float32. With ``bf16_ops`` the bf16-operand
     instantiation runs (bf16 streams: ``FUSED_EDGE_BF16``; float32:
     ``FUSED_EDGE_BF16_OPS``), and ``aggr`` and ``new_edge`` are written in
     ``out_dtype`` (float32 or bf16; the streams' dtype by default). Without
-    it the streams must be float32 and so are the outputs. ``pre`` (with
-    ``save_pre``) is written in ``pre_dtype``: float32, or bf16 by the
-    instantiation that rounds it (``FUSED_EDGE_BF16_PRE``, in either
-    precision)."""
+    it the streams must be float32 and so are the outputs. ``aggr_dtype``
+    float32 writes ``aggr`` in float32 whatever ``out_dtype`` is (the
+    node-MLP route's aggregate, which :func:`fused_node_fwd` reads).
+    ``pre`` (with ``save_pre``) is written in ``pre_dtype``: float32, or
+    bf16 by the instantiation that rounds it (``FUSED_EDGE_BF16_PRE``, in
+    either precision)."""
     refuse_autograd(
         "fused_edge_fwd", "ops.fused_kernels.fused_edge_phase",
         edge_in, x_send, rec_rep, *weights,
@@ -1057,37 +1097,15 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
         raise TypeError("fused_edge_fwd: the float32 kernel writes float32")
     if pre_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_edge_fwd: pre must be float32 or bf16, not {pre_dtype}")
+    aggr_dtype = out if aggr_dtype is None else aggr_dtype
+    if aggr_dtype not in (out, torch.float32):
+        raise TypeError(f"fused_edge_fwd: aggr in {out} or float32, not {aggr_dtype}")
     shape = tuple(x_send.shape)
-    node = node_weights is not None
-    aggr_dtype = torch.float32 if node else out
-    aggr = (torch.empty(tuple(rec_rep.shape), dtype=aggr_dtype, device=dev)
-            if save_aggr or not node else None)
+    aggr = torch.empty(tuple(rec_rep.shape), dtype=aggr_dtype, device=dev)
     new_edge = torch.empty(shape, dtype=out, device=dev) if update_edges else None
     pre = torch.empty(shape, dtype=pre_dtype, device=dev) if save_pre else None
     pre_bf16 = pre is not None and pre_dtype == torch.bfloat16
     io_bf16 = io == torch.bfloat16
-    if node:
-        _check_node_weights("fused_edge_fwd", node_weights, dev)
-        node_out = torch.empty(tuple(rec_rep.shape), dtype=out, device=dev)
-        if edge_set.num_rec == 0:
-            return node_out, new_edge, pre, aggr
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = _fwd_node_lib()(
-            int(bf16_ops), int(pre_bf16), int(io_bf16), int(out == torch.bfloat16),
-            int(node_weights[4] is not None), mode, edge_set.num_rec, shape[1], feat,
-            int(update_edges), int(propagation), int(weights[4] is not None),
-            _ptr(edge_in), _ptr(x_send), _ptr(rec_rep), _ptr(edge_set.rowptr),
-            *(_ptr(w) for w in weights), _ptr(aggr), _ptr(new_edge), _ptr(pre),
-            *(_ptr(w) for w in node_weights), _ptr(node_out), _ptr(counter),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"fused_edge_phase node epilogue kernel launch failed: CUDA error {err}"
-            )
-        (FUSED_EDGE_NODE if not bf16_ops else
-         FUSED_EDGE_NODE_BF16 if io_bf16 else FUSED_EDGE_NODE_BF16_OPS).launches += 1
-        return node_out, new_edge, pre, aggr
     if edge_set.num_rec == 0:
         return aggr, new_edge, pre
     # the kernel's work counter; inside a CUDA graph capture its zero-fill
@@ -1102,7 +1120,9 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if bf16_ops:
-        err = _fwd_bf16_lib()(int(pre_bf16), int(io_bf16), int(out == torch.bfloat16), *args)
+        out_bf16 = int(out == torch.bfloat16)
+        out_bf16 |= 2 * int(out_bf16 and aggr_dtype == torch.float32)  # aggr in float32
+        err = _fwd_bf16_lib()(int(pre_bf16), int(io_bf16), out_bf16, *args)
     else:
         err = _fwd_lib()(int(pre_bf16), *args)
     if err != 0:
@@ -1114,6 +1134,56 @@ def fused_edge_fwd(edge_in, x_send, rec_rep, edge_set, weights, raw,
     else:
         (FUSED_EDGE_BF16 if io_bf16 else FUSED_EDGE_BF16_OPS).launches += 1
     return aggr, new_edge, pre
+
+
+def fused_node_fwd(rec_rep, aggr, node_weights, bf16_ops=False, out_dtype=None):
+    """The node update of the node-MLP route, right after K3: ``rec_rep +
+    LN(SiLU(rec . War^T + aggr . Wag^T + ba1) . Wa2^T + ba2)`` per
+    (receiver, b) row, in ``out_dtype`` (the streams' dtype by default).
+    ``rec_rep`` is ``(N_rec, B, D)`` in the streams' dtype, float32 or
+    (with ``bf16_ops``) bf16, ``aggr`` K3's float32 aggregate of the same
+    shape, ``node_weights`` the six float32 tensors of :func:`_node_weights`.
+    With ``bf16_ops`` the products take bf16 operands (the aggregate rounded
+    only as an operand; ``FUSED_NODE_FWD_BF16`` or
+    ``FUSED_NODE_FWD_BF16_OPS``); without, 3xTF32 (``FUSED_NODE_FWD``).
+
+    On CPU tensors it is the plain version, :func:`_plain_node`; on CUDA
+    tensors it launches ``csrc/fused_node.cu``. The launcher records no
+    autograd graph; :class:`FusedEdgePhase` does."""
+    refuse_autograd("fused_node_fwd", "ops.fused_kernels.fused_edge_phase",
+                    rec_rep, aggr, *node_weights)
+    dev, d, io = rec_rep.device, KERNEL_HIDDEN, rec_rep.dtype
+    out = io if out_dtype is None else out_dtype
+    if dev.type == "cpu":
+        return _plain_node(rec_rep.float(), aggr.float(), node_weights, bf16_ops).to(out)
+    who = "fused_node_fwd"
+    if io not in (torch.float32, torch.bfloat16) or (not bf16_ops and io != torch.float32):
+        raise TypeError(f"{who}: streams of {io} need bf16_ops, or are float32")
+    if out not in (torch.float32, torch.bfloat16) or (not bf16_ops and out != torch.float32):
+        raise TypeError(f"{who}: the float32 kernel writes float32, not {out}")
+    if rec_rep.dim() != 3 or rec_rep.shape[2] != d:
+        raise ValueError(f"{who}: rec_rep must be (N, B, {d})")
+    shape = tuple(rec_rep.shape)
+    _check("rec_rep", rec_rep, dev, shape, who, io)
+    _check("aggr", aggr, dev, shape, who)
+    _check_node_weights(who, node_weights, dev)
+    node = torch.empty(shape, dtype=out, device=dev)
+    rows = shape[0] * shape[1]
+    if rows == 0:
+        return node
+    wa1, ba1, wa2, ba2, gn, bn = node_weights
+    io_bf16 = io == torch.bfloat16
+    err = _node_fwd_lib()(
+        int(bf16_ops), int(io_bf16), int(out == torch.bfloat16), rows, int(gn is not None),
+        _node_fwd_blocks(dev, rows, bf16_ops), _ptr(rec_rep), _ptr(aggr), _ptr(wa1),
+        _ptr(ba1), _ptr(wa2), _ptr(ba2), _ptr(gn), _ptr(bn), _ptr(node),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_node_fwd kernel launch failed: CUDA error {err}")
+    (FUSED_NODE_FWD if not bf16_ops else
+     FUSED_NODE_FWD_BF16 if io_bf16 else FUSED_NODE_FWD_BF16_OPS).launches += 1
+    return node
 
 
 def _check_node_weights(who, node_weights, dev) -> None:
@@ -1131,13 +1201,15 @@ def _check_node_weights(who, node_weights, dev) -> None:
 
 
 def fused_node_bwd(d_node, rec_rep, aggr, node_weights, bf16_ops=False):
-    """Launch the node MLP's backward on CUDA tensors (before K4): from
+    """The node MLP's backward of the node-MLP route (before K4): from
     ``d_node``, the gradient of K3's node update, recompute the node MLP
     from ``rec_rep`` and the saved float32 aggregate ``aggr`` and return
     ``(d_aggr, d_rec, grads)``: ``d_aggr`` for K4, in the streams' dtype;
     ``d_rec`` the receiver's share through the node MLP and its residual,
     float32; the weight gradients in the order of :func:`_node_weights`,
-    None where the weight is, summed deterministically.
+    None where the weight is, summed deterministically. On CPU tensors it
+    is the plain version, :func:`_plain_node_bwd`; on CUDA tensors it
+    launches ``csrc/fused_node_bwd.cu``.
 
     ``d_node`` and ``rec_rep`` are ``(N_rec, B, D)`` in the streams' dtype,
     float32 or (with ``bf16_ops``) bf16. With ``bf16_ops`` the products take
@@ -1146,6 +1218,10 @@ def fused_node_bwd(d_node, rec_rep, aggr, node_weights, bf16_ops=False):
     refuse_autograd("fused_node_bwd", "ops.fused_kernels.fused_edge_phase",
                     d_node, rec_rep, aggr, *node_weights)
     dev, d, io = rec_rep.device, KERNEL_HIDDEN, rec_rep.dtype
+    if dev.type == "cpu":
+        d_aggr, d_rec, grads = _plain_node_bwd(d_node.float(), rec_rep.float(), aggr.float(),
+                                               node_weights, bf16_ops)
+        return d_aggr.to(io), d_rec, grads
     who = "fused_node_bwd"
     if io not in (torch.float32, torch.bfloat16) or (not bf16_ops and io != torch.float32):
         raise TypeError(f"{who}: streams of {io} need bf16_ops, or are float32")
@@ -1161,8 +1237,7 @@ def fused_node_bwd(d_node, rec_rep, aggr, node_weights, bf16_ops=False):
     rows = shape[0] * shape[1]
     if rows == 0:
         return d_aggr, d_rec, [None if w is None else torch.zeros_like(w) for w in node_weights]
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    blocks = min(_NODE_BWD_BLOCKS_PER_SM * sms, -(-rows // _TILE_ROWS))
+    blocks = _node_bwd_blocks(dev, rows)
     out = torch.empty(_WS_NODE, dtype=torch.float32, device=dev)
     ws = torch.empty(blocks * _WS_NODE, dtype=torch.float32, device=dev)
     wa1, ba1, wa2, ba2, gn, bn = node_weights
@@ -1504,8 +1579,10 @@ class FusedEdgePhase(torch.autograd.Function):
     bf16 operands, ``out_dtype`` that of the outputs and ``pre_mode``
     :func:`cache_pre`'s: what K3 saves for K4 (a float32 ``pre``, a bf16
     one, or none); returns ``(aggr, new_edge | None)``, or with node
-    weights ``(node_out, new_edge | None)``, when K3 also saves the float32
-    aggregate for the node backward, which runs before K4. The backward
+    weights ``(node_out, new_edge | None)``: K3 writes the aggregate in
+    float32 and the node update (:func:`fused_node_fwd`) runs right after
+    it; the aggregate is saved for the node backward, which runs before K4,
+    when the call will be differentiated. The backward
     takes the incoming gradients in the streams' dtype, as the JAX package
     casts them to ``io_dt``, and returns the streams' gradients in their
     dtype and the weights' in float32.
@@ -1534,18 +1611,20 @@ class FusedEdgePhase(torch.autograd.Function):
             pre = pre.to(pre_dtype) if save_pre else None
             if node:
                 aggr32 = aggr if need_grad else None
-                aggr = _plain_node(rec_rep.float(), aggr, node_weights, bf16_ops)
+                aggr = fused_node_fwd(rec_rep, aggr, node_weights, bf16_ops, torch.float32)
             aggr = aggr.to(out_dtype)
             new_edge = None if new_edge is None else new_edge.to(out_dtype)
-        else:  # the float32 kernel writes float32, cast on the way out
-            out = fused_edge_fwd(
+        else:  # the float32 kernels write float32, cast on the way out
+            aggr, new_edge, pre = fused_edge_fwd(
                 edge_in, x_send, rec_rep, edge_set, weights, raw, update_edges,
                 propagation, save_pre=save_pre, bf16_ops=bf16_ops,
                 out_dtype=out_dtype if bf16_ops else None, pre_dtype=pre_dtype,
-                node_weights=node_weights if node else None, save_aggr=need_grad,
+                aggr_dtype=torch.float32 if node else None,
             )
-            aggr, new_edge, pre = out[:3]
-            aggr32 = out[3] if node else None
+            if node:  # the node update right after K3, from its float32 aggregate
+                aggr32 = aggr if need_grad else None
+                aggr = fused_node_fwd(rec_rep, aggr, node_weights, bf16_ops,
+                                      out_dtype if bf16_ops else None)
             aggr = aggr.to(out_dtype)
             new_edge = None if new_edge is None else new_edge.to(out_dtype)
         if need_grad:
@@ -1570,13 +1649,8 @@ class FusedEdgePhase(torch.autograd.Function):
         if aggr32 is not None:
             # the node MLP's backward first: d_aggr is the node update's
             # gradient, and K4 reads the aggregate's, in the streams' dtype
-            if x_send.device.type == "cpu":
-                d_agg, d_rec_node, node_grads = _plain_node_bwd(
-                    d_aggr.float(), rec_rep.float(), aggr32, node_weights, bf16_ops)
-                d_aggr = d_agg.to(io)
-            else:
-                d_aggr, d_rec_node, node_grads = fused_node_bwd(
-                    d_aggr.contiguous(), rec_rep, aggr32, node_weights, bf16_ops)
+            d_aggr, d_rec_node, node_grads = fused_node_bwd(
+                d_aggr.contiguous(), rec_rep, aggr32, node_weights, bf16_ops)
         if x_send.device.type == "cpu":
             d_edge, d_send, d_rec, grads = _plain_bwd(
                 d_aggr.float(), None if d_new_edge is None else d_new_edge.float(),

@@ -22,12 +22,11 @@ from pathlib import Path
 from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# Every kernel source of the port, csrc/<name>.cu: K1, K2, K3 (without and
-# with the node-MLP epilogue), K4 (from a saved pre, and recomputing it),
-# the node MLP's backward of K3's epilogue, K5, K6, K7, K8
-# (ops/segment_kernels.py, ops/fused_kernels.py)
+# Every kernel source of the port, csrc/<name>.cu: K1, K2, K3, K4 (from a
+# saved pre, and recomputing it), the node-MLP route's node update and node
+# backward, K5, K6, K7, K8 (ops/segment_kernels.py, ops/fused_kernels.py)
 KERNELS = (
-    "sender_gather", "sender_scatter", "fused_edge", "fused_edge_node", "fused_edge_bwd",
+    "sender_gather", "sender_scatter", "fused_edge", "fused_node", "fused_edge_bwd",
     "fused_edge_bwd_recompute", "fused_node_bwd", "segment_sum", "receiver_expand",
     "fused_edge_v2", "fused_edge_v2_bwd",
 )

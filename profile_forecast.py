@@ -50,12 +50,16 @@ cuBLAS products and the casts, each per call and per training step, from
 splits that commit's K4 on the same inputs after each.
 
 ``--aggr-kernels`` builds the kernels and runs ``chip_smoke.py``'s
-``fused aggr`` kernel lines alone (``phase_fused_aggr_kernels``: K3's
-node epilogue and the node backward at the six sites, in each precision,
-then HiLAM's level sets); with ``--parent DIR`` beside that commit's
-kernels. ``--train --parent DIR`` profiles the training step on that
-commit's K3, K4, K7, K8 and node backward (each wrapper launching the
-parent's build), for a same-call comparison with a run without it.
+``fused aggr`` kernel lines alone (``phase_fused_aggr_kernels``: K3 and
+the node update after it, and the node backward, at the six sites, in each
+precision, then HiLAM's level sets, and the occupancy, registers and
+spills of every instantiation of the node update and node backward); with
+``--parent DIR`` the parent commit's own ``profile_forecast.py
+--aggr-kernels`` runs in that checkout before and after, on this card, and
+float32 K3 is held to the parent's bits. ``--train --parent DIR`` profiles
+the training step on that commit's K3, K4, K7 and K8 (each wrapper
+launching the parent's build), for a same-call comparison with a run
+without it.
 
 ``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
 (unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
@@ -64,10 +68,10 @@ and K2 backward, grouped as such (K8 shares its edge, rows and reduce
 kernels' names with K4, which does not run on that route).
 
 ``--fused-aggr on|off`` sets ``NEURAL_LAM_TPU_FUSED_AGGR`` for the run
-(unset: ``off``). With ``on`` K3 runs with the node-MLP epilogue at every
-GraphLAM and HiLAM application (its instantiations are grouped as ``K3
-node epilogue``) and the node backward runs before K4 (``K4 node
-backward``), in place of the node MLP's matmuls and LayerNorm.
+(unset: ``off``). With ``on`` the node update runs after K3 at every
+GraphLAM and HiLAM application (``K3 node update``) and the node backward
+before K4 (``K4 node backward``), in place of the node MLP's matmuls and
+LayerNorm.
 """
 
 from __future__ import annotations
@@ -87,9 +91,7 @@ import chip_smoke as cs
 GROUPS = (
     ("K7 fused_edge_phase_v2", re.compile(r"fused_edge_v2_fwd")),
     ("K8 fused_edge_phase_v2 backward", re.compile(r"fused_edge_v2_bwd")),
-    # K3's NODE instantiations, by their mangled or their demangled name
-    ("K3 node epilogue",
-     re.compile(r"fused_edge_fwd(?:ILi\dELb\dELb\dELb1E|<\d, \w+, \w+, true)")),
+    ("K3 node update", re.compile(r"fused_node_fwd")),
     ("K3 fused_edge_phase", re.compile(r"fused_edge_fwd")),
     ("K4 node backward", re.compile(r"fused_node_bwd")),
     ("K4 fused_edge_phase backward", re.compile(r"fused_edge_bwd|reduce_workspace")),
@@ -284,16 +286,17 @@ def main() -> int:
     ap.add_argument("--aggr-kernels", action="store_true",
                     help="build the kernels and run chip_smoke's fused aggr kernel lines")
     ap.add_argument("--parent", type=Path,
-                    help="a checkout of an earlier commit: with --k4-split and "
-                         "--aggr-kernels its K3, K4, K7, K8 and node backward run beside "
-                         "the current ones, with --train in their place")
+                    help="a checkout of the parent commit: with --k4-split its K4 runs "
+                         "beside the current one, with --aggr-kernels its own script times "
+                         "its node-MLP route, with --train its K3, K4, K7 and K8 run in "
+                         "place of the current ones")
     ap.add_argument("--probe", action="store_true",
                     help="build the kernels and run chip_smoke's K3/K4 probe only")
     ap.add_argument("--fused-v2", choices=["on", "off", "auto"],
                     help="set NEURAL_LAM_TPU_FUSED_V2 for the run (on: K7, K8)")
     ap.add_argument("--fused-aggr", choices=["on", "off"],
-                    help="set NEURAL_LAM_TPU_FUSED_AGGR for the run (on: K3's node-MLP "
-                         "epilogue, the node backward)")
+                    help="set NEURAL_LAM_TPU_FUSED_AGGR for the run (on: the node update "
+                         "after K3, the node backward before K4)")
     args = ap.parse_args()
     if args.fused_v2:
         os.environ["NEURAL_LAM_TPU_FUSED_V2"] = args.fused_v2
@@ -323,7 +326,8 @@ def main() -> int:
     if args.parent or args.k4_split or args.aggr_kernels:
         parent_build = cs.start_parent_build(args.parent.resolve()) if args.parent else None
         cs.build_kernels()
-        parent = cs.parent_kernels(torch, parent_build) if parent_build else None
+        parent = (cs.parent_kernels(torch, parent_build, args.parent.resolve())
+                  if parent_build else None)
     if args.k4_split:
         with torch.no_grad():
             k4_split(torch, card, cs.build_meps(torch)[2], parent=parent)

@@ -1914,7 +1914,7 @@ def test_captured_bf16_step_matches_the_eager_step(cuda, tmp_path, monkeypatch):
         assert all(t.dtype == torch.float32 for t in state.values() if torch.is_tensor(t))
     assert {k for k, v in first.items() if v} == {
         "K1 sender_gather bf16", "K2 sender_scatter bf16", "K3 fused_edge_phase bf16",
-        "K4 fused_edge_phase backward bf16",
+        "K4 fused_edge_phase backward bf16", fk.FUSED_EDGE_BWD_RECEIVER.name,
     }
 
 
@@ -2047,7 +2047,8 @@ def test_backward_from_bf16_pre_matches_plain(cuda, monkeypatch, mode, flags, ba
     got = []
     ticks = _ticks(lambda: got.append(run()))
     torch.cuda.synchronize()
-    assert {k for k, v in ticks.items() if v} == {"K4 fused_edge_phase backward bf16 pre"}
+    assert {k for k, v in ticks.items() if v} == {"K4 fused_edge_phase backward bf16 pre",
+                                                  fk.FUSED_EDGE_BWD_RECEIVER.name}
     want = fk._plain_bwd(d_aggr.float(), None if d_new is None else d_new.float(),
                          edge_in.float(), x_send.float(), rec.float(), es, wts, raw, update,
                          prop, bf16_ops, pre=pre)
@@ -2091,7 +2092,8 @@ def test_recomputing_backward_matches_the_saved_pre_backward(cuda, monkeypatch, 
     got = []
     ticks = _ticks(lambda: got.append(run(None)))
     torch.cuda.synchronize()
-    assert {k for k, v in ticks.items() if v} == {"K4 fused_edge_phase backward recompute"}
+    assert {k for k, v in ticks.items() if v} == {"K4 fused_edge_phase backward recompute",
+                                                  fk.FUSED_EDGE_BWD_RECEIVER.name}
     flat = lambda r: [r[0], r[1], r[2], *r[3]]  # noqa: E731
     _close_grads(flat(got[0]), flat(run(pre)), mode, tol=1e-6)
     assert all(a is None or torch.equal(a, b) for a, b in zip(flat(got[0]), flat(run(None))))
@@ -2132,7 +2134,7 @@ def test_fused_edge_phase_follows_cache_pre(cuda, monkeypatch, pre_mode):
     want_k4 = {"on": "K4 fused_edge_phase backward",
                "bf16": "K4 fused_edge_phase backward bf16 pre",
                "off": "K4 fused_edge_phase backward recompute"}[pre_mode]
-    assert {k for k, v in ticks.items() if v} == {want_k4}
+    assert {k for k, v in ticks.items() if v} == {want_k4, fk.FUSED_EDGE_BWD_RECEIVER.name}
     want_pre = {"on": torch.float32, "bf16": torch.bfloat16, "off": None}[pre_mode]
     assert saved == [torch.float32, want_pre]
     tol = {"on": 0.0, "bf16": 1e-2, "off": 1e-6}[pre_mode]
@@ -2279,10 +2281,10 @@ def test_v2_bf16_kernels_off_keeps_the_float32_kernels(cuda, monkeypatch):
     _close_bf16(out[0], want[0], "aggr")
 
 
-# -- the node-MLP epilogue (NEURAL_LAM_TPU_FUSED_AGGR=on): K3 with it and the
-# node MLP's backward before K4 ------------------------------------------------
+# -- the node-MLP route (NEURAL_LAM_TPU_FUSED_AGGR=on): the node update after
+# K3 and the node MLP's backward before K4 --------------------------------------
 #
-# In each precision: float32 (3xTF32, held as K3 and K4 are) and the two
+# In each precision: float32 (3xTF32, held as K3 and K4 are) and the
 # bf16-operand ones (held as the bf16 K3 and K4 are, _close_bf16).
 
 NODE_MODES = {"float32": (None, torch.float32), **BF16_MODES}
@@ -2297,12 +2299,10 @@ NODE_FLAGS = [
 
 
 def _node_counters(mode):
-    """K3 with the epilogue and the node backward, counted in ``mode``."""
-    if mode == "float32":
-        return fk.FUSED_EDGE_NODE, fk.FUSED_NODE_BWD
-    if mode == "high-kernels":
-        return fk.FUSED_EDGE_NODE_BF16_OPS, fk.FUSED_NODE_BWD_BF16_OPS
-    return fk.FUSED_EDGE_NODE_BF16, fk.FUSED_NODE_BWD_BF16
+    """The names of K3's, the node update's and the node backward's launch
+    counts in ``mode`` (``launch_counters``)."""
+    sfx = {"float32": "", "high-kernels": " bf16 operands"}.get(mode, " bf16")
+    return (f"K3 fused_edge_phase{sfx}", f"K3 node update{sfx}", f"K4 node backward{sfx}")
 
 
 def _node_case(cuda, monkeypatch, mode, flags, batch, seed, grad=False, degree=0):
@@ -2367,12 +2367,12 @@ def _node_close(mode, got, want, what=""):
 @pytest.mark.parametrize("flags", NODE_FLAGS)
 @pytest.mark.parametrize("batch", [4, 1, 32])
 def test_node_epilogue_matches_plain(cuda, monkeypatch, mode, flags, batch):
-    """K3 with the node-MLP epilogue against the plain version: the node
+    """K3 and the node update after it against the plain version: the node
     update (receivers without edges too: ``rec + MLP([rec, 0])``) and the
     updated edges, in the receiver rows' dtype; the same bits on a second
-    call; one launch of the epilogue's counter and none of K3's others."""
+    call; one launch of K3 and one of the node update, nothing else."""
     args, kw, _ = _node_case(cuda, monkeypatch, mode, flags, batch, seed=50)
-    counter, _ = _node_counters(mode)
+    k3, counter, _ = _node_counters(mode)
     with torch.no_grad():
         result = []
         ticks = _ticks(lambda: result.append(fused_edge_phase(*args, **kw)))
@@ -2380,7 +2380,7 @@ def test_node_epilogue_matches_plain(cuda, monkeypatch, mode, flags, batch):
         want = _node_plain(args, kw)
         again = fused_edge_phase(*args, **kw)
     torch.cuda.synchronize()
-    assert {k for k, v in ticks.items() if v} == {counter.name}
+    assert {k: v for k, v in ticks.items() if v} == {k3: 1, counter: 1}
     assert got[0].dtype == args[3].dtype
     _node_close(mode, got[0], want[0], "node update")
     if flags[1]:
@@ -2412,11 +2412,11 @@ def test_node_backward_matches_plain(cuda, monkeypatch, mode, flags, batch, use_
     def run():
         return torch.autograd.grad(loss(fused_edge_phase(*args, **kw)), leaves)
 
-    _, node_bwd = _node_counters(mode)
+    _, _, node_bwd = _node_counters(mode)
     result = []
     ticks = _ticks(lambda: result.append(run()))
     torch.cuda.synchronize()
-    assert ticks[node_bwd.name] == 1
+    assert ticks[node_bwd] == 1
     assert sum(v for k, v in ticks.items() if k.startswith("K4 fused_edge_phase")) == 1
     (got,) = result
     want = torch.autograd.grad(loss(_node_plain(args, kw)), leaves)
@@ -2448,10 +2448,12 @@ def test_node_epilogue_degree_400(cuda, monkeypatch, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(NODE_MODES))
 def test_node_launchers_match_their_plain_versions(cuda, monkeypatch, mode):
-    """The launchers as ``chip_smoke.py`` calls them: K3 with the epilogue
-    keeps the aggregate only when asked, and then K3's own aggregate bit for
-    bit; the node backward against ``_plain_node_bwd`` from the same
-    aggregate, its ``d_aggr`` in the streams' dtype."""
+    """The launchers as ``chip_smoke.py`` calls them: K3 writes the
+    aggregate in float32 beside updated edges in the outputs' dtype, the
+    values of K3's own float32 aggregate and new edges; the node update on
+    it against ``_plain_node``; the node backward against
+    ``_plain_node_bwd`` from the same aggregate, its ``d_aggr`` in the
+    streams' dtype."""
     args, kw, _ = _node_case(cuda, monkeypatch, mode, NODE_FLAGS[2], 4, seed=54)
     edge_mlp, edge_rep, x_send, rec, es = args
     bf16_ops, io = fk.fused_precision(rec.dtype)
@@ -2460,16 +2462,15 @@ def test_node_launchers_match_their_plain_versions(cuda, monkeypatch, mode):
     nw = [w if w is None else w.float() for w in fk._node_weights(kw["aggr_mlp"])]
     out = torch.float32 if mode != "bf16" else torch.bfloat16
     with torch.no_grad():
-        node, new_edge, pre, aggr = fused_edge_fwd(
+        aggr, new_edge, pre = fused_edge_fwd(
             edge_in, x_io, rec_io, es, wts, False, True, False, bf16_ops=bf16_ops,
-            out_dtype=out if bf16_ops else None, node_weights=nw, save_aggr=True)
-        none = fused_edge_fwd(edge_in, x_io, rec_io, es, wts, False, True, False,
-                              bf16_ops=bf16_ops, out_dtype=out if bf16_ops else None,
-                              node_weights=nw)[3]
+            out_dtype=out if bf16_ops else None, aggr_dtype=torch.float32)
         base = fused_edge_fwd(edge_in, x_io, rec_io, es, wts, False, True, False,
                               bf16_ops=bf16_ops, out_dtype=torch.float32 if bf16_ops else None)
-        assert none is None and pre is None and aggr.dtype == torch.float32
-        assert torch.equal(aggr, base[0]) and torch.equal(new_edge, base[1].to(new_edge.dtype))
+        assert pre is None and aggr.dtype == torch.float32 and new_edge.dtype == out
+        assert torch.equal(aggr, base[0]) and torch.equal(new_edge, base[1].to(out))
+        node = fk.fused_node_fwd(rec_io, aggr, nw, bf16_ops, out if bf16_ops else None)
+        want = fk._plain_node(rec_io.float(), aggr, nw, bf16_ops).to(out)
         gen = torch.Generator(device=cuda).manual_seed(55)
         d_node = torch.randn(tuple(rec.shape), device=cuda, generator=gen).to(io)
         d_aggr, d_rec, grads = fk.fused_node_bwd(d_node, rec_io, aggr, nw, bf16_ops)
@@ -2477,7 +2478,10 @@ def test_node_launchers_match_their_plain_versions(cuda, monkeypatch, mode):
                                                      bf16_ops)
         with pytest.raises(TypeError, match="need bf16_ops"):
             fk.fused_node_bwd(d_node.bfloat16(), rec_io.bfloat16(), aggr, nw, False)
-    assert d_aggr.dtype == io and d_rec.dtype == torch.float32
+        with pytest.raises(TypeError, match="need bf16_ops"):
+            fk.fused_node_fwd(rec_io.bfloat16(), aggr, nw, False)
+    assert node.dtype == out and d_aggr.dtype == io and d_rec.dtype == torch.float32
+    _node_close(mode if bf16_ops else "float32", node, want, "node update")
     # bf16 operands: d_pre, rounded to bf16 as an operand, can land one bf16
     # ulp apart in kernel and plain version (the bounds above)
     _node_close(mode if bf16_ops else "float32", d_aggr, w_aggr.to(io), "d_aggr")
@@ -2486,13 +2490,122 @@ def test_node_launchers_match_their_plain_versions(cuda, monkeypatch, mode):
             _node_close(mode if bf16_ops else "float32", g, w, f"node gradient {i}")
 
 
+# (receivers, batch) of the row kernels' cases: rows 0, 1, 63, 64, 65 (and
+# 64 at batch 32), three tiles at batch 32, and 601 tiles, more than either
+# kernel's grid has blocks or warpgroups on an H100
+NODE_ROWS = [(0, 4), (1, 1), (63, 1), (16, 4), (65, 1), (2, 32), (3, 32), (9_601, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+@pytest.mark.parametrize("n_rec,batch", NODE_ROWS)
+@pytest.mark.parametrize("node_ln", [True, False])
+def test_node_row_kernels_match_plain(cuda, monkeypatch, mode, n_rec, batch, node_ln):
+    """The node update and the node backward alone, on (receiver, b) rows
+    with no graph: against ``_plain_node`` and ``_plain_node_bwd`` (the
+    update, ``d_aggr``, ``d_rec`` and the seven weight gradients), the same
+    bits on a second launch, one launch of each (none without rows, whose
+    gradients are zeros)."""
+    if mode == "float32":
+        monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
+        dtype = torch.float32
+    else:
+        dtype = _bf16_mode(monkeypatch, mode)
+    bf16_ops, io = fk.fused_precision(dtype)
+    out = dtype
+    rng = np.random.default_rng(60 + n_rec)
+    d = 64
+
+    def t(*shape, scale=1.0, dt=torch.float32):
+        return torch.tensor(scale * rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda).to(dt)
+
+    rec, d_node = t(n_rec, batch, d, dt=io), t(n_rec, batch, d, dt=io)
+    aggr = t(n_rec, batch, d, scale=3.0)  # a sum of messages
+    aggr_mlp = make_mlp([2 * d, d, d], layer_norm=node_ln,
+                        generator=torch.Generator().manual_seed(61)).to(cuda)
+    nw = [w if w is None else w.float() for w in fk._node_weights(aggr_mlp)]
+    _, fwd_count, bwd_count = _node_counters(mode)
+    with torch.no_grad():
+        got = []
+        ticks = _ticks(lambda: got.append((fk.fused_node_fwd(rec, aggr, nw, bf16_ops, out),
+                                           fk.fused_node_bwd(d_node, rec, aggr, nw, bf16_ops))))
+        (node, (d_aggr, d_rec, grads)), = got
+        again = fk.fused_node_fwd(rec, aggr, nw, bf16_ops, out)
+        again_bwd = fk.fused_node_bwd(d_node, rec, aggr, nw, bf16_ops)
+        want = fk._plain_node(rec.float(), aggr, nw, bf16_ops).to(out)
+        w_aggr, w_rec, w_grads = fk._plain_node_bwd(d_node.float(), rec.float(), aggr, nw,
+                                                     bf16_ops)
+    torch.cuda.synchronize()
+    live = n_rec * batch > 0
+    assert {k: v for k, v in ticks.items() if v} == (
+        {fwd_count: 1, bwd_count: 1} if live else {})
+    assert node.dtype == out and d_aggr.dtype == io and d_rec.dtype == torch.float32
+    assert [g is None for g in grads] == [w is None for w in nw]
+    flat = [node, d_aggr, d_rec, *(g for g in grads if g is not None)]
+    flat_again = [again, again_bwd[0], again_bwd[1], *(g for g in again_bwd[2] if g is not None)]
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat_again))
+    if not live:
+        assert all(torch.count_nonzero(g) == 0 for g in grads if g is not None)
+        return
+    close = mode if bf16_ops else "float32"
+    _node_close(close, node, want, "node update")
+    _node_close(close, d_aggr, w_aggr.to(io), "d_aggr")
+    for i, (g, w) in enumerate(zip([d_rec, *grads], [w_rec, *w_grads])):
+        if w is not None:
+            _node_close(close, g, w, f"node gradient {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+@pytest.mark.parametrize("kind", ["mesh", "down", "up", "top"])
+def test_node_route_on_level_set_shapes(cuda, monkeypatch, mode, kind):
+    """The whole phase under the node-MLP route (K3, the node update; the
+    node backward, K4) on edge sets shaped like the hierarchical models'
+    level sets (degree 1 down, 9 up, a 40-edge top level, a 400-edge
+    receiver beside receivers without edges), batch 4: the node update, the
+    new edges and every gradient against autograd of the plain version."""
+    if mode == "float32":
+        monkeypatch.delenv("NEURAL_LAM_TPU_MATMUL_PRECISION", raising=False)
+        dtype = torch.float32
+    else:
+        dtype = _bf16_mode(monkeypatch, mode)
+    es, n_send, n_rec = _degree_edge_set(kind, cuda)
+    rng = np.random.default_rng(62)
+    d, batch = 64, 4
+    gen = torch.Generator().manual_seed(63)
+    edge_mlp = make_mlp([3 * d, d, d], generator=gen).to(cuda, dtype)
+    aggr_mlp = make_mlp([2 * d, d, d], generator=gen).to(cuda, dtype)
+
+    def t(*shape, grad=True):
+        x = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+        return x.to(dtype).requires_grad_(grad)
+
+    x_send, rec, edge = (t(es.num_edges, batch, d), t(n_rec, batch, d),
+                         t(es.num_edges, batch, d))
+    leaves = [x_send, rec, edge] + list(edge_mlp.parameters()) + list(aggr_mlp.parameters())
+    w_node, w_edge = t(n_rec, batch, d, grad=False), t(es.num_edges, batch, d, grad=False)
+    kw = dict(update_edges=True, aggr_mlp=aggr_mlp)
+
+    def loss(out):
+        return (out[0].float() * w_node.float()).sum() + (out[1].float() * w_edge.float()).sum()
+
+    got = fused_edge_phase(edge_mlp, edge, x_send, rec, es, **kw)
+    want = fused_edge_phase_plain(edge_mlp, edge, x_send, rec, es.receivers, **kw)
+    _node_close(mode, got[0], want[0], "node update")
+    _node_close(mode, got[1], want[1], "new_edge")
+    for i, (g, w) in enumerate(zip(torch.autograd.grad(loss(got), leaves),
+                                   torch.autograd.grad(loss(want), leaves))):
+        _node_close(mode, g, w, f"gradient {i}")
+
+
 @pytest.mark.cuda
 def test_captured_step_with_the_node_epilogue_matches_eager(cuda, tmp_path, monkeypatch):
     """GraphLAM's step under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` through the
     captured graph against five eager steps, bit for bit; the capture
-    launched the epilogue's K3 and node backward and no K3 or K4 without
-    them (every phase of GraphLAM takes it); turning the variable off
-    captures a graph of its own with K3 and K4 alone."""
+    launched the node update and the node backward beside K3 and K4, as
+    often as K3 (every phase of GraphLAM takes the route); turning the
+    variable off captures a graph of its own with K3 and K4 alone."""
     monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_AGGR", "on")
     make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
     data = batches(6)
@@ -2503,14 +2616,14 @@ def test_captured_step_with_the_node_epilogue_matches_eager(cuda, tmp_path, monk
     first = _ticks(lambda: got.append(step(*data[0]).item()))
     got += [step(*b).item() for b in data[1:5]]
     assert got == want and np.isfinite(got).all()
-    ran = {k for k, v in first.items() if v}
-    assert {"K3 fused_edge_phase node epilogue", "K4 node backward"} <= ran
-    assert "K3 fused_edge_phase" not in ran
+    assert first["K3 node update"] == first["K3 fused_edge_phase"] > 0
+    assert first["K4 node backward"] == first["K4 fused_edge_phase backward"] > 0
     monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_AGGR", "off")
     want.append(eager.train_step(*data[5]).item())
     off = _ticks(lambda: got.append(step(*data[5]).item()))
     assert len(captured.graphs) == 2
-    assert off["K3 fused_edge_phase"] > 0 and off["K4 node backward"] == 0
+    assert off["K3 fused_edge_phase"] > 0
+    assert off["K3 node update"] == off["K4 node backward"] == 0
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
@@ -2723,7 +2836,7 @@ def test_bf16_fragments_backward_matches_plain(cuda, monkeypatch, mode, pre, fla
     counter = {"on": fk.FUSED_EDGE_BWD_BF16_OPS if mode == "high-kernels"
                else fk.FUSED_EDGE_BWD_BF16,
                "bf16": fk.FUSED_EDGE_BWD_BF16_PRE, "off": fk.FUSED_EDGE_BWD_RECOMPUTE}[pre]
-    assert {k for k, v in ticks.items() if v} == {counter.name}
+    assert {k for k, v in ticks.items() if v} == {counter.name, fk.FUSED_EDGE_BWD_RECEIVER.name}
     want = fk._plain_bwd(d_aggr.float(), None if d_new is None else d_new.float(),
                          edge_in.float(), x_send.float(), rec.float(), es, wts, raw, update,
                          prop, bf16_ops, pre=saved)
@@ -2739,18 +2852,19 @@ def test_bf16_fragments_backward_matches_plain(cuda, monkeypatch, mode, pre, fla
 @pytest.mark.parametrize("flags", NODE_FLAGS)
 @pytest.mark.parametrize("batch", [2, 3])
 def test_bf16_fragments_node_epilogue_matches_plain(cuda, monkeypatch, mode, pre, flags, batch):
-    """K3's BF instantiations with the node-MLP epilogue (``NODE``) under
-    each ``NEURAL_LAM_TPU_CACHE_PRE``, beside a receiver of 400 edges and
-    five without: the node update, the updated edges and every gradient
-    (the node backward, then K4) against the plain version."""
+    """K3's BF instantiations on the node-MLP route (the float32 aggregate
+    beside bf16 updated edges, then the node update) under each
+    ``NEURAL_LAM_TPU_CACHE_PRE``, beside a receiver of 400 edges and five
+    without: the node update, the updated edges and every gradient (the
+    node backward, then K4) against the plain version."""
     monkeypatch.setenv("NEURAL_LAM_TPU_CACHE_PRE", pre)
     args, kw, leaves = _node_case(cuda, monkeypatch, mode, flags, batch, seed=63, grad=True,
                                   degree=400)
-    counter, _ = _node_counters(mode)
+    _, counter, _ = _node_counters(mode)
     result = []
     ticks = _ticks(lambda: result.append(fused_edge_phase(*args, **kw)))
     (got,) = result
-    assert ticks[counter.name] == 1
+    assert ticks[counter] == 1
     want = _node_plain(args, kw)
     _node_close(mode, got[0], want[0], "node update")
     if flags[1]:
@@ -2822,8 +2936,23 @@ def test_occupancy_rows_match_the_launches(cuda):
         occ = fk.kernel_occupancy(kernel)
         for name, mode in (("shared", 1), ("batched", 2)):
             (row,) = [r for r in f32 if r["kernel"] == kernel and r["mode"] == mode
-                      and not r["node"] and r["pre"] == "float32"]
+                      and r["pre"] == "float32"]
             assert occ[name] == {k: row[k] for k in keys}
+
+
+@pytest.mark.cuda
+def test_node_occupancy_rows_match_the_launches(cuda):
+    """Every instantiation of the node update and the node backward fits a
+    block on an SM, one block an SM as the wrappers size the grids: the node
+    update 3 warpgroups a block (4 with bf16 operands), the node backward a
+    row warpgroup (two with bf16 operands) and a gradient warpgroup."""
+    rows = fk.node_occupancy()
+    assert len(rows) == 6 and all(r["blocks"] == 1 for r in rows)
+    for r in rows:
+        if r["name"].startswith("K3"):
+            assert r["threads"] == 128 * fk._NODE_FWD_GROUPS[bool(r["bf16_ops"])]
+        else:
+            assert r["threads"] == 128 * (3 if r["bf16_ops"] else 2)
 
 
 # -- K4's tail: the edge pass, the receiver slice, the workspace reduce ------------

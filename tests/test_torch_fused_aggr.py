@@ -216,6 +216,57 @@ def test_epilogue_bf16_matches_jax(graph):
     assert out_err <= BF16_OUT_TOL and grad_err <= BF16_GRAD_TOL, (out_err, grad_err)
 
 
+@pytest.mark.parametrize("batched,bf16", [(False, False), (True, False), (True, True)])
+def test_node_update_wrapper_matches_the_jax_epilogue(graph, monkeypatch, batched, bf16):
+    """The node update's wrapper on CPU tensors (``fused_node_fwd``, its
+    plain version), fed the port's K3 aggregate (``_plain``) and the inputs
+    the phase hands to ``FusedEdgePhase``, against the JAX step's node
+    update under ``on`` (``make_fused_interaction``'s ``node_epilogue``,
+    interpret), and the same bits as the port's phase. Tolerances: the
+    step's, float32 ``OUT_TOL`` (measured 2.7e-7 for the step) and, on the
+    batched input the bf16 step test takes, ``BF16_OUT_TOL`` (measured
+    4.7e-3)."""
+    jes, tes, live = graph
+    jes.fn_cache.clear()
+    rng = np.random.default_rng(3)
+    shape = (lambda n: (n, B, D)) if batched else (lambda n: (n, D))
+    send, rec = (rng.normal(size=shape(n)).astype(np.float32) for n in (N_SEND, N_REC))
+    edge = rng.normal(size=shape(N_EDGES)).astype(np.float32)
+    jp = init_interaction_net(jax.random.PRNGKey(0), D)
+    dt_j = jnp.bfloat16 if bf16 else jnp.float32
+    dt_t = torch.bfloat16 if bf16 else torch.float32
+    jp_c = jax.tree_util.tree_map(lambda a: a.astype(dt_j), jp)
+    j_node = jax_interaction.apply_interaction_net(
+        jp_c, jes, jnp.asarray(send, dt_j), jnp.asarray(rec, dt_j),
+        jnp.asarray(_slots(edge, live, jes), dt_j), update_edges=False)
+    net = _module(jp, interaction.InteractionNet(D)).to(dt_t)
+    seen = []
+    apply = fused_kernels.FusedEdgePhase.apply
+
+    def spy(*args):
+        seen.append(args)
+        return apply(*args)
+
+    monkeypatch.setattr(fused_kernels.FusedEdgePhase, "apply", spy)
+    with torch.no_grad():
+        t_node = interaction.apply_interaction_net(
+            net, tes, _t(send, dtype=dt_t), _t(rec, dtype=dt_t), _t(edge, dtype=dt_t),
+            update_edges=False)
+    (args,) = seen
+    edge_in, x_send, rec_rep = args[:3]
+    weights, node_weights = args[3:15], args[15:21]
+    edge_set, raw, update, prop, _, bf16_ops, out_dtype = args[21:28]
+    assert node_weights[0] is not None and bf16_ops == bf16
+    with torch.no_grad():
+        aggr, _ = fused_kernels._plain(edge_in.float(), x_send.float(), rec_rep.float(),
+                                       edge_set.receivers, weights, raw, update, prop, bf16_ops)
+        node = fused_kernels.fused_node_fwd(rec_rep, aggr, node_weights, bf16_ops, out_dtype)
+    assert node.dtype == dt_t
+    assert torch.equal(node.reshape(t_node.shape), t_node)
+    err = _rel(node.reshape(j_node.shape), np.asarray(j_node, np.float32))
+    assert err <= (BF16_OUT_TOL if bf16 else OUT_TOL), err
+
+
 # -- the models ------------------------------------------------------------------
 
 

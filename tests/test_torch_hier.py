@@ -678,6 +678,65 @@ def test_expected_launches_match_the_calls_of_the_plain_versions(
     }[name]
 
 
+def test_expected_launches_on_the_node_mlp_route_match_the_plain_versions(roots, monkeypatch):
+    """Under ``NEURAL_LAM_TPU_FUSED_AGGR=on`` every HiLAM application runs
+    K3 and the node update after it, and in training the node backward
+    before K4: the plain versions' calls over one served and one training
+    step (3 levels) against ``chip_smoke.expected_launches``, which counts
+    each as one launch."""
+    from neural_lam_tpu_torch.ops import fused_kernels, segment_kernels
+
+    monkeypatch.setenv("NEURAL_LAM_TPU_FUSED_AGGR", "on")
+    smoke = _load_chip_smoke()
+    monkeypatch.setattr(smoke, "HIDDEN", 8)
+    calls = dict.fromkeys(smoke.kernel_counters(), 0)
+    plain = {
+        "K1 sender_gather": (segment_kernels, "sender_gather_plain"),
+        "K2 sender_scatter": (segment_kernels, "sender_scatter_plain"),
+        "K3 fused_edge_phase": (fused_kernels, "_plain"),
+        "K4 fused_edge_phase backward": (fused_kernels, "_plain_bwd"),
+        "K3 node update": (fused_kernels, "_plain_node"),
+        "K4 node backward": (fused_kernels, "_plain_node_bwd"),
+    }
+    tds = DummyDatastore(root_path=roots[3], **_ds_kw(3))
+    tm = smoke.build_model(torch, "hi_lam", tds, device="cpu")
+    inner = {"K4 fused_edge_phase backward": "K3 fused_edge_phase",
+             "K4 node backward": "K3 node update"}
+    depth = dict.fromkeys(inner, 0)
+
+    def counted(key, fn):
+        def wrapper(*args, **kw):
+            # a backward's plain version differentiates its forward's: count
+            # the outer call only
+            if not any(depth[b] and inner[b] == key for b in inner):
+                calls[key] += 1
+            if key not in inner:
+                return fn(*args, **kw)
+            if key == "K4 fused_edge_phase backward":
+                calls[smoke.K4_RECEIVER_SLICE] += 1  # K4's entry launches it
+            depth[key] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[key] -= 1
+        return wrapper
+
+    for key, (module, attr) in plain.items():
+        monkeypatch.setattr(module, attr, counted(key, getattr(module, attr)))
+    inputs = [_t(a) for a in _step_inputs(tds, 2)]
+    with torch.no_grad():
+        tm.step(*inputs)
+    want = smoke.expected_launches(tm, training=False)
+    assert want["K3 node update"] == want["K3 fused_edge_phase"] == smoke.gnn_applications(tm)
+    assert calls == want
+    calls.update(dict.fromkeys(calls, 0))
+    out, _ = tm.step(*inputs)
+    out.sum().backward()
+    want = smoke.expected_launches(tm, training=True)
+    assert want["K4 node backward"] == want["K4 fused_edge_phase backward"] > 0
+    assert calls == want
+
+
 @pytest.mark.parametrize("name", ["graph_lam_h2", "hi_lam", "hi_lam_parallel"])
 def test_committed_gate_fixture_layout(name):
     """The committed fixture names every parameter of its MEPS model and

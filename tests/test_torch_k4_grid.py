@@ -89,8 +89,8 @@ class _Lib:
         return entry
 
 
-ENTRIES = ("nl_fused_edge_fwd_occupancy", "nl_fused_edge_fwd_node_occupancy",
-           "nl_fused_edge_bwd_occupancy", "nl_fused_edge_bwd_recompute_occupancy")
+ENTRIES = ("nl_fused_edge_fwd_occupancy", "nl_fused_edge_bwd_occupancy",
+           "nl_fused_edge_bwd_recompute_occupancy")
 
 
 def _stub_libraries(monkeypatch, calls):
@@ -112,8 +112,8 @@ def _stub_libraries(monkeypatch, calls):
 
 @pytest.mark.parametrize("bf16_ops", [True, False])
 def test_instantiation_occupancy_names_every_instantiation(monkeypatch, bf16_ops):
-    """One row per instantiation of K3 (with and without the epilogue and
-    a bf16 pre, in each edge mode) and of K4's main kernel (the saved-pre
+    """One row per instantiation of K3 (with and without a bf16 pre, in
+    each edge mode) and of K4's main kernel (the saved-pre
     kernels in their two instantiated modes, the recompute in three), in
     each stream type with bf16 operands or in float32; each row carries
     what the C entry wrote."""
@@ -121,7 +121,7 @@ def test_instantiation_occupancy_names_every_instantiation(monkeypatch, bf16_ops
     _stub_libraries(monkeypatch, calls)
     rows = fk.instantiation_occupancy(bf16_ops)
     precisions = 2 if bf16_ops else 1
-    assert len(rows) == precisions * (4 * 3 + 2 * 2 + 3)
+    assert len(rows) == precisions * (2 * 3 + 2 * 2 + 3)
     assert len({r["name"] for r in rows}) == len(rows)
     assert all(r["warps"] == 2 * 384 // 32 and r["local"] == 8 for r in rows)
     k4_saved = [r["name"] for r in rows
@@ -142,9 +142,9 @@ def test_instantiation_occupancy_names_every_instantiation(monkeypatch, bf16_ops
 def test_kernel_occupancy_serves_k3_and_k4_from_the_float32_instantiations(monkeypatch,
                                                                            kernel):
     """``kernel_occupancy`` reads K3 and K4's main kernel through the
-    per-instantiation entries: the float32 kernel from a float32 pre, without
-    the epilogue, in each edge mode (K4's saved-pre kernel serves the raw
-    mode with its shared one)."""
+    per-instantiation entries: the float32 kernel from a float32 pre, in
+    each edge mode (K4's saved-pre kernel serves the raw mode with its
+    shared one)."""
     calls = []
     _stub_libraries(monkeypatch, calls)
     occ = fk.kernel_occupancy(kernel)
