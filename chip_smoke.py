@@ -282,7 +282,9 @@ GRAPH_LOSS_RTOL = 1e-6
 # bf16 rows), K3's <mode, bf16 operands, bf16 pre, stream type>, K4's main
 # kernel's <mode, pre: 0 float32 | 1 bf16 | 2 recomputed, stream type>
 # (fused_edge_bwd_main_bf with bf16 operands), K7's <mode, bf16 operands,
-# stream type>, K8's <batched, bf16 operands, stream type> and the node-MLP
+# stream type>, K8's main kernel's <batched, bf16 operands, stream type>
+# (its BF instantiations run K4's BF chain inside K8's own kernel, so the
+# names stay apart) and the node-MLP
 # route's node update and node backward <bf16 operands, stream type>. K4's
 # receiver slice, launched by every K4 entry, counts whatever its row type.
 BF16_T = "13__nv_bfloat16"
@@ -488,9 +490,9 @@ def bound(nbytes: float, flops: float, tensor: bool = False) -> tuple[float, str
 # The library getters of the wrappers of K3, K4, K7 and K8
 # (ops/fused_kernels.py) and the source each one loads: a parent build
 # stands in for them through the same C interface. The node-MLP route's
-# kernels are not among them: the parent (34b9653) ran the node update
-# inside K3 (fused_edge_node.cu), so it is timed by its own script
-# (parent_aggr_run).
+# kernels are not among them: the parent's node-MLP route is timed by its
+# own script (parent_aggr_run), as it was when the parent (34b9653) ran the
+# node update inside K3.
 PARENT_SOURCES = {
     "_fwd_lib": "fused_edge", "_fwd_bf16_lib": "fused_edge",
     "_bwd_lib": "fused_edge_bwd", "_bwd_bf16_lib": "fused_edge_bwd",
@@ -579,7 +581,7 @@ def k4_tail_bounds(torch, es, n_rec: int, batch: int, raw: bool, edge_in, d_new,
     rec_rows = n_rec * batch
     receiver = bound(rec_rows * d * (4 + size + 4), rec_rows * 2 * d * d * 2, tensor=True)
     main_blocks = fk._bwd_grid(es.rowptr.device, n_rec, n_e, batch, False,
-                               fk._CHUNK_ROWS_K4)[0]
+                               fk._CHUNK_ROWS_K4, fk._GROUPS)[0]
     ws = (main_blocks * fk._GROUPS * fk._WS_MAIN + ws_edge
           + fk._rows_blocks(es.rowptr.device, rec_rows) * fk._ROW_GROUPS * fk._MAT)
     reduces = bound(4 * (ws + fk._WS_MAIN + fk._WS_EDGE + fk._MAT), 0.0)
@@ -2134,6 +2136,7 @@ def phase_v2_kernels(torch, model, parent=None) -> list[dict]:
         if not all(torch.equal(x, y) for x, y in zip((aggr, new_edge, pre), again)
                    if x is not None):
             raise AssertionError(f"K7 {site}: two runs differ")
+        same = same_as_parent(parent, lambda: run7(True), f"K7 {site}")
         abs7 = max(errors(o, w)[0] for o, w in outs)
         got7 = dict(ms=cuda_ms(run7), pre_ms=cuda_ms(lambda: run7(True)))
         got7["plain_ms"] = cuda_ms(lambda: fk._plain_v2(
@@ -2217,6 +2220,7 @@ def phase_v2_kernels(torch, model, parent=None) -> list[dict]:
                 )
         if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))):
             raise AssertionError(f"K8 {site}: two runs differ")
+        same += same_as_parent(parent, lambda: flat(run8()), f"K8 {site}")
         d_pre, d_rp = got[1], got[2]
         sums = sender_scatter(d_pre, es, n_send)
         _, rel2 = errors(sums, sender_scatter_plain(d_pre, es.senders, n_send))
@@ -2254,8 +2258,8 @@ def phase_v2_kernels(torch, model, parent=None) -> list[dict]:
         got8["bound_ms"], by8 = bound(moved8, flops8, tensor=True)
         got8["simt_ms"], _ = bound(moved8, flops8)
         got8["ops_ms" if by8 == "operations" else "bytes_ms"] = got8["bound_ms"]
-        parent8 = (f"parent {got8['parent_ms']:.4f} ms" if parent
-                   else "parent not measured")
+        parent8 = (f"parent {got8['parent_ms']:.4f} ms; K7 and K8 give the parent's bits "
+                   f"({same} tensors)" if parent else "parent not measured")
         log(
             f"K8 fused_edge_phase_v2 backward {site}: d_new_edge "
             f"{'given' if has_dne else 'none'}; max abs err {abs8:.3g}, at most "
@@ -2496,6 +2500,87 @@ def phase_v2_level_sets(torch, model) -> dict[str, float]:
             )
     for w in params:
         w.grad = None
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_v2_bf16_level_sets(torch, model) -> dict[str, float]:
+    """K7's and K8's bf16-operand instantiations (bf16 streams, and float32
+    streams as under ``high-kernels``) at every edge set of the
+    hierarchical graph, through their launchers, in each edge mode (the
+    set's raw features through the in-kernel embedder, a shared edge input,
+    a batched one with and without the edge update and LayerNorm) against
+    their plain versions on the same inputs: K7's aggregate, updated edges
+    and pre, K8's every gradient, each within the bf16 bounds
+    (:func:`bf16_check`), and a second run to the bit. Returns the largest
+    absolute errors of each instantiation."""
+    from neural_lam_tpu_torch.ops import fused_kernels as fk
+    from neural_lam_tpu_torch.ops.mlp import make_mlp
+
+    g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    sites = [(f"{kind}[{i}]", ge) for kind, sets in (("m2m", g.m2m), ("up", g.up),
+                                                      ("down", g.down))
+             for i, ge in enumerate(sets)]
+    # (edge input, update_edges, LayerNorm)
+    modes = [("raw", False, True), ("shared", True, True), ("batched", True, True),
+             ("batched", False, False)]
+    wgen = torch.Generator().manual_seed(GATE_SEED)
+    mlps = {ln: make_mlp([3 * d, d, d], layer_norm=ln, generator=wgen) for ln in (True, False)}
+    worst = {}
+    for label, io in (("bf16", bf16), ("bf16 operands", torch.float32)):
+        worst[label] = 0.0
+        for site, ge in sites:
+            es = ge.edges
+            n_e, n_rec, n_send = es.num_edges, es.num_rec, es.num_send
+            for mode, update, ln in modes:
+                raw = mode == "raw"
+                emb = make_mlp([ge.features.shape[1], d, d], generator=wgen) if raw else None
+                wts = [None if w is None else w.detach().to(bf16).float().to(dev)
+                       for w in fk._weights(mlps[ln], emb)]
+                sp, rp = randn(n_send, b, d, dtype=io), randn(n_rec, b, d, dtype=io)
+                edge_in = (ge.features.to(io) if raw else randn(n_e, d, dtype=io)
+                           if mode == "shared" else randn(n_e, b, d, dtype=io))
+                d_aggr = randn(n_rec, b, d, dtype=io)
+                d_new = randn(n_e, b, d, dtype=io) if update else None
+
+                def run():
+                    aggr, new_edge, pre = fk.fused_edge_v2_fwd(
+                        edge_in, sp, rp, es, wts, raw, update, save_pre=True, bf16_ops=True)
+                    d_edge, d_pre, d_rec, grads = fk.fused_edge_v2_bwd(
+                        d_aggr, d_new, pre, edge_in, es, wts, raw, bf16_ops=True)
+                    return ([aggr] + ([new_edge] if update else []) + [pre],
+                            [d_pre, d_rec] + ([] if raw else [d_edge])
+                            + [x for x in grads if x is not None])
+
+                (outs, grads), (outs2, grads2) = run(), run()
+                e32, sp32, rp32 = edge_in.float(), sp.float(), rp.float()
+                want = fk._plain_v2(e32, sp32, rp32, es.senders, es.receivers, wts, raw,
+                                    update, bf16_ops=True)
+                want_o = [want[0]] + ([want[1]] if update else []) + [want[2]]
+                d_edge, d_pre, d_rec, w_grads = fk._plain_v2_bwd(
+                    d_aggr.float(), None if d_new is None else d_new.float(), e32, sp32, rp32,
+                    es, wts, raw, update, bf16_ops=True)
+                want_g = [d_pre, d_rec] + ([] if raw else [d_edge]) + [
+                    x for x in w_grads if x is not None]
+                torch.cuda.synchronize()
+                what = f"K7/K8 {label} level set {site} {mode}"
+                err = 0.0
+                for i, (o, w) in enumerate([*zip(outs, want_o), *zip(grads, want_g)]):
+                    err = max(err, bf16_check(o, w.to(o.dtype), f"{what} output {i}"))
+                if not all(torch.equal(x, y) for x, y in zip(outs + grads, outs2 + grads2)):
+                    raise AssertionError(f"{what}: two runs differ")
+                worst[label] = max(worst[label], err)
+                log(f"{what}: E {n_e}, senders {n_send}, receivers {n_rec}, update_edges "
+                    f"{update}, LayerNorm {ln}: outputs and gradients within {BF16_TOL} "
+                    f"(max) and {BF16_MEAN_TOL} (mean) of each one's largest entry, max abs "
+                    f"err {err:.3g}, repeatable")
+                del outs, grads, outs2, grads2, want, want_o, want_g
     torch.cuda.empty_cache()
     return worst
 
@@ -3694,25 +3779,28 @@ def device_busy_ms(torch, fn) -> float:
 def device_kernels(torch, fn) -> tuple[float, int]:
     """:func:`device_busy_ms` and the number of kernels it sums. (Launches
     are counted from a graph's nodes, :func:`graph_kernels`: the profiler
-    can drop a record.)"""
+    can drop a record.) In a long process the profiler now and then keeps
+    no device record of a call at all: such a profile is taken again, up to
+    three times in all, as :func:`k4_pieces` does."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    busy, kernels = 0.0, 0
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or "#" in evt.name:
-            continue
-        if evt.name.startswith(("Memcpy", "Memset")):
-            continue
-        busy += evt.device_time_total / 1e3
-        kernels += 1
-    if busy <= 0:
-        raise AssertionError("the profiler saw no kernel on the device")
-    return busy, kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy, kernels = 0.0, 0
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA or "#" in evt.name:
+                continue
+            if evt.name.startswith(("Memcpy", "Memset")):
+                continue
+            busy += evt.device_time_total / 1e3
+            kernels += 1
+        if busy > 0:
+            return busy, kernels
+    raise AssertionError("the profiler saw no kernel on the device in three profiles")
 
 
 def host_ms(torch, fn, calls: int = TRAIN_ITERS) -> float:
@@ -3927,13 +4015,17 @@ def ptxas_report(source: str) -> dict[str, tuple[int, int, int]]:
 
 
 def mangled_args(row: dict) -> str:
-    """The template arguments of an instantiation of K3 or of K4's main
-    kernel (a row of ``fused_kernels.instantiation_occupancy``) as they
-    appear in its mangled name."""
+    """The template arguments of an instantiation of K3, K7 or of K4's or
+    K8's main kernel (a row of ``fused_kernels.instantiation_occupancy``)
+    as they appear in its mangled name."""
     ti = "13__nv_bfloat16" if row["io_bf16"] else "f"
     if row["kernel"] == "K3":
         return (f"fused_edge_fwdILi{row['mode']}ELb{row['bf16_ops']}ELb"
                 f"{int(row['pre'] == 'bf16')}E{ti}E")
+    if row["kernel"] == "K7":
+        return f"fused_edge_v2_fwdILi{row['mode']}ELb{row['bf16_ops']}E{ti}E"
+    if row["kernel"] == "K8":
+        return f"fused_edge_v2_bwd_mainILb{int(row['mode'] == 2)}ELb{row['bf16_ops']}E{ti}E"
     pre = {"float32": 0, "bf16": 1, "recompute": 2}[row["pre"]]
     # the saved-pre kernels serve the raw mode with the shared one
     mode = 1 if row["mode"] == 0 and pre != 2 else row["mode"]
@@ -4032,10 +4124,10 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     beside the float32 kernel's time on the same shapes in the same call,
     its plain version's and, for K1 and K2, ``index_select`` and
     ``index_add_``; times summed over the calls of one AR step (K1, K3,
-    K7) or one training step (K2, K4, K8). K3 and K4 are also timed through
-    the ``parent`` commit's kernels where one is given (:func:`parent_kernels`),
-    and each of their bf16 instantiations' occupancy, registers and spills
-    is printed."""
+    K7) or one training step (K2, K4, K8). K3, K4, K7 and K8 are also timed
+    through the ``parent`` commit's kernels where one is given
+    (:func:`parent_kernels`), and each of their bf16 instantiations'
+    occupancy, registers and spills is printed."""
     from neural_lam_tpu_torch.ops import fused_kernels as fk
     from neural_lam_tpu_torch.ops.segment_kernels import (
         sender_gather,
@@ -4325,6 +4417,8 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
                 err = max(err, bf16_check(got[2], want[2], f"K7 {label} {site} pre"))
             pre = got[2]
             ms, pre_ms = cuda_ms(run7), cuda_ms(lambda: run7(pre=True))
+            old_ms, old_pre_ms = parent_ms(parent, run7), parent_ms(parent,
+                                                                    lambda: run7(pre=True))
             f32_ms = cuda_ms(lambda: fk.fused_edge_v2_fwd(e32, sp32, rp32, es, wts, raw,
                                                           update))
             plain_ms = cuda_ms(plain7)
@@ -4341,10 +4435,11 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
                 f"{update}; max abs err {err:.3g} (tol {BF16_TOL} of the largest entry"
                 f"{', bf16 and float32 out' if len(outs) == 2 else ''}; pre float32); kernel "
                 f"{ms:.4f} ms, with the pre output {pre_ms:.4f} ms (float32 kernel "
-                f"{f32_ms:.4f} ms); plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
-                f"{moved / 1e6:.1f} MB, bf16 tensor cores; {100 * b_ms / ms:.1f} % of it); "
-                f"{calls} call(s) per AR step")
-            add(k7, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+                f"{f32_ms:.4f} ms; parent {old_ms or 0.0:.4f} ms, with pre "
+                f"{old_pre_ms or 0.0:.4f} ms, 0 = not measured); plain {plain_ms:.4f} ms; "
+                f"bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB, bf16 tensor cores; "
+                f"{100 * b_ms / ms:.1f} % of it); {calls} call(s) per AR step")
+            add(k7, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, old_ms=old_ms)
 
             d_aggr = randn(n_rec, b, d, dtype=io)
             d_new = randn(n_e, b, d, dtype=io) if has_dne else None
@@ -4370,6 +4465,7 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"K8 {label} {site}: two runs differ")
             ms = cuda_ms(run8)
+            old_ms = parent_ms(parent, run8)
             f32_ms = cuda_ms(lambda: fk.fused_edge_v2_bwd(da32, dn32, pre, e32, es, wts, raw))
             plain_ms = cuda_ms(plain8)
             moved = nbytes(pre, edge_in, d_aggr, d_new, es.rowptr, *params, *got)
@@ -4384,16 +4480,24 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
             log(f"K8 fused_edge_phase_v2 backward {label} {site}: streams {str(io)[6:]}, "
                 f"d_new_edge {'given' if has_dne else 'none'}; max abs err {err:.3g} (tol "
                 f"{BF16_TOL} of each gradient's largest entry), repeatable; kernel {ms:.4f} ms "
-                f"(float32 kernel {f32_ms:.4f} ms); plain (autograd) {plain_ms:.4f} ms; bound "
+                f"(float32 kernel {f32_ms:.4f} ms; parent {old_ms or 0.0:.4f} ms, 0 = not "
+                f"measured); plain (autograd) {plain_ms:.4f} ms; bound "
                 f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB; {100 * b_ms / ms:.1f} % of "
                 f"it); {calls} call(s) per training step")
-            add(k8, calls, ms, f32_ms, plain_ms, b_ms, b_by, err)
+            add(k8, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, old_ms=old_ms)
             del sp, rp, edge_in, sp32, rp32, e32, got, want, again, pre, d_aggr, d_new
             torch.cuda.empty_cache()
         log(f"K7 {label} per AR step {k7['ms']:.4f} ms against the float32 kernel's "
-            f"{k7['f32_ms']:.4f} ms (bound {k7['bound_ms']:.4f}); K8 {label} per training "
-            f"step {k8['ms']:.4f} ms against {k8['f32_ms']:.4f} ms (bound "
-            f"{k8['bound_ms']:.4f})")
+            f"{k7['f32_ms']:.4f} ms and K3 {label}'s {k3['ms']:.4f} ms (bound "
+            f"{k7['bound_ms']:.4f}, {100 * k7['bound_ms'] / k7['ms']:.1f} % of it); K8 "
+            f"{label} per training step {k8['ms']:.4f} ms against {k8['f32_ms']:.4f} ms and "
+            f"K4 {label}'s {k4['ms']:.4f} ms (bound {k8['bound_ms']:.4f}, "
+            f"{100 * k8['bound_ms'] / k8['ms']:.1f} % of it)")
+        if parent is not None:
+            log(f"K7 {label} per AR step {k7['ms']:.4f} ms against the parent's "
+                f"{k7['parent_ms']:.4f} ms ({k7['parent_ms'] / k7['ms']:.3f} x); K8 {label} "
+                f"per training step {k8['ms']:.4f} ms against the parent's "
+                f"{k8['parent_ms']:.4f} ms ({k8['parent_ms'] / k8['ms']:.3f} x), same call")
         report.append(bf16_entry(f"K7 fused_edge_phase_v2 {label}", "fused_edge_v2.cu",
                                  "neural_lam_tpu/ops/pallas_fused.py:2143", k7, None))
         report.append(bf16_entry(f"K8 fused_edge_phase_v2 backward {label}",
@@ -5058,20 +5162,22 @@ def compare_train_modes(torch, model, ds, card: str, what: str, env: str, tols: 
 # lines: its K3 with the node-MLP epilogue, per AR step, and its node
 # backward, per training step, with the device time of its kernel and reduce
 PARENT_AGGR_STEP = re.compile(
-    r"^(K3 fused_edge_phase node epilogue|K4 node backward)( bf16(?: operands)?)? per "
-    r"(?:AR|training) step: ([0-9.]+) ms against ([0-9.]+) ms unfused"
-    r"(?:.*?device time \(torch\.profiler\) ([0-9.]+) ms)?")
+    r"^(K3 node update|K4 node backward)( bf16(?: operands)?)? per (?:AR|training) step: "
+    r"([0-9.]+) ms (?:\(device .*?K3 \+ node update ([0-9.]+) ms \(device [0-9.]+ ms\) "
+    r"against ([0-9.]+) ms with the node tail in torch|against [0-9.]+ ms unfused"
+    r".*?device time \(torch\.profiler\) ([0-9.]+) ms)")
 
 
 def parent_aggr_run(parent_dir: Path, label: str) -> dict[str, dict[str, float]]:
     """The parent commit's node-MLP route timed by its own script, in this
     process's card, one run: ``python3 profile_forecast.py --aggr-kernels``
     in its checkout (it builds its kernels there). Returns, by precision
-    suffix ("", " bf16", " bf16 operands"), ``k3_node_ms`` (its K3 with the
-    epilogue per AR step, CUDA events), ``k3_tail_ms`` (its K3 plus the node
+    suffix ("", " bf16", " bf16 operands"), ``k3_node_ms`` (its K3 + node
+    update per AR step, CUDA events), ``k3_tail_ms`` (its K3 plus the node
     tail with torch), ``bwd_ms`` and ``bwd_dev_ms`` (its node backward per
     training step: CUDA events, and the device time of the kernel and its
-    reduce). Its whole output goes to ``chiprun_out/parent_aggr_<label>.log``."""
+    reduce), read from the per-step lines this script prints too. Its whole
+    output goes to ``chiprun_out/parent_aggr_<label>.log``."""
     proc = subprocess.run([sys.executable, "profile_forecast.py", "--aggr-kernels"],
                           cwd=parent_dir, capture_output=True, text=True, timeout=1500)
     out_dir = REPO / "chiprun_out"
@@ -5086,12 +5192,12 @@ def parent_aggr_run(parent_dir: Path, label: str) -> dict[str, dict[str, float]]
         m = PARENT_AGGR_STEP.match(line.strip())
         if not m:
             continue
-        kernel, sfx, ms, base, dev = m.groups()
+        kernel, sfx, ms, k3_node, base, dev = m.groups()
         row = found.setdefault(sfx or "", {})
         if kernel.startswith("K3"):
-            row.update(k3_node_ms=float(ms), k3_tail_ms=float(base))
+            row.update(k3_node_ms=float(k3_node), k3_tail_ms=float(base))
         else:
-            row.update(bwd_ms=float(ms), bwd_dev_ms=float(dev or 0.0))
+            row.update(bwd_ms=float(ms), bwd_dev_ms=float(dev))
     if sorted(found) != ["", " bf16", " bf16 operands"] or any(len(v) != 4 for v in found.values()):
         raise AssertionError(f"the parent's run gave no per-step line of each kernel: {found}")
     return found
@@ -5315,7 +5421,7 @@ def phase_fused_aggr_kernels(torch, model, hi_lam, parent=None) -> list[dict]:
                     f"{a['k3_node_dev_ms']:.4f} ms) against {a['base_ms']:.4f} ms with the node "
                     "tail in torch")
             if old:
-                text += ("; the parent's K3 with the node epilogue "
+                text += ("; the parent's K3 + node update "
                          + ", ".join(f"{r['k3_node_ms']:.4f}" for r in old)
                          + f" ms (its own script, before and after), "
                          f"{sum(r['k3_node_ms'] for r in old) / len(old) / a['k3_node_ms']:.3f} "
@@ -5587,6 +5693,7 @@ def phase_dp(torch, model, ds, card: str) -> dict[str, int]:
     out.mkdir(parents=True)
     port = free_port()
     procs = []
+    t0 = time.perf_counter()
     for rank in range(DP_RANKS):
         with launch_env(DP_RANKS, rank, port):
             procs.append(subprocess.Popen(
@@ -5599,7 +5706,11 @@ def phase_dp(torch, model, ds, card: str) -> dict[str, int]:
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
+        for rank, p in enumerate(procs):  # what each rank had done
+            for line in (p.communicate()[0] or "").splitlines()[-30:]:
+                log(f"  rank {rank} (stopped): {line}")
         raise AssertionError(f"dp gloo ranks: not done in {DP_RANK_TIMEOUT_S} s")
+    log(f"dp gloo ranks: done in {time.perf_counter() - t0:.1f} s (limit {DP_RANK_TIMEOUT_S} s)")
     for rank, (p, text) in enumerate(zip(procs, logs)):
         for line in text.splitlines():
             log(f"  rank {rank}: {line}")
@@ -5645,6 +5756,7 @@ def dp_rank_main(out: Path) -> int:
     (the counters at 0 just before; each must read ``expected_launches``
     a step after) and the mean gradients of the first; written to
     ``out/rank<r>.npz``."""
+    t0 = time.perf_counter()
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -5654,11 +5766,16 @@ def dp_rank_main(out: Path) -> int:
     from neural_lam_tpu_torch.models import GraphLAM
     from neural_lam_tpu_torch.utils import distributed
 
+    def stage(what):  # progress, read by phase_dp if the rank overruns its time
+        print(f"{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+
     distributed.init_from_env("gloo")
     lay = distributed.layout()
+    stage(f"rank {lay.rank} joined the group")
     ds = meps_datastores()[0]
     model = GraphLAM(ds, hidden_dim=HIDDEN, processor_layers=PROC_LAYERS, device=DEVICE)
     trainer = make_trainer(model, ds)
+    stage("model built")
     per = BATCH // lay.world
     data = [torch.from_numpy(a[lay.rank * per:(lay.rank + 1) * per]).to(DEVICE)
             for a in bench_batch(ds)]
@@ -5668,6 +5785,7 @@ def dp_rank_main(out: Path) -> int:
     # evaluate from the gate's weights, then train
     result = trainer.evaluate(dp_eval_loader(ds, lay))
     torch.cuda.synchronize()
+    stage("evaluated")
     evaluated = {name: fn.launches for name, fn in counters.items()}
     for fn in counters.values():
         fn.launches = 0
@@ -6300,6 +6418,8 @@ def main() -> int:
     level_errs = phase_level_sets(torch, hi_lam)
     for key, err in phase_v2_level_sets(torch, hi_lam).items():
         level_errs[key] = max(level_errs.get(key, 0.0), err)
+    with torch.no_grad():
+        bf16_level_errs = phase_v2_bf16_level_sets(torch, hi_lam)
     # NEURAL_LAM_TPU_FUSED_AGGR: the node update after K3 and the node
     # backward at the six MEPS sites (every precision) and the level sets
     aggr_report = phase_fused_aggr_kernels(torch, model, hi_lam, parent)
@@ -6357,6 +6477,10 @@ def main() -> int:
         add_launches(total, phase_bf16_train(torch, model, gate_ds, card, others=False),
                      "bf16 train v2")
         add_launches(total, phase_bf16_rollout(torch, gate_ds), "bf16 rollout v2")
+    for entry in bf16_report:  # K7's and K8's BF forms at the level sets too
+        if entry["name"][:2] in ("K7", "K8"):
+            label = "bf16 operands" if entry["name"].endswith("operands") else "bf16"
+            entry["max_abs_err"] = max(entry["max_abs_err"], bf16_level_errs[label])
     report += bf16_report
     # NEURAL_LAM_TPU_CACHE_PRE: K3 writing a bf16 pre, K4 reading it or
     # recomputing pre, and the captured training step under each value

@@ -87,7 +87,8 @@ struct MainParams {
   const float* b2;
   const float* gamma;
   TI* d_send;        // (E, B, D)
-  float* d_pre;      // (E, B, D) d_pre [EDGE_BATCHED], else (E, D) s
+  float* d_pre;      // (E, B, D) d_pre [EDGE_BATCHED], else (E, D) s; K8: d_pre always
+  float* presum;     // K8's (E, D) s, the per-edge modes only
   float* d_recproj;  // (num_rec, B, D)
   float* ws;         // (gridDim.x * kGroups, kMainStride)
   // the recompute's inputs: K3's edge input and receiver rows, b1 and the
@@ -152,17 +153,19 @@ constexpr int main_smem_bytes(bool recompute) {
 // pre, then d_pre for the receiver sums, s and the d_pre stream; the
 // recompute's per-edge products; d_send on its way out), the chunk's
 // d_recproj sums, the group's float32 dW1s, the warps' column-sum slots and
-// the integers.
+// the integers. K8's (v2: no sender half) has no W1s and no dW1s, and
+// `groups` groups.
 struct MainSmemBf {
   int w2, w1s, vec, ew1, groups, group_floats, total;
   int t1, t2, tp, rp, dw, slots, ints;  // offsets inside a group
 };
 
-__host__ __device__ constexpr MainSmemBf main_plan_bf(bool recompute) {
+__host__ __device__ constexpr MainSmemBf main_plan_bf(bool recompute, bool v2 = false,
+                                                      int groups = kGroups) {
   MainSmemBf s{};
   int o = 0;
   s.w2 = o; o += tcb::kMatFloats;   // z = h1 . W2^T; d_h1 = dz . W2 (transpose bit)
-  s.w1s = o; o += tcb::kMatFloats;  // d_send = d_pre . W1s (transpose bit)
+  s.w1s = o; o += v2 ? 0 : tcb::kMatFloats;  // d_send = d_pre . W1s (transpose bit)
   s.vec = o; o += (recompute ? 8 : 2) * D;  // b2 gamma | b1 - | eb1 eb2 eg ebt
   s.ew1 = o; o += recompute ? kMaxFeat * D : 0;
   s.groups = o;
@@ -171,16 +174,16 @@ __host__ __device__ constexpr MainSmemBf main_plan_bf(bool recompute) {
   s.t2 = g; g += tcb::kMatFloats;
   s.tp = g; g += kTileRows * kWld;
   s.rp = g; g += kRecRows * D;
-  s.dw = g; g += D * kWld;  // dW1s as (out, in), row stride kWld
+  s.dw = g; g += v2 ? 0 : D * kWld;  // dW1s as (out, in), row stride kWld
   s.slots = g; g += kGroupWarps * 4 * D;  // per warp: db2 dgamma dbeta db1
   s.ints = g; g += 100;                   // rowptr (<= 33), receiver of each tile edge (64)
   s.group_floats = g;
-  s.total = o + kGroups * g;
+  s.total = o + groups * g;
   return s;
 }
 
-constexpr int main_smem_bytes_bf(bool recompute) {
-  return main_plan_bf(recompute).total * static_cast<int>(sizeof(float));
+constexpr int main_smem_bytes_bf(bool recompute, bool v2 = false, int groups = kGroups) {
+  return main_plan_bf(recompute, v2, groups).total * static_cast<int>(sizeof(float));
 }
 
 // d_msg = d_aggr[r, b] (+ d_new_edge[e, b]) of the warp's rows of a tile
@@ -345,8 +348,8 @@ fused_edge_bwd_main(const MainParams<TI> p) {
           // edge_val . W1e once per edge, shared by the batch, into the
           // warp's own rows of T2 (every warp's last reads of T2 were its
           // own rows)
-          fused_edge::edge_value<MODE, false, true>(x, p.edge, p.feat, t0, sEW1, p.ew2, sEV,
-                                                 r_base, ne);
+          fused_edge::edge_value<MODE, true>(x, p.edge, p.feat, t0, sEW1, p.ew2, sEV,
+                                             r_base, ne);
           tc::zero(z);
           tc::gemm<true>(z, x, p.w1, 3 * D);
           tc::store_rows(sT2, kWld, z, r_base, 32);
@@ -357,8 +360,8 @@ fused_edge_bwd_main(const MainParams<TI> p) {
           tc::gemm<true>(x, z, p.w1, 3 * D);
         } else if (B == 1) {
           // edge and row coincide: edge_val . W1e for the warp's own rows
-          fused_edge::edge_value<MODE, false, true>(z, p.edge, p.feat, t0, sEW1, p.ew2, sEV,
-                                                 r_base, ne);
+          fused_edge::edge_value<MODE, true>(z, p.edge, p.feat, t0, sEW1, p.ew2, sEV,
+                                             r_base, ne);
           tc::gemm<true>(x, z, p.w1, 3 * D);
         }
         tc::load_rows<true>(z, p.send + row0 * D, D, r_base, nrows);
@@ -531,16 +534,21 @@ fused_edge_bwd_main(const MainParams<TI> p) {
 //   * The recompute of pre (PRE == kPreRecompute) runs K3's BF products in
 //     K3's k order: mma.sync m16n8k16 on weights read through L1, the
 //     sender and batched edge rows read straight into k-slot order.
-template <int MODE, int PRE, typename TI>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-fused_edge_bwd_main_bf(const MainParams<TI> p) {
+// The body is bwd_main_bf, which K8's main kernel (fused_edge_v2_bwd.cu)
+// runs too with V2: the same chain without the sender half (no W1s, no
+// d_send, no dW1s), the d_pre stream written in every mode and s into
+// presum, GROUPS groups a block and K8's workspace stride.
+template <int MODE, int PRE, typename TI, bool V2 = false, int GROUPS = kGroups>
+__device__ __forceinline__ void bwd_main_bf(const MainParams<TI>& p) {
   using tcb::bf16;
   constexpr bool BATCHED = MODE == EDGE_BATCHED;
   constexpr bool RECOMPUTE = PRE == kPreRecompute;
   constexpr bool BF_STREAMS = sizeof(TI) == 2;
+  constexpr int kThreads = GROUPS * kGroupThreads;
+  static_assert(!(V2 && RECOMPUTE), "K8 starts from a saved pre");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  constexpr MainSmemBf L = main_plan_bf(RECOMPUTE);
+  constexpr MainSmemBf L = main_plan_bf(RECOMPUTE, V2, GROUPS);
   bf16* sW2 = reinterpret_cast<bf16*>(sm + L.w2);
   bf16* sW1s = reinterpret_cast<bf16*>(sm + L.w1s);
   const float* sB2 = sm + L.vec;
@@ -549,8 +557,8 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
   const float* sEV = sB2 + 4 * D;      // RECOMPUTE: eb1 eb2 eg ebt
   const float* sEW1 = sm + L.ew1;      // RECOMPUTE, EDGE_RAW: We1 as (F, D)
 
-  tcb::load_weight<false>(sW2, p.w2, D, 0, kBlockThreads);
-  tcb::load_weight<false>(sW1s, p.w1, 3 * D, D, kBlockThreads);
+  tcb::load_weight<false>(sW2, p.w2, D, 0, kThreads);
+  if (!V2) tcb::load_weight<false>(sW1s, p.w1, 3 * D, D, kThreads);
   tcb::fence_async();
   if (threadIdx.x < D) {
     const int c = threadIdx.x;
@@ -566,7 +574,7 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
     }
   }
   if (RECOMPUTE && MODE == EDGE_RAW) {
-    for (int i = threadIdx.x; i < p.feat * D; i += kBlockThreads) {  // (D, F) -> (F, D)
+    for (int i = threadIdx.x; i < p.feat * D; i += kThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
       sm[L.ew1 + i] = tc::bf16r(__ldg(p.ew1 + c * p.feat + k));  // the SIMT layer's operand
     }
@@ -586,14 +594,15 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
   int* sRowptr = reinterpret_cast<int*>(gs + L.ints);
   int* sRloc = sRowptr + 36;
   for (int i = tg; i < kGroupWarps * 4 * D; i += kGroupThreads) sSlots[i] = 0.0f;
-  for (int i = tg; i < D * kWld; i += kGroupThreads) sDW[i] = 0.0f;
+  if (!V2)
+    for (int i = tg; i < D * kWld; i += kGroupThreads) sDW[i] = 0.0f;
   __syncthreads();
 
   float* slot = sSlots + warp * 4 * D;  // this warp's db2 | dgamma | dbeta | db1
   const int B = p.batch, R = p.recv_per_chunk, TE = p.edges_per_tile;
   const int BD = B * D;
   const int r_base = 16 * warp;  // the warp's first row of a tile, and of dW
-  const int gi = blockIdx.x * kGroups + group;
+  const int gi = blockIdx.x * GROUPS + group;
   const tc::Lane lane;
   const int inv_b = (65536 + B - 1) / B;  // q / B = (q * inv_b) >> 16 for q < 64
   const int ni_e = (TE + 15) / 16;        // 16-edge groups that hold a tile's edges
@@ -604,7 +613,7 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
   float dW2[8][4];
   tc::zero(dW2);
 
-  for (int chunk = gi; chunk < p.num_chunks; chunk += gridDim.x * kGroups) {
+  for (int chunk = gi; chunk < p.num_chunks; chunk += gridDim.x * GROUPS) {
     const int r0 = chunk * R;
     const int nr = min(R, p.num_rec - r0);
     tc::group_sync(bar, kGroupThreads);  // the last chunk is done with gs
@@ -769,7 +778,7 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
       // stream, d_recproj in edge order and s[e] = sum_b d_pre[e, b] -------
       tcb::gemm_tn_issue(dW2, sT2, sT1);
       {
-        if (BATCHED) tc::copy_out_rows(p.d_pre + row0 * D, sTP, r_base, nrows);
+        if (BATCHED || V2) tc::copy_out_rows(p.d_pre + row0 * D, sTP, r_base, nrows);
 #pragma unroll 4
         for (int j = 0; j < kAgg; ++j) {
           // (receiver, b) row q of the chunk and feature d of this thread
@@ -785,16 +794,18 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
           }
         }
         if (!BATCHED) {
+          float* s_out = (V2 ? p.presum : p.d_pre) + static_cast<long long>(t0) * D;
           for (int i = tg; i < ne * D; i += kGroupThreads) {
             const int el = i / D, c = i - el * D;
             float s = 0.0f;
             for (int b = 0; b < B; ++b) s += tc::bf16r(sTP[(el * B + b) * kWld + c]);
-            p.d_pre[static_cast<long long>(t0) * D + i] = s;
+            s_out[i] = s;
           }
         }
         tcb::wg_wait(dW2);
       }
       tc::group_sync(bar, kGroupThreads);  // done with h1, dz and d_pre in TP
+      if constexpr (V2) continue;  // K8: no sender half
 
       // ---- d_pre and send as bf16 tiles: dW1s += send^T . d_pre ----------
       tc::load_rows<false>(x, sTP, kWld, r_base, kTileRows);  // the warp's d_pre rows
@@ -852,10 +863,12 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
         recproj[tg + j * kGroupThreads] = sRP[tg + j * kGroupThreads];
   }
 
-  // ---- the group's partials, once -----------------------------------------
-  float* ws = p.ws + static_cast<long long>(gi) * kMainStride;
+  // ---- the group's partials, once: K4's dW2 | dW1s | column sums, K8's
+  // dW2 | column sums ---------------------------------------------------------
+  constexpr int kMats = V2 ? 1 : 2;
+  float* ws = p.ws + static_cast<long long>(gi) * (kMats * kMat + 4 * D);
   tc::store_rows(ws, D, dW2, r_base, D);
-  {
+  if (!V2) {
     float dW1s[8][4];
     tc::load_rows<false>(dW1s, sDW, kWld, r_base, D);
     tc::store_rows(ws + kMat, D, dW1s, r_base, D);
@@ -864,8 +877,14 @@ fused_edge_bwd_main_bf(const MainParams<TI> p) {
   for (int i = tg; i < 4 * D; i += kGroupThreads) {
     float s = 0.0f;
     for (int w = 0; w < kGroupWarps; ++w) s += sSlots[w * 4 * D + i];
-    ws[2 * kMat + i] = s;
+    ws[kMats * kMat + i] = s;
   }
+}
+
+template <int MODE, int PRE, typename TI>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+fused_edge_bwd_main_bf(const MainParams<TI> p) {
+  bwd_main_bf<MODE, PRE, TI>(p);
 }
 
 template <int MODE, int PRE, bool BF, typename TI>

@@ -2,7 +2,7 @@
 // SiLU of K3, K4, K7 and K8 (fused_edge.cu, fused_edge_bwd*.cu,
 // fused_edge_v2.cu, fused_edge_v2_bwd.cu), the in-kernel edge embedder on
 // tensor-core row fragments (tc_tf32.cuh; on bf16 fragments, tc_bf16.cuh,
-// for the bf16-operand K3 and K4) that K3, K7, K4's recompute of pre and
+// for the bf16-operand K3, K4 and K7) that K3, K7, K4's recompute of pre and
 // K4's and K8's edge pass (fused_edge_bwd_common.cuh) run.
 
 #pragma once
@@ -69,11 +69,12 @@ __device__ __forceinline__ void embed_hidden(float (&a1)[8][4], const T* feats, 
 }
 
 // edge_val of edges t0 + el0 + g, t0 + el0 + g + 8 (zero at el >= ne) as a
-// row fragment: the shared (E, D) edge rows (EDGE_SHARED), or the embedder
-// on the raw (E, F) features, with its second layer We2 in shared memory
-// as tc::load_weight_rows leaves it (or, with GW, the (D, D) weight in
-// device memory, read through L1) and sEV = eb1 | eb2 | eg | ebt.
-template <int MODE, bool BF = false, bool GW = false, typename T = float>
+// row fragment, in float32 (3xTF32): the shared (E, D) edge rows
+// (EDGE_SHARED), or the embedder on the raw (E, F) features, with its
+// second layer We2 in shared memory as tc::load_weight_rows leaves it (or,
+// with GW, the (D, D) weight in device memory, read through L1) and sEV =
+// eb1 | eb2 | eg | ebt.
+template <int MODE, bool GW = false, typename T = float>
 __device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int F,
                                            int t0, const float* sEW1, const float* sEW2,
                                            const float* sEV, int el0, int ne) {
@@ -81,10 +82,10 @@ __device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int
     tc::load_rows<true>(ev, edge + static_cast<long long>(t0) * D, D, el0, ne);
     return;
   }
-  embed_hidden<BF>(ev, edge, F, t0, sEW1, sEV, el0, ne);
+  embed_hidden(ev, edge, F, t0, sEW1, sEV, el0, ne);
   float z[8][4];
   tc::zero(z);
-  tc::gemm<GW, BF>(z, ev, sEW2, GW ? D : tc::kWld);
+  tc::gemm<GW>(z, ev, sEW2, GW ? D : tc::kWld);
   tc::add_cols(z, sEV + D);
   tc::layer_norm(z, sEV + 2 * D, sEV + 3 * D, kLnEps);
 #pragma unroll
@@ -94,10 +95,11 @@ __device__ __forceinline__ void edge_value(float (&ev)[8][4], const T* edge, int
 }
 
 // edge_value for the bf16-operand kernels on bf16 fragments (tc_bf16.cuh:
-// K3's BF instantiations and K4's BF recompute): the embedder's second
-// layer as mma.sync m16n8k16 on We2 in shared memory in the core layout
+// K3's and K7's BF instantiations and K4's BF recompute): the features
+// rounded to bf16 for the SIMT layer, the embedder's second layer as
+// mma.sync m16n8k16 on We2 in shared memory in the core layout
 // (tcb::load_weight) or, with GW, the float32 (D, D) weight in device
-// memory; everything else as edge_value<MODE, true>.
+// memory; everything else as edge_value.
 template <int MODE, bool GW = false, typename T = float>
 __device__ __forceinline__ void edge_value_bf(float (&ev)[8][4], const T* edge, int F, int t0,
                                               const float* sEW1, const void* ew2,

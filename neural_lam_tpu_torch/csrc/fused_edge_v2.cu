@@ -71,24 +71,45 @@
 // and stays in L2.
 //
 // Reduced precision (the JAX kernel's cdt = bf16 and io_dt,
-// make_fused_interaction_v2, pallas_fused.py:2518-2525): K3's design
-// (fused_edge.cu). The instantiations with BF multiply bf16 operands (every
-// product's two operands rounded to bf16, one TF32 pass, float32
-// accumulation; tc_tf32.cuh), with SiLU, LayerNorm, the residual, the
-// receiver sums and pre in float32. Their streams edge, sp and rp are of
-// type TI: bf16 under mixed precision and NEURAL_LAM_TPU_MATMUL_PRECISION=
-// high, float32 under high-kernels; aggr and new_edge are written in
-// float32 or, with out_bf16 (bf16 inputs), rounded to bf16 on the way out,
-// as the JAX wrapper casts the float32 outputs to the input dtype (:2730-
-// 2740). The TPU kernel's one-hot selections also round sp, rp and each
-// message to bf16 before they are gathered and summed; here the gathers and
-// the sums are exact. Bound: bytes at the stream dtype, or the products at
-// the dense bf16 rate (989 TFLOP/s).
+// make_fused_interaction_v2, pallas_fused.py:2518-2525): the instantiations
+// with BF multiply bf16 operands (every product's two operands rounded to
+// bf16, float32 accumulation), with SiLU, LayerNorm, the residual, the
+// receiver sums and pre in float32. They run K3's BF design (fused_edge_fwd
+// .cuh) on Hopper's bf16 tensor cores (tc_bf16.cuh, fwd_bf below):
+//   * The row products (SiLU(pre) . W2, and edge . W1e for a batched edge
+//     input) are wgmma m64n64k16 on packed bf16 fragments, the per-edge
+//     products (the embedder's second layer, edge_val . W1e) mma.sync
+//     m16n8k16; every weight is one bf16 copy in shared memory in the core
+//     layout (8 KB where the split float32 one takes 32).
+//   * The sender term: the first layer's accumulator holds its columns in
+//     k-slot order (lane t: columns 16 t .. 16 t + 15 of its two rows, the
+//     order in which load_rows_k reads a row), so sp[sender[e], b] loads by
+//     index straight into it, as two (bf16) or four (float32) 16-byte loads
+//     a lane at the top of the tile, and pre leaves as four 16-byte stores.
+//     W1e's output rows, b1 and the staged rp rows are placed in that order
+//     once, and W2 takes its inputs in it (a sum over k does not depend on
+//     the order of the slots), so the messages and everything after them
+//     are in natural column order.
+//   * The shared memory this frees (130-178 KB a block) leaves room for
+//     four groups a block at up to 128 registers a thread, as K3's BF
+//     instantiations: 16 warps per SM, each group chained as above. Three
+//     groups ran 14 % slower per AR step on an H100; chunks of 32 rows 4 %
+//     slower, and taking a group's next chunk one chunk ahead 15 % slower.
+// The streams edge, sp and rp are of type TI: bf16 under mixed precision
+// and NEURAL_LAM_TPU_MATMUL_PRECISION=high, float32 under high-kernels;
+// aggr and new_edge are written in float32 or, with out_bf16 (bf16
+// inputs), rounded to bf16 on the way out, as the JAX wrapper casts the
+// float32 outputs to the input dtype (:2730-2740). The TPU kernel's one-hot
+// selections also round sp, rp and each message to bf16 before they are
+// gathered and summed; here the gathers and the sums are exact. Bound:
+// bytes at the stream dtype, or the products at the dense bf16 rate (989
+// TFLOP/s).
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
 #include "fused_edge_common.cuh"
+#include "tc_bf16.cuh"
 #include "tc_tf32.cuh"
 
 namespace {
@@ -109,8 +130,17 @@ constexpr int kGroupThreads = 32 * kGroupWarps;
 constexpr int kAgg = kRecRows * D / kGroupThreads;  // sums per thread
 constexpr int kMat = D * kWld;           // a weight for mma.sync in shared memory
 constexpr int kWgMat = 2 * tc::kWgHalf;  // a weight for wgmma: its hi and lo halves
+constexpr int kBfMat = tcb::kMatFloats;  // a bf16 weight in the core layout (BF)
 constexpr int kGroups = 3;               // K3's: 12 warps per SM, up to 168 registers
-constexpr int kBlockThreads = kGroups * kGroupThreads;
+// and of the BF instantiations, as K3's: their bf16 weights take a quarter
+// of the float32 ones' shared memory and their products half the registers
+constexpr int kGroupsBf = 4;
+constexpr int kBlockThreads = kGroups * kGroupThreads;  // the float32 instantiations'
+
+__host__ __device__ constexpr int groups_of(bool bf) { return bf ? kGroupsBf : kGroups; }
+__host__ __device__ constexpr int block_threads(bool bf) {
+  return groups_of(bf) * kGroupThreads;
+}
 // (receiver, b) rows a chunk takes at B <= 16 (a larger B takes one
 // receiver): half of K3's 32, so that the 821 chunks of a MEPS mesh set
 // become 1,641 and the last wave of the 396 groups idles less; 4-14 %
@@ -153,20 +183,21 @@ struct Params {
 
 // Shared-memory plan, in floats: the block's weights (W2, and W1e of a
 // batched edge input, split for wgmma; W1e of a per-edge input and the
-// embedder's We2 for mma.sync) and vectors, then per group a tile of 64
-// rows (messages; edge values before them), the per-edge products of a
-// tile (32 rows), the chunk's rp rows (32) and its integers.
+// embedder's We2 for mma.sync; with bf, each one bf16 copy in the core
+// layout) and vectors, then per group a tile of 64 rows (messages; edge
+// values before them), the per-edge products of a tile (32 rows), the
+// chunk's rp rows (32) and its integers.
 struct Smem {
   int w2, w1e, ew2, ew1, vec, groups, group_floats, total;
   int stage, proj, rp, ints;  // offsets inside a group
 };
 
-__host__ __device__ constexpr Smem smem_plan(int mode) {
+__host__ __device__ constexpr Smem smem_plan(int mode, bool bf = false) {
   Smem s{};
   int o = 0;
-  s.w2 = o; o += kWgMat;
-  s.w1e = o; o += (mode == EDGE_BATCHED) ? kWgMat : kMat;
-  s.ew2 = o; o += (mode == EDGE_RAW) ? kMat : 0;
+  s.w2 = o; o += bf ? kBfMat : kWgMat;
+  s.w1e = o; o += bf ? kBfMat : (mode == EDGE_BATCHED) ? kWgMat : kMat;
+  s.ew2 = o; o += (mode == EDGE_RAW) ? (bf ? kBfMat : kMat) : 0;
   s.ew1 = o; o += (mode == EDGE_RAW) ? kMaxFeat * D : 0;
   s.vec = o; o += 8 * D;  // b1 b2 gamma beta | eb1 eb2 eg ebt
   s.groups = o;
@@ -176,13 +207,13 @@ __host__ __device__ constexpr Smem smem_plan(int mode) {
   s.rp = g; g += kRecRows * kWld;
   s.ints = g; g += 100;  // rowptr (<= 33), chunk index, receiver of each tile edge (64)
   s.group_floats = g;
-  s.total = o + kGroups * g;
+  s.total = o + groups_of(bf) * g;
   return s;
 }
 
-template <int MODE>
+template <int MODE, bool BF = false>
 constexpr int smem_bytes() {
-  return smem_plan(MODE).total * static_cast<int>(sizeof(float));
+  return smem_plan(MODE, BF).total * static_cast<int>(sizeof(float));
 }
 
 // rows r0 .. of the staged tile out to dst (float or bf16 by out_bf16)
@@ -194,10 +225,282 @@ __device__ __forceinline__ void copy_out(void* dst, int out_bf16, long long offs
     tc::copy_out_rows(static_cast<float*>(dst) + offset, stage, r0, valid);
 }
 
-// BF: bf16 operands (one TF32 pass); TI: the stream type (float or bf16)
-template <int MODE, bool BF, typename TI>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-fused_edge_v2_fwd(const Params<TI> p) {
+// The BF instantiations' body, on Hopper's bf16 tensor cores (tc_bf16.cuh):
+// K7's function with every product's operands in bf16, each weight one
+// bf16 copy in the core layout. The first layer's accumulator holds its
+// columns in k-slot order (lane t: columns 16 t .. 16 t + 15 of its two
+// rows), so that sp[sender] loads straight into it as 16-byte loads and pre
+// leaves as 16-byte stores; W1e's outputs, b1, the staged rp rows and W2's
+// inputs are placed in the same order once, and the second layer's output
+// (and everything after it) is in natural order.
+template <int MODE, typename TI>
+__device__ __forceinline__ void fwd_bf(const Params<TI>& p) {
+  using tcb::bf16;
+  constexpr int kThreads = block_threads(true);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  constexpr Smem L = smem_plan(MODE, true);
+  bf16* wb = reinterpret_cast<bf16*>(sm);
+  const bf16* bW2 = wb + 2 * L.w2;
+  const bf16* bW1e = wb + 2 * L.w1e;
+  const bf16* bEW2 = wb + 2 * L.ew2;
+  const float* sB1 = sm + L.vec;  // k-slot order
+  const float* sB2 = sB1 + D;
+  const float* sG = sB2 + D;
+  const float* sBt = sG + D;
+  const float* sEV = sm + L.vec + 4 * D;  // eb1 eb2 eg ebt
+
+  // ---- the block's weights and vectors ------------------------------------
+  // W2's inputs and W1e's outputs in k-slot order; a batched W1e meets rows
+  // read by load_rows_k, so its inputs too
+  tcb::load_weight<true>(wb + 2 * L.w2, p.w2, D, 0, kThreads);
+  tcb::load_weight<MODE == EDGE_BATCHED, true>(wb + 2 * L.w1e, p.w1, 3 * D, 0, kThreads);
+  if (MODE == EDGE_RAW) {
+    tcb::load_weight<false>(wb + 2 * L.ew2, p.ew2, D, 0, kThreads);
+    for (int i = threadIdx.x; i < p.feat * D; i += kThreads) {  // (D, F) -> (F, D)
+      const int k = i / D, c = i - k * D;
+      sm[L.ew1 + i] = tc::bf16r(__ldg(p.ew1 + c * p.feat + k));  // the SIMT layer's operand
+    }
+  }
+  tcb::fence_async();
+  if (threadIdx.x < D) {
+    const int c = threadIdx.x;
+    float* v = sm + L.vec;
+    v[tcb::k_slot(c)] = p.b1[c];
+    v[D + c] = p.b2[c];
+    v[2 * D + c] = p.layer_norm ? p.gamma[c] : 1.0f;
+    v[3 * D + c] = p.layer_norm ? p.beta[c] : 0.0f;
+    if (MODE == EDGE_RAW) {
+      v[4 * D + c] = p.eb1[c];
+      v[5 * D + c] = p.eb2[c];
+      v[6 * D + c] = p.eg[c];
+      v[7 * D + c] = p.ebt[c];
+    }
+  }
+  __syncthreads();
+
+  // ---- one group of 4 warps from here on -----------------------------------
+  const int group = threadIdx.x / kGroupThreads;
+  const int tg = threadIdx.x - group * kGroupThreads;
+  const int warp = tg >> 5;
+  const int bar = 1 + group;  // named barrier of the group (0 is __syncthreads)
+  float* gs = sm + L.groups + group * L.group_floats;
+  float* sStage = gs + L.stage;
+  float* sProj = gs + L.proj;  // k-slot order
+  float* sRP = gs + L.rp;      // k-slot order
+  int* sRowptr = reinterpret_cast<int*>(gs + L.ints);
+  int* sChunk = sRowptr + 33;
+  int* sRloc = sRowptr + 36;
+
+  const int B = p.batch, R = p.recv_per_chunk, TE = p.edges_per_tile;
+  const int BD = B * D;
+  const int ni_e = (TE + 15) / 16;  // 16-edge groups that hold a tile's edges
+  const int inv_b = (65536 + B - 1) / B;  // q / B = (q * inv_b) >> 16 for q < 64
+  const int r_base = 16 * warp;     // the warp's first row of a tile
+
+  for (;;) {
+    if (tg == 0) *sChunk = atomicAdd(p.counter, 1);
+    tc::group_sync(bar, kGroupThreads);  // also: the last chunk is done with gs
+    const int chunk = *sChunk;
+    if (chunk >= p.num_chunks) break;
+    const int r0 = chunk * R;
+    const int nr = min(R, p.num_rec - r0);
+    if (tg <= nr) sRowptr[tg] = p.rowptr[r0 + tg];
+    {  // the chunk's rp rows, once per (receiver, b), in k-slot order
+      const TI* src = p.rp + static_cast<long long>(r0) * BD;
+      for (int i = tg; i < nr * B * (D / 4); i += kGroupThreads) {
+        const float4 v = fused_edge::ldg4(src + 4 * i);
+        float* row = sRP + (i >> 4) * kWld + tcb::k_slot(4 * (i & 15));
+        *reinterpret_cast<float2*>(row) = make_float2(v.x, v.y);
+        *reinterpret_cast<float2*>(row + 8) = make_float2(v.z, v.w);
+      }
+    }
+    float agg[kAgg];
+#pragma unroll
+    for (int j = 0; j < kAgg; ++j) agg[j] = 0.0f;
+    tc::group_sync(bar, kGroupThreads);
+
+    const int e_begin = sRowptr[0], e_end = sRowptr[nr];
+    for (int t0 = e_begin; t0 < e_end; t0 += TE) {
+      const int ne = min(TE, e_end - t0);
+      const int nrows = ne * B;
+      const long long row0 = static_cast<long long>(t0) * B;
+      if (tg < nr) {
+        const int a = max(sRowptr[tg], t0), z = min(sRowptr[tg + 1], t0 + ne);
+        for (int e = a; e < z; ++e) sRloc[e - t0] = tg;
+      }
+
+      // ---- first layer: sp[sender] into the accumulator (k-slot order),
+      // then the row product of a batched edge input on top of it ----------
+      float acc[8][4];
+      uint32_t a[4][4];
+      {
+        const tc::Lane l;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = r_base + l.g + 8 * h;
+          if (m < nrows) {
+            const int el = (m * inv_b) >> 16, b = m - el * B;
+            const int s = __ldg(p.senders + t0 + el);
+            tcb::load_row_k(acc, h, p.sp + (static_cast<long long>(s) * B + b) * D);
+          } else {
+#pragma unroll
+            for (int n = 0; n < 8; ++n) acc[n][2 * h] = acc[n][2 * h + 1] = 0.0f;
+          }
+        }
+      }
+      if (MODE == EDGE_BATCHED) {
+        tcb::load_rows_k(a, p.edge + row0 * D, r_base, nrows);
+        tcb::gemm_wg(acc, a, bW1e);
+      } else if (B == 1) {
+        // edge and row coincide: edge_val . W1e for the warp's own rows
+        float x[8][4];
+        fused_edge::edge_value_bf<MODE>(x, p.edge, p.feat, t0, sm + L.ew1, bEW2, sEV, r_base,
+                                        ne);
+        if (p.update_edges) tc::store_rows(sStage, kWld, x, r_base, kTileRows);
+        tcb::pack_frag(a, x);
+        tcb::gemm(acc, a, bW1e);
+      }
+      // ---- per-edge products, shared by the batch (B > 1) ------------------
+      if (MODE != EDGE_BATCHED && B > 1 && ni_e > 1 && warp < ni_e) {
+        // B = 2, 3: 32 edge rows, warps 0 and 1 take 16 each
+        float ev[8][4], proj[8][4];
+        fused_edge::edge_value_bf<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, bEW2, sEV, r_base,
+                                        ne);
+        if (p.update_edges) tc::store_rows(sStage, kWld, ev, r_base, kTileRows);
+        tc::zero(proj);
+        tcb::pack_frag(a, ev);
+        tcb::gemm(proj, a, bW1e);
+        tc::store_rows(sProj, kWld, proj, r_base, 32);
+      } else if (MODE != EDGE_BATCHED && B > 1 && ni_e == 1) {
+        // B >= 4: the tile's 16 or fewer edges fill one fragment; each warp
+        // takes 16 of the 64 output columns of the embedder's second layer
+        // and of edge_val . W1e (the hidden layer and the LayerNorm run on
+        // whole rows, in every warp)
+        float ev[8][4], part[2][4];
+        if (MODE == EDGE_RAW) {
+          float* sZ = sStage + 32 * kWld;  // free: edge values use rows < 16
+          fused_edge::embed_hidden<true>(ev, p.edge, p.feat, t0, sm + L.ew1, sEV, 0, ne);
+          tc::zero(part);
+          tcb::pack_frag(a, ev);
+          tcb::gemm_cols2(part, a, bEW2, 2 * warp);
+          tc::store_cols2(sZ, kWld, part, 2 * warp);
+          tc::group_sync(bar, kGroupThreads);
+          tc::load_rows<false>(ev, sZ, kWld, 0, 16);
+          tc::add_cols(ev, sEV + D);
+          tc::layer_norm(ev, sEV + 2 * D, sEV + 3 * D, kLnEps);
+        } else {
+          fused_edge::edge_value_bf<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, bEW2, sEV, 0,
+                                          ne);
+        }
+        if (p.update_edges && warp == 0) tc::store_rows(sStage, kWld, ev, 0, kTileRows);
+        tc::zero(part);
+        tcb::pack_frag(a, ev);
+        tcb::gemm_cols2(part, a, bW1e, 2 * warp);
+        tc::store_cols2(sProj, kWld, part, 2 * warp);
+      }
+      tc::group_sync(bar, kGroupThreads);
+
+      // ---- the first layer's epilogue (k-slot order): b1, rp, the per-edge
+      // product; pre out; SiLU. The fragment is the second layer's A --------
+      {
+        const tc::Lane l;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = r_base + l.g + 8 * h;
+          const int el = (m * inv_b) >> 16, b = m - el * B;
+          const int rl = m < nrows ? sRloc[el] : 0;
+          const float* rp = sRP + (rl * B + b) * kWld + 2 * l.t;
+          const float* pj = sProj + el * kWld + 2 * l.t;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const float2 r2 = *reinterpret_cast<const float2*>(rp + 8 * n);
+            const float2 b2 = *reinterpret_cast<const float2*>(sB1 + 8 * n + 2 * l.t);
+            acc[n][2 * h] += b2.x + r2.x;
+            acc[n][2 * h + 1] += b2.y + r2.y;
+            if (MODE != EDGE_BATCHED && B > 1) {
+              const float2 q = *reinterpret_cast<const float2*>(pj + 8 * n);
+              acc[n][2 * h] += q.x;
+              acc[n][2 * h + 1] += q.y;
+            }
+          }
+          if (p.pre != nullptr && m < nrows)  // saved for the backward (K8)
+            tcb::store_row_k(p.pre + (row0 + m) * D, acc, h);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[n][j] = silu(acc[n][j]);
+
+      // ---- second layer, LayerNorm, edge residual ----------------------------
+      float msg[8][4];
+      tc::zero(msg);
+      tcb::pack_frag(a, acc);
+      tcb::gemm_wg(msg, a, bW2);
+      tc::add_cols(msg, sB2);
+      if (p.layer_norm) tc::layer_norm(msg, sG, sBt, kLnEps);
+      if (p.update_edges) {
+        const tc::Lane l;
+        float base[8][4];
+        if (MODE == EDGE_BATCHED) {
+          tc::load_rows<true>(base, p.edge + row0 * D, D, r_base, nrows);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int el = ((r_base + l.g + 8 * h) * inv_b) >> 16;
+            const float* ev = sStage + el * kWld + 2 * l.t;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              const float2 v = *reinterpret_cast<const float2*>(ev + 8 * n);
+              base[n][2 * h] = v.x;
+              base[n][2 * h + 1] = v.y;
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) base[n][j] += msg[n][j];
+        // every warp has read the edge values before the tile is reused
+        if (MODE != EDGE_BATCHED && B > 1) tc::group_sync(bar, kGroupThreads);
+        tc::store_rows(sStage, kWld, base, r_base, kTileRows);
+        copy_out(p.new_edge, p.out_bf16, row0 * D, sStage, r_base, nrows);
+      }
+
+      // ---- the tile's messages into the chunk's sums, in edge order --------
+      tc::store_rows(sStage, kWld, msg, r_base, kTileRows);
+      tc::group_sync(bar, kGroupThreads);
+#pragma unroll
+      for (int j = 0; j < kAgg; ++j) {
+        // (receiver, b) row q of the chunk and feature d of this thread
+        const int q = (tg >> 6) + 2 * j, d = tg & (D - 1);
+        if (q < nr * B) {
+          const int rl = (q * inv_b) >> 16, b = q - rl * B;
+          const int ea = max(sRowptr[rl], t0), ez = min(sRowptr[rl + 1], t0 + ne);
+          float s = agg[j];
+          for (int e = ea; e < ez; ++e) s += sStage[((e - t0) * B + b) * kWld + d];
+          agg[j] = s;
+        }
+      }
+      tc::group_sync(bar, kGroupThreads);  // the tile is done with gs
+    }
+#pragma unroll
+    for (int j = 0; j < kAgg; ++j) {
+      const int idx = tg + j * kGroupThreads;
+      if (idx >= nr * BD) continue;
+      const long long o = static_cast<long long>(r0) * BD + idx;
+      if (p.out_bf16)
+        tc::store_val(static_cast<__nv_bfloat16*>(p.aggr) + o, agg[j]);
+      else
+        tc::store_val(static_cast<float*>(p.aggr) + o, agg[j]);
+    }
+  }
+}
+
+// The float32 instantiations' body (3xTF32, tc_tf32.cuh)
+template <int MODE, typename TI>
+__device__ __forceinline__ void fwd_f32(const Params<TI>& p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr Smem L = smem_plan(MODE);
@@ -210,9 +513,9 @@ fused_edge_v2_fwd(const Params<TI> p) {
 
   // ---- the block's weights and vectors: W1e's outputs and W2's inputs
   // placed for the first layer's layout Q ------------------------------------
-  tc::load_weight_wg<false, false, true, BF>(sm + L.w2, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<false, false, true>(sm + L.w2, p.w2, D, 0, kBlockThreads);
   if (MODE == EDGE_BATCHED)
-    tc::load_weight_wg<false, true, false, BF>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
+    tc::load_weight_wg<false, true, false>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   else
     tc::load_weight_rows<true>(sm + L.w1e, p.w1, 3 * D, 0, kBlockThreads);
   if (MODE == EDGE_RAW) {
@@ -220,7 +523,7 @@ fused_edge_v2_fwd(const Params<TI> p) {
     for (int i = threadIdx.x; i < p.feat * D; i += kBlockThreads) {  // (D, F) -> (F, D)
       const int k = i / D, c = i - k * D;
       const float w = __ldg(p.ew1 + c * p.feat + k);
-      sm[L.ew1 + i] = BF ? tc::bf16r(w) : w;  // the SIMT layer's operand
+      sm[L.ew1 + i] = w;  // the SIMT layer's operand
     }
   }
   if (threadIdx.x < D) {
@@ -309,24 +612,24 @@ fused_edge_v2_fwd(const Params<TI> p) {
       if (MODE == EDGE_BATCHED) {
         float x[8][4];
         tc::load_rows<true>(x, p.edge + row0 * D, D, r_base, nrows);
-        tc::gemm_wg<8, BF>(acc, x, sW1e);
+        tc::gemm_wg<8>(acc, x, sW1e);
       } else if (B == 1) {
         // edge and row coincide: edge_val . W1e for the warp's own rows
         float x[8][4];
-        fused_edge::edge_value<MODE, BF>(x, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
+        fused_edge::edge_value<MODE>(x, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
                                          r_base, ne);
         if (p.update_edges) tc::store_rows(sStage, kWld, x, r_base, kTileRows);
-        tc::gemm<false, BF>(acc, x, sW1e);
+        tc::gemm(acc, x, sW1e);
       }
       // ---- per-edge products, shared by the batch (B > 1) ------------------
       if (MODE != EDGE_BATCHED && B > 1 && ni_e > 1 && warp < ni_e) {
         // B = 2, 3: 32 edge rows, warps 0 and 1 take 16 each
         float ev[8][4], proj[8][4];
-        fused_edge::edge_value<MODE, BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
+        fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2, sEV,
                                          r_base, ne);
         if (p.update_edges) tc::store_rows(sStage, kWld, ev, r_base, kTileRows);
         tc::zero(proj);
-        tc::gemm<false, BF>(proj, ev, sW1e);
+        tc::gemm(proj, ev, sW1e);
         tc::store_rows(sProj, kWld, proj, r_base, 32);
       } else if (MODE != EDGE_BATCHED && B > 1 && ni_e == 1) {
         // B >= 4: the tile's 16 or fewer edges fill one fragment; each warp
@@ -336,21 +639,21 @@ fused_edge_v2_fwd(const Params<TI> p) {
         float ev[8][4], part[2][4];
         if (MODE == EDGE_RAW) {
           float* sZ = sStage + 32 * kWld;  // free: edge values use rows < 16
-          fused_edge::embed_hidden<BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sEV, 0, ne);
+          fused_edge::embed_hidden(ev, p.edge, p.feat, t0, sm + L.ew1, sEV, 0, ne);
           tc::zero(part);
-          tc::gemm_cols2<BF>(part, ev, sm + L.ew2, 2 * warp);
+          tc::gemm_cols2(part, ev, sm + L.ew2, 2 * warp);
           tc::store_cols2(sZ, kWld, part, 2 * warp);
           tc::group_sync(bar, kGroupThreads);
           tc::load_rows<false>(ev, sZ, kWld, 0, 16);
           tc::add_cols(ev, sEV + D);
           tc::layer_norm(ev, sEV + 2 * D, sEV + 3 * D, kLnEps);
         } else {
-          fused_edge::edge_value<MODE, BF>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
+          fused_edge::edge_value<MODE>(ev, p.edge, p.feat, t0, sm + L.ew1, sm + L.ew2,
                                            sEV, 0, ne);
         }
         if (p.update_edges && warp == 0) tc::store_rows(sStage, kWld, ev, 0, kTileRows);
         tc::zero(part);
-        tc::gemm_cols2<BF>(part, ev, sW1e, 2 * warp);
+        tc::gemm_cols2(part, ev, sW1e, 2 * warp);
         tc::store_cols2(sProj, kWld, part, 2 * warp);
       }
       tc::group_sync(bar, kGroupThreads);
@@ -391,7 +694,7 @@ fused_edge_v2_fwd(const Params<TI> p) {
       // ---- second layer, LayerNorm, edge residual ----------------------------
       float msg[8][4];
       tc::zero(msg);
-      tc::gemm_wg<8, BF>(msg, acc, sW2);
+      tc::gemm_wg<8>(msg, acc, sW2);
       tc::add_cols(msg, sB2);
       if (p.layer_norm) tc::layer_norm(msg, sG, sBt, kLnEps);
       if (p.update_edges) {
@@ -452,6 +755,17 @@ fused_edge_v2_fwd(const Params<TI> p) {
   }
 }
 
+// BF: bf16 operands (bf16 fragments, fwd_bf); TI: the stream type (float
+// or bf16)
+template <int MODE, bool BF, typename TI>
+__global__ void __launch_bounds__(block_threads(BF), 1)
+fused_edge_v2_fwd(const Params<TI> p) {
+  if constexpr (BF)
+    fwd_bf<MODE>(p);
+  else
+    fwd_f32<MODE>(p);
+}
+
 template <int MODE, bool BF, typename TI>
 cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
@@ -461,20 +775,35 @@ cudaError_t launch(const Params<TI>& p, cudaStream_t stream) {
   if (!(allowed & (1u << (dev & 31)))) {
     err = cudaFuncSetAttribute(fused_edge_v2_fwd<MODE, BF, TI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<MODE>());
+                               smem_bytes<MODE, BF>());
     if (err != cudaSuccess) return err;
     allowed |= 1u << (dev & 31);
   }
-  const int groups_needed = (p.num_chunks + kGroups - 1) / kGroups;
+  constexpr int groups = groups_of(BF);
+  const int groups_needed = (p.num_chunks + groups - 1) / groups;
   const int blocks = min(groups_needed, tc::sm_count());
-  fused_edge_v2_fwd<MODE, BF, TI><<<blocks, kBlockThreads, smem_bytes<MODE>(), stream>>>(p);
+  fused_edge_v2_fwd<MODE, BF, TI>
+      <<<blocks, block_threads(BF), smem_bytes<MODE, BF>(), stream>>>(p);
   return cudaGetLastError();
 }
 
+// the launch resources of one instantiation: out = blocks per SM, threads
+// per block, registers per thread, shared memory per block, local memory
+// per thread (bytes)
+template <int MODE, bool BF, typename TI>
+cudaError_t occupancy_of(int* out) {
+  out[1] = block_threads(BF);
+  out[3] = smem_bytes<MODE, BF>();
+  return tcb::occupancy(fused_edge_v2_fwd<MODE, BF, TI>, out[1], out[3], out, out + 2,
+                        out + 4);
+}
+
+// occupancy_of for edge_mode, bf16_ops and (then) io_bf16
 template <int MODE>
-cudaError_t occupancy(int* blocks, int* regs, int* smem) {
-  return tc::occupancy(fused_edge_v2_fwd<MODE, false, float>, kBlockThreads,
-                       smem_bytes<MODE>(), blocks, regs, smem);
+cudaError_t occupancy_mode(int bf16_ops, int io_bf16, int* out) {
+  if (!bf16_ops) return occupancy_of<MODE, false, float>(out);
+  return io_bf16 ? occupancy_of<MODE, true, __nv_bfloat16>(out)
+                 : occupancy_of<MODE, true, float>(out);
 }
 
 // Fill the parameters and launch the instantiation for edge_mode
@@ -530,15 +859,18 @@ cudaError_t run(int edge_mode, int num_rec, int batch, int feat, int update_edge
 
 }  // namespace
 
-// Blocks of the kernel for edge_mode that fit on one SM, its threads per
-// block, registers per thread and dynamic shared memory per block.
-extern "C" int nl_fused_edge_v2_fwd_occupancy(int edge_mode, int* blocks, int* threads,
-                                              int* regs, int* smem) {
-  *threads = kBlockThreads;
+// The launch resources of one instantiation: bf16_ops (then io_bf16, the
+// stream type) and edge_mode pick it; out = blocks per SM, threads per
+// block, registers per thread, dynamic shared memory per block and local
+// memory per thread (bytes).
+extern "C" int nl_fused_edge_v2_fwd_occupancy(int bf16_ops, int io_bf16, int edge_mode,
+                                              int* out) {
   switch (edge_mode) {
-    case EDGE_RAW: return static_cast<int>(occupancy<EDGE_RAW>(blocks, regs, smem));
-    case EDGE_SHARED: return static_cast<int>(occupancy<EDGE_SHARED>(blocks, regs, smem));
-    case EDGE_BATCHED: return static_cast<int>(occupancy<EDGE_BATCHED>(blocks, regs, smem));
+    case EDGE_RAW: return static_cast<int>(occupancy_mode<EDGE_RAW>(bf16_ops, io_bf16, out));
+    case EDGE_SHARED:
+      return static_cast<int>(occupancy_mode<EDGE_SHARED>(bf16_ops, io_bf16, out));
+    case EDGE_BATCHED:
+      return static_cast<int>(occupancy_mode<EDGE_BATCHED>(bf16_ops, io_bf16, out));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -32,7 +32,7 @@
 // Design: K4's (fused_edge_bwd.cu), without its sender half and its
 // receiver slice. Three launches, with no float atomics anywhere:
 //   1. fused_edge_v2_bwd_main, on the tensor cores with the 3xTF32 split
-//      (tc_tf32.cuh), at float32 accuracy. A block of 12 warps holds W2 in
+//      (tc_tf32.cuh), at float32 accuracy (the BF form below). A block of 12 warps holds W2 in
 //      both orientations, split for wgmma, in shared memory and runs three
 //      independent groups of 4 warps (one warpgroup each); group i of the
 //      grid takes the chunks i, i + groups, ... of R = 16/B consecutive
@@ -69,10 +69,23 @@
 // and d_new_edge and writes d_pre, 768-1,024 bytes a row.
 //
 // Reduced precision (the JAX kernel's cdt = bf16 and io_dt, pallas_fused.py
-// :1934, :2293): K4's design. The instantiations with BF take every
-// product's operands in bf16 (tc_tf32.cuh; float32 sums), with the
-// LayerNorm backward, SiLU' and the column sums in float32; s[e] sums d_pre
-// rounded to bf16, as K4's does. The streams d_aggr, d_new_edge and the
+// :1934, :2293): the instantiations with BF take every product's operands
+// in bf16 (float32 sums), with the LayerNorm backward, SiLU' and the column
+// sums in float32; s[e] sums d_pre rounded to bf16, as K4's does. Their
+// main kernel is K4's BF chain (bwd_main_bf, fused_edge_bwd_main.cuh) with
+// its sender half compiled out, on Hopper's bf16 tensor cores (tc_bf16.cuh):
+// z = h1 . W2^T and d_h1 = dz . W2 are wgmma m64n64k16 on packed
+// fragments, with one bf16 copy of W2 that the transpose bit reads as the
+// MN-major B of d_h1 (no transposed copy); dW2 += h1^T . dz is wgmma on two
+// bf16 tiles in the core layout, issued without waiting into the warp's
+// 16 x 64 share, which stays in registers across the group's tiles, while
+// the d_pre stream, the d_recproj sums and s run on the SIMT units. With
+// one gradient share a warp (K4 keeps two) and 8 KB of weights, four groups
+// a block fit (16 warps per SM, 198,720 bytes, 128 registers a thread,
+// 176-220 bytes of spill stores); three groups (up to 168 registers) ran
+// 1 % slower per training step on an H100. The edge pass, the rows pass
+// (its BF form one TF32 pass on bf16 values, tc_tf32.cuh) and the reduce
+// are as in float32. The streams d_aggr, d_new_edge and the
 // edge input, and the output d_edge, are of type TI (bf16 under mixed
 // precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high, float32 under
 // high-kernels), as the JAX wrapper casts them to io_dt (:2322, :2389); pre,
@@ -83,28 +96,20 @@
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes (neural_lam_tpu_torch/ops/kernel_build.py).
 
-#include "fused_edge_bwd_common.cuh"
-#include "tc_tf32.cuh"
+#include "fused_edge_bwd_main.cuh"
 
 namespace {
 
-using fused_edge::D;
-using fused_edge::EDGE_BATCHED;
-using fused_edge::kLnEps;
-using fused_edge::kMat;
-using fused_edge::kMaxFeat;
-using fused_edge::kRecRows;
-using fused_edge::kTileRows;
-using fused_edge::silu;
-using fused_edge::silu_grad;
-using tc::kWld;
+// groups of 4 warps a block: the float32 instantiations K4's kGroups (12
+// warps per SM, up to 168 registers); the BF instantiations 4 (16 warps,
+// up to 128 registers), which their one gradient share a warp leaves room
+// for where K4's two spilled. The wrapper sizes the grid and the workspace
+// by the same counts.
+constexpr int kGroupsBf = 4;
 
-constexpr int kGroupWarps = 4;
-constexpr int kGroups = 3;  // per block; the wrapper sizes the workspace by it
-constexpr int kGroupThreads = 32 * kGroupWarps;
-constexpr int kBlockThreads = kGroups * kGroupThreads;
-constexpr int kAgg = kRecRows * D / kGroupThreads;  // d_recproj entries per thread
-constexpr int kWgMat = 2 * tc::kWgHalf;  // a weight for wgmma: its hi and lo halves
+__host__ __device__ constexpr int v2_groups(bool bf) { return bf ? kGroupsBf : kGroups; }
+__host__ __device__ constexpr int v2_threads(bool bf) { return v2_groups(bf) * kGroupThreads; }
+
 // (receiver, b) rows a chunk takes at B <= 16 (a larger B takes one
 // receiver), as in K7: more, smaller chunks than K4's 32 rows balance the
 // static assignment better (4-13 % faster at the MEPS sites on an H100);
@@ -113,39 +118,19 @@ constexpr int kChunkRows = 16;
 
 // floats per group in the main kernel's workspace (the wrapper sizes it the
 // same): dW2 as (out, in) | db2 dgamma dbeta db1
-constexpr int kMainStride = kMat + 4 * D;
+constexpr int kV2Stride = kMat + 4 * D;
 
-template <typename TI>
-struct MainParams {
-  const float* pre;      // (E, B, D)
-  const TI* d_aggr;      // (num_rec, B, D)
-  const TI* d_new_edge;  // (E, B, D) or null
-  const int* rowptr;
-  const float* w2;
-  const float* b2;
-  const float* gamma;
-  float* d_pre;      // (E, B, D)
-  float* presum;     // (E, D) s, the per-edge modes only
-  float* d_recproj;  // (num_rec, B, D)
-  float* ws;         // (gridDim.x * kGroups, kMainStride)
-  int num_rec;
-  int num_chunks;
-  int batch;
-  int recv_per_chunk;
-  int edges_per_tile;
-  int layer_norm;
-};
-
-// Shared-memory plan, in floats: W2 in both orientations (split for wgmma)
-// and two vectors, then per group two 64-row tiles, the warps' column-sum
-// slots and the integers.
-struct MainSmem {
+// The float32 kernel's shared-memory plan, in floats: W2 in both
+// orientations (split for wgmma) and two vectors, then per group two 64-row
+// tiles, the warps' column-sum slots and the integers. (The BF kernel's is
+// K4's main_plan_bf without the sender half.)
+struct V2Smem {
   int w2, w2t, vec, groups, group_floats, total;
   int t1, t2, slots, ints;  // offsets inside a group
 };
 
-__host__ __device__ constexpr MainSmem main_plan() {
-  MainSmem s{};
+__host__ __device__ constexpr V2Smem v2_plan() {
+  V2Smem s{};
   int o = 0;
   s.w2 = o; o += kWgMat;   // W2 as it is: z = h1 . W2^T
   s.w2t = o; o += kWgMat;  // W2^T: d_h1 = dz . W2
@@ -161,22 +146,26 @@ __host__ __device__ constexpr MainSmem main_plan() {
   return s;
 }
 
-constexpr int main_smem_bytes() { return main_plan().total * static_cast<int>(sizeof(float)); }
+template <bool BF>
+constexpr int v2_smem_bytes() {
+  return BF ? main_smem_bytes_bf(false, true, kGroupsBf)
+            : v2_plan().total * static_cast<int>(sizeof(float));
+}
 
-// BF: bf16 operands (one TF32 pass); TI: the stream type (float or bf16)
-template <bool BATCHED, bool BF, typename TI>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-fused_edge_v2_bwd_main(const MainParams<TI> p) {
+// The float32 instantiations' body (3xTF32, tc_tf32.cuh)
+template <bool BATCHED, typename TI>
+__device__ __forceinline__ void v2_bwd_f32(const MainParams<TI>& p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  constexpr MainSmem L = main_plan();
+  constexpr V2Smem L = v2_plan();
   const float* sW2 = sm + L.w2;
   const float* sW2t = sm + L.w2t;
   const float* sB2 = sm + L.vec;
   const float* sGam = sB2 + D;
+  const float* pre = static_cast<const float*>(p.pre);
 
-  tc::load_weight_wg<false, false, false, BF>(sm + L.w2, p.w2, D, 0, kBlockThreads);
-  tc::load_weight_wg<true, false, false, BF>(sm + L.w2t, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<false>(sm + L.w2, p.w2, D, 0, kBlockThreads);
+  tc::load_weight_wg<true>(sm + L.w2t, p.w2, D, 0, kBlockThreads);
   if (threadIdx.x < D) {
     sm[L.vec + threadIdx.x] = p.b2[threadIdx.x];
     sm[L.vec + D + threadIdx.x] = p.layer_norm ? p.gamma[threadIdx.x] : 1.0f;
@@ -230,13 +219,13 @@ fused_edge_v2_bwd_main(const MainParams<TI> p) {
 
       // ---- the forward again from pre: h1 into T1, z and its x_hat -------
       float x[8][4], z[8][4], rstd[2];
-      tc::load_rows<true>(x, p.pre + row0 * D, D, r_base, nrows);
+      tc::load_rows<true>(x, pre + row0 * D, D, r_base, nrows);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int j = 0; j < 4; ++j) x[n][j] = silu(x[n][j]);
       tc::zero(z);
-      tc::gemm_wg<4, BF>(z, x, sW2);
+      tc::gemm_wg<4>(z, x, sW2);
       tc::add_cols(z, sB2);
       if (p.layer_norm) tc::layer_norm(z, nullptr, nullptr, kLnEps, rstd);
       tc::store_rows(sT1, kWld, x, r_base, kTileRows);
@@ -278,15 +267,15 @@ fused_edge_v2_bwd_main(const MainParams<TI> p) {
       tc::add_col_sums(slot, x);  // db2
       tc::store_rows(sT2, kWld, x, r_base, kTileRows);
       tc::group_sync(bar, kGroupThreads);  // T1 = h1, T2 = dz
-      tc::gemm_tn<BF>(dW2, sT2, r_base, sT1);
+      tc::gemm_tn(dW2, sT2, r_base, sT1);
 
       // ---- d_h1 = dz . W2, d_pre = d_h1 * SiLU'(pre) ----------------------
       // (dz again from the warp's own rows of T2: kept live across the
       // weight-gradient product, it spills)
       tc::load_rows<false>(x, sT2, kWld, r_base, kTileRows);
       tc::zero(z);
-      tc::gemm_wg<4, BF>(z, x, sW2t);
-      tc::load_rows<true>(x, p.pre + row0 * D, D, r_base, nrows);
+      tc::gemm_wg<4>(z, x, sW2t);
+      tc::load_rows<true>(x, pre + row0 * D, D, r_base, nrows);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -317,7 +306,7 @@ fused_edge_v2_bwd_main(const MainParams<TI> p) {
           const int el = i / D, c = i - el * D;
           float s = 0.0f;
           for (int b = 0; b < B; ++b)
-            s += BF ? tc::bf16r(sT2[(el * B + b) * kWld + c]) : sT2[(el * B + b) * kWld + c];
+            s += sT2[(el * B + b) * kWld + c];
           p.presum[static_cast<long long>(t0) * D + i] = s;
         }
       }
@@ -325,7 +314,7 @@ fused_edge_v2_bwd_main(const MainParams<TI> p) {
   }
 
   // ---- the group's partials, once -----------------------------------------
-  float* ws = p.ws + static_cast<long long>(gi) * kMainStride;
+  float* ws = p.ws + static_cast<long long>(gi) * kV2Stride;
   tc::store_rows(ws, D, dW2, r_base, D);
   tc::group_sync(bar, kGroupThreads);  // every warp's slots are final
   for (int i = tg; i < 4 * D; i += kGroupThreads) {
@@ -335,26 +324,55 @@ fused_edge_v2_bwd_main(const MainParams<TI> p) {
   }
 }
 
+// BF: bf16 operands, K4's BF chain without its sender half (bwd_main_bf,
+// fused_edge_bwd_main.cuh); TI: the stream type (float or bf16)
 template <bool BATCHED, bool BF, typename TI>
-cudaError_t launch_main(const MainParams<TI>& p, int blocks, cudaStream_t stream) {
+__global__ void __launch_bounds__(v2_threads(BF), 1)
+fused_edge_v2_bwd_main(const MainParams<TI> p) {
+  if constexpr (BF)
+    bwd_main_bf<BATCHED ? EDGE_BATCHED : EDGE_SHARED, kPreF32, TI, true, kGroupsBf>(p);
+  else
+    v2_bwd_f32<BATCHED>(p);
+}
+
+template <bool BATCHED, bool BF, typename TI>
+cudaError_t launch_v2_main(const MainParams<TI>& p, int blocks, cudaStream_t stream) {
   static unsigned allowed = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(allowed & (1u << (dev & 31)))) {
-    err = fused_edge::allow_smem(fused_edge_v2_bwd_main<BATCHED, BF, TI>, main_smem_bytes());
+    err = fused_edge::allow_smem(fused_edge_v2_bwd_main<BATCHED, BF, TI>, v2_smem_bytes<BF>());
     if (err != cudaSuccess) return err;
     allowed |= 1u << (dev & 31);
   }
   fused_edge_v2_bwd_main<BATCHED, BF, TI>
-      <<<blocks, kBlockThreads, main_smem_bytes(), stream>>>(p);
+      <<<blocks, v2_threads(BF), v2_smem_bytes<BF>(), stream>>>(p);
   return cudaGetLastError();
+}
+
+// the launch resources of the main kernel's instantiation: out = blocks per
+// SM, threads per block, registers per thread, shared memory per block,
+// local memory per thread (bytes)
+template <bool BATCHED, bool BF, typename TI>
+cudaError_t v2_occupancy_of(int* out) {
+  out[1] = v2_threads(BF);
+  out[3] = v2_smem_bytes<BF>();
+  return tcb::occupancy(fused_edge_v2_bwd_main<BATCHED, BF, TI>, out[1], out[3], out,
+                        out + 2, out + 4);
+}
+
+template <bool BATCHED>
+cudaError_t v2_occupancy_mode(int bf16_ops, int io_bf16, int* out) {
+  if (!bf16_ops) return v2_occupancy_of<BATCHED, false, float>(out);
+  return io_bf16 ? v2_occupancy_of<BATCHED, true, __nv_bfloat16>(out)
+                 : v2_occupancy_of<BATCHED, true, float>(out);
 }
 
 // Fill the parameters and launch the main kernel, the edge input's share
 // and the two reduces, for the instantiation BF, TI
 template <bool BF, typename TI>
-cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat, int layer_norm,
+cudaError_t run_v2(int edge_mode, int num_rec, int n_edges, int batch, int feat, int layer_norm,
                 int main_blocks, int edge_blocks, const void* edge, const void* pre,
                 const void* d_aggr, const void* d_new_edge, const void* rowptr, const void* w1,
                 const void* w2, const void* b2, const void* gamma, const void* ew1,
@@ -368,8 +386,8 @@ cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool batched = edge_mode == EDGE_BATCHED;
 
-  MainParams<TI> m;
-  m.pre = static_cast<const float*>(pre);
+  MainParams<TI> m{};
+  m.pre = pre;
   m.d_aggr = static_cast<const TI*>(d_aggr);
   m.d_new_edge = static_cast<const TI*>(d_new_edge);
   m.rowptr = static_cast<const int*>(rowptr);
@@ -386,13 +404,13 @@ cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat, in
   m.edges_per_tile = kTileRows / batch;
   m.num_chunks = (num_rec + m.recv_per_chunk - 1) / m.recv_per_chunk;
   m.layer_norm = layer_norm;
-  cudaError_t err = batched ? launch_main<true, BF, TI>(m, main_blocks, s)
-                            : launch_main<false, BF, TI>(m, main_blocks, s);
+  cudaError_t err = batched ? launch_v2_main<true, BF, TI>(m, main_blocks, s)
+                            : launch_v2_main<false, BF, TI>(m, main_blocks, s);
   if (err != cudaSuccess) return err;
   fused_edge::ReduceJobs jobs{};
   jobs.n = 2;
   jobs.job[0] = fused_edge::ReduceJob{m.ws, static_cast<float*>(out_main),
-                                      main_blocks * kGroups, kMainStride, kMainStride};
+                                      main_blocks * v2_groups(BF), kV2Stride, kV2Stride};
 
   if (batched) {  // the edge input's share per (edge, b) row, over d_pre
     fused_edge::RowsParamsT<TI> r;
@@ -432,17 +450,17 @@ cudaError_t run(int edge_mode, int num_rec, int n_edges, int batch, int feat, in
 
 }  // namespace
 
-// Blocks of the main kernel for edge_mode that fit on one SM, its threads
-// per block, registers per thread and dynamic shared memory per block.
-extern "C" int nl_fused_edge_v2_bwd_occupancy(int edge_mode, int* blocks, int* threads,
-                                              int* regs, int* smem) {
-  *threads = kBlockThreads;
-  return static_cast<int>(
-      edge_mode == EDGE_BATCHED
-          ? tc::occupancy(fused_edge_v2_bwd_main<true, false, float>, kBlockThreads, main_smem_bytes(),
-                          blocks, regs, smem)
-          : tc::occupancy(fused_edge_v2_bwd_main<false, false, float>, kBlockThreads, main_smem_bytes(),
-                          blocks, regs, smem));
+// The launch resources of the main kernel's instantiation: bf16_ops (then
+// io_bf16, the stream type) and edge_mode pick it (one kernel serves both
+// per-edge modes); out = blocks per SM, threads per block, registers per
+// thread, dynamic shared memory per block and local memory per thread
+// (bytes).
+extern "C" int nl_fused_edge_v2_bwd_occupancy(int bf16_ops, int io_bf16, int edge_mode,
+                                              int* out) {
+  if (edge_mode < 0 || edge_mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(edge_mode == EDGE_BATCHED
+                              ? v2_occupancy_mode<true>(bf16_ops, io_bf16, out)
+                              : v2_occupancy_mode<false>(bf16_ops, io_bf16, out));
 }
 
 // Shapes (all f32 contiguous and 16-byte aligned on the device; D = 64):
@@ -452,12 +470,13 @@ extern "C" int nl_fused_edge_v2_bwd_occupancy(int edge_mode, int* blocks, int* t
 //   d_pre: (E, B, D) out; d_recproj: (num_rec, B, D) out
 //   d_edge: (E, B, D) out [edge_mode 2], (E, D) out [1], unused [0]
 //   presum: (E, D) scratch [edge_mode 0, 1]
-//   ws_main: (main_blocks * 3, 4352) scratch; out_main: (4352,) out =
+//   ws_main: (main_blocks * groups, 4352) scratch, groups 3 (float32) or 4
+//     (the bf16-operand instantiations); out_main: (4352,) out =
 //     dW2 as (out, in) | db2 dgamma dbeta db1
 //   ws_edge: (edge_blocks * 3, 8960) scratch [edge_mode 0, 1], (edge_blocks * 4,
 //     4096) [2]; out_edge: (8960,) out = dW1e, dEW2 as (out, in) | dEW1 as
 //     (D, 8) | deb1 deb2 deg debt (dW1e alone [2])
-//   main_blocks = min(SMs, ceil(chunks / 3)) with chunks = ceil(num_rec /
+//   main_blocks = min(SMs, ceil(chunks / groups)) with chunks = ceil(num_rec /
 //   max(1, 16 / batch)); edge_blocks = min(SMs, ceil(tiles / 4)) with tiles =
 //   ceil(E * B / 64) [edge_mode 2], else min(SMs, ceil(ceil(E / 64) / 3))
 // num_rec > 0, n_edges > 0, 1 <= batch <= 32, feat <= 8 and both block
@@ -471,7 +490,7 @@ extern "C" int nl_fused_edge_v2_bwd(
     const void* eb1, const void* ew2, const void* eb2, const void* eg,
     const void* ebt, void* d_pre, void* d_edge, void* d_recproj, void* presum,
     void* ws_main, void* out_main, void* ws_edge, void* out_edge, void* stream) {
-  return static_cast<int>(run<false, float>(
+  return static_cast<int>(run_v2<false, float>(
       edge_mode, num_rec, n_edges, batch, feat, layer_norm, main_blocks, edge_blocks, edge,
       pre, d_aggr, d_new_edge, rowptr, w1, w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_pre,
       d_edge, d_recproj, presum, ws_main, out_main, ws_edge, out_edge, stream));
@@ -488,7 +507,7 @@ extern "C" int nl_fused_edge_v2_bwd_bf16ops(
     const void* eb1, const void* ew2, const void* eb2, const void* eg,
     const void* ebt, void* d_pre, void* d_edge, void* d_recproj, void* presum,
     void* ws_main, void* out_main, void* ws_edge, void* out_edge, void* stream) {
-  auto go = io_bf16 ? &run<true, __nv_bfloat16> : &run<true, float>;
+  auto go = io_bf16 ? &run_v2<true, __nv_bfloat16> : &run_v2<true, float>;
   return static_cast<int>(go(
       edge_mode, num_rec, n_edges, batch, feat, layer_norm, main_blocks, edge_blocks, edge,
       pre, d_aggr, d_new_edge, rowptr, w1, w2, b2, gamma, ew1, eb1, ew2, eb2, eg, ebt, d_pre,

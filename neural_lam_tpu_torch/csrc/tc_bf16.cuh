@@ -1,15 +1,15 @@
 // Tensor-core helpers of the bf16-operand (BF) instantiations of K3
-// (fused_edge_fwd.cuh), of K4's main kernel (fused_edge_bwd_main.cuh) and
-// of K4's and K8's edge pass (fused_edge_bwd_common.cuh):
-// 64-wide row products on Hopper's bf16 tensor cores, with float32
-// accumulation.
+// (fused_edge_fwd.cuh), K7 (fused_edge_v2.cu), of K4's and K8's main
+// kernels (fused_edge_bwd_main.cuh, fused_edge_v2_bwd.cu), of K4's and K8's
+// edge pass (fused_edge_bwd_common.cuh) and of the node update and node
+// backward (fused_node.cuh): 64-wide row products on Hopper's bf16 tensor
+// cores, with float32 accumulation.
 //
 // The BF instantiations multiply bf16 operands (each rounded to nearest
 // even, as astype(bfloat16)) with float32 sums, as the JAX package's
 // kernels do under mixed precision. The product of two bf16 values is exact
 // in float32, so the result is the JAX kernel's up to summation order. The
-// float32 kernels and the BF forms of K7, K8's main kernel, the rows pass
-// and the node backward keep
+// float32 kernels, and the BF form of K4's and K8's rows pass, keep
 // tc_tf32.cuh (3xTF32, or one TF32 pass on bf16-rounded values); this
 // header runs the same products on bf16 fragments at k = 16: half the
 // instructions of k = 8, each at twice the rate, and half the registers.
@@ -131,22 +131,75 @@ __device__ __forceinline__ void fence_async() {
 // column off; ld and off multiples of 4, 16-byte aligned) into dst in the
 // core layout, rounded to bf16, by `threads` threads with 16-byte loads;
 // with PERM_K input p goes to k slot k_slot(p) (a product whose A operand
-// comes from load_rows_k). The caller fences (fence_async) and syncs.
-template <bool PERM_K = false>
+// comes from load_rows_k), with PERM_O output o to row k_slot(o) (a
+// product whose output stays in k-slot order: load_row_k). The caller
+// fences (fence_async) and syncs.
+template <bool PERM_K = false, bool PERM_O = false>
 __device__ __forceinline__ void load_weight(bf16* dst, const float* __restrict__ w, int ld,
                                             int off, int threads) {
   for (int i = threadIdx.x; i < 64 * 16; i += threads) {
     const int o = i >> 4, p = 4 * (i & 15);
+    const int r = PERM_O ? k_slot(o) : o;
     const float4 v = __ldg(reinterpret_cast<const float4*>(w + o * ld + off + p));
     if (PERM_K) {  // p .. p + 3 = 16 t + 4 j + 0..3: slots s, s + 1 and s + 8, s + 9
       const int s = k_slot(p);
-      *reinterpret_cast<uint32_t*>(dst + core_idx(o, s)) = pack(v.x, v.y);
-      *reinterpret_cast<uint32_t*>(dst + core_idx(o, s + 8)) = pack(v.z, v.w);
+      *reinterpret_cast<uint32_t*>(dst + core_idx(r, s)) = pack(v.x, v.y);
+      *reinterpret_cast<uint32_t*>(dst + core_idx(r, s + 8)) = pack(v.z, v.w);
     } else {
-      *reinterpret_cast<uint2*>(dst + core_idx(o, p)) =
+      *reinterpret_cast<uint2*>(dst + core_idx(r, p)) =
           make_uint2(pack(v.x, v.y), pack(v.z, v.w));
     }
   }
+}
+
+// ---- row fragments in k-slot order --------------------------------------
+//
+// A float row fragment may hold its columns in k-slot order: v[n][2 h + j]
+// is row g + 8 h, column 16 t + 2 n + j, whose slot 8 n + 2 t + j is
+// k_slot of the column. Lane t then holds 16 consecutive columns of each of
+// its two rows, which move to and from memory as 16-byte accesses
+// (load_row_k, store_row_k); the product that fills such a fragment takes
+// its weight with PERM_O, and pack_frag of it is the A operand of a product
+// whose weight has PERM_K. LayerNorm-free epilogues (biases, SiLU) do not
+// depend on the order, given vectors in k-slot order too.
+
+// half h (row g + 8 h) of a k-slot fragment from a row of 64 floats in
+// device memory (16-byte aligned): four 16-byte loads
+__device__ __forceinline__ void load_row_k(float (&x)[8][4], int h, const float* row) {
+  const Lane l;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row + 16 * l.t + 4 * q));
+    x[2 * q][2 * h] = v.x;
+    x[2 * q][2 * h + 1] = v.y;
+    x[2 * q + 1][2 * h] = v.z;
+    x[2 * q + 1][2 * h + 1] = v.w;
+  }
+}
+
+// the same from a row of 64 bf16 values (16-byte aligned): two 16-byte loads
+__device__ __forceinline__ void load_row_k(float (&x)[8][4], int h, const bf16* row) {
+  const Lane l;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + 16 * l.t + 8 * q));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[4 * q + i][2 * h] = __uint_as_float(w[i] << 16);
+      x[4 * q + i][2 * h + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// half h of a k-slot fragment into a row of 64 floats: four 16-byte stores
+__device__ __forceinline__ void store_row_k(float* row, const float (&x)[8][4], int h) {
+  const Lane l;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    *reinterpret_cast<float4*>(row + 16 * l.t + 4 * q) =
+        make_float4(x[2 * q][2 * h], x[2 * q][2 * h + 1], x[2 * q + 1][2 * h],
+                    x[2 * q + 1][2 * h + 1]);
 }
 
 // The packed fragment of rows r0 + g, r0 + g + 8 of a (rows, 64) array in

@@ -30,10 +30,11 @@
 // of each half-warp phase on 32 distinct banks.
 //
 // bf16 operands (the template flag BF of the products below): the
-// reduced-precision kernels of K7, K8, K4's edge pass and the node backward
-// (K3 and K4's main kernel run on bf16 fragments, tc_bf16.cuh) multiply
-// bf16 operands with float32 accumulation, as the JAX package's kernels do under mixed
-// precision and NEURAL_LAM_TPU_MATMUL_PRECISION=high / high-kernels. A
+// reduced-precision form of K4's and K8's rows pass (K3, K7, K4's and K8's
+// main kernels, the edge pass and the node kernels run on bf16 fragments,
+// tc_bf16.cuh) multiplies bf16 operands with float32 accumulation, as the
+// JAX package's kernels do under mixed precision and
+// NEURAL_LAM_TPU_MATMUL_PRECISION=high / high-kernels. A
 // bf16 value (8 significant bits) is exact in TF32 (11), so each operand
 // is rounded to bf16 (to nearest even, as astype(bfloat16)) and the
 // product runs as ONE TF32 pass: hi = bf16(x), lo = 0. The product of two
@@ -176,7 +177,7 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 // at w[o * ld + k] (nn.Linear's own layout), in shared memory or, with
 // GLOBAL, in device memory (through L1), for a product that runs once per
 // chunk
-template <bool GLOBAL = false, bool BF = false>
+template <bool GLOBAL = false>
 __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
                                      const float* w, int ld = kWld) {
   const Lane l;
@@ -184,7 +185,7 @@ __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     uint32_t ah[4], al[4];
-    a_operand<BF>(x, kk, ah, al);
+    a_operand(x, kk, ah, al);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float b[4][2];
@@ -197,9 +198,9 @@ __device__ __forceinline__ void gemm(float (&acc)[8][4], const float (&x)[8][4],
         b[q][1] = v.y;
       }
       if (h == 0)
-        mma3x4<0, 4, 8, BF>(acc, ah, al, b);
+        mma3x4<0, 4, 8>(acc, ah, al, b);
       else
-        mma3x4<4, 4, 8, BF>(acc, ah, al, b);
+        mma3x4<4, 4, 8>(acc, ah, al, b);
     }
   }
 }
@@ -237,7 +238,6 @@ __device__ __forceinline__ void gemm_t(float (&acc)[8][4], const float (&x)[8][4
 
 // acc[q] += (x . W^T)[., n-tiles n0 + q], q < 2: two of gemm's eight output
 // n-tiles (16 of the 64 columns), W in shared memory
-template <bool BF = false>
 __device__ __forceinline__ void gemm_cols2(float (&acc)[2][4], const float (&x)[8][4],
                                            const float* w, int n0, int ld = kWld) {
   const Lane l;
@@ -245,7 +245,7 @@ __device__ __forceinline__ void gemm_cols2(float (&acc)[2][4], const float (&x)[
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     uint32_t ah[4], al[4];
-    a_operand<BF>(x, kk, ah, al);
+    a_operand(x, kk, ah, al);
     float b[4][2];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -253,7 +253,7 @@ __device__ __forceinline__ void gemm_cols2(float (&acc)[2][4], const float (&x)[
       b[q][0] = v.x;
       b[q][1] = v.y;
     }
-    mma3x4<0, 2, 2, BF>(acc, ah, al, b);
+    mma3x4<0, 2, 2>(acc, ah, al, b);
   }
 }
 

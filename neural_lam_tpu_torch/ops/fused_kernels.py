@@ -152,7 +152,10 @@ _MAT = KERNEL_HIDDEN * KERNEL_HIDDEN
 _WS_MAIN = 2 * _MAT + 4 * KERNEL_HIDDEN
 _WS_EDGE = 2 * _MAT + MAX_RAW_FEATURES * KERNEL_HIDDEN + 4 * KERNEL_HIDDEN
 _WS_MAIN_V2 = _MAT + 4 * KERNEL_HIDDEN
-_GROUPS = 3  # groups of warps per block of K4's and K8's main kernels
+_GROUPS = 3  # groups of warps per block of K4's main kernel
+# and of K8's, without and with bf16 operands (csrc/fused_edge_v2_bwd.cu:
+# K4's kGroups, kGroupsBf)
+_V2_BWD_GROUPS = {False: 3, True: 4}
 _ROW_GROUPS = 4  # and of their rows pass and K4's receiver slice
 _EDGE_GROUPS = 3  # and of their edge pass (kEdgeGroups)
 # rows of a tile, and (receiver, b) rows of a receiver chunk of K4's and
@@ -769,48 +772,25 @@ def _v2_bwd_bf16_lib():
     return _c_fn(V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_bf16ops", 9, 24)
 
 
-# kernel -> (source, its occupancy entry point); K3 and K4 are served by
-# instantiation_occupancy
-_OCCUPANCY = {
-    "K7": (V2_KERNEL, "nl_fused_edge_v2_fwd_occupancy"),
-    "K8": (V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_occupancy"),
-}
-
-
 def kernel_occupancy(kernel: str) -> dict[str, dict[str, int]]:
     """The launch resources of ``kernel`` (K3, K7, or K4's or K8's main
     kernel) in each edge mode, from the CUDA runtime on the current
     device: blocks and warps per SM, threads per block, registers per
-    thread and dynamic shared memory per block in bytes."""
-    if kernel in ("K3", "K4"):
-        # the float32 kernel, from a float32 pre; K4's
-        # saved-pre kernel serves the raw mode with the shared one
-        rows = {row["mode"]: row for row in instantiation_occupancy(bf16_ops=False)
-                if row["kernel"] == kernel and row["pre"] == "float32"}
-        rows.setdefault(_EDGE_RAW, rows[_EDGE_SHARED])
-        return {name: {k: rows[mode][k] for k in ("blocks", "warps", "threads", "regs", "smem")}
-                for name, mode in (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED),
-                                   ("batched", _EDGE_BATCHED))}
-    source, entry = _OCCUPANCY[kernel]
-    fn = getattr(kernel_build.load(source), entry)
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    out = {}
-    for name, mode in (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED),
-                       ("batched", _EDGE_BATCHED)):
-        vals = [ctypes.c_int() for _ in range(4)]
-        err = fn(mode, *(ctypes.addressof(v) for v in vals))
-        if err != 0:
-            raise RuntimeError(f"occupancy query failed: CUDA error {err}")
-        blocks, threads, regs, smem = (v.value for v in vals)
-        out[name] = dict(blocks=blocks, warps=blocks * threads // 32,
-                         threads=threads, regs=regs, smem=smem)
-    return out
+    thread and dynamic shared memory per block in bytes. These are the
+    float32 instantiations' rows of :func:`instantiation_occupancy` (K4's
+    from a float32 pre); K4's and K8's per-edge kernel serves the raw mode
+    with the shared one."""
+    rows = {row["mode"]: row for row in instantiation_occupancy(bf16_ops=False)
+            if row["kernel"] == kernel and row["pre"] == "float32"}
+    rows.setdefault(_EDGE_RAW, rows[_EDGE_SHARED])
+    return {name: {k: rows[mode][k] for k in ("blocks", "warps", "threads", "regs", "smem")}
+            for name, mode in (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED),
+                               ("batched", _EDGE_BATCHED))}
 
 
-# The instantiations of K3 and of K4's main kernel whose launch resources
-# instantiation_occupancy reports: (kernel, source, C entry, the entry's
-# flags between io_bf16 and the edge mode, label)
+# The instantiations of K3, K7 and of K4's and K8's main kernels whose
+# launch resources instantiation_occupancy reports: (kernel, source, C
+# entry, the entry's flags between io_bf16 and the edge mode, label)
 _INSTANTIATIONS = (
     ("K3", KERNEL, "nl_fused_edge_fwd_occupancy", (0,), ""),
     ("K3", KERNEL, "nl_fused_edge_fwd_occupancy", (1,), " bf16 pre"),
@@ -818,17 +798,21 @@ _INSTANTIATIONS = (
     ("K4", BWD_KERNEL, "nl_fused_edge_bwd_occupancy", (1,), " main, bf16 pre"),
     ("K4", BWD_RECOMPUTE_KERNEL, "nl_fused_edge_bwd_recompute_occupancy", (),
      " main, recompute"),
+    ("K7", V2_KERNEL, "nl_fused_edge_v2_fwd_occupancy", (), ""),
+    ("K8", V2_BWD_KERNEL, "nl_fused_edge_v2_bwd_occupancy", (), " main"),
 )
 
 
 def instantiation_occupancy(bf16_ops: bool = True) -> list[dict]:
-    """The launch resources of every instantiation of K3 and of K4's main
-    kernel with (``bf16_ops``) or without bf16 operands, from the CUDA
-    runtime on the current device: one dict per instantiation (``name``,
-    ``blocks`` and ``warps`` per SM, ``threads``, ``regs`` per thread,
-    ``smem`` per block, ``local`` bytes per thread: the spill stack; and
-    what picks the instantiation: ``kernel``, its ``source``, edge
-    ``mode``, ``bf16_ops``, ``io_bf16`` and ``pre``)."""
+    """The launch resources of every instantiation of K3, K7 and of K4's
+    and K8's main kernels with (``bf16_ops``) or without bf16 operands,
+    from the CUDA runtime on the current device: one dict per
+    instantiation (``name``, ``blocks`` and ``warps`` per SM, ``threads``,
+    ``regs`` per thread, ``smem`` per block, ``local`` bytes per thread:
+    the spill stack; and what picks the instantiation: ``kernel``, its
+    ``source``, edge ``mode``, ``bf16_ops``, ``io_bf16`` and ``pre``: the
+    ``pre`` K3 writes or K4 reads; K7 and K8 write and read a float32
+    one)."""
     out = []
     precisions = (("bf16 streams", 1, 1), ("float32 streams", 1, 0)) if bf16_ops else (
         ("float32", 0, 0),)
@@ -837,7 +821,7 @@ def instantiation_occupancy(bf16_ops: bool = True) -> list[dict]:
         fn.argtypes = [ctypes.c_int] * (3 + len(flags)) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         modes = (("raw", _EDGE_RAW), ("shared", _EDGE_SHARED), ("batched", _EDGE_BATCHED))
-        if kernel == "K4" and "recompute" not in label:
+        if kernel in ("K4", "K8") and "recompute" not in label:
             modes = modes[1:]  # the saved-pre kernels take one per-edge instantiation
         for prec, ops, io in precisions:
             for mode_name, mode in modes:
@@ -960,16 +944,17 @@ def _node_bwd_blocks(dev, rows: int) -> int:
     return min(_NODE_BWD_BLOCKS_PER_SM * _device_sms(dev), _cdiv(rows, _TILE_ROWS))
 
 
-def _bwd_grid(dev, num_rec, n_edges, batch, batched, chunk_rows) -> tuple[int, int, int]:
+def _bwd_grid(dev, num_rec, n_edges, batch, batched, chunk_rows,
+              groups) -> tuple[int, int, int]:
     """The grids of K4's and K8's launches, sized to the work, and the
-    floats of their edge input's workspace: the main kernel runs 3 groups
-    of warps a block, each over chunks of ``chunk_rows / B`` receivers (at
-    least one); the rows pass 4 groups a block over tiles of 64 (edge, b)
-    rows of d_pre (batched), or the edge pass 3 groups a block over tiles of
-    64 rows of s (per edge); each group writes one stride of the
-    workspace."""
+    floats of their edge input's workspace: the main kernel runs ``groups``
+    groups of warps a block (K4's 3; K8's 3, or 4 with bf16 operands), each
+    over chunks of ``chunk_rows / B`` receivers (at least one); the rows
+    pass 4 groups a block over tiles of 64 (edge, b) rows of d_pre
+    (batched), or the edge pass 3 groups a block over tiles of 64 rows of s
+    (per edge); each group writes one stride of the workspace."""
     chunks = -(-num_rec // max(1, chunk_rows // batch))
-    main_blocks = min(_device_sms(dev), -(-chunks // _GROUPS))
+    main_blocks = min(_device_sms(dev), -(-chunks // groups))
     if batched:
         edge_blocks = _rows_blocks(dev, n_edges * batch)
         return main_blocks, edge_blocks, edge_blocks * _ROW_GROUPS * _MAT
@@ -1325,7 +1310,7 @@ def fused_edge_bwd(d_aggr, d_new_edge, pre, edge_in, x_send, rec_rep, edge_set,
             d_send, torch.zeros_like(rec_rep), zeros,
         )
     main_blocks, edge_blocks, ws_edge_size = _bwd_grid(
-        dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K4
+        dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K4, _GROUPS
     )
     rec_blocks = _rows_blocks(dev, num_rec * batch)
     # the summed weight gradients (the returned gradients are views of
@@ -1861,6 +1846,23 @@ def fused_edge_v2_fwd(edge_in, sp, rp, edge_set, weights, raw, update_edges,
     return aggr, new_edge, pre
 
 
+def _v2_bwd_plan(dev, num_rec, n_edges, batch, batched, bf16_ops):
+    """K8's grids and the floats of its scratch: ``(main_blocks,
+    edge_blocks, (ws_main, ws_edge, s))``. The main kernel runs 3 groups of
+    warps a block, 4 with bf16 operands (``_V2_BWD_GROUPS``), over chunks of
+    16 (receiver, b) rows, and each group writes one stride of ``ws_main``;
+    ``s`` holds a row per edge for the per-edge inputs. Every size is a
+    multiple of 4 floats, so that each part of one allocation stays
+    16-byte aligned."""
+    groups = _V2_BWD_GROUPS[bool(bf16_ops)]
+    main_blocks, edge_blocks, ws_edge = _bwd_grid(
+        dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K8, groups
+    )
+    sizes = (main_blocks * groups * _WS_MAIN_V2, ws_edge,
+             0 if batched else n_edges * KERNEL_HIDDEN)
+    return main_blocks, edge_blocks, sizes
+
+
 def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw,
                       bf16_ops=False):
     """Launch K8 on CUDA tensors. ``d_new_edge`` may be None (no gradient
@@ -1906,17 +1908,12 @@ def fused_edge_v2_bwd(d_aggr, d_new_edge, pre, edge_in, edge_set, weights, raw,
             None if d_edge is None else d_edge.zero_(),
             d_pre, d_recproj.zero_(), zeros,
         )
-    main_blocks, edge_blocks, ws_edge_size = _bwd_grid(
-        dev, num_rec, n_edges, batch, batched, _CHUNK_ROWS_K8
-    )
+    main_blocks, edge_blocks, sizes = _v2_bwd_plan(dev, num_rec, n_edges, batch, batched,
+                                                   bf16_ops)
     # the summed weight gradients (the returned gradients are views of
     # them), and one allocation for the kernels' scratch, freed on return
-    # (inside a CUDA graph capture both come from the graph's pool):
-    # ws_main | ws_edge | s (multiples of 4 floats: each pointer stays
-    # 16-byte aligned)
+    # (inside a CUDA graph capture both come from the graph's pool)
     out_main, out_edge = empty(_WS_MAIN_V2), empty(_WS_EDGE)
-    sizes = (main_blocks * _GROUPS * _WS_MAIN_V2, ws_edge_size,
-             0 if batched else n_edges * d)
     scratch = empty(sum(sizes))
     ws_main, ws_edge, presum = (
         scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)

@@ -37,7 +37,10 @@ With ``--train --captured`` it profiles one replay of the captured step
 (``Trainer.make_train_step()``, after its warm-up and capture) instead of
 an eager step, and ``--precision bf16`` trains GraphLAM with bf16 compute
 on bf16 copies of the parameters (``TrainingArgs(precision="bf16")``, as
-``chip_smoke.py``'s ``bf16 train`` lines do).
+``chip_smoke.py``'s ``bf16 train`` lines do). Without ``--train``,
+``--precision bf16`` profiles the forecast of GraphLAM with bf16 compute on
+bf16 copies of the gate's parameters, as ``chip_smoke.py``'s ``bf16
+rollout`` lines serve it.
 
 ``--k4-split`` builds the kernels and splits K4 (the backward of the fused
 edge phase) by kernel name at each of GraphLAM's MEPS training sites, in
@@ -57,9 +60,17 @@ spills of every instantiation of the node update and node backward); with
 ``--parent DIR`` the parent commit's own ``profile_forecast.py
 --aggr-kernels`` runs in that checkout before and after, on this card, and
 float32 K3 is held to the parent's bits. ``--train --parent DIR`` profiles
-the training step on that commit's K3, K4, K7 and K8 (each wrapper
-launching the parent's build), for a same-call comparison with a run
-without it.
+the training step (and ``--parent DIR`` alone the forecast) on that
+commit's K3, K4, K7 and K8 (each wrapper launching the parent's build), for
+a same-call comparison with a run without it.
+
+``--bf16-kernels`` builds the kernels and runs ``chip_smoke.py``'s ``bf16``
+kernel lines alone (``phase_bf16_kernels``: K1-K4, K7 and K8 in each
+bf16-operand instantiation at the six GraphLAM sites, against their plain
+versions and the float32 kernels, with per-step sums, shares of the bound
+and the occupancy, registers and spills of each instantiation of K3, K7
+and of K4's and K8's main kernels); with ``--parent DIR`` the parent
+commit's K3, K4, K7 and K8 are timed on the same inputs beside them.
 
 ``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
 (unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
@@ -77,6 +88,7 @@ LayerNorm.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import re
 import sys
@@ -280,16 +292,20 @@ def main() -> int:
     ap.add_argument("--captured", action="store_true",
                     help="with --train: profile one replay of the captured step")
     ap.add_argument("--precision", choices=["32", "bf16"], default="32",
-                    help="with --train: the training precision (default 32)")
+                    help="the training or, without --train, the forecast's compute "
+                         "precision (GraphLAM; default 32)")
     ap.add_argument("--k4-split", action="store_true",
                     help="build the kernels and split K4 by kernel name at each MEPS site")
     ap.add_argument("--aggr-kernels", action="store_true",
                     help="build the kernels and run chip_smoke's fused aggr kernel lines")
+    ap.add_argument("--bf16-kernels", action="store_true",
+                    help="build the kernels and run chip_smoke's bf16 kernel lines")
     ap.add_argument("--parent", type=Path,
                     help="a checkout of the parent commit: with --k4-split its K4 runs "
                          "beside the current one, with --aggr-kernels its own script times "
-                         "its node-MLP route, with --train its K3, K4, K7 and K8 run in "
-                         "place of the current ones")
+                         "its node-MLP route, with --bf16-kernels its K3, K4, K7 and K8 "
+                         "are timed beside the current ones, with --train or a forecast "
+                         "its K3, K4, K7 and K8 run in place of the current ones")
     ap.add_argument("--probe", action="store_true",
                     help="build the kernels and run chip_smoke's K3/K4 probe only")
     ap.add_argument("--fused-v2", choices=["on", "off", "auto"],
@@ -323,7 +339,7 @@ def main() -> int:
             cs.phase_probe(torch, cs.build_meps(torch)[2])
         return 0
     parent = None
-    if args.parent or args.k4_split or args.aggr_kernels:
+    if args.parent or args.k4_split or args.aggr_kernels or args.bf16_kernels:
         parent_build = cs.start_parent_build(args.parent.resolve()) if args.parent else None
         cs.build_kernels()
         parent = (cs.parent_kernels(torch, parent_build, args.parent.resolve())
@@ -331,6 +347,11 @@ def main() -> int:
     if args.k4_split:
         with torch.no_grad():
             k4_split(torch, card, cs.build_meps(torch)[2], parent=parent)
+        return 0
+    if args.bf16_kernels:
+        print(card)
+        with torch.no_grad():
+            cs.phase_bf16_kernels(torch, cs.build_meps(torch)[2], parent)
         return 0
     if args.aggr_kernels:
         print(card)
@@ -353,6 +374,16 @@ def main() -> int:
         print(f"the parent's kernels, built from {args.parent}")
         with parent["use"]():
             return profile_train(torch, args, card, gate_ds, model)
+    kw = {}
+    if args.precision == "bf16":  # bf16 compute on bf16 copies of the gate's parameters
+        if args.model != "graph_lam":
+            raise SystemExit("profile_forecast.py: --precision bf16 profiles GraphLAM only")
+        from neural_lam_tpu_torch.models import ARForecaster
+
+        model = cs.bf16_graph_lam(torch, gate_ds)
+        cs.make_trainer(model, gate_ds)  # loads the gate's parameters
+        forecaster = ARForecaster(model, gate_ds)
+        kw["params"] = {k: p.detach().to(torch.bfloat16) for k, p in model.named_parameters()}
     n, b, t = gate_ds.num_grid_points, cs.BATCH, cs.AR_STEPS
     rng = np.random.default_rng(0)
     inputs = [
@@ -361,12 +392,15 @@ def main() -> int:
                       (b, t, n, cs.N_STATE))
     ]
 
-    with torch.inference_mode():
-        forecaster(*inputs)
+    if parent is not None:
+        print(f"the parent's kernels, built from {args.parent}")
+    kernels = parent["use"]() if parent is not None else contextlib.nullcontext()
+    with kernels, torch.inference_mode():
+        forecaster(*inputs, **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pred, _ = forecaster(*inputs)
+            pred, _ = forecaster(*inputs, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     if args.trace:
@@ -374,7 +408,8 @@ def main() -> int:
         prof.export_chrome_trace(str(args.trace))
 
     report(
-        torch, prof, card, f"{args.model} forecast of {b} x {t} steps", wall, t,
+        torch, prof, card,
+        f"{args.model} forecast of {b} x {t} steps, precision {args.precision}", wall, t,
         "AR step",
     )
 

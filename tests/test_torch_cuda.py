@@ -2923,16 +2923,20 @@ def test_float32_and_bf16_instantiations_share_no_state(cuda):
 
 @pytest.mark.cuda
 def test_occupancy_rows_match_the_launches(cuda):
-    """Every instantiation of K3 and of K4's main kernel fits a block on an
-    SM; K4's main kernels run the 3 groups a block that the wrapper sizes
-    the grid and the workspace by; ``kernel_occupancy``'s K3 and K4 are the
-    float32 instantiations' rows."""
+    """Every instantiation of K3, K7 and of K4's and K8's main kernels fits
+    a block on an SM; K4's main kernels run the 3 groups a block and K8's
+    the 3 (4 with bf16 operands) that the wrappers size the grids and the
+    workspaces by, K7 as K3 does; ``kernel_occupancy``'s rows are the
+    float32 instantiations'."""
     f32 = fk.instantiation_occupancy(bf16_ops=False)
     rows = f32 + fk.instantiation_occupancy(bf16_ops=True)
     assert all(r["blocks"] >= 1 for r in rows)
     assert all(r["threads"] == 128 * fk._GROUPS for r in rows if r["kernel"] == "K4")
+    for r in rows:
+        if r["kernel"] in ("K7", "K8"):
+            assert r["threads"] == 128 * fk._V2_BWD_GROUPS[bool(r["bf16_ops"])], r["name"]
     keys = ("blocks", "warps", "threads", "regs", "smem")
-    for kernel in ("K3", "K4"):
+    for kernel in ("K3", "K4", "K7", "K8"):
         occ = fk.kernel_occupancy(kernel)
         for name, mode in (("shared", 1), ("batched", 2)):
             (row,) = [r for r in f32 if r["kernel"] == kernel and r["mode"] == mode
@@ -3117,3 +3121,214 @@ def test_tail_occupancy_rows(cuda):
     for r in rows:
         if "edge pass" in r["name"]:
             assert r["threads"] == 128 * fk._EDGE_GROUPS, r
+
+
+# -- K7's and K8's bf16-operand instantiations on bf16 fragments
+# (csrc/tc_bf16.cuh): K7's first layer in k-slot order with sp gathered
+# straight into it, wgmma and mma.sync at k16, one bf16 copy of each weight;
+# K8's main kernel K4's BF chain without its sender half ---------------------
+#
+# Each instantiation through its launcher against its plain version, over the
+# edge cases: five receivers without edges and one of 400 more edges (a chunk
+# over many tiles), a sender whose sp row no edge reads (the port's edge lists
+# have no dead slots: that is what one leaves behind), a shard that owns no
+# edges, a shared unbatched edge rep, the raw embedder, LayerNorm on and off,
+# batch 1, 2, 3, 4 and 32, bf16 and float32 streams. The bounds are the bf16
+# ones of the tests above.
+
+V2_BF_CASES = [
+    # (edge mode, update_edges, LayerNorm)
+    ("raw", False, True),  # g2m / m2g
+    ("raw", True, True),  # m2m layer 0
+    ("batched", True, True),  # m2m layers 1-3
+    ("shared", True, True),  # HiLAMParallel's sections
+    ("batched", False, False),
+    ("raw", False, False),
+]
+
+
+def _v2_bf_case(cuda, monkeypatch, mode, flags, batch, seed, n_edges=1300):
+    """The launcher arguments of one v2 call in ``mode``'s streams, over
+    ``n_edges`` edges from 70 senders (the last without edges) into 50
+    receivers (five without edges; receiver 3 takes 400 more): ``(edge_in,
+    sp, rp, es, wts, raw, update, bf16_ops)``."""
+    dtype = _bf16_mode(monkeypatch, mode)
+    edge_mode, update, ln = flags
+    rng = np.random.default_rng(seed)
+    d, n_send, n_rec = 64, 70, 50
+    many = min(400, n_edges)
+    snd = rng.integers(0, n_send - 1, n_edges)
+    rcv = np.concatenate([rng.integers(0, n_rec - 5, n_edges - many), np.full(many, 3)])
+    es, _ = make_edge_set(snd, rcv, num_rec=n_rec, num_send=n_send)
+    es = es.to(cuda)
+    gen = torch.Generator().manual_seed(seed)
+    edge_mlp = make_mlp([3 * d, d, d], layer_norm=ln, generator=gen)
+    embedder = make_mlp([3, d, d], generator=gen) if edge_mode == "raw" else None
+    # the weights as a bf16 model holds them
+    wts = [None if w is None else w.detach().to(dtype).float().to(cuda)
+           for w in _weights(edge_mlp, embedder)]
+    bf16_ops, io = fk.fused_precision(dtype)
+    assert bf16_ops
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda).to(io)
+
+    sp, rp = t(n_send, batch, d), t(n_rec, batch, d)
+    if edge_mode == "raw":
+        edge_in = t(es.num_edges, 3)
+    elif edge_mode == "shared":
+        edge_in = t(es.num_edges, d)
+    else:
+        edge_in = t(es.num_edges, batch, d)
+    return edge_in, sp, rp, es, wts, edge_mode == "raw", update, bf16_ops
+
+
+def _v2_bf_plain(edge_in, sp, rp, es, wts, raw, update):
+    return fk._plain_v2(edge_in.float(), sp.float(), rp.float(), es.senders, es.receivers,
+                        wts, raw, update, bf16_ops=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF_STREAM_MODES)
+@pytest.mark.parametrize("flags", V2_BF_CASES)
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 32])
+def test_v2_bf16_fragments_forward_matches_plain(cuda, monkeypatch, mode, flags, batch):
+    """K7's BF instantiations (each stream type) against the plain version:
+    the aggregate in the streams' dtype and in float32 (0 for receivers
+    without edges), the updated edges and the float32 pre, each in natural
+    column order; the launch counted by its instantiation; the same bits
+    on a second launch."""
+    edge_in, sp, rp, es, wts, raw, update, bf16_ops = _v2_bf_case(
+        cuda, monkeypatch, mode, flags, batch, seed=70
+    )
+    counter = fk.FUSED_EDGE_V2_BF16_OPS if mode == "high-kernels" else fk.FUSED_EDGE_V2_BF16
+    want = _v2_bf_plain(edge_in, sp, rp, es, wts, raw, update)
+    for out in {rp.dtype, torch.float32}:
+        def run():
+            return fused_edge_v2_fwd(edge_in, sp, rp, es, wts, raw, update, save_pre=True,
+                                     bf16_ops=bf16_ops, out_dtype=out)
+
+        before = counter.launches
+        got = run()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert got[0].dtype == out and got[2].dtype == torch.float32
+        _close_bf16(got[0], want[0].to(out), "aggr")
+        assert torch.all(got[0][-5:] == 0)
+        if update:
+            _close_bf16(got[1], want[1].to(out), "new_edge")
+        else:
+            assert got[1] is None
+        _close_bf16(got[2], want[2], "pre")
+        again = run()
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF_STREAM_MODES)
+@pytest.mark.parametrize("flags", V2_BF_CASES)
+@pytest.mark.parametrize("batch,use_new_edge", [(1, True), (2, True), (3, True), (4, True),
+                                                (4, False), (32, True)])
+def test_v2_bf16_fragments_backward_matches_plain(cuda, monkeypatch, mode, flags, batch,
+                                                  use_new_edge):
+    """K8's BF main kernel (with its edge pass or rows pass and reduce)
+    from K7's pre, against autograd of the plain version: ``d_pre``,
+    ``d_recproj`` (0 for receivers without edges), the edge input's
+    gradient in the streams' dtype and every weight gradient; the launch
+    counted by its instantiation; the same bits on a second run."""
+    edge_in, sp, rp, es, wts, raw, update, bf16_ops = _v2_bf_case(
+        cuda, monkeypatch, mode, flags, batch, seed=71
+    )
+    with torch.no_grad():
+        pre = fused_edge_v2_fwd(edge_in, sp, rp, es, wts, raw, update, save_pre=True,
+                                bf16_ops=bf16_ops)[2]
+    rng = np.random.default_rng(72)
+    io = rp.dtype
+    d_aggr = torch.tensor(rng.normal(size=tuple(rp.shape)), device=cuda).to(io)
+    d_new = None
+    if update and use_new_edge:
+        d_new = torch.tensor(rng.normal(size=(es.num_edges, batch, 64)), device=cuda).to(io)
+    counter = (fk.FUSED_EDGE_V2_BWD_BF16_OPS if mode == "high-kernels"
+               else fk.FUSED_EDGE_V2_BWD_BF16)
+
+    def run():
+        d_edge, d_pre, d_recproj, grads = fk.fused_edge_v2_bwd(
+            d_aggr, d_new, pre, edge_in, es, wts, raw, bf16_ops=bf16_ops)
+        return [d_pre, d_recproj] + ([] if raw else [d_edge]) + [g for g in grads
+                                                                 if g is not None]
+
+    before = counter.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    d_edge, d_pre, d_recproj, grads = fk._plain_v2_bwd(
+        d_aggr.float(), None if d_new is None else d_new.float(), edge_in.float(), sp.float(),
+        rp.float(), es, wts, raw, update, bf16_ops=True)
+    want = [d_pre, d_recproj] + ([] if raw else [d_edge]) + [g for g in grads if g is not None]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close_bf16(g, w.to(g.dtype), f"gradient {i}")
+    assert got[1][-5:].abs().max().item() == 0  # receivers without edges
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF_STREAM_MODES)
+@pytest.mark.parametrize("flags", V2_BF_CASES[:4])
+def test_v2_bf16_fragments_on_a_shard_without_edges(cuda, monkeypatch, mode, flags):
+    """An edge set of 50 receivers and no edge (a shard that owns none):
+    K7's BF instantiation writes a zero aggregate and K8's wrapper returns
+    zero gradients without a launch."""
+    edge_in, sp, rp, es, wts, raw, update, bf16_ops = _v2_bf_case(
+        cuda, monkeypatch, mode, flags, 4, seed=73, n_edges=0
+    )
+    aggr, new_edge, pre = fused_edge_v2_fwd(edge_in, sp, rp, es, wts, raw, update,
+                                            save_pre=True, bf16_ops=bf16_ops)
+    torch.cuda.synchronize()
+    assert aggr.shape == rp.shape and torch.all(aggr == 0)
+    assert pre.shape == (0, 4, 64) and (new_edge is None or new_edge.shape == (0, 4, 64))
+    before = fk.FUSED_EDGE_V2_BWD_BF16.launches + fk.FUSED_EDGE_V2_BWD_BF16_OPS.launches
+    d_edge, d_pre, d_recproj, grads = fk.fused_edge_v2_bwd(
+        torch.ones_like(rp), None, pre, edge_in, es, wts, raw, bf16_ops=bf16_ops)
+    assert fk.FUSED_EDGE_V2_BWD_BF16.launches + fk.FUSED_EDGE_V2_BWD_BF16_OPS.launches == before
+    assert torch.all(d_recproj == 0) and all(g is None or torch.all(g == 0) for g in grads)
+
+
+@pytest.mark.cuda
+def test_v2_float32_and_bf16_instantiations_share_no_state(cuda):
+    """At the MEPS g2m shapes (100,656 edges from 63,784 grid nodes into
+    6,561 mesh nodes, the raw embedder, batch 4), K7's and K8's float32
+    outputs and gradients are the same bits before and after a launch of
+    their bf16-operand instantiations on other inputs."""
+    rng = np.random.default_rng(74)
+    d, b, n_send, n_rec, n_e = 64, 4, 63_784, 6_561, 100_656
+    es, _ = make_edge_set(rng.integers(0, n_send, n_e), rng.integers(0, n_rec, n_e),
+                          num_rec=n_rec, num_send=n_send)
+    es = es.to(cuda)
+    gen = torch.Generator().manual_seed(74)
+    wts = [None if w is None else w.detach().to(cuda) for w in
+           _weights(make_mlp([3 * d, d, d], generator=gen), make_mlp([3, d, d], generator=gen))]
+
+    def t(*shape, dtype=torch.float32):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda).to(dtype)
+
+    def phase(dtype, ops):
+        feats, sp, rp = t(n_e, 3, dtype=dtype), t(n_send, b, d, dtype=dtype), t(n_rec, b, d,
+                                                                                dtype=dtype)
+        d_aggr = t(n_rec, b, d, dtype=dtype)
+
+        def run():
+            aggr, _, pre = fused_edge_v2_fwd(feats, sp, rp, es, wts, True, False,
+                                             save_pre=True, bf16_ops=ops)
+            _, d_pre, d_rec, grads = fk.fused_edge_v2_bwd(d_aggr, None, pre, feats, es, wts,
+                                                          True, bf16_ops=ops)
+            return [aggr, pre, d_pre, d_rec] + [g for g in grads if g is not None]
+
+        return run
+
+    f32, bf = phase(torch.float32, False), phase(torch.bfloat16, True)
+    before = [x.clone() for x in f32()]
+    bf()
+    after = f32()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
