@@ -10,13 +10,14 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 N cards of a machine (:func:`dp_cards_main`).
 
 ``--parent DIR`` names a checkout of the parent commit, which has the
-current C interface of K3, K4, K7 and K8: their sources are built beside
-the current ones and timed on the same inputs in the same call, in float32
-and in every bf16 instantiation (the ``bf16`` and ``cache pre`` kernel lines
-too), and K4 is split by piece beside the parent's; the node-MLP route of
-that commit (K3 with its node epilogue, the node backward) is timed by that
-commit's own ``profile_forecast.py --aggr-kernels``, run in ``DIR`` before
-and after the ``fused aggr`` kernel lines.
+current C interface of K1, K2, K3, K4, K7 and K8: their sources are built
+beside the current ones and timed on the same inputs in the same call, in
+float32 and in every bf16 instantiation (the ``bf16`` and ``cache pre``
+kernel lines too), and K4 is split by piece beside the parent's; the
+node-MLP route of that commit (K3 with its node epilogue, the node
+backward) is timed by that commit's own ``profile_forecast.py
+--aggr-kernels``, run in ``DIR`` before and after the ``fused aggr`` kernel
+lines.
 
 It builds the port's eleven CUDA kernel sources (with the bf16 variants of
 K1-K4, K7 and K8, K4 recomputing ``pre``, and the node-MLP route's node
@@ -103,7 +104,8 @@ operands on bf16 streams, with bf16 and ``high``'s float32 outputs, and
 on float32 streams) against their plain versions, within ``BF16_TOL`` of
 each output's largest entry, K1 bit for bit, each beside the float32
 kernel's time in the same call, its bound at the dense bf16 rate and, for
-K1 and K2, ``index_select`` and ``index_add_``; GraphLAM trained under
+K1 and K2, ``index_select`` and ``index_add_`` (K1 and K2 also by device
+time, :func:`bf16_row_kernels`); GraphLAM trained under
 ``TrainingArgs(precision="bf16")`` from the training gate's weights on its
 batch (the first loss and every gradient against the exact-f32 fixture,
 12 eager and 12 captured steps with the same bits, float32 master
@@ -487,12 +489,14 @@ def bound(nbytes: float, flops: float, tensor: bool = False) -> tuple[float, str
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# The library getters of the wrappers of K3, K4, K7 and K8
-# (ops/fused_kernels.py) and the source each one loads: a parent build
-# stands in for them through the same C interface. The node-MLP route's
-# kernels are not among them: the parent's node-MLP route is timed by its
-# own script (parent_aggr_run), as it was when the parent (34b9653) ran the
-# node update inside K3.
+# The library getters of the wrappers of K1 and K2
+# (ops/segment_kernels.py), K3, K4, K7 and K8 (ops/fused_kernels.py) and
+# the source each one loads: a parent build stands in for them through the
+# current C interface, which the parent must share (parent_kernels). The
+# node-MLP route's kernels are not among them: the parent's node-MLP route
+# is timed by its own script (parent_aggr_run), as it was when the parent
+# (34b9653) ran the node update inside K3.
+PARENT_ROW_SOURCES = {"_gather_lib": "sender_gather", "_scatter_lib": "sender_scatter"}
 PARENT_SOURCES = {
     "_fwd_lib": "fused_edge", "_fwd_bf16_lib": "fused_edge",
     "_bwd_lib": "fused_edge_bwd", "_bwd_bf16_lib": "fused_edge_bwd",
@@ -520,14 +524,12 @@ K4_TAIL = ("edge pass", "receiver slice", "reduces", "cuBLAS products", "casts a
            "other")
 
 
-def k4_pieces(torch, fn, reps: int = 10) -> tuple[dict[str, float], float]:
-    """Device ms per call of ``fn`` (a K4 call) by piece (:data:`K4_PIECES`,
-    the rest ``other``) and its kernels per call, from ``reps`` calls under
-    ``torch.profiler`` after 3 warm-up calls. In a long process the
-    profiler now and then loses a kernel's record: a profile in which some
-    kernel has not a multiple of ``reps`` records, or that has no record,
-    is taken again, up to three times in all; the kernels per call then
-    show a loss that stayed (not a whole number, or 0)."""
+def kernel_events(torch, fn, reps: int) -> list:
+    """The device records of the kernels that ``reps`` calls of ``fn``
+    launch, under ``torch.profiler`` after 3 warm-up calls. In a long
+    process the profiler now and then loses a kernel's record: a profile in
+    which some kernel has not a multiple of ``reps`` records, or that has
+    no record, is taken again, up to three times in all."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -546,6 +548,60 @@ def k4_pieces(torch, fn, reps: int = 10) -> tuple[dict[str, float], float]:
         if events and all(n % reps == 0
                           for n in Counter(evt.name for evt in events).values()):
             break
+    return events
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """The device time in ms of one call of ``fn``, which launches each of
+    its kernels once: each kernel's mean duration over its records from
+    ``reps`` calls (:func:`kernel_events`), summed. Where the profiler lost
+    some of a kernel's records the mean is over those it kept, and the loss
+    is logged; no record at all, or more records than calls, raises. Unlike
+    :func:`cuda_ms`'s events around back-to-back calls, it leaves out the
+    time the device waits for the host to launch."""
+    from collections import Counter
+
+    events = kernel_events(torch, fn, reps)
+    if not events:
+        raise AssertionError("device_ms: the profiler kept no kernel record")
+    counts = Counter(evt.name for evt in events)
+    total = dict.fromkeys(counts, 0.0)
+    for evt in events:
+        total[evt.name] += evt.device_time_total
+    for name, n in counts.items():
+        if n > reps:
+            raise AssertionError(f"device_ms: {name} has {n} records from {reps} calls; "
+                               f"a call must launch each kernel once")
+        if n < reps:
+            log(f"device_ms: the profiler kept {n} of {reps} records of {name}; "
+                f"its time is their mean")
+    return sum(total[name] / counts[name] for name in counts) / 1e3
+
+
+# the H100's L2 cache (the on-chip-measurement guide: 50 MB): calls whose
+# bytes fit in it can run back to back out of it, faster than the HBM bound
+L2_BYTES = 50 * 2**20
+# how far under its HBM bound a device time may read before it counts as a
+# faulty timing, where the call's bytes do not fit in the L2
+UNDER_BOUND_TOL = 0.05
+
+
+def check_device_time(what: str, ms: float, b_ms: float, moved: int) -> None:
+    """Raise if the device time ``ms`` of a call that moves ``moved`` bytes
+    reads more than ``UNDER_BOUND_TOL`` under its HBM bound ``b_ms`` though
+    the bytes do not fit in the L2: the card cannot move them that fast, so
+    the timing is at fault."""
+    if moved > L2_BYTES and ms < (1 - UNDER_BOUND_TOL) * b_ms:
+        raise AssertionError(f"{what}: device time {ms:.4f} ms is under the bound "
+                             f"{b_ms:.4f} ms for {moved / 1e6:.1f} MB, more than the L2")
+
+
+def k4_pieces(torch, fn, reps: int = 10) -> tuple[dict[str, float], float]:
+    """Device ms per call of ``fn`` (a K4 call) by piece (:data:`K4_PIECES`,
+    the rest ``other``) and its kernels per call, from ``reps`` calls under
+    ``torch.profiler`` (:func:`kernel_events`); the kernels per call show a
+    lost record that stayed (not a whole number, or 0)."""
+    events = kernel_events(torch, fn, reps)
     sums = {name: 0.0 for name, _ in K4_PIECES}
     sums["other"] = 0.0
     for evt in events:
@@ -710,15 +766,15 @@ def same_as_parent(parent, fn, what: str) -> int:
 
 
 def start_parent_build(parent: Path) -> list:
-    """Start ``nvcc`` on the parent checkout's sources of K3, K4, K7 and K8
-    (one process each, beside the current build); :func:`parent_kernels`
-    waits for them."""
+    """Start ``nvcc`` on the parent checkout's sources of K1, K2, K3, K4,
+    K7 and K8 (one process each, beside the current build);
+    :func:`parent_kernels` waits for them."""
     from neural_lam_tpu_torch.ops import kernel_build
 
     csrc = parent / "neural_lam_tpu_torch" / "csrc"
     newest = max(f.stat().st_mtime for f in csrc.iterdir())
     procs = []
-    for name in sorted(set(PARENT_SOURCES.values())):
+    for name in sorted(set(PARENT_SOURCES.values()) | set(PARENT_ROW_SOURCES.values())):
         out = kernel_build.BUILD_DIR / f"parent-{name}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         if out.exists() and out.stat().st_mtime > newest:
@@ -732,20 +788,26 @@ def start_parent_build(parent: Path) -> list:
 
 
 def parent_kernels(torch, procs: list, parent_dir: Path) -> dict:
-    """K3, K4, K7 and K8 of the parent commit of this change (34b9653, in
-    the checkout ``parent_dir``), built by :func:`start_parent_build`, for a
-    same-call comparison: a dict of four callables, each called like the
-    current wrapper with the same inputs (``fused_kernels.fused_edge_fwd``,
-    ``fused_edge_bwd``, ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and
-    doing the same work; ``"use"``, a context manager under which every
-    wrapper of the four (every precision and ``pre`` type) launches the
-    parent's kernels through the current C interface, which that commit
-    has; and ``"dir"``, the checkout, whose own script times its node-MLP
-    route (:func:`parent_aggr_run`)."""
+    """K1, K2, K3, K4, K7 and K8 of the parent commit of this change
+    (34eca30, in the checkout ``parent_dir``), built by
+    :func:`start_parent_build`, for a same-call comparison: a dict of six
+    callables, each called like the current wrapper with the same inputs
+    (``segment_kernels.sender_gather``, ``sender_scatter``,
+    ``fused_kernels.fused_edge_fwd``, ``fused_edge_bwd``,
+    ``fused_edge_v2_fwd``, ``fused_edge_v2_bwd``) and doing the same work;
+    ``"use"``, a context manager under which every wrapper of the six
+    (every precision and ``pre`` type) launches the parent's kernels: each
+    library getter of :data:`PARENT_ROW_SOURCES` and :data:`PARENT_SOURCES`
+    returns the parent library's entry of the same name as the current
+    build's, with the current entry's argument types (the parent must have
+    the current C interface); and ``"dir"``, the checkout, whose own script
+    times its node-MLP route (:func:`parent_aggr_run`)."""
     import contextlib
     import ctypes
+    import functools
 
     from neural_lam_tpu_torch.ops import fused_kernels as fk
+    from neural_lam_tpu_torch.ops import segment_kernels as sk
 
     libs = {}
     for name, out, proc in procs:
@@ -754,23 +816,31 @@ def parent_kernels(torch, procs: list, parent_dir: Path) -> dict:
             if proc.returncode != 0:
                 raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
         libs[name] = ctypes.CDLL(str(out))
-    fns = {}
-    for getter, source in PARENT_SOURCES.items():
-        current = getattr(fk, getter)()  # the C entry of the current build, for its name
-        fn = getattr(libs[source], current.__name__)
-        fn.argtypes, fn.restype = current.argtypes, ctypes.c_int
-        fns[getter] = fn
+
+    def stand_in(current_getter, lib):
+        @functools.cache
+        def getter(*args):
+            current = current_getter(*args)  # the current build's entry: name and interface
+            fn = getattr(lib, current.__name__)
+            fn.argtypes, fn.restype = current.argtypes, ctypes.c_int
+            return fn
+
+        return getter
+
+    swaps = [(module, getter, stand_in(getattr(module, getter), libs[source]))
+             for module, sources in ((sk, PARENT_ROW_SOURCES), (fk, PARENT_SOURCES))
+             for getter, source in sources.items()]
 
     @contextlib.contextmanager
     def use():
-        saved = {getter: getattr(fk, getter) for getter in fns}
-        for getter, fn in fns.items():
-            setattr(fk, getter, lambda fn=fn: fn)
+        saved = [(module, getter, getattr(module, getter)) for module, getter, _ in swaps]
+        for module, getter, fn in swaps:
+            setattr(module, getter, fn)
         try:
             yield
         finally:
-            for name, fn in saved.items():
-                setattr(fk, name, fn)
+            for module, getter, fn in saved:
+                setattr(module, getter, fn)
 
     def through(wrapper):
         def run(*args, **kw):
@@ -780,6 +850,8 @@ def parent_kernels(torch, procs: list, parent_dir: Path) -> dict:
         return run
 
     return {
+        "K1": through(sk.sender_gather),
+        "K2": through(sk.sender_scatter),
         "K3": through(fk.fused_edge_fwd),
         "K4": through(fk.fused_edge_bwd),
         "K7": through(fk.fused_edge_v2_fwd),
@@ -4115,6 +4187,177 @@ def log_tail_occupancy(what: str, bf16_ops: bool) -> None:
             f"local memory a thread; spill stores {stores} bytes, spill loads {loads} bytes")
 
 
+def bf16_row_kernels(torch, g, parent, randn) -> tuple[dict, dict]:
+    """K1 and K2 on bf16 rows at the sites of GraphLAM's graph ``g`` (g2m,
+    m2m four times a step, m2g) at batch 4, on rows drawn by ``randn``: K1
+    against the plain version's bits, K2 within the bf16 bounds and
+    ``K2_TOL`` of its plain version and the same bits run after run. Each
+    timed by device time (:func:`device_ms`) and by CUDA events around
+    back-to-back calls (:func:`cuda_ms`), beside its bound and the float32
+    kernel on the same rows, and with ``parent`` (:func:`parent_kernels`)
+    the parent commit's kernels the same way, in turns (parent, current,
+    current, parent: each time the mean of the two); with ``parent`` the
+    float32 K1 and K2 are held to the parent's bits. Returns the per-step
+    sums of K1 (an AR step) and K2 (a training step), with the keys of
+    :func:`phase_bf16_kernels`' accumulators and ``dev_ms``,
+    ``parent_dev_ms``, ``parent_ms``, ``f32_dev_ms``, ``parent_f32_dev_ms``,
+    ``parent_f32_ms``, ``f32_bound_ms``."""
+    from neural_lam_tpu_torch.ops.segment_kernels import (
+        sender_gather,
+        sender_gather_plain,
+        sender_scatter,
+        sender_scatter_plain,
+    )
+
+    bf16 = torch.bfloat16
+    sites = [("g2m", g.g2m, g.num_grid_nodes, 1),
+             ("m2m", g.m2m[0], g.num_mesh_nodes, PROC_LAYERS),
+             ("m2g", g.m2g, g.num_mesh_nodes, 1)]
+    keys = ("ms", "dev_ms", "parent_ms", "parent_dev_ms", "f32_ms", "f32_dev_ms",
+            "parent_f32_ms", "parent_f32_dev_ms", "plain_ms", "library_ms", "bound_ms",
+            "f32_bound_ms", "ops_ms", "bytes_ms", "err")
+
+    def timed(fn) -> dict:
+        """Device and event ms of ``fn`` and, with a parent, the parent's,
+        in turns."""
+        if parent is None:
+            return dict(dev=device_ms(torch, fn), ev=cuda_ms(fn))
+        got = {}
+        for turn in ("parent", "this", "this", "parent"):
+            ctx = parent["use"]() if turn == "parent" else contextlib.nullcontext()
+            with ctx:
+                got.setdefault(turn, []).append((device_ms(torch, fn), cuda_ms(fn)))
+        (d0, e0), (d1, e1) = got["this"]
+        (p0, q0), (p1, q1) = got["parent"]
+        return dict(dev=(d0 + d1) / 2, ev=(e0 + e1) / 2, parent_dev=(p0 + p1) / 2,
+                    parent_ev=(q0 + q1) / 2)
+
+    def share(b_ms, ms):
+        return f"{100 * b_ms / ms:.1f} %"
+
+    def line(what, t, t32, b_ms, b32_ms, moved, moved32):
+        """The site's line; every device time held to its bound where the
+        bytes do not fit in the L2 (:func:`check_device_time`)."""
+        for key, turn in (("dev", "this commit's"), ("parent_dev", "the parent's")):
+            if key in t:
+                check_device_time(f"{what}: {turn} bf16 kernel", t[key], b_ms, moved)
+                check_device_time(f"{what}: {turn} float32 kernel", t32[key], b32_ms,
+                                  moved32)
+        text = (f"{what}: device {t['dev']:.4f} ms, events {t['ev']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({share(b_ms, t['dev'])} of it by device time"
+                + (f"; {moved / 1e6:.1f} MB fit in the L2" if moved <= L2_BYTES else "")
+                + ")")
+        if parent is not None:
+            text += (f"; the parent's device {t['parent_dev']:.4f} ms "
+                     f"({share(b_ms, t['parent_dev'])}), events {t['parent_ev']:.4f} ms, "
+                     f"{t['parent_dev'] / t['dev']:.3f} x by device time")
+        text += (f"; float32 kernel device {t32['dev']:.4f} ms, events {t32['ev']:.4f} ms, "
+                 f"bound {b32_ms:.4f} ms ({share(b32_ms, t32['dev'])})")
+        if parent is not None:
+            text += (f", the parent's device {t32['parent_dev']:.4f} ms, events "
+                     f"{t32['parent_ev']:.4f} ms")
+        return text
+
+    def add(a, calls, t, t32, plain_ms, lib_ms, b_ms, b32_ms, err):
+        for key, val in (("ms", t["ev"]), ("dev_ms", t["dev"]),
+                         ("parent_ms", t.get("parent_ev", 0.0)),
+                         ("parent_dev_ms", t.get("parent_dev", 0.0)),
+                         ("f32_ms", t32["ev"]), ("f32_dev_ms", t32["dev"]),
+                         ("parent_f32_ms", t32.get("parent_ev", 0.0)),
+                         ("parent_f32_dev_ms", t32.get("parent_dev", 0.0)),
+                         ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", b_ms), ("bytes_ms", b_ms), ("f32_bound_ms", b32_ms)):
+            a[key] += calls * val
+        a["err"] = max(a["err"], err)
+
+    k1 = dict.fromkeys(keys, 0.0)
+    same32 = 0
+    for site, ge, n_send, calls in sites:
+        x32 = randn(n_send, BATCH, HIDDEN)
+        x = x32.to(bf16)
+        idx = ge.edges.senders
+        got = sender_gather(x, idx)
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or not torch.equal(got, sender_gather_plain(x, idx)):
+            raise AssertionError(f"K1 bf16 {site}: not the plain version's bits")
+        same32 += same_as_parent(parent, lambda: sender_gather(x32, idx), f"K1 {site}")
+        t = timed(lambda: sender_gather(x, idx))
+        t32 = timed(lambda: sender_gather(x32, idx))
+        plain_ms = cuda_ms(lambda: sender_gather_plain(x, idx))
+        lib_ms = cuda_ms(lambda: torch.index_select(x, 0, idx.long()))
+        moved, moved32 = nbytes(x, idx, got), nbytes(x32, idx) + 4 * got.numel()
+        b_ms, _ = bf16_bound(moved, 0.0)
+        b32_ms, _ = bound(moved32, 0.0)
+        log(line(f"K1 sender_gather bf16 {site}: x {tuple(x.shape)} bf16, the plain "
+                 f"version's bits", t, t32, b_ms, b32_ms, moved, moved32)
+            + f"; plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms; {calls} call(s) "
+            f"per AR step")
+        add(k1, calls, t, t32, plain_ms, lib_ms, b_ms, b32_ms, 0.0)
+        del x, x32, got
+
+    k2 = dict.fromkeys(keys, 0.0)
+    for site, ge, n_send, calls in sites:
+        es = ge.edges
+        g32 = randn(es.num_edges, BATCH, HIDDEN)
+        grad = g32.to(bf16)
+        got = sender_scatter(grad, es, n_send)
+        want = sender_scatter_plain(grad, es.senders, n_send)
+        torch.cuda.synchronize()
+        err = bf16_check(got, want, f"K2 bf16 {site}")
+        rel = errors(got, want)[1]
+        if rel > K2_TOL:
+            raise AssertionError(f"K2 bf16 {site}: {rel:.3g} of the largest sum off the "
+                                 f"plain version (tol {K2_TOL})")
+        if not torch.equal(got, sender_scatter(grad, es, n_send)):
+            raise AssertionError(f"K2 bf16 {site}: two runs differ")
+        same = ""
+        if parent is not None:
+            same32 += same_as_parent(parent, lambda: sender_scatter(g32, es, n_send),
+                                     f"K2 {site}")
+            old = parent["K2"](grad, es, n_send)
+            same = ", the parent's bits" if torch.equal(got, old) else (
+                f", {errors(got, old)[1]:.3g} of the largest sum off the parent's")
+        idx_long = es.senders.long()
+        t = timed(lambda: sender_scatter(grad, es, n_send))
+        t32 = timed(lambda: sender_scatter(g32, es, n_send))
+        plain_ms = cuda_ms(lambda: sender_scatter_plain(grad, es.senders, n_send))
+        # index_add_ takes one dtype: the widening copy is part of the call
+        lib_ms = cuda_ms(lambda: torch.zeros_like(got).index_add_(0, idx_long, grad.float()))
+        moved = nbytes(grad, es.send_perm, es.send_rowptr, got)
+        moved32 = nbytes(g32, es.send_perm, es.send_rowptr, got)
+        b_ms, _ = bf16_bound(moved, grad.numel())
+        b32_ms, _ = bound(moved32, g32.numel())
+        log(line(f"K2 sender_scatter bf16 {site}: g {tuple(grad.shape)} bf16 -> float32 "
+                 f"sums, max abs err {err:.3g} (tol {BF16_TOL} of the largest sum; "
+                 f"{rel:.3g} of it, tol {K2_TOL}), repeatable{same}", t, t32, b_ms, b32_ms,
+                 moved, moved32)
+            + f"; plain {plain_ms:.4f} ms, index_add_ into float32 {lib_ms:.4f} ms; "
+            f"{calls} call(s) per training step")
+        add(k2, calls, t, t32, plain_ms, lib_ms, b_ms, b32_ms, err)
+        del grad, g32, got, want
+
+    for name, a, step in (("K1", k1, "AR step"), ("K2", k2, "training step")):
+        text = (f"{name} bf16 per {step}: device {a['dev_ms']:.4f} ms, events "
+                f"{a['ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+                f"({share(a['bound_ms'], a['dev_ms'])} of it by device time)")
+        if parent is not None:
+            text += (f"; the parent's device {a['parent_dev_ms']:.4f} ms "
+                     f"({share(a['bound_ms'], a['parent_dev_ms'])}), events "
+                     f"{a['parent_ms']:.4f} ms, {a['parent_dev_ms'] / a['dev_ms']:.3f} x "
+                     f"by device time, same call")
+        text += (f"; float32 {name} device {a['f32_dev_ms']:.4f} ms, events "
+                 f"{a['f32_ms']:.4f} ms, bound {a['f32_bound_ms']:.4f} ms "
+                 f"({share(a['f32_bound_ms'], a['f32_dev_ms'])})")
+        if parent is not None:
+            text += (f", the parent's device {a['parent_f32_dev_ms']:.4f} ms, events "
+                     f"{a['parent_f32_ms']:.4f} ms")
+        log(text)
+    if parent is not None:
+        log(f"float32 K1 and K2 against the parent's kernels on the same inputs at "
+            f"{len(sites)} site shapes: {same32} outputs, every one the same bits")
+    return k1, k2
+
+
 def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     """The bf16 variants of K1-K4, K7 and K8 against their plain versions
     at the shapes of the six GraphLAM calls at batch 4, in each
@@ -4124,17 +4367,12 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     beside the float32 kernel's time on the same shapes in the same call,
     its plain version's and, for K1 and K2, ``index_select`` and
     ``index_add_``; times summed over the calls of one AR step (K1, K3,
-    K7) or one training step (K2, K4, K8). K3, K4, K7 and K8 are also timed
-    through the ``parent`` commit's kernels where one is given
-    (:func:`parent_kernels`), and each of their bf16 instantiations'
-    occupancy, registers and spills is printed."""
+    K7) or one training step (K2, K4, K8). K1 and K2 by
+    :func:`bf16_row_kernels`. K3, K4, K7 and K8 are also timed through the
+    ``parent`` commit's kernels where one is given (:func:`parent_kernels`),
+    and each of their bf16 instantiations' occupancy, registers and spills
+    is printed."""
     from neural_lam_tpu_torch.ops import fused_kernels as fk
-    from neural_lam_tpu_torch.ops.segment_kernels import (
-        sender_gather,
-        sender_gather_plain,
-        sender_scatter,
-        sender_scatter_plain,
-    )
 
     bf16 = torch.bfloat16
     g, dev, d, b = model.graph, model.device, HIDDEN, BATCH
@@ -4160,55 +4398,7 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
     n_grid, n_mesh = g.num_grid_nodes, g.num_mesh_nodes
     m2m = g.m2m[0]
     proc = list(model.processor.values())
-    sites = [("g2m", g.g2m, n_grid, 1), ("m2m", m2m, n_mesh, PROC_LAYERS),
-             ("m2g", g.m2g, n_mesh, 1)]
-
-    k1 = acc()
-    for site, ge, n_send, calls in sites:
-        x32 = randn(n_send, b, d)
-        x = x32.to(bf16)
-        idx = ge.edges.senders
-        got = sender_gather(x, idx)
-        torch.cuda.synchronize()
-        if got.dtype != bf16 or not torch.equal(got, sender_gather_plain(x, idx)):
-            raise AssertionError(f"K1 bf16 {site}: not the plain version's bits")
-        ms = cuda_ms(lambda: sender_gather(x, idx))
-        f32_ms = cuda_ms(lambda: sender_gather(x32, idx))
-        plain_ms = cuda_ms(lambda: sender_gather_plain(x, idx))
-        lib_ms = cuda_ms(lambda: torch.index_select(x, 0, idx.long()))
-        b_ms, b_by = bf16_bound(nbytes(x, idx, got), 0.0)
-        log(f"K1 sender_gather bf16 {site}: x {tuple(x.shape)} bf16, the plain version's "
-            f"bits; kernel {ms:.4f} ms (float32 kernel {f32_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}); {calls} call(s) per AR step")
-        add(k1, calls, ms, f32_ms, plain_ms, b_ms, b_by, 0.0, lib_ms)
-        del x, x32, got
-
-    k2 = acc()
-    for site, ge, n_send, calls in sites:
-        es = ge.edges
-        g32 = randn(es.num_edges, b, d)
-        grad = g32.to(bf16)
-        got = sender_scatter(grad, es, n_send)
-        want = sender_scatter_plain(grad, es.senders, n_send)
-        torch.cuda.synchronize()
-        err = bf16_check(got, want, f"K2 bf16 {site}")
-        if not torch.equal(got, sender_scatter(grad, es, n_send)):
-            raise AssertionError(f"K2 bf16 {site}: two runs differ")
-        idx_long = es.senders.long()
-        ms = cuda_ms(lambda: sender_scatter(grad, es, n_send))
-        f32_ms = cuda_ms(lambda: sender_scatter(g32, es, n_send))
-        plain_ms = cuda_ms(lambda: sender_scatter_plain(grad, es.senders, n_send))
-        # index_add_ takes one dtype: the widening copy is part of the call
-        lib_ms = cuda_ms(lambda: torch.zeros_like(got).index_add_(0, idx_long, grad.float()))
-        b_ms, b_by = bf16_bound(nbytes(grad, es.send_perm, es.send_rowptr, got), grad.numel())
-        log(f"K2 sender_scatter bf16 {site}: g {tuple(grad.shape)} bf16 -> float32 sums, "
-            f"max abs err {err:.3g} (tol {BF16_TOL} of the largest sum), repeatable; "
-            f"kernel {ms:.4f} ms (float32 kernel {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"index_add_ into float32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-            f"{calls} call(s) per training step")
-        add(k2, calls, ms, f32_ms, plain_ms, b_ms, b_by, err, lib_ms)
-        del grad, g32, got, want
+    k1, k2 = bf16_row_kernels(torch, g, parent, randn)
 
     k3_sites = [
         ("g2m", model.g2m_gnn, g.g2m, model.g2m_embedder, "raw", False, 1, n_mesh),
@@ -4503,9 +4693,6 @@ def phase_bf16_kernels(torch, model, parent=None) -> list[dict]:
         report.append(bf16_entry(f"K8 fused_edge_phase_v2 backward {label}",
                                  "fused_edge_v2_bwd.cu",
                                  "neural_lam_tpu/ops/pallas_fused.py:2293", k8, None))
-    log(f"K1 bf16 per AR step {k1['ms']:.4f} ms against the float32 kernel's "
-        f"{k1['f32_ms']:.4f} ms; K2 bf16 per training step {k2['ms']:.4f} ms against "
-        f"{k2['f32_ms']:.4f} ms")
     log_occupancy("bf16", lambda row: row["pre"] == "float32")
     log_tail_occupancy("K4 bf16", bf16_ops=True)
     torch.cuda.empty_cache()
@@ -6403,7 +6590,7 @@ def main() -> int:
     parent = None
     if parent_build is not None:
         parent = parent_kernels(torch, parent_build, Path(sys.argv[2]).resolve())
-        log(f"parent kernels (K3, K4, K7, K8) built from {sys.argv[2]}")
+        log(f"parent kernels (K1, K2, K3, K4, K7, K8) built from {sys.argv[2]}")
 
     CACHE.mkdir(exist_ok=True)
     gate_ds, serve_ds, model, forecaster = build_meps(torch)

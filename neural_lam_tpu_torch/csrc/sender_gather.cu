@@ -15,6 +15,13 @@
 // sender index is read once per row per warp (a broadcast) and the sender
 // rows, far fewer than the edges, stay in L2.
 //
+// Measured on an H100 by device time (chip_smoke.py's bf16 lines, PERF.md
+// section 6), summed over GraphLAM's six MEPS sites at batch 4: the bf16
+// copy runs at about 85 % of this bound, the float32 one at about 79 %.
+// A warp-per-row bf16 form (the senders of 32 rows in one load, shuffled
+// across the warp; four rows' loads in flight before their stores; no
+// division per word) came within 4 % of it and was not kept.
+//
 // Rows of bf16 (the JAX package gathers bf16 rows under mixed precision and
 // NEURAL_LAM_TPU_MATMUL_PRECISION=high, ops/segment.py:205-216) are the
 // same copy at half the bytes: the kernels are templates on the word they

@@ -19,6 +19,14 @@
 // words of a row, so the reads of a slot's row and the write are coalesced;
 // the slot indices are read once per row per warp (a broadcast).
 //
+// Measured on an H100 by device time (chip_smoke.py's bf16 lines, PERF.md
+// section 6), summed over GraphLAM's six MEPS sites at batch 4: the bf16
+// form runs at about 85 % of this bound, the float32 one at about 78 %. A
+// warp-per-sender bf16 form (16-byte reads widened into eight float32
+// sums a lane, the sender's perm entries loaded 32 at a time and
+// shuffled, four slots' loads in flight) came within 3 % of it, and was
+// slower at m2g, whose senders have about 39 slots each; it was not kept.
+//
 // bf16 rows in (the JAX package's scatter under mixed precision and
 // NEURAL_LAM_TPU_MATMUL_PRECISION=high: bf16 gradient rows, float32 sums
 // out, ops/segment.py:250, :298): the kernel is a template on the word it

@@ -61,16 +61,17 @@ spills of every instantiation of the node update and node backward); with
 --aggr-kernels`` runs in that checkout before and after, on this card, and
 float32 K3 is held to the parent's bits. ``--train --parent DIR`` profiles
 the training step (and ``--parent DIR`` alone the forecast) on that
-commit's K3, K4, K7 and K8 (each wrapper launching the parent's build), for
-a same-call comparison with a run without it.
+commit's K1, K2, K3, K4, K7 and K8 (each wrapper launching the parent's
+build), for a same-call comparison with a run without it.
 
 ``--bf16-kernels`` builds the kernels and runs ``chip_smoke.py``'s ``bf16``
 kernel lines alone (``phase_bf16_kernels``: K1-K4, K7 and K8 in each
 bf16-operand instantiation at the six GraphLAM sites, against their plain
 versions and the float32 kernels, with per-step sums, shares of the bound
 and the occupancy, registers and spills of each instantiation of K3, K7
-and of K4's and K8's main kernels); with ``--parent DIR`` the parent
-commit's K3, K4, K7 and K8 are timed on the same inputs beside them.
+and of K4's and K8's main kernels; K1 and K2 also by device time); with
+``--parent DIR`` the parent commit's K1, K2, K3, K4, K7 and K8 are timed
+on the same inputs beside them.
 
 ``--fused-v2 on|off|auto`` sets ``NEURAL_LAM_TPU_FUSED_V2`` for the run
 (unset, the route's default ``auto`` keeps every MEPS edge set on K1 +
@@ -303,9 +304,9 @@ def main() -> int:
     ap.add_argument("--parent", type=Path,
                     help="a checkout of the parent commit: with --k4-split its K4 runs "
                          "beside the current one, with --aggr-kernels its own script times "
-                         "its node-MLP route, with --bf16-kernels its K3, K4, K7 and K8 "
+                         "its node-MLP route, with --bf16-kernels its K1-K4, K7 and K8 "
                          "are timed beside the current ones, with --train or a forecast "
-                         "its K3, K4, K7 and K8 run in place of the current ones")
+                         "its K1-K4, K7 and K8 run in place of the current ones")
     ap.add_argument("--probe", action="store_true",
                     help="build the kernels and run chip_smoke's K3/K4 probe only")
     ap.add_argument("--fused-v2", choices=["on", "off", "auto"],

@@ -1742,6 +1742,101 @@ def test_sender_scatter_bf16_matches_plain(cuda, shape):
     assert torch.equal(out, sender_scatter(g, es, 310))
 
 
+def _sender_rows_case(cuda, n_send=300, n_edges=5000, seed=22):
+    """Edges whose sender 7 has 400 slots and whose last 10 senders have
+    none, over ``n_send`` sender rows."""
+    rng = np.random.default_rng(seed)
+    snd = np.concatenate([rng.integers(0, n_send - 10, n_edges - 400), np.full(400, 7)])
+    es, _ = make_edge_set(snd, rng.integers(0, 200, n_edges), num_rec=200, num_send=n_send)
+    return rng, es.to(cuda)
+
+
+def _bf16_rows(rng, cuda, shape, offset=0):
+    """bf16 rows of ``shape``, as a contiguous view ``offset`` bytes past a
+    16-byte aligned allocation (an even number of bytes)."""
+    n = int(np.prod(shape))
+    flat = torch.empty(n + 8, dtype=torch.bfloat16, device=cuda)
+    x = flat[offset // 2: offset // 2 + n].view(shape)
+    x.copy_(torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda))
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset % 16
+    return x
+
+
+# K1's and K2's bf16 rows at hidden 64: batch 1, 4 and 32 (a 128-, 512-
+# and 4,096-byte row, whole 16-byte words); width 5 at batch 32 and at
+# batch 3 (rows of whole 8-byte words, and of neither)
+SENDER_ROW_SHAPES = [(1, 64), (4, 64), (32, 64), (32, 5), (3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SENDER_ROW_SHAPES)
+def test_sender_gather_bf16_copies_the_rows(cuda, shape):
+    """K1 bf16: the plain version's bits, edges not a multiple of 32, one
+    launch counted apart from float32's."""
+    rng, es = _sender_rows_case(cuda, n_edges=5003)
+    x = _bf16_rows(rng, cuda, (300,) + shape)
+    before, f32 = sk.SENDER_GATHER_BF16.launches, sender_gather.launches
+    out = sender_gather(x, es.senders)
+    torch.cuda.synchronize()
+    assert (sk.SENDER_GATHER_BF16.launches, sender_gather.launches) == (before + 1, f32)
+    assert torch.equal(out, sender_gather_plain(x, es.senders))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [2, 8, 16])
+def test_sender_gather_bf16_misaligned_view(cuda, offset):
+    """A view off 16-byte alignment takes the element form, one on it the
+    16-byte words; the same bits either way."""
+    rng, es = _sender_rows_case(cuda)
+    x = _bf16_rows(rng, cuda, (300, 4, 64), offset)
+    assert torch.equal(sender_gather(x, es.senders), sender_gather_plain(x, es.senders))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SENDER_ROW_SHAPES)
+@pytest.mark.parametrize("num_rows", [300, 333])
+def test_sender_scatter_bf16_sums_the_slots(cuda, shape, num_rows):
+    """K2 bf16: a sender with 400 slots, ten with none and, at 333, rows
+    past the edge set's senders, all within float32 summation order of the
+    plain version, the same bits run after run."""
+    rng, es = _sender_rows_case(cuda)
+    g = _bf16_rows(rng, cuda, (5000,) + shape)
+    before = sk.SENDER_SCATTER_BF16.launches
+    out = sender_scatter(g, es, num_rows)
+    torch.cuda.synchronize()
+    assert sk.SENDER_SCATTER_BF16.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (num_rows,) + shape
+    torch.testing.assert_close(out, sender_scatter_plain(g, es.senders, num_rows),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.count_nonzero(out[290:]) == 0
+    assert torch.equal(out, sender_scatter(g, es, num_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4])
+def test_sender_scatter_bf16_many_senders_of_few_slots(cuda, batch):
+    """50,000 senders over 60,000 edges, most with one or two slots."""
+    rng, es = _sender_rows_case(cuda, n_send=50_000, n_edges=60_000, seed=23)
+    g = _bf16_rows(rng, cuda, (60_000, batch, 64))
+    out = sender_scatter(g, es, 50_000)
+    torch.testing.assert_close(out, sender_scatter_plain(g, es.senders, 50_000),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, sender_scatter(g, es, 50_000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [2, 8, 16])
+def test_sender_scatter_bf16_misaligned_view(cuda, offset):
+    """``g`` 2 bytes off 8-byte alignment takes the element form, on it
+    the 8-byte words; each within the plain version's summation order."""
+    rng, es = _sender_rows_case(cuda)
+    g = _bf16_rows(rng, cuda, (5000, 4, 64), offset)
+    out = sender_scatter(g, es, 300)
+    torch.testing.assert_close(out, sender_scatter_plain(g, es.senders, 300),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, sender_scatter(g, es, 300))
+
+
 def _bf16_phase_case(cuda, mode, flags, batch, seed, grad=False):
     """Inputs, modules and the keyword arguments of one fused phase in
     ``mode``'s dtype: ``(args, kw, leaves)``."""

@@ -68,6 +68,60 @@ def test_device_kernels_profiles_again_when_no_kernel_was_recorded(smoke, monkey
     assert _Profile.taken == empty + 1 and len(calls) == empty + 2  # a warm-up call first
 
 
+
+# records of 4 calls, each launching a gather (10 us) and a scatter (5 us)
+WHOLE = [_kernel("gather_rows_vec4", 10.0) for _ in range(4)] + [
+    _kernel("scatter_rows", 5.0) for _ in range(4)]
+DEVICE_MS_RUNS = {
+    "whole": [WHOLE],
+    "lost once": [WHOLE[1:], WHOLE],
+    "lost twice": [WHOLE[1:], WHOLE[:-2], WHOLE],
+    "lost three times": [WHOLE[1:], WHOLE[1:], WHOLE[2:-1]],
+    "twice a call": [WHOLE + WHOLE[:4]] * 3,
+    "no record": [[], [], []],
+}
+
+
+@pytest.mark.parametrize("runs", sorted(DEVICE_MS_RUNS))
+def test_device_ms_sums_the_kernels_of_the_calls(smoke, monkeypatch, runs):
+    """``device_ms``: each kernel's mean duration over its records, summed.
+    A profile in which a kernel lost a record (its count not a multiple of
+    the calls) is taken again, up to three in all; a loss that stays leaves
+    the mean of the records kept, so the time does not read low. A kernel
+    with more records than calls, or no record, raises."""
+    reps = 4
+    monkeypatch.setattr(_Profile, "runs", list(DEVICE_MS_RUNS[runs]))
+    monkeypatch.setattr(_Profile, "taken", 0)
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    if runs in ("twice a call", "no record"):
+        with pytest.raises(AssertionError, match="a call must launch|no kernel record"):
+            smoke.device_ms(torch, lambda: calls.append(1), reps=reps)
+        return
+    assert smoke.device_ms(torch, lambda: calls.append(1), reps=reps) == pytest.approx(0.015)
+    assert _Profile.taken == len(DEVICE_MS_RUNS[runs])
+    assert len(calls) == 3 + _Profile.taken * reps  # three warm-up calls first
+
+
+@pytest.mark.parametrize("ms, moved, faulty", [
+    (0.0960, 100e6, False),  # at 104 % of the bound: within the tolerance
+    (0.0940, 100e6, True),  # 106 %: the card cannot move 100 MB that fast
+    (0.0400, 100e6, True),
+    (0.0400, 40e6, False),  # 40 MB fit in the L2: calls back to back may beat the HBM
+    (0.1500, 100e6, False),
+])
+def test_check_device_time_refuses_times_under_the_bound(smoke, ms, moved, faulty):
+    """A device time more than 5 % under its HBM bound, for bytes that do
+    not fit in the L2, is a faulty timing and raises."""
+    b_ms = 0.1
+    if faulty:
+        with pytest.raises(AssertionError, match="under the bound"):
+            smoke.check_device_time("K1 bf16 m2g", ms, b_ms, int(moved))
+    else:
+        smoke.check_device_time("K1 bf16 m2g", ms, b_ms, int(moved))
+
+
 # the per-step lines of the node-MLP route as the smoke's fused aggr lines
 # print them (phase_fused_aggr_kernels), and so the parent's own script
 PARENT_LINES = """\
