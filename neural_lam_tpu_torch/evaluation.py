@@ -122,7 +122,7 @@ def make_eval_batch(trainer) -> CapturedFunction:
         return (*metrics, spatial), prediction
 
     return CapturedFunction(eval_batch, trainer.forecaster, trainer.device,
-                            eager=trainer._eager_inference())
+                            eager=trainer._eager_inference(), name="eval_batch")
 
 
 def run_test_evaluation(

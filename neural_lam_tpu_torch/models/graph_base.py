@@ -20,6 +20,7 @@ from ..datastore.base import BaseDatastore
 from ..graphs.load import load_graph
 from ..ops.interaction import InteractionNet, apply_interaction_net
 from ..ops.mlp import make_mlp
+from ..utils import trace
 from ..utils.device import resolve_device
 from .base import StepPredictor
 from .graph_buffers import GraphBuffers, GraphEdges, build_graph_buffers
@@ -173,22 +174,26 @@ class BaseGraphModel(StepPredictor):
         rec_rep: torch.Tensor,
         edge_rep: Optional[torch.Tensor],
         edge_embedder=None,
+        *,
+        name: str,
         **kwargs: Any,
     ):
-        """Apply one GNN over the edge bundle ``ge``; passing
+        """Apply one GNN over the edge bundle ``ge``, named ``name`` after
+        its edge set (the span ``gnn.<name>``, ``utils.trace``); passing
         ``edge_embedder`` (with ``edge_rep=None``) delegates the static
         edge embedding to the op, which fuses it into K3. The senders go
         through ``ge.sender_rows`` (the halo exchange on a shard)."""
-        return apply_interaction_net(
-            net,
-            ge.edges,
-            send_rep=ge.sender_rows(send_rep),
-            rec_rep=rec_rep,
-            edge_rep=edge_rep,
-            edge_embedder=edge_embedder,
-            edge_features=ge.features if edge_embedder is not None else None,
-            **kwargs,
-        )
+        with trace.span("gnn." + name):
+            return apply_interaction_net(
+                net,
+                ge.edges,
+                send_rep=ge.sender_rows(send_rep),
+                rec_rep=rec_rep,
+                edge_rep=edge_rep,
+                edge_embedder=edge_embedder,
+                edge_features=ge.features if edge_embedder is not None else None,
+                **kwargs,
+            )
 
     def embed_mesh_nodes(self) -> torch.Tensor:
         """Embed static mesh node features (bottom level for hierarchies)."""
@@ -227,6 +232,7 @@ class BaseGraphModel(StepPredictor):
             rec_rep=mesh_emb,
             edge_rep=None,
             edge_embedder=self.g2m_embedder,
+            name="g2m",
             update_edges=False,
             propagation=self.g2m_propagation,
         )
@@ -239,6 +245,7 @@ class BaseGraphModel(StepPredictor):
             rec_rep=grid_rep,
             edge_rep=None,
             edge_embedder=self.m2g_embedder,
+            name="m2g",
             update_edges=False,
             propagation=self.m2g_propagation,
         )

@@ -81,6 +81,7 @@ class GraphLAM(BaseGraphModel):
                 rec_rep=mesh_rep,
                 edge_rep=edge_rep,
                 edge_embedder=self.m2m_embedder if i == 0 else None,
+                name="m2m.0",
                 aggr=self.mesh_aggr,
                 update_edges=True,
             )

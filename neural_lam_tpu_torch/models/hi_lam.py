@@ -42,6 +42,7 @@ class HiLAM(BaseHiGraphModel):
             send_rep=node_rep,
             rec_rep=node_rep,
             edge_rep=mesh_same_rep[level_l],
+            name=f"m2m.{level_l}",
             update_edges=True,
         )
 
@@ -61,6 +62,7 @@ class HiLAM(BaseHiGraphModel):
                 send_rep=mesh_rep_levels[level_l + 1],
                 rec_rep=mesh_rep_levels[level_l],
                 edge_rep=mesh_down_rep[level_l],
+                name=f"mesh_down.{level_l}",
                 update_edges=True,
                 propagation=self.down_propagation,
             )
@@ -83,6 +85,7 @@ class HiLAM(BaseHiGraphModel):
                 send_rep=mesh_rep_levels[level_l - 1],
                 rec_rep=mesh_rep_levels[level_l],
                 edge_rep=mesh_up_rep[level_l - 1],
+                name=f"mesh_up.{level_l - 1}",
                 update_edges=True,
                 propagation=self.up_propagation,
             )

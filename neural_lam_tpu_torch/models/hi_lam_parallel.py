@@ -29,6 +29,7 @@ from ..ops.interaction import (
     unfused_edge_phase,
 )
 from ..ops.mlp import apply_mlp_split_first
+from ..utils import trace
 from .hierarchical import BaseHiGraphModel
 
 
@@ -60,10 +61,13 @@ class HiLAMParallel(BaseHiGraphModel):
     @property
     def _sections(self) -> list:
         """The mesh edge sets of the model's graph (on its device) in
-        section order: all same-level, then up, then down (reference:
-        hi_lam_parallel.py:122-124)."""
+        section order, each as ``(name, edge set)``: all same-level, then
+        up, then down (reference: hi_lam_parallel.py:122-124). The name
+        is the span's, ``gnn.<name>`` (``utils.trace``)."""
         g = self.graph
-        return [*g.m2m, *g.up, *g.down]
+        return [(f"{kind}.{k}", ge)
+                for kind, sets in (("m2m", g.m2m), ("mesh_up", g.up), ("mesh_down", g.down))
+                for k, ge in enumerate(sets)]
 
     def _sections_step(self, net, mesh_rep_levels, edge_reps, edge_phase):
         """One processor layer as per-section edge phases: every section
@@ -74,15 +78,16 @@ class HiLAMParallel(BaseHiGraphModel):
         exchanges per section)."""
         agg = [None] * self.num_levels
         new_edges = []
-        for k, (ge, mlp) in enumerate(zip(self._sections, chunk_mlps(net.edge_mlp))):
-            a, new_edge = edge_phase(
-                mlp,
-                ge.edges,
-                ge.sender_rows(mesh_rep_levels[self._section_send_levels[k]]),
-                mesh_rep_levels[self._section_recv_levels[k]],
-                edge_reps[k],
-                update_edges=True,
-            )
+        for k, ((name, ge), mlp) in enumerate(zip(self._sections, chunk_mlps(net.edge_mlp))):
+            with trace.span("gnn." + name):
+                a, new_edge = edge_phase(
+                    mlp,
+                    ge.edges,
+                    ge.sender_rows(mesh_rep_levels[self._section_send_levels[k]]),
+                    mesh_rep_levels[self._section_recv_levels[k]],
+                    edge_reps[k],
+                    update_edges=True,
+                )
             rl = self._section_recv_levels[k]
             agg[rl] = a if agg[rl] is None else agg[rl] + a
             new_edges.append(new_edge)
@@ -111,7 +116,7 @@ class HiLAMParallel(BaseHiGraphModel):
                 mesh_rep_levels[self._section_recv_levels[k]],
                 edge_reps[k],
             )
-            for k, (ge, mlp) in enumerate(
+            for k, ((_, ge), mlp) in enumerate(
                 zip(self._sections, chunk_mlps(first.edge_mlp))
             )
         )

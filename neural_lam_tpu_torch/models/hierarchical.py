@@ -96,6 +96,7 @@ class BaseHiGraphModel(BaseGraphModel):
                 send_rep=mesh_rep_levels[level_l - 1],
                 rec_rep=mesh_rep_levels[level_l],
                 edge_rep=mesh_up_rep[level_l - 1],
+                name=f"mesh_up.{level_l - 1}",
                 update_edges=True,
                 propagation=self.up_propagation,
             )
@@ -113,6 +114,7 @@ class BaseHiGraphModel(BaseGraphModel):
                 send_rep=mesh_rep_levels[level_l + 1],
                 rec_rep=mesh_rep_levels[level_l],
                 edge_rep=mesh_down_rep[level_l],
+                name=f"mesh_down.{level_l}",
                 update_edges=False,
                 propagation=self.down_propagation,
             )

@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Iterable
 
+from ..utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # Every kernel source of the port, csrc/<name>.cu: K1, K2, K3, K4 (from a
 # saved pre, and recomputing it), the node-MLP route's node update and node
@@ -40,6 +42,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_built: set[str] = set()  # built by nvcc in this process
 
 
 def _nvcc() -> str:
@@ -93,15 +96,21 @@ def _finish_build(name: str, tmp: Path, proc: subprocess.Popen) -> None:
 
 def build(names: Iterable[str] = KERNELS) -> None:
     """Build the named kernels (all of them by default), one ``nvcc`` per
-    source, all at once."""
+    source, all at once: the span ``kernel_build.nvcc`` and a count
+    ``kernel_build.built.<name>`` each (``utils.trace``)."""
     with _lock:
         started = [b for b in (_start_build(n) for n in names) if b]
+        if not started:
+            return
         errors = []
-        for job in started:
-            try:
-                _finish_build(*job)
-            except RuntimeError as e:
-                errors.append(str(e))
+        with trace.span("kernel_build.nvcc"):
+            for job in started:
+                try:
+                    _finish_build(*job)
+                    _built.add(job[0])
+                    trace.count(f"kernel_build.built.{job[0]}")
+                except RuntimeError as e:
+                    errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
 
@@ -123,4 +132,6 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(str(library_path(name)))
                 _loaded[name] = lib
+                if name not in _built:  # an earlier process built it
+                    trace.count(f"kernel_build.loaded.{name}")
     return lib

@@ -79,7 +79,7 @@ def make_forecast(
         init_s, target_s, forcing_s = standardize_batch(init, target, forcing, stats)
         return forecaster(init_s, forcing_s, target_s)
 
-    return CapturedFunction(forecast, forecaster, dev)
+    return CapturedFunction(forecast, forecaster, dev, name="forecast")
 
 
 def run_forecasts(

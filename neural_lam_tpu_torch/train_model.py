@@ -159,7 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
         type=str,
         default=None,
         help="Write a torch.profiler trace of a few training steps of "
-        "the first epoch to <profile_dir>/trace.json",
+        "the first epoch to <profile_dir>/trace.json, and the program's "
+        "spans and counters to <profile_dir>/trace_spans.json after each "
+        "epoch's validation and after --eval",
     )
 
     kernels = parser.add_argument_group(
@@ -658,6 +660,7 @@ def _run(args, dev: torch.device) -> None:
             metrics_watch=args.metrics_watch,
             var_leads_metrics_watch=var_leads,
         )
+        trainer.write_spans()
         if is_rank_zero:
             print(json.dumps(metrics, indent=2))
         logger.finish()

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import queue
 import threading
@@ -78,7 +79,7 @@ from .metrics import get_metric
 from .models.forecaster import ARForecaster
 from .ops.fused_kernels import route_env
 from .optim import FlatAdamW
-from .utils import distributed
+from .utils import distributed, trace
 from .utils.cuda_graph import CapturedFunction
 from .utils.device import resolve_device
 
@@ -114,7 +115,8 @@ class TrainingArgs:
     # "32" (reference default) or "bf16": float32 parameters, bf16 compute
     precision: str = "32"
     # torch.profiler trace of steps [2, 2 + profile_steps) of the first
-    # epoch, written to <profile_dir>/trace.json
+    # epoch, written to <profile_dir>/trace.json; the spans' snapshot to
+    # <profile_dir>/trace_spans.json (write_spans)
     profile_dir: Optional[str] = None
     profile_steps: int = 5
     # ZeRO-1 over a process group: each rank keeps 1/P of AdamW's moments
@@ -320,7 +322,6 @@ class Trainer:
         self._train_step: Optional[Callable] = None
         # the eval steps by pred_steps (CUDA graphs on the card)
         self.eval_steps: dict[int, CapturedFunction] = {}
-        self.input_wait_seconds = 0.0
         self._warned_padded_train = False
         self._warned_watch = False
         # Set by the preemption handler's signal (SLURM's SIGTERM); fit()
@@ -449,14 +450,12 @@ class Trainer:
 
         t = threading.Thread(target=producer, daemon=True, name="neural-lam-prefetch")
         t.start()
-        self.input_wait_seconds = 0.0
         try:
             while True:
-                t0 = time.perf_counter()
-                item = q.get()
                 # time blocked on the input pipeline: when it grows, the
                 # epoch's grid_points_per_s stops measuring the device
-                self.input_wait_seconds += time.perf_counter() - t0
+                with trace.span("fit.input_wait"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 device_batch, real, event = item
@@ -505,25 +504,27 @@ class Trainer:
     def _loss(self, init_states, target_states, forcing) -> torch.Tensor:
         """Scalar training loss of one batch ``(B, 2, N, d)``,
         ``(B, T, N, d)``, ``(B, T, N, f)`` in physical units."""
-        init_states, target_states, forcing = self._standardize(
-            init_states, target_states, forcing
-        )
-        params = None
-        if self.args.precision == "bf16":
-            # float32 master parameters; bf16 compute copies inside the step
-            params = {
-                name: p.to(torch.bfloat16)
-                for name, p in self.forecaster.predictor.named_parameters()
-            }
-        prediction, pred_std = self._local_fc(
-            init_states, forcing, target_states, params=params
-        )
-        prediction = prediction.float()
-        if pred_std is None:
-            pred_std = self.per_var_std
-        return torch.mean(
-            self.masked_metric(self.args.loss, prediction, target_states, pred_std)
-        )
+        with trace.span("forward"):
+            init_states, target_states, forcing = self._standardize(
+                init_states, target_states, forcing
+            )
+            params = None
+            if self.args.precision == "bf16":
+                # float32 master parameters; bf16 compute copies inside the step
+                params = {
+                    name: p.to(torch.bfloat16)
+                    for name, p in self.forecaster.predictor.named_parameters()
+                }
+            prediction, pred_std = self._local_fc(
+                init_states, forcing, target_states, params=params
+            )
+        with trace.span("loss"):
+            prediction = prediction.float()
+            if pred_std is None:
+                pred_std = self.per_var_std
+            return torch.mean(
+                self.masked_metric(self.args.loss, prediction, target_states, pred_std)
+            )
 
     def masked_metric(self, name: str, prediction, target, pred_std,
                       sum_vars: bool = True) -> torch.Tensor:
@@ -554,10 +555,12 @@ class Trainer:
         the same step and returns the same loss."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(init_states, target_states, forcing)
-        loss.backward()
-        if isinstance(self.optimizer, FlatAdamW):
-            loss = self.optimizer.reduce_gradients(loss)
-        self.optimizer.step()
+        with trace.span("backward"):
+            loss.backward()
+            if isinstance(self.optimizer, FlatAdamW):
+                loss = self.optimizer.reduce_gradients(loss)
+        with trace.span("optimizer"):
+            self.optimizer.step()
         return loss.detach()
 
     def make_train_step(self, scan_steps: Optional[int] = None) -> Callable:
@@ -654,21 +657,39 @@ class Trainer:
         )
 
     def _replay(self, scanned: bool, batch: tuple) -> torch.Tensor:
-        batch = tuple(self._to_device(a) for a in batch)
-        if self._graph_fingerprint() != self._graph_state:
-            self.graphs.clear()
-        key = (scanned, route_env(), tuple(tuple(a.shape) for a in batch))
-        entry = self.graphs.get(key)
-        if entry is None:
-            entry = self.graphs[key] = self._capture(scanned, batch)
-            self._graph_state = self._graph_fingerprint()
-        for static, a in zip(entry.inputs, batch):
-            static.copy_(a)
-        entry.graph.replay()
-        for p, grad in zip(self.forecaster.parameters(), entry.grads):
-            if p.grad is not grad:
-                p.grad = grad
-        return entry.loss.clone()
+        with trace.span("train_step"):
+            with trace.span(".check"):
+                if self._graph_fingerprint() != self._graph_state:
+                    if self.graphs:
+                        trace.count("train_step.recaptures", len(self.graphs))
+                    self.graphs.clear()
+                key = (scanned, route_env(), tuple(tuple(a.shape) for a in batch))
+                entry = self.graphs.get(key)
+            with trace.span(".inputs"):
+                trace.call_start("train_step", self.device)
+                batch = tuple(self._to_device(a) for a in batch)
+                if entry is not None:
+                    for static, a in zip(entry.inputs, batch):
+                        static.copy_(a)
+            if entry is None:
+                with trace.span(".capture"):
+                    entry = self.graphs[key] = self._capture(scanned, batch)
+                    self._graph_state = self._graph_fingerprint()
+                    with trace.span(".first_launch"):
+                        for static, a in zip(entry.inputs, batch):
+                            static.copy_(a)
+                        entry.graph.replay()
+            else:
+                with trace.span(".launch"):
+                    entry.graph.replay()
+            with trace.span(".grads"):
+                for p, grad in zip(self.forecaster.parameters(), entry.grads):
+                    if p.grad is not grad:
+                        p.grad = grad
+            with trace.span(".loss"):
+                loss = entry.loss.clone()
+                trace.call_end("train_step", self.device)
+            return loss
 
     def _capture(self, scanned: bool, batch: tuple) -> CapturedStep:
         """Warm up, restore and capture one step (or a stack of them) on
@@ -684,26 +705,27 @@ class Trainer:
         # capture raises (torch.cuda.graph then skips its own restore)
         with torch.cuda.stream(stream):
             params, state = self._state_tensors()
-            saved = [p.detach().clone() for p in params]
-            saved_state = {k: t.clone() for k, t in state.items()}
-            for _ in range(GRAPH_WARMUP_STEPS):
-                self.train_step(*first)
-            with torch.no_grad():
-                for p, v in zip(params, saved):
-                    p.copy_(v)
-                # a fresh AdamW's state, created by the warm-up, is zeros
-                for k, t in self._state_tensors()[1].items():
-                    if k in saved_state:
-                        t.copy_(saved_state[k])
-                    else:
-                        t.zero_()
+            with trace.span(".warmup"):
+                saved = [p.detach().clone() for p in params]
+                saved_state = {k: t.clone() for k, t in state.items()}
+                for _ in range(GRAPH_WARMUP_STEPS):
+                    self.train_step(*first)
+                with torch.no_grad():
+                    for p, v in zip(params, saved):
+                        p.copy_(v)
+                    # a fresh AdamW's state, created by the warm-up, is zeros
+                    for k, t in self._state_tensors()[1].items():
+                        if k in saved_state:
+                            t.copy_(saved_state[k])
+                        else:
+                            t.zero_()
             graph = torch.cuda.CUDAGraph()
             # "thread_local": the prefetch thread may pin and copy while
             # this thread captures
             with torch.cuda.graph(
                 graph, pool=self._graph_pool, stream=stream,
                 capture_error_mode="thread_local",
-            ):
+            ), trace.graph_capture("train_step", stream):
                 if scanned:
                     loss = torch.stack([
                         self.train_step(*(a[i] for a in inputs))
@@ -753,7 +775,7 @@ class Trainer:
             return out
 
         return CapturedFunction(eval_step, self.forecaster, self.device,
-                                eager=self._eager_inference())
+                                eager=self._eager_inference(), name="eval_step")
 
     def _eager_inference(self) -> bool:
         """Whether inference runs eagerly on the card: under spatial
@@ -884,6 +906,18 @@ class Trainer:
         os.makedirs(self.args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(self.args.profile_dir, "trace.json"))
 
+    def write_spans(self) -> None:
+        """With ``profile_dir``, write the snapshot of the program's spans
+        and counters (``utils.trace``) to ``<profile_dir>/trace_spans.json``:
+        ``fit`` after each epoch and its validation, the CLI after
+        ``--eval``."""
+        if not self.args.profile_dir:
+            return
+        os.makedirs(self.args.profile_dir, exist_ok=True)
+        with open(os.path.join(self.args.profile_dir, "trace_spans.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(trace.snapshot(), f)
+
     def fit(
         self,
         train_loader,
@@ -908,6 +942,7 @@ class Trainer:
         for epoch in range(start_epoch, start_epoch + epochs):
             train_loader.set_epoch(epoch)
             t0 = time.perf_counter()
+            waited = trace.total_s("fit.input_wait")
             losses = []
             n_samples = 0
             profiler = None
@@ -959,7 +994,7 @@ class Trainer:
                 "epoch": epoch,
                 "train_loss": train_loss,
                 "epoch_seconds": epoch_seconds,
-                "input_wait_seconds": round(self.input_wait_seconds, 3),
+                "input_wait_seconds": round(trace.total_s("fit.input_wait") - waited, 3),
                 "grid_points_per_s": (
                     n_samples
                     * self.datastore.num_grid_points
@@ -971,6 +1006,7 @@ class Trainer:
                 record["preempted"] = True
             elif val_loader is not None and (epoch + 1) % self.args.val_interval == 0:
                 record.update(self.evaluate(val_loader, "val"))
+            self.write_spans()
             history.append(record)
             if log_fn is not None:
                 log_fn(record)

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_kernels import route_env
+from . import trace
 from .device import resolve_device
 
 
@@ -64,7 +65,10 @@ class CapturedFunction:
     the module's docstring. ``graphs`` holds the captured calls by
     ``(route, shapes and dtypes)``. With ``eager`` it calls ``fn`` under
     ``no_grad`` on the card too (a function whose collectives go through
-    gloo, which a graph cannot hold)."""
+    gloo, which a graph cannot hold). A captured call is the span ``name``
+    (``utils.trace``: ``.check``, ``.inputs``, ``.launch``, ``.outputs``,
+    or ``.capture`` on a new graph) between the card's events of
+    ``trace.call_start`` and ``call_end``."""
 
     def __init__(
         self,
@@ -72,11 +76,13 @@ class CapturedFunction:
         module: nn.Module,
         device: str | torch.device = "cuda",
         eager: bool = False,
+        name: str = "captured",
     ) -> None:
         self.fn = fn
         self.module = module
         self.device = resolve_device(device)
         self.eager = eager
+        self.name = name
         self.graphs: dict[tuple, CapturedCall] = {}
         self._state: tuple = ()
         self._pool = None
@@ -92,18 +98,36 @@ class CapturedFunction:
         if self.device.type != "cuda" or self.eager:
             with torch.no_grad():
                 return self.fn(*inputs)
-        if self._fingerprint() != self._state:
-            self.graphs.clear()
-        key = (route_env(), tuple((tuple(a.shape), a.dtype) for a in inputs))
-        entry = self.graphs.get(key)
-        if entry is None:
-            entry = self.graphs[key] = self._capture(inputs)
-            self._state = self._fingerprint()
-        for static, a in zip(entry.inputs, inputs):
-            static.copy_(a)
-        entry.graph.replay()
-        entry.replays += 1
-        return map_tensors(torch.clone, entry.outputs)
+        name = self.name
+        with trace.span(name):
+            with trace.span(".check"):
+                if self._fingerprint() != self._state:
+                    if self.graphs:
+                        trace.count(f"{name}.recaptures", len(self.graphs))
+                    self.graphs.clear()
+                key = (route_env(), tuple((tuple(a.shape), a.dtype) for a in inputs))
+                entry = self.graphs.get(key)
+            if entry is None:
+                trace.call_start(name, self.device)
+                with trace.span(".capture"):
+                    entry = self.graphs[key] = self._capture(inputs)
+                    self._state = self._fingerprint()
+                    with trace.span(".first_launch"):
+                        for static, a in zip(entry.inputs, inputs):
+                            static.copy_(a)
+                        entry.graph.replay()
+            else:
+                with trace.span(".inputs"):
+                    trace.call_start(name, self.device)
+                    for static, a in zip(entry.inputs, inputs):
+                        static.copy_(a)
+                with trace.span(".launch"):
+                    entry.graph.replay()
+            entry.replays += 1
+            with trace.span(".outputs"):
+                out = map_tensors(torch.clone, entry.outputs)
+                trace.call_end(name, self.device)
+            return out
 
     def _capture(self, inputs: tuple[torch.Tensor, ...]) -> CapturedCall:
         if self._stream is None:
@@ -116,12 +140,13 @@ class CapturedFunction:
         # the outer context restores the caller's stream even when the
         # capture raises (torch.cuda.graph then skips its own restore)
         with torch.cuda.stream(stream), torch.no_grad():
-            self.fn(*static)
+            with trace.span(".warmup"):
+                self.fn(*static)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(
                 graph, pool=self._pool, stream=stream,
                 capture_error_mode="thread_local",
-            ):
+            ), trace.graph_capture(self.name, stream):
                 outputs = self.fn(*static)
         current.wait_stream(stream)
         return CapturedCall(graph, static, outputs)

@@ -279,6 +279,17 @@ def test_profile_dir_writes_a_trace(config_path, tmp_path):
           + ["--epochs", "1", "--profile_dir", str(tmp_path / "trace")])
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    spans = json.loads((tmp_path / "trace" / "trace_spans.json").read_text())
+    assert spans["spans"]["untraced"]["fit.input_wait"]["count"] >= 1
+
+
+def test_eval_with_profile_dir_writes_the_spans(config_path, tmp_path):
+    """``--eval`` with ``--profile_dir`` writes the snapshot of the spans,
+    those of the evaluation's forward among them."""
+    _main(_common(config_path, tmp_path / "runs", "profeval")
+          + ["--eval", "test", "--ar_steps_eval", "1", "--profile_dir", str(tmp_path / "trace")])
+    spans = json.loads((tmp_path / "trace" / "trace_spans.json").read_text())
+    assert spans["spans"]["untraced"]["gnn.g2m"]["count"] >= 1
 
 
 @pytest.mark.parametrize("flags,message", [

@@ -20,6 +20,7 @@ import contextlib
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -3427,3 +3428,138 @@ def test_v2_float32_and_bf16_instantiations_share_no_state(cuda):
     after = f32()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(before, after))
+
+
+# -- the program's tracing on the card ---------------------------------------------
+#
+# ``utils.trace``: the captured calls' spans, the graphs counted at
+# capture, the card's gap between calls and the recapture counter. Kernel
+# records of the profiler are its device events other than copies and
+# sets (``Memcpy ...``, ``Memset ...``).
+
+
+def _device_kernels(prof) -> list[str]:
+    cuda_type = torch.autograd.DeviceType.CUDA
+    return [e.name for e in prof.events() if e.device_type == cuda_type
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train_step", "forecast"])
+def test_graph_kernels_equal_the_profilers_records_per_replay(cuda, tmp_path, monkeypatch,
+                                                               kind):
+    """A tiny GraphLAM step's (and 3-step forecast's) graph, counted at
+    capture: its kernel nodes are the kernel records the profiler keeps
+    per replay of the graph, the launches of the port's kernels it holds
+    are the capture call's counts over its warm-up and capture, and no
+    span of the program shows on the card's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neural_lam_tpu_torch.predict import make_forecast
+    from neural_lam_tpu_torch.utils import trace
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    if kind == "train_step":
+        call, runs, data = trainer.make_train_step(), GRAPH_WARMUP_STEPS + 1, batches(4)
+    else:
+        fc = make_forecast(trainer.forecaster, trainer.datastore, device=cuda)
+        call, runs = fc, 2  # one eager warm-up, the capture
+        data = [tuple(torch.as_tensor(a, device=cuda) for a in b)
+                for b in batches(4, steps=3)]
+    trace.reset()
+    ticks = _ticks(lambda: call(*data[0]))
+    torch.cuda.synchronize()
+    (graph,) = [g for g in trace.snapshot()["graphs"] if g["name"] == kind]
+    assert graph["launches"] == {k: v // runs for k, v in ticks.items() if v}
+    assert all(v % runs == 0 for v in ticks.values())
+    (entry,) = (trainer.graphs if kind == "train_step" else call.graphs).values()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as replays:
+        for _ in range(3):
+            entry.graph.replay()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(replays)
+    # CUDA runs a graph's memcpy node as a kernel of its own
+    # (``memcpy32_post``): a record beside the kernel nodes'
+    lowered = [k for k in kernels if k.startswith("memcpy")]
+    print(f"{kind}: graph nodes {graph['nodes']}, {len(kernels)} kernel records over 3 "
+          f"replays, {len(lowered)} of them CUDA's copy kernels")
+    assert graph["nodes"]["kernel"] > 0
+    assert 3 * graph["nodes"]["kernel"] == len(kernels) - len(lowered)
+    assert len(lowered) <= 3 * graph["nodes"]["memcpy"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in data[1:]:
+            call(*b)
+        torch.cuda.synchronize()
+    snap = trace.snapshot()
+    names = set(snap["spans"]["traced"]) | set(snap["spans"]["untraced"])
+    assert f"{kind}.launch" in snap["spans"]["traced"]
+    cuda_type = torch.autograd.DeviceType.CUDA
+    on_card = {e.name for e in prof.events() if e.device_type == cuda_type}
+    assert not on_card & names
+    untraced = snap["spans"]["untraced"]
+    capture = f"{kind}.capture"
+    assert {capture, f"{capture}.warmup", f"{capture}.record",
+            f"{capture}.first_launch"} <= set(untraced)
+    # the record's spans count the graph's nodes
+    assert untraced[f"{capture}.record"]["nodes"] == sum(graph["nodes"].values())
+    g2m = [p for p in untraced if p.startswith(f"{capture}.record/") and p.endswith("gnn.g2m")]
+    assert g2m and all(untraced[p]["nodes"] > 0 for p in g2m)
+
+
+@pytest.mark.cuda
+def test_device_gaps_resolve_without_a_synchronize(cuda, tmp_path, monkeypatch):
+    """The card's gaps between captured steps are read from their events
+    once the card has passed them: no synchronize is called. One step in
+    ``GAP_EVERY`` opens a gap, the capture's first."""
+    from neural_lam_tpu_torch.utils import trace
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    step = trainer.make_train_step()
+    # on the card already, as a loader's prefetch leaves them
+    data = [tuple(torch.as_tensor(a, device=cuda) for a in b) for b in batches(4)]
+    trace.reset()
+    step(*data[0])
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a synchronize on the traced path")
+
+    with monkeypatch.context() as m:
+        for owner in (torch.cuda, torch.cuda.Event, torch.cuda.Stream):
+            m.setattr(owner, "synchronize", refuse)
+        for i in range(3 * trace.GAP_EVERY):
+            step(*data[1 + i % 3])
+        deadline = time.perf_counter() + 30
+        while True:
+            gaps = trace.snapshot()["device_gaps"].get("train_step", {})
+            if gaps.get("count") == 3 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.01)
+    assert gaps["count"] == 3, gaps
+    assert 0 <= gaps["median_ms"] <= gaps["max_ms"]
+
+
+@pytest.mark.cuda
+def test_a_new_optimizer_counts_one_recapture(cuda, tmp_path, monkeypatch):
+    from neural_lam_tpu_torch.utils import trace
+
+    make_trainer, batches = _train_setup(tmp_path, cuda, "graph_lam", monkeypatch)
+    trainer = make_trainer()
+    step = trainer.make_train_step()
+    data = batches(4)
+    trace.reset()
+    step(*data[0])
+    step(*data[1])
+    trainer.optimizer = trainer.init_state()
+    step(*data[2])
+    step(*data[3])
+    counters = trace.snapshot()["counters"]
+    assert counters["train_step.recaptures"] == 1
+    assert counters["train_step.captures"] == 2
+    spans = trace.snapshot()["spans"]["untraced"]
+    assert spans["train_step"]["count"] == 4 and spans["train_step.launch"]["count"] == 2
+    assert spans["train_step.capture"]["count"] == 2
+    for child in ("check", "inputs", "grads", "loss"):
+        assert spans[f"train_step.{child}"]["count"] == 4, child

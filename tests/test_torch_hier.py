@@ -396,12 +396,16 @@ def test_hi_lam_parallel_sections_are_the_placed_graph(roots):
     tds = DummyDatastore(root_path=roots[3], **_ds_kw(3))
     tm = HiLAMParallel(tds, hidden_dim=4, processor_layers=1, device="cpu")
     g = tm.graph
-    assert [ge.edges for ge in tm._sections] == [
+    assert [ge.edges for _, ge in tm._sections] == [
         ge.edges for ge in (*g.m2m, *g.up, *g.down)
     ]
-    assert all(a.edges is b.edges for a, b in zip(tm._sections, (*g.m2m, *g.up, *g.down)))
+    assert all(a.edges is b.edges
+               for (_, a), b in zip(tm._sections, (*g.m2m, *g.up, *g.down)))
+    # each named as its span, gnn.<name>
+    assert [name for name, _ in tm._sections] == [
+        "m2m.0", "m2m.1", "m2m.2", "mesh_up.0", "mesh_up.1", "mesh_down.0", "mesh_down.1"]
     tm.graph = g.to(torch.device("meta"))
-    assert all(ge.edges.rowptr.device.type == "meta" for ge in tm._sections)
+    assert all(ge.edges.rowptr.device.type == "meta" for _, ge in tm._sections)
     assert len(tm._sections) == len(tm.processor["module_0"].edge_mlp.mlps) == 7
     assert tm._section_send_levels == [0, 1, 2, 0, 1, 1, 2]
     assert tm._section_recv_levels == [0, 1, 2, 1, 2, 0, 1]
